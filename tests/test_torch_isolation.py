@@ -1,0 +1,68 @@
+"""The port imports neither JAX, flax, optax nor anything of the JAX package,
+and asks for CUDA by default.
+
+A subprocess installs a sys.meta_path finder that refuses those names
+(matched exactly, so `multimodalsignal_tpu_torch` still imports), imports
+every module of the port and runs one CPU forward."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "multimodalsignal_tpu")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"the port imported {name}")
+            return None
+
+    for name in list(sys.modules):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+
+    import multimodalsignal_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    print("imported", len(names))
+
+    import numpy as np, torch
+    from multimodalsignal_tpu_torch.config import ExperimentConfig, ModelConfig
+    from multimodalsignal_tpu_torch.experiments.predict import Predictor
+    from multimodalsignal_tpu_torch.models.cnn_gru import build_model
+    from multimodalsignal_tpu_torch.models.convert import export_jax_variables
+
+    cfg = ExperimentConfig(model=ModelConfig(gru_hidden_size=8))
+    variables = export_jax_variables(build_model(cfg.model, 2, in_channels=3))
+    probs = Predictor(cfg, variables, device="cpu").predict_windows(
+        np.zeros((2, 3, 512), np.float32), batch_size=4)
+    assert probs.shape == (2, 2) and np.allclose(probs.sum(-1), 1.0)
+    assert not torch.cuda.is_available()
+    try:
+        Predictor(cfg, variables)
+    except RuntimeError as exc:
+        assert "cuda" in str(exc)
+        print("default device raised")
+    else:
+        raise AssertionError("Predictor ran without CUDA instead of raising")
+    leaked = sorted(n for n in sys.modules
+                    if any(n == b or n.startswith(b + ".") for b in BLOCKED))
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_port_imports_no_jax_and_needs_cuda_by_default():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "default device raised" in proc.stdout
+    assert proc.stdout.strip().endswith("ok")
