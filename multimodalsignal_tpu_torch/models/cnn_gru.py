@@ -1,14 +1,20 @@
 """Model family: ChannelAttention, CnnGru, CnnGruAttention (PyTorch).
 
-Counterpart of multimodalsignal_tpu/models/cnn_gru.py, for inference. The
-public input is [B, C, T], as in the JAX package; the encoder works in
-PyTorch's channels-first layout, and the GRU takes [B, T, F].
+Counterpart of multimodalsignal_tpu/models/cnn_gru.py. The public input is
+[B, C, T], as in the JAX package; the encoder works in PyTorch's
+channels-first layout, and the GRU takes [B, T, F].
 
 Parameters and batch-norm statistics are float32. `dtype` is the compute
 dtype: with bfloat16 the convolutions, dense layers and GRU run in bfloat16
 (the parameters are cast on use), batch norm normalises in float32 and casts
-back, and the logits come out float32, as in the JAX package. Dropout is
-inactive at inference and is not modelled.
+back, and the logits come out float32, as in the JAX package.
+
+Training mode (`model.train()`) follows flax's `train=True`: batch norm
+normalises with the batch's mean and biased variance, computed in float32,
+and moves the running statistics by flax's rule (momentum 0.9, biased
+variance; torch's own BatchNorm would track the unbiased one); dropout after
+`head1` and between GRU layers draws from the generator passed to
+`forward`.
 """
 
 from __future__ import annotations
@@ -17,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodalsignal_tpu_torch.models.gru import BiGRU
+from multimodalsignal_tpu_torch.models.gru import BiGRU, dropout
+
+BN_MOMENTUM = 0.9  # flax's BatchNorm(momentum=0.9) in the JAX model
 
 
 class ChannelAttention(nn.Module):
@@ -62,14 +70,33 @@ class ConvEncoder(nn.Module):
 
     def _stage(self, x, conv, bn):
         x = F.conv1d(x, conv.weight.to(self.dtype), None, conv.stride, conv.padding)
-        x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                         bn.bias, training=False, eps=bn.eps).to(self.dtype)
+        if self.training:
+            x = _batch_norm_train(x, bn).to(self.dtype)
+        else:
+            x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, training=False, eps=bn.eps).to(self.dtype)
         return F.max_pool1d(torch.relu(x), 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: [B, C, T] -> [B, out_channels, T / 16]
         x = self._stage(x, self.conv1, self.bn1)
         return self._stage(x, self.conv2, self.bn2)
+
+
+def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """flax BatchNorm with train=True on x [B, C, L]: float32 batch mean and
+    biased variance E[x^2] - E[x]^2 (clipped at 0), normalise as
+    (x - mean) * (rsqrt(var + eps) * scale) + bias; then the running
+    statistics move by ra = 0.9 ra + 0.1 mean, rv = 0.9 rv + 0.1 var, in place
+    and outside autograd. Returns float32."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (xf - mean[:, None]) * mul[:, None] + bn.bias[:, None]
 
 
 class _CnnGruBase(nn.Module):
@@ -79,30 +106,34 @@ class _CnnGruBase(nn.Module):
                  cnn_out_channels: int = 32, gru_hidden_size: int = 64,
                  gru_num_layers: int = 2, reduction_ratio: int = 4,
                  gru_impl: str = "auto", gru_last_prune: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.gru_last_prune = gru_last_prune
         if self.use_channel_attention:
             self.channel_attention = ChannelAttention(in_channels,
                                                       reduction_ratio, dtype)
         self.cnn_encoder = ConvEncoder(in_channels, cnn_out_channels, dtype)
         self.gru = BiGRU(cnn_out_channels, gru_hidden_size, gru_num_layers,
-                         impl=gru_impl, last_only=gru_last_prune, dtype=dtype)
+                         impl=gru_impl, last_only=gru_last_prune, dtype=dtype,
+                         dropout=dropout if gru_num_layers > 1 else 0.0)
         self.head1 = nn.Linear(2 * gru_hidden_size, 64)
         self.head2 = nn.Linear(64, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # x: [B, C, T]
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        # x: [B, C, T]; `generator` feeds dropout in training mode
         x = x.to(self.dtype)
         if self.use_channel_attention:
             x = self.channel_attention(x)
         x = self.cnn_encoder(x)
-        x = self.gru(x.transpose(1, 2))
+        x = self.gru(x.transpose(1, 2), generator)
         if not self.gru_last_prune:
             x = x[:, -1]  # last time step
         x = torch.relu(F.linear(x, self.head1.weight.to(self.dtype),
                                 self.head1.bias.to(self.dtype)))
+        x = dropout(x, self.dropout, generator, self.training)
         x = F.linear(x, self.head2.weight.to(self.dtype),
                      self.head2.bias.to(self.dtype))
         return x.float()
@@ -149,4 +180,5 @@ def build_model(model_cfg, num_classes: int, in_channels: int) -> _CnnGruBase:
         gru_impl=impl,
         gru_last_prune=model_cfg.gru_last_prune,
         dtype=getattr(torch, model_cfg.dtype),
+        dropout=model_cfg.dropout,
     )

@@ -11,9 +11,16 @@ h @ W_hn^T + b_hn before the tanh):
 The input projection for all time steps is one matmul per direction; only
 the recurrent [B, H] x [H, 3H] product runs per step. `impl` picks the
 recurrence: "torch" is the plain loop below (the counterpart of the JAX
-package's lax.scan path), "cuda" the hand-written kernels of
-ops/gru_cuda.py, and "auto" the kernels for CUDA inputs and the plain loop
-otherwise (as the JAX package's "auto" picks Pallas on a TPU only).
+package's lax.scan path, differentiated by autograd), "cuda" the
+hand-written kernels of ops/gru_cuda.py (their autograd Functions run the
+adjoint kernels in the backward), and "auto" the kernels for CUDA inputs and
+the plain loop otherwise (as the JAX package's "auto" picks Pallas on a TPU
+only).
+
+Dropout draws its masks from a `torch.Generator` the caller passes to
+`forward` (the trainer seeds one on the model's device; without one, torch's
+default generator for that device). Its bits cannot match JAX's masks from
+the same seed; only their distribution does.
 """
 
 from __future__ import annotations
@@ -24,6 +31,18 @@ from torch import nn
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
 IMPLS = ("auto", "torch", "cuda")
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            active: bool) -> torch.Tensor:
+    """Inverted dropout as flax's nn.Dropout: keep each element with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate), in x's
+    dtype. Identity unless `active` and rate > 0."""
+    if not active or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def gru_cell(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -63,16 +82,18 @@ class BiGRU(nn.Module):
 
     Parameters are float32 and named like the flax module's
     (`l{layer}_{fwd,bwd}_{w_ih,w_hh,b_ih,b_hh}`, torch layout); `dtype` is
-    the compute dtype they are cast to. Inter-layer dropout is inactive at
-    inference and is not modelled.
+    the compute dtype they are cast to. In training mode every layer's output
+    but the last's goes through dropout at `dropout` (the flax module's
+    inter-layer dropout).
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  impl: str = "auto", last_only: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        self.dropout = dropout
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.impl = impl
@@ -93,7 +114,8 @@ class BiGRU(nn.Module):
         return tuple(getattr(self, f"l{layer}_{direction}_{n}").to(self.dtype)
                      for n in ("w_ih", "w_hh", "b_ih", "b_hh"))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         impl = self.impl
         if impl == "auto":
             impl = "cuda" if x.is_cuda else "torch"
@@ -121,4 +143,6 @@ class BiGRU(nn.Module):
                 y_f = gru_sequence(xg_f, whf, bhf, h0)
                 y_b = gru_sequence(xg_b, whb, bhb, h0, reverse=True)
             out = torch.cat([y_f, y_b], dim=-1)  # [B, T, 2H]
+            if layer < self.num_layers - 1:
+                out = dropout(out, self.dropout, generator, self.training)
         return out

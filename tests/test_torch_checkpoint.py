@@ -2,7 +2,9 @@
 checkpoints.py) against checkpoints the JAX package writes: a real
 TrainState (params, batch_stats, Adam opt_state) saved with
 multimodalsignal_tpu.train.checkpoints.save_state, float32 plus one
-bfloat16 leaf, must read back bit for bit."""
+bfloat16 leaf, must read back bit for bit; and the port's writer must make
+the bytes flax's codec makes (tests/test_torch_trainer.py restores a
+written train state with the JAX package's restore_state)."""
 
 import jax
 import numpy as np
@@ -15,7 +17,7 @@ from multimodalsignal_tpu.models import build_model
 from multimodalsignal_tpu.train.checkpoints import save_state
 from multimodalsignal_tpu.train.optim import make_optimizer
 from multimodalsignal_tpu.train.trainer import TrainState, init_train_state
-from multimodalsignal_tpu_torch.train.checkpoints import read_flax_checkpoint, unpackb
+from multimodalsignal_tpu_torch.train.checkpoints import packb, read_flax_checkpoint, unpackb
 
 
 def _flat(tree, prefix=()):
@@ -77,3 +79,26 @@ def test_unpackb_rejects_truncated_data():
     data = serialization.msgpack_serialize({"w": np.ones(4, np.float32)})
     with pytest.raises(ValueError, match="truncated"):
         unpackb(data[:-3])
+
+
+@pytest.mark.parametrize("value", [
+    0, 127, 128, 65535, 2**32, -1, -33, -2**40, "", "x" * 31, "x" * 32, "ü" * 300,
+    b"\x00\x01", b"z" * 70000, [], list(range(20)), {"b": {"a": [1, 2]}},
+    {str(i): i for i in range(20)}, np.arange(6, dtype=np.int64).reshape(2, 3),
+    np.zeros((), np.int32), np.ones(300, np.float32),
+])
+def test_packb_writes_flax_bytes(value):
+    """The writer's encoding is byte for byte flax's (map keys sorted as
+    flax's tree_map sorts them), and the reader decodes it."""
+    got = packb({"v": value})
+    assert got == serialization.msgpack_serialize({"v": value})
+    back = unpackb(got)["v"]
+    if isinstance(value, np.ndarray):
+        np.testing.assert_array_equal(back, value)
+    else:
+        assert back == value
+
+
+def test_packb_refuses_types_a_train_state_does_not_hold():
+    with pytest.raises(TypeError, match="float"):
+        packb({"v": 1.5})

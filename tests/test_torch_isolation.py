@@ -3,7 +3,10 @@ and asks for CUDA by default.
 
 A subprocess installs a sys.meta_path finder that refuses those names
 (matched exactly, so `multimodalsignal_tpu_torch` still imports), imports
-every module of the port and runs one CPU forward."""
+every module of the port (the trainer, optimizer, metrics and checkpoint
+writer among them), runs one CPU forward and one CPU training epoch that
+writes a checkpoint, and checks that the Predictor and the Trainer raise
+without CUDA when no device is named."""
 
 import subprocess
 import sys
@@ -53,6 +56,27 @@ SCRIPT = textwrap.dedent("""
         print("default device raised")
     else:
         raise AssertionError("Predictor ran without CUDA instead of raising")
+    import tempfile
+    from multimodalsignal_tpu_torch.config import TrainerConfig
+    from multimodalsignal_tpu_torch.train.checkpoints import read_flax_checkpoint
+    from multimodalsignal_tpu_torch.train.trainer import Trainer
+    for name in ("trainer", "optim", "metrics", "checkpoints"):
+        assert f"multimodalsignal_tpu_torch.train.{name}" in names, name
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainerConfig(epochs=1, batch_size=4)
+        model = build_model(cfg.model, 2, in_channels=3)
+        trainer = Trainer(model, tmp, tcfg, 2, device="cpu")
+        x = np.random.default_rng(0).standard_normal((6, 3, 512)).astype(np.float32)
+        y = np.array([0, 1, 0, 1, 1, 0])
+        trainer.train((x, y), (x, y))
+        assert read_flax_checkpoint(tmp + "/best_model.msgpack")["params"]
+        try:
+            Trainer(build_model(cfg.model, 2, in_channels=3), tmp, tcfg, 2)
+        except RuntimeError as exc:
+            assert "cuda" in str(exc)
+            print("trainer default device raised")
+        else:
+            raise AssertionError("Trainer ran without CUDA instead of raising")
     leaked = sorted(n for n in sys.modules
                     if any(n == b or n.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked
@@ -65,4 +89,5 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "default device raised" in proc.stdout
+    assert "trainer default device raised" in proc.stdout
     assert proc.stdout.strip().endswith("ok")
