@@ -43,8 +43,27 @@ Phases, in order; any failure raises and the script exits non-zero:
       eval batch);
    c. the ms per train step and windows/s at B=64, and a profiler trace of
       back-to-back train steps: device time by kernel and the idle share.
+6. The serial LOSO experiment CLI with gru_impl="pallas_fused", float32 and
+   bfloat16, on a synthetic preprocessed data directory written here with
+   numpy (4 subjects x 48 windows [7680, 8], raw labels 1-4, the chest
+   channel names):
+   a. the first 3 train steps of the first fold, dropout 0, on the card
+      against the port on the CPU (the plain versions), as in 5a;
+   b. `python -m multimodalsignal_tpu_torch.main --execution serial --set
+      model.gru_impl=pallas_fused --set trainer.epochs=2` (in process): a
+      run directory with config.json, cv_summary.txt of 4 folds with finite
+      numbers and a best_model.msgpack per fold that the port reads back;
+      gru_bifwd and gru_fwd launched once per train step and eval batch,
+      gru_bibwd and gru_bwd once per train step, the fb kernels never;
+   c. each fold's wall time, the ms per pallas_fused train step at B=64 and
+      a profiler trace of back-to-back train steps.
+The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
+only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
+cuDNN's bidirectional nn.GRU.
 
-Prints a JSON line of the kernels, then, as the last line,
+Prints a JSON line of the kernels (launches: the forward kernels' from the
+float32 serving run, the adjoint kernels' from the float32 training run,
+the fused pair's from the float32 LOSO run), then, as the last line,
 {"ok": true, "device": {...}}. Needs one CUDA device and the repository.
 """
 
@@ -56,6 +75,7 @@ import io
 import json
 import math
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -68,8 +88,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from multimodalsignal_tpu_torch.config import ExperimentConfig, ModelConfig, TrainerConfig
+from multimodalsignal_tpu_torch import main as cli
+from multimodalsignal_tpu_torch.config import (
+    ALL_CHANNEL_NAMES,
+    ExperimentConfig,
+    ModelConfig,
+    TrainerConfig,
+)
+from multimodalsignal_tpu_torch.data.dataset import build_dataset, read_channel_names
 from multimodalsignal_tpu_torch.experiments.predict import Predictor
+from multimodalsignal_tpu_torch.experiments.splits import loso_folds
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
 from multimodalsignal_tpu_torch.models.convert import export_jax_variables
 from multimodalsignal_tpu_torch.ops import _build, gru_cuda
@@ -331,6 +359,58 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     return entry
 
 
+def fused_inputs(t, b, h, seed, adjoint: bool):
+    """kernel_inputs of two float32 lanes in the fused pair's layout: xg2
+    [T, 2, B, 3H], whh2, bhh2, h02; for the adjoint also ys2 from the plain
+    forward and dy2 N(0, 1) [T, 2, B, H]."""
+    xg, w, bias, h0 = kernel_inputs(2, t, b, h, torch.float32, seed)
+    args = (xg.transpose(0, 1).contiguous(), w, bias, h0)
+    if not adjoint:
+        return args
+    dy2 = np.random.default_rng(seed + 1).standard_normal((t, 2, b, h))
+    return args + (gru_cuda.gru_bifwd_plain(*args).contiguous(),
+                   torch.from_numpy(dy2).to("cuda", torch.float32))
+
+
+def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) -> dict:
+    """The fused BiGRU pair, float32 only: the kernel against its plain
+    version at the main shape and a ragged one, then the times (library:
+    cuDNN's bidirectional GRU, forward or backward)."""
+    outputs = ("dxg2", "dW", "db", "dh0") if adjoint else ("ys2",)
+    serve_err = 0.0
+    for t, b, h in ((SERVE_T, SERVE_B, SERVE_H), (37, 5, 40)):
+        args = fused_inputs(t, b, h, seed=len(name) + t, adjoint=adjoint)
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        got, want = (got, want) if adjoint else ((got,), (want,))
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        print(f"{name}: shape T={t} B={b} H={h} float32: max|d| "
+              + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)))
+        for o, g, w in zip(outputs, got, want):
+            if g.dtype != torch.float32 or g.shape != w.shape:
+                raise AssertionError(f"{name} {o}: got {g.dtype} {list(g.shape)}")
+            tol = (BWD_TOL[torch.float32][o in ("dW", "db")] if adjoint
+                   else TOL[torch.float32])
+            torch.testing.assert_close(g, w, **tol, msg=lambda m, o=o: f"{name} {o}: {m}")
+        if t == SERVE_T:
+            serve_err = max(errs)
+    args = fused_inputs(SERVE_T, SERVE_B, SERVE_H, seed=7, adjoint=adjoint)
+    ms = median_ms(lambda: wrapper(*args), per_block=50)
+    plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
+    shape = (2, SERVE_T, SERVE_B, SERVE_H, torch.float32)
+    lib_ms = cudnn_bwd_ms(*shape) if adjoint else cudnn_ms(*shape)
+    b_ms, b_by = bwd_bound_ms(*shape) if adjoint else bound_ms(*shape)
+    print(f"{name} float32 at T={SERVE_T} 2 directions B={SERVE_B} H={SERVE_H}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cuDNN bidirectional GRU "
+          f"{'backward ' if adjoint else ''}{lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}), {b_ms / ms:.2%} of bound")
+    return {"name": name, "route": "cuda",
+            "source": f"multimodalsignal_tpu_torch/ops/csrc/gru_{'bwd' if adjoint else 'fwd'}.cu",
+            "replaces": source_line, "launches": 0, "max_abs_err": serve_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def random_variables(cfg: ExperimentConfig, seed: int) -> dict:
     """flax-layout weights from a numpy seed: kernels and GRU weights
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), BN affine terms near 1 and 0,
@@ -502,7 +582,8 @@ def serving_phase(dtype: str, pkl: Path) -> dict[str, int]:
           f"/v1/predict_recording {n_rec} windows; max|probs - CPU| = "
           f"{max(errs):.3e} (atol {atol}); padded batches {batches}; "
           f"launches {launches}")
-    expected = {"gru_fwd": batches, "gru_fwd_fb": batches, "gru_bwd": 0, "gru_bwd_fb": 0}
+    expected = {"gru_fwd": batches, "gru_fwd_fb": batches, "gru_bwd": 0, "gru_bwd_fb": 0,
+                "gru_bifwd": 0, "gru_bibwd": 0}
     if launches != expected:
         raise AssertionError(f"serving launched {launches}; expected {expected} "
                              f"for {batches} padded batches and no backward")
@@ -557,6 +638,40 @@ def compare_parameters(a, b, n_steps: int, tol: dict) -> tuple[float, float]:
     return worst, share
 
 
+def first_steps_parity(model_cfg, variables, x, y, batches, tcfg, root: Path,
+                       tol: dict, what: str) -> None:
+    """Train steps on the card and on the CPU from the same weights, with
+    dropout 0, over `batches` ((rows, weights) pairs): every loss within
+    tol['loss'] relative, the gradients after the first step checked, and
+    the parameters afterwards within TRAIN_TOL (compare_parameters). The CPU
+    side runs the kernels' plain versions (gru_impl "auto" would take the
+    plain loop there, so it becomes "cuda")."""
+    no_drop = dataclasses.replace(model_cfg, dropout=0.0)
+    cpu_cfg = (dataclasses.replace(no_drop, gru_impl="cuda")
+               if no_drop.gru_impl == "auto" else no_drop)
+    c = x.shape[1]
+    card = Trainer(build_model(no_drop, 2, c), root / "card", tcfg, 2,
+                   device="cuda", variables=variables)
+    cpu = Trainer(build_model(cpu_cfg, 2, c), root / "cpu", tcfg, 2, device="cpu",
+                  variables=variables)
+    x_cpu, y_cpu = torch.from_numpy(x), torch.from_numpy(y.astype(np.int64))
+    x_gpu, y_gpu = x_cpu.cuda(), y_cpu.cuda()
+    losses = []
+    for k, (rows_np, w_np) in enumerate(batches):
+        rows, wb = torch.from_numpy(rows_np), torch.from_numpy(w_np)
+        got, _ = card.train_step(x_gpu[rows.cuda()], y_gpu[rows.cuda()], wb.cuda())
+        if k == 0:
+            check_gradients(card.model)
+        want, _ = cpu.train_step(x_cpu[rows], y_cpu[rows], wb)
+        losses.append((got.item(), want.item()))
+        if not math.isfinite(got.item()) or abs(got.item() - want.item()) > tol["loss"] * abs(want.item()):
+            raise AssertionError(f"{what} step {k}: loss card {got.item()} vs CPU {want.item()}")
+    worst, share = compare_parameters(card.model, cpu.model, len(batches), tol)
+    print(f"{what}: first {len(batches)} steps card vs CPU, losses "
+          + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
+          + f"; parameters max|d| {worst:.3e}, {share:.4%} beyond {tol['elem']}")
+
+
 def training_phase(dtype: str, root: Path) -> dict[str, int]:
     """Parity of the first steps, the Trainer run (the main path, counted),
     then timings; returns the kernel launches of the Trainer run."""
@@ -572,28 +687,10 @@ def training_phase(dtype: str, root: Path) -> dict[str, int]:
     tol = TRAIN_TOL[dtype]
 
     # a. The first steps, card vs CPU, dropout 0.
-    no_drop = dataclasses.replace(cfg.model, dropout=0.0)
-    card = Trainer(build_model(no_drop, 2, c), root / f"card_{dtype}", tcfg, 2,
-                   device="cuda", variables=variables)
-    cpu = Trainer(build_model(dataclasses.replace(no_drop, gru_impl="cuda"), 2, c),
-                  root / f"cpu_{dtype}", tcfg, 2, device="cpu", variables=variables)
     idx, w = batch_indices(TRAIN_N, BATCH, rng=np.random.default_rng(0))
     steps = [0, 1, idx.shape[0] - 1]  # two full batches and the padded last
-    x_gpu, y_gpu = torch.from_numpy(x_tr).cuda(), torch.from_numpy(y_tr).cuda()
-    losses = []
-    for k, s in enumerate(steps):
-        rows, wb = torch.from_numpy(idx[s]), torch.from_numpy(w[s])
-        got, _ = card.train_step(x_gpu[rows.cuda()], y_gpu[rows.cuda()], wb.cuda())
-        if k == 0:
-            check_gradients(card.model)
-        want, _ = cpu.train_step(torch.from_numpy(x_tr)[rows], torch.from_numpy(y_tr)[rows], wb)
-        losses.append((got.item(), want.item()))
-        if not math.isfinite(got.item()) or abs(got.item() - want.item()) > tol["loss"] * abs(want.item()):
-            raise AssertionError(f"train step {k}: loss card {got.item()} vs CPU {want.item()}")
-    worst, share = compare_parameters(card.model, cpu.model, len(steps), tol)
-    print(f"training {dtype}: first {len(steps)} steps card vs CPU, losses "
-          + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
-          + f"; parameters max|d| {worst:.3e}, {share:.4%} beyond {tol['elem']}")
+    first_steps_parity(cfg.model, variables, x_tr, y_tr, [(idx[s], w[s]) for s in steps],
+                       tcfg, root / f"parity_{dtype}", tol, f"training {dtype}")
 
     # b. The main path: Trainer.train at the config's dropout (0.5).
     trainer = Trainer(build_model(cfg.model, 2, c), root / f"train_{dtype}", tcfg, 2,
@@ -607,7 +704,8 @@ def training_phase(dtype: str, root: Path) -> dict[str, int]:
     eval_batches = tcfg.epochs * -(-VAL_N // BATCH)
     expected = {"gru_fwd": train_steps + eval_batches,
                 "gru_fwd_fb": train_steps + eval_batches,
-                "gru_bwd": train_steps, "gru_bwd_fb": train_steps}
+                "gru_bwd": train_steps, "gru_bwd_fb": train_steps,
+                "gru_bifwd": 0, "gru_bibwd": 0}
     hist = trainer.history
     if not all(math.isfinite(v) for h in hist for v in (h.train_loss, h.val_loss)):
         raise AssertionError(f"training {dtype}: losses not finite: {hist}")
@@ -623,12 +721,125 @@ def training_phase(dtype: str, root: Path) -> dict[str, int]:
           + f" (train/val); launches {launches}")
 
     # c. Timings at the config's dropout: back-to-back train steps at B=64.
-    xb, yb = x_gpu[:BATCH], y_gpu[:BATCH]
+    xb = torch.from_numpy(x_tr[:BATCH]).cuda()
+    yb = torch.from_numpy(y_tr[:BATCH]).cuda()
     wb = torch.ones(BATCH, device="cuda")
     step_ms = median_ms(lambda: trainer.train_step(xb, yb, wb), per_block=5)
     print(f"training {dtype}: train step {step_ms:.3f} ms at B={BATCH} "
           f"({BATCH / step_ms * 1e3:.0f} windows/s), dropout {cfg.model.dropout}")
     trace(lambda: trainer.train_step(xb, yb, wb), "train step")
+    return launches
+
+
+LOSO_SUBJECTS = ("S2", "S3", "S4", "S5")
+LOSO_WINDOWS = 48  # per subject
+FOLD_LINE = re.compile(
+    r"  - test (S\d+): Accuracy = (\S+), F1-score = (\S+) \(epochs: (\d+), "
+    r"best: (\d+), test loss: (\S+), (\S+)s\)")
+
+
+def write_loso_data(root: Path, seed: int) -> Path:
+    """A preprocessed data directory as the preprocessor lays it out: per
+    subject S*_X.npy [48, 7680, 8] float32 (the chest channels of
+    ALL_CHANNEL_NAMES, N(0, 1), chest_EDA around 2) and S*_y.npy raw labels
+    1-4, and _channel_names.txt."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    (root / "_channel_names.txt").write_text("\n".join(ALL_CHANNEL_NAMES) + "\n")
+    eda = ALL_CHANNEL_NAMES.index("chest_EDA")
+    for sid in LOSO_SUBJECTS:
+        x = rng.standard_normal((LOSO_WINDOWS, WINDOW_T, len(ALL_CHANNEL_NAMES)),
+                                dtype=np.float32)
+        x[..., eda] = 2.0 + 0.5 * x[..., eda]
+        np.save(root / f"{sid}_X.npy", x)
+        np.save(root / f"{sid}_y.npy", rng.integers(1, 5, LOSO_WINDOWS))
+    return root
+
+
+def loso_expected_launches(cfg: ExperimentConfig) -> dict[str, int]:
+    """Launches a serial LOSO run over LOSO_SUBJECTS implies with the fused
+    BiGRU: per fold and epoch one train step per batch of the train
+    subjects and one eval batch per batch of the validation subjects, then
+    the test subject's eval batches (stress_binary keeps every window; the
+    early-stopping patience exceeds the epochs)."""
+    batches = lambda n: -(-n // cfg.trainer.batch_size)  # noqa: E731
+    train_steps = eval_batches = 0
+    for fold in loso_folds(cfg.subjects, cfg.val_fraction, cfg.seed):
+        train_steps += cfg.trainer.epochs * batches(LOSO_WINDOWS * len(fold.train_subjects))
+        eval_batches += (cfg.trainer.epochs * batches(LOSO_WINDOWS * len(fold.val_subjects))
+                         + batches(LOSO_WINDOWS))
+    return {"gru_fwd": train_steps + eval_batches, "gru_fwd_fb": 0,
+            "gru_bwd": train_steps, "gru_bwd_fb": 0,
+            "gru_bifwd": train_steps + eval_batches, "gru_bibwd": train_steps}
+
+
+def loso_phase(dtype: str, data: Path, root: Path) -> dict[str, int]:
+    """First-steps parity, then the experiment CLI (the main path,
+    counted), its run directory's checks and the timings; returns the
+    kernel launches of the CLI run."""
+    out = root / f"loso_{dtype}"
+    argv = ["--execution", "serial", "--output-dir", str(out),
+            "--set", "model.gru_impl=pallas_fused", "--set", "trainer.epochs=2",
+            "--set", f"model.dtype={dtype}", "--set", f"data_path={data}",
+            "--set", "subjects=" + ",".join(LOSO_SUBJECTS)]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    variables = random_variables(cfg, seed=0)
+    fold = loso_folds(cfg.subjects, cfg.val_fraction, cfg.seed)[0]
+    train = build_dataset(data, list(fold.train_subjects), list(cfg.channels_to_use),
+                          read_channel_names(data), cfg.classification_mode,
+                          cfg.normalization)
+    bs = cfg.trainer.batch_size
+
+    # a. The first 3 train steps of the first fold (its 2 batches, then the
+    # first of the next epoch's order), card vs CPU, dropout 0.
+    grids = [batch_indices(len(train), bs, rng=np.random.default_rng(e)) for e in (0, 1)]
+    batches = [(idx[i], w[i]) for idx, w in grids for i in range(idx.shape[0])][:3]
+    first_steps_parity(cfg.model, variables, train.x, train.y, batches, cfg.trainer,
+                       root / f"loso_parity_{dtype}", TRAIN_TOL[dtype],
+                       f"loso {dtype} fold test={fold.test_subject}")
+
+    # b. The main path: the experiment CLI.
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    cli.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    expected = loso_expected_launches(cfg)
+    if launches != expected:
+        raise AssertionError(f"loso {dtype}: launches {launches}, expected {expected}")
+    (run_dir,) = (out / cfg.run_name).iterdir()
+    saved = json.loads((run_dir / "config.json").read_text())
+    if saved["model"]["gru_impl"] != "pallas_fused" or saved["model"]["dtype"] != dtype:
+        raise AssertionError(f"loso {dtype}: config.json says {saved['model']}")
+    summary = (run_dir / "cv_summary.txt").read_text()
+    folds = FOLD_LINE.findall(summary)
+    means = re.findall(r"Mean (?:accuracy|weighted F1): (\S+) ± (\S+)", summary)
+    numbers = [float(v) for f in folds for v in f[1:]] + [float(v) for m in means for v in m]
+    if (sorted(f[0] for f in folds) != sorted(LOSO_SUBJECTS) or len(means) != 2
+            or not all(math.isfinite(v) for v in numbers)):
+        raise AssertionError(f"loso {dtype}: cv_summary.txt is not 4 finite folds:\n{summary}")
+    for sid in LOSO_SUBJECTS:
+        ckpt = read_flax_checkpoint(run_dir / f"fold_test_on_{sid}" / "best_model.msgpack")
+        if set(ckpt) != {"params", "batch_stats"} or not ckpt["params"]:
+            raise AssertionError(f"loso {dtype}: fold {sid}'s best_model.msgpack did not read back")
+    print(f"loso {dtype}: main --execution serial, {len(folds)} folds in {wall:.2f} s; "
+          "fold wall s " + ", ".join(f"{f[0]} {f[6]}" for f in folds)
+          + "; " + "; ".join(f"mean {a} ± {b}" for a, b in means)
+          + f" (accuracy, F1); launches {launches}")
+
+    # c. Timings: back-to-back pallas_fused train steps at B=64, config dropout.
+    trainer = Trainer(build_model(cfg.model, 2, len(cfg.channels_to_use)),
+                      root / f"loso_step_{dtype}", cfg.trainer, 2, device="cuda",
+                      variables=variables)
+    xb = torch.from_numpy(train.x[:bs]).cuda()
+    yb = torch.from_numpy(train.y[:bs].astype(np.int64)).cuda()
+    wb = torch.ones(bs, device="cuda")
+    step_ms = median_ms(lambda: trainer.train_step(xb, yb, wb), per_block=5)
+    print(f"loso {dtype}: pallas_fused train step {step_ms:.3f} ms at B={bs} "
+          f"({bs / step_ms * 1e3:.0f} windows/s), dropout {cfg.model.dropout}")
+    trace(lambda: trainer.train_step(xb, yb, wb), "pallas_fused train step")
     return launches
 
 
@@ -652,6 +863,12 @@ def main() -> int:
         bwd_kernel_phase("gru_bwd_fb", gru_cuda.gru_backward_fb,
                          gru_cuda.gru_backward_fb_plain, fb=True,
                          source_line="multimodalsignal_tpu/ops/gru_pallas.py:460"),
+        fused_kernel_phase("gru_bifwd", gru_cuda.gru_bifwd, gru_cuda.gru_bifwd_plain,
+                           adjoint=False,
+                           source_line="multimodalsignal_tpu/ops/gru_pallas.py:874"),
+        fused_kernel_phase("gru_bibwd", gru_cuda.gru_bibwd, gru_cuda.gru_bibwd_plain,
+                           adjoint=True,
+                           source_line="multimodalsignal_tpu/ops/gru_pallas.py:945"),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         pkl = Path(tmp) / "S99.pkl"
@@ -660,10 +877,16 @@ def main() -> int:
         serving_phase("bfloat16", pkl)
         train_launches = training_phase("float32", Path(tmp))
         training_phase("bfloat16", Path(tmp))
+        data = write_loso_data(Path(tmp) / "loso_data", seed=4)
+        loso_launches = loso_phase("float32", data, Path(tmp))
+        loso_phase("bfloat16", data, Path(tmp))
     # launches: the forward kernels' on the float32 serving path, the
-    # adjoint kernels' on the float32 training path (both checked above).
+    # adjoint kernels' on the float32 training path, the fused pair's on the
+    # float32 LOSO path (all checked above).
     for k in kernels:
-        path = train_launches if k["name"].startswith("gru_bwd") else serve_launches
+        path = {"gru_fwd": serve_launches, "gru_fwd_fb": serve_launches,
+                "gru_bwd": train_launches, "gru_bwd_fb": train_launches}.get(
+                    k["name"], loso_launches)
         k["launches"] = path[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its main path")

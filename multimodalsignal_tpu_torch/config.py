@@ -1,15 +1,21 @@
 """Typed configuration (a copy of multimodalsignal_tpu/config.py's experiment
-dataclasses and `config_from_dict`).
+dataclasses, `config_from_dict`, the JSON/YAML file helpers, dotted-path
+overrides and `validate_experiment`).
 
-The port reads the JAX package's run `config.json` unchanged: the same
-frozen dataclasses, and `config_from_dict` ignores keys it does not know.
-Preprocessing, hierarchical and override helpers are not ported yet.
+The port reads the JAX package's run `config.json` unchanged (the same
+frozen dataclasses; `config_from_dict` ignores keys it does not know), and
+the `config.json` it writes reads back in the JAX package's
+`config_from_dict`. Preprocessing and hierarchical configs are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
 
 ALL_SUBJECTS = tuple(f"S{i}" for i in range(2, 18) if i != 12)
 
@@ -35,8 +41,11 @@ class ModelConfig:
     gru_num_layers: int = 2
     dropout: float = 0.5
     reduction_ratio: int = 4  # ChannelAttention squeeze factor (models.py:12)
-    # "auto" = fused Pallas kernel on TPU, lax.scan elsewhere.
-    gru_impl: str = "auto"  # "auto" | "scan" | "pallas"
+    # The JAX package's names, mapped by models/cnn_gru.py: "auto" (the
+    # kernels on CUDA tensors), "scan" (the plain loop), "pallas" /
+    # "pallas_db" (direction-batched kernels), "pallas_fused" (the fused
+    # float32 BiGRU kernels); the port's own "torch", "cuda", "cuda_fused".
+    gru_impl: str = "auto"
     # Prune the final GRU layer's backward-direction walk to a single cell
     # step — exact (the head reads only the last timestep, models.py:79).
     # False reproduces the pre-pruning op schedule bit-for-bit.
@@ -169,6 +178,79 @@ class ExperimentConfig:
             )
 
 
+def validate_experiment(cfg: ExperimentConfig,
+                        fold_execution: str | None = None) -> None:
+    """Cross-field checks that span nested configs (they cannot live in
+    __post_init__: dotted overrides apply one dataclasses.replace per
+    parent). Called after all overrides are applied and at every run entry."""
+    if cfg.trainer.dropout_rng not in ("auto", "threefry", "rbg"):
+        raise ValueError(
+            "trainer.dropout_rng must be 'auto', 'threefry', or 'rbg', got "
+            f"{cfg.trainer.dropout_rng!r}")
+    if cfg.from_pickles:
+        effective = fold_execution or cfg.fold_execution
+        if effective != "sharded":
+            raise ValueError(
+                "from_pickles staging is implemented for the sharded sweep "
+                "only (--execution sharded); the serial path reads the "
+                "preprocessed npy contract. Run the preprocess CLI first "
+                "for serial execution.")
+        if cfg.model.name == "hybrid_cnn_gru":
+            raise ValueError(
+                "from_pickles staging does not support hybrid_cnn_gru (the "
+                "hybrid model needs the offline 'feature' and 'raw-align' "
+                "preprocess targets); run the preprocess CLI and set "
+                "raw_align_path/feature_path instead.")
+    if cfg.model.name != "hybrid_cnn_gru":
+        return
+    if not (cfg.raw_align_path and cfg.feature_path):
+        raise ValueError(
+            "model.name='hybrid_cnn_gru' requires raw_align_path and "
+            "feature_path (the preprocess 'raw-align' and 'feature' targets, "
+            "e.g. --set raw_align_path=./data/chest_raw_align --set "
+            "feature_path=./data/chest_feature)")
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(v) for v in obj]
+    if isinstance(obj, Path):
+        return str(obj)
+    return obj
+
+
+def config_to_dict(cfg: Any) -> dict:
+    return _to_jsonable(cfg)
+
+
+def save_config(cfg: Any, path: Path | str, extra: dict | None = None) -> None:
+    """Serialize a config dataclass to JSON; `extra` merges additional
+    top-level keys (e.g. the data's preprocess meta), which config_from_dict
+    ignores, so the file stays round-trippable."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    data = config_to_dict(cfg)
+    if extra:
+        data.update({k: v for k, v in extra.items() if v is not None})
+    path.write_text(json.dumps(data, indent=2) + "\n")
+
+
+def load_config_file(path: Path | str) -> dict:
+    """Parse a config file into a plain dict: JSON always; YAML (.yaml/.yml)
+    when PyYAML imports."""
+    path = Path(path)
+    text = path.read_text()
+    if path.suffix.lower() in (".yaml", ".yml"):
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(f"{path} is YAML but PyYAML is not installed; use JSON") from e
+        return yaml.safe_load(text)
+    return json.loads(text)
+
+
 _NESTED = {
     "model": ModelConfig,
     "trainer": TrainerConfig,
@@ -189,3 +271,34 @@ def config_from_dict(cls, data: dict):
             v = tuple(v)
         kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def apply_overrides(cfg, overrides: dict[str, Any]):
+    """Apply dotted-path overrides, e.g. {"trainer.learning_rate": 3e-4}.
+    Overrides sharing a parent are applied in one dataclasses.replace, so
+    co-dependent fields (classification_mode + num_classes) validate
+    together."""
+    groups: dict[tuple, dict] = {}
+    for key, value in overrides.items():
+        parts = tuple(key.split("."))
+        groups.setdefault(parts[:-1], {})[parts[-1]] = value
+    for parent, kv in groups.items():
+        cfg = _replace_at(cfg, parent, kv)
+    return cfg
+
+
+def _replace_at(cfg, parent_path: tuple, kv: dict):
+    if not parent_path:
+        fixed = {}
+        for name, value in kv.items():
+            current = getattr(cfg, name)
+            if isinstance(current, tuple) and isinstance(value, (list, tuple)):
+                value = tuple(value)
+            elif isinstance(current, tuple) and isinstance(value, str):
+                # --set channels_to_use=chest_ECG: one element, not characters.
+                value = (value,)
+            fixed[name] = value
+        return dataclasses.replace(cfg, **fixed)
+    child = getattr(cfg, parent_path[0])
+    return dataclasses.replace(
+        cfg, **{parent_path[0]: _replace_at(child, parent_path[1:], kv)})

@@ -154,14 +154,16 @@ class CnnGruModel(_CnnGruBase):
 MODELS = {"cnn_gru_attention": CnnGruAttentionModel, "cnn_gru": CnnGruModel}
 # ModelConfig.gru_impl (JAX names too) -> BiGRU impl of this package.
 _GRU_IMPLS = {"auto": "auto", "scan": "torch", "torch": "torch", "cuda": "cuda",
-              "pallas": "cuda", "pallas_db": "cuda", "pallas_fused": "cuda"}
+              "cuda_fused": "cuda_fused", "pallas": "cuda", "pallas_db": "cuda",
+              "pallas_fused": "cuda_fused"}
 
 
 def build_model(model_cfg, num_classes: int, in_channels: int) -> _CnnGruBase:
     """Instantiate a model from a ModelConfig (config.py). The JAX package's
     flax modules infer the channel count at init; here it is given. The JAX
     package's gru_impl names map onto this package's: "scan" to the plain
-    loop, the Pallas choices to the CUDA kernels."""
+    loop, "pallas" and "pallas_db" to the CUDA kernels ("cuda"), and
+    "pallas_fused" to the fused float32 BiGRU kernels ("cuda_fused")."""
     if model_cfg.name == "hybrid_cnn_gru":
         raise NotImplementedError(
             "hybrid_cnn_gru is not ported yet (ROADMAP.md, queue 1: hybrid, "

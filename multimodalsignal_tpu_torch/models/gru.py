@@ -13,9 +13,15 @@ the recurrent [B, H] x [H, 3H] product runs per step. `impl` picks the
 recurrence: "torch" is the plain loop below (the counterpart of the JAX
 package's lax.scan path, differentiated by autograd), "cuda" the
 hand-written kernels of ops/gru_cuda.py (their autograd Functions run the
-adjoint kernels in the backward), and "auto" the kernels for CUDA inputs and
-the plain loop otherwise (as the JAX package's "auto" picks Pallas on a TPU
-only).
+adjoint kernels in the backward; both directions of a full layer run as two
+lanes of one walk, the JAX package's "pallas_db"), "cuda_fused" the fused
+bidirectional float32 kernels for every full layer (the JAX package's
+"pallas_fused": gates, weights and h0 go to float32 whatever the compute
+dtype, and the output is cast back to it), and "auto" the kernels for CUDA
+inputs and the plain loop otherwise (as the JAX package's "auto" picks
+Pallas on a TPU only). Under last-step pruning the final layer's forward
+walk is the single-direction kernel for "cuda" and "cuda_fused" alike, as
+in the JAX package.
 
 Dropout draws its masks from a `torch.Generator` the caller passes to
 `forward` (the trainer seeds one on the model's device; without one, torch's
@@ -30,7 +36,7 @@ from torch import nn
 
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
-IMPLS = ("auto", "torch", "cuda")
+IMPLS = ("auto", "torch", "cuda", "cuda_fused")
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
@@ -129,7 +135,7 @@ class BiGRU(nn.Module):
             xg_b = out @ wib.T + bib
             if self.last_only and layer == self.num_layers - 1:
                 y_b_last = gru_cell(xg_b[:, -1], whb, bhb, h0)
-                if impl == "cuda":
+                if impl in ("cuda", "cuda_fused"):
                     y_f = gru_cuda.gru_sequence_cuda(xg_f, whf, bhf, h0)
                 else:
                     y_f = gru_sequence(xg_f, whf, bhf, h0)
@@ -137,6 +143,10 @@ class BiGRU(nn.Module):
                                   y_b_last.to(self.dtype)], dim=-1)  # [B, 2H]
             if impl == "cuda":
                 y_f, y_b = gru_cuda.gru_bidirectional_dirbatch(
+                    xg_f, xg_b, whf, whb, bhf, bhb, h0)
+                y_f, y_b = y_f.to(self.dtype), y_b.to(self.dtype)
+            elif impl == "cuda_fused":
+                y_f, y_b = gru_cuda.gru_bidirectional_fused(
                     xg_f, xg_b, whf, whb, bhf, bhb, h0)
                 y_f, y_b = y_f.to(self.dtype), y_b.to(self.dtype)
             else:

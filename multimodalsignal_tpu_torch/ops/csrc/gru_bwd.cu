@@ -1,9 +1,11 @@
 // GRU backward (adjoint) recurrence for Hopper (sm_90a), one kernel with a
 // lane axis plus a small fixed-order reduction kernel.
 //
-// Replaces two Pallas TPU kernels of multimodalsignal_tpu/ops/gru_pallas.py:
+// Replaces three Pallas TPU kernels of multimodalsignal_tpu/ops/gru_pallas.py:
 //   * _bwd_kernel    (called by _gru_backward)    -> C entry gru_bwd    (one lane)
 //   * _fb_bwd_kernel (called by _gru_backward_fb) -> C entry gru_bwd_fb (F lanes)
+//   * _bibwd_kernel  (called by _bigru_backward)  -> C entry gru_bibwd  (2 lanes,
+//     the adjoint of gru_bifwd's fused BiGRU walk, float32 only)
 //
 // What it computes, per lane f (time-major, as the TPU kernels take it):
 //   xg [F, T, B, 3H]  input gates of the forward (gate blocks r | z | n)
@@ -12,6 +14,10 @@
 //   ys [F, T, B, H]   the forward's states; dy [F, T, B, H] their cotangent
 // -> dxg [F, T, B, 3H] in xg's dtype; dw [F, 3H, H], db [F, 3H], dh0 [F, B, H]
 //    all float32.
+// gru_bibwd takes the streams xg, ys, dy and dxg as [T, 2, B, .] (the lane
+// inside time, as gru_bifwd writes them), walks with reverse=0 and is
+// float32 throughout; its dw comes back in torch layout [2, 3H, H], the
+// transpose of the TPU kernel's dW^T [2, H, 3H].
 // The walk runs opposite to the forward: from T-1 down for reverse=0, from 0
 // up for reverse=1. h_prev[t], the state entering forward step t, is
 // ys[t-1] (ys[t+1] for reverse) or h0 at the forward's first step, read in
@@ -29,7 +35,11 @@
 //
 // Design. Batch rows and lanes are independent, so one block owns one lane
 // and a tile of kRows batch rows and walks all T steps, as the forward
-// kernel does. Shared memory holds W^T [H, 3H+1] in the stream dtype (the
+// kernel does; the stream layout is a template parameter (Layout::row), so
+// gru_bibwd reads the fused layout in place and reads h_prev from ys and h0
+// directly, where the TPU kernel gets a shifted [T, 2, B, H] copy built by
+// its wrapper, and its time chunks and `valid` masks have no counterpart.
+// Shared memory holds W^T [H, 3H+1] in the stream dtype (the
 // row padded by one element, so that both reading it by rows for hg and by
 // columns for dg @ W is free of bank conflicts), the block's float32 dW^T
 // partial [H, 3H], and the step's small buffers. Per step: load h_prev;
@@ -79,6 +89,19 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// Row index of (lane, step t, batch row b) in a [.., B, width] stream; the
+// element offset is row * width.
+struct LaneMajor {  // [F, T, B, width]: gru_bwd, gru_bwd_fb
+  __device__ static size_t row(int lane, int t, int b, int lanes, int n_steps, int batch) {
+    return (size_t(lane) * n_steps + t) * batch + b;
+  }
+};
+struct TimeMajor {  // [T, F, B, width]: gru_bibwd
+  __device__ static size_t row(int lane, int t, int b, int lanes, int n_steps, int batch) {
+    return (size_t(t) * lanes + lane) * batch + b;
+  }
+};
+
 // Dynamic shared memory of one block: W^T [H][3H+1] in the stream dtype,
 // the float32 dW^T partial [H][3H], then h_prev, dh and dht*z [kRows][H] and
 // hg and dg [kRows][3H] in float32.
@@ -88,7 +111,7 @@ __host__ __device__ constexpr size_t shared_bytes(int hidden, size_t itemsize) {
           size_t(2) * kRows * 3 * hidden) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, typename Layout>
 __global__ void __launch_bounds__(1024)
     gru_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
                    const T* __restrict__ b_hh, const float* __restrict__ h0,
@@ -100,6 +123,7 @@ __global__ void __launch_bounds__(1024)
   const int G = 3 * hidden;
   const int GP = G + 1;  // padded row of W^T
   const int lane = blockIdx.y;
+  const int lanes = gridDim.y;
   const int tile = blockIdx.x;
   const int row0 = tile * kRows;
   const int rows = min(kRows, batch - row0);
@@ -126,8 +150,6 @@ __global__ void __launch_bounds__(1024)
   float db_acc = 0.0f;  // thread c's column of db
   __syncthreads();
 
-  const size_t lane_h = size_t(lane) * n_steps * batch * H;
-  const size_t lane_g = size_t(lane) * n_steps * batch * G;
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? s : n_steps - 1 - s;
     const int tp = reverse ? t + 1 : t - 1;  // forward step whose output enters t
@@ -137,7 +159,7 @@ __global__ void __launch_bounds__(1024)
       float v = 0.0f;
       if (r < rows) {
         v = (tp >= 0 && tp < n_steps)
-                ? to_float(ys[lane_h + (size_t(tp) * batch + row0 + r) * H + j])
+                ? to_float(ys[Layout::row(lane, tp, row0 + r, lanes, n_steps, batch) * H + j])
                 : round_to<T>(h0[(size_t(lane) * batch + row0 + r) * H + j]);
       }
       hp[e] = v;
@@ -169,20 +191,20 @@ __global__ void __launch_bounds__(1024)
         dhz[e] = 0.0f;
         continue;
       }
-      const size_t at = size_t(t) * batch + row0 + r;
-      const T* x = xg + lane_g + at * G;
+      const size_t at = Layout::row(lane, t, row0 + r, lanes, n_steps, batch);
+      const T* x = xg + at * G;
       const float* g = hg + r * G;
       const float rg = sigmoid(to_float(x[j]) + g[j]);
       const float zg = sigmoid(to_float(x[H + j]) + g[H + j]);
       const float hn = g[2 * H + j];
       const float ng = tanhf(to_float(x[2 * H + j]) + rg * hn);
-      const float dht = dh[e] + to_float(dy[lane_h + at * H + j]);
+      const float dht = dh[e] + to_float(dy[at * H + j]);
       const float dz = dht * (hp[e] - ng);
       const float dn = dht * (1.0f - zg);
       const float dn_pre = dn * (1.0f - ng * ng);
       const float dr_pre = dn_pre * hn * rg * (1.0f - rg);
       const float dz_pre = dz * zg * (1.0f - zg);
-      T* out = dxg + lane_g + at * G;
+      T* out = dxg + at * G;
       out[j] = from_float<T>(dr_pre);
       out[H + j] = from_float<T>(dz_pre);
       out[2 * H + j] = from_float<T>(dn_pre);
@@ -262,19 +284,19 @@ __global__ void gru_bwd_reduce(const float* __restrict__ dw_part,
   }
 }
 
-template <typename T>
+template <typename T, typename Layout = LaneMajor>
 int launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0, const void* ys,
            const void* dy, void* dxg, void* dw, void* db, void* dh0, void* dw_part,
            void* db_part, int lanes, int n_steps, int batch, int hidden, int reverse,
            void* stream) {
   const size_t smem = shared_bytes(hidden, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      gru_bwd_kernel<T, Layout>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = (batch + kRows - 1) / kRows;
   const int threads = (max(3 * hidden, kRows * hidden) + 31) / 32 * 32;
-  gru_bwd_kernel<T><<<dim3(tiles, lanes), threads, smem, s>>>(
+  gru_bwd_kernel<T, Layout><<<dim3(tiles, lanes), threads, smem, s>>>(
       static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
       static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
       static_cast<T*>(dxg), static_cast<float*>(dw_part), static_cast<float*>(db_part),
@@ -330,6 +352,18 @@ int gru_bwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
                int reverse, int bf16, void* stream) {
   return dispatch(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part, db_part, lanes,
                   n_steps, batch, hidden, reverse, bf16, stream);
+}
+
+// Counterpart of _bigru_backward: the adjoint of gru_bifwd, float32, walking
+// time backward. xg, ys, dy, dxg [T, 2, B, .]; w [2, 3H, H], bh [2, 3H],
+// h0 [2, B, H] -> dw [2, 3H, H], db [2, 3H], dh0 [2, B, H] per direction.
+// The workspaces hold 2 * ceil(B / kRows) partials.
+int gru_bibwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
+              const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
+              void* dw_part, void* db_part, int n_steps, int batch, int hidden,
+              void* stream) {
+  return launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
+                                  db_part, 2, n_steps, batch, hidden, 0, stream);
 }
 
 }  // extern "C"

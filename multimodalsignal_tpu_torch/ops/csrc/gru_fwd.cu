@@ -1,16 +1,20 @@
 // GRU forward recurrence for Hopper (sm_90a), one kernel with a lane axis.
 //
-// Replaces two Pallas TPU kernels of multimodalsignal_tpu/ops/gru_pallas.py:
+// Replaces three Pallas TPU kernels of multimodalsignal_tpu/ops/gru_pallas.py:
 //   * _fwd_kernel    (called by _gru_forward)    -> C entry gru_fwd    (one lane)
 //   * _fb_fwd_kernel (called by _gru_forward_fb) -> C entry gru_fwd_fb (F lanes)
+//   * _bifwd_kernel  (called by _bigru_forward)  -> C entry gru_bifwd  (2 lanes,
+//     the two directions of a BiGRU layer, float32 only)
 //
 // What it computes, per lane f and batch row b (time-major, as the TPU
 // kernels take it):
 //   xg [F, T, B, 3H]  input gates x @ W_ih^T + b_ih, gate blocks r | z | n
+//                     ([T, 2, B, 3H] for gru_bifwd: the lane inside time)
 //   w  [F, 3H, H]     recurrent weights in torch layout (rows r | z | n)
 //   bh [F, 3H]        recurrent bias
 //   h0 [F, B, H]      initial state, always float32
-//   ys [F, T, B, H]   every step's state, in xg's dtype
+//   ys [F, T, B, H]   every step's state, in xg's dtype ([T, 2, B, H] for
+//                     gru_bifwd)
 //     hg = h @ w^T + bh
 //     r = sigmoid(xr + hr); z = sigmoid(xz + hz); n = tanh(xn + r * hn)
 //     h = (1 - z) * n + z * h
@@ -22,10 +26,15 @@
 // Design. Batch rows and lanes are independent recurrences, so one block
 // owns one lane and a tile of kRows batch rows and walks all T steps in a
 // loop; that loop takes the place of the TPU's sequential time grid and its
-// VMEM chunking. The block copies its lane's W^T [H, 3H] into dynamic shared
-// memory once. Each step: thread c (one per gate column, 3H threads) forms
-// hg[r][c] for the tile's rows from shared h and W^T; barrier; the threads
-// then do the gate math per (row, unit), write y[t] and update h; barrier.
+// VMEM chunking. The layout is a template parameter: the block finds its
+// rows through Layout::row, so gru_bifwd reads the fused [T, 2, B, 3H]
+// gates in place (direction stride B*3H, time stride 2*B*3H) and the
+// wrapper copies nothing into a lane-major layout; the TPU kernel's time
+// chunks and `valid` masks have no counterpart. The block copies its lane's
+// W^T [H, 3H] into dynamic shared memory once. Each step: thread c (one per
+// gate column, 3H threads) forms hg[r][c] for the tile's rows from shared h
+// and W^T; barrier; the threads then do the gate math per (row, unit),
+// write y[t] and update h; barrier.
 //
 // What bounds it on the card: latency. At the serving shape (T=480, B=64,
 // H=64) each step is a shared-memory product of [4, 64] x [64, 192] per block
@@ -62,6 +71,19 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// Row index of (lane, step t, batch row b) in a [.., B, width] stream; the
+// element offset is row * width.
+struct LaneMajor {  // [F, T, B, width]: gru_fwd, gru_fwd_fb
+  __device__ static size_t row(int lane, int t, int b, int lanes, int n_steps, int batch) {
+    return (size_t(lane) * n_steps + t) * batch + b;
+  }
+};
+struct TimeMajor {  // [T, F, B, width]: gru_bifwd
+  __device__ static size_t row(int lane, int t, int b, int lanes, int n_steps, int batch) {
+    return (size_t(t) * lanes + lane) * batch + b;
+  }
+};
+
 // Dynamic shared memory of one block: W^T in the stream dtype, then the f32
 // carry, the carry rounded to the operand dtype, and the step's hg.
 __host__ __device__ constexpr size_t shared_bytes(int hidden, size_t itemsize) {
@@ -69,7 +91,7 @@ __host__ __device__ constexpr size_t shared_bytes(int hidden, size_t itemsize) {
          (size_t(2) * kRows * hidden + size_t(kRows) * 3 * hidden) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, typename Layout>
 __global__ void __launch_bounds__(1024)
     gru_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
                    const T* __restrict__ b_hh, const float* __restrict__ h0,
@@ -78,6 +100,7 @@ __global__ void __launch_bounds__(1024)
   const int H = hidden;
   const int G = 3 * hidden;
   const int lane = blockIdx.y;
+  const int lanes = gridDim.y;
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, batch - row0);
   const int tid = threadIdx.x;
@@ -103,8 +126,6 @@ __global__ void __launch_bounds__(1024)
   const float bias = tid < G ? to_float(b_hh[size_t(lane) * G + tid]) : 0.0f;
   __syncthreads();
 
-  const T* xg_lane = xg + size_t(lane) * n_steps * batch * G;
-  T* ys_lane = ys + size_t(lane) * n_steps * batch * H;
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? n_steps - 1 - s : s;
     if (tid < G) {
@@ -123,7 +144,8 @@ __global__ void __launch_bounds__(1024)
     for (int e = tid; e < rows * H; e += nt) {
       const int r = e / H;
       const int j = e - r * H;
-      const T* x = xg_lane + (size_t(t) * batch + row0 + r) * G;
+      const size_t at = Layout::row(lane, t, row0 + r, lanes, n_steps, batch);
+      const T* x = xg + at * G;
       const float* g = hg + r * G;
       const float rg = sigmoid(to_float(x[j]) + g[j]);
       const float zg = sigmoid(to_float(x[H + j]) + g[H + j]);
@@ -132,22 +154,22 @@ __global__ void __launch_bounds__(1024)
       h[e] = hn;
       const T out = from_float<T>(hn);
       h_op[e] = to_float(out);
-      ys_lane[(size_t(t) * batch + row0 + r) * H + j] = out;
+      ys[at * H + j] = out;
     }
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, typename Layout = LaneMajor>
 int launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
            int lanes, int n_steps, int batch, int hidden, int reverse, void* stream) {
   const size_t smem = shared_bytes(hidden, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      gru_fwd_kernel<T, Layout>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((batch + kRows - 1) / kRows, lanes);
   const int threads = (3 * hidden + 31) / 32 * 32;
-  gru_fwd_kernel<T><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  gru_fwd_kernel<T, Layout><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
       static_cast<const float*>(h0), static_cast<T*>(ys), n_steps, batch, hidden, reverse);
   return int(cudaGetLastError());
@@ -185,6 +207,15 @@ int gru_fwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
                void* stream) {
   return dispatch(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch, hidden, reverse, bf16,
                   stream);
+}
+
+// Counterpart of _bigru_forward: both directions of one BiGRU layer, float32,
+// direction 1's gates already flipped in time, so both walk forward:
+// xg [T, 2, B, 3H], w [2, 3H, H], bh [2, 3H], h0 [2, B, H] -> ys [T, 2, B, H].
+int gru_bifwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
+              int n_steps, int batch, int hidden, void* stream) {
+  return launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, 2, n_steps, batch, hidden, 0,
+                                  stream);
 }
 
 }  // extern "C"

@@ -1,22 +1,26 @@
 """GRU recurrence: hand-written CUDA kernels and their plain versions.
 
-Counterpart of multimodalsignal_tpu/ops/gru_pallas.py's single-direction and
-fold-batched kernels. Two sources, each one template with a lane axis and
-two C entry points, each entry behind its own wrapper here:
+Counterpart of multimodalsignal_tpu/ops/gru_pallas.py's single-direction,
+fold-batched and fused bidirectional kernels. Two sources, each one template
+with a lane axis and a stream layout, and three C entry points each, every
+entry behind its own wrapper here:
 
   csrc/gru_fwd.cu
   * `gru_forward`     -> C `gru_fwd`     (replaces `_fwd_kernel` / `_gru_forward`)
   * `gru_forward_fb`  -> C `gru_fwd_fb`  (replaces `_fb_fwd_kernel` / `_gru_forward_fb`)
+  * `gru_bifwd`       -> C `gru_bifwd`   (replaces `_bifwd_kernel` / `_bigru_forward`)
   csrc/gru_bwd.cu
   * `gru_backward`    -> C `gru_bwd`     (replaces `_bwd_kernel` / `_gru_backward`)
   * `gru_backward_fb` -> C `gru_bwd_fb`  (replaces `_fb_bwd_kernel` / `_gru_backward_fb`)
+  * `gru_bibwd`       -> C `gru_bibwd`   (replaces `_bibwd_kernel` / `_bigru_backward`)
 
-Two `torch.autograd.Function`s pair them as `_gru_tm`'s custom VJP does
-(forward saves xg, w_hh, b_hh, h0 and ys; backward runs the adjoint kernel),
-and the model-facing entry points go through those:
+Three `torch.autograd.Function`s pair them as `_gru_tm`'s and `_bigru_tm`'s
+custom VJPs do (forward saves xg, w_hh, b_hh, h0 and ys; backward runs the
+adjoint kernel), and the model-facing entry points go through those:
 
   * `gru_sequence_cuda`          (counterpart of `gru_sequence_pallas`)
   * `gru_bidirectional_dirbatch` (counterpart of the JAX function of that name)
+  * `gru_bidirectional_fused`    (counterpart of `gru_bidirectional_pallas`)
 
 The wrappers take the TPU kernels' time-major layout. A wrapper given CPU
 tensors runs its plain PyTorch version (`*_plain`: a Python loop over time
@@ -30,6 +34,10 @@ float32 sums, and the carry is float32 in both modes. The backward
 recomputes the gates from the bf16 states, rounds the gate cotangents to
 bf16 before its products and keeps dW, db and dh0 in float32, as the TPU
 kernels do: in bf16 it is not the exact adjoint of the bf16 forward.
+The fused bidirectional pair (`gru_bifwd`, `gru_bibwd`) is float32 only, as
+`_bifwd_kernel` and `_bibwd_kernel` are: its streams are [T, 2, B, .], the
+direction inside time, and its wrappers refuse anything but float32 streams
+on either device (the caller casts first, as `gru_bidirectional_fused` does).
 """
 
 from __future__ import annotations
@@ -162,6 +170,62 @@ def gru_backward_plain(xg: torch.Tensor, w_hh: torch.Tensor,
     return tuple(g[0] for g in grads)
 
 
+def gru_bifwd_plain(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
+                    h02: torch.Tensor) -> torch.Tensor:
+    """Both directions of one BiGRU layer as one forward walk, float32:
+    xg2 [T, 2, B, 3H] (direction 1 already flipped in time), whh2 [2, 3H, H],
+    bhh2 [2, 3H], h02 [2, B, H] -> ys2 [T, 2, B, H]."""
+    hidden = h02.shape[-1]
+    w_t = whh2.transpose(1, 2)                   # [2, H, 3H]
+    b = bhh2[:, None, :]                         # [2, 1, 3H]
+    h = h02
+    ys = torch.empty(xg2.shape[:-1] + (hidden,), dtype=torch.float32,
+                     device=xg2.device)
+    for t in range(xg2.shape[0]):
+        hg = torch.matmul(h, w_t) + b
+        xr, xz, xn = xg2[t].split(hidden, dim=-1)
+        hr, hz, hn = hg.split(hidden, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        ys[t] = h
+    return ys
+
+
+def gru_bibwd_plain(xg2, whh2, bhh2, h02, ys2, dy2):
+    """Adjoint of gru_bifwd_plain's walk, an explicit float32 loop walking
+    time backward, h_prev = [h0, ys[:-1]] read in place: xg2 [T, 2, B, 3H],
+    whh2 [2, 3H, H], bhh2 [2, 3H], h02 [2, B, H], ys2 and dy2 [T, 2, B, H]
+    -> (dxg2 [T, 2, B, 3H], dw_hh [2, 3H, H], db_hh [2, 3H], dh0 [2, B, H])."""
+    hidden = h02.shape[-1]
+    w_t = whh2.transpose(1, 2)                   # [2, H, 3H]
+    b = bhh2[:, None, :]
+    dh = torch.zeros_like(h02)
+    dw_t = torch.zeros_like(w_t)
+    db = torch.zeros_like(bhh2)
+    dxg = torch.empty_like(xg2)
+    for t in range(xg2.shape[0] - 1, -1, -1):
+        hp = ys2[t - 1] if t > 0 else h02
+        hg = torch.matmul(hp, w_t) + b
+        xr, xz, xn = xg2[t].split(hidden, dim=-1)
+        hr, hz, hn = hg.split(hidden, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dht = dh + dy2[t]
+        dz = dht * (hp - n)
+        dn_pre = dht * (1.0 - z) * (1.0 - n * n)
+        dr_pre = dn_pre * hn * r * (1.0 - r)
+        dz_pre = dz * z * (1.0 - z)
+        dxg[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
+        dg = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)   # [2, B, 3H]
+        dw_t += torch.matmul(hp.transpose(1, 2), dg)
+        db += dg.sum(dim=1)
+        dh = dht * z + torch.matmul(dg, whh2)
+    return dxg, dw_t.transpose(1, 2).contiguous(), db, dh
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -177,6 +241,8 @@ def _library() -> ctypes.CDLL:
     lib.gru_fwd.restype = i32
     lib.gru_fwd_fb.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.gru_fwd_fb.restype = i32
+    lib.gru_bifwd.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.gru_bifwd.restype = i32
     lib.gru_fwd_shared_bytes.argtypes = [i32, i32]
     lib.gru_fwd_shared_bytes.restype = ctypes.c_longlong
     return lib
@@ -193,6 +259,8 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_bwd.restype = i32
     lib.gru_bwd_fb.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
     lib.gru_bwd_fb.restype = i32
+    lib.gru_bibwd.argtypes = [ptr] * 12 + [i32] * 3 + [ptr]
+    lib.gru_bibwd.restype = i32
     lib.gru_bwd_shared_bytes.argtypes = [i32, i32]
     lib.gru_bwd_shared_bytes.restype = ctypes.c_longlong
     return lib
@@ -238,30 +306,35 @@ def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=shared_bytes):
     return (lead or (1,))[0], n_steps, batch, hidden
 
 
+def _require_cuda(xg) -> None:
+    if xg.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {xg.device}")
+
+
+def _mode_args(xg, reverse: bool) -> list[int]:
+    """The trailing (reverse, bf16) ints of the dtype-generic entry points."""
+    return [int(bool(reverse)), int(xg.dtype == torch.bfloat16)]
+
+
 def _launch(entry: str, xg, w_hh, b_hh, h0, reverse: bool, fb: bool):
     """Allocate ys and launch `entry` on the current stream. Returns
     (ys, whether a kernel was launched); nothing is launched for empty ys."""
-    if xg.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {xg.device}")
+    _require_cuda(xg)
     f, n_steps, batch, hidden = _check_cuda_args(xg, w_hh, b_hh, h0, fb)
     ys = torch.empty(xg.shape[:-1] + (hidden,), dtype=xg.dtype, device=xg.device)
     if ys.numel() == 0:
         return ys, False
     _call(_library(), entry, (xg, w_hh, b_hh, h0, ys),
-          ([f] if fb else []) + [n_steps, batch, hidden], reverse)
+          ([f] if fb else []) + [n_steps, batch, hidden] + _mode_args(xg, reverse))
     return ys, True
 
 
-def _call(lib: ctypes.CDLL, entry: str, tensors, dims: list[int], reverse: bool) -> None:
-    """Call C `entry` with the tensors' pointers, the dims, reverse, the bf16
-    flag (from the first tensor) and the current stream; raise if it returns
-    a CUDA error."""
-    dev = tensors[0].device
-    bf16 = int(tensors[0].dtype == torch.bfloat16)
-    with torch.cuda.device(dev):
+def _call(lib: ctypes.CDLL, entry: str, tensors, ints: list[int]) -> None:
+    """Call C `entry` with the tensors' pointers, the ints and the current
+    stream; raise if it returns a CUDA error."""
+    with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *dims,
-                                  int(bool(reverse)), bf16, stream)
+        err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
@@ -308,15 +381,13 @@ def _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb: bool):
     return dims
 
 
-def _launch_bwd(entry: str, xg, w_hh, b_hh, h0, ys, dy, reverse: bool, fb: bool):
+def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, batch: int,
+                    hidden: int, ints: list[int]):
     """Allocate the gradients and the per-tile workspaces and launch `entry`
-    on the current stream. Returns ((dxg, dw_hh, db_hh, dh0), whether a
-    kernel was launched); nothing is launched for an empty walk."""
-    if xg.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {xg.device}")
-    f, n_steps, batch, hidden = _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb)
-    dev = xg.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    on the current stream with `ints` after the pointers. Returns ((dxg,
+    dw_hh, db_hh, dh0), whether a kernel was launched); nothing is launched
+    for an empty walk."""
+    f32 = dict(dtype=torch.float32, device=xg.device)
     dxg = torch.empty_like(xg)
     dw = torch.empty(w_hh.shape, **f32)
     db = torch.empty(b_hh.shape, **f32)
@@ -326,12 +397,19 @@ def _launch_bwd(entry: str, xg, w_hh, b_hh, h0, ys, dy, reverse: bool, fb: bool)
             g.zero_()
         return (dxg, dw, db, dh0), False
     tiles = -(-batch // BWD_ROWS_PER_BLOCK)
-    dw_part = torch.empty((f, tiles, hidden, 3 * hidden), **f32)
-    db_part = torch.empty((f, tiles, 3 * hidden), **f32)
+    dw_part = torch.empty((lanes, tiles, hidden, 3 * hidden), **f32)
+    db_part = torch.empty((lanes, tiles, 3 * hidden), **f32)
     _call(_bwd_library(), entry,
-          (xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part, db_part),
-          ([f] if fb else []) + [n_steps, batch, hidden], reverse)
+          (xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part, db_part), ints)
     return (dxg, dw, db, dh0), True
+
+
+def _launch_bwd(entry: str, xg, w_hh, b_hh, h0, ys, dy, reverse: bool, fb: bool):
+    """_launch_adjoint for gru_bwd / gru_bwd_fb ([F, T, B, .] streams)."""
+    _require_cuda(xg)
+    f, n_steps, batch, hidden = _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb)
+    ints = ([f] if fb else []) + [n_steps, batch, hidden] + _mode_args(xg, reverse)
+    return _launch_adjoint(entry, xg, w_hh, b_hh, h0, ys, dy, f, batch, hidden, ints)
 
 
 def gru_backward(xg, w_hh, b_hh, h0, ys, dy, reverse: bool = False):
@@ -362,8 +440,82 @@ def gru_backward_fb(xg, w_hh, b_hh, h0, ys, dy, reverse: bool = False):
     return grads
 
 
+def _check_bi_args(xg2, whh2, bhh2, h02, smem, **streams):
+    """Validate what the fused BiGRU pair takes (both devices: the pair is
+    float32 only, as the TPU kernels are): xg2 [T, 2, B, 3H], whh2
+    [2, 3H, H], bhh2 [2, 3H], h02 [2, B, H] and `streams` (ys2, dy2)
+    [T, 2, B, H], all float32, contiguous, on one device. Returns (T, B, H)."""
+    if xg2.dim() != 4 or xg2.shape[1] != 2:
+        raise ValueError(f"xg2 must be [T, 2, B, 3H], got {list(xg2.shape)}")
+    n_steps, _, batch, three_h = xg2.shape
+    if three_h % 3:
+        raise ValueError(f"xg2's last axis must be 3H, got {three_h}")
+    hidden = three_h // 3
+    want = {"whh2": (2, three_h, hidden), "bhh2": (2, three_h),
+            "h02": (2, batch, hidden)}
+    want.update({name: (n_steps, 2, batch, hidden) for name in streams})
+    tensors = dict(xg2=xg2, whh2=whh2, bhh2=bhh2, h02=h02, **streams)
+    for name, t in tensors.items():
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must have shape {list(want[name])}, "
+                             f"got {list(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused BiGRU kernels take float32 only; {name} "
+                            f"is {t.dtype} (cast first, as gru_bidirectional_fused does)")
+        if t.device != xg2.device:
+            raise ValueError(f"{name} is on {t.device}, xg2 on {xg2.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    need = smem(hidden, 4)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"hidden size {hidden} needs {need} bytes of shared memory per "
+            f"block; the kernel takes at most {MAX_SHARED_BYTES}")
+    if max(n_steps, batch) * 2 * three_h >= 2**31:
+        raise ValueError("a dimension is too large for the kernel's int arguments")
+    return n_steps, batch, hidden
+
+
+def gru_bifwd(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
+              h02: torch.Tensor) -> torch.Tensor:
+    """Both directions of one BiGRU layer as one forward walk (counterpart
+    of _bigru_forward), float32: xg2 [T, 2, B, 3H] with direction 1 already
+    flipped in time, whh2 [2, 3H, H], bhh2 [2, 3H], h02 [2, B, H]
+    -> ys2 [T, 2, B, H]."""
+    n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, shared_bytes)
+    if xg2.device.type == "cpu":
+        return gru_bifwd_plain(xg2, whh2, bhh2, h02)
+    _require_cuda(xg2)
+    ys2 = torch.empty(xg2.shape[:-1] + (hidden,), dtype=torch.float32,
+                      device=xg2.device)
+    if ys2.numel() == 0:
+        return ys2
+    _call(_library(), "gru_bifwd", (xg2, whh2, bhh2, h02, ys2),
+          [n_steps, batch, hidden])
+    gru_bifwd.launches += 1
+    return ys2
+
+
+def gru_bibwd(xg2, whh2, bhh2, h02, ys2, dy2):
+    """Adjoint of gru_bifwd (counterpart of _bigru_backward), float32,
+    walking time backward: xg2 [T, 2, B, 3H], whh2 [2, 3H, H], bhh2 [2, 3H],
+    h02 [2, B, H], ys2 and dy2 [T, 2, B, H] -> (dxg2 [T, 2, B, 3H],
+    dw_hh [2, 3H, H], db_hh [2, 3H], dh0 [2, B, H]), per direction."""
+    n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, bwd_shared_bytes,
+                                            ys2=ys2, dy2=dy2)
+    if xg2.device.type == "cpu":
+        return gru_bibwd_plain(xg2, whh2, bhh2, h02, ys2, dy2)
+    _require_cuda(xg2)
+    grads, launched = _launch_adjoint("gru_bibwd", xg2, whh2, bhh2, h02, ys2, dy2,
+                                      2, batch, hidden, [n_steps, batch, hidden])
+    if launched:
+        gru_bibwd.launches += 1
+    return grads
+
+
 _WRAPPERS = {"gru_fwd": gru_forward, "gru_fwd_fb": gru_forward_fb,
-             "gru_bwd": gru_backward, "gru_bwd_fb": gru_backward_fb}
+             "gru_bwd": gru_backward, "gru_bwd_fb": gru_backward_fb,
+             "gru_bifwd": gru_bifwd, "gru_bibwd": gru_bibwd}
 for _w in _WRAPPERS.values():
     _w.launches = 0
 
@@ -424,6 +576,23 @@ class _GruWalkFb(torch.autograd.Function):
         return _walk_backward(gru_backward_fb, ctx, dy)
 
 
+class _BiGruWalk(torch.autograd.Function):
+    """ys2 = gru_bifwd(xg2, whh2, bhh2, h02); its backward runs gru_bibwd
+    (counterpart of _bigru_tm's custom VJP, gru_pallas.py:1065-1080). All
+    float32, so the cotangents need no cast."""
+
+    @staticmethod
+    def forward(ctx, xg2, whh2, bhh2, h02):
+        ys2 = gru_bifwd(xg2, whh2, bhh2, h02)
+        ctx.save_for_backward(xg2, whh2, bhh2, h02, ys2)
+        return ys2
+
+    @staticmethod
+    def backward(ctx, dy2):
+        xg2, whh2, bhh2, h02, ys2 = ctx.saved_tensors
+        return gru_bibwd(xg2, whh2, bhh2, h02, ys2, dy2.float().contiguous())
+
+
 # ---------------------------------------------------------------------------
 # Model-facing entry points (batch-major, like the JAX package's)
 # ---------------------------------------------------------------------------
@@ -460,3 +629,23 @@ def gru_bidirectional_dirbatch(x_gates_f, x_gates_b, w_hh_f, w_hh_b,
     h02 = torch.stack([h0, h0]).float().contiguous()
     ys = _GruWalkFb.apply(xg, whh, bhh, h02, False)       # [2, T, B, H]
     return ys[0].transpose(0, 1), ys[1].flip(0).transpose(0, 1)
+
+
+def gru_bidirectional_fused(x_gates_f, x_gates_b, w_hh_f, w_hh_b,
+                            b_hh_f, b_hh_b, h0):
+    """Both directions of one BiGRU layer in the fused float32 walk
+    (counterpart of gru_bidirectional_pallas): gates, weights, bias and h0
+    are cast to float32 whatever the compute dtype, the backward direction's
+    gates are flipped in time, and the kernels read the time-major
+    [T, 2, B, .] layout. x_gates_* [B, T, 3H] -> (ys_fwd, ys_bwd), each
+    [B, T, H] float32 in original time order; h0's gradient sums both
+    directions' through the stack."""
+    f32 = torch.float32
+    xf = x_gates_f.transpose(0, 1)                        # [T, B, 3H]
+    xb = x_gates_b.transpose(0, 1).flip(0)                # time-reversed
+    xg2 = torch.stack([xf, xb], dim=1).to(f32).contiguous()   # [T, 2, B, 3H]
+    whh2 = torch.stack([w_hh_f, w_hh_b]).to(f32).contiguous()
+    bhh2 = torch.stack([b_hh_f, b_hh_b]).to(f32).contiguous()
+    h02 = torch.stack([h0, h0]).to(f32).contiguous()
+    ys2 = _BiGruWalk.apply(xg2, whh2, bhh2, h02)          # [T, 2, B, H]
+    return ys2[:, 0].transpose(0, 1), ys2[:, 1].flip(0).transpose(0, 1)

@@ -109,7 +109,8 @@ def test_cpu_tensors_do_not_count_launches():
     gru_cuda.gru_forward_fb(xg.transpose(0, 1).contiguous()[None], w[None],
                             b[None], h0[None])
     assert gru_cuda.launch_counts() == {"gru_fwd": 0, "gru_fwd_fb": 0,
-                                        "gru_bwd": 0, "gru_bwd_fb": 0}
+                                        "gru_bwd": 0, "gru_bwd_fb": 0,
+                                        "gru_bifwd": 0, "gru_bibwd": 0}
 
 
 def test_cuda_argument_checks():

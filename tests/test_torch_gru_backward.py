@@ -180,7 +180,8 @@ def test_launch_counts_cover_four_kernels_and_cpu_counts_nothing():
     (yf.sum() + yb.sum()).backward()
     assert xg.grad is not None and torch.isfinite(xg.grad).all()
     assert gru_cuda.launch_counts() == {"gru_fwd": 0, "gru_fwd_fb": 0,
-                                        "gru_bwd": 0, "gru_bwd_fb": 0}
+                                        "gru_bwd": 0, "gru_bwd_fb": 0,
+                                        "gru_bifwd": 0, "gru_bibwd": 0}
 
 
 def test_backward_argument_checks():

@@ -1,12 +1,13 @@
-"""The port imports neither JAX, flax, optax nor anything of the JAX package,
-and asks for CUDA by default.
+"""The port imports neither JAX, flax, optax, scikit-learn, msgpack nor
+anything of the JAX package (the GPU machine has none of them), and asks for
+CUDA by default.
 
-A subprocess installs a sys.meta_path finder that refuses those names
-(matched exactly, so `multimodalsignal_tpu_torch` still imports), imports
+A subprocess blocks those names in sys.modules (matched exactly, so
+`multimodalsignal_tpu_torch` still imports), imports
 every module of the port (the trainer, optimizer, metrics and checkpoint
 writer among them), runs one CPU forward and one CPU training epoch that
-writes a checkpoint, and checks that the Predictor and the Trainer raise
-without CUDA when no device is named."""
+writes a checkpoint, and checks that the Predictor, the Trainer and the
+experiment CLI raise without CUDA when no device is named."""
 
 import subprocess
 import sys
@@ -18,18 +19,20 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "multimodalsignal_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "sklearn", "msgpack",
+               "multimodalsignal_tpu")
 
-    class Refuse:
-        def find_spec(self, name, path=None, target=None):
-            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
-                raise ImportError(f"the port imported {name}")
-            return None
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
 
+    # A None entry makes `import name` (and of its submodules) raise
+    # ImportError, while importlib.util.find_spec(name), which torch uses to
+    # probe for optional packages, answers None (not installed).
     for name in list(sys.modules):
-        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+        if blocked(name):
             del sys.modules[name]
-    sys.meta_path.insert(0, Refuse())
+    for name in BLOCKED:
+        sys.modules[name] = None
 
     import multimodalsignal_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -77,8 +80,20 @@ SCRIPT = textwrap.dedent("""
             print("trainer default device raised")
         else:
             raise AssertionError("Trainer ran without CUDA instead of raising")
-    leaked = sorted(n for n in sys.modules
-                    if any(n == b or n.startswith(b + ".") for b in BLOCKED))
+    for name in ("main", "experiments.loso", "experiments.splits", "utils.run"):
+        assert f"multimodalsignal_tpu_torch.{name}" in names, name
+    from multimodalsignal_tpu_torch.main import main
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            main(["--execution", "serial", "--output-dir", tmp])
+        except RuntimeError as exc:
+            assert "cuda" in str(exc)
+            import os
+            assert not os.listdir(tmp)
+            print("cli default device raised")
+        else:
+            raise AssertionError("the CLI ran without CUDA instead of raising")
+    leaked = sorted(n for n, m in sys.modules.items() if blocked(n) and m is not None)
     assert not leaked, leaked
     print("ok")
 """)
@@ -90,4 +105,5 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "default device raised" in proc.stdout
     assert "trainer default device raised" in proc.stdout
+    assert "cli default device raised" in proc.stdout
     assert proc.stdout.strip().endswith("ok")
