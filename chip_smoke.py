@@ -7,18 +7,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. The card: name and power limit from nvidia-smi, torch's device name.
 2. Build every CUDA source of the port with nvcc (one process each, all at
-   once) into multimodalsignal_tpu_torch/ops/build/, and check each
-   kernel's shared-memory size in C against its wrapper's formula.
+   once) into multimodalsignal_tpu_torch/ops/build/; print ptxas's
+   registers and spills per kernel instantiation and fail on any spill;
+   check each kernel's shared-memory size in C against its wrapper's
+   formula, and the walk kernel's row tile (gru_fwd, gru_bifwd) too.
 3. One phase per kernel: the wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, float32 and bfloat16, both walk
    directions, at the serving/training shape (T=480, B=64, H=64; F=2 lanes
-   for the _fb kernels) and a ragged one. TF32 is off for matmul and cuDNN.
+   for the _fb kernels) and a ragged one; the walk kernel (gru_fwd, and
+   gru_bifwd in float32) also at WALK_CASES: H=128, the largest H each
+   dtype admits, B=1, B=256 and T=1, each line with its row tile and
+   instantiation (W^T in registers or in shared memory); then the walk
+   kernel's float32 time as B grows (walk_sweep). TF32 is off for matmul
+   and cuDNN.
    Forward kernels (gru_fwd, gru_fwd_fb): ys, float32 rtol = atol = 1e-5,
    bfloat16 atol 0.05. Adjoint kernels (gru_bwd, gru_bwd_fb): all four
    outputs, tolerances in BWD_TOL. Then the times at the main shape: the
    kernel, the plain version, the least time the card could take, and
    cuDNN's GRU (nn.GRU: the forward, or for an adjoint kernel the backward
-   as forward+backward minus forward; it also does the input projection).
+   as forward+backward minus forward; it also does the input projection);
+   forward kernels also print us per dependent step (ms / T).
 4. The serving path: the default-config CnnGruAttention model (C=3,
    T=7680, H=64, 2 layers) with weights from a numpy seed, in float32 and
    bfloat16, behind the port's HTTP server: GET /healthz, POST /v1/predict
@@ -152,15 +160,33 @@ def card() -> str:
     return smi
 
 
+PTXAS_KERNEL = re.compile(r"Function properties for (\S+)\n\s+(.*?)\n"
+                          r"ptxas info\s+: Used (\d+) registers")
+
+
+def short_kernel_name(mangled: str) -> str:
+    """`gru_walk_kernel<float, LaneMajor, 1, 0>` from a mangled kernel name
+    (template arguments: the stream type, the layout, then the integers)."""
+    m = re.search(r"(gru_[a-z_]*?kernel|gru_bwd_reduce)(?:I(\w*?)EEv|Ev)", mangled)
+    if not m:
+        return mangled
+    rest = m.group(2) or ""
+    args = {"f": ["float"], "1": ["bf16"]}.get(rest[:1], [])
+    args += [rest[n.end():n.end() + int(n.group(1))] for n in re.finditer(r"NS_(\d+)", rest)]
+    args += re.findall(r"L[ib](\d+)E", rest)
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+
+
 def build_phase() -> None:
     t0 = time.perf_counter()
     seconds = _build.build()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"in {time.perf_counter() - t0:.2f} s")
     for name in seconds:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, props, regs in PTXAS_KERNEL.findall(_build.build_log(name)):
+            print(f"  ptxas {name}: {short_kernel_name(kernel)}: {regs} registers, {props}")
+            if not props.endswith("0 bytes spill stores, 0 bytes spill loads"):
+                raise AssertionError(f"ptxas {name}: {kernel} spills: {props}")
     for lib, c_fn, py_fn in (
             (gru_cuda._library(), "gru_fwd_shared_bytes", gru_cuda.shared_bytes),
             (gru_cuda._bwd_library(), "gru_bwd_shared_bytes", gru_cuda.bwd_shared_bytes)):
@@ -170,6 +196,24 @@ def build_phase() -> None:
                 raise AssertionError(f"{c_fn}: C says {c_bytes}, wrapper "
                                      f"{py_fn(SERVE_H, size)}")
             print(f"  {c_fn}(H={SERVE_H}, bf16={bf16}) = {c_bytes} bytes")
+    lib = gru_cuda._library()
+    for h in (SERVE_H, 128, 136, 192):
+        for bf16, size in ((0, 4), (1, 2)):
+            for rows in (1, 2, 4) + ((8,) if gru_cuda.walk_in_registers(h) else ()):
+                c_bytes = lib.gru_walk_shared_bytes(h, bf16, rows)
+                if c_bytes != gru_cuda.walk_shared_bytes(h, size, rows):
+                    raise AssertionError(
+                        f"gru_walk_shared_bytes(H={h}, bf16={bf16}, rows={rows}): C says "
+                        f"{c_bytes}, wrapper {gru_cuda.walk_shared_bytes(h, size, rows)}")
+    for batch in (1, 5, 64, 65, 256, 1024):
+        for lanes in (1, 2):
+            for h in (SERVE_H, 128):
+                if lib.gru_walk_row_tile(batch, lanes, h) != gru_cuda.walk_row_tile(batch, lanes, h):
+                    raise AssertionError(f"gru_walk_row_tile({batch}, {lanes}, {h}): C says "
+                                         f"{lib.gru_walk_row_tile(batch, lanes, h)}")
+    print(f"  gru_walk_shared_bytes(H={SERVE_H}, bf16=0, rows=1) = "
+          f"{lib.gru_walk_shared_bytes(SERVE_H, 0, 1)} bytes; C and wrapper agree on the "
+          "walk kernel's shared memory and row tile")
 
 
 def median_ms(fn, per_block: int, blocks: int = 5, warmup: int = 2) -> float:
@@ -228,25 +272,47 @@ def cudnn_ms(lanes, t, b, h, dtype) -> float:
         return median_ms(lambda: gru(x), per_block=20)
 
 
+# Shapes of the walk kernel (gru_fwd, gru_bifwd) beyond the main and the
+# ragged one, as (T, B, H, dtypes): H=128 and the largest H each dtype
+# admits (the first template's 135 / 190 and the formula's 136 / 192, W^T in
+# shared memory), one batch row, a batch that tiles 2 or 4 rows a block,
+# one step.
+F32, BF16 = (torch.float32,), (torch.bfloat16,)
+WALK_CASES = [(SERVE_T, SERVE_B, 128, F32 + BF16), (SERVE_T, SERVE_B, 135, F32),
+              (SERVE_T, SERVE_B, 136, F32), (SERVE_T, SERVE_B, 190, BF16),
+              (SERVE_T, SERVE_B, 192, BF16), (SERVE_T, 1, SERVE_H, F32 + BF16),
+              (SERVE_T, 256, SERVE_H, F32 + BF16), (1, SERVE_B, SERVE_H, F32 + BF16)]
+
+
+def walk_plan(lanes: int, batch: int, hidden: int) -> str:
+    """The walk kernel's row tile and instantiation for a shape."""
+    where = "registers" if gru_cuda.walk_in_registers(hidden) else "shared memory"
+    return f"row tile {gru_cuda.walk_row_tile(batch, lanes, hidden)}, W^T in {where}"
+
+
 def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     lanes = 2 if fb else None
-    cases = [(lanes, SERVE_T, SERVE_B, SERVE_H), (3 if fb else None, 37, 5, 40)]
+    both = (torch.float32, torch.bfloat16)
+    cases = [(lanes, SERVE_T, SERVE_B, SERVE_H, both), (3 if fb else None, 37, 5, 40, both)]
+    if name == "gru_fwd":
+        cases += [(None, *case) for case in WALK_CASES]
     serve_err = 0.0
-    for shape in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for *shape, dtypes in cases:
+        for dtype in dtypes:
             for reverse in (False, True):
                 args = kernel_inputs(*shape, dtype, seed=len(name) + shape[1])
                 got = wrapper(*args, reverse=reverse)
                 torch.cuda.synchronize()
                 want = plain(*args, reverse=reverse)
                 err = (got.float() - want.float()).abs().max().item()
+                plan = "" if fb else f" ({walk_plan(1, shape[2], shape[3])})"
                 print(f"{name}: shape F={shape[0]} T={shape[1]} B={shape[2]} "
                       f"H={shape[3]} {str(dtype)[6:]} reverse={reverse}: "
-                      f"max|d|={err:.3e}")
+                      f"max|d|={err:.3e}{plan}")
                 if got.dtype != dtype or got.shape != want.shape:
                     raise AssertionError(f"{name}: got {got.dtype} {list(got.shape)}")
                 torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-                if shape[1] == SERVE_T and dtype == torch.float32:
+                if shape[1:] == [SERVE_T, SERVE_B, SERVE_H] and dtype == torch.float32:
                     serve_err = max(serve_err, err)
     entry = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -255,8 +321,10 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
         plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
         lib_ms = cudnn_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
+        plan = "" if fb else f", {walk_plan(1, SERVE_B, SERVE_H)}"
         print(f"{name} {str(dtype)[6:]} at F={lanes or 1} T={SERVE_T} "
-              f"B={SERVE_B} H={SERVE_H}: kernel {ms:.4f} ms, plain "
+              f"B={SERVE_B} H={SERVE_H}: kernel {ms:.4f} ms "
+              f"({ms / SERVE_T * 1e3:.3f} us per dependent step{plan}), plain "
               f"{plain_ms:.3f} ms, cuDNN GRU {lib_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound")
         if dtype == torch.float32:
@@ -266,6 +334,24 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
                      "max_abs_err": serve_err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     return entry
+
+
+def walk_sweep() -> None:
+    """The walk kernel's float32 time at T=480, H=64 as the batch, and so
+    the block count, grows: one lane (gru_fwd) and two (gru_bifwd). Shows
+    whether the per-step cost depends on the layout or on the blocks."""
+    for lanes, batches in ((1, (16, 64, 128, 256)), (2, (32, 64, 128))):
+        for b in batches:
+            if lanes == 1:
+                args = kernel_inputs(None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
+                ms = median_ms(lambda: gru_cuda.gru_forward(*args), per_block=50)
+            else:
+                args = fused_inputs(SERVE_T, b, SERVE_H, seed=7, adjoint=False)
+                ms = median_ms(lambda: gru_cuda.gru_bifwd(*args), per_block=50)
+            rows = gru_cuda.walk_row_tile(b, lanes, SERVE_H)
+            print(f"walk sweep: {'gru_fwd' if lanes == 1 else 'gru_bifwd'} float32 "
+                  f"T={SERVE_T} B={b} H={SERVE_H}: {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us "
+                  f"per dependent step), {-(-b // rows) * lanes} blocks of row tile {rows}")
 
 
 def bwd_bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
@@ -378,22 +464,27 @@ def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) ->
     cuDNN's bidirectional GRU, forward or backward)."""
     outputs = ("dxg2", "dW", "db", "dh0") if adjoint else ("ys2",)
     serve_err = 0.0
-    for t, b, h in ((SERVE_T, SERVE_B, SERVE_H), (37, 5, 40)):
+    cases = [(SERVE_T, SERVE_B, SERVE_H), (37, 5, 40)]
+    if not adjoint:
+        cases += [(t, b, h) for t, b, h, dtypes in WALK_CASES
+                  if torch.float32 in dtypes]
+    for t, b, h in cases:
         args = fused_inputs(t, b, h, seed=len(name) + t, adjoint=adjoint)
         got = wrapper(*args)
         torch.cuda.synchronize()
         want = plain(*args)
         got, want = (got, want) if adjoint else ((got,), (want,))
         errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        plan = "" if adjoint else f" ({walk_plan(2, b, h)})"
         print(f"{name}: shape T={t} B={b} H={h} float32: max|d| "
-              + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)))
+              + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)) + plan)
         for o, g, w in zip(outputs, got, want):
             if g.dtype != torch.float32 or g.shape != w.shape:
                 raise AssertionError(f"{name} {o}: got {g.dtype} {list(g.shape)}")
             tol = (BWD_TOL[torch.float32][o in ("dW", "db")] if adjoint
                    else TOL[torch.float32])
             torch.testing.assert_close(g, w, **tol, msg=lambda m, o=o: f"{name} {o}: {m}")
-        if t == SERVE_T:
+        if (t, b, h) == (SERVE_T, SERVE_B, SERVE_H):
             serve_err = max(errs)
     args = fused_inputs(SERVE_T, SERVE_B, SERVE_H, seed=7, adjoint=adjoint)
     ms = median_ms(lambda: wrapper(*args), per_block=50)
@@ -401,8 +492,10 @@ def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) ->
     shape = (2, SERVE_T, SERVE_B, SERVE_H, torch.float32)
     lib_ms = cudnn_bwd_ms(*shape) if adjoint else cudnn_ms(*shape)
     b_ms, b_by = bwd_bound_ms(*shape) if adjoint else bound_ms(*shape)
+    plan = "" if adjoint else f", {walk_plan(2, SERVE_B, SERVE_H)}"
     print(f"{name} float32 at T={SERVE_T} 2 directions B={SERVE_B} H={SERVE_H}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, cuDNN bidirectional GRU "
+          f"kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent step{plan}), "
+          f"plain {plain_ms:.3f} ms, cuDNN bidirectional GRU "
           f"{'backward ' if adjoint else ''}{lib_ms:.4f} ms, bound {b_ms:.5f} ms "
           f"({b_by}), {b_ms / ms:.2%} of bound")
     return {"name": name, "route": "cuda",
@@ -870,6 +963,7 @@ def main() -> int:
                            adjoint=True,
                            source_line="multimodalsignal_tpu/ops/gru_pallas.py:945"),
     ]
+    walk_sweep()
     with tempfile.TemporaryDirectory() as tmp:
         pkl = Path(tmp) / "S99.pkl"
         write_recording(pkl, seconds=300, seed=2)

@@ -1,9 +1,9 @@
 """GRU recurrence: hand-written CUDA kernels and their plain versions.
 
 Counterpart of multimodalsignal_tpu/ops/gru_pallas.py's single-direction,
-fold-batched and fused bidirectional kernels. Two sources, each one template
-with a lane axis and a stream layout, and three C entry points each, every
-entry behind its own wrapper here:
+fold-batched and fused bidirectional kernels. Two sources, their kernels
+templates with a lane axis and a stream layout, and three C entry points
+each, every entry behind its own wrapper here:
 
   csrc/gru_fwd.cu
   * `gru_forward`     -> C `gru_fwd`     (replaces `_fwd_kernel` / `_gru_forward`)
@@ -21,6 +21,13 @@ adjoint kernel), and the model-facing entry points go through those:
   * `gru_sequence_cuda`          (counterpart of `gru_sequence_pallas`)
   * `gru_bidirectional_dirbatch` (counterpart of the JAX function of that name)
   * `gru_bidirectional_fused`    (counterpart of `gru_bidirectional_pallas`)
+
+`gru_fwd` and `gru_bifwd` run the walk kernel (`gru_walk_kernel`): one
+block per (lane, tile of rows), W^T in registers up to H = 64 and in shared
+memory above, h double-buffered with one barrier a step, xg prefetched;
+`walk_row_tile` and `walk_shared_bytes` mirror how its C side picks the
+tile and sizes shared memory. `gru_fwd_fb` runs the older forward template
+(`gru_fwd_kernel`, sized by `shared_bytes`).
 
 The wrappers take the TPU kernels' time-major layout. A wrapper given CPU
 tensors runs its plain PyTorch version (`*_plain`: a Python loop over time
@@ -52,6 +59,14 @@ ROWS_PER_BLOCK = 4
 BWD_ROWS_PER_BLOCK = 4
 # Dynamic shared memory one block may use on sm_90 (232,448 bytes).
 MAX_SHARED_BYTES = 232_448
+# The walk kernel (gru_fwd, gru_bifwd), as csrc/gru_fwd.cu lays it out: W^T
+# in registers up to WALK_REG_MAX_HIDDEN, with WALK_SUBLANES threads per
+# hidden unit (K split across them), which is also the most rows a block
+# takes; the row tile fills NUM_SMS.
+NUM_SMS = 132
+WALK_REG_MAX_HIDDEN = 64
+WALK_SUBLANES = {True: 8, False: 4}   # by "W in registers"
+WALK_REG_KPAD = 64                     # K padded to 8 sub-lanes x 2 chunks of 4
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -62,6 +77,37 @@ def shared_bytes(hidden: int, itemsize: int) -> int:
     its operand copy and the step's hg for ROWS_PER_BLOCK rows."""
     w = (hidden * 3 * hidden * itemsize + 15) // 16 * 16
     return w + (2 * ROWS_PER_BLOCK * hidden + ROWS_PER_BLOCK * 3 * hidden) * 4
+
+
+def walk_in_registers(hidden: int) -> bool:
+    """Which instantiation of the walk kernel takes this H: W^T in
+    registers, or in shared memory."""
+    return hidden <= WALK_REG_MAX_HIDDEN
+
+
+def walk_row_tile(batch: int, lanes: int, hidden: int) -> int:
+    """Rows per block of the walk kernel (as gru_walk_row_tile in C): the
+    least power of two that brings ceil(B / R) * lanes blocks down to
+    NUM_SMS, at most the threads per hidden unit."""
+    most = WALK_SUBLANES[walk_in_registers(hidden)]
+    want = -(-batch * lanes // NUM_SMS)
+    rows = 1
+    while rows < want and rows < most:
+        rows *= 2
+    return rows
+
+
+def walk_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
+    """Shared memory per block of the walk kernel (as gru_walk_shared_bytes
+    in C): W [3H, K padded to 4] in the stream dtype, padded to 16 bytes,
+    for the shared-memory instantiation, then two f32 buffers of the tile's
+    h operand, [rows, K padded]. `rows` defaults to the most a block takes,
+    so the limit on H holds for every batch."""
+    regs = walk_in_registers(hidden)
+    rows = WALK_SUBLANES[regs] if rows is None else rows
+    kpad = WALK_REG_KPAD if regs else -(-hidden // 4) * 4
+    w = 0 if regs else (3 * hidden * kpad * itemsize + 15) // 16 * 16
+    return w + 2 * rows * kpad * 4
 
 
 def bwd_shared_bytes(hidden: int, itemsize: int) -> int:
@@ -245,6 +291,10 @@ def _library() -> ctypes.CDLL:
     lib.gru_bifwd.restype = i32
     lib.gru_fwd_shared_bytes.argtypes = [i32, i32]
     lib.gru_fwd_shared_bytes.restype = ctypes.c_longlong
+    lib.gru_walk_shared_bytes.argtypes = [i32, i32, i32]
+    lib.gru_walk_shared_bytes.restype = ctypes.c_longlong
+    lib.gru_walk_row_tile.argtypes = [i32, i32, i32]
+    lib.gru_walk_row_tile.restype = i32
     return lib
 
 
@@ -266,9 +316,10 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=shared_bytes):
+def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
     """Validate what the kernel takes; returns (lanes, T, B, H). `smem` is
-    the kernel's shared-memory formula."""
+    the kernel's shared-memory formula (default: the walk kernel's for one
+    lane, the first template's for F lanes)."""
     if xg.dim() != (4 if fb else 3):
         raise ValueError(f"xg must be [{'F, ' if fb else ''}T, B, 3H], "
                          f"got {list(xg.shape)}")
@@ -296,6 +347,7 @@ def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=shared_bytes):
                         f"({xg.dtype}), got {w_hh.dtype} and {b_hh.dtype}")
     if h0.dtype != torch.float32:
         raise TypeError(f"h0 must be float32 (the carry), got {h0.dtype}")
+    smem = smem or (shared_bytes if fb else walk_shared_bytes)
     need = smem(hidden, xg.element_size())
     if need > MAX_SHARED_BYTES:
         raise ValueError(
@@ -482,7 +534,7 @@ def gru_bifwd(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
     of _bigru_forward), float32: xg2 [T, 2, B, 3H] with direction 1 already
     flipped in time, whh2 [2, 3H, H], bhh2 [2, 3H], h02 [2, B, H]
     -> ys2 [T, 2, B, H]."""
-    n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, shared_bytes)
+    n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, walk_shared_bytes)
     if xg2.device.type == "cpu":
         return gru_bifwd_plain(xg2, whh2, bhh2, h02)
     _require_cuda(xg2)

@@ -138,3 +138,51 @@ def test_cuda_argument_checks():
     with pytest.raises(ValueError, match="shared memory"):
         check(torch.zeros(2, 1, 3 * big), torch.zeros(3 * big, big),
               torch.zeros(3 * big), torch.zeros(1, big), fb=False)
+
+
+# Largest hidden sizes the walk kernel (gru_fwd) takes, from its shared-memory
+# formula, and the largest the first template took; every H up to the old
+# limit is still taken.
+WALK_MAX_HIDDEN = {"float32": 136, "bfloat16": 192}
+FIRST_MAX_HIDDEN = {"float32": 135, "bfloat16": 190}
+
+
+def _walk_args(h, dtype):
+    dt = getattr(torch, dtype)
+    return (torch.zeros(1, 1, 3 * h, dtype=dt), torch.zeros(3 * h, h, dtype=dt),
+            torch.zeros(3 * h, dtype=dt), torch.zeros(1, h))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_walk_kernel_admits_every_earlier_hidden_size(dtype):
+    """gru_fwd's argument check follows the walk kernel's shared-memory
+    formula: it takes every H the first template took, and refuses the
+    first H past the new limit before any launch."""
+    item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    assert gru_cuda.walk_shared_bytes(WALK_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
+    assert gru_cuda.walk_shared_bytes(WALK_MAX_HIDDEN[dtype] + 1, item) > gru_cuda.MAX_SHARED_BYTES
+    for h in range(1, WALK_MAX_HIDDEN[dtype] + 1):
+        assert gru_cuda._check_cuda_args(*_walk_args(h, dtype), fb=False) == (1, 1, 1, h)
+    assert WALK_MAX_HIDDEN[dtype] >= FIRST_MAX_HIDDEN[dtype]
+    assert gru_cuda.shared_bytes(FIRST_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_cuda._check_cuda_args(*_walk_args(WALK_MAX_HIDDEN[dtype] + 1, dtype), fb=False)
+
+
+@pytest.mark.parametrize("hidden", [16, 64, 65, 128])
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("batch", [1, 5, 63, 64, 65, 256])
+def test_walk_row_tile_covers_every_row_once(batch, lanes, hidden):
+    """The walk kernel's blocks, ceil(B / R) tiles of R rows (rows past B
+    masked), cover each batch row exactly once; R is a power of two of at
+    most the threads per unit, and grows only while the blocks would
+    outnumber the SMs."""
+    rows = gru_cuda.walk_row_tile(batch, lanes, hidden)
+    most = gru_cuda.WALK_SUBLANES[gru_cuda.walk_in_registers(hidden)]
+    assert rows & (rows - 1) == 0 and 1 <= rows <= most
+    tiles = -(-batch // rows)
+    covered = [t * rows + r for t in range(tiles) for r in range(rows) if t * rows + r < batch]
+    assert covered == list(range(batch))
+    assert tiles * lanes <= gru_cuda.NUM_SMS or rows == most
+    if rows > 1:
+        assert -(-batch // (rows // 2)) * lanes > gru_cuda.NUM_SMS

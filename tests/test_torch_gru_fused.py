@@ -210,3 +210,18 @@ def test_pallas_fused_bf16_bigru_matches_jax(layers, prune):
         f"{(excess > limit).sum()} of {excess.size} outputs beyond their limit, "
         f"worst {excess[..., :H].max():.1f} ulp in the first half, "
         f"{excess[..., H:].max():.1f} in the second")
+
+
+@pytest.mark.parametrize("hidden", [1, 8, 64, 65, 128, 135, 136])
+def test_bifwd_admits_every_earlier_hidden_size(hidden):
+    """gru_bifwd's check follows the walk kernel's shared-memory formula: it
+    takes every H up to 135 (the first template's limit) and 136, on the
+    CPU as on the card, and refuses 137 before any launch."""
+    z = torch.zeros
+    args = (z(1, 2, 1, 3 * hidden), z(2, 3 * hidden, hidden), z(2, 3 * hidden), z(2, 1, hidden))
+    assert gru_cuda._check_bi_args(*args, gru_cuda.walk_shared_bytes) == (1, 1, hidden)
+    assert gru_cuda.gru_bifwd(*args).shape == (1, 2, 1, hidden)
+    big = 137
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_cuda.gru_bifwd(z(1, 2, 1, 3 * big), z(2, 3 * big, big), z(2, 3 * big),
+                           z(2, 1, big))
