@@ -10,23 +10,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    once) into multimodalsignal_tpu_torch/ops/build/; print ptxas's
    registers and spills per kernel instantiation and fail on any spill;
    check each kernel's shared-memory size in C against its wrapper's
-   formula, and the walk kernel's row tile (gru_fwd, gru_bifwd) too.
+   formula, the walk kernel's row tile (gru_fwd, gru_fwd_fb, gru_bifwd), and
+   the adjoint walk's (gru_bwd) row tile, chunks of rows and workspace.
 3. One phase per kernel: the wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, float32 and bfloat16, both walk
    directions, at the serving/training shape (T=480, B=64, H=64; F=2 lanes
-   for the _fb kernels) and a ragged one; the walk kernel (gru_fwd, and
-   gru_bifwd in float32) also at WALK_CASES: H=128, the largest H each
-   dtype admits, B=1, B=256 and T=1, each line with its row tile and
-   instantiation (W^T in registers or in shared memory); then the walk
-   kernel's float32 time as B grows (walk_sweep). TF32 is off for matmul
-   and cuDNN.
+   for the _fb kernels) and a ragged one; the walk kernel also at
+   WALK_CASES (gru_fwd, and gru_bifwd in float32: H=128, the largest H each
+   dtype admits, B=1, B=256 and T=1) and FB_CASES (gru_fwd_fb: the same at
+   two lanes, and F=4 at B=128, F=15 at B=64 for row tiles 4 and 8), each
+   line with its row tile and instantiation (W^T in registers or in shared
+   memory); the adjoint walk (gru_bwd) also at ADJ_CASES (H=95 f32, 109
+   bf16, 128, B=1, B=256, T=1, and a dy that is zero but at the forward's
+   last step), each line with its row tile, instantiation and chunks, and
+   twice on the same inputs with dW and db bitwise equal; then the walks'
+   float32 time as B grows (walk_sweep). TF32 is off for matmul and cuDNN.
    Forward kernels (gru_fwd, gru_fwd_fb): ys, float32 rtol = atol = 1e-5,
    bfloat16 atol 0.05. Adjoint kernels (gru_bwd, gru_bwd_fb): all four
    outputs, tolerances in BWD_TOL. Then the times at the main shape: the
    kernel, the plain version, the least time the card could take, and
    cuDNN's GRU (nn.GRU: the forward, or for an adjoint kernel the backward
-   as forward+backward minus forward; it also does the input projection);
-   forward kernels also print us per dependent step (ms / T).
+   as forward+backward minus forward; it also does the input projection),
+   and us per dependent step (ms / T); for gru_bwd also a profiler trace of
+   its four kernels (gate pre-pass, walk, weight-gradient pass, reduction).
 4. The serving path: the default-config CnnGruAttention model (C=3,
    T=7680, H=64, 2 layers) with weights from a numpy seed, in float32 and
    bfloat16, behind the port's HTTP server: GET /healthz, POST /v1/predict
@@ -167,7 +173,7 @@ PTXAS_KERNEL = re.compile(r"Function properties for (\S+)\n\s+(.*?)\n"
 def short_kernel_name(mangled: str) -> str:
     """`gru_walk_kernel<float, LaneMajor, 1, 0>` from a mangled kernel name
     (template arguments: the stream type, the layout, then the integers)."""
-    m = re.search(r"(gru_[a-z_]*?kernel|gru_bwd_reduce)(?:I(\w*?)EEv|Ev)", mangled)
+    m = re.search(r"(gru_[a-z_]*?kernel|gru_[a-z]+_reduce)(?:I(\w*?)EEv|E)", mangled)
     if not m:
         return mangled
     rest = m.group(2) or ""
@@ -187,15 +193,14 @@ def build_phase() -> None:
             print(f"  ptxas {name}: {short_kernel_name(kernel)}: {regs} registers, {props}")
             if not props.endswith("0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"ptxas {name}: {kernel} spills: {props}")
-    for lib, c_fn, py_fn in (
-            (gru_cuda._library(), "gru_fwd_shared_bytes", gru_cuda.shared_bytes),
-            (gru_cuda._bwd_library(), "gru_bwd_shared_bytes", gru_cuda.bwd_shared_bytes)):
-        for bf16, size in ((0, 4), (1, 2)):
-            c_bytes = getattr(lib, c_fn)(SERVE_H, bf16)
-            if c_bytes != py_fn(SERVE_H, size):
-                raise AssertionError(f"{c_fn}: C says {c_bytes}, wrapper "
-                                     f"{py_fn(SERVE_H, size)}")
-            print(f"  {c_fn}(H={SERVE_H}, bf16={bf16}) = {c_bytes} bytes")
+    bwd = gru_cuda._bwd_library()
+    for bf16, size in ((0, 4), (1, 2)):
+        c_bytes = bwd.gru_bwd_shared_bytes(SERVE_H, bf16)
+        if c_bytes != gru_cuda.bwd_shared_bytes(SERVE_H, size):
+            raise AssertionError(f"gru_bwd_shared_bytes: C says {c_bytes}, wrapper "
+                                 f"{gru_cuda.bwd_shared_bytes(SERVE_H, size)}")
+        print(f"  gru_bwd_shared_bytes(H={SERVE_H}, bf16={bf16}) = {c_bytes} bytes")
+    check_adjoint_formulas(bwd)
     lib = gru_cuda._library()
     for h in (SERVE_H, 128, 136, 192):
         for bf16, size in ((0, 4), (1, 2)):
@@ -214,6 +219,41 @@ def build_phase() -> None:
     print(f"  gru_walk_shared_bytes(H={SERVE_H}, bf16=0, rows=1) = "
           f"{lib.gru_walk_shared_bytes(SERVE_H, 0, 1)} bytes; C and wrapper agree on the "
           "walk kernel's shared memory and row tile")
+
+
+def check_adjoint_formulas(bwd) -> None:
+    """The adjoint walk's (gru_bwd) shared memory, row tile, chunks of rows
+    and workspace, C against gru_cuda's Python twins."""
+    def same(what, c_val, py_val):
+        if c_val != py_val:
+            raise AssertionError(f"{what}: C says {c_val}, wrapper {py_val}")
+
+    for h in (40, SERVE_H, 65, 95, 109, 128, 130, 179):
+        for bf16, size in ((0, 4), (1, 2)):
+            for rows in (1,) + ((2,) if gru_cuda.walk_in_registers(h) else ()):
+                same(f"gru_adj_shared_bytes(H={h}, bf16={bf16}, rows={rows})",
+                     bwd.gru_adj_shared_bytes(h, bf16, rows),
+                     gru_cuda.adj_shared_bytes(h, size, rows))
+    for batch in (1, 5, 64, 65, 256, 1024):
+        for lanes in (1, 2, 15):
+            for h in (SERVE_H, 128):
+                same(f"gru_adj_row_tile({batch}, {lanes}, {h})",
+                     bwd.gru_adj_row_tile(batch, lanes, h), gru_cuda.adj_row_tile(batch, lanes, h))
+        for t in (1, 37, SERVE_T):
+            same(f"gru_adj_chunk_rows/partials({t}, {batch})",
+                 (bwd.gru_adj_chunk_rows(t, batch), bwd.gru_adj_partials(t, batch)),
+                 gru_cuda.adj_partials(t, batch))
+            for lanes in (1, 2):
+                same(f"gru_adj_workspace_floats({lanes}, {t}, {batch}, {SERVE_H})",
+                     bwd.gru_adj_workspace_floats(lanes, t, batch, SERVE_H),
+                     gru_cuda.adj_workspace_floats(lanes, t, batch, SERVE_H))
+    chunk, parts = gru_cuda.adj_partials(SERVE_T, SERVE_B)
+    print(f"  gru_adj_shared_bytes(H={SERVE_H}, bf16=0, rows=1) = "
+          f"{bwd.gru_adj_shared_bytes(SERVE_H, 0, 1)} bytes; at T={SERVE_T} B={SERVE_B}: "
+          f"{parts} chunks of {chunk} rows, workspace "
+          f"{gru_cuda.adj_workspace_floats(1, SERVE_T, SERVE_B, SERVE_H) * 4 / 2**20:.1f} MiB; "
+          "C and wrapper agree on the adjoint walk's shared memory, row tile, chunks "
+          "and workspace")
 
 
 def median_ms(fn, per_block: int, blocks: int = 5, warmup: int = 2) -> float:
@@ -284,6 +324,14 @@ WALK_CASES = [(SERVE_T, SERVE_B, 128, F32 + BF16), (SERVE_T, SERVE_B, 135, F32),
               (SERVE_T, 256, SERVE_H, F32 + BF16), (1, SERVE_B, SERVE_H, F32 + BF16)]
 
 
+# Shapes of gru_fwd_fb (F lanes of the walk kernel) beyond the main and the
+# ragged one, as (F, T, B, H, dtypes): WALK_CASES at two lanes, then 4 lanes
+# at B=128 (row tile 4) and 15 at B=64 (row tile 8, the fold-parallel
+# lanes).
+FB_CASES = [(2, *case) for case in WALK_CASES] + [
+    (4, SERVE_T, 128, SERVE_H, F32 + BF16), (15, SERVE_T, SERVE_B, SERVE_H, F32 + BF16)]
+
+
 def walk_plan(lanes: int, batch: int, hidden: int) -> str:
     """The walk kernel's row tile and instantiation for a shape."""
     where = "registers" if gru_cuda.walk_in_registers(hidden) else "shared memory"
@@ -294,8 +342,7 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     lanes = 2 if fb else None
     both = (torch.float32, torch.bfloat16)
     cases = [(lanes, SERVE_T, SERVE_B, SERVE_H, both), (3 if fb else None, 37, 5, 40, both)]
-    if name == "gru_fwd":
-        cases += [(None, *case) for case in WALK_CASES]
+    cases += FB_CASES if fb else [(None, *case) for case in WALK_CASES]
     serve_err = 0.0
     for *shape, dtypes in cases:
         for dtype in dtypes:
@@ -305,7 +352,7 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
                 torch.cuda.synchronize()
                 want = plain(*args, reverse=reverse)
                 err = (got.float() - want.float()).abs().max().item()
-                plan = "" if fb else f" ({walk_plan(1, shape[2], shape[3])})"
+                plan = f" ({walk_plan(shape[0] or 1, shape[2], shape[3])})"
                 print(f"{name}: shape F={shape[0]} T={shape[1]} B={shape[2]} "
                       f"H={shape[3]} {str(dtype)[6:]} reverse={reverse}: "
                       f"max|d|={err:.3e}{plan}")
@@ -321,7 +368,7 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
         plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
         lib_ms = cudnn_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
-        plan = "" if fb else f", {walk_plan(1, SERVE_B, SERVE_H)}"
+        plan = f", {walk_plan(lanes or 1, SERVE_B, SERVE_H)}"
         print(f"{name} {str(dtype)[6:]} at F={lanes or 1} T={SERVE_T} "
               f"B={SERVE_B} H={SERVE_H}: kernel {ms:.4f} ms "
               f"({ms / SERVE_T * 1e3:.3f} us per dependent step{plan}), plain "
@@ -337,19 +384,26 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
 
 
 def walk_sweep() -> None:
-    """The walk kernel's float32 time at T=480, H=64 as the batch, and so
-    the block count, grows: one lane (gru_fwd) and two (gru_bifwd). Shows
-    whether the per-step cost depends on the layout or on the blocks."""
-    for lanes, batches in ((1, (16, 64, 128, 256)), (2, (32, 64, 128))):
+    """The walk kernels' float32 time at T=480, H=64 as the batch, and so
+    the block count, grows: one lane (gru_fwd), two (gru_bifwd), and the
+    adjoint walk (gru_bwd, all four of its kernels). Shows whether the
+    per-step cost depends on the layout or on the blocks."""
+    for name, lanes, batches in (("gru_fwd", 1, (16, 64, 128, 256)),
+                                 ("gru_bifwd", 2, (32, 64, 128)),
+                                 ("gru_bwd", 1, (16, 64, 128, 256))):
         for b in batches:
-            if lanes == 1:
+            if name == "gru_fwd":
                 args = kernel_inputs(None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
                 ms = median_ms(lambda: gru_cuda.gru_forward(*args), per_block=50)
-            else:
+            elif name == "gru_bifwd":
                 args = fused_inputs(SERVE_T, b, SERVE_H, seed=7, adjoint=False)
                 ms = median_ms(lambda: gru_cuda.gru_bifwd(*args), per_block=50)
-            rows = gru_cuda.walk_row_tile(b, lanes, SERVE_H)
-            print(f"walk sweep: {'gru_fwd' if lanes == 1 else 'gru_bifwd'} float32 "
+            else:
+                args = bwd_inputs(None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
+                ms = median_ms(lambda: gru_cuda.gru_backward(*args), per_block=50)
+            tile = gru_cuda.adj_row_tile if name == "gru_bwd" else gru_cuda.walk_row_tile
+            rows = tile(b, lanes, SERVE_H)
+            print(f"walk sweep: {name} float32 "
                   f"T={SERVE_T} B={b} H={SERVE_H}: {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us "
                   f"per dependent step), {-(-b // rows) * lanes} blocks of row tile {rows}")
 
@@ -388,34 +442,77 @@ def cudnn_bwd_ms(lanes, t, b, h, dtype) -> float:
     return both - fwd
 
 
-def bwd_inputs(lanes, t, b, h, dtype, seed):
-    """kernel_inputs, then ys from the plain forward and dy N(0, 1)."""
+def bwd_inputs(lanes, t, b, h, dtype, seed, reverse=False, last_only=False):
+    """kernel_inputs, then ys from the plain forward in the walk direction
+    and dy N(0, 1); with `last_only` dy is zero but at the forward's last
+    step (what the last-step-pruned layer sends back)."""
     xg, w, bias, h0 = kernel_inputs(lanes, t, b, h, dtype, seed)
     lead = () if lanes is None else (lanes,)
     fwd = gru_cuda.gru_forward_fb_plain if lanes else gru_cuda.gru_forward_plain
-    ys = fwd(xg, w, bias, h0)
+    ys = fwd(xg, w, bias, h0, reverse)
     dy = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
         lead + (t, b, h))).to("cuda", dtype)
+    if last_only:
+        keep = torch.arange(t, device="cuda") == (0 if reverse else t - 1)
+        dy = torch.where(keep[:, None, None], dy, torch.zeros_like(dy)).contiguous()
     return xg, w, bias, h0, ys.contiguous(), dy
+
+
+# Shapes of gru_bwd (the adjoint walk) beyond the main and the ragged one,
+# as (T, B, H, dtypes, last_only): the largest H of the first template (95
+# f32, 109 bf16), H=128 (W in shared memory), one batch row, B=256 (row
+# tile 2), one step, and a dy that is zero but at the forward's last step.
+ADJ_CASES = [(SERVE_T, SERVE_B, 95, F32, False), (SERVE_T, SERVE_B, 109, BF16, False),
+             (SERVE_T, SERVE_B, 128, F32 + BF16, False), (SERVE_T, 1, SERVE_H, F32 + BF16, False),
+             (SERVE_T, 256, SERVE_H, F32 + BF16, False), (1, SERVE_B, SERVE_H, F32 + BF16, False),
+             (SERVE_T, SERVE_B, SERVE_H, F32 + BF16, True)]
+
+
+def adj_plan(t: int, batch: int, hidden: int) -> str:
+    """The adjoint walk's row tile, instantiation and chunks of rows."""
+    where = "registers" if gru_cuda.walk_in_registers(hidden) else "shared memory"
+    chunk, parts = gru_cuda.adj_partials(t, batch)
+    return (f"row tile {gru_cuda.adj_row_tile(batch, 1, hidden)}, W in {where}, "
+            f"{parts} chunks of {chunk} rows")
+
+
+def check_deterministic(name, wrapper, dtype) -> None:
+    """Two calls on the same inputs give the same bits of dW and db."""
+    args = bwd_inputs(None, SERVE_T, SERVE_B, SERVE_H, dtype, seed=11)
+    first = wrapper(*args)
+    second = wrapper(*args)
+    torch.cuda.synchronize()
+    for o, a, b in (("dW", first[1], second[1]), ("db", first[2], second[2])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} {str(dtype)[6:]}: {o} differs between two runs "
+                                 f"(max |d| {(a - b).abs().max().item():.3e})")
+    print(f"{name} {str(dtype)[6:]}: dW and db bitwise equal over two runs")
 
 
 def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     lanes = 2 if fb else None
-    cases = [(lanes, SERVE_T, SERVE_B, SERVE_H), (3 if fb else None, 37, 5, 40)]
+    both = (torch.float32, torch.bfloat16)
+    cases = [(lanes, SERVE_T, SERVE_B, SERVE_H, both, False),
+             (3 if fb else None, 37, 5, 40, both, False)]
+    if name == "gru_bwd":
+        cases += [(None, *case) for case in ADJ_CASES]
     serve_err = 0.0
     outputs = ("dxg", "dW", "db", "dh0")
-    for shape in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for *shape, dtypes, last_only in cases:
+        for dtype in dtypes:
             for reverse in (False, True):
-                args = bwd_inputs(*shape, dtype, seed=len(name) + shape[1])
+                args = bwd_inputs(*shape, dtype, seed=len(name) + shape[1], reverse=reverse,
+                                  last_only=last_only)
                 got = wrapper(*args, reverse=reverse)
                 torch.cuda.synchronize()
                 want = plain(*args, reverse=reverse)
                 errs = [(g.float() - w.float()).abs().max().item()
                         for g, w in zip(got, want)]
+                plan = f" ({adj_plan(*shape[1:])})" if name == "gru_bwd" else ""
                 print(f"{name}: shape F={shape[0]} T={shape[1]} B={shape[2]} "
-                      f"H={shape[3]} {str(dtype)[6:]} reverse={reverse}: max|d| "
-                      + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)))
+                      f"H={shape[3]} {str(dtype)[6:]} reverse={reverse}"
+                      f"{' dy at the last step only' if last_only else ''}: max|d| "
+                      + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)) + plan)
                 for o, g, w in zip(outputs, got, want):
                     want_dt = dtype if o == "dxg" else torch.float32
                     if g.dtype != want_dt or g.shape != w.shape:
@@ -423,19 +520,24 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
                     tol = BWD_TOL[dtype][o in ("dW", "db")]
                     torch.testing.assert_close(g.float(), w.float(), **tol,
                                                msg=lambda m, o=o: f"{name} {o}: {m}")
-                if shape[1] == SERVE_T and dtype == torch.float32:
+                if shape[1:] == [SERVE_T, SERVE_B, SERVE_H] and dtype == torch.float32:
                     serve_err = max(serve_err, *errs)
     entry = {}
     for dtype in (torch.float32, torch.bfloat16):
+        if name == "gru_bwd":
+            check_deterministic(name, wrapper, dtype)
         args = bwd_inputs(lanes, SERVE_T, SERVE_B, SERVE_H, dtype, seed=7)
         ms = median_ms(lambda: wrapper(*args), per_block=50)
         plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
         lib_ms = cudnn_bwd_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         b_ms, b_by = bwd_bound_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         print(f"{name} {str(dtype)[6:]} at F={lanes or 1} T={SERVE_T} "
-              f"B={SERVE_B} H={SERVE_H}: kernel {ms:.4f} ms, plain "
+              f"B={SERVE_B} H={SERVE_H}: kernel {ms:.4f} ms "
+              f"({ms / SERVE_T * 1e3:.3f} us per dependent step), plain "
               f"{plain_ms:.3f} ms, cuDNN GRU backward {lib_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound")
+        if name == "gru_bwd":
+            trace(lambda: wrapper(*args), f"{str(dtype)[6:]} gru_bwd call")
         if dtype == torch.float32:
             entry = {"name": name, "route": "cuda",
                      "source": "multimodalsignal_tpu_torch/ops/csrc/gru_bwd.cu",

@@ -27,13 +27,11 @@
 // operands are bf16 (h is rounded to bf16 before the product) and the sums
 // are float32, as the TPU kernels' bf16 mode does; otherwise all is float32.
 //
-// Two kernels walk that recurrence.
-//
-// gru_walk_kernel (C entries gru_fwd and gru_bifwd). What bounds it on the
-// card is latency: at the serving shape (T=480, B=64, H=64) the bytes (xg
-// read once, ys written once) and the FLOPs take ~0.01 ms, but the 480 steps
-// depend on one another, so the walk costs T times one step's critical
-// path. The design shortens that path:
+// One kernel walks that recurrence for all three entries, gru_walk_kernel.
+// What bounds it on the card is latency: at the serving shape (T=480, B=64,
+// H=64) the bytes (xg read once, ys written once) and the FLOPs take
+// ~0.01 ms, but the 480 steps depend on one another, so the walk costs T
+// times one step's critical path. The design shortens that path:
 //   * One block per (lane, tile of R batch rows); R is chosen per (B, lanes)
 //     before the launch (walk_row_tile) so that ceil(B/R) * lanes blocks
 //     fill the 132 SMs (R = 1 at B=64: 64 blocks, 128 for two lanes); rows
@@ -61,16 +59,11 @@
 // ~30, 24 FMAs in three chains of 8 ~40, three shuffle rounds ~80, the gate
 // math (two expf, a tanhf, IEEE divisions) ~200, the h store and barrier
 // ~50: ~0.25 us a step. chip_smoke.py measures ~0.6 us a step in float32
-// on an H100 (700 W), against ~3 us for gru_fwd_kernel below. A larger R
-// lengthens the FMA chains and the shuffles, hence R grows only when
-// B * lanes leaves no SM free.
-//
-// gru_fwd_kernel (C entry gru_fwd_fb, F lanes): the first port's template.
-// One block owns one lane and a tile of kRows batch rows; it copies W^T
-// into shared memory, and each step thread c (one per gate column) forms
-// hg[r][c] from shared h and W^T; barrier; gate math per (row, unit) with
-// xg read from device memory; barrier. Its next version is the walk kernel
-// above.
+// on an H100 (700 W), against ~3-4 us for the first port's template (four
+// rows a block, W^T and h read from shared memory every step, two barriers
+// a step), which this kernel replaced. A larger R lengthens the FMA chains
+// and the shuffles, hence R grows only when B * lanes leaves no SM free
+// (F = 4 lanes at B = 128 take R = 4, F = 15 at B = 64 take R = 8).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,8 +71,6 @@
 #include <cstddef>
 
 namespace {
-
-constexpr int kRows = 4;  // batch rows per block (ROWS_PER_BLOCK in gru_cuda.py)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -110,99 +101,8 @@ struct TimeMajor {  // [T, F, B, width]: gru_bifwd
   }
 };
 
-// Dynamic shared memory of one block: W^T in the stream dtype, then the f32
-// carry, the carry rounded to the operand dtype, and the step's hg.
-__host__ __device__ constexpr size_t shared_bytes(int hidden, size_t itemsize) {
-  return align16(size_t(hidden) * 3 * hidden * itemsize) +
-         (size_t(2) * kRows * hidden + size_t(kRows) * 3 * hidden) * sizeof(float);
-}
-
-template <typename T, typename Layout>
-__global__ void __launch_bounds__(1024)
-    gru_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
-                   const T* __restrict__ b_hh, const float* __restrict__ h0,
-                   T* __restrict__ ys, int n_steps, int batch, int hidden, int reverse) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = hidden;
-  const int G = 3 * hidden;
-  const int lane = blockIdx.y;
-  const int lanes = gridDim.y;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, batch - row0);
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-
-  T* w_t = reinterpret_cast<T*>(smem);                                    // [H][G]
-  float* h = reinterpret_cast<float*>(smem + align16(size_t(H) * G * sizeof(T)));  // [kRows][H]
-  float* h_op = h + kRows * H;                                            // [kRows][H]
-  float* hg = h_op + kRows * H;                                           // [kRows][G]
-
-  const T* w = w_hh + size_t(lane) * G * H;
-  for (int e = tid; e < G * H; e += nt) {
-    const int c = e / H;
-    const int k = e - c * H;
-    w_t[k * G + c] = w[e];
-  }
-  for (int e = tid; e < kRows * H; e += nt) {
-    const int r = e / H;
-    const float v = r < rows ? h0[(size_t(lane) * batch + row0 + r) * H + (e - r * H)] : 0.0f;
-    h[e] = v;
-    h_op[e] = to_float(from_float<T>(v));
-  }
-  const float bias = tid < G ? to_float(b_hh[size_t(lane) * G + tid]) : 0.0f;
-  __syncthreads();
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-    if (tid < G) {
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float wv = to_float(w_t[k * G + tid]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h_op[r * H + k], wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) hg[r * G + tid] = acc[r] + bias;
-    }
-    __syncthreads();
-    for (int e = tid; e < rows * H; e += nt) {
-      const int r = e / H;
-      const int j = e - r * H;
-      const size_t at = Layout::row(lane, t, row0 + r, lanes, n_steps, batch);
-      const T* x = xg + at * G;
-      const float* g = hg + r * G;
-      const float rg = sigmoid(to_float(x[j]) + g[j]);
-      const float zg = sigmoid(to_float(x[H + j]) + g[H + j]);
-      const float ng = tanhf(to_float(x[2 * H + j]) + rg * g[2 * H + j]);
-      const float hn = (1.0f - zg) * ng + zg * h[e];
-      h[e] = hn;
-      const T out = from_float<T>(hn);
-      h_op[e] = to_float(out);
-      ys[at * H + j] = out;
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, typename Layout = LaneMajor>
-int launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
-           int lanes, int n_steps, int batch, int hidden, int reverse, void* stream) {
-  const size_t smem = shared_bytes(hidden, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<T, Layout>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((batch + kRows - 1) / kRows, lanes);
-  const int threads = (3 * hidden + 31) / 32 * 32;
-  gru_fwd_kernel<T, Layout><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
-      static_cast<const float*>(h0), static_cast<T*>(ys), n_steps, batch, hidden, reverse);
-  return int(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// gru_walk_kernel: gru_fwd and gru_bifwd (see the note at the top)
+// gru_walk_kernel: gru_fwd, gru_fwd_fb and gru_bifwd (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int kNumSMs = 132;          // H100 SXM
@@ -471,19 +371,14 @@ int walk_launch(const void* xg, const void* w_hh, const void* b_hh, const void* 
 
 extern "C" {
 
-// Shared memory one block of gru_fwd_fb needs; the wrapper checks it against
-// the card's limit.
-long long gru_fwd_shared_bytes(int hidden, int bf16) {
-  return (long long)shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
-}
-
-// Shared memory one block of gru_fwd / gru_bifwd needs for a tile of `rows`.
+// Shared memory one block of gru_fwd / gru_fwd_fb / gru_bifwd needs for a
+// tile of `rows`.
 long long gru_walk_shared_bytes(int hidden, int bf16, int rows) {
   return (long long)walk_shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float),
                                       rows);
 }
 
-// Rows per block gru_fwd / gru_bifwd take for this shape.
+// Rows per block gru_fwd / gru_fwd_fb / gru_bifwd take for this shape.
 int gru_walk_row_tile(int batch, int lanes, int hidden) {
   return walk_row_tile(batch, lanes, hidden);
 }
@@ -504,11 +399,11 @@ int gru_fwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
                int lanes, int n_steps, int batch, int hidden, int reverse, int bf16,
                void* stream) {
   if (bf16) {
-    return launch<__nv_bfloat16>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch, hidden,
-                                 reverse, stream);
+    return walk_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, lanes, n_steps,
+                                                 batch, hidden, reverse, stream);
   }
-  return launch<float>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch, hidden, reverse,
-                       stream);
+  return walk_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch, hidden,
+                                       reverse, stream);
 }
 
 // Counterpart of _bigru_forward: both directions of one BiGRU layer, float32,

@@ -22,12 +22,19 @@ adjoint kernel), and the model-facing entry points go through those:
   * `gru_bidirectional_dirbatch` (counterpart of the JAX function of that name)
   * `gru_bidirectional_fused`    (counterpart of `gru_bidirectional_pallas`)
 
-`gru_fwd` and `gru_bifwd` run the walk kernel (`gru_walk_kernel`): one
+The three forward entries run the walk kernel (`gru_walk_kernel`): one
 block per (lane, tile of rows), W^T in registers up to H = 64 and in shared
 memory above, h double-buffered with one barrier a step, xg prefetched;
 `walk_row_tile` and `walk_shared_bytes` mirror how its C side picks the
-tile and sizes shared memory. `gru_fwd_fb` runs the older forward template
-(`gru_fwd_kernel`, sized by `shared_bytes`).
+tile and sizes shared memory. `gru_bwd` runs the adjoint walk: a gate
+pre-pass over all T, a walk that keeps only the dh chain (W's columns in
+registers up to H = 64, in shared memory above; a producer warp moves its
+factors and dht between device and shared memory a chunk of steps at a
+time), and a weight-gradient pass over all T, summed in a fixed order;
+`adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
+`adj_workspace_floats` mirror its C side. `gru_bwd_fb` and `gru_bibwd` run
+the first adjoint template (`gru_bwd_kernel`, sized by `bwd_shared_bytes`
+and BWD_ROWS_PER_BLOCK).
 
 The wrappers take the TPU kernels' time-major layout. A wrapper given CPU
 tensors runs its plain PyTorch version (`*_plain`: a Python loop over time
@@ -54,29 +61,36 @@ import functools
 
 import torch
 
-# Batch rows per block; must equal kRows in csrc/gru_fwd.cu and csrc/gru_bwd.cu.
-ROWS_PER_BLOCK = 4
+# Batch rows per block of gru_bwd_kernel; must equal kRows in csrc/gru_bwd.cu.
 BWD_ROWS_PER_BLOCK = 4
 # Dynamic shared memory one block may use on sm_90 (232,448 bytes).
 MAX_SHARED_BYTES = 232_448
-# The walk kernel (gru_fwd, gru_bifwd), as csrc/gru_fwd.cu lays it out: W^T
-# in registers up to WALK_REG_MAX_HIDDEN, with WALK_SUBLANES threads per
-# hidden unit (K split across them), which is also the most rows a block
-# takes; the row tile fills NUM_SMS.
+# The walk kernel (gru_fwd, gru_fwd_fb, gru_bifwd), as csrc/gru_fwd.cu lays
+# it out: W^T in registers up to WALK_REG_MAX_HIDDEN, with WALK_SUBLANES
+# threads per hidden unit (K split across them), which is also the most
+# rows a block takes; the row tile fills NUM_SMS. The adjoint walk (gru_bwd,
+# csrc/gru_bwd.cu) takes the same threshold and sub-lanes.
 NUM_SMS = 132
 WALK_REG_MAX_HIDDEN = 64
 WALK_SUBLANES = {True: 8, False: 4}   # by "W in registers"
 WALK_REG_KPAD = 64                     # K padded to 8 sub-lanes x 2 chunks of 4
+# The adjoint walk's layout (csrc/gru_bwd.cu): K = 3H padded to 8 sub-lanes
+# x 6 chunks of 4 with W in registers; at most 2 rows a block with W in
+# registers, 1 with W in shared memory; the steps its producer warp moves at
+# a time, and the factors it reads; the gate pre-pass's block of rows x
+# units; six f32 factors (dy among them) and dht per (step, row, unit) in
+# the workspace; the weight-gradient pass's stage of rows and most
+# partials.
+ADJ_REG_KPAD = 192
+ADJ_MOST_ROWS = {True: 2, False: 1}   # by "W in registers"
+ADJ_CHUNK = {True: 16, False: 4}
+ADJ_WALK_FACTORS = 5
+ADJ_GATE_ROWS = ADJ_GATE_UNITS = 32
+ADJ_FACTORS = 6
+ADJ_GRAD_STAGE = 32
+ADJ_MAX_PARTIALS = 128
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def shared_bytes(hidden: int, itemsize: int) -> int:
-    """Shared memory per block of the kernel (as gru_fwd_shared_bytes in C):
-    W^T [H, 3H] in the stream dtype, padded to 16 bytes, then the f32 carry,
-    its operand copy and the step's hg for ROWS_PER_BLOCK rows."""
-    w = (hidden * 3 * hidden * itemsize + 15) // 16 * 16
-    return w + (2 * ROWS_PER_BLOCK * hidden + ROWS_PER_BLOCK * 3 * hidden) * 4
 
 
 def walk_in_registers(hidden: int) -> bool:
@@ -85,16 +99,20 @@ def walk_in_registers(hidden: int) -> bool:
     return hidden <= WALK_REG_MAX_HIDDEN
 
 
-def walk_row_tile(batch: int, lanes: int, hidden: int) -> int:
-    """Rows per block of the walk kernel (as gru_walk_row_tile in C): the
-    least power of two that brings ceil(B / R) * lanes blocks down to
-    NUM_SMS, at most the threads per hidden unit."""
-    most = WALK_SUBLANES[walk_in_registers(hidden)]
+def _row_tile(batch: int, lanes: int, most: int) -> int:
+    """The least power of two R that brings ceil(B / R) * lanes blocks down
+    to NUM_SMS, at most `most`."""
     want = -(-batch * lanes // NUM_SMS)
     rows = 1
     while rows < want and rows < most:
         rows *= 2
     return rows
+
+
+def walk_row_tile(batch: int, lanes: int, hidden: int) -> int:
+    """Rows per block of the walk kernel (as gru_walk_row_tile in C), at
+    most the threads per hidden unit."""
+    return _row_tile(batch, lanes, WALK_SUBLANES[walk_in_registers(hidden)])
 
 
 def walk_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
@@ -110,11 +128,56 @@ def walk_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> in
     return w + 2 * rows * kpad * 4
 
 
+def adj_row_tile(batch: int, lanes: int, hidden: int) -> int:
+    """Rows per block of gru_bwd's walk (as gru_adj_row_tile in C), at most
+    ADJ_MOST_ROWS (1 with W in shared memory)."""
+    return _row_tile(batch, lanes, ADJ_MOST_ROWS[walk_in_registers(hidden)])
+
+
+def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
+    """Shared memory of the most demanding kernel of gru_bwd (as
+    gru_adj_shared_bytes in C): the walk's W^T [H, 3H padded to 4] in the
+    stream dtype, padded to 16 bytes, for the shared-memory instantiation,
+    then two f32 buffers of the tile's dg, [rows, K padded], and for two
+    chunks of steps the f32 factors [2 chunk, rows, 5, H] and dht
+    [2 chunk, rows, H]; or the gate pre-pass's f32 W slice [H, 3 * 32 + 1],
+    padded to 16 bytes, and h_prev [H, 32], whichever is larger. `rows`
+    defaults to the most a block takes."""
+    regs = walk_in_registers(hidden)
+    rows = ADJ_MOST_ROWS[regs] if rows is None else rows
+    kpad = ADJ_REG_KPAD if regs else -(-3 * hidden // 4) * 4
+    w = 0 if regs else (hidden * kpad * itemsize + 15) // 16 * 16
+    per_row = 2 * ADJ_CHUNK[regs] * (ADJ_WALK_FACTORS + 1) * hidden
+    walk = w + (2 * rows * kpad + rows * per_row) * 4
+    gates = (-(-hidden * (3 * ADJ_GATE_UNITS + 1) // 4) * 4 + hidden * ADJ_GATE_ROWS) * 4
+    return max(walk, gates)
+
+
+def adj_partials(n_steps: int, batch: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of gru_bwd's weight-gradient pass (as
+    gru_adj_chunk_rows and gru_adj_partials in C): the T * B rows (t, b) in
+    chunks of a whole number of ADJ_GRAD_STAGE rows, at most
+    ADJ_MAX_PARTIALS chunks; each chunk gives one dW / db partial."""
+    rows = n_steps * batch
+    per = -(-rows // ADJ_MAX_PARTIALS) if rows > ADJ_MAX_PARTIALS else 1
+    chunk = -(-per // ADJ_GRAD_STAGE) * ADJ_GRAD_STAGE
+    return chunk, -(-rows // chunk)
+
+
+def adj_workspace_floats(lanes: int, n_steps: int, batch: int, hidden: int) -> int:
+    """Floats of the workspace gru_bwd takes as dw_part (as
+    gru_adj_workspace_floats in C): the six factors and dht of every
+    (lane, t, b, unit), then the dW partials [lanes, chunks, 3H, H]."""
+    rows = lanes * n_steps * batch
+    parts = adj_partials(n_steps, batch)[1]
+    return rows * hidden * (ADJ_FACTORS + 1) + lanes * parts * 3 * hidden * hidden
+
+
 def bwd_shared_bytes(hidden: int, itemsize: int) -> int:
-    """Shared memory per block of the adjoint kernel (as gru_bwd_shared_bytes
-    in C): W^T [H, 3H + 1] in the stream dtype, padded to 16 bytes, then the
-    f32 dW^T partial [H, 3H], h_prev, dh and dht*z for BWD_ROWS_PER_BLOCK
-    rows, and the step's hg and dg."""
+    """Shared memory per block of gru_bwd_kernel (gru_bwd_fb, gru_bibwd; as
+    gru_bwd_shared_bytes in C): W^T [H, 3H + 1] in the stream dtype, padded
+    to 16 bytes, then the f32 dW^T partial [H, 3H], h_prev, dh and dht*z for
+    BWD_ROWS_PER_BLOCK rows, and the step's hg and dg."""
     w = (hidden * (3 * hidden + 1) * itemsize + 15) // 16 * 16
     rows = BWD_ROWS_PER_BLOCK
     return w + (3 * hidden * hidden + 3 * rows * hidden + 2 * rows * 3 * hidden) * 4
@@ -289,8 +352,6 @@ def _library() -> ctypes.CDLL:
     lib.gru_fwd_fb.restype = i32
     lib.gru_bifwd.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.gru_bifwd.restype = i32
-    lib.gru_fwd_shared_bytes.argtypes = [i32, i32]
-    lib.gru_fwd_shared_bytes.restype = ctypes.c_longlong
     lib.gru_walk_shared_bytes.argtypes = [i32, i32, i32]
     lib.gru_walk_shared_bytes.restype = ctypes.c_longlong
     lib.gru_walk_row_tile.argtypes = [i32, i32, i32]
@@ -313,13 +374,22 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_bibwd.restype = i32
     lib.gru_bwd_shared_bytes.argtypes = [i32, i32]
     lib.gru_bwd_shared_bytes.restype = ctypes.c_longlong
+    lib.gru_adj_shared_bytes.argtypes = [i32, i32, i32]
+    lib.gru_adj_shared_bytes.restype = ctypes.c_longlong
+    lib.gru_adj_row_tile.argtypes = [i32, i32, i32]
+    lib.gru_adj_row_tile.restype = i32
+    lib.gru_adj_chunk_rows.argtypes = [i32, i32]
+    lib.gru_adj_chunk_rows.restype = ctypes.c_longlong
+    lib.gru_adj_partials.argtypes = [i32, i32]
+    lib.gru_adj_partials.restype = i32
+    lib.gru_adj_workspace_floats.argtypes = [i32, i32, i32, i32]
+    lib.gru_adj_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
 def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
     """Validate what the kernel takes; returns (lanes, T, B, H). `smem` is
-    the kernel's shared-memory formula (default: the walk kernel's for one
-    lane, the first template's for F lanes)."""
+    the kernel's shared-memory formula (default: the walk kernel's)."""
     if xg.dim() != (4 if fb else 3):
         raise ValueError(f"xg must be [{'F, ' if fb else ''}T, B, 3H], "
                          f"got {list(xg.shape)}")
@@ -347,8 +417,7 @@ def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
                         f"({xg.dtype}), got {w_hh.dtype} and {b_hh.dtype}")
     if h0.dtype != torch.float32:
         raise TypeError(f"h0 must be float32 (the carry), got {h0.dtype}")
-    smem = smem or (shared_bytes if fb else walk_shared_bytes)
-    need = smem(hidden, xg.element_size())
+    need = (smem or walk_shared_bytes)(hidden, xg.element_size())
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"hidden size {hidden} needs {need} bytes of shared memory per "
@@ -418,8 +487,11 @@ def gru_forward_fb(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 
 
 def _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb: bool):
-    """Validate what the adjoint kernel takes; returns (lanes, T, B, H)."""
-    dims = _check_cuda_args(xg, w_hh, b_hh, h0, fb, smem=bwd_shared_bytes)
+    """Validate what the adjoint kernel takes; returns (lanes, T, B, H).
+    gru_bwd (one lane) runs the adjoint walk, sized by adj_shared_bytes;
+    the F-lane entry runs gru_bwd_kernel, sized by bwd_shared_bytes."""
+    dims = _check_cuda_args(xg, w_hh, b_hh, h0, fb,
+                            smem=bwd_shared_bytes if fb else adj_shared_bytes)
     want = tuple(xg.shape[:-1]) + (dims[-1],)
     for name, t in (("ys", ys), ("dy", dy)):
         if tuple(t.shape) != want:
@@ -433,12 +505,26 @@ def _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb: bool):
     return dims
 
 
-def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, batch: int,
-                    hidden: int, ints: list[int]):
-    """Allocate the gradients and the per-tile workspaces and launch `entry`
-    on the current stream with `ints` after the pointers. Returns ((dxg,
-    dw_hh, db_hh, dh0), whether a kernel was launched); nothing is launched
-    for an empty walk."""
+def _adjoint_workspaces(entry: str, lanes: int, n_steps: int, batch: int,
+                        hidden: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Shapes of the two f32 workspaces `entry` takes (dw_part, db_part):
+    gru_bwd's flat workspace and its db partials per chunk of rows, or
+    gru_bwd_kernel's dW^T and db partials per tile of BWD_ROWS_PER_BLOCK
+    rows."""
+    g = 3 * hidden
+    if entry == "gru_bwd":
+        return ((adj_workspace_floats(lanes, n_steps, batch, hidden),),
+                (lanes, adj_partials(n_steps, batch)[1], g))
+    tiles = -(-batch // BWD_ROWS_PER_BLOCK)
+    return (lanes, tiles, hidden, g), (lanes, tiles, g)
+
+
+def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, n_steps: int,
+                    batch: int, hidden: int, ints: list[int]):
+    """Allocate the gradients and the workspaces and launch `entry` on the
+    current stream with `ints` after the pointers. Returns ((dxg, dw_hh,
+    db_hh, dh0), whether a kernel was launched); nothing is launched for an
+    empty walk."""
     f32 = dict(dtype=torch.float32, device=xg.device)
     dxg = torch.empty_like(xg)
     dw = torch.empty(w_hh.shape, **f32)
@@ -448,9 +534,9 @@ def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, batch: i
         for g in (dw, db, dh0):
             g.zero_()
         return (dxg, dw, db, dh0), False
-    tiles = -(-batch // BWD_ROWS_PER_BLOCK)
-    dw_part = torch.empty((lanes, tiles, hidden, 3 * hidden), **f32)
-    db_part = torch.empty((lanes, tiles, 3 * hidden), **f32)
+    dw_shape, db_shape = _adjoint_workspaces(entry, lanes, n_steps, batch, hidden)
+    dw_part = torch.empty(dw_shape, **f32)
+    db_part = torch.empty(db_shape, **f32)
     _call(_bwd_library(), entry,
           (xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part, db_part), ints)
     return (dxg, dw, db, dh0), True
@@ -461,7 +547,8 @@ def _launch_bwd(entry: str, xg, w_hh, b_hh, h0, ys, dy, reverse: bool, fb: bool)
     _require_cuda(xg)
     f, n_steps, batch, hidden = _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb)
     ints = ([f] if fb else []) + [n_steps, batch, hidden] + _mode_args(xg, reverse)
-    return _launch_adjoint(entry, xg, w_hh, b_hh, h0, ys, dy, f, batch, hidden, ints)
+    return _launch_adjoint(entry, xg, w_hh, b_hh, h0, ys, dy, f, n_steps, batch, hidden,
+                           ints)
 
 
 def gru_backward(xg, w_hh, b_hh, h0, ys, dy, reverse: bool = False):
@@ -559,7 +646,7 @@ def gru_bibwd(xg2, whh2, bhh2, h02, ys2, dy2):
         return gru_bibwd_plain(xg2, whh2, bhh2, h02, ys2, dy2)
     _require_cuda(xg2)
     grads, launched = _launch_adjoint("gru_bibwd", xg2, whh2, bhh2, h02, ys2, dy2,
-                                      2, batch, hidden, [n_steps, batch, hidden])
+                                      2, n_steps, batch, hidden, [n_steps, batch, hidden])
     if launched:
         gru_bibwd.launches += 1
     return grads

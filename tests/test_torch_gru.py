@@ -140,17 +140,19 @@ def test_cuda_argument_checks():
               torch.zeros(3 * big), torch.zeros(1, big), fb=False)
 
 
-# Largest hidden sizes the walk kernel (gru_fwd) takes, from its shared-memory
-# formula, and the largest the first template took; every H up to the old
-# limit is still taken.
+# Largest hidden sizes the walk kernel (gru_fwd, gru_fwd_fb) takes, from its
+# shared-memory formula, and the largest the first forward template took
+# (from its formula, W^T [H, 3H] plus 4 rows of carry, operand and hg, within
+# 232,448 bytes); every H up to the old limit is still taken.
 WALK_MAX_HIDDEN = {"float32": 136, "bfloat16": 192}
 FIRST_MAX_HIDDEN = {"float32": 135, "bfloat16": 190}
 
 
-def _walk_args(h, dtype):
+def _walk_args(h, dtype, lanes=None):
     dt = getattr(torch, dtype)
-    return (torch.zeros(1, 1, 3 * h, dtype=dt), torch.zeros(3 * h, h, dtype=dt),
-            torch.zeros(3 * h, dtype=dt), torch.zeros(1, h))
+    lead = () if lanes is None else (lanes,)
+    return (torch.zeros(lead + (1, 1, 3 * h), dtype=dt), torch.zeros(lead + (3 * h, h), dtype=dt),
+            torch.zeros(lead + (3 * h,), dtype=dt), torch.zeros(lead + (1, h)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -164,14 +166,27 @@ def test_walk_kernel_admits_every_earlier_hidden_size(dtype):
     for h in range(1, WALK_MAX_HIDDEN[dtype] + 1):
         assert gru_cuda._check_cuda_args(*_walk_args(h, dtype), fb=False) == (1, 1, 1, h)
     assert WALK_MAX_HIDDEN[dtype] >= FIRST_MAX_HIDDEN[dtype]
-    assert gru_cuda.shared_bytes(FIRST_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="shared memory"):
         gru_cuda._check_cuda_args(*_walk_args(WALK_MAX_HIDDEN[dtype] + 1, dtype), fb=False)
 
 
+@pytest.mark.parametrize("lanes", [1, 2, 15])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fb_walk_admits_every_earlier_hidden_size(dtype, lanes):
+    """gru_fwd_fb runs the walk kernel too: _check_cuda_args(fb=True) takes
+    every H up to the first template's limit (135 f32, 190 bf16) and the
+    walk kernel's own (136, 192) for any lane count, and refuses the first
+    H past it before any launch."""
+    for h in range(1, WALK_MAX_HIDDEN[dtype] + 1):
+        assert gru_cuda._check_cuda_args(*_walk_args(h, dtype, lanes), fb=True) == (lanes, 1, 1, h)
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_cuda._check_cuda_args(*_walk_args(WALK_MAX_HIDDEN[dtype] + 1, dtype, lanes),
+                                  fb=True)
+
+
 @pytest.mark.parametrize("hidden", [16, 64, 65, 128])
-@pytest.mark.parametrize("lanes", [1, 2])
-@pytest.mark.parametrize("batch", [1, 5, 63, 64, 65, 256])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 15])
+@pytest.mark.parametrize("batch", [1, 5, 63, 64, 65, 128, 256])
 def test_walk_row_tile_covers_every_row_once(batch, lanes, hidden):
     """The walk kernel's blocks, ceil(B / R) tiles of R rows (rows past B
     masked), cover each batch row exactly once; R is a power of two of at
@@ -186,3 +201,11 @@ def test_walk_row_tile_covers_every_row_once(batch, lanes, hidden):
     assert tiles * lanes <= gru_cuda.NUM_SMS or rows == most
     if rows > 1:
         assert -(-batch // (rows // 2)) * lanes > gru_cuda.NUM_SMS
+
+
+@pytest.mark.parametrize("lanes, batch, rows", [(2, 64, 1), (4, 128, 4), (15, 64, 8)])
+def test_fb_lanes_reach_row_tiles_four_and_eight(lanes, batch, rows):
+    """The lane counts chip_smoke.py checks gru_fwd_fb at reach the row tiles
+    the serving shape does not: F=4 at B=128 tiles 4 rows a block, the 15
+    fold-parallel lanes at B=64 tile 8."""
+    assert gru_cuda.walk_row_tile(batch, lanes, 64) == rows

@@ -208,9 +208,94 @@ def test_backward_argument_checks():
         check(xg, w, b, h0, ys, dy, fb=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gru_cuda._launch_bwd("gru_bwd", xg, w, b, h0, ys, dy, False, fb=False)
-    big = 96  # f32: W^T (96 x 289) plus the dW^T partial (96 x 288) > 227 KB
+    # gru_bwd_fb keeps the first template: in f32 W^T (96 x 289) plus the
+    # dW^T partial (96 x 288) exceed 227 KB.
+    big = 96
     assert gru_cuda.bwd_shared_bytes(64, 4) <= gru_cuda.MAX_SHARED_BYTES
     z = torch.zeros
     with pytest.raises(ValueError, match="shared memory"):
-        check(z(2, 1, 3 * big), z(3 * big, big), z(3 * big), z(1, big),
-              z(2, 1, big), z(2, 1, big), fb=False)
+        check(z(1, 2, 1, 3 * big), z(1, 3 * big, big), z(1, 3 * big), z(1, 1, big),
+              z(1, 2, 1, big), z(1, 2, 1, big), fb=True)
+
+
+# Largest hidden sizes gru_bwd's adjoint walk takes (its shared-memory
+# formula), and the largest the first adjoint template took (bwd_shared_bytes
+# within 232,448 bytes); gru_bwd still takes every H up to the old limit.
+ADJ_MAX_HIDDEN = {"float32": 130, "bfloat16": 179}
+FIRST_BWD_MAX_HIDDEN = {"float32": 95, "bfloat16": 109}
+
+
+def _bwd_args(h, dtype, lanes=None):
+    dt = getattr(torch, dtype)
+    lead = () if lanes is None else (lanes,)
+    z = torch.zeros
+    return (z(lead + (2, 1, 3 * h), dtype=dt), z(lead + (3 * h, h), dtype=dt),
+            z(lead + (3 * h,), dtype=dt), z(lead + (1, h)), z(lead + (2, 1, h), dtype=dt),
+            z(lead + (2, 1, h), dtype=dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adjoint_walk_admits_every_earlier_hidden_size(dtype):
+    """gru_bwd's argument check follows the adjoint walk's formula: it takes
+    every H the first template took (95 f32, 109 bf16) and every H up to its
+    own limit, and refuses the first H past it before any launch."""
+    item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    assert gru_cuda.adj_shared_bytes(ADJ_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
+    assert gru_cuda.adj_shared_bytes(ADJ_MAX_HIDDEN[dtype] + 1, item) > gru_cuda.MAX_SHARED_BYTES
+    assert ADJ_MAX_HIDDEN[dtype] >= FIRST_BWD_MAX_HIDDEN[dtype]
+    for h in range(1, ADJ_MAX_HIDDEN[dtype] + 1):
+        assert gru_cuda._check_bwd_args(*_bwd_args(h, dtype), fb=False) == (1, 2, 1, h)
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_cuda._check_bwd_args(*_bwd_args(ADJ_MAX_HIDDEN[dtype] + 1, dtype), fb=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_first_adjoint_template_keeps_its_limits(dtype):
+    """gru_bwd_fb and gru_bibwd stay on the first template: they take every
+    H up to its limit and refuse the next one (H=96 in f32)."""
+    item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    first = FIRST_BWD_MAX_HIDDEN[dtype]
+    assert gru_cuda.bwd_shared_bytes(first, item) <= gru_cuda.MAX_SHARED_BYTES
+    assert gru_cuda.bwd_shared_bytes(first + 1, item) > gru_cuda.MAX_SHARED_BYTES
+    assert gru_cuda._check_bwd_args(*_bwd_args(first, dtype, lanes=2), fb=True) == (2, 2, 1, first)
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_cuda._check_bwd_args(*_bwd_args(first + 1, dtype, lanes=2), fb=True)
+    if dtype == "float32":
+        z = torch.zeros
+        h = first + 1
+        with pytest.raises(ValueError, match="shared memory"):
+            gru_cuda.gru_bibwd(z(2, 2, 1, 3 * h), z(2, 3 * h, h), z(2, 3 * h), z(2, 1, h),
+                               z(2, 2, 1, h), z(2, 2, 1, h))
+
+
+@pytest.mark.parametrize("hidden", [16, 64, 95, 128])
+@pytest.mark.parametrize("n_steps", [1, 37, 480])
+@pytest.mark.parametrize("batch", [1, 5, 63, 64, 65, 256])
+def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden):
+    """gru_bwd's walk blocks (ceil(B / R) tiles of R rows) cover each batch
+    row once, R a power of two of at most ADJ_MOST_ROWS that grows only
+    while the blocks would outnumber the SMs; its weight-gradient chunks
+    cover each of the T * B rows (t, b) once, in whole stages, at most
+    ADJ_MAX_PARTIALS of them; the workspace holds the six factors and dht
+    of every (t, b, unit), then one [3H, H] partial per chunk, and the db
+    workspace one [3H] partial per chunk."""
+    rows = gru_cuda.adj_row_tile(batch, 1, hidden)
+    most = gru_cuda.ADJ_MOST_ROWS[gru_cuda.walk_in_registers(hidden)]
+    assert rows & (rows - 1) == 0 and 1 <= rows <= most
+    tiles = -(-batch // rows)
+    covered = [t * rows + r for t in range(tiles) for r in range(rows) if t * rows + r < batch]
+    assert covered == list(range(batch))
+    assert tiles <= gru_cuda.NUM_SMS or rows == most
+    chunk, parts = gru_cuda.adj_partials(n_steps, batch)
+    assert chunk % gru_cuda.ADJ_GRAD_STAGE == 0 and 1 <= parts <= gru_cuda.ADJ_MAX_PARTIALS
+    chunks = [range(p * chunk, min((p + 1) * chunk, n_steps * batch)) for p in range(parts)]
+    assert [m for c in chunks for m in c] == list(range(n_steps * batch))
+    assert all(len(c) > 0 for c in chunks)
+    g = 3 * hidden
+    dw_shape, db_shape = gru_cuda._adjoint_workspaces("gru_bwd", 1, n_steps, batch, hidden)
+    assert dw_shape == (n_steps * batch * hidden * (gru_cuda.ADJ_FACTORS + 1)
+                        + parts * g * hidden,)
+    assert db_shape == (1, parts, g)
+    assert gru_cuda._adjoint_workspaces("gru_bwd_fb", 2, n_steps, batch, hidden) == (
+        (2, -(-batch // gru_cuda.BWD_ROWS_PER_BLOCK), hidden, g),
+        (2, -(-batch // gru_cuda.BWD_ROWS_PER_BLOCK), g))
