@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    registers and spills per kernel instantiation and fail on any spill;
    check each kernel's shared-memory size in C against its wrapper's
    formula, the walk kernel's row tile (gru_fwd, gru_fwd_fb, gru_bifwd), and
-   the adjoint walk's (gru_bwd) row tile, chunks of rows and workspace.
+   the adjoint walk's (gru_bwd, gru_bwd_fb, gru_bibwd) row tile, chunks of
+   rows and workspace at 1, 2 and 15 lanes.
 3. One phase per kernel: the wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, float32 and bfloat16, both walk
    directions, at the serving/training shape (T=480, B=64, H=64; F=2 lanes
@@ -22,17 +23,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    line with its row tile and instantiation (W^T in registers or in shared
    memory); the adjoint walk (gru_bwd) also at ADJ_CASES (H=95 f32, 109
    bf16, 128, B=1, B=256, T=1, and a dy that is zero but at the forward's
-   last step), each line with its row tile, instantiation and chunks, and
+   last step), gru_bwd_fb at FB_ADJ_CASES (ADJ_CASES at two lanes, F=4 at
+   B=128 and F=15 at B=64), gru_bibwd at BI_ADJ_CASES (H=95, 128, 130, B=1,
+   B=256, T=1, each direction's outputs held on their own), each line with
+   its row tile, walk blocks, instantiation and chunks; each of the three
    twice on the same inputs with dW and db bitwise equal; then the walks'
-   float32 time as B grows (walk_sweep). TF32 is off for matmul and cuDNN.
+   float32 time as B grows, and gru_bwd_fb at 2 and 15 lanes with its waves
+   of walk blocks (walk_sweep). TF32 is off for matmul and cuDNN.
    Forward kernels (gru_fwd, gru_fwd_fb): ys, float32 rtol = atol = 1e-5,
    bfloat16 atol 0.05. Adjoint kernels (gru_bwd, gru_bwd_fb): all four
    outputs, tolerances in BWD_TOL. Then the times at the main shape: the
    kernel, the plain version, the least time the card could take, and
    cuDNN's GRU (nn.GRU: the forward, or for an adjoint kernel the backward
    as forward+backward minus forward; it also does the input projection),
-   and us per dependent step (ms / T); for gru_bwd also a profiler trace of
-   its four kernels (gate pre-pass, walk, weight-gradient pass, reduction).
+   and us per dependent step (ms / T); for each adjoint kernel also a
+   profiler trace of its four kernels (gate pre-pass, walk, weight-gradient
+   pass, reduction).
 4. The serving path: the default-config CnnGruAttention model (C=3,
    T=7680, H=64, 2 layers) with weights from a numpy seed, in float32 and
    bfloat16, behind the port's HTTP server: GET /healthz, POST /v1/predict
@@ -40,9 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    WESAD-format pickle written here. Probabilities must be finite rows
    summing to 1 and equal to the same model's on the CPU (float32 atol
    1e-4, bfloat16 atol 3e-2); each forward kernel must have been launched
-   once per padded batch and each adjoint kernel never. Then the padded-64
-   forward's time, and a profiler trace of it: device time by kernel and
-   the device's idle share.
+   once per padded batch and each adjoint kernel never. In float32 the
+   same probabilities once more with TF32 as torch's defaults set it and
+   the port's CLIs leave it (cuDNN's on), their distance from the CPU
+   printed beside the TF32-off one. Then the padded-64 forward's time, and
+   a profiler trace of it: device time by kernel and the device's idle
+   share.
 5. The training path, float32 and bfloat16, same model and seed weights,
    on synthetic windows [3, 7680] made with numpy (200 train, 64 val):
    a. with dropout 0, the first steps on the card (two full batches and the
@@ -50,13 +59,16 @@ Phases, in order; any failure raises and the script exits non-zero:
       "cuda" on CPU tensors: the kernels' plain versions): per-step losses
       and the parameters afterwards, tolerances in TRAIN_TOL; after the
       first step every parameter has a finite, nonzero gradient (but
-      gru.l1_bwd_w_hh, zero by construction, see check_gradients);
+      gru.l1_bwd_w_hh, zero by construction, see check_gradients); in
+      float32 the card's steps once more with TF32 as the CLIs leave it,
+      printed beside the TF32-off distance;
    b. Trainer.train for 2 epochs at the config's dropout 0.5: finite
       losses, a best_model.msgpack the port reads back, and each kernel
       launched once per real train step (the forward kernels also once per
       eval batch);
-   c. the ms per train step and windows/s at B=64, and a profiler trace of
-      back-to-back train steps: device time by kernel and the idle share.
+   c. the ms per train step and windows/s at B=64, the peak device memory
+      of one step, and a profiler trace of back-to-back train steps: device
+      time by kernel and the idle share (step_profile).
 6. The serial LOSO experiment CLI with gru_impl="pallas_fused", float32 and
    bfloat16, on a synthetic preprocessed data directory written here with
    numpy (4 subjects x 48 windows [7680, 8], raw labels 1-4, the chest
@@ -69,11 +81,15 @@ Phases, in order; any failure raises and the script exits non-zero:
       numbers and a best_model.msgpack per fold that the port reads back;
       gru_bifwd and gru_fwd launched once per train step and eval batch,
       gru_bibwd and gru_bwd once per train step, the fb kernels never;
-   c. each fold's wall time, the ms per pallas_fused train step at B=64 and
-      a profiler trace of back-to-back train steps.
+   c. each fold's wall time, and step_profile of pallas_fused train steps
+      at B=64.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU.
+
+train_step_ab(impl, dtype), not run by main(), profiles one train step of
+whichever tree's package it is run against, for holding two trees against
+each other in one call (its docstring says how to run it).
 
 Prints a JSON line of the kernels (launches: the forward kernels' from the
 float32 serving run, the adjoint kernels' from the float32 training run,
@@ -84,6 +100,7 @@ the fused pair's from the float32 LOSO run), then, as the last line,
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import io
 import json
@@ -144,6 +161,9 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 BWD_TOL = {torch.float32: (dict(rtol=1e-4, atol=1e-4), dict(rtol=1e-4, atol=1e-3)),
            torch.bfloat16: (dict(rtol=0.0, atol=0.05), dict(rtol=2e-2, atol=0.1))}
 PROB_ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# TF32 as torch sets it by default (matmul off, cuDNN on), which the port's
+# CLIs leave as it is; read before main() turns both off.
+TF32_DEFAULTS = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 WINDOW_T = 60 * 128   # a 60 s window at 128 Hz
 TRAIN_N, VAL_N, BATCH, LR = 200, 64, 64, 1e-3
 # Card vs CPU over the first train steps. Losses: float32 rtol 1e-4 (f32
@@ -193,14 +213,7 @@ def build_phase() -> None:
             print(f"  ptxas {name}: {short_kernel_name(kernel)}: {regs} registers, {props}")
             if not props.endswith("0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"ptxas {name}: {kernel} spills: {props}")
-    bwd = gru_cuda._bwd_library()
-    for bf16, size in ((0, 4), (1, 2)):
-        c_bytes = bwd.gru_bwd_shared_bytes(SERVE_H, bf16)
-        if c_bytes != gru_cuda.bwd_shared_bytes(SERVE_H, size):
-            raise AssertionError(f"gru_bwd_shared_bytes: C says {c_bytes}, wrapper "
-                                 f"{gru_cuda.bwd_shared_bytes(SERVE_H, size)}")
-        print(f"  gru_bwd_shared_bytes(H={SERVE_H}, bf16={bf16}) = {c_bytes} bytes")
-    check_adjoint_formulas(bwd)
+    check_adjoint_formulas(gru_cuda._bwd_library())
     lib = gru_cuda._library()
     for h in (SERVE_H, 128, 136, 192):
         for bf16, size in ((0, 4), (1, 2)):
@@ -222,8 +235,9 @@ def build_phase() -> None:
 
 
 def check_adjoint_formulas(bwd) -> None:
-    """The adjoint walk's (gru_bwd) shared memory, row tile, chunks of rows
-    and workspace, C against gru_cuda's Python twins."""
+    """The adjoint walk's (gru_bwd, gru_bwd_fb, gru_bibwd) shared memory,
+    row tile, chunks of rows and workspace (at 1, 2 and 15 lanes), C against
+    gru_cuda's Python twins."""
     def same(what, c_val, py_val):
         if c_val != py_val:
             raise AssertionError(f"{what}: C says {c_val}, wrapper {py_val}")
@@ -243,15 +257,16 @@ def check_adjoint_formulas(bwd) -> None:
             same(f"gru_adj_chunk_rows/partials({t}, {batch})",
                  (bwd.gru_adj_chunk_rows(t, batch), bwd.gru_adj_partials(t, batch)),
                  gru_cuda.adj_partials(t, batch))
-            for lanes in (1, 2):
+            for lanes in (1, 2, 15):
                 same(f"gru_adj_workspace_floats({lanes}, {t}, {batch}, {SERVE_H})",
                      bwd.gru_adj_workspace_floats(lanes, t, batch, SERVE_H),
                      gru_cuda.adj_workspace_floats(lanes, t, batch, SERVE_H))
     chunk, parts = gru_cuda.adj_partials(SERVE_T, SERVE_B)
     print(f"  gru_adj_shared_bytes(H={SERVE_H}, bf16=0, rows=1) = "
           f"{bwd.gru_adj_shared_bytes(SERVE_H, 0, 1)} bytes; at T={SERVE_T} B={SERVE_B}: "
-          f"{parts} chunks of {chunk} rows, workspace "
-          f"{gru_cuda.adj_workspace_floats(1, SERVE_T, SERVE_B, SERVE_H) * 4 / 2**20:.1f} MiB; "
+          f"{parts} chunks of {chunk} rows a lane, workspace "
+          + ", ".join(f"{gru_cuda.adj_workspace_floats(f, SERVE_T, SERVE_B, SERVE_H) * 4 / 2**20:.1f}"
+                      f" MiB at {f} lane{'s' * (f > 1)}" for f in (1, 2, 15)) + "; "
           "C and wrapper agree on the adjoint walk's shared memory, row tile, chunks "
           "and workspace")
 
@@ -385,12 +400,17 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
 
 def walk_sweep() -> None:
     """The walk kernels' float32 time at T=480, H=64 as the batch, and so
-    the block count, grows: one lane (gru_fwd), two (gru_bifwd), and the
-    adjoint walk (gru_bwd, all four of its kernels). Shows whether the
-    per-step cost depends on the layout or on the blocks."""
+    the block count, grows: one lane (gru_fwd), two (gru_bifwd), the adjoint
+    walk (gru_bwd, all four of its kernels), and the F-lane adjoint
+    (gru_bwd_fb) at 2 lanes and at 15 (a sweep's folds), B=64. Adjoint lines
+    also give the walk blocks an SM holds at once (CUDA's occupancy
+    calculator) and so the waves of walk blocks. Shows whether the per-step
+    cost depends on the layout or on the blocks."""
     for name, lanes, batches in (("gru_fwd", 1, (16, 64, 128, 256)),
                                  ("gru_bifwd", 2, (32, 64, 128)),
-                                 ("gru_bwd", 1, (16, 64, 128, 256))):
+                                 ("gru_bwd", 1, (16, 64, 128, 256)),
+                                 ("gru_bwd_fb", 2, (SERVE_B,)), ("gru_bwd_fb", 15, (SERVE_B,))):
+        adjoint = name.startswith("gru_bwd")
         for b in batches:
             if name == "gru_fwd":
                 args = kernel_inputs(None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
@@ -399,13 +419,23 @@ def walk_sweep() -> None:
                 args = fused_inputs(SERVE_T, b, SERVE_H, seed=7, adjoint=False)
                 ms = median_ms(lambda: gru_cuda.gru_bifwd(*args), per_block=50)
             else:
-                args = bwd_inputs(None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
-                ms = median_ms(lambda: gru_cuda.gru_backward(*args), per_block=50)
-            tile = gru_cuda.adj_row_tile if name == "gru_bwd" else gru_cuda.walk_row_tile
+                fb = name == "gru_bwd_fb"
+                args = bwd_inputs(lanes if fb else None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
+                wrapper = gru_cuda.gru_backward_fb if fb else gru_cuda.gru_backward
+                ms = median_ms(lambda: wrapper(*args), per_block=50)
+            tile = gru_cuda.adj_row_tile if adjoint else gru_cuda.walk_row_tile
             rows = tile(b, lanes, SERVE_H)
-            print(f"walk sweep: {name} float32 "
+            blocks = -(-b // rows) * lanes
+            waves = ""
+            if adjoint:
+                per_sm = gru_cuda._bwd_library().gru_adj_walk_blocks_per_sm(b, lanes, SERVE_H, 0)
+                if per_sm <= 0:
+                    raise AssertionError(f"gru_adj_walk_blocks_per_sm: {per_sm}")
+                waves = (f", {per_sm} a SM at once: "
+                         f"{-(-blocks // (per_sm * gru_cuda.NUM_SMS))} wave(s)")
+            print(f"walk sweep: {name} float32 F={lanes} "
                   f"T={SERVE_T} B={b} H={SERVE_H}: {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us "
-                  f"per dependent step), {-(-b // rows) * lanes} blocks of row tile {rows}")
+                  f"per dependent step), {blocks} blocks of row tile {rows}{waves}")
 
 
 def bwd_bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
@@ -466,27 +496,38 @@ ADJ_CASES = [(SERVE_T, SERVE_B, 95, F32, False), (SERVE_T, SERVE_B, 109, BF16, F
              (SERVE_T, SERVE_B, 128, F32 + BF16, False), (SERVE_T, 1, SERVE_H, F32 + BF16, False),
              (SERVE_T, 256, SERVE_H, F32 + BF16, False), (1, SERVE_B, SERVE_H, F32 + BF16, False),
              (SERVE_T, SERVE_B, SERVE_H, F32 + BF16, True)]
+# gru_bwd_fb's (F, T, B, H, dtypes, last_only): ADJ_CASES at two lanes, then
+# 4 lanes at B=128 and 15 at B=64 (row tile 2: 256 and 480 walk blocks).
+FB_ADJ_CASES = [(2, *case) for case in ADJ_CASES] + [
+    (4, SERVE_T, 128, SERVE_H, F32 + BF16, False),
+    (15, SERVE_T, SERVE_B, SERVE_H, F32 + BF16, False)]
+# gru_bibwd's (T, B, H), float32 only: the first template's largest H (95),
+# H=128 and the walk's largest (130, W in shared memory), one batch row,
+# B=256 (row tile 2), one step.
+BI_ADJ_CASES = [(SERVE_T, SERVE_B, 95), (SERVE_T, SERVE_B, 128), (SERVE_T, SERVE_B, 130),
+                (SERVE_T, 1, SERVE_H), (SERVE_T, 256, SERVE_H), (1, SERVE_B, SERVE_H)]
 
 
-def adj_plan(t: int, batch: int, hidden: int) -> str:
-    """The adjoint walk's row tile, instantiation and chunks of rows."""
+def adj_plan(lanes: int, t: int, batch: int, hidden: int) -> str:
+    """The adjoint walk's row tile, walk blocks, instantiation and chunks of
+    rows."""
     where = "registers" if gru_cuda.walk_in_registers(hidden) else "shared memory"
+    rows = gru_cuda.adj_row_tile(batch, lanes, hidden)
     chunk, parts = gru_cuda.adj_partials(t, batch)
-    return (f"row tile {gru_cuda.adj_row_tile(batch, 1, hidden)}, W in {where}, "
-            f"{parts} chunks of {chunk} rows")
+    return (f"row tile {rows}, {-(-batch // rows) * lanes} walk blocks, W in {where}, "
+            f"{parts} chunks of {chunk} rows a lane")
 
 
-def check_deterministic(name, wrapper, dtype) -> None:
+def check_deterministic(name, wrapper, args, what: str) -> None:
     """Two calls on the same inputs give the same bits of dW and db."""
-    args = bwd_inputs(None, SERVE_T, SERVE_B, SERVE_H, dtype, seed=11)
     first = wrapper(*args)
     second = wrapper(*args)
     torch.cuda.synchronize()
     for o, a, b in (("dW", first[1], second[1]), ("db", first[2], second[2])):
         if not torch.equal(a, b):
-            raise AssertionError(f"{name} {str(dtype)[6:]}: {o} differs between two runs "
+            raise AssertionError(f"{name} {what}: {o} differs between two runs "
                                  f"(max |d| {(a - b).abs().max().item():.3e})")
-    print(f"{name} {str(dtype)[6:]}: dW and db bitwise equal over two runs")
+    print(f"{name} {what}: dW and db bitwise equal over two runs")
 
 
 def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
@@ -494,8 +535,7 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     both = (torch.float32, torch.bfloat16)
     cases = [(lanes, SERVE_T, SERVE_B, SERVE_H, both, False),
              (3 if fb else None, 37, 5, 40, both, False)]
-    if name == "gru_bwd":
-        cases += [(None, *case) for case in ADJ_CASES]
+    cases += FB_ADJ_CASES if fb else [(None, *case) for case in ADJ_CASES]
     serve_err = 0.0
     outputs = ("dxg", "dW", "db", "dh0")
     for *shape, dtypes, last_only in cases:
@@ -508,7 +548,7 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
                 want = plain(*args, reverse=reverse)
                 errs = [(g.float() - w.float()).abs().max().item()
                         for g, w in zip(got, want)]
-                plan = f" ({adj_plan(*shape[1:])})" if name == "gru_bwd" else ""
+                plan = f" ({adj_plan(shape[0] or 1, *shape[1:])})"
                 print(f"{name}: shape F={shape[0]} T={shape[1]} B={shape[2]} "
                       f"H={shape[3]} {str(dtype)[6:]} reverse={reverse}"
                       f"{' dy at the last step only' if last_only else ''}: max|d| "
@@ -524,20 +564,19 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
                     serve_err = max(serve_err, *errs)
     entry = {}
     for dtype in (torch.float32, torch.bfloat16):
-        if name == "gru_bwd":
-            check_deterministic(name, wrapper, dtype)
         args = bwd_inputs(lanes, SERVE_T, SERVE_B, SERVE_H, dtype, seed=7)
+        check_deterministic(name, wrapper, args, str(dtype)[6:])
         ms = median_ms(lambda: wrapper(*args), per_block=50)
         plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
         lib_ms = cudnn_bwd_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         b_ms, b_by = bwd_bound_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         print(f"{name} {str(dtype)[6:]} at F={lanes or 1} T={SERVE_T} "
               f"B={SERVE_B} H={SERVE_H}: kernel {ms:.4f} ms "
-              f"({ms / SERVE_T * 1e3:.3f} us per dependent step), plain "
+              f"({ms / SERVE_T * 1e3:.3f} us per dependent step, "
+              f"{adj_plan(lanes or 1, SERVE_T, SERVE_B, SERVE_H)}), plain "
               f"{plain_ms:.3f} ms, cuDNN GRU backward {lib_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound")
-        if name == "gru_bwd":
-            trace(lambda: wrapper(*args), f"{str(dtype)[6:]} gru_bwd call")
+        trace(lambda: wrapper(*args), f"{str(dtype)[6:]} {name} call")
         if dtype == torch.float32:
             entry = {"name": name, "route": "cuda",
                      "source": "multimodalsignal_tpu_torch/ops/csrc/gru_bwd.cu",
@@ -562,44 +601,59 @@ def fused_inputs(t, b, h, seed, adjoint: bool):
 
 def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) -> dict:
     """The fused BiGRU pair, float32 only: the kernel against its plain
-    version at the main shape and a ragged one, then the times (library:
-    cuDNN's bidirectional GRU, forward or backward)."""
+    version at the main shape, a ragged one and WALK_CASES (gru_bifwd) or
+    BI_ADJ_CASES (gru_bibwd, each direction's outputs held on their own),
+    then the times (library: cuDNN's bidirectional GRU, forward or
+    backward); for gru_bibwd also the dW/db determinism check and a
+    profiler trace."""
     outputs = ("dxg2", "dW", "db", "dh0") if adjoint else ("ys2",)
     serve_err = 0.0
     cases = [(SERVE_T, SERVE_B, SERVE_H), (37, 5, 40)]
-    if not adjoint:
-        cases += [(t, b, h) for t, b, h, dtypes in WALK_CASES
-                  if torch.float32 in dtypes]
+    cases += BI_ADJ_CASES if adjoint else [(t, b, h) for t, b, h, dtypes in WALK_CASES
+                                           if torch.float32 in dtypes]
     for t, b, h in cases:
         args = fused_inputs(t, b, h, seed=len(name) + t, adjoint=adjoint)
         got = wrapper(*args)
         torch.cuda.synchronize()
         want = plain(*args)
         got, want = (got, want) if adjoint else ((got,), (want,))
-        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
-        plan = "" if adjoint else f" ({walk_plan(2, b, h)})"
-        print(f"{name}: shape T={t} B={b} H={h} float32: max|d| "
-              + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)) + plan)
         for o, g, w in zip(outputs, got, want):
             if g.dtype != torch.float32 or g.shape != w.shape:
                 raise AssertionError(f"{name} {o}: got {g.dtype} {list(g.shape)}")
-            tol = (BWD_TOL[torch.float32][o in ("dW", "db")] if adjoint
-                   else TOL[torch.float32])
-            torch.testing.assert_close(g, w, **tol, msg=lambda m, o=o: f"{name} {o}: {m}")
-        if (t, b, h) == (SERVE_T, SERVE_B, SERVE_H):
-            serve_err = max(errs)
+        if adjoint:  # lane 1 is the backward direction: its faults show only in its own outputs
+            parts = [(f" direction {d}", (got[0][:, d], *(g[d] for g in got[1:])),
+                      (want[0][:, d], *(w[d] for w in want[1:]))) for d in (0, 1)]
+        else:
+            parts = [("", got, want)]
+        plan = f" ({adj_plan(2, t, b, h) if adjoint else walk_plan(2, b, h)})"
+        for part, got_d, want_d in parts:
+            errs = [(g - w).abs().max().item() for g, w in zip(got_d, want_d)]
+            print(f"{name}: shape T={t} B={b} H={h} float32{part}: max|d| "
+                  + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)) + plan)
+            for o, g, w in zip(outputs, got_d, want_d):
+                tol = (BWD_TOL[torch.float32][o in ("dW", "db")] if adjoint
+                       else TOL[torch.float32])
+                torch.testing.assert_close(g, w, **tol,
+                                           msg=lambda m, o=o: f"{name}{part} {o}: {m}")
+            if (t, b, h) == (SERVE_T, SERVE_B, SERVE_H):
+                serve_err = max(serve_err, *errs)
     args = fused_inputs(SERVE_T, SERVE_B, SERVE_H, seed=7, adjoint=adjoint)
+    if adjoint:
+        check_deterministic(name, wrapper, args, "float32")
     ms = median_ms(lambda: wrapper(*args), per_block=50)
     plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
     shape = (2, SERVE_T, SERVE_B, SERVE_H, torch.float32)
     lib_ms = cudnn_bwd_ms(*shape) if adjoint else cudnn_ms(*shape)
     b_ms, b_by = bwd_bound_ms(*shape) if adjoint else bound_ms(*shape)
-    plan = "" if adjoint else f", {walk_plan(2, SERVE_B, SERVE_H)}"
+    plan = (adj_plan(2, SERVE_T, SERVE_B, SERVE_H) if adjoint
+            else walk_plan(2, SERVE_B, SERVE_H))
     print(f"{name} float32 at T={SERVE_T} 2 directions B={SERVE_B} H={SERVE_H}: "
-          f"kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent step{plan}), "
+          f"kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent step, {plan}), "
           f"plain {plain_ms:.3f} ms, cuDNN bidirectional GRU "
           f"{'backward ' if adjoint else ''}{lib_ms:.4f} ms, bound {b_ms:.5f} ms "
           f"({b_by}), {b_ms / ms:.2%} of bound")
+    if adjoint:
+        trace(lambda: wrapper(*args), f"float32 {name} call")
     return {"name": name, "route": "cuda",
             "source": f"multimodalsignal_tpu_torch/ops/csrc/gru_{'bwd' if adjoint else 'fwd'}.cu",
             "replaces": source_line, "launches": 0, "max_abs_err": serve_err, "ms": ms,
@@ -717,6 +771,22 @@ def trace(fn, what: str, n: int = 5) -> None:
         print(f"    {us / n / 1e3:8.3f} ms {us / total:6.1%}  {name[:90]}")
 
 
+@contextlib.contextmanager
+def tf32_as_default():
+    """TF32 for matmul and cuDNN as torch's defaults set it (TF32_DEFAULTS),
+    for the span of the block."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = TF32_DEFAULTS
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def tf32_label() -> str:
+    return f"TF32 as the CLIs leave it (matmul {TF32_DEFAULTS[0]}, cuDNN {TF32_DEFAULTS[1]})"
+
+
 def serving_phase(dtype: str, pkl: Path) -> dict[str, int]:
     """Drive the port's server over HTTP; returns the kernel launches of
     the run."""
@@ -763,10 +833,11 @@ def serving_phase(dtype: str, pkl: Path) -> dict[str, int]:
         raise AssertionError(f"/healthz: {card_info}")
     atol = PROB_ATOL[dtype]
     errs = []
+    want = {n: reference.predict_windows(x) for n, x in requests.items()}
     for n, x in requests.items():
         if replies[n]["num_windows"] != n:
             raise AssertionError(f"/v1/predict {n}: num_windows {replies[n]['num_windows']}")
-        errs.append(_check_probs(replies[n]["probs"], reference.predict_windows(x),
+        errs.append(_check_probs(replies[n]["probs"], want[n],
                                  n, atol, f"{dtype} /v1/predict {n} windows"))
     want_rec = reference.predict_recording(pkl)
     n_rec = len(want_rec.probs)
@@ -782,6 +853,14 @@ def serving_phase(dtype: str, pkl: Path) -> dict[str, int]:
     if launches != expected:
         raise AssertionError(f"serving launched {launches}; expected {expected} "
                              f"for {batches} padded batches and no backward")
+    if dtype == "float32":  # the same probabilities once more, TF32 as the CLIs leave it
+        with tf32_as_default():
+            tf32 = [np.abs(predictor.predict_windows(x) - want[n]).max()
+                    for n, x in requests.items()]
+            tf32.append(np.abs(predictor.predict_recording(pkl).probs - want_rec.probs).max())
+        print(f"serving float32 with {tf32_label()}: max|probs - CPU| = {max(tf32):.3e}, "
+              f"against {max(errs):.3e} over HTTP with TF32 off: "
+              f"{'within' if max(tf32) <= atol else 'BEYOND'} atol {atol}")
 
     x64 = requests[64]
     xt = torch.from_numpy(x64).cuda()
@@ -817,54 +896,114 @@ def check_gradients(model) -> None:
           f"nonzero but {sorted(zero_by_construction)} (zero by construction)")
 
 
-def compare_parameters(a, b, n_steps: int, tol: dict) -> tuple[float, float]:
-    """(max |a - b|, share of elements beyond tol['elem']) over all
-    parameters; raises beyond TRAIN_TOL's limits."""
+def compare_steps(card, card_losses, cpu, cpu_losses, tol: dict) -> tuple:
+    """(worst relative loss difference, max |parameter difference|, share
+    of parameter elements beyond tol['elem'], whether all is within
+    TRAIN_TOL: finite losses within tol['loss'], every element within 2 lr
+    per step, at most tol['share'] beyond tol['elem'])."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
     worst, far, total = 0.0, 0, 0
-    for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
+    for (_, pa), (_, pb) in zip(card.named_parameters(), cpu.named_parameters()):
         d = (pa.detach().cpu() - pb.detach()).abs()
         worst = max(worst, d.max().item())
         far += int((d > tol["elem"]).sum())
         total += d.numel()
     share = far / total
-    if worst > 2 * LR * n_steps + 1e-6 or share > tol["share"]:
-        raise AssertionError(f"parameters card vs CPU: max|d| {worst:.3e}, "
-                             f"{share:.3%} of elements beyond {tol['elem']}")
-    return worst, share
+    ok = (all(math.isfinite(v) for v in card_losses) and loss_err <= tol["loss"]
+          and worst <= 2 * LR * len(card_losses) + 1e-6 and share <= tol["share"])
+    return loss_err, worst, share, ok
 
 
 def first_steps_parity(model_cfg, variables, x, y, batches, tcfg, root: Path,
-                       tol: dict, what: str) -> None:
+                       tol: dict, what: str, tf32_probe: bool = False) -> None:
     """Train steps on the card and on the CPU from the same weights, with
     dropout 0, over `batches` ((rows, weights) pairs): every loss within
     tol['loss'] relative, the gradients after the first step checked, and
-    the parameters afterwards within TRAIN_TOL (compare_parameters). The CPU
+    the parameters afterwards within TRAIN_TOL (compare_steps). The CPU
     side runs the kernels' plain versions (gru_impl "auto" would take the
-    plain loop there, so it becomes "cuda")."""
+    plain loop there, so it becomes "cuda"). With `tf32_probe` the card's
+    steps run once more with TF32 as the CLIs leave it, and their distance
+    from the CPU is printed beside the TF32-off one."""
     no_drop = dataclasses.replace(model_cfg, dropout=0.0)
     cpu_cfg = (dataclasses.replace(no_drop, gru_impl="cuda")
                if no_drop.gru_impl == "auto" else no_drop)
     c = x.shape[1]
-    card = Trainer(build_model(no_drop, 2, c), root / "card", tcfg, 2,
-                   device="cuda", variables=variables)
-    cpu = Trainer(build_model(cpu_cfg, 2, c), root / "cpu", tcfg, 2, device="cpu",
-                  variables=variables)
     x_cpu, y_cpu = torch.from_numpy(x), torch.from_numpy(y.astype(np.int64))
-    x_gpu, y_gpu = x_cpu.cuda(), y_cpu.cuda()
-    losses = []
-    for k, (rows_np, w_np) in enumerate(batches):
-        rows, wb = torch.from_numpy(rows_np), torch.from_numpy(w_np)
-        got, _ = card.train_step(x_gpu[rows.cuda()], y_gpu[rows.cuda()], wb.cuda())
-        if k == 0:
-            check_gradients(card.model)
-        want, _ = cpu.train_step(x_cpu[rows], y_cpu[rows], wb)
-        losses.append((got.item(), want.item()))
-        if not math.isfinite(got.item()) or abs(got.item() - want.item()) > tol["loss"] * abs(want.item()):
-            raise AssertionError(f"{what} step {k}: loss card {got.item()} vs CPU {want.item()}")
-    worst, share = compare_parameters(card.model, cpu.model, len(batches), tol)
+    data = {"cpu": (x_cpu, y_cpu), "cuda": (x_cpu.cuda(), y_cpu.cuda())}
+
+    def steps(device, cfg, name):
+        trainer = Trainer(build_model(cfg, 2, c), root / name, tcfg, 2, device=device,
+                          variables=variables)
+        xs, ys = data[device]
+        losses = []
+        for k, (rows_np, w_np) in enumerate(batches):
+            rows = torch.from_numpy(rows_np).to(device)
+            loss, _ = trainer.train_step(xs[rows], ys[rows], torch.from_numpy(w_np).to(device))
+            if k == 0 and device == "cuda":
+                check_gradients(trainer.model)
+            losses.append(loss.item())
+        return trainer.model, losses
+
+    cpu, cpu_losses = steps("cpu", cpu_cfg, "cpu")
+    card, card_losses = steps("cuda", no_drop, "card")
+    loss_err, worst, share, ok = compare_steps(card, card_losses, cpu, cpu_losses, tol)
+    summary = (f"losses max rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+               f"{share:.4%} beyond {tol['elem']}")
+    if not ok:
+        raise AssertionError(f"{what}: card vs CPU beyond TRAIN_TOL: {summary}; losses "
+                             f"card {card_losses}, CPU {cpu_losses}")
     print(f"{what}: first {len(batches)} steps card vs CPU, losses "
-          + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
-          + f"; parameters max|d| {worst:.3e}, {share:.4%} beyond {tol['elem']}")
+          + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(card_losses, cpu_losses))
+          + f"; {summary}")
+    if tf32_probe:
+        with tf32_as_default():
+            card, card_losses = steps("cuda", no_drop, "card_tf32")
+        loss_err, worst, share, ok = compare_steps(card, card_losses, cpu, cpu_losses, tol)
+        print(f"{what} with {tf32_label()}: losses max rel|d| {loss_err:.3e}, parameters "
+              f"max|d| {worst:.3e}, {share:.4%} beyond {tol['elem']} (TF32 off: {summary}): "
+              f"{'within' if ok else 'BEYOND'} TRAIN_TOL")
+
+
+def step_profile(trainer, xb, yb, wb, what: str) -> None:
+    """ms per train step (CUDA events around blocks of 5 back-to-back
+    steps), the peak device memory of one step (max_memory_allocated after
+    reset_peak_memory_stats: what was held before the step plus what it
+    allocated), and a profiler trace of back-to-back steps."""
+    step_ms = median_ms(lambda: trainer.train_step(xb, yb, wb), per_block=5)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(xb, yb, wb)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what}: train step {step_ms:.3f} ms at B={len(xb)} "
+          f"({len(xb) / step_ms * 1e3:.0f} windows/s); peak device memory of one step "
+          f"{peak / 2**20:.1f} MiB, {held / 2**20:.1f} MiB of it held before the step")
+    trace(lambda: trainer.train_step(xb, yb, wb), "train step")
+
+
+def train_step_ab(impl: str, dtype: str) -> None:
+    """step_profile of one tree's train step, for holding two trees against
+    each other in one call: the default model with gru_impl `impl`, weights
+    from random_variables(seed 0), numpy windows [3, 7680] at B=64 and the
+    config's dropout, TF32 off. Run it from the root of each tree with this
+    file loaded by path, so that the tree's own package is imported:
+    python -c "import importlib.util as u; s = u.spec_from_file_location('cs',
+    '<repo>/chip_smoke.py'); m = u.module_from_spec(s); s.loader.exec_module(m);
+    m.train_step_ab('auto', 'float32')"."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ExperimentConfig(model=ModelConfig(dtype=dtype, gru_impl=impl))
+    variables = random_variables(cfg, seed=0)
+    rng = np.random.default_rng(3)
+    xb = torch.from_numpy(rng.standard_normal((BATCH, 3, WINDOW_T)).astype(np.float32)).cuda()
+    yb = torch.from_numpy(rng.integers(0, 2, BATCH)).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(build_model(cfg.model, 2, 3), Path(tmp),
+                          TrainerConfig(batch_size=BATCH, learning_rate=LR), 2, device="cuda",
+                          variables=variables)
+        step_profile(trainer, xb, yb, torch.ones(BATCH, device="cuda"),
+                     f"A/B {Path.cwd().name} {impl} {dtype}")
 
 
 def training_phase(dtype: str, root: Path) -> dict[str, int]:
@@ -885,7 +1024,8 @@ def training_phase(dtype: str, root: Path) -> dict[str, int]:
     idx, w = batch_indices(TRAIN_N, BATCH, rng=np.random.default_rng(0))
     steps = [0, 1, idx.shape[0] - 1]  # two full batches and the padded last
     first_steps_parity(cfg.model, variables, x_tr, y_tr, [(idx[s], w[s]) for s in steps],
-                       tcfg, root / f"parity_{dtype}", tol, f"training {dtype}")
+                       tcfg, root / f"parity_{dtype}", tol, f"training {dtype}",
+                       tf32_probe=dtype == "float32")
 
     # b. The main path: Trainer.train at the config's dropout (0.5).
     trainer = Trainer(build_model(cfg.model, 2, c), root / f"train_{dtype}", tcfg, 2,
@@ -919,10 +1059,7 @@ def training_phase(dtype: str, root: Path) -> dict[str, int]:
     xb = torch.from_numpy(x_tr[:BATCH]).cuda()
     yb = torch.from_numpy(y_tr[:BATCH]).cuda()
     wb = torch.ones(BATCH, device="cuda")
-    step_ms = median_ms(lambda: trainer.train_step(xb, yb, wb), per_block=5)
-    print(f"training {dtype}: train step {step_ms:.3f} ms at B={BATCH} "
-          f"({BATCH / step_ms * 1e3:.0f} windows/s), dropout {cfg.model.dropout}")
-    trace(lambda: trainer.train_step(xb, yb, wb), "train step")
+    step_profile(trainer, xb, yb, wb, f"training {dtype} dropout {cfg.model.dropout}")
     return launches
 
 
@@ -1031,10 +1168,7 @@ def loso_phase(dtype: str, data: Path, root: Path) -> dict[str, int]:
     xb = torch.from_numpy(train.x[:bs]).cuda()
     yb = torch.from_numpy(train.y[:bs].astype(np.int64)).cuda()
     wb = torch.ones(bs, device="cuda")
-    step_ms = median_ms(lambda: trainer.train_step(xb, yb, wb), per_block=5)
-    print(f"loso {dtype}: pallas_fused train step {step_ms:.3f} ms at B={bs} "
-          f"({bs / step_ms * 1e3:.0f} windows/s), dropout {cfg.model.dropout}")
-    trace(lambda: trainer.train_step(xb, yb, wb), "pallas_fused train step")
+    step_profile(trainer, xb, yb, wb, f"loso {dtype} pallas_fused dropout {cfg.model.dropout}")
     return launches
 
 

@@ -1,5 +1,6 @@
-// GRU backward (adjoint) recurrence for Hopper (sm_90a): two designs with a
-// lane axis, each with a fixed-order reduction of its dW / db partials.
+// GRU backward (adjoint) recurrence for Hopper (sm_90a): one design, the
+// adjoint walk, with a lane axis, a stream layout as a type, and a
+// fixed-order reduction of its dW / db partials.
 //
 // Replaces three Pallas TPU kernels of multimodalsignal_tpu/ops/gru_pallas.py:
 //   * _bwd_kernel    (called by _gru_backward)    -> C entry gru_bwd    (one lane)
@@ -33,10 +34,13 @@
 // sums the float32 dg, as the TPU kernels' bf16 mode does (so the bf16
 // backward is not the exact adjoint of the bf16 forward, whose carry is f32).
 //
-// gru_bwd runs the adjoint walk (gru_adj_* below), gru_bwd_fb and gru_bibwd
-// the first port's template (gru_bwd_kernel).
+// All three entries run the adjoint walk (gru_adj_* below): gru_bwd with
+// one lane, gru_bwd_fb with F lanes of the LaneMajor layout, gru_bibwd with
+// 2 lanes of the TimeMajor layout, where lane 1 is the backward direction,
+// already flipped in time, so both lanes walk with reverse=0 and h_prev at
+// the first forward step is h0[lane].
 //
-// The adjoint walk (C entry gru_bwd, replaces _bwd_kernel). What bounds it
+// The adjoint walk. What bounds it
 // on the card is latency: at the training shape (T=480, B=64, H=64) the
 // bytes and FLOPs take ~0.035 ms, but the 480 steps depend on one another.
 // Only one chain does: dh -> dht = dh + dy[t] -> the gate adjoint -> dg_lo
@@ -51,8 +55,8 @@
 //     dz_pre = dht cz, dg_n = dht a_n and dht z.
 //   * gru_adj_walk_kernel: one block per (lane, tile of R batch rows), R
 //     chosen before the launch from (B, lanes) (adj_row_tile: R = 1 at
-//     B=64, 64 blocks; R <= 2 with W in registers, 1 with W in shared
-//     memory). With H <= 64 each dot thread holds 4 units' slices of W's
+//     B=64, 64 blocks a lane while B * lanes <= 132; R <= 2 with W in
+//     registers, 1 with W in shared memory). With H <= 64 each dot thread holds 4 units' slices of W's
 //     columns in registers (K = 3H in 4-wide chunks, 8 sub-lanes: 96
 //     floats a thread), so each dg_lo value it reads from shared memory
 //     feeds 4 FMAs; above that W^T [H][3H padded to 4] sits in dynamic
@@ -81,40 +85,14 @@
 // barrier ~40, six 16-byte shared loads per dot thread and 96 FMAs in four
 // chains of 24 ~120, three shuffle rounds of four sums ~90: ~0.17 us a
 // step. Measured on an H100 (700 W): ~0.41 us a step (0.197 ms for the
-// walk, 0.19 ms more for the two passes), against ~7.6 us for
-// gru_bwd_kernel, which kept h_prev's load, the hg product, three
-// transcendentals and the dW^T accumulation on the chain with four
+// walk, 0.19 ms more for the two passes), against ~7.6 us for the first
+// adjoint template it replaced, which kept h_prev's load, the hg product,
+// three transcendentals and the dW^T accumulation on the chain with four
 // barriers a step. A first version, one unit a thread (512 threads) with
 // the factor loads and the dxg / dg stores in the gate lanes, ran about
 // twice as long a step: its stores and its loads each held the barrier,
 // whether the loads went through a register ring or cp.async, and one unit
 // a thread made the dot read 48 KB of shared memory a step.
-//
-// gru_bwd_kernel (C entries gru_bwd_fb, gru_bibwd; replaces _fb_bwd_kernel
-// and _bibwd_kernel). Batch rows and lanes are independent, so one block
-// owns one lane and a tile of kRows batch rows and walks all T steps; the
-// stream layout is a template parameter (Layout::row), so gru_bibwd reads
-// the fused layout in place and reads h_prev from ys and h0 directly, where
-// the TPU kernel gets a shifted [T, 2, B, H] copy built by its wrapper, and
-// its time chunks and `valid` masks have no counterpart. Shared memory
-// holds W^T [H, 3H+1] in the stream dtype (the row padded by one element,
-// so that both reading it by rows for hg and by columns for dg @ W is free
-// of bank conflicts), the block's float32 dW^T
-// partial [H, 3H], and the step's small buffers. Per step: load h_prev;
-// thread c forms hg[:, c]; the threads do the gate adjoint per (row, unit)
-// and write dxg; thread c adds column c of h_prev^T @ dg_lo into the dW^T
-// partial and keeps its db partial in a register, while the threads form
-// dh per (row, unit). Four barriers a step.
-// dW and db are sums over all row tiles: each block writes its partial to a
-// workspace the wrapper allocates, and gru_bwd_reduce sums the tiles in a
-// fixed order, so the result is the same from run to run (no atomics).
-//
-// What bounds it on the card: latency, as in the forward. At the training
-// shape (T=480, B=64, H=64) a step is two [4, 64] x [64, 192]-sized products
-// and one [4, 192] x [192, 64] product in shared memory per block, plus four
-// barriers, and the 480 steps depend on one another; the bytes (xg, ys, dy
-// read once, dxg written once) and FLOPs are far below what the card could
-// move in that time. Its next version is the adjoint walk above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,8 +100,6 @@
 #include <cstddef>
 
 namespace {
-
-constexpr int kRows = 4;  // batch rows per block (BWD_ROWS_PER_BLOCK in gru_cuda.py)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -158,218 +134,8 @@ struct TimeMajor {  // [T, F, B, width]: gru_bibwd
   }
 };
 
-// Dynamic shared memory of one block: W^T [H][3H+1] in the stream dtype,
-// the float32 dW^T partial [H][3H], then h_prev, dh and dht*z [kRows][H] and
-// hg and dg [kRows][3H] in float32.
-__host__ __device__ constexpr size_t shared_bytes(int hidden, size_t itemsize) {
-  return align16(size_t(hidden) * (3 * hidden + 1) * itemsize) +
-         (size_t(hidden) * 3 * hidden + size_t(3) * kRows * hidden +
-          size_t(2) * kRows * 3 * hidden) * sizeof(float);
-}
-
-template <typename T, typename Layout>
-__global__ void __launch_bounds__(1024)
-    gru_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
-                   const T* __restrict__ b_hh, const float* __restrict__ h0,
-                   const T* __restrict__ ys, const T* __restrict__ dy, T* __restrict__ dxg,
-                   float* __restrict__ dw_part, float* __restrict__ db_part,
-                   float* __restrict__ dh0, int n_steps, int batch, int hidden, int reverse) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = hidden;
-  const int G = 3 * hidden;
-  const int GP = G + 1;  // padded row of W^T
-  const int lane = blockIdx.y;
-  const int lanes = gridDim.y;
-  const int tile = blockIdx.x;
-  const int row0 = tile * kRows;
-  const int rows = min(kRows, batch - row0);
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-
-  T* w_t = reinterpret_cast<T*>(smem);                                          // [H][GP]
-  float* dw = reinterpret_cast<float*>(smem + align16(size_t(H) * GP * sizeof(T)));  // [H][G]
-  float* hp = dw + H * G;        // [kRows][H] h_prev in the stream dtype's values
-  float* dh = hp + kRows * H;    // [kRows][H] the adjoint carry
-  float* dhz = dh + kRows * H;   // [kRows][H] dht * z
-  float* hg = dhz + kRows * H;   // [kRows][G]
-  float* dg = hg + kRows * G;    // [kRows][G] float32 dgates_h
-
-  const T* w = w_hh + size_t(lane) * G * H;
-  for (int e = tid; e < G * H; e += nt) {
-    const int c = e / H;
-    const int k = e - c * H;
-    w_t[k * GP + c] = w[e];
-  }
-  for (int e = tid; e < H * G; e += nt) dw[e] = 0.0f;
-  for (int e = tid; e < kRows * H; e += nt) dh[e] = 0.0f;
-  const float bias = tid < G ? to_float(b_hh[size_t(lane) * G + tid]) : 0.0f;
-  float db_acc = 0.0f;  // thread c's column of db
-  __syncthreads();
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? s : n_steps - 1 - s;
-    const int tp = reverse ? t + 1 : t - 1;  // forward step whose output enters t
-    for (int e = tid; e < kRows * H; e += nt) {
-      const int r = e / H;
-      const int j = e - r * H;
-      float v = 0.0f;
-      if (r < rows) {
-        v = (tp >= 0 && tp < n_steps)
-                ? to_float(ys[Layout::row(lane, tp, row0 + r, lanes, n_steps, batch) * H + j])
-                : round_to<T>(h0[(size_t(lane) * batch + row0 + r) * H + j]);
-      }
-      hp[e] = v;
-    }
-    __syncthreads();
-
-    // hg[:, c] = h_prev @ W^T[:, c] + bh[c]
-    if (tid < G) {
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float wv = to_float(w_t[k * GP + tid]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hp[r * H + k], wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) hg[r * G + tid] = acc[r] + bias;
-    }
-    __syncthreads();
-
-    // Gate adjoint per (row, unit); rows past the batch give zeros.
-    for (int e = tid; e < kRows * H; e += nt) {
-      const int r = e / H;
-      const int j = e - r * H;
-      float* d = dg + r * G;
-      if (r >= rows) {
-        d[j] = d[H + j] = d[2 * H + j] = 0.0f;
-        dhz[e] = 0.0f;
-        continue;
-      }
-      const size_t at = Layout::row(lane, t, row0 + r, lanes, n_steps, batch);
-      const T* x = xg + at * G;
-      const float* g = hg + r * G;
-      const float rg = sigmoid(to_float(x[j]) + g[j]);
-      const float zg = sigmoid(to_float(x[H + j]) + g[H + j]);
-      const float hn = g[2 * H + j];
-      const float ng = tanhf(to_float(x[2 * H + j]) + rg * hn);
-      const float dht = dh[e] + to_float(dy[at * H + j]);
-      const float dz = dht * (hp[e] - ng);
-      const float dn = dht * (1.0f - zg);
-      const float dn_pre = dn * (1.0f - ng * ng);
-      const float dr_pre = dn_pre * hn * rg * (1.0f - rg);
-      const float dz_pre = dz * zg * (1.0f - zg);
-      T* out = dxg + at * G;
-      out[j] = from_float<T>(dr_pre);
-      out[H + j] = from_float<T>(dz_pre);
-      out[2 * H + j] = from_float<T>(dn_pre);
-      d[j] = dr_pre;
-      d[H + j] = dz_pre;
-      d[2 * H + j] = dn_pre * rg;
-      dhz[e] = dht * zg;
-    }
-    __syncthreads();
-
-    // dW^T[:, c] += h_prev^T @ dg_lo[:, c]; db[c] += sum_rows dg[:, c]
-    if (tid < G) {
-      float lo[kRows];
-      float col = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float v = dg[r * G + tid];
-        col += v;
-        lo[r] = round_to<T>(v);
-      }
-      db_acc += col;
-      for (int k = 0; k < H; ++k) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc = fmaf(hp[r * H + k], lo[r], acc);
-        dw[k * G + tid] += acc;
-      }
-    }
-    // dh[r, k] = dht z + dg_lo[r, :] @ W[:, k]
-    for (int e = tid; e < kRows * H; e += nt) {
-      const int r = e / H;
-      const int k = e - r * H;
-      const float* d = dg + r * G;
-      const T* wk = w_t + k * GP;
-      float acc = 0.0f;
-      for (int c = 0; c < G; ++c) acc = fmaf(round_to<T>(d[c]), to_float(wk[c]), acc);
-      dh[e] = dhz[e] + acc;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < rows * H; e += nt) {
-    const int r = e / H;
-    dh0[(size_t(lane) * batch + row0 + r) * H + (e - r * H)] = dh[e];
-  }
-  const size_t part = size_t(lane) * gridDim.x + tile;
-  for (int e = tid; e < H * G; e += nt) dw_part[part * H * G + e] = dw[e];
-  if (tid < G) db_part[part * G + tid] = db_acc;
-}
-
-// Sums the row tiles' partials in tile order: dw [F, 3H, H] (torch layout,
-// transposed from the partials' [H, 3H]) and db [F, 3H].
-__global__ void gru_bwd_reduce(const float* __restrict__ dw_part,
-                               const float* __restrict__ db_part, float* __restrict__ dw,
-                               float* __restrict__ db, int lanes, int tiles, int hidden) {
-  const int H = hidden;
-  const int G = 3 * hidden;
-  const size_t n_w = size_t(lanes) * G * H;
-  const size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n_w) {
-    const size_t f = i / (size_t(G) * H);
-    const int rem = int(i - f * G * H);
-    const int c = rem / H;
-    const int k = rem - c * H;
-    float acc = 0.0f;
-    for (int tile = 0; tile < tiles; ++tile) {
-      acc += dw_part[((f * tiles + tile) * H + k) * G + c];
-    }
-    dw[i] = acc;
-  } else if (i < n_w + size_t(lanes) * G) {
-    const size_t j = i - n_w;
-    const size_t f = j / G;
-    const int c = int(j - f * G);
-    float acc = 0.0f;
-    for (int tile = 0; tile < tiles; ++tile) acc += db_part[(f * tiles + tile) * G + c];
-    db[j] = acc;
-  }
-}
-
-template <typename T, typename Layout = LaneMajor>
-int launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0, const void* ys,
-           const void* dy, void* dxg, void* dw, void* db, void* dh0, void* dw_part,
-           void* db_part, int lanes, int n_steps, int batch, int hidden, int reverse,
-           void* stream) {
-  const size_t smem = shared_bytes(hidden, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel<T, Layout>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (batch + kRows - 1) / kRows;
-  const int threads = (max(3 * hidden, kRows * hidden) + 31) / 32 * 32;
-  gru_bwd_kernel<T, Layout><<<dim3(tiles, lanes), threads, smem, s>>>(
-      static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
-      static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
-      static_cast<T*>(dxg), static_cast<float*>(dw_part), static_cast<float*>(db_part),
-      static_cast<float*>(dh0), n_steps, batch, hidden, reverse);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const size_t n_out = size_t(lanes) * 3 * hidden * (hidden + 1);
-  const int red_threads = 256;
-  const unsigned red_blocks = unsigned((n_out + red_threads - 1) / red_threads);
-  gru_bwd_reduce<<<red_blocks, red_threads, 0, s>>>(
-      static_cast<const float*>(dw_part), static_cast<const float*>(db_part),
-      static_cast<float*>(dw), static_cast<float*>(db), lanes, tiles, hidden);
-  return int(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// The adjoint walk: gru_bwd (see the note at the top)
+// The adjoint walk: gru_bwd, gru_bwd_fb, gru_bibwd (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int kNumSMs = 132;          // H100 SXM
@@ -450,7 +216,7 @@ __host__ __device__ constexpr int adj_gates_w_floats(int hidden) {
 __host__ __device__ constexpr size_t adj_gates_shared_bytes(int hidden) {
   return (size_t(adj_gates_w_floats(hidden)) + size_t(hidden) * kGateRows) * sizeof(float);
 }
-// The most any kernel of gru_bwd takes; the wrapper checks it.
+// The most any kernel of the adjoint walk takes; the wrapper checks it.
 __host__ __device__ constexpr size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
   return adj_walk_shared_bytes(hidden, itemsize, rows) > adj_gates_shared_bytes(hidden)
              ? adj_walk_shared_bytes(hidden, itemsize, rows)
@@ -470,7 +236,7 @@ int adj_partials(int n_steps, int batch) {
   const long long chunk = adj_chunk_rows(n_steps, batch);
   return int((rows + chunk - 1) / chunk);
 }
-// The f32 workspace gru_bwd takes as dw_part: the factors [rows][6][H] and
+// The f32 workspace each entry takes as dw_part: the factors [rows][6][H] and
 // dht [rows][H] (rows = lanes * T * B, in the streams' order), then the dW
 // partials [lanes][partials][3H][H].
 long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden) {
@@ -971,35 +737,50 @@ __global__ void gru_adj_reduce(const float* __restrict__ dw_part,
   }
 }
 
-template <typename T, typename Layout, int R, bool kRegs>
-int adj_walk_tile(const float* fac, const void* w_hh, float* dht, void* dh0, int lanes,
-                  int n_steps, int batch, int hidden, int reverse, cudaStream_t stream) {
-  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), R);
-  cudaError_t err = cudaFuncSetAttribute(gru_adj_walk_kernel<T, Layout, R, kRegs>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  gru_adj_walk_kernel<T, Layout, R, kRegs>
-      <<<dim3((batch + R - 1) / R, lanes), adj_threads(hidden), smem, stream>>>(
-          fac, static_cast<const T*>(w_hh), dht, static_cast<float*>(dh0), n_steps, batch,
-          hidden, reverse);
-  return int(cudaGetLastError());
+// The walk's instantiation for a shape: W in shared memory above H = 64
+// (one row a block), else W in registers with `rows` (adj_row_tile) rows.
+template <typename T>
+using AdjWalkKernel = void (*)(const float*, const T*, float*, float*, int, int, int, int);
+template <typename T, typename Layout>
+AdjWalkKernel<T> adj_walk_kernel(int rows, int hidden) {
+  if (!adj_in_registers(hidden)) return gru_adj_walk_kernel<T, Layout, 1, false>;
+  return rows == 1 ? gru_adj_walk_kernel<T, Layout, 1, true>
+                   : gru_adj_walk_kernel<T, Layout, 2, true>;
 }
 
 template <typename T, typename Layout>
 int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lanes, int n_steps,
              int batch, int hidden, int reverse, cudaStream_t stream) {
-  if (!adj_in_registers(hidden))
-    return adj_walk_tile<T, Layout, 1, false>(fac, w_hh, dht, dh0, lanes, n_steps, batch,
-                                              hidden, reverse, stream);
-  if (adj_row_tile(batch, lanes, hidden) == 1)
-    return adj_walk_tile<T, Layout, 1, true>(fac, w_hh, dht, dh0, lanes, n_steps, batch,
-                                             hidden, reverse, stream);
-  return adj_walk_tile<T, Layout, 2, true>(fac, w_hh, dht, dh0, lanes, n_steps, batch, hidden,
-                                           reverse, stream);
+  const int rows = adj_row_tile(batch, lanes, hidden);
+  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden);
+  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3((batch + rows - 1) / rows, lanes), adj_threads(hidden), smem, stream>>>(
+      fac, static_cast<const T*>(w_hh), dht, static_cast<float*>(dh0), n_steps, batch, hidden,
+      reverse);
+  return int(cudaGetLastError());
 }
 
-// gru_bwd's four kernels on one stream: the gate pre-pass, the walk, the
-// weight-gradient pass and the reduction. The instantiation is chosen from
+// Blocks of the walk (LaneMajor) one SM holds at once for this shape, from
+// CUDA's occupancy calculator; a negative CUDA error if it fails.
+template <typename T>
+int adj_walk_blocks_per_sm(int batch, int lanes, int hidden) {
+  const int rows = adj_row_tile(batch, lanes, hidden);
+  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, LaneMajor>(rows, hidden);
+  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, adj_threads(hidden),
+                                                        smem);
+  return err == cudaSuccess ? blocks : -int(err);
+}
+
+// The adjoint walk's four kernels on one stream: the gate pre-pass, the
+// walk, the weight-gradient pass and the reduction. The instantiation is chosen from
 // H before any launch; a shape the wrapper would have refused is refused
 // here too, not launched.
 template <typename T, typename Layout>
@@ -1059,30 +840,31 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
 
 extern "C" {
 
-// Shared memory one block of gru_bwd_kernel (gru_bwd_fb, gru_bibwd) needs;
-// the wrapper checks it against the card's limit.
-long long gru_bwd_shared_bytes(int hidden, int bf16) {
-  return (long long)shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
-}
-
-// Shared memory the most demanding kernel of gru_bwd needs for a walk tile
-// of `rows`; the wrapper checks it against the card's limit.
+// Shared memory the most demanding kernel of the adjoint walk needs for a
+// walk tile of `rows`; the wrapper checks it against the card's limit.
 long long gru_adj_shared_bytes(int hidden, int bf16, int rows) {
   return (long long)adj_shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float),
                                      rows);
 }
 
-// Rows per block of gru_bwd's walk for this shape.
+// Rows per block of the adjoint walk for this shape.
 int gru_adj_row_tile(int batch, int lanes, int hidden) {
   return adj_row_tile(batch, lanes, hidden);
 }
 
-// Rows (t, b) per chunk of gru_bwd's weight-gradient pass, and the chunk
+// Walk blocks one SM holds at once for this shape (the wave count of
+// ceil(B / R) * lanes blocks follows).
+int gru_adj_walk_blocks_per_sm(int batch, int lanes, int hidden, int bf16) {
+  return bf16 ? adj_walk_blocks_per_sm<__nv_bfloat16>(batch, lanes, hidden)
+              : adj_walk_blocks_per_sm<float>(batch, lanes, hidden);
+}
+
+// Rows (t, b) per chunk of the weight-gradient pass, and the chunk
 // count: the dW / db partials per lane.
 long long gru_adj_chunk_rows(int n_steps, int batch) { return adj_chunk_rows(n_steps, batch); }
 int gru_adj_partials(int n_steps, int batch) { return adj_partials(n_steps, batch); }
 
-// Floats of the workspace gru_bwd takes as dw_part.
+// Floats of the workspace an entry with `lanes` lanes takes as dw_part.
 long long gru_adj_workspace_floats(int lanes, int n_steps, int batch, int hidden) {
   return adj_workspace_floats(lanes, n_steps, batch, hidden);
 }
@@ -1103,30 +885,35 @@ int gru_bwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, 
                                       db_part, 1, n_steps, batch, hidden, reverse, stream);
 }
 
-// Counterpart of _gru_backward_fb: F lanes, each with its own dw/db/dh0; the
-// workspaces hold F * ceil(B / kRows) partials.
+// Counterpart of _gru_backward_fb: F lanes of the [F, T, B, .] streams, each
+// with its own dw/db/dh0, on the adjoint walk. dw_part is the workspace of
+// gru_adj_workspace_floats(F, T, B, H) floats, db_part holds
+// F * gru_adj_partials(T, B) partials of [3H] floats.
 int gru_bwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
                const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
                void* dw_part, void* db_part, int lanes, int n_steps, int batch, int hidden,
                int reverse, int bf16, void* stream) {
   if (bf16) {
-    return launch<__nv_bfloat16>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
-                                 db_part, lanes, n_steps, batch, hidden, reverse, stream);
+    return adj_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0,
+                                                dw_part, db_part, lanes, n_steps, batch,
+                                                hidden, reverse, stream);
   }
-  return launch<float>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part, db_part, lanes,
-                       n_steps, batch, hidden, reverse, stream);
+  return adj_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
+                                      db_part, lanes, n_steps, batch, hidden, reverse, stream);
 }
 
 // Counterpart of _bigru_backward: the adjoint of gru_bifwd, float32, walking
 // time backward. xg, ys, dy, dxg [T, 2, B, .]; w [2, 3H, H], bh [2, 3H],
-// h0 [2, B, H] -> dw [2, 3H, H], db [2, 3H], dh0 [2, B, H] per direction.
-// The workspaces hold 2 * ceil(B / kRows) partials.
+// h0 [2, B, H] -> dw [2, 3H, H], db [2, 3H], dh0 [2, B, H] per direction,
+// on the adjoint walk with 2 lanes of the TimeMajor layout and reverse=0.
+// dw_part is the workspace of gru_adj_workspace_floats(2, T, B, H) floats,
+// db_part holds 2 * gru_adj_partials(T, B) partials of [3H] floats.
 int gru_bibwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
               const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
               void* dw_part, void* db_part, int n_steps, int batch, int hidden,
               void* stream) {
-  return launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
-                                  db_part, 2, n_steps, batch, hidden, 0, stream);
+  return adj_launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
+                                      db_part, 2, n_steps, batch, hidden, 0, stream);
 }
 
 }  // extern "C"

@@ -26,15 +26,15 @@ The three forward entries run the walk kernel (`gru_walk_kernel`): one
 block per (lane, tile of rows), W^T in registers up to H = 64 and in shared
 memory above, h double-buffered with one barrier a step, xg prefetched;
 `walk_row_tile` and `walk_shared_bytes` mirror how its C side picks the
-tile and sizes shared memory. `gru_bwd` runs the adjoint walk: a gate
-pre-pass over all T, a walk that keeps only the dh chain (W's columns in
-registers up to H = 64, in shared memory above; a producer warp moves its
-factors and dht between device and shared memory a chunk of steps at a
-time), and a weight-gradient pass over all T, summed in a fixed order;
-`adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
-`adj_workspace_floats` mirror its C side. `gru_bwd_fb` and `gru_bibwd` run
-the first adjoint template (`gru_bwd_kernel`, sized by `bwd_shared_bytes`
-and BWD_ROWS_PER_BLOCK).
+tile and sizes shared memory. The three adjoint entries run the adjoint
+walk, with their own lane count and stream layout (`gru_bwd` one lane,
+`gru_bwd_fb` F lanes, `gru_bibwd` the fused pair's two): a gate pre-pass
+over all T, a walk that keeps only the dh chain (W's columns in registers
+up to H = 64, in shared memory above; a producer warp moves its factors and
+dht between device and shared memory a chunk of steps at a time), and a
+weight-gradient pass over all T, summed in a fixed order; `adj_row_tile`,
+`adj_shared_bytes`, `adj_partials` and `adj_workspace_floats` mirror its C
+side and size every entry's checks and workspaces.
 
 The wrappers take the TPU kernels' time-major layout. A wrapper given CPU
 tensors runs its plain PyTorch version (`*_plain`: a Python loop over time
@@ -61,15 +61,13 @@ import functools
 
 import torch
 
-# Batch rows per block of gru_bwd_kernel; must equal kRows in csrc/gru_bwd.cu.
-BWD_ROWS_PER_BLOCK = 4
 # Dynamic shared memory one block may use on sm_90 (232,448 bytes).
 MAX_SHARED_BYTES = 232_448
 # The walk kernel (gru_fwd, gru_fwd_fb, gru_bifwd), as csrc/gru_fwd.cu lays
 # it out: W^T in registers up to WALK_REG_MAX_HIDDEN, with WALK_SUBLANES
 # threads per hidden unit (K split across them), which is also the most
 # rows a block takes; the row tile fills NUM_SMS. The adjoint walk (gru_bwd,
-# csrc/gru_bwd.cu) takes the same threshold and sub-lanes.
+# gru_bwd_fb, gru_bibwd; csrc/gru_bwd.cu) takes the same threshold.
 NUM_SMS = 132
 WALK_REG_MAX_HIDDEN = 64
 WALK_SUBLANES = {True: 8, False: 4}   # by "W in registers"
@@ -171,16 +169,6 @@ def adj_workspace_floats(lanes: int, n_steps: int, batch: int, hidden: int) -> i
     rows = lanes * n_steps * batch
     parts = adj_partials(n_steps, batch)[1]
     return rows * hidden * (ADJ_FACTORS + 1) + lanes * parts * 3 * hidden * hidden
-
-
-def bwd_shared_bytes(hidden: int, itemsize: int) -> int:
-    """Shared memory per block of gru_bwd_kernel (gru_bwd_fb, gru_bibwd; as
-    gru_bwd_shared_bytes in C): W^T [H, 3H + 1] in the stream dtype, padded
-    to 16 bytes, then the f32 dW^T partial [H, 3H], h_prev, dh and dht*z for
-    BWD_ROWS_PER_BLOCK rows, and the step's hg and dg."""
-    w = (hidden * (3 * hidden + 1) * itemsize + 15) // 16 * 16
-    rows = BWD_ROWS_PER_BLOCK
-    return w + (3 * hidden * hidden + 3 * rows * hidden + 2 * rows * 3 * hidden) * 4
 
 
 # ---------------------------------------------------------------------------
@@ -372,12 +360,12 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_bwd_fb.restype = i32
     lib.gru_bibwd.argtypes = [ptr] * 12 + [i32] * 3 + [ptr]
     lib.gru_bibwd.restype = i32
-    lib.gru_bwd_shared_bytes.argtypes = [i32, i32]
-    lib.gru_bwd_shared_bytes.restype = ctypes.c_longlong
     lib.gru_adj_shared_bytes.argtypes = [i32, i32, i32]
     lib.gru_adj_shared_bytes.restype = ctypes.c_longlong
     lib.gru_adj_row_tile.argtypes = [i32, i32, i32]
     lib.gru_adj_row_tile.restype = i32
+    lib.gru_adj_walk_blocks_per_sm.argtypes = [i32] * 4
+    lib.gru_adj_walk_blocks_per_sm.restype = i32
     lib.gru_adj_chunk_rows.argtypes = [i32, i32]
     lib.gru_adj_chunk_rows.restype = ctypes.c_longlong
     lib.gru_adj_partials.argtypes = [i32, i32]
@@ -487,11 +475,10 @@ def gru_forward_fb(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 
 
 def _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb: bool):
-    """Validate what the adjoint kernel takes; returns (lanes, T, B, H).
-    gru_bwd (one lane) runs the adjoint walk, sized by adj_shared_bytes;
-    the F-lane entry runs gru_bwd_kernel, sized by bwd_shared_bytes."""
-    dims = _check_cuda_args(xg, w_hh, b_hh, h0, fb,
-                            smem=bwd_shared_bytes if fb else adj_shared_bytes)
+    """Validate what the adjoint walk takes; returns (lanes, T, B, H). Both
+    entries (gru_bwd, one lane; gru_bwd_fb, F lanes) are sized by
+    adj_shared_bytes."""
+    dims = _check_cuda_args(xg, w_hh, b_hh, h0, fb, smem=adj_shared_bytes)
     want = tuple(xg.shape[:-1]) + (dims[-1],)
     for name, t in (("ys", ys), ("dy", dy)):
         if tuple(t.shape) != want:
@@ -505,18 +492,13 @@ def _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb: bool):
     return dims
 
 
-def _adjoint_workspaces(entry: str, lanes: int, n_steps: int, batch: int,
+def _adjoint_workspaces(lanes: int, n_steps: int, batch: int,
                         hidden: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """Shapes of the two f32 workspaces `entry` takes (dw_part, db_part):
-    gru_bwd's flat workspace and its db partials per chunk of rows, or
-    gru_bwd_kernel's dW^T and db partials per tile of BWD_ROWS_PER_BLOCK
-    rows."""
-    g = 3 * hidden
-    if entry == "gru_bwd":
-        return ((adj_workspace_floats(lanes, n_steps, batch, hidden),),
-                (lanes, adj_partials(n_steps, batch)[1], g))
-    tiles = -(-batch // BWD_ROWS_PER_BLOCK)
-    return (lanes, tiles, hidden, g), (lanes, tiles, g)
+    """Shapes of the two f32 workspaces an adjoint entry with `lanes` lanes
+    takes (dw_part, db_part): the adjoint walk's flat workspace (factors,
+    dht and dW partials) and its db partials per lane and chunk of rows."""
+    return ((adj_workspace_floats(lanes, n_steps, batch, hidden),),
+            (lanes, adj_partials(n_steps, batch)[1], 3 * hidden))
 
 
 def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, n_steps: int,
@@ -534,7 +516,7 @@ def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, n_steps:
         for g in (dw, db, dh0):
             g.zero_()
         return (dxg, dw, db, dh0), False
-    dw_shape, db_shape = _adjoint_workspaces(entry, lanes, n_steps, batch, hidden)
+    dw_shape, db_shape = _adjoint_workspaces(lanes, n_steps, batch, hidden)
     dw_part = torch.empty(dw_shape, **f32)
     db_part = torch.empty(db_shape, **f32)
     _call(_bwd_library(), entry,
@@ -640,7 +622,7 @@ def gru_bibwd(xg2, whh2, bhh2, h02, ys2, dy2):
     walking time backward: xg2 [T, 2, B, 3H], whh2 [2, 3H, H], bhh2 [2, 3H],
     h02 [2, B, H], ys2 and dy2 [T, 2, B, H] -> (dxg2 [T, 2, B, 3H],
     dw_hh [2, 3H, H], db_hh [2, 3H], dh0 [2, B, H]), per direction."""
-    n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, bwd_shared_bytes,
+    n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, adj_shared_bytes,
                                             ys2=ys2, dy2=dy2)
     if xg2.device.type == "cpu":
         return gru_bibwd_plain(xg2, whh2, bhh2, h02, ys2, dy2)

@@ -187,8 +187,8 @@ def test_launch_counts_cover_four_kernels_and_cpu_counts_nothing():
 def test_backward_argument_checks():
     """What the adjoint kernel does not take is refused before any launch:
     ys/dy of the wrong shape or dtype, a non-contiguous dy, CPU tensors
-    handed to the launcher, and a hidden size whose W^T and dW^T partial do
-    not fit in shared memory."""
+    handed to the launcher, and a hidden size whose adjoint walk does not
+    fit in shared memory."""
     xg, w, b, h0, dy = (torch.from_numpy(a) for a in _arrays(17, t=4))
     ys = torch.zeros_like(dy)
     check = gru_cuda._check_bwd_args
@@ -208,19 +208,18 @@ def test_backward_argument_checks():
         check(xg, w, b, h0, ys, dy, fb=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gru_cuda._launch_bwd("gru_bwd", xg, w, b, h0, ys, dy, False, fb=False)
-    # gru_bwd_fb keeps the first template: in f32 W^T (96 x 289) plus the
-    # dW^T partial (96 x 288) exceed 227 KB.
-    big = 96
-    assert gru_cuda.bwd_shared_bytes(64, 4) <= gru_cuda.MAX_SHARED_BYTES
+    # In f32 the walk's W^T (131 x 396) and its step buffers exceed 227 KB.
+    big = 131
+    assert gru_cuda.adj_shared_bytes(64, 4) <= gru_cuda.MAX_SHARED_BYTES
     z = torch.zeros
     with pytest.raises(ValueError, match="shared memory"):
         check(z(1, 2, 1, 3 * big), z(1, 3 * big, big), z(1, 3 * big), z(1, 1, big),
               z(1, 2, 1, big), z(1, 2, 1, big), fb=True)
 
 
-# Largest hidden sizes gru_bwd's adjoint walk takes (its shared-memory
-# formula), and the largest the first adjoint template took (bwd_shared_bytes
-# within 232,448 bytes); gru_bwd still takes every H up to the old limit.
+# Largest hidden sizes the adjoint walk takes (its shared-memory formula),
+# and the largest the first adjoint template took; every adjoint entry
+# still takes every H up to the old limit.
 ADJ_MAX_HIDDEN = {"float32": 130, "bfloat16": 179}
 FIRST_BWD_MAX_HIDDEN = {"float32": 95, "bfloat16": 109}
 
@@ -249,53 +248,93 @@ def test_adjoint_walk_admits_every_earlier_hidden_size(dtype):
         gru_cuda._check_bwd_args(*_bwd_args(ADJ_MAX_HIDDEN[dtype] + 1, dtype), fb=False)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_first_adjoint_template_keeps_its_limits(dtype):
-    """gru_bwd_fb and gru_bibwd stay on the first template: they take every
-    H up to its limit and refuse the next one (H=96 in f32)."""
-    item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
-    first = FIRST_BWD_MAX_HIDDEN[dtype]
-    assert gru_cuda.bwd_shared_bytes(first, item) <= gru_cuda.MAX_SHARED_BYTES
-    assert gru_cuda.bwd_shared_bytes(first + 1, item) > gru_cuda.MAX_SHARED_BYTES
-    assert gru_cuda._check_bwd_args(*_bwd_args(first, dtype, lanes=2), fb=True) == (2, 2, 1, first)
+@pytest.mark.parametrize("entry,dtype", [("gru_bwd_fb", "float32"), ("gru_bwd_fb", "bfloat16"),
+                                         ("gru_bibwd", "float32")])
+def test_fb_and_fused_adjoints_admit_every_walk_hidden_size(entry, dtype):
+    """gru_bwd_fb (at 2 and at 15 lanes) and gru_bibwd run the adjoint walk
+    and are checked by its formula: they take every H up to 130 (f32) / 179
+    (bf16), so every H the first template took, and refuse the next one
+    before any launch."""
+    most = ADJ_MAX_HIDDEN[dtype]
+    z = torch.zeros
+    if entry == "gru_bwd_fb":
+        for lanes in (2, 15):
+            for h in range(1, most + 1):
+                assert gru_cuda._check_bwd_args(*_bwd_args(h, dtype, lanes), fb=True) == (
+                    lanes, 2, 1, h)
+            with pytest.raises(ValueError, match="shared memory"):
+                gru_cuda._check_bwd_args(*_bwd_args(most + 1, dtype, lanes), fb=True)
+        return
+
+    def bi_args(h):
+        return (z(2, 2, 1, 3 * h), z(2, 3 * h, h), z(2, 3 * h), z(2, 1, h), z(2, 2, 1, h),
+                z(2, 2, 1, h))
+
+    for h in range(1, most + 1):
+        xg2, whh2, bhh2, h02, ys2, dy2 = bi_args(h)
+        assert gru_cuda._check_bi_args(xg2, whh2, bhh2, h02, gru_cuda.adj_shared_bytes,
+                                       ys2=ys2, dy2=dy2) == (2, 1, h)
     with pytest.raises(ValueError, match="shared memory"):
-        gru_cuda._check_bwd_args(*_bwd_args(first + 1, dtype, lanes=2), fb=True)
-    if dtype == "float32":
-        z = torch.zeros
-        h = first + 1
-        with pytest.raises(ValueError, match="shared memory"):
-            gru_cuda.gru_bibwd(z(2, 2, 1, 3 * h), z(2, 3 * h, h), z(2, 3 * h), z(2, 1, h),
-                               z(2, 2, 1, h), z(2, 2, 1, h))
+        gru_cuda.gru_bibwd(*bi_args(most + 1))
 
 
+@pytest.mark.parametrize("lanes", [1, 2, 15])
 @pytest.mark.parametrize("hidden", [16, 64, 95, 128])
 @pytest.mark.parametrize("n_steps", [1, 37, 480])
 @pytest.mark.parametrize("batch", [1, 5, 63, 64, 65, 256])
-def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden):
-    """gru_bwd's walk blocks (ceil(B / R) tiles of R rows) cover each batch
-    row once, R a power of two of at most ADJ_MOST_ROWS that grows only
-    while the blocks would outnumber the SMs; its weight-gradient chunks
-    cover each of the T * B rows (t, b) once, in whole stages, at most
-    ADJ_MAX_PARTIALS of them; the workspace holds the six factors and dht
-    of every (t, b, unit), then one [3H, H] partial per chunk, and the db
-    workspace one [3H] partial per chunk."""
-    rows = gru_cuda.adj_row_tile(batch, 1, hidden)
+def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden, lanes):
+    """The adjoint walk's blocks (ceil(B / R) tiles of R rows a lane) cover
+    each batch row once, R a power of two of at most ADJ_MOST_ROWS that
+    grows only while the blocks of all lanes would outnumber the SMs; its
+    weight-gradient chunks cover each of a lane's T * B rows (t, b) once, in
+    whole stages, at most ADJ_MAX_PARTIALS of them; the workspace holds the
+    six factors and dht of every (lane, t, b, unit), then one [3H, H]
+    partial per lane and chunk, and the db workspace one [3H] partial per
+    lane and chunk."""
+    rows = gru_cuda.adj_row_tile(batch, lanes, hidden)
     most = gru_cuda.ADJ_MOST_ROWS[gru_cuda.walk_in_registers(hidden)]
     assert rows & (rows - 1) == 0 and 1 <= rows <= most
     tiles = -(-batch // rows)
     covered = [t * rows + r for t in range(tiles) for r in range(rows) if t * rows + r < batch]
     assert covered == list(range(batch))
-    assert tiles <= gru_cuda.NUM_SMS or rows == most
+    assert tiles * lanes <= gru_cuda.NUM_SMS or rows == most
+    assert rows == 1 or -(-batch // (rows // 2)) * lanes > gru_cuda.NUM_SMS
     chunk, parts = gru_cuda.adj_partials(n_steps, batch)
     assert chunk % gru_cuda.ADJ_GRAD_STAGE == 0 and 1 <= parts <= gru_cuda.ADJ_MAX_PARTIALS
     chunks = [range(p * chunk, min((p + 1) * chunk, n_steps * batch)) for p in range(parts)]
     assert [m for c in chunks for m in c] == list(range(n_steps * batch))
     assert all(len(c) > 0 for c in chunks)
     g = 3 * hidden
-    dw_shape, db_shape = gru_cuda._adjoint_workspaces("gru_bwd", 1, n_steps, batch, hidden)
-    assert dw_shape == (n_steps * batch * hidden * (gru_cuda.ADJ_FACTORS + 1)
-                        + parts * g * hidden,)
-    assert db_shape == (1, parts, g)
-    assert gru_cuda._adjoint_workspaces("gru_bwd_fb", 2, n_steps, batch, hidden) == (
-        (2, -(-batch // gru_cuda.BWD_ROWS_PER_BLOCK), hidden, g),
-        (2, -(-batch // gru_cuda.BWD_ROWS_PER_BLOCK), g))
+    dw_shape, db_shape = gru_cuda._adjoint_workspaces(lanes, n_steps, batch, hidden)
+    assert dw_shape == (lanes * n_steps * batch * hidden * (gru_cuda.ADJ_FACTORS + 1)
+                        + lanes * parts * g * hidden,)
+    assert db_shape == (lanes, parts, g)
+
+
+@pytest.mark.parametrize("entry,lanes", [("gru_bwd", 1), ("gru_bwd_fb", 3), ("gru_bibwd", 2)])
+def test_every_adjoint_entry_gets_the_walk_workspaces(entry, lanes, monkeypatch):
+    """The launcher hands each of the three C entries the same adjoint walk
+    workspaces for its lane count (dw_part: the flat f32 workspace of
+    adj_workspace_floats; db_part: [lanes, chunks, 3H]) and the ints of its
+    C signature; nothing reaches a library on the CPU (the C call is
+    replaced here)."""
+    calls = []
+    monkeypatch.setattr(gru_cuda, "_bwd_library", lambda: "lib")
+    monkeypatch.setattr(gru_cuda, "_call", lambda lib, name, tensors, ints: calls.append(
+        (lib, name, [tuple(t.shape) for t in tensors], [t.dtype for t in tensors], ints)))
+    t, b, h = 37, 5, 8
+    xg = torch.zeros(lanes, t, b, 3 * h)
+    w, bias, h0 = torch.zeros(lanes, 3 * h, h), torch.zeros(lanes, 3 * h), torch.zeros(lanes, b, h)
+    ys = dy = torch.zeros(lanes, t, b, h)
+    ints = {"gru_bwd": [t, b, h, 0, 0], "gru_bwd_fb": [lanes, t, b, h, 0, 0],
+            "gru_bibwd": [t, b, h]}[entry]
+    grads, launched = gru_cuda._launch_adjoint(entry, xg, w, bias, h0, ys, dy, lanes, t, b, h,
+                                               ints)
+    assert launched and len(calls) == 1
+    lib, name, shapes, dtypes, got_ints = calls[0]
+    assert (lib, name, got_ints) == ("lib", entry, ints)
+    parts = gru_cuda.adj_partials(t, b)[1]
+    assert shapes[-2:] == [(gru_cuda.adj_workspace_floats(lanes, t, b, h),), (lanes, parts, 3 * h)]
+    assert dtypes[-2:] == [torch.float32, torch.float32]
+    assert [tuple(g.shape) for g in grads] == [tuple(xg.shape), tuple(w.shape),
+                                               tuple(bias.shape), tuple(h0.shape)]

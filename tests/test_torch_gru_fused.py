@@ -149,7 +149,7 @@ def test_fused_wrappers_refuse_before_any_launch():
     with pytest.raises(ValueError, match="contiguous"):
         gru_cuda.gru_bibwd(xg2, whh2, bhh2, h02, ys2,
                            dy2.transpose(0, 2).contiguous().transpose(0, 2))
-    big = 96  # f32 adjoint: W^T (96 x 289) plus the dW^T partial (96 x 288) > 227 KB
+    big = 131  # the adjoint walk's W^T (131 x 396) and step buffers exceed 227 KB
     z = torch.zeros
     with pytest.raises(ValueError, match="shared memory"):
         gru_cuda.gru_bibwd(z(1, 2, 1, 3 * big), z(2, 3 * big, big), z(2, 3 * big),
