@@ -83,18 +83,46 @@ Phases, in order; any failure raises and the script exits non-zero:
       gru_bibwd and gru_bwd once per train step, the fb kernels never;
    c. each fold's wall time, and step_profile of pallas_fused train steps
       at B=64.
+7. The sharded LOSO sweep, the CLI's default execution, float32 and
+   bfloat16 at the default gru_impl (auto), on a synthetic preprocessed
+   data directory of the config's 15 subjects x 48 windows (as in 6), so
+   every fold is one of F=15 lanes at full model width:
+   a. with dropout 0, the first 3 sweep train steps of all 15 folds on the
+      card, lanes 0-3 against the port on the CPU (gru_impl "pallas": the
+      F-lane kernels' plain versions; 4 lanes there, CPU_FOLDS, as 15 took
+      over 60 s), under TRAIN_TOL; then lanes 0 and 14 of the
+      card's first step against the single-fold Trainer.train_step on the
+      card with that fold's weights and batch (sweep_parity);
+   b. `python -m multimodalsignal_tpu_torch.main --set trainer.epochs=2`
+      with no --execution (in process): a run directory with config.json,
+      cv_summary.txt of 15 finite folds and each fold's best_model.msgpack
+      read back by the port's Predictor; gru_fwd_fb launched 3 times per
+      train step and eval batch, gru_bwd_fb 3 times per train step, every
+      other kernel never (sweep_expected_launches, from the FoldBatch);
+   c. step_profile of sweep train steps of all 15 folds at B=64 (960
+      windows a step) at the config's dropout; then one pallas_db step,
+      which under the fold axis takes the same per-direction F-lane walks
+      (3 launches of each fb kernel a step).
+8. The fold ensemble of phase 7's float32 run directory (EnsemblePredictor,
+   15 lanes): 100 windows in 2 padded batches (3 gru_fwd_fb launches a
+   batch, no adjoint) against the mean of the 15 per-fold Predictors (atol
+   1e-5) and the ensemble on the CPU (PROB_ATOL); the padded-64 forward's
+   time and trace; `python -m multimodalsignal_tpu_torch.serving --run-dir`
+   answering one /v1/predict.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
-cuDNN's bidirectional nn.GRU.
+cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
+B=64 (row tile 8), float32 and bfloat16.
 
 train_step_ab(impl, dtype), not run by main(), profiles one train step of
 whichever tree's package it is run against, for holding two trees against
 each other in one call (its docstring says how to run it).
 
-Prints a JSON line of the kernels (launches: the forward kernels' from the
-float32 serving run, the adjoint kernels' from the float32 training run,
-the fused pair's from the float32 LOSO run), then, as the last line,
-{"ok": true, "device": {...}}. Needs one CUDA device and the repository.
+Prints a JSON line of the kernels (launches: gru_fwd's from the float32
+serving run, gru_bwd's from the float32 training run, the fb pair's from
+the float32 sweep, the fused pair's from the float32 serial LOSO run),
+then, as the last line, {"ok": true, "device": {...}}. Needs one CUDA
+device and the repository.
 """
 
 from __future__ import annotations
@@ -122,16 +150,33 @@ import torch
 from multimodalsignal_tpu_torch import main as cli
 from multimodalsignal_tpu_torch.config import (
     ALL_CHANNEL_NAMES,
+    ALL_SUBJECTS,
     ExperimentConfig,
     ModelConfig,
     TrainerConfig,
 )
-from multimodalsignal_tpu_torch.data.dataset import build_dataset, read_channel_names
-from multimodalsignal_tpu_torch.experiments.predict import Predictor
+from multimodalsignal_tpu_torch.data.dataset import (
+    build_dataset,
+    pack_corpus,
+    read_channel_names,
+)
+from multimodalsignal_tpu_torch.experiments.predict import EnsemblePredictor, Predictor
 from multimodalsignal_tpu_torch.experiments.splits import loso_folds
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
-from multimodalsignal_tpu_torch.models.convert import export_jax_variables
+from multimodalsignal_tpu_torch.models.convert import (
+    export_jax_variables,
+    lane_variables,
+    load_jax_variables,
+    stack_variables,
+)
+from multimodalsignal_tpu_torch.models.fold_stack import FoldStackedModel
 from multimodalsignal_tpu_torch.ops import _build, gru_cuda
+from multimodalsignal_tpu_torch.parallel.fold_sweep import (
+    FoldSweep,
+    build_fold_batch,
+    fold_streams,
+    grid_steps,
+)
 from multimodalsignal_tpu_torch.serving import PredictionService, make_server
 from multimodalsignal_tpu_torch.train.checkpoints import read_flax_checkpoint
 from multimodalsignal_tpu_torch.train.trainer import Trainer, batch_indices
@@ -399,28 +444,35 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
 
 
 def walk_sweep() -> None:
-    """The walk kernels' float32 time at T=480, H=64 as the batch, and so
-    the block count, grows: one lane (gru_fwd), two (gru_bifwd), the adjoint
+    """The walk kernels' time at T=480, H=64 as the batch, and so the block
+    count, grows, float32: one lane (gru_fwd), two (gru_bifwd), the adjoint
     walk (gru_bwd, all four of its kernels), and the F-lane adjoint
-    (gru_bwd_fb) at 2 lanes and at 15 (a sweep's folds), B=64. Adjoint lines
-    also give the walk blocks an SM holds at once (CUDA's occupancy
-    calculator) and so the waves of walk blocks. Shows whether the per-step
-    cost depends on the layout or on the blocks."""
-    for name, lanes, batches in (("gru_fwd", 1, (16, 64, 128, 256)),
-                                 ("gru_bifwd", 2, (32, 64, 128)),
-                                 ("gru_bwd", 1, (16, 64, 128, 256)),
-                                 ("gru_bwd_fb", 2, (SERVE_B,)), ("gru_bwd_fb", 15, (SERVE_B,))):
+    (gru_bwd_fb) at 2 lanes and at 15 (a sweep's folds), B=64; then the
+    F-lane forward walk (gru_fwd_fb) at 15 lanes, B=64 (row tile 8), float32
+    and bfloat16. Adjoint lines also give the walk blocks an SM holds at
+    once (CUDA's occupancy calculator) and so the waves of walk blocks.
+    Shows whether the per-step cost depends on the layout or on the
+    blocks."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for name, lanes, batches, dtype in (
+            ("gru_fwd", 1, (16, 64, 128, 256), f32), ("gru_bifwd", 2, (32, 64, 128), f32),
+            ("gru_bwd", 1, (16, 64, 128, 256), f32), ("gru_bwd_fb", 2, (SERVE_B,), f32),
+            ("gru_bwd_fb", 15, (SERVE_B,), f32), ("gru_fwd_fb", 15, (SERVE_B,), f32),
+            ("gru_fwd_fb", 15, (SERVE_B,), bf16)):
         adjoint = name.startswith("gru_bwd")
         for b in batches:
             if name == "gru_fwd":
-                args = kernel_inputs(None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
+                args = kernel_inputs(None, SERVE_T, b, SERVE_H, dtype, seed=7)
                 ms = median_ms(lambda: gru_cuda.gru_forward(*args), per_block=50)
+            elif name == "gru_fwd_fb":
+                args = kernel_inputs(lanes, SERVE_T, b, SERVE_H, dtype, seed=7)
+                ms = median_ms(lambda: gru_cuda.gru_forward_fb(*args), per_block=50)
             elif name == "gru_bifwd":
                 args = fused_inputs(SERVE_T, b, SERVE_H, seed=7, adjoint=False)
                 ms = median_ms(lambda: gru_cuda.gru_bifwd(*args), per_block=50)
             else:
                 fb = name == "gru_bwd_fb"
-                args = bwd_inputs(lanes if fb else None, SERVE_T, b, SERVE_H, torch.float32, seed=7)
+                args = bwd_inputs(lanes if fb else None, SERVE_T, b, SERVE_H, dtype, seed=7)
                 wrapper = gru_cuda.gru_backward_fb if fb else gru_cuda.gru_backward
                 ms = median_ms(lambda: wrapper(*args), per_block=50)
             tile = gru_cuda.adj_row_tile if adjoint else gru_cuda.walk_row_tile
@@ -433,7 +485,7 @@ def walk_sweep() -> None:
                     raise AssertionError(f"gru_adj_walk_blocks_per_sm: {per_sm}")
                 waves = (f", {per_sm} a SM at once: "
                          f"{-(-blocks // (per_sm * gru_cuda.NUM_SMS))} wave(s)")
-            print(f"walk sweep: {name} float32 F={lanes} "
+            print(f"walk sweep: {name} {str(dtype)[6:]} F={lanes} "
                   f"T={SERVE_T} B={b} H={SERVE_H}: {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us "
                   f"per dependent step), {blocks} blocks of row tile {rows}{waves}")
 
@@ -896,11 +948,14 @@ def check_gradients(model) -> None:
           f"nonzero but {sorted(zero_by_construction)} (zero by construction)")
 
 
-def compare_steps(card, card_losses, cpu, cpu_losses, tol: dict) -> tuple:
+def compare_steps(card, card_losses, cpu, cpu_losses, tol: dict,
+                  steps: int | None = None) -> tuple:
     """(worst relative loss difference, max |parameter difference|, share
     of parameter elements beyond tol['elem'], whether all is within
     TRAIN_TOL: finite losses within tol['loss'], every element within 2 lr
-    per step, at most tol['share'] beyond tol['elem'])."""
+    per step, at most tol['share'] beyond tol['elem']). `steps` defaults to
+    one per loss (a sweep's steps give a loss per fold)."""
+    steps = len(card_losses) if steps is None else steps
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
     worst, far, total = 0.0, 0, 0
     for (_, pa), (_, pb) in zip(card.named_parameters(), cpu.named_parameters()):
@@ -910,7 +965,7 @@ def compare_steps(card, card_losses, cpu, cpu_losses, tol: dict) -> tuple:
         total += d.numel()
     share = far / total
     ok = (all(math.isfinite(v) for v in card_losses) and loss_err <= tol["loss"]
-          and worst <= 2 * LR * len(card_losses) + 1e-6 and share <= tol["share"])
+          and worst <= 2 * LR * steps + 1e-6 and share <= tol["share"])
     return loss_err, worst, share, ok
 
 
@@ -964,22 +1019,23 @@ def first_steps_parity(model_cfg, variables, x, y, batches, tcfg, root: Path,
               f"{'within' if ok else 'BEYOND'} TRAIN_TOL")
 
 
-def step_profile(trainer, xb, yb, wb, what: str) -> None:
-    """ms per train step (CUDA events around blocks of 5 back-to-back
-    steps), the peak device memory of one step (max_memory_allocated after
-    reset_peak_memory_stats: what was held before the step plus what it
-    allocated), and a profiler trace of back-to-back steps."""
-    step_ms = median_ms(lambda: trainer.train_step(xb, yb, wb), per_block=5)
+def step_profile(step, windows: int, what: str) -> None:
+    """ms per train step `step()` of `windows` windows (CUDA events around
+    blocks of 5 back-to-back steps), the peak device memory of one step
+    (max_memory_allocated after reset_peak_memory_stats: what was held
+    before the step plus what it allocated), and a profiler trace of
+    back-to-back steps."""
+    step_ms = median_ms(step, per_block=5)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    trainer.train_step(xb, yb, wb)
+    step()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    print(f"{what}: train step {step_ms:.3f} ms at B={len(xb)} "
-          f"({len(xb) / step_ms * 1e3:.0f} windows/s); peak device memory of one step "
+    print(f"{what}: train step {step_ms:.3f} ms, {windows} windows a step "
+          f"({windows / step_ms * 1e3:.0f} windows/s); peak device memory of one step "
           f"{peak / 2**20:.1f} MiB, {held / 2**20:.1f} MiB of it held before the step")
-    trace(lambda: trainer.train_step(xb, yb, wb), "train step")
+    trace(step, "train step")
 
 
 def train_step_ab(impl: str, dtype: str) -> None:
@@ -1002,7 +1058,8 @@ def train_step_ab(impl: str, dtype: str) -> None:
         trainer = Trainer(build_model(cfg.model, 2, 3), Path(tmp),
                           TrainerConfig(batch_size=BATCH, learning_rate=LR), 2, device="cuda",
                           variables=variables)
-        step_profile(trainer, xb, yb, torch.ones(BATCH, device="cuda"),
+        wb = torch.ones(BATCH, device="cuda")
+        step_profile(lambda: trainer.train_step(xb, yb, wb), BATCH,
                      f"A/B {Path.cwd().name} {impl} {dtype}")
 
 
@@ -1059,7 +1116,8 @@ def training_phase(dtype: str, root: Path) -> dict[str, int]:
     xb = torch.from_numpy(x_tr[:BATCH]).cuda()
     yb = torch.from_numpy(y_tr[:BATCH]).cuda()
     wb = torch.ones(BATCH, device="cuda")
-    step_profile(trainer, xb, yb, wb, f"training {dtype} dropout {cfg.model.dropout}")
+    step_profile(lambda: trainer.train_step(xb, yb, wb), BATCH,
+                 f"training {dtype} dropout {cfg.model.dropout}")
     return launches
 
 
@@ -1070,7 +1128,7 @@ FOLD_LINE = re.compile(
     r"best: (\d+), test loss: (\S+), (\S+)s\)")
 
 
-def write_loso_data(root: Path, seed: int) -> Path:
+def write_loso_data(root: Path, seed: int, subjects=LOSO_SUBJECTS) -> Path:
     """A preprocessed data directory as the preprocessor lays it out: per
     subject S*_X.npy [48, 7680, 8] float32 (the chest channels of
     ALL_CHANNEL_NAMES, N(0, 1), chest_EDA around 2) and S*_y.npy raw labels
@@ -1079,7 +1137,7 @@ def write_loso_data(root: Path, seed: int) -> Path:
     root.mkdir(parents=True)
     (root / "_channel_names.txt").write_text("\n".join(ALL_CHANNEL_NAMES) + "\n")
     eda = ALL_CHANNEL_NAMES.index("chest_EDA")
-    for sid in LOSO_SUBJECTS:
+    for sid in subjects:
         x = rng.standard_normal((LOSO_WINDOWS, WINDOW_T, len(ALL_CHANNEL_NAMES)),
                                 dtype=np.float32)
         x[..., eda] = 2.0 + 0.5 * x[..., eda]
@@ -1168,7 +1226,245 @@ def loso_phase(dtype: str, data: Path, root: Path) -> dict[str, int]:
     xb = torch.from_numpy(train.x[:bs]).cuda()
     yb = torch.from_numpy(train.y[:bs].astype(np.int64)).cuda()
     wb = torch.ones(bs, device="cuda")
-    step_profile(trainer, xb, yb, wb, f"loso {dtype} pallas_fused dropout {cfg.model.dropout}")
+    step_profile(lambda: trainer.train_step(xb, yb, wb), bs,
+                 f"loso {dtype} pallas_fused dropout {cfg.model.dropout}")
+    return launches
+
+
+SWEEP_FOLD_LINE = re.compile(
+    r"  - test (S\d+): Accuracy = (\S+), F1-score = (\S+) \(epochs: (\d+), "
+    r"best: (\d+), test loss: (\S+)\)")
+
+
+# Folds of sweep_parity's CPU side: all 15 took 62.8 s (float32) and 83.8 s
+# (bfloat16) on the 8 host cores beside an H100, so the CPU runs the first 4
+# lanes; lanes are independent, so they are held against the card's first 4.
+CPU_FOLDS = 4
+
+
+def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what: str) -> None:
+    """With dropout 0, the first 3 sweep train steps (epoch 0's grid) of all
+    F folds on the card against the port on the CPU (gru_impl "pallas": the
+    F-lane kernels' plain versions, both directions with the walk's own
+    reverse) for the first CPU_FOLDS lanes, from the same initial weights,
+    under TRAIN_TOL; then lanes 0 and F-1 of the card's first step against
+    the single-fold Trainer.train_step on the card with that fold's weights
+    and batch."""
+    no_drop = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0))
+    cpu_cfg = dataclasses.replace(no_drop, model=dataclasses.replace(no_drop.model,
+                                                                     gru_impl="pallas"))
+    folds, k = len(fb.test_subjects), CPU_FOLDS
+    seeds, rngs = fold_streams(cfg.seed, folds)
+    card = FoldSweep(corpus, fb, no_drop, "cuda", init_seeds=seeds)
+    variables = export_jax_variables(card.model)
+    first_k = dataclasses.replace(
+        fb, test_subjects=fb.test_subjects[:k],
+        **{name: getattr(fb, name)[:k] for name in ("train_pool", "n_train", "val_pool",
+                                                    "n_val", "test_pool", "n_test")})
+    cpu = FoldSweep(corpus, first_k, cpu_cfg, "cpu", init_seeds=seeds[:k])
+    idx, w = card.train_grid(rngs)
+
+    def steps(sweep):
+        lanes = len(sweep.fb.test_subjects)
+        idx_t, w_t = sweep.to_device((idx[:lanes], w[:lanes]))
+        losses, first = [], None
+        for s in range(3):
+            loss, _, _ = sweep.train_step(idx_t[:, s], w_t[:, s])
+            losses.append(loss.cpu().tolist())
+            if s == 0:
+                first = export_jax_variables(sweep.model)
+        return losses, first
+
+    t0 = time.perf_counter()
+    cpu_losses, _ = steps(cpu)
+    cpu_s = time.perf_counter() - t0
+    card_losses, card_first = steps(card)
+    card_k = FoldStackedModel([build_model(no_drop.model, cfg.num_classes,
+                                           corpus.x.shape[2])] * k, no_drop.model.gru_impl)
+    after = export_jax_variables(card.model)
+    load_jax_variables(card_k, **stack_variables([lane_variables(after, f) for f in range(k)]))
+    flat = lambda ls: [v for row in ls for v in row[:k]]  # noqa: E731
+    loss_err, worst, share, ok = compare_steps(card_k, flat(card_losses), cpu.model,
+                                               flat(cpu_losses), tol, steps=3)
+    summary = (f"losses max rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+               f"{share:.4%} beyond {tol['elem']}")
+    if not ok:
+        raise AssertionError(f"{what}: card vs CPU beyond TRAIN_TOL: {summary}")
+    print(f"{what}: first 3 sweep steps of {folds} folds on the card, lanes 0-{k - 1} vs the "
+          f"CPU ({cpu_s:.1f} s there), fold 0 losses "
+          + ", ".join(f"{a[0]:.6f}/{b[0]:.6f}" for a, b in zip(card_losses, cpu_losses))
+          + f"; {summary}")
+    for f in (0, folds - 1):
+        trainer = Trainer(build_model(no_drop.model, cfg.num_classes, corpus.x.shape[2]),
+                          root / f"lane{f}", no_drop.trainer, cfg.num_classes, device="cuda",
+                          variables=lane_variables(variables, f))
+        rows = torch.from_numpy(idx[f, 0]).cuda()
+        loss, _ = trainer.train_step(card.x[rows], card.y[rows], torch.from_numpy(w[f, 0]).cuda())
+        lane = build_model(no_drop.model, cfg.num_classes, corpus.x.shape[2])
+        load_jax_variables(lane, **lane_variables(card_first, f))
+        loss_err, worst, share, ok = compare_steps(trainer.model, [loss.item()], lane,
+                                                   [card_losses[0][f]], tol)
+        lane_summary = (f"loss rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+                        f"{share:.4%} beyond {tol['elem']}")
+        if not ok:
+            raise AssertionError(f"{what}: lane {f} vs Trainer.train_step beyond TRAIN_TOL: "
+                                 f"{lane_summary}")
+        print(f"{what}: lane {f} of the card's first sweep step vs the single-fold "
+              f"Trainer.train_step on the card: {lane_summary}")
+
+
+def sweep_expected_launches(fb, tcfg) -> tuple[dict[str, int], int, int]:
+    """Launches the sweep implies with gru_impl auto (3 F-lane walks a
+    forward: layer 0's two directions and the pruned layer 1's forward walk;
+    their 3 adjoints a train step), with its train steps and eval batches
+    (2 epochs of train steps and validation batches, then the test
+    batches; the early-stopping patience exceeds the epochs)."""
+    b = tcfg.batch_size
+    train = tcfg.epochs * grid_steps(fb.n_train, b)
+    evals = tcfg.epochs * grid_steps(fb.n_val, b) + grid_steps(fb.n_test, b)
+    return ({"gru_fwd": 0, "gru_fwd_fb": 3 * (train + evals), "gru_bwd": 0,
+             "gru_bwd_fb": 3 * train, "gru_bifwd": 0, "gru_bibwd": 0}, train, evals)
+
+
+def sweep_phase(dtype: str, data: Path, root: Path) -> tuple[dict[str, int], Path]:
+    """First-steps parity, then the experiment CLI with no --execution (the
+    sharded sweep: the main path, counted), its run directory's checks and
+    the step profile (auto; then one pallas_db step's launches); returns the kernel
+    launches of the CLI run and its run directory."""
+    out = root / f"sweep_{dtype}"
+    argv = ["--output-dir", str(out), "--set", "trainer.epochs=2",
+            "--set", f"model.dtype={dtype}", "--set", f"data_path={data}"]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    corpus = pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
+                         read_channel_names(data), cfg.classification_mode, cfg.normalization)
+    fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+    folds = len(fb.test_subjects)
+
+    # a. The first 3 sweep train steps, card vs CPU, and two lanes vs Trainer.
+    sweep_parity(cfg, corpus, fb, root / f"sweep_parity_{dtype}", TRAIN_TOL[dtype],
+                 f"sweep {dtype}")
+
+    # b. The main path: the experiment CLI's default execution.
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    cli.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    expected, train_steps, eval_batches = sweep_expected_launches(fb, cfg.trainer)
+    if launches != expected:
+        raise AssertionError(f"sweep {dtype}: launches {launches}, expected {expected} "
+                             f"({train_steps} train steps, {eval_batches} eval batches)")
+    (run_dir,) = (out / cfg.run_name).iterdir()
+    saved = json.loads((run_dir / "config.json").read_text())
+    if saved["fold_execution"] != "sharded" or saved["model"]["dtype"] != dtype:
+        raise AssertionError(f"sweep {dtype}: config.json says {saved}")
+    summary = (run_dir / "cv_summary.txt").read_text()
+    lines = SWEEP_FOLD_LINE.findall(summary)
+    means = re.findall(r"Mean (?:accuracy|weighted F1): (\S+) ± (\S+)", summary)
+    numbers = [float(v) for f in lines for v in f[1:]] + [float(v) for m in means for v in m]
+    if (sorted(f[0] for f in lines) != sorted(cfg.subjects) or len(means) != 2
+            or not all(math.isfinite(v) for v in numbers)):
+        raise AssertionError(f"sweep {dtype}: cv_summary.txt is not {folds} finite folds:\n"
+                             f"{summary}")
+    x = np.random.default_rng(6).standard_normal((3, 3, WINDOW_T)).astype(np.float32)
+    for sid in cfg.subjects:
+        probs = Predictor.from_run(run_dir, sid, device="cuda").predict_windows(x)
+        if probs.shape != (3, 2) or not np.isfinite(probs).all():
+            raise AssertionError(f"sweep {dtype}: fold {sid}'s checkpoint gives {probs}")
+    print(f"sweep {dtype}: main with no --execution, {folds} folds in lockstep, "
+          f"{train_steps} train steps and {eval_batches} eval batches in {wall:.2f} s; "
+          + "; ".join(f"mean {a} ± {b}" for a, b in means)
+          + f" (accuracy, F1); every fold's checkpoint read by Predictor; launches {launches}")
+
+    # c. Timings at the config's dropout: back-to-back sweep steps of every
+    # fold at B=64 (epoch 0's first step), gru_impl auto; then the walks
+    # one pallas_db step launches.
+    seeds, rngs = fold_streams(cfg.seed, folds)
+    sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=seeds)
+    idx, w = sweep.to_device(sweep.train_grid(rngs))
+    windows = folds * cfg.trainer.batch_size
+    step_profile(lambda: sweep.train_step(idx[:, 0], w[:, 0]), windows,
+                 f"sweep {dtype} auto F={folds} dropout {cfg.model.dropout}")
+    db_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, gru_impl="pallas_db"))
+    db = FoldSweep(corpus, fb, db_cfg, "cuda", variables=export_jax_variables(sweep.model))
+    del sweep
+    gru_cuda.reset_launch_counts()
+    db.train_step(idx[:, 0], w[:, 0])
+    one = gru_cuda.launch_counts()
+    if (one["gru_fwd_fb"], one["gru_bwd_fb"], sum(one.values())) != (3, 3, 6):
+        raise AssertionError(f"sweep {dtype} pallas_db: one step launched {one}")
+    print(f"sweep {dtype} pallas_db: one step launched {one} (per-direction F-lane walks)")
+    del db
+    torch.cuda.empty_cache()
+    return launches, run_dir
+
+
+def ensemble_phase(run_dir: Path) -> dict[str, int]:
+    """The fold ensemble of a float32 sweep's run directory: the padded
+    batches of 100 windows (the main path, counted: 3 gru_fwd_fb launches a
+    batch, no adjoint) against the mean of the per-fold Predictors (atol
+    1e-5) and the ensemble on the CPU (PROB_ATOL); the padded-64 forward's
+    time and trace; then `python -m multimodalsignal_tpu_torch.serving
+    --run-dir` answering one /v1/predict. Returns the counted launches."""
+    ens = EnsemblePredictor.from_run(run_dir, device="cuda")
+    folds = len(ens.fold_names)
+    x = np.random.default_rng(5).standard_normal((100, 3, WINDOW_T)).astype(np.float32)
+    gru_cuda.reset_launch_counts()
+    # --- the main path: everything between reset and read is counted ---
+    probs = ens.predict_windows(x)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    batches = -(-len(x) // 64)
+    expected = {"gru_fwd": 0, "gru_fwd_fb": 3 * batches, "gru_bwd": 0, "gru_bwd_fb": 0,
+                "gru_bifwd": 0, "gru_bibwd": 0}
+    if launches != expected:
+        raise AssertionError(f"ensemble: launches {launches}, expected {expected}")
+    mean = np.mean([Predictor.from_run(run_dir, s, device="cuda").predict_windows(x)
+                    for s in ens.fold_names], axis=0)
+    err_mean = _check_probs(probs, mean, len(x), 1e-5, "ensemble vs mean of fold Predictors")
+    cpu = EnsemblePredictor.from_run(run_dir, device="cpu").predict_windows(x)
+    err_cpu = _check_probs(probs, cpu, len(x), PROB_ATOL["float32"], "ensemble vs CPU")
+    print(f"ensemble float32: {folds} folds, {len(x)} windows in {batches} padded batches; "
+          f"max|probs - mean of fold Predictors| = {err_mean:.3e} (atol 1e-5), "
+          f"max|probs - CPU| = {err_cpu:.3e} (atol {PROB_ATOL['float32']}); launches {launches}")
+    xt = torch.from_numpy(x[:64]).cuda()
+    with torch.inference_mode():
+        fwd_ms = median_ms(lambda: ens.predict_tensor(xt), per_block=10)
+        print(f"ensemble float32: padded-64 forward of {folds} folds {fwd_ms:.3f} ms on the "
+              f"device ({64 / fwd_ms * 1e3:.0f} windows/s, {64 * folds / fwd_ms * 1e3:.0f} "
+              "fold-windows/s)")
+        trace(lambda: ens.predict_tensor(xt), "ensemble forward")
+    proc = subprocess.Popen([sys.executable, "-m", "multimodalsignal_tpu_torch.serving",
+                             "--run-dir", str(run_dir), "--port", "0"],
+                            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        seen = []
+        for line in proc.stdout:   # the server's start-up line names its port
+            seen.append(line)
+            match = re.search(r"^Serving .* on (http://\S+) ", line)
+            if match:
+                break
+        else:
+            raise AssertionError("serving --run-dir did not start:\n" + "".join(seen))
+        url = match.group(1)
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            card_info = json.loads(resp.read())
+        xs = np.random.default_rng(7).standard_normal(
+            [2] + card_info["window_shape"]).astype(np.float32)
+        reply = _post(url + "/v1/predict", {"windows": xs.tolist()})
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    if (card_info["backend"] != f"checkpoint-ensemble[{folds}]"
+            or card_info["platform"] != ens.device.type):
+        raise AssertionError(f"serving --run-dir /healthz: {card_info}")
+    err = _check_probs(reply["probs"], ens.predict_windows(xs), 2, PROB_ATOL["float32"],
+                       "serving --run-dir /v1/predict")
+    print(f"ensemble: serving --run-dir answered /v1/predict (backend {card_info['backend']}), "
+          f"max|probs - ensemble| = {err:.3e}")
     return launches
 
 
@@ -1210,12 +1506,17 @@ def main() -> int:
         data = write_loso_data(Path(tmp) / "loso_data", seed=4)
         loso_launches = loso_phase("float32", data, Path(tmp))
         loso_phase("bfloat16", data, Path(tmp))
-    # launches: the forward kernels' on the float32 serving path, the
-    # adjoint kernels' on the float32 training path, the fused pair's on the
-    # float32 LOSO path (all checked above).
+        data = write_loso_data(Path(tmp) / "sweep_data", seed=8, subjects=ALL_SUBJECTS)
+        sweep_launches, sweep_run = sweep_phase("float32", data, Path(tmp))
+        sweep_phase("bfloat16", data, Path(tmp))
+        ensemble_phase(sweep_run)
+    # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
+    # float32 training path, the fb pair's on the float32 sweep (the CLI's
+    # default execution), the fused pair's on the float32 serial LOSO path
+    # (all checked above).
     for k in kernels:
-        path = {"gru_fwd": serve_launches, "gru_fwd_fb": serve_launches,
-                "gru_bwd": train_launches, "gru_bwd_fb": train_launches}.get(
+        path = {"gru_fwd": serve_launches, "gru_fwd_fb": sweep_launches,
+                "gru_bwd": train_launches, "gru_bwd_fb": sweep_launches}.get(
                     k["name"], loso_launches)
         k["launches"] = path[k["name"]]
         if k["launches"] == 0:

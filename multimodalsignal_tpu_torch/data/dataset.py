@@ -1,7 +1,8 @@
-"""Dataset layer: windowed npy files -> dense, normalized [N, C, T] arrays
-(counterpart of multimodalsignal_tpu/data/dataset.py, NumPy float64 path;
-the JAX package's C++ engine, the hybrid datasets and the packed corpus of
-the sharded sweep are not ported).
+"""Dataset layer: windowed npy files -> dense, normalized [N, C, T] arrays,
+and the sharded sweep's packed corpus (counterpart of
+multimodalsignal_tpu/data/dataset.py, NumPy float64 path; the JAX package's
+C++ engine, its on-disk pack cache and the hybrid datasets are not ported:
+ROADMAP.md, queue 1, preprocessing and data).
 
 The preprocessed data directory holds, per subject, `S*_X.npy` [N, T, C_all]
 windows and `S*_y.npy` raw labels (1 Base, 2 TSST, 3 Fun, 4 Medi), plus
@@ -147,3 +148,70 @@ def build_dataset(data_path: Path | str, subjects: list[str],
     x = np.concatenate(xs, axis=0).transpose(0, 2, 1)  # [N, C, T]
     y = np.concatenate(ys, axis=0)
     return WindowDataset(np.ascontiguousarray(x), y, tuple(loaded))
+
+
+@dataclass
+class PackedCorpus:
+    """All subjects padded to a common window count for the sharded sweep.
+
+    x    [S, Wmax, C, T] float32, normalized per subject
+    y    [S, Wmax] int32 (mapped labels; padded rows hold 0)
+    mask [S, Wmax] bool (True = a real window that the mode's filter kept)
+    """
+
+    x: np.ndarray
+    y: np.ndarray
+    mask: np.ndarray
+    subjects: tuple[str, ...]
+
+    def flat(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The [S*Wmax, C, T] view with labels and mask, for the sweep's
+        index pools (subject s, window w -> s * Wmax + w)."""
+        s, wmax = self.x.shape[:2]
+        return (self.x.reshape(s * wmax, *self.x.shape[2:]), self.y.reshape(s * wmax),
+                self.mask.reshape(s * wmax))
+
+
+def _stack_packed(per_subject) -> PackedCorpus:
+    """Pad per-subject (sid, x [n, C, T], y [n]) tuples to a common window
+    count and stack them into one PackedCorpus."""
+    wmax = max(x.shape[0] for _, x, _ in per_subject)
+    c, t = per_subject[0][1].shape[1:]
+    x_out = np.zeros((len(per_subject), wmax, c, t), dtype=np.float32)
+    y_out = np.zeros((len(per_subject), wmax), dtype=np.int32)
+    mask = np.zeros((len(per_subject), wmax), dtype=bool)
+    for i, (_, x, y) in enumerate(per_subject):
+        x_out[i, :len(x)] = x
+        y_out[i, :len(x)] = y
+        mask[i, :len(x)] = True
+    return PackedCorpus(x_out, y_out, mask, tuple(sid for sid, _, _ in per_subject))
+
+
+def pack_corpus(data_path: Path | str, subjects: list[str], channels_to_use: list[str],
+                all_channel_names: list[str], classification_mode: str = "stress_binary",
+                normalization: str = "all") -> PackedCorpus:
+    """Load and normalize every subject once and pad to [S, Wmax, C, T].
+    Normalization is per subject, so one packed corpus serves every LOSO
+    fold. Subjects pack in a pool of up to 8 threads, the result in subject
+    order. Subjects whose files are missing are skipped; none loaded raises
+    ValueError."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    channel_indices = [all_channel_names.index(ch) for ch in channels_to_use]
+
+    def pack_one(sid):
+        item = load_subject_windows(data_path, sid)
+        if item is None:
+            return None
+        x_raw, y_raw = item
+        y, keep = map_labels(y_raw, classification_mode)
+        x_norm = normalize_subject(x_raw[:, :, channel_indices], y_raw, channels_to_use,
+                                   normalization)
+        return sid, x_norm[keep].transpose(0, 2, 1), y[keep]
+
+    with ThreadPoolExecutor(max_workers=max(1, min(8, len(subjects)))) as ex:
+        packed = list(ex.map(pack_one, subjects))
+    per_subject = [p for p in packed if p is not None]
+    if not per_subject:
+        raise ValueError(f"No data loaded for subjects: {subjects}.")
+    return _stack_packed(per_subject)

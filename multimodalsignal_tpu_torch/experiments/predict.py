@@ -13,12 +13,16 @@ or programmatically::
     predictor = Predictor.from_run(run_dir, fold="S2")      # on the GPU
     result = predictor.predict_recording(pkl_path)
 
+or, with --run-dir and no --fold (or --fold all), the fold ensemble
+(`EnsemblePredictor.from_run(run_dir)`): every fold's checkpoint a lane of
+one FoldStackedModel, the softmax averaged over folds.
+
 Pipeline per recording: resample 700 -> 128 Hz, slide 60 s / 10 s windows
 over the whole recording, normalize with the recording's own statistics,
 then forward in batches zero-padded to a fixed size. Inference runs on
 "cuda" unless the caller passes device="cpu"; asking for CUDA where there is
-none raises. The fold ensemble, hierarchical and hybrid predictors are not
-ported yet (ROADMAP.md).
+none raises. The hierarchical and hybrid predictors are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from multimodalsignal_tpu_torch.data.resample import resample_signal
 from multimodalsignal_tpu_torch.data.wesad_io import chest_signals, load_pkl
 from multimodalsignal_tpu_torch.data.windowing import sliding_windows, window_starts
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
-from multimodalsignal_tpu_torch.models.convert import load_jax_variables
+from multimodalsignal_tpu_torch.models.convert import load_jax_variables, stack_variables
+from multimodalsignal_tpu_torch.models.fold_stack import build_fold_model
 from multimodalsignal_tpu_torch.train.checkpoints import read_flax_checkpoint
 
 CLASS_NAMES = {
@@ -157,11 +162,13 @@ class Predictor:
         self.target_fs = target_fs
         self.window_sec = window_sec
         self.stride_sec = stride_sec
-        self.model = build_model(cfg.model, cfg.num_classes,
-                                 in_channels=len(cfg.channels_to_use))
-        load_jax_variables(self.model, variables["params"],
-                           variables["batch_stats"])
-        self.model.to(self.device).eval()
+        self.model = self._build(variables).to(self.device).eval()
+
+    def _build(self, variables: dict) -> torch.nn.Module:
+        model = build_model(self.cfg.model, self.cfg.num_classes,
+                            in_channels=len(self.cfg.channels_to_use))
+        load_jax_variables(model, variables["params"], variables["batch_stats"])
+        return model
 
     # -- constructors ---------------------------------------------------------
     @classmethod
@@ -170,14 +177,8 @@ class Predictor:
                                 device: str | torch.device = "cuda") -> "Predictor":
         """Build from a config + checkpoint file. preprocess_meta carries the
         training-time resample/window/stride so serving replays them."""
-        meta = preprocess_meta or {}
-        return cls(
-            cfg, read_flax_checkpoint(checkpoint), device=device,
-            original_fs=int(meta.get("original_fs", 700)),
-            target_fs=int(meta.get("fs", 128)),
-            window_sec=int(meta.get("window_sec", 60)),
-            stride_sec=int(meta.get("stride_sec", 10)),
-        )
+        return cls(cfg, read_flax_checkpoint(checkpoint), device=device,
+                   **_geometry(preprocess_meta))
 
     @classmethod
     def from_files(cls, checkpoint: Path | str, config: Path | str,
@@ -215,9 +216,13 @@ class Predictor:
                 if n < batch_size:
                     xb = np.concatenate(
                         [xb, np.zeros((batch_size - n,) + xb.shape[1:], xb.dtype)])
-                logits = self.model(torch.from_numpy(xb).to(self.device))
-                probs.append(torch.softmax(logits, dim=-1)[:n].cpu().numpy())
+                probs.append(self.predict_tensor(torch.from_numpy(xb).to(self.device))[:n]
+                             .cpu().numpy())
         return np.concatenate(probs, axis=0)
+
+    def predict_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """Windows [B, C, T] on the device -> softmax [B, K]."""
+        return torch.softmax(self.model(x), dim=-1)
 
     def predict_recording(self, pkl_path: Path | str) -> PredictionResult:
         x, starts_sec = self.windows_from_recording(pkl_path)
@@ -230,13 +235,64 @@ class Predictor:
         )
 
 
+def _geometry(meta: dict | None) -> dict:
+    """Predictor's resample/window/stride arguments from a run's
+    preprocess meta."""
+    meta = meta or {}
+    return dict(original_fs=int(meta.get("original_fs", 700)),
+                target_fs=int(meta.get("fs", 128)),
+                window_sec=int(meta.get("window_sec", 60)),
+                stride_sec=int(meta.get("stride_sec", 10)))
+
+
+class EnsemblePredictor(Predictor):
+    """Every fold checkpoint of a LOSO run as the lanes of one
+    FoldStackedModel (counterpart of the JAX package's EnsemblePredictor):
+    each batch of windows goes to all F lanes and the softmax is averaged
+    over folds. `variables` is the stacked flax pair (leaves [F, ...]),
+    `fold_names` the held-out subject of each lane."""
+
+    def __init__(self, cfg: ExperimentConfig, variables: dict, fold_names,
+                 device: str | torch.device = "cuda", **geometry):
+        self.fold_names = tuple(fold_names)
+        super().__init__(cfg, variables, device, **geometry)
+
+    def _build(self, variables: dict) -> torch.nn.Module:
+        model = build_fold_model(self.cfg.model, self.cfg.num_classes,
+                                 len(self.cfg.channels_to_use), len(self.fold_names))
+        load_jax_variables(model, variables["params"], variables["batch_stats"])
+        return model
+
+    def predict_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        lanes = x.expand((self.model.folds,) + tuple(x.shape))   # [F, B, C, T], no copy
+        return torch.softmax(self.model(lanes), dim=-1).mean(dim=0)
+
+    @classmethod
+    def from_run(cls, run_dir: Path | str, fold: str = "all",
+                 device: str | torch.device = "cuda") -> Predictor:
+        """fold="all": the ensemble of every fold_test_on_*/best_model.msgpack,
+        in sorted order; a subject id: that fold's Predictor alone."""
+        if fold != "all":
+            return Predictor.from_run(run_dir, fold, device)
+        run_dir = Path(run_dir)
+        ckpts = sorted(run_dir.glob("fold_test_on_*/best_model.msgpack"))
+        if not ckpts:
+            raise FileNotFoundError(f"no fold_test_on_*/best_model.msgpack under {run_dir}")
+        raw = json.loads((run_dir / "config.json").read_text())
+        return cls(config_from_dict(ExperimentConfig, raw),
+                   stack_variables([read_flax_checkpoint(c) for c in ckpts]),
+                   tuple(c.parent.name.removeprefix("fold_test_on_") for c in ckpts),
+                   device, **_geometry(raw.get("preprocess_meta")))
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", help="one fold's best_model.msgpack")
     p.add_argument("--config", help="the run's config.json")
-    p.add_argument("--run-dir", help="run directory (with --fold)")
-    p.add_argument("--fold", default=None,
-                   help="with --run-dir: the subject id of the fold to load")
+    p.add_argument("--run-dir", help="run directory; replaces --checkpoint/--config")
+    p.add_argument("--fold", default="all",
+                   help="with --run-dir: a subject id, or 'all' for the fold "
+                        "ensemble (default)")
     p.add_argument("--pkl", required=True, help="raw WESAD S*.pkl recording")
     p.add_argument("--out", default=None, help="write JSON here (default stdout)")
     p.add_argument("--device", default="cuda",
@@ -245,14 +301,11 @@ def main(argv=None) -> None:
     if args.run_dir:
         if args.checkpoint or args.config:
             p.error("--run-dir replaces --checkpoint/--config")
-        if args.fold in (None, "all"):
-            p.error("the fold ensemble is not ported yet (ROADMAP.md, queue 1: "
-                    "EnsemblePredictor); give --fold <subject>")
-        predictor = Predictor.from_run(args.run_dir, args.fold, args.device)
+        predictor = EnsemblePredictor.from_run(args.run_dir, args.fold, args.device)
     elif args.checkpoint and args.config:
         predictor = Predictor.from_files(args.checkpoint, args.config, args.device)
     else:
-        p.error("provide --checkpoint with --config, or --run-dir with --fold")
+        p.error("provide --run-dir, or --checkpoint with --config")
     result = predictor.predict_recording(args.pkl)
     text = result.to_json()
     if args.out:

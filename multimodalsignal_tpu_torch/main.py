@@ -1,16 +1,18 @@
 """Experiment CLI of the port (counterpart of multimodalsignal_tpu/main.py).
 
-    python -m multimodalsignal_tpu_torch.main --execution serial
+    python -m multimodalsignal_tpu_torch.main                    # sharded sweep
     python -m multimodalsignal_tpu_torch.main --execution serial \
         --config cfg.json --set model.gru_impl=pallas_fused --set trainer.epochs=50
-    python -m multimodalsignal_tpu_torch.main --execution serial --device cpu
+    python -m multimodalsignal_tpu_torch.main --device cpu
 
 Creates <output_dir>/<run_name>/run_<timestamp>/, writes config.json there
-and runs the serial LOSO experiment (experiments/loso.py) on the GPU, or on
-the CPU with --device cpu. Not ported yet, and refused with a non-zero exit
-rather than run another way: the sharded sweep (`--execution sharded`,
-which is also the config's default fold_execution), `--hierarchical`,
-`--seeds` and `--from-pickles`.
+and runs the LOSO experiment on the GPU, or on the CPU with --device cpu:
+the sharded sweep (parallel/fold_sweep.py: every fold a lane of one model,
+all in lockstep on one device), which is the config's default
+fold_execution, or with --execution serial one fold after another
+(experiments/loso.py). Not ported yet, and refused with a non-zero exit
+rather than run another way: `--hierarchical`, `--seeds` and
+`--from-pickles`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from multimodalsignal_tpu_torch.config import (
     validate_experiment,
 )
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item 4: the sweep)"
+
+def _not_ported(item: int, what: str) -> str:
+    return f"is not ported yet (ROADMAP.md, queue 1, item {item}: {what})"
 
 
 def _parse_value(raw: str):
@@ -47,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON or YAML config file (ExperimentConfig)")
     p.add_argument("--execution", choices=("serial", "sharded"), default=None,
                    help="fold execution strategy (overrides the config's "
-                        "fold_execution); only serial is ported")
+                        "fold_execution, sharded by default)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="dotted-path config override, e.g. trainer.epochs=50")
     p.add_argument("--output-dir", type=Path, default=None,
@@ -76,26 +80,28 @@ def load_config(args) -> ExperimentConfig:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.hierarchical:
-        raise SystemExit(f"--hierarchical (the two-stage experiment) {_NOT_PORTED}")
+        raise SystemExit("--hierarchical (the two-stage experiment) "
+                         + _not_ported(2, "the hierarchical experiment"))
     if args.seeds:
-        raise SystemExit(f"--seeds (the seed-replicated sweep) {_NOT_PORTED}")
+        raise SystemExit("--seeds (the seed-replicated sweep) "
+                         + _not_ported(3, "the other sweeps"))
     if args.from_pickles is not None:
-        raise SystemExit(f"--from-pickles (staging from raw pickles) {_NOT_PORTED}")
+        raise SystemExit("--from-pickles (staging from raw pickles) "
+                         + _not_ported(4, "preprocessing and data"))
     cfg = load_config(args)
     execution = args.execution or cfg.fold_execution
-    if execution != "serial":
-        raise SystemExit(f"--execution {execution} (the sharded fold sweep) "
-                         f"{_NOT_PORTED}; pass --execution serial")
     validate_experiment(cfg, fold_execution=execution)
 
     from multimodalsignal_tpu_torch.experiments.loso import run_simple_experiment
     from multimodalsignal_tpu_torch.experiments.predict import resolve_device
+    from multimodalsignal_tpu_torch.parallel.fold_sweep import run_sharded_experiment
     from multimodalsignal_tpu_torch.utils.run import make_run_dir
 
     device = resolve_device(args.device)
     run_dir = make_run_dir(args.output_dir or Path(cfg.output_dir), cfg.run_name)
     print(f"Run directory: {run_dir}")
-    run_simple_experiment(cfg, run_dir, device=device)
+    run = run_simple_experiment if execution == "serial" else run_sharded_experiment
+    run(cfg, run_dir, device=device)
 
 
 if __name__ == "__main__":

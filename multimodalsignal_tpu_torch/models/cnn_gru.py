@@ -71,7 +71,8 @@ class ConvEncoder(nn.Module):
     def _stage(self, x, conv, bn):
         x = F.conv1d(x, conv.weight.to(self.dtype), None, conv.stride, conv.padding)
         if self.training:
-            x = _batch_norm_train(x, bn).to(self.dtype)
+            x = batch_norm_train(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                 bn.eps).to(self.dtype)
         else:
             x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
                              bn.bias, training=False, eps=bn.eps).to(self.dtype)
@@ -83,20 +84,28 @@ class ConvEncoder(nn.Module):
         return self._stage(x, self.conv2, self.bn2)
 
 
-def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor, eps: float,
+                     update: torch.Tensor | None = None) -> torch.Tensor:
     """flax BatchNorm with train=True on x [B, C, L]: float32 batch mean and
     biased variance E[x^2] - E[x]^2 (clipped at 0), normalise as
     (x - mean) * (rsqrt(var + eps) * scale) + bias; then the running
-    statistics move by ra = 0.9 ra + 0.1 mean, rv = 0.9 rv + 0.1 var, in place
-    and outside autograd. Returns float32."""
+    statistics [C] move by ra = 0.9 ra + 0.1 mean, rv = 0.9 rv + 0.1 var, in
+    place and outside autograd, in the channels where the bool mask `update`
+    [C] is true (all of them without one). Returns float32."""
     xf = x.float()
     mean = xf.mean(dim=(0, 2))
     var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
     with torch.no_grad():
-        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
-        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (xf - mean[:, None]) * mul[:, None] + bn.bias[:, None]
+        new_mean = BN_MOMENTUM * running_mean + (1 - BN_MOMENTUM) * mean
+        new_var = BN_MOMENTUM * running_var + (1 - BN_MOMENTUM) * var
+        if update is not None:
+            new_mean = torch.where(update, new_mean, running_mean)
+            new_var = torch.where(update, new_var, running_var)
+        running_mean.copy_(new_mean)
+        running_var.copy_(new_var)
+    mul = torch.rsqrt(var + eps) * weight
+    return (xf - mean[:, None]) * mul[:, None] + bias[:, None]
 
 
 class _CnnGruBase(nn.Module):

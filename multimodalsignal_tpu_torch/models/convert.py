@@ -12,6 +12,10 @@ multimodalsignal_tpu/experiments/import_torch.py):
     the same name, as it is (both packages keep torch's GRU layout)
 
 Each transform is its own inverse, so the same table serves both ways.
+The transforms act on the trailing axes, so a fold-stacked model
+(models/fold_stack.py), whose every tensor has a leading fold axis, maps
+onto the JAX package's stacked trees (leaves [F, ...], as its sweep and
+fold ensemble hold them) through the same functions.
 """
 
 from __future__ import annotations
@@ -21,11 +25,11 @@ import torch
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
-    return t.T
+    return t.transpose(-1, -2)
 
 
 def _conv(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(2, 1, 0)
+    return t.transpose(-1, -3)
 
 
 def _same(t: torch.Tensor) -> torch.Tensor:
@@ -80,8 +84,9 @@ def _to_tensor(leaf) -> torch.Tensor:
 
 def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
     """Copy a flax `params` / `batch_stats` pair (nested dicts of numpy
-    arrays, or of tensors) into `model` in place. Raises if a leaf is
-    missing, has the wrong shape, or is left over."""
+    arrays, or of tensors) into `model` in place; a FoldStackedModel takes
+    the stacked pair, every leaf with the leading fold axis. Raises if a
+    leaf is missing, has the wrong shape, or is left over."""
     trees = {"params": params, "batch_stats": batch_stats}
     used = set()
     with torch.no_grad():
@@ -109,7 +114,8 @@ def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
 
 def export_jax_variables(model) -> dict:
     """The model's weights as a flax {"params", "batch_stats"} pair of
-    nested dicts of float32 numpy arrays."""
+    nested dicts of float32 numpy arrays (stacked over the fold axis for a
+    FoldStackedModel)."""
     out = {"params": {}, "batch_stats": {}}
     for coll, path, tensor, transform in _layout(model):
         node = out[coll]
@@ -117,3 +123,23 @@ def export_jax_variables(model) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = transform(tensor.detach()).float().cpu().numpy().copy()
     return out
+
+
+def _map_leaves(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_leaves(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_variables(variables: list[dict]) -> dict:
+    """Per-fold flax {"params", "batch_stats"} pairs -> one pair whose every
+    leaf is a tensor with a leading fold axis, in list order."""
+    return _map_leaves(lambda *leaves: torch.stack([_to_tensor(a) for a in leaves]),
+                       *variables)
+
+
+def lane_variables(variables: dict, lane: int) -> dict:
+    """Lane `lane` of a stacked flax pair (export_jax_variables of a
+    FoldStackedModel, or the JAX package's stacked trees) as a single-fold
+    pair, which load_jax_variables puts into a single-fold model."""
+    return _map_leaves(lambda a: a[lane], variables)

@@ -53,8 +53,10 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
 
 def gru_cell(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
              h: torch.Tensor) -> torch.Tensor:
-    """One GRU step: precomputed input gates xg [B, 3H] + state h [B, H]."""
-    hg = h @ w_hh.T + b_hh
+    """One GRU step: precomputed input gates xg [B, 3H] + state h [B, H]
+    (or F lanes at once: xg [F, B, 3H], w_hh [F, 3H, H], b_hh [F, 3H],
+    h [F, B, H])."""
+    hg = h @ w_hh.transpose(-1, -2) + b_hh[..., None, :]
     xr, xz, xn = xg.chunk(3, dim=-1)
     hr, hz, hn = hg.chunk(3, dim=-1)
     r = torch.sigmoid(xr + hr)
@@ -67,7 +69,9 @@ def gru_sequence(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                  h0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """One GRU direction given precomputed input gates x_gates [B, T, 3H];
     returns [B, T, H] aligned to the original time order for both
-    directions. Carry and math in the inputs' dtype."""
+    directions. Carry and math in the inputs' dtype. F lanes walk at once
+    with time still on axis 1: x_gates [F, T, B, 3H] and gru_cell's lane
+    shapes give ys [F, T, B, H]."""
     t_total = x_gates.shape[1]
     ys = [None] * t_total
     h = h0

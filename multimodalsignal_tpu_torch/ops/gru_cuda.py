@@ -21,6 +21,9 @@ adjoint kernel), and the model-facing entry points go through those:
   * `gru_sequence_cuda`          (counterpart of `gru_sequence_pallas`)
   * `gru_bidirectional_dirbatch` (counterpart of the JAX function of that name)
   * `gru_bidirectional_fused`    (counterpart of `gru_bidirectional_pallas`)
+  * `gru_lanes_cuda` (the fold-stacked model's walk: F lanes of one
+    direction; the counterpart of the custom_vmap rules that route a fold
+    vmap onto the fb kernels)
 
 The three forward entries run the walk kernel (`gru_walk_kernel`): one
 block per (lane, tile of rows), W^T in registers up to H = 64 and in shared
@@ -733,6 +736,19 @@ def gru_sequence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
     ys = _GruWalk.apply(x_tm, w_hh.to(dt).contiguous(), b_hh.to(dt).contiguous(),
                         h0.float().contiguous(), bool(reverse))
     return ys.transpose(0, 1)
+
+
+def gru_lanes_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                   h0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """F lanes of one GRU direction in one kernel walk (the fold-stacked
+    model's walk; counterpart of gru_sequence_pallas under the fold vmap):
+    time-major x_gates [F, T, B, 3H], w_hh [F, 3H, H], b_hh [F, 3H],
+    h0 [F, B, H] -> ys [F, T, B, H] in the stream dtype (bf16 gates select
+    the kernel's bf16 mode)."""
+    dt = _stream_dtype(x_gates)
+    return _GruWalkFb.apply(x_gates.to(dt).contiguous(), w_hh.to(dt).contiguous(),
+                            b_hh.to(dt).contiguous(), h0.float().contiguous(),
+                            bool(reverse))
 
 
 def gru_bidirectional_dirbatch(x_gates_f, x_gates_b, w_hh_f, w_hh_b,

@@ -6,9 +6,11 @@ Counterpart of multimodalsignal_tpu/serving.py: a dependency-free (stdlib
     python -m multimodalsignal_tpu_torch.serving \
         --checkpoint output/.../fold_test_on_S2/best_model.msgpack \
         --config output/.../config.json --port 8080 [--device cuda]
+    python -m multimodalsignal_tpu_torch.serving --run-dir output/.../run_X
 
-The checkpoint and config are the JAX package's, read unchanged. Serving an
-exported artifact (--artifact) or a fold ensemble (--run-dir) is not ported
+The checkpoint and config are the JAX package's, read unchanged. --run-dir
+serves the run's fold ensemble (predict.EnsemblePredictor), or one fold with
+--fold <subject>. Serving an exported artifact (--artifact) is not ported
 yet (ROADMAP.md).
 
 Endpoints (all JSON):
@@ -53,7 +55,11 @@ from pathlib import Path
 
 import numpy as np
 
-from multimodalsignal_tpu_torch.experiments.predict import CLASS_NAMES, Predictor
+from multimodalsignal_tpu_torch.experiments.predict import (
+    CLASS_NAMES,
+    EnsemblePredictor,
+    Predictor,
+)
 
 
 class MicroBatcher:
@@ -179,6 +185,9 @@ class PredictionService:
                              predictor.window_sec * predictor.target_fs)
         self.normalization = cfg.normalization
         self.backend = "checkpoint"
+        fold_names = getattr(predictor, "fold_names", None)
+        if fold_names:
+            self.backend += f"-ensemble[{len(fold_names)}]"
         self.class_names = CLASS_NAMES[self.classification_mode]
 
     @property
@@ -390,7 +399,11 @@ def main(argv=None) -> None:
     p.add_argument("--checkpoint", help="best_model.msgpack (with --config)")
     p.add_argument("--config", help="the run's config.json (with --checkpoint)")
     p.add_argument("--artifact", help="exported .mms artifact (not ported yet)")
-    p.add_argument("--run-dir", help="run directory (not ported yet)")
+    p.add_argument("--run-dir", help="run directory: serves the fold ensemble (or "
+                                     "one fold with --fold); replaces --checkpoint/--config")
+    p.add_argument("--fold", default="all",
+                   help="with --run-dir: a subject id, or 'all' for the fold "
+                        "ensemble (default)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda)")
     p.add_argument("--host", default="127.0.0.1")
@@ -406,13 +419,18 @@ def main(argv=None) -> None:
                         "from Content-Length, before any allocation)")
     args = p.parse_args(argv)
 
-    if args.artifact or args.run_dir:
-        p.error("--artifact and --run-dir are not yet ported to "
-                "multimodalsignal_tpu_torch (ROADMAP.md, queue 1); serve "
-                "one fold with --checkpoint and --config")
-    if not (args.checkpoint and args.config):
-        p.error("provide --checkpoint with --config")
-    predictor = Predictor.from_files(args.checkpoint, args.config, args.device)
+    if args.artifact:
+        p.error("--artifact is not yet ported to multimodalsignal_tpu_torch "
+                "(ROADMAP.md, queue 1, item 5: hybrid, export, streaming, import); "
+                "serve --run-dir, or --checkpoint with --config")
+    if args.run_dir:
+        if args.checkpoint or args.config:
+            p.error("--run-dir replaces --checkpoint/--config")
+        predictor = EnsemblePredictor.from_run(args.run_dir, args.fold, args.device)
+    elif args.checkpoint and args.config:
+        predictor = Predictor.from_files(args.checkpoint, args.config, args.device)
+    else:
+        p.error("provide --run-dir, or --checkpoint with --config")
     service = PredictionService(predictor, batch_size=args.batch_size,
                                 micro_batch_ms=args.micro_batch_ms,
                                 max_request_windows=args.max_request_windows)
@@ -427,9 +445,10 @@ def main(argv=None) -> None:
 
     server = make_server(service, args.host, args.port)
     card = service.health()
+    host, port = server.server_address[:2]   # the bound port, also for --port 0
     print(f"Serving {card['model']} ({card['classification_mode']}, "
           f"channels {card['channels']}, backend {card['backend']}) "
-          f"on http://{args.host}:{args.port} [{card['platform']}]",
+          f"on http://{host}:{port} [{card['platform']}]",
           flush=True)
     try:
         server.serve_forever()

@@ -176,6 +176,24 @@ def write_train_state(path: Path | str, model, optimizer=None) -> None:
         if "step" in moments:
             step = int(moments["step"])
     lr = optimizer.param_groups[0]["lr"] if optimizer is not None else 0.0
+    _write(path, state, mu, nu, step, lr)
+
+
+def write_initial_train_state(path: Path | str, variables: dict,
+                              learning_rate: float) -> None:
+    """Write a flax {"params", "batch_stats"} pair (numpy float32) as the JAX
+    package's TrainState with the optimizer state make_optimizer's
+    `tx.init(params)` gives: zero moments, count 0, and `learning_rate`."""
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros(np.shape(v), np.float32)
+                for k, v in tree.items()}
+
+    state = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
+    _write(path, state, zeros(state["params"]), zeros(state["params"]), 0, learning_rate)
+
+
+def _write(path: Path | str, state: dict, mu: dict, nu: dict, step: int, lr) -> None:
+    """Add optax's opt_state (mu, nu, step, lr) to `state` and write it."""
     count = np.asarray(step, np.int32)
     state["opt_state"] = {
         "count": count,

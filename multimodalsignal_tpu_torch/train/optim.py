@@ -5,9 +5,13 @@ of multimodalsignal_tpu/train/optim.py).
     L2 term is added to the gradient before the moments (the JAX package's
     optax.add_decayed_weights -> scale_by_adam -> -lr chain reproduces it).
   * ReduceLROnPlateau(mode='min', rel threshold) and early stopping are pure
-    functions over small NamedTuple states. They compare in float32
-    (np.float32), as the JAX state machines do on float32 arrays: a float64
-    comparison could flip a decision at the threshold.
+    NumPy functions over small NamedTuple states, of one run (scalars) or of
+    the sweep's folds (arrays [F], as jax.vmap runs the JAX machines). They
+    compare in float32 (np.float32), as the JAX state machines do on float32
+    arrays: a float64 comparison could flip a decision at the threshold.
+  * FoldAdam is the same Adam over fold-stacked parameters [F, ...], with a
+    step count, a learning rate and an update mask per fold (the sweep's
+    optax state under jax.vmap).
 """
 
 from __future__ import annotations
@@ -17,11 +21,68 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+BETAS, EPS = (0.9, 0.999), 1e-8
+
 
 def make_optimizer(params, learning_rate: float, weight_decay: float) -> torch.optim.Adam:
     """Adam with L2 weight decay folded into the gradient (not AdamW)."""
     return torch.optim.Adam(params, lr=float(np.float32(learning_rate)),
-                            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+                            betas=BETAS, eps=EPS, weight_decay=weight_decay)
+
+
+class FoldAdam:
+    """Adam with L2 weight decay over parameters whose leading axis is the
+    fold, with per-fold state: `count` [F] (int32), `lr` [F] (float32) and
+    the moments `mu`, `nu` [F, P] of all P parameter elements of a fold, in
+    parameter order (`sizes` gives each parameter's share). A step takes
+    `mask` [F] (bool): a fold outside it keeps its parameters, moments and
+    count, as the JAX sweep's masked step keeps the whole train state of a
+    fold whose batch weighs nothing (fold_sweep.py:304-318). The arithmetic
+    is optax's add_decayed_weights -> scale_by_adam -> scale(-lr) chain, on
+    the parameters and gradients gathered into [F, P], so a step is a few
+    launches over all parameters, not a few per parameter. torch.optim.Adam
+    keeps one count per tensor and one learning rate per group, which a
+    sweep cannot use."""
+
+    def __init__(self, params, learning_rate: float, weight_decay: float):
+        self.params = list(params)
+        lead = self.params[0]
+        folds, dev = lead.shape[0], lead.device
+        self.sizes = [p[0].numel() for p in self.params]
+        self.weight_decay = weight_decay
+        self.lr = torch.full((folds,), float(np.float32(learning_rate)), device=dev)
+        self.count = torch.zeros(folds, dtype=torch.int32, device=dev)
+        self.mu = torch.zeros((folds, sum(self.sizes)), device=dev)
+        self.nu = torch.zeros_like(self.mu)
+
+    def state(self) -> list[torch.Tensor]:
+        """Every tensor of the optimizer's state, for snapshots."""
+        return [self.lr, self.count, self.mu, self.nu]
+
+    def _flat(self, tensors) -> torch.Tensor:
+        return torch.cat([t.reshape(t.shape[0], -1) for t in tensors], dim=1)
+
+    @torch.no_grad()
+    def step(self, mask: torch.Tensor) -> None:
+        b1, b2 = BETAS
+        count = torch.where(mask, self.count + 1, self.count)
+        c = count.float()[:, None]
+        keep = mask[:, None]
+        p = self._flat(self.params)
+        g = self._flat([q.grad for q in self.params]) + self.weight_decay * p
+        m_new = (1 - b1) * g + b1 * self.mu
+        v_new = (1 - b2) * (g * g) + b2 * self.nu
+        u = (m_new / (1 - b1 ** c)) / (torch.sqrt(v_new / (1 - b2 ** c)) + EPS)
+        p = torch.where(keep, p + -self.lr[:, None] * u, p)
+        for q, new in zip(self.params, p.split(self.sizes, dim=1)):
+            q.copy_(new.view(q.shape))
+        self.mu.copy_(torch.where(keep, m_new, self.mu))
+        self.nu.copy_(torch.where(keep, v_new, self.nu))
+        self.count.copy_(count)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
@@ -37,29 +98,33 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
 # ---------------------------------------------------------------------------
 
 class PlateauState(NamedTuple):
-    lr: np.float32       # current learning rate
-    best: np.float32     # best (lowest) metric so far
-    num_bad: int         # epochs since last improvement
+    lr: np.ndarray       # current learning rate (float32)
+    best: np.ndarray     # best (lowest) metric so far (float32)
+    num_bad: np.ndarray  # epochs since last improvement
 
 
-def plateau_init(lr: float) -> PlateauState:
-    return PlateauState(lr=np.float32(lr), best=np.float32(np.inf), num_bad=0)
+def plateau_init(lr, folds: int | None = None) -> PlateauState:
+    """One run's state, or `folds` runs' (arrays [folds])."""
+    shape = () if folds is None else (folds,)
+    return PlateauState(lr=np.full(shape, lr, np.float32),
+                        best=np.full(shape, np.inf, np.float32),
+                        num_bad=np.zeros(shape, np.int32))
 
 
 def plateau_update(state: PlateauState, metric, factor: float = 0.1,
                    patience: int = 3, threshold: float = 1e-4,
                    min_lr: float = 0.0) -> PlateauState:
     """One scheduler step on a to-minimize metric (torch's rel-threshold
-    rule: improvement iff metric < best * (1 - threshold))."""
-    metric = np.float32(metric)
-    improved = bool(metric < state.best * np.float32(1.0 - threshold))
-    best = metric if improved else state.best
-    num_bad = 0 if improved else state.num_bad + 1
-    lr = state.lr
-    if num_bad > patience:
-        lr = max(np.float32(state.lr * np.float32(factor)), np.float32(min_lr))
-        num_bad = 0
-    return PlateauState(lr=np.float32(lr), best=np.float32(best), num_bad=num_bad)
+    rule: improvement iff metric < best * (1 - threshold)), elementwise."""
+    metric = np.asarray(metric, np.float32)
+    improved = metric < state.best * np.float32(1.0 - threshold)
+    best = np.where(improved, metric, state.best)
+    num_bad = np.where(improved, 0, state.num_bad + 1)
+    reduce = num_bad > patience
+    lr = np.where(reduce, np.maximum(state.lr * np.float32(factor), np.float32(min_lr)),
+                  state.lr)
+    return PlateauState(lr=lr.astype(np.float32), best=best.astype(np.float32),
+                        num_bad=np.where(reduce, 0, num_bad).astype(np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -67,39 +132,43 @@ def plateau_update(state: PlateauState, metric, factor: float = 0.1,
 # ---------------------------------------------------------------------------
 
 class EarlyStoppingState(NamedTuple):
-    best_score: np.float32  # monitored value at the best epoch (nan before any)
-    counter: int            # epochs since improvement
-    should_stop: bool       # latched stop flag
-    improved: bool          # this step was an improvement (=> checkpoint)
-    best_epoch: int
+    best_score: np.ndarray  # monitored value at the best epoch (nan before any)
+    counter: np.ndarray     # epochs since improvement
+    should_stop: np.ndarray  # latched stop flag
+    improved: np.ndarray    # this step was an improvement (=> checkpoint)
+    best_epoch: np.ndarray
 
 
-def early_stopping_init() -> EarlyStoppingState:
-    return EarlyStoppingState(best_score=np.float32(np.nan), counter=0,
-                              should_stop=False, improved=False, best_epoch=-1)
+def early_stopping_init(folds: int | None = None) -> EarlyStoppingState:
+    """One run's state, or `folds` runs' (arrays [folds])."""
+    shape = () if folds is None else (folds,)
+    return EarlyStoppingState(best_score=np.full(shape, np.nan, np.float32),
+                              counter=np.zeros(shape, np.int32),
+                              should_stop=np.zeros(shape, bool),
+                              improved=np.zeros(shape, bool),
+                              best_epoch=np.full(shape, -1, np.int32))
 
 
 def early_stopping_update(state: EarlyStoppingState, score, epoch: int,
                           patience: int = 20, delta: float = 0.0,
                           legacy_inverted: bool = False) -> EarlyStoppingState:
-    """One early-stopping step on the monitored score.
+    """One early-stopping step on the monitored score, elementwise.
 
     Default: score is a loss, improvement = score < best - delta.
     legacy_inverted: the reference's literal comparison, improvement =
     score >= best + delta (a rising loss counts as improvement); kept for
     bit-faithful replication studies."""
-    score = np.float32(score)
-    first = bool(np.isnan(state.best_score))
+    score = np.asarray(score, np.float32)
     if legacy_inverted:
-        better = bool(score >= state.best_score + np.float32(delta))
+        better = score >= state.best_score + np.float32(delta)
     else:
-        better = bool(score < state.best_score - np.float32(delta))
-    improved = first or better
-    counter = 0 if improved else state.counter + 1
+        better = score < state.best_score - np.float32(delta)
+    improved = np.isnan(state.best_score) | better
+    counter = np.where(improved, 0, state.counter + 1).astype(np.int32)
     return EarlyStoppingState(
-        best_score=score if improved else state.best_score,
+        best_score=np.where(improved, score, state.best_score).astype(np.float32),
         counter=counter,
-        should_stop=state.should_stop or counter >= patience,
-        improved=improved and not state.should_stop,
-        best_epoch=int(epoch) if improved else state.best_epoch,
+        should_stop=state.should_stop | (counter >= patience),
+        improved=improved & ~state.should_stop,
+        best_epoch=np.where(improved, epoch, state.best_epoch).astype(np.int32),
     )

@@ -65,14 +65,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Ten
                   class_weights: torch.Tensor | None = None):
     """Weighted-mean CE with torch.nn.CrossEntropyLoss semantics: with class
     weights the denominator is the sum of the per-sample weights. Returns
-    (loss, sum of weights)."""
+    (loss, sum of weights). Leading axes are lanes, each its own mean:
+    logits [F, B, K], labels and weights [F, B], class_weights [F, K] give
+    a loss and a sum per lane, [F]."""
     log_probs = F.log_softmax(logits, dim=-1)
-    ce = -log_probs.gather(-1, labels[:, None])[:, 0]
+    ce = -log_probs.gather(-1, labels[..., None])[..., 0]
     w = weights
     if class_weights is not None:
-        w = w * class_weights[labels]
-    wsum = w.sum()
-    return (ce * w).sum() / wsum.clamp(min=1e-12), wsum
+        w = w * class_weights.gather(-1, labels)
+    wsum = w.sum(dim=-1)
+    return (ce * w).sum(dim=-1) / wsum.clamp(min=1e-12), wsum
 
 
 def batch_indices(n: int, batch_size: int, steps: int | None = None,
@@ -133,7 +135,7 @@ class Trainer:
         if cfg.checkpoint_every > 0 or cfg.resume:
             raise NotImplementedError(
                 "mid-run resume (TrainerConfig.checkpoint_every / resume) is not "
-                "ported yet (ROADMAP.md, queue 1: mid-run resume)")
+                "ported yet (ROADMAP.md, queue 1, item 1: mid-run resume)")
         self.device = resolve_device(device)
         self.model = model
         if variables is not None:

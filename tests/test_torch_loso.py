@@ -222,16 +222,19 @@ def test_main_cli_on_cpu_writes_the_run_directory(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    ([], "--execution sharded"),
-    (["--execution", "sharded"], "--execution sharded"),
     (["--execution", "serial", "--hierarchical"], "--hierarchical"),
     (["--execution", "serial", "--seeds", "1", "2"], "--seeds"),
     (["--execution", "serial", "--from-pickles", "WESAD"], "--from-pickles"),
 ])
 def test_main_refuses_what_is_not_ported(argv, what, tmp_path):
+    """Each refusal names its own ROADMAP.md queue 1 item."""
+    item = {"--hierarchical": "item 2: the hierarchical experiment",
+            "--seeds": "item 3: the other sweeps",
+            "--from-pickles": "item 4: preprocessing and data"}[what]
     with pytest.raises(SystemExit) as exc:
         pmain.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path)])
-    assert what in str(exc.value.code) and "ROADMAP.md" in str(exc.value.code)
+    assert what in str(exc.value.code)
+    assert f"ROADMAP.md, queue 1, {item}" in str(exc.value.code)
     assert not any(tmp_path.iterdir())
 
 
