@@ -109,6 +109,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-5) and the ensemble on the CPU (PROB_ATOL); the padded-64 forward's
    time and trace; `python -m multimodalsignal_tpu_torch.serving --run-dir`
    answering one /v1/predict.
+9. WESAD pickles to a trained and served hybrid model:
+   a. synthetic WESAD pickles of the config's 15 subjects (DEFAULT_TASKS,
+      8.5 minutes each at 700 Hz, from PICKLE_SEED) written by the port's
+      write_synthetic_wesad, then `python -m
+      multimodalsignal_tpu_torch.data.preprocess` (in process; targets raw,
+      raw-align and feature): channel and feature names, meta files, shapes,
+      finite features, equal raw-align and feature window counts per
+      subject, and pack_corpus_from_pickles bitwise equal to pack_corpus of
+      the written chest_raw; the preprocess host seconds;
+   b. `main --from-pickles <WESAD> --set trainer.epochs=2` (float32): the
+      sweep's launch counts as in 7b, 15 finite folds, config.json carrying
+      the pickles' preprocess_meta, the mean test accuracy (not a gate);
+   c. the sweep of model.name=hybrid_cnn_gru on the raw-align and feature
+      targets, float32 and bfloat16, 15 folds as lanes at full width: 7a's
+      first-steps parity and lanes vs Trainer.train_step, 7b's CLI checks
+      and launch counts (the feature branch launches no GRU kernel), and
+      step_profile at B=64;
+   d. the hybrid serial LOSO (`--execution serial`, 4 subjects, float32,
+      auto, 2 epochs): one launch of gru_fwd_fb, gru_fwd and each adjoint a
+      train step, of each forward an eval batch;
+   e. the hybrid fold ensemble of c's float32 run: predict_recording on a
+      pickle of a (3 gru_fwd_fb a padded batch) against the mean of the 15
+      fold Predictors (atol 1e-5) and the CPU (PROB_ATOL); `serving
+      --run-dir` answering /v1/predict with features, and 400 without.
+   Then the phase's seconds.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -141,6 +166,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -155,11 +181,18 @@ from multimodalsignal_tpu_torch.config import (
     ModelConfig,
     TrainerConfig,
 )
+from multimodalsignal_tpu_torch.data import preprocess
 from multimodalsignal_tpu_torch.data.dataset import (
     build_dataset,
+    from_pickles_meta,
     pack_corpus,
+    pack_corpus_from_pickles,
     read_channel_names,
+    read_feature_names,
+    read_preprocess_meta,
 )
+from multimodalsignal_tpu_torch.data.features import FEATURE_EXTRACTOR_VERSION, FEATURE_NAMES
+from multimodalsignal_tpu_torch.data.synthetic import DEFAULT_TASKS, write_synthetic_wesad
 from multimodalsignal_tpu_torch.experiments.predict import EnsemblePredictor, Predictor
 from multimodalsignal_tpu_torch.experiments.splits import loso_folds
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
@@ -176,10 +209,11 @@ from multimodalsignal_tpu_torch.parallel.fold_sweep import (
     build_fold_batch,
     fold_streams,
     grid_steps,
+    stage_corpus,
 )
 from multimodalsignal_tpu_torch.serving import PredictionService, make_server
 from multimodalsignal_tpu_torch.train.checkpoints import read_flax_checkpoint
-from multimodalsignal_tpu_torch.train.trainer import Trainer, batch_indices
+from multimodalsignal_tpu_torch.train.trainer import Trainer, batch_indices, take
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
 # FLOP/s by the type of the recurrent product's operands (float32 outside
@@ -1146,18 +1180,27 @@ def write_loso_data(root: Path, seed: int, subjects=LOSO_SUBJECTS) -> Path:
     return root
 
 
-def loso_expected_launches(cfg: ExperimentConfig) -> dict[str, int]:
-    """Launches a serial LOSO run over LOSO_SUBJECTS implies with the fused
-    BiGRU: per fold and epoch one train step per batch of the train
-    subjects and one eval batch per batch of the validation subjects, then
-    the test subject's eval batches (stress_binary keeps every window; the
-    early-stopping patience exceeds the epochs)."""
+def serial_steps(cfg: ExperimentConfig, windows: dict[str, int]) -> tuple[int, int]:
+    """(train steps, eval batches) of a serial LOSO run whose subjects hold
+    `windows` windows each: per fold and epoch one train step per batch of
+    the train subjects and one eval batch per batch of the validation
+    subjects, then the test subject's eval batches (stress_binary keeps
+    every window; the early-stopping patience exceeds the epochs)."""
     batches = lambda n: -(-n // cfg.trainer.batch_size)  # noqa: E731
     train_steps = eval_batches = 0
     for fold in loso_folds(cfg.subjects, cfg.val_fraction, cfg.seed):
-        train_steps += cfg.trainer.epochs * batches(LOSO_WINDOWS * len(fold.train_subjects))
-        eval_batches += (cfg.trainer.epochs * batches(LOSO_WINDOWS * len(fold.val_subjects))
-                         + batches(LOSO_WINDOWS))
+        n = lambda sids: sum(windows[s] for s in sids)  # noqa: E731
+        train_steps += cfg.trainer.epochs * batches(n(fold.train_subjects))
+        eval_batches += (cfg.trainer.epochs * batches(n(fold.val_subjects))
+                         + batches(windows[fold.test_subject]))
+    return train_steps, eval_batches
+
+
+def loso_expected_launches(cfg: ExperimentConfig) -> dict[str, int]:
+    """Launches a serial LOSO run over LOSO_SUBJECTS implies with the fused
+    BiGRU: one of each fused kernel and of gru_fwd (the pruned last layer's
+    walk) per forward, one of each adjoint per train step."""
+    train_steps, eval_batches = serial_steps(cfg, dict.fromkeys(LOSO_SUBJECTS, LOSO_WINDOWS))
     return {"gru_fwd": train_steps + eval_batches, "gru_fwd_fb": 0,
             "gru_bwd": train_steps, "gru_bwd_fb": 0,
             "gru_bifwd": train_steps + eval_batches, "gru_bibwd": train_steps}
@@ -1299,7 +1342,9 @@ def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what:
                           root / f"lane{f}", no_drop.trainer, cfg.num_classes, device="cuda",
                           variables=lane_variables(variables, f))
         rows = torch.from_numpy(idx[f, 0]).cuda()
-        loss, _ = trainer.train_step(card.x[rows], card.y[rows], torch.from_numpy(w[f, 0]).cuda())
+        xs = card.x if card.feat is None else (card.x, card.feat)
+        loss, _ = trainer.train_step(take(xs, rows), card.y[rows],
+                                     torch.from_numpy(w[f, 0]).cuda())
         lane = build_model(no_drop.model, cfg.num_classes, corpus.x.shape[2])
         load_jax_variables(lane, **lane_variables(card_first, f))
         loss_err, worst, share, ok = compare_steps(trainer.model, [loss.item()], lane,
@@ -1326,23 +1371,30 @@ def sweep_expected_launches(fb, tcfg) -> tuple[dict[str, int], int, int]:
              "gru_bwd_fb": 3 * train, "gru_bifwd": 0, "gru_bibwd": 0}, train, evals)
 
 
-def sweep_phase(dtype: str, data: Path, root: Path) -> tuple[dict[str, int], Path]:
+def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep",
+                corpus=None, parity: bool = True, profile: bool = True,
+                db_step: bool = True) -> tuple[dict[str, int], Path]:
     """First-steps parity, then the experiment CLI with no --execution (the
     sharded sweep: the main path, counted), its run directory's checks and
-    the step profile (auto; then one pallas_db step's launches); returns the kernel
-    launches of the CLI run and its run directory."""
-    out = root / f"sweep_{dtype}"
+    the step profile (auto; then one pallas_db step's launches); returns the
+    kernel launches of the CLI run and its run directory. `data_argv` names
+    the data (--set data_path=..., the hybrid targets, or --from-pickles);
+    `corpus`, if given, is what the CLI will stage from it."""
+    out = root / f"{what}_{dtype}"
     argv = ["--output-dir", str(out), "--set", "trainer.epochs=2",
-            "--set", f"model.dtype={dtype}", "--set", f"data_path={data}"]
+            "--set", f"model.dtype={dtype}"] + data_argv
     cfg = cli.load_config(cli.build_parser().parse_args(argv))
-    corpus = pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
-                         read_channel_names(data), cfg.classification_mode, cfg.normalization)
+    if corpus is None:
+        staged = root / f"{what}_staged_{dtype}"
+        staged.mkdir()
+        corpus = stage_corpus(cfg, staged)
     fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
     folds = len(fb.test_subjects)
 
     # a. The first 3 sweep train steps, card vs CPU, and two lanes vs Trainer.
-    sweep_parity(cfg, corpus, fb, root / f"sweep_parity_{dtype}", TRAIN_TOL[dtype],
-                 f"sweep {dtype}")
+    if parity:
+        sweep_parity(cfg, corpus, fb, root / f"{what}_parity_{dtype}", TRAIN_TOL[dtype],
+                     f"{what} {dtype}")
 
     # b. The main path: the experiment CLI's default execution.
     gru_cuda.reset_launch_counts()
@@ -1354,26 +1406,29 @@ def sweep_phase(dtype: str, data: Path, root: Path) -> tuple[dict[str, int], Pat
     wall = time.perf_counter() - t0
     expected, train_steps, eval_batches = sweep_expected_launches(fb, cfg.trainer)
     if launches != expected:
-        raise AssertionError(f"sweep {dtype}: launches {launches}, expected {expected} "
+        raise AssertionError(f"{what} {dtype}: launches {launches}, expected {expected} "
                              f"({train_steps} train steps, {eval_batches} eval batches)")
     (run_dir,) = (out / cfg.run_name).iterdir()
     saved = json.loads((run_dir / "config.json").read_text())
     if saved["fold_execution"] != "sharded" or saved["model"]["dtype"] != dtype:
-        raise AssertionError(f"sweep {dtype}: config.json says {saved}")
+        raise AssertionError(f"{what} {dtype}: config.json says {saved}")
     summary = (run_dir / "cv_summary.txt").read_text()
     lines = SWEEP_FOLD_LINE.findall(summary)
     means = re.findall(r"Mean (?:accuracy|weighted F1): (\S+) ± (\S+)", summary)
     numbers = [float(v) for f in lines for v in f[1:]] + [float(v) for m in means for v in m]
     if (sorted(f[0] for f in lines) != sorted(cfg.subjects) or len(means) != 2
             or not all(math.isfinite(v) for v in numbers)):
-        raise AssertionError(f"sweep {dtype}: cv_summary.txt is not {folds} finite folds:\n"
+        raise AssertionError(f"{what} {dtype}: cv_summary.txt is not {folds} finite folds:\n"
                              f"{summary}")
-    x = np.random.default_rng(6).standard_normal((3, 3, WINDOW_T)).astype(np.float32)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((3, corpus.x.shape[2], corpus.x.shape[3])).astype(np.float32)
+    if corpus.feat is not None:
+        x = (x, rng.standard_normal((3, corpus.feat.shape[2])).astype(np.float32))
     for sid in cfg.subjects:
         probs = Predictor.from_run(run_dir, sid, device="cuda").predict_windows(x)
         if probs.shape != (3, 2) or not np.isfinite(probs).all():
-            raise AssertionError(f"sweep {dtype}: fold {sid}'s checkpoint gives {probs}")
-    print(f"sweep {dtype}: main with no --execution, {folds} folds in lockstep, "
+            raise AssertionError(f"{what} {dtype}: fold {sid}'s checkpoint gives {probs}")
+    print(f"{what} {dtype}: main with no --execution, {folds} folds in lockstep, "
           f"{train_steps} train steps and {eval_batches} eval batches in {wall:.2f} s; "
           + "; ".join(f"mean {a} ± {b}" for a, b in means)
           + f" (accuracy, F1); every fold's checkpoint read by Predictor; launches {launches}")
@@ -1381,24 +1436,56 @@ def sweep_phase(dtype: str, data: Path, root: Path) -> tuple[dict[str, int], Pat
     # c. Timings at the config's dropout: back-to-back sweep steps of every
     # fold at B=64 (epoch 0's first step), gru_impl auto; then the walks
     # one pallas_db step launches.
-    seeds, rngs = fold_streams(cfg.seed, folds)
-    sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=seeds)
-    idx, w = sweep.to_device(sweep.train_grid(rngs))
-    windows = folds * cfg.trainer.batch_size
-    step_profile(lambda: sweep.train_step(idx[:, 0], w[:, 0]), windows,
-                 f"sweep {dtype} auto F={folds} dropout {cfg.model.dropout}")
-    db_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, gru_impl="pallas_db"))
-    db = FoldSweep(corpus, fb, db_cfg, "cuda", variables=export_jax_variables(sweep.model))
-    del sweep
-    gru_cuda.reset_launch_counts()
-    db.train_step(idx[:, 0], w[:, 0])
-    one = gru_cuda.launch_counts()
-    if (one["gru_fwd_fb"], one["gru_bwd_fb"], sum(one.values())) != (3, 3, 6):
-        raise AssertionError(f"sweep {dtype} pallas_db: one step launched {one}")
-    print(f"sweep {dtype} pallas_db: one step launched {one} (per-direction F-lane walks)")
-    del db
-    torch.cuda.empty_cache()
+    if profile:
+        seeds, rngs = fold_streams(cfg.seed, folds)
+        sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=seeds)
+        idx, w = sweep.to_device(sweep.train_grid(rngs))
+        windows = folds * cfg.trainer.batch_size
+        step_profile(lambda: sweep.train_step(idx[:, 0], w[:, 0]), windows,
+                     f"{what} {dtype} auto F={folds} dropout {cfg.model.dropout}")
+        if db_step:
+            db_cfg = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, gru_impl="pallas_db"))
+            db = FoldSweep(corpus, fb, db_cfg, "cuda", variables=export_jax_variables(sweep.model))
+            del sweep
+            gru_cuda.reset_launch_counts()
+            db.train_step(idx[:, 0], w[:, 0])
+            one = gru_cuda.launch_counts()
+            if (one["gru_fwd_fb"], one["gru_bwd_fb"], sum(one.values())) != (3, 3, 6):
+                raise AssertionError(f"{what} {dtype} pallas_db: one step launched {one}")
+            print(f"{what} {dtype} pallas_db: one step launched {one} "
+                  "(per-direction F-lane walks)")
+            del db
+        else:
+            del sweep
+        torch.cuda.empty_cache()
     return launches, run_dir
+
+
+def serve_run_dir(run_dir: Path, requests) -> tuple[dict, list]:
+    """Start `python -m multimodalsignal_tpu_torch.serving --run-dir` in a
+    subprocess on a free port, read its /healthz, call requests(url) and
+    stop the server; returns (the /healthz reply, what requests returned)."""
+    proc = subprocess.Popen([sys.executable, "-m", "multimodalsignal_tpu_torch.serving",
+                             "--run-dir", str(run_dir), "--port", "0"],
+                            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        seen = []
+        for line in proc.stdout:   # the server's start-up line names its port
+            seen.append(line)
+            match = re.search(r"^Serving .* on (http://\S+) ", line)
+            if match:
+                break
+        else:
+            raise AssertionError("serving --run-dir did not start:\n" + "".join(seen))
+        url = match.group(1)
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            card_info = json.loads(resp.read())
+        return card_info, requests(url)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
 
 
 def ensemble_phase(run_dir: Path) -> dict[str, int]:
@@ -1436,28 +1523,9 @@ def ensemble_phase(run_dir: Path) -> dict[str, int]:
               f"device ({64 / fwd_ms * 1e3:.0f} windows/s, {64 * folds / fwd_ms * 1e3:.0f} "
               "fold-windows/s)")
         trace(lambda: ens.predict_tensor(xt), "ensemble forward")
-    proc = subprocess.Popen([sys.executable, "-m", "multimodalsignal_tpu_torch.serving",
-                             "--run-dir", str(run_dir), "--port", "0"],
-                            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    try:
-        seen = []
-        for line in proc.stdout:   # the server's start-up line names its port
-            seen.append(line)
-            match = re.search(r"^Serving .* on (http://\S+) ", line)
-            if match:
-                break
-        else:
-            raise AssertionError("serving --run-dir did not start:\n" + "".join(seen))
-        url = match.group(1)
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
-            card_info = json.loads(resp.read())
-        xs = np.random.default_rng(7).standard_normal(
-            [2] + card_info["window_shape"]).astype(np.float32)
-        reply = _post(url + "/v1/predict", {"windows": xs.tolist()})
-    finally:
-        proc.terminate()
-        proc.wait(timeout=60)
+    xs = np.random.default_rng(7).standard_normal((2, 3, WINDOW_T)).astype(np.float32)
+    card_info, (reply,) = serve_run_dir(run_dir, lambda url: [
+        _post(url + "/v1/predict", {"windows": xs.tolist()})])
     if (card_info["backend"] != f"checkpoint-ensemble[{folds}]"
             or card_info["platform"] != ens.device.type):
         raise AssertionError(f"serving --run-dir /healthz: {card_info}")
@@ -1466,6 +1534,188 @@ def ensemble_phase(run_dir: Path) -> dict[str, int]:
     print(f"ensemble: serving --run-dir answered /v1/predict (backend {card_info['backend']}), "
           f"max|probs - ensemble| = {err:.3e}")
     return launches
+
+
+# Phase 9: WESAD pickles -> preprocessing -> --from-pickles and the hybrid
+# model. Synthetic pickles of the config's 15 subjects with DEFAULT_TASKS
+# (8.5 minutes each at 700 Hz, label-dependent physiology) from this seed.
+PICKLE_SEED = 9
+
+
+def pickles_phase(root: Path):
+    """9a. Write the pickles, run the port's preprocess CLI (all three
+    targets) and check its outputs; then pack_corpus_from_pickles against
+    pack_corpus of the written chest_raw, bit for bit. Returns (WESAD root,
+    data root, the pickle-staged corpus, windows per subject)."""
+    wesad, data = root / "WESAD", root / "data"
+    t0 = time.perf_counter()
+    write_synthetic_wesad(wesad, list(ALL_SUBJECTS), tasks=DEFAULT_TASKS, seed=PICKLE_SEED)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preprocess.main(["--wesad-root", str(wesad), "--output", str(data),
+                     "--subjects", *ALL_SUBJECTS])
+    t_pre = time.perf_counter() - t0
+    raw, align, feat = (data / d for d in ("chest_raw", "chest_raw_align", "chest_feature"))
+    raw_meta = {"original_fs": 700, "fs": 128, "window_sec": 60, "stride_sec": 10,
+                "include_wrist": False}
+    for d in (raw, align):
+        if read_channel_names(d) != list(ALL_CHANNEL_NAMES) or read_preprocess_meta(d) != raw_meta:
+            raise AssertionError(f"{d}: channel names or meta {read_preprocess_meta(d)}")
+    if (read_feature_names(feat) != list(FEATURE_NAMES) or read_preprocess_meta(feat)
+            != {"feature_extractor_version": FEATURE_EXTRACTOR_VERSION}):
+        raise AssertionError(f"{feat}: feature names or meta {read_preprocess_meta(feat)}")
+    counts = {}
+    for sid in ALL_SUBJECTS:
+        (xr, yr), (xa, ya), (xf, yf) = ((np.load(d / f"{sid}_X.npy"), np.load(d / f"{sid}_y.npy"))
+                                        for d in (raw, align, feat))
+        n = len(yf)
+        if (xr.dtype != np.float32 or xr.shape != (len(yr), WINDOW_T, 8)
+                or xa.shape != (n, WINDOW_T, 8) or xf.shape != (n, len(FEATURE_NAMES))
+                or not np.array_equal(ya, yf) or not np.isfinite(xf).all()
+                or not set(np.unique(yf)) <= {1, 2, 3, 4}):
+            raise AssertionError(f"{sid}: raw {xr.shape}, raw-align {xa.shape}, feature "
+                                 f"{xf.shape}, finite {np.isfinite(xf).all()}")
+        counts[sid] = n
+    channels = list(ExperimentConfig().channels_to_use)
+    t0 = time.perf_counter()
+    corpus, names, meta = pack_corpus_from_pickles(wesad, list(ALL_SUBJECTS), channels)
+    t_pack = time.perf_counter() - t0
+    two_step = pack_corpus(raw, list(ALL_SUBJECTS), channels, read_channel_names(raw))
+    if (names != list(ALL_CHANNEL_NAMES) or meta != raw_meta
+            or corpus.subjects != two_step.subjects
+            or not all(np.array_equal(getattr(corpus, k), getattr(two_step, k))
+                       for k in ("x", "y", "mask"))):
+        raise AssertionError("pack_corpus_from_pickles differs from pack_corpus of chest_raw")
+    size = sum(f.stat().st_size for f in wesad.rglob("*.pkl"))
+    print(f"pickles: {len(counts)} subjects, {size / 2**20:.1f} MiB of pickles written in "
+          f"{t_write:.2f} s; preprocess CLI (raw, raw-align, feature) {t_pre:.2f} s host; "
+          f"windows per subject {counts}; features finite; pack_corpus_from_pickles "
+          f"{t_pack:.2f} s, bitwise equal to pack_corpus of chest_raw")
+    return wesad, data, corpus, counts
+
+
+def hybrid_argv(data: Path) -> list[str]:
+    return ["--set", "model.name=hybrid_cnn_gru",
+            "--set", f"raw_align_path={data / 'chest_raw_align'}",
+            "--set", f"feature_path={data / 'chest_feature'}"]
+
+
+def hybrid_serial_phase(data: Path, root: Path, counts: dict[str, int]) -> None:
+    """9d. The hybrid serial LOSO on LOSO_SUBJECTS, float32, auto, 2
+    epochs: per train step one launch of each of gru_fwd_fb (layer 0's two
+    directions), gru_fwd (the pruned last layer) and their adjoints, per
+    eval batch one of each forward."""
+    out = root / "hybrid_serial"
+    argv = ["--execution", "serial", "--output-dir", str(out), "--set", "trainer.epochs=2",
+            "--set", "subjects=" + ",".join(LOSO_SUBJECTS)] + hybrid_argv(data)
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    cli.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    train_steps, eval_batches = serial_steps(cfg, counts)
+    expected = {"gru_fwd": train_steps + eval_batches, "gru_fwd_fb": train_steps + eval_batches,
+                "gru_bwd": train_steps, "gru_bwd_fb": train_steps,
+                "gru_bifwd": 0, "gru_bibwd": 0}
+    if launches != expected:
+        raise AssertionError(f"hybrid serial: launches {launches}, expected {expected} "
+                             f"({train_steps} train steps, {eval_batches} eval batches)")
+    (run_dir,) = (out / cfg.run_name).iterdir()
+    saved = json.loads((run_dir / "config.json").read_text())
+    if saved["preprocess_meta"].get("feature_extractor_version") != FEATURE_EXTRACTOR_VERSION:
+        raise AssertionError(f"hybrid serial: config.json meta {saved['preprocess_meta']}")
+    summary = (run_dir / "cv_summary.txt").read_text()
+    folds = FOLD_LINE.findall(summary)
+    numbers = [float(v) for f in folds for v in f[1:]]
+    if sorted(f[0] for f in folds) != sorted(LOSO_SUBJECTS) or not all(
+            math.isfinite(v) for v in numbers):
+        raise AssertionError(f"hybrid serial: cv_summary.txt is not 4 finite folds:\n{summary}")
+    for sid in LOSO_SUBJECTS:
+        ckpt = run_dir / f"fold_test_on_{sid}" / "best_model.msgpack"
+        if not read_flax_checkpoint(ckpt)["params"]:
+            raise AssertionError(f"hybrid serial: fold {sid}'s checkpoint did not read back")
+    print(f"hybrid serial float32 auto: 4 folds, {train_steps} train steps and "
+          f"{eval_batches} eval batches in {wall:.2f} s; test accuracy "
+          + ", ".join(f"{f[0]} {f[1]}" for f in folds) + f"; launches {launches}")
+
+
+def _post_status(url: str, payload: dict) -> int:
+    """The HTTP status of a POST that is expected to be refused."""
+    try:
+        _post(url, payload)
+    except urllib.error.HTTPError as exc:
+        return exc.code
+    return 200
+
+
+def hybrid_ensemble_phase(run_dir: Path, pkl: Path) -> None:
+    """9e. The hybrid fold ensemble of the float32 hybrid sweep's run
+    directory: predict_recording on a pickle of 9a (recording_to_hybrid_windows,
+    the main path, counted: 3 gru_fwd_fb a padded batch) against the mean of
+    the fold Predictors (atol 1e-5) and the ensemble on the CPU (PROB_ATOL);
+    then `serving --run-dir` answers /v1/predict with features and refuses
+    it (400) without."""
+    ens = EnsemblePredictor.from_run(run_dir, device="cuda")
+    folds = len(ens.fold_names)
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    rec = ens.predict_recording(pkl)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    host_s = time.perf_counter() - t0
+    n = len(rec.probs)
+    batches = -(-n // 64)
+    expected = {"gru_fwd": 0, "gru_fwd_fb": 3 * batches, "gru_bwd": 0, "gru_bwd_fb": 0,
+                "gru_bifwd": 0, "gru_bibwd": 0}
+    if launches != expected:
+        raise AssertionError(f"hybrid ensemble: launches {launches}, expected {expected}")
+    pair, _ = ens.windows_from_recording(pkl)
+    mean = np.mean([Predictor.from_run(run_dir, s, device="cuda").predict_windows(pair)
+                    for s in ens.fold_names], axis=0)
+    err_mean = _check_probs(rec.probs, mean, n, 1e-5, "hybrid ensemble vs mean of fold Predictors")
+    cpu = EnsemblePredictor.from_run(run_dir, device="cpu").predict_windows(pair)
+    err_cpu = _check_probs(rec.probs, cpu, n, PROB_ATOL["float32"], "hybrid ensemble vs CPU")
+    print(f"hybrid ensemble float32: {folds} folds, predict_recording of {pkl.name} "
+          f"({n} windows, {batches} padded batches) {host_s:.2f} s host; max|probs - mean of "
+          f"fold Predictors| = {err_mean:.3e} (atol 1e-5), max|probs - CPU| = {err_cpu:.3e} "
+          f"(atol {PROB_ATOL['float32']}); launches {launches}")
+    xs, fs = (a[:2].tolist() for a in pair)
+    card_info, (reply, refused) = serve_run_dir(run_dir, lambda url: [
+        _post(url + "/v1/predict", {"windows": xs, "features": fs}),
+        _post_status(url + "/v1/predict", {"windows": xs})])
+    if (card_info["feature_names"] != list(FEATURE_NAMES) or refused != 400
+            or card_info["backend"] != f"checkpoint-ensemble[{folds}]"):
+        raise AssertionError(f"hybrid serving --run-dir: /healthz {card_info}, "
+                             f"without features HTTP {refused}")
+    err = _check_probs(reply["probs"], rec.probs[:2], 2, PROB_ATOL["float32"],
+                       "hybrid serving --run-dir /v1/predict")
+    print(f"hybrid ensemble: serving --run-dir answered /v1/predict with features "
+          f"(max|probs - ensemble| = {err:.3e}) and HTTP {refused} without them")
+
+
+def phase9(root: Path) -> None:
+    """Phase 9 (module docstring): 9a pickles and preprocessing, 9b the
+    from-pickles sweep, 9c the hybrid sweep in float32 and bfloat16, 9d the
+    hybrid serial LOSO, 9e the hybrid ensemble and its server."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    wesad, data, corpus, counts = pickles_phase(root)
+    _, run_dir = sweep_phase("float32", ["--from-pickles", str(wesad)], root, "pickles_sweep",
+                             corpus=corpus, parity=False, profile=False)
+    meta = json.loads((run_dir / "config.json").read_text())["preprocess_meta"]
+    if meta != from_pickles_meta(ExperimentConfig().channels_to_use)[1]:
+        raise AssertionError(f"from-pickles sweep: config.json preprocess_meta {meta}")
+    hybrid_run = None
+    for dtype in ("float32", "bfloat16"):
+        _, run = sweep_phase(dtype, hybrid_argv(data), root, "hybrid_sweep", db_step=False)
+        hybrid_run = hybrid_run or run
+    hybrid_serial_phase(data, root, counts)
+    hybrid_ensemble_phase(hybrid_run, wesad / "S2" / "S2.pkl")
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1507,9 +1757,11 @@ def main() -> int:
         loso_launches = loso_phase("float32", data, Path(tmp))
         loso_phase("bfloat16", data, Path(tmp))
         data = write_loso_data(Path(tmp) / "sweep_data", seed=8, subjects=ALL_SUBJECTS)
-        sweep_launches, sweep_run = sweep_phase("float32", data, Path(tmp))
-        sweep_phase("bfloat16", data, Path(tmp))
+        sweep_launches, sweep_run = sweep_phase("float32", ["--set", f"data_path={data}"],
+                                                Path(tmp))
+        sweep_phase("bfloat16", ["--set", f"data_path={data}"], Path(tmp))
         ensemble_phase(sweep_run)
+        phase9(Path(tmp) / "phase9")
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
     # default execution), the fused pair's on the float32 serial LOSO path

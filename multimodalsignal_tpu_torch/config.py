@@ -5,8 +5,8 @@ overrides and `validate_experiment`).
 The port reads the JAX package's run `config.json` unchanged (the same
 frozen dataclasses; `config_from_dict` ignores keys it does not know), and
 the `config.json` it writes reads back in the JAX package's
-`config_from_dict`. Preprocessing and hierarchical configs are not ported
-yet.
+`config_from_dict`. `PreprocessConfig` drives data/preprocess.py. The
+hierarchical config is not ported yet (ROADMAP.md, queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -26,16 +26,57 @@ ALL_CHANNEL_NAMES = tuple(
     + [f"chest_{c}" for c in ("ECG", "EDA", "EMG", "Resp", "Temp")]
 )
 
+# Wrist (Empatica E4) channels, emitted after the chest block when
+# PreprocessConfig.include_wrist is set.
+WRIST_SENSORS = ("ACC", "BVP", "EDA", "TEMP")
+WRIST_CHANNEL_NAMES = tuple(
+    [f"wrist_ACC_{ax}" for ax in "xyz"]
+    + ["wrist_BVP", "wrist_EDA", "wrist_TEMP"]
+)
+
+# Raw WESAD protocol task -> original label (reference preprocess.py:28).
+TASK_TO_LABEL_MAP = {"Base": 1, "TSST": 2, "Fun": 3, "Medi1": 4, "Medi2": 4}
+
 # Classification modes (reference dataset.py:29-34 plus the `amusement_binary`
 # mode main.py:195 requires but the reference dataset never implemented).
 CLASSIFICATION_MODES = ("stress_binary", "ternary", "amusement_binary")
 
 
 @dataclass(frozen=True)
+class PreprocessConfig:
+    """Mirrors reference preprocess.py:12-28."""
+
+    wesad_root: str = "./WESAD"
+    output_path: str = "./data"
+    original_chest_fs: int = 700
+    targets: tuple[str, ...] = ("raw", "raw-align", "feature")
+    raw_fs: int = 128
+    raw_window_sec: int = 60
+    raw_stride_sec: int = 10
+    feature_fs: int = 128
+    feature_window_sec: int = 60
+    feature_stride_sec: int = 10
+    subjects: tuple[str, ...] = ALL_SUBJECTS
+    # Also resample and window the wrist device's channels (each from its
+    # own native rate) onto the same grid, after the chest block.
+    include_wrist: bool = False
+
+    @property
+    def raw_window_samples(self) -> int:
+        return self.raw_window_sec * self.raw_fs
+
+    @property
+    def raw_stride_samples(self) -> int:
+        return self.raw_stride_sec * self.raw_fs
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Mirrors reference MODEL_PARAMS (main.py:48-55) + models.py defaults."""
 
-    name: str = "cnn_gru_attention"  # or "cnn_gru" (no channel attention)
+    # "cnn_gru_attention", "cnn_gru" (no channel attention) or
+    # "hybrid_cnn_gru" (raw windows plus handcrafted features, models/hybrid.py)
+    name: str = "cnn_gru_attention"
     cnn_out_channels: int = 32
     gru_hidden_size: int = 64
     gru_num_layers: int = 2

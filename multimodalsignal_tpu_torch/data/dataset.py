@@ -1,17 +1,21 @@
 """Dataset layer: windowed npy files -> dense, normalized [N, C, T] arrays,
-and the sharded sweep's packed corpus (counterpart of
-multimodalsignal_tpu/data/dataset.py, NumPy float64 path; the JAX package's
-C++ engine, its on-disk pack cache and the hybrid datasets are not ported:
-ROADMAP.md, queue 1, preprocessing and data).
+the hybrid model's (raw, feature) pairs, and the sharded sweep's packed
+corpus, from npy files or straight from WESAD pickles (counterpart of
+multimodalsignal_tpu/data/dataset.py, its NumPy float64 path; the JAX
+package's optional C++ engine and its on-disk pack cache are not ported:
+ROADMAP.md, queue 1, item 4).
 
-The preprocessed data directory holds, per subject, `S*_X.npy` [N, T, C_all]
-windows and `S*_y.npy` raw labels (1 Base, 2 TSST, 3 Fun, 4 Medi), plus
-`_channel_names.txt` (one name per line) and, where the preprocessor wrote
-it, `_preprocess_meta.json`."""
+A preprocessed data directory (data/preprocess.py) holds, per subject,
+`S*_X.npy` windows and `S*_y.npy` raw labels (1 Base, 2 TSST, 3 Fun,
+4 Medi), plus `_channel_names.txt` or `_feature_names.txt` (one name per
+line) and `_preprocess_meta.json`. The raw targets' X is [N, T, C_all]
+float32, the feature target's [N, F] float64."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -40,9 +44,18 @@ def read_preprocess_meta(data_path: Path | str) -> dict | None:
 
 
 def experiment_preprocess_meta(cfg) -> dict | None:
-    """The preprocess meta a run directory embeds in config.json. The hybrid
-    model is not ported, so this is the raw windows' meta."""
-    return read_preprocess_meta(cfg.data_path)
+    """The preprocess meta a run directory embeds in config.json: the raw
+    windows' contract (the raw-align target's for the hybrid model), for a
+    hybrid run merged with the feature target's extractor version stamp,
+    which the hybrid Predictor checks against its own extractor."""
+    hybrid = cfg.model.name == "hybrid_cnn_gru"
+    meta = read_preprocess_meta(cfg.raw_align_path if hybrid else cfg.data_path)
+    if hybrid:
+        feat_meta = read_preprocess_meta(cfg.feature_path) or {}
+        if "feature_extractor_version" in feat_meta:
+            meta = dict(meta or {})
+            meta["feature_extractor_version"] = feat_meta["feature_extractor_version"]
+    return meta
 
 
 def load_subject_windows(data_path: Path | str, sid: str):
@@ -109,6 +122,21 @@ def normalize_subject(x: np.ndarray, y_raw: np.ndarray,
     return out
 
 
+def normalize_features(x_feat: np.ndarray, y_raw: np.ndarray,
+                       scheme: str = "baseline") -> np.ndarray:
+    """Per-subject z-score of feature vectors [N, F] in float64, std + 1e-3
+    (not the raw streams' 1e-8); "baseline" takes the statistics from the
+    Base windows (all windows where a subject has none), "all" from every
+    window, "none" passes through. Returns float32."""
+    x_feat = np.asarray(x_feat, dtype=np.float64)
+    if scheme == "none":
+        return x_feat.astype(np.float32)
+    ref = x_feat[y_raw == 1] if (scheme == "baseline" and (y_raw == 1).any()) else x_feat
+    mean = ref.mean(axis=0)
+    std = ref.std(axis=0) + 1e-3
+    return ((x_feat - mean) / std).astype(np.float32)
+
+
 @dataclass
 class WindowDataset:
     """Dense dataset: x [N, C, T] float32 (channels first, the model's
@@ -151,18 +179,96 @@ def build_dataset(data_path: Path | str, subjects: list[str],
 
 
 @dataclass
+class HybridWindowDataset:
+    """Raw windows paired with handcrafted features: x_raw [N, C, T]
+    float32, x_feat [N, F] float32, y [N] int32. Its `x` is the pair the
+    hybrid model and the Trainer take."""
+
+    x_raw: np.ndarray
+    x_feat: np.ndarray
+    y: np.ndarray
+    subjects: tuple[str, ...]
+
+    def __len__(self) -> int:
+        return len(self.y)
+
+    @property
+    def x(self) -> tuple[np.ndarray, np.ndarray]:
+        return self.x_raw, self.x_feat
+
+
+def read_feature_names(feature_path: Path | str) -> list[str]:
+    """The _feature_names.txt contract: one feature name per line."""
+    with open(Path(feature_path) / "_feature_names.txt") as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def _feature_indices(feature_path, features_to_use) -> list[int]:
+    names = read_feature_names(feature_path)
+    return ([names.index(f) for f in features_to_use] if features_to_use
+            else list(range(len(names))))
+
+
+def build_hybrid_dataset(raw_align_path: Path | str, feature_path: Path | str,
+                         subjects: list[str], channels_to_use: list[str],
+                         all_channel_names: list[str],
+                         features_to_use: list[str] | None = None,
+                         classification_mode: str = "stress_binary",
+                         normalization: str = "baseline") -> HybridWindowDataset:
+    """build_dataset over the raw-align target, paired with the feature
+    target: both streams normalized per subject by `normalization` (the raw
+    one with EDA log1p, the features with normalize_features), in subject
+    order. The two streams must hold the same window count and labels; a
+    subject missing either is skipped, and none loaded raises ValueError."""
+    channel_indices = [all_channel_names.index(ch) for ch in channels_to_use]
+    feat_idx = _feature_indices(feature_path, features_to_use)
+    raw_parts, feat_parts, y_parts, y_feat_parts, loaded = [], [], [], [], []
+    for sid in subjects:
+        raw_item = load_subject_windows(raw_align_path, sid)
+        feat_item = load_subject_windows(feature_path, sid)
+        if raw_item is None or feat_item is None:
+            continue
+        x_raw, y = _pack_subject(*raw_item, channel_indices, channels_to_use,
+                                 classification_mode, normalization)
+        raw_parts.append(x_raw)
+        y_parts.append(y)
+        x_feat, y_feat_raw = feat_item
+        y_feat, keep_feat = map_labels(y_feat_raw, classification_mode)
+        feat_parts.append(normalize_features(x_feat[:, feat_idx], y_feat_raw,
+                                             normalization)[keep_feat])
+        y_feat_parts.append(y_feat[keep_feat])
+        loaded.append(sid)
+    if not raw_parts:
+        raise ValueError(f"No hybrid data loaded for subjects: {subjects}.")
+    x_raw_all = np.concatenate(raw_parts, axis=0)
+    x_feat_all = np.concatenate(feat_parts, axis=0)
+    y_all = np.concatenate(y_parts, axis=0)
+    if x_raw_all.shape[0] != x_feat_all.shape[0] or not np.array_equal(
+            y_all, np.concatenate(y_feat_parts, axis=0)):
+        raise ValueError(
+            f"raw-align vs feature streams disagree: {x_raw_all.shape[0]} raw windows vs "
+            f"{x_feat_all.shape[0]} feature windows (or labels differ); regenerate both "
+            "preprocess targets together.")
+    return HybridWindowDataset(np.ascontiguousarray(x_raw_all), x_feat_all, y_all,
+                               tuple(loaded))
+
+
+@dataclass
 class PackedCorpus:
     """All subjects padded to a common window count for the sharded sweep.
 
     x    [S, Wmax, C, T] float32, normalized per subject
     y    [S, Wmax] int32 (mapped labels; padded rows hold 0)
     mask [S, Wmax] bool (True = a real window that the mode's filter kept)
+    feat [S, Wmax, F] float32 handcrafted features window for window with x
+         (pack_hybrid_corpus), or None
     """
 
     x: np.ndarray
     y: np.ndarray
     mask: np.ndarray
     subjects: tuple[str, ...]
+    feat: np.ndarray | None = None
 
     def flat(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The [S*Wmax, C, T] view with labels and mask, for the sweep's
@@ -170,6 +276,13 @@ class PackedCorpus:
         s, wmax = self.x.shape[:2]
         return (self.x.reshape(s * wmax, *self.x.shape[2:]), self.y.reshape(s * wmax),
                 self.mask.reshape(s * wmax))
+
+    def flat_feat(self) -> np.ndarray | None:
+        """The [S*Wmax, F] feature view, indexed as flat()."""
+        if self.feat is None:
+            return None
+        s, wmax = self.feat.shape[:2]
+        return self.feat.reshape(s * wmax, self.feat.shape[2])
 
 
 def _stack_packed(per_subject) -> PackedCorpus:
@@ -187,31 +300,150 @@ def _stack_packed(per_subject) -> PackedCorpus:
     return PackedCorpus(x_out, y_out, mask, tuple(sid for sid, _, _ in per_subject))
 
 
+def _pack_subject(x_raw, y_raw, channel_indices, channels_to_use, classification_mode,
+                  normalization) -> tuple[np.ndarray, np.ndarray]:
+    """One subject's windows [N, T, C_all] -> (x [keep, C, T], y [keep]):
+    select the channels, map the labels, normalize, drop what the mode does
+    not keep. The npy and the pickle staging share it."""
+    y, keep = map_labels(y_raw, classification_mode)
+    x_norm = normalize_subject(x_raw[:, :, channel_indices], y_raw, channels_to_use,
+                               normalization)
+    return x_norm[keep].transpose(0, 2, 1), y[keep]
+
+
+def _pack_subjects(pack_one, subjects, what: str) -> PackedCorpus:
+    """pack_one(sid) -> (sid, x, y) or None, over a pool of up to 8 threads
+    (NumPy and SciPy release the GIL), stacked in subject order."""
+    with ThreadPoolExecutor(max_workers=max(1, min(8, len(subjects)))) as ex:
+        packed = list(ex.map(pack_one, subjects))
+    per_subject = [p for p in packed if p is not None]
+    if not per_subject:
+        raise ValueError(f"No {what} loaded for subjects: {subjects}.")
+    return _stack_packed(per_subject)
+
+
 def pack_corpus(data_path: Path | str, subjects: list[str], channels_to_use: list[str],
                 all_channel_names: list[str], classification_mode: str = "stress_binary",
                 normalization: str = "all") -> PackedCorpus:
     """Load and normalize every subject once and pad to [S, Wmax, C, T].
     Normalization is per subject, so one packed corpus serves every LOSO
-    fold. Subjects pack in a pool of up to 8 threads, the result in subject
-    order. Subjects whose files are missing are skipped; none loaded raises
+    fold. Subjects whose files are missing are skipped; none loaded raises
     ValueError."""
-    from concurrent.futures import ThreadPoolExecutor
-
     channel_indices = [all_channel_names.index(ch) for ch in channels_to_use]
 
     def pack_one(sid):
         item = load_subject_windows(data_path, sid)
         if item is None:
             return None
-        x_raw, y_raw = item
-        y, keep = map_labels(y_raw, classification_mode)
-        x_norm = normalize_subject(x_raw[:, :, channel_indices], y_raw, channels_to_use,
-                                   normalization)
-        return sid, x_norm[keep].transpose(0, 2, 1), y[keep]
+        return (sid, *_pack_subject(*item, channel_indices, channels_to_use,
+                                    classification_mode, normalization))
 
-    with ThreadPoolExecutor(max_workers=max(1, min(8, len(subjects)))) as ex:
-        packed = list(ex.map(pack_one, subjects))
-    per_subject = [p for p in packed if p is not None]
-    if not per_subject:
-        raise ValueError(f"No data loaded for subjects: {subjects}.")
-    return _stack_packed(per_subject)
+    return _pack_subjects(pack_one, subjects, "data")
+
+
+def from_pickles_meta(channels_to_use, preprocess_cfg=None) -> tuple[list[str], dict]:
+    """(all_channel_names, preprocess_meta) that pickle staging of this
+    channel set produces; the meta is the preprocess CLI's raw
+    _preprocess_meta.json (the serving-time windowing contract)."""
+    from multimodalsignal_tpu_torch.config import (
+        ALL_CHANNEL_NAMES,
+        WRIST_CHANNEL_NAMES,
+        PreprocessConfig,
+    )
+
+    if preprocess_cfg is None:
+        preprocess_cfg = PreprocessConfig(
+            targets=("raw",),
+            include_wrist=any(ch.startswith("wrist_") for ch in channels_to_use))
+    all_channel_names = list(ALL_CHANNEL_NAMES)
+    if preprocess_cfg.include_wrist:
+        all_channel_names += list(WRIST_CHANNEL_NAMES)
+    meta = {"original_fs": preprocess_cfg.original_chest_fs, "fs": preprocess_cfg.raw_fs,
+            "window_sec": preprocess_cfg.raw_window_sec,
+            "stride_sec": preprocess_cfg.raw_stride_sec,
+            "include_wrist": preprocess_cfg.include_wrist}
+    return all_channel_names, meta
+
+
+def pack_corpus_from_pickles(wesad_root: Path | str, subjects: list[str],
+                             channels_to_use: list[str],
+                             classification_mode: str = "stress_binary",
+                             normalization: str = "all",
+                             subject_cache: dict | None = None
+                             ) -> tuple[PackedCorpus, list[str], dict]:
+    """The sweep's corpus straight from raw WESAD pickles: each subject's
+    windows are preprocessed in memory (data/preprocess.py's raw target)
+    and packed as pack_corpus packs them, with no npy round trip; the
+    result is bit-identical to running the preprocess CLI and then
+    pack_corpus. Wrist channels are included when channels_to_use names
+    any; the rest of the preprocessing is PreprocessConfig's defaults.
+    Returns (corpus, all_channel_names, preprocess_meta).
+
+    `subject_cache` (optional dict, keyed on (sid, include_wrist)) keeps
+    each subject's windows across calls, for callers that pack several
+    corpora from the same pickles; the caller owns its lifetime."""
+    from multimodalsignal_tpu_torch.config import PreprocessConfig
+    from multimodalsignal_tpu_torch.data.preprocess import preprocess_subject
+
+    preprocess_cfg = PreprocessConfig(
+        wesad_root=str(wesad_root), targets=("raw",), subjects=tuple(subjects),
+        include_wrist=any(ch.startswith("wrist_") for ch in channels_to_use))
+    all_channel_names, meta = from_pickles_meta(channels_to_use, preprocess_cfg)
+    unknown = [ch for ch in channels_to_use if ch not in all_channel_names]
+    if unknown:
+        raise ValueError(f"Unknown channels {unknown}; from-pickles staging produces "
+                         f"{all_channel_names}.")
+    channel_indices = [all_channel_names.index(ch) for ch in channels_to_use]
+
+    def pack_one(sid):
+        memo_key = (sid, preprocess_cfg.include_wrist)
+        if subject_cache is not None and memo_key in subject_cache:
+            item = subject_cache[memo_key]
+        else:
+            result = preprocess_subject(sid, preprocess_cfg)
+            item = None
+            if result is not None:
+                x_raw, y_raw = result["raw"]
+                item = (np.ascontiguousarray(x_raw, dtype=np.float32), y_raw)
+            if subject_cache is not None:
+                subject_cache[memo_key] = item
+        if item is None:
+            return None
+        return (sid, *_pack_subject(*item, channel_indices, channels_to_use,
+                                    classification_mode, normalization))
+
+    return _pack_subjects(pack_one, subjects, "pickles"), all_channel_names, meta
+
+
+def pack_hybrid_corpus(raw_align_path: Path | str, feature_path: Path | str,
+                       subjects: list[str], channels_to_use: list[str],
+                       all_channel_names: list[str],
+                       features_to_use: list[str] | None = None,
+                       classification_mode: str = "stress_binary",
+                       normalization: str = "all") -> PackedCorpus:
+    """pack_corpus over the raw-align target plus the feature stream
+    aligned window for window: the sweep's form of build_hybrid_dataset.
+    Per subject the raw-align and feature window counts and mapped labels
+    must agree, so the sweep's index pools address both streams."""
+    corpus = pack_corpus(raw_align_path, subjects, channels_to_use, all_channel_names,
+                         classification_mode, normalization)
+    feat_idx = _feature_indices(feature_path, features_to_use)
+    s, wmax = corpus.y.shape
+    feat_out = np.zeros((s, wmax, len(feat_idx)), dtype=np.float32)
+    for i, sid in enumerate(corpus.subjects):
+        item = load_subject_windows(feature_path, sid)
+        if item is None:
+            raise ValueError(f"Subject {sid} has raw-align data but no feature files "
+                             f"under {feature_path}.")
+        x_feat, y_feat_raw = item
+        y_feat, keep = map_labels(y_feat_raw, classification_mode)
+        xf = normalize_features(x_feat[:, feat_idx], y_feat_raw, normalization)
+        xf, yk = xf[keep], y_feat[keep]
+        n = int(corpus.mask[i].sum())
+        if len(yk) != n or not np.array_equal(yk, corpus.y[i, :n]):
+            raise ValueError(
+                f"raw-align vs feature streams disagree for {sid}: {n} raw windows vs "
+                f"{len(yk)} feature windows (or labels differ); regenerate both "
+                "preprocess targets together.")
+        feat_out[i, :n] = xf
+    return dataclasses.replace(corpus, feat=feat_out)

@@ -10,6 +10,10 @@ holds `config.json` (readable by both packages' `config_from_dict`),
 Trainer's artifacts (`training_log.txt`, `best_model.msgpack`,
 `test_probs.npy`, the confusion matrix where matplotlib imports).
 
+A hybrid_cnn_gru run reads the raw-align and feature targets
+(`raw_align_path`, `feature_path`) and trains on (windows, features) pairs
+(data/dataset.py build_hybrid_dataset).
+
 Each fold's model is initialised from torch's generator seeded with
 `cfg.seed`, so every fold starts from the same weights, as every fold of the
 JAX package starts from PRNGKey(seed); the two packages' initial weights
@@ -32,12 +36,14 @@ from multimodalsignal_tpu_torch.config import (
     validate_experiment,
 )
 from multimodalsignal_tpu_torch.data.dataset import (
+    HybridWindowDataset,
     WindowDataset,
     build_dataset,
+    build_hybrid_dataset,
     experiment_preprocess_meta,
     read_channel_names,
 )
-from multimodalsignal_tpu_torch.experiments.predict import resolve_device
+from multimodalsignal_tpu_torch.experiments.predict import hybrid_feature_names, resolve_device
 from multimodalsignal_tpu_torch.experiments.splits import loso_folds
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
 from multimodalsignal_tpu_torch.train.trainer import Trainer
@@ -106,51 +112,61 @@ def run_simple_experiment(cfg: ExperimentConfig, run_output_dir: Path | str,
                           device: str | torch.device = "cuda",
                           ) -> tuple[list[FoldResult], dict]:
     """Run the whole LOSO sweep serially; returns (per-fold results, summary)."""
-    if cfg.model.name == "hybrid_cnn_gru":
-        raise NotImplementedError(
-            "hybrid_cnn_gru is not ported yet (ROADMAP.md, queue 1: hybrid, "
-            "export, streaming, preprocessing, analysis)")
     device = resolve_device(device)
     run_output_dir = Path(run_output_dir)
     run_output_dir.mkdir(parents=True, exist_ok=True)
     validate_experiment(cfg, fold_execution="serial")
+    hybrid = cfg.model.name == "hybrid_cnn_gru"
+    raw_path = cfg.raw_align_path if hybrid else cfg.data_path
     save_config(cfg, run_output_dir / "config.json",
                 extra={"preprocess_meta": experiment_preprocess_meta(cfg)})
     if all_channel_names is None:
-        all_channel_names = read_channel_names(cfg.data_path)
+        all_channel_names = read_channel_names(raw_path)
 
     print("=" * 80)
     print(f"LOSO experiment (mode: {cfg.classification_mode}, "
-          f"folds: {len(cfg.subjects)}, execution: serial, device: {device})")
+          f"folds: {len(cfg.subjects)}, execution: serial, device: {device}"
+          f"{', hybrid raw+feature' if hybrid else ''})")
     print("=" * 80)
+
+    def build_one(sid: str):
+        if hybrid:
+            return build_hybrid_dataset(
+                cfg.raw_align_path, cfg.feature_path, [sid], list(cfg.channels_to_use),
+                all_channel_names, list(cfg.features_to_use) or None,
+                cfg.classification_mode, cfg.normalization)
+        return build_dataset(cfg.data_path, [sid], list(cfg.channels_to_use),
+                             all_channel_names, cfg.classification_mode, cfg.normalization)
 
     # Normalization is per subject, so each subject loads and normalizes
     # once and the folds assemble by concatenation, in build_dataset's order.
-    cache: dict[str, WindowDataset | None] = {}
+    cache: dict[str, WindowDataset | HybridWindowDataset | None] = {}
 
-    def cached(sid: str) -> WindowDataset | None:
+    def cached(sid: str):
         if sid not in cache:
             try:
-                cache[sid] = build_dataset(
-                    cfg.data_path, [sid], list(cfg.channels_to_use), all_channel_names,
-                    cfg.classification_mode, cfg.normalization)
+                cache[sid] = build_one(sid)
             except ValueError:
                 # Only missing subject files are skippable (the loader
                 # warned); configuration errors propagate.
-                if (Path(cfg.data_path) / f"{sid}_X.npy").exists():
+                if (Path(raw_path) / f"{sid}_X.npy").exists():
                     raise
                 cache[sid] = None
         return cache[sid]
 
-    def make_ds(subjects) -> WindowDataset:
+    def make_ds(subjects):
         parts = [p for p in (cached(s) for s in subjects) if p is not None]
         if not parts:
             raise ValueError(f"No data loaded for subjects: {subjects}.")
         if len(parts) == 1:
             return parts[0]
-        return WindowDataset(x=np.concatenate([p.x for p in parts]),
-                             y=np.concatenate([p.y for p in parts]),
-                             subjects=tuple(s for p in parts for s in p.subjects))
+        joined = dict(y=np.concatenate([p.y for p in parts]),
+                      subjects=tuple(s for p in parts for s in p.subjects))
+        if hybrid:
+            return HybridWindowDataset(x_raw=np.concatenate([p.x_raw for p in parts]),
+                                       x_feat=np.concatenate([p.x_feat for p in parts]),
+                                       **joined)
+        return WindowDataset(x=np.concatenate([p.x for p in parts]), **joined)
 
     results: list[FoldResult] = []
     for fold in loso_folds(cfg.subjects, cfg.val_fraction, cfg.seed):
@@ -165,8 +181,8 @@ def run_simple_experiment(cfg: ExperimentConfig, run_output_dir: Path | str,
                          if cfg.trainer.use_class_weights else None)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
-            model = build_model(cfg.model, cfg.num_classes,
-                                in_channels=len(cfg.channels_to_use))
+            model = build_model(cfg.model, cfg.num_classes, len(cfg.channels_to_use),
+                                len(hybrid_feature_names(cfg)))
         trainer = Trainer(model, fold_dir, cfg.trainer, cfg.num_classes, seed=cfg.seed,
                           class_weights=class_weights, device=device)
         trainer.train(train_ds, val_ds)

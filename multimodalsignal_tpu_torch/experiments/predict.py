@@ -1,7 +1,7 @@
 """Inference: load a trained fold checkpoint and classify a raw recording.
 
-Counterpart of multimodalsignal_tpu/experiments/predict.py for one CnnGru /
-CnnGruAttention checkpoint written by the JAX package:
+Counterpart of multimodalsignal_tpu/experiments/predict.py for a CnnGru,
+CnnGruAttention or hybrid_cnn_gru checkpoint, written by either package:
 
     python -m multimodalsignal_tpu_torch.experiments.predict \\
         --checkpoint output/.../fold_test_on_S2/best_model.msgpack \\
@@ -19,10 +19,14 @@ one FoldStackedModel, the softmax averaged over folds.
 
 Pipeline per recording: resample 700 -> 128 Hz, slide 60 s / 10 s windows
 over the whole recording, normalize with the recording's own statistics,
-then forward in batches zero-padded to a fixed size. Inference runs on
-"cuda" unless the caller passes device="cpu"; asking for CUDA where there is
-none raises. The hierarchical and hybrid predictors are not ported yet
-(ROADMAP.md).
+then forward in batches zero-padded to a fixed size. A hybrid model also
+takes each window's handcrafted features, extracted from the unnormalized
+resampled chest sensors (recording_to_hybrid_windows); its run must carry
+the feature extractor version this package computes (a missing stamp warns,
+another version raises). Inference runs on "cuda" unless the caller passes
+device="cpu"; asking for CUDA where there is none raises. The hierarchical
+predictor and wrist channels are not ported yet (ROADMAP.md, queue 1,
+items 2 and 4).
 """
 
 from __future__ import annotations
@@ -41,7 +45,13 @@ from multimodalsignal_tpu_torch.config import (
     ExperimentConfig,
     config_from_dict,
 )
-from multimodalsignal_tpu_torch.data.dataset import normalize_subject
+from multimodalsignal_tpu_torch.data.dataset import normalize_features, normalize_subject
+from multimodalsignal_tpu_torch.data.features import (
+    FEATURE_EXTRACTOR_VERSION,
+    FEATURE_NAMES,
+    FEATURE_SENSOR_CHANNELS,
+    extract_features_batch,
+)
 from multimodalsignal_tpu_torch.data.resample import resample_signal
 from multimodalsignal_tpu_torch.data.wesad_io import chest_signals, load_pkl
 from multimodalsignal_tpu_torch.data.windowing import sliding_windows, window_starts
@@ -94,8 +104,8 @@ def _recording_grid(pkl_path: Path | str, channels_to_use: list[str],
     """Raw WESAD pickle -> resampled 8-channel chest grid [T', 8] + names."""
     if any(ch not in ALL_CHANNEL_NAMES for ch in channels_to_use):
         raise NotImplementedError(
-            "wrist channels are not ported yet (ROADMAP.md, queue 1: "
-            "preprocessing)")
+            "wrist channels in the Predictor are not ported yet (ROADMAP.md, "
+            "queue 1, item 4: preprocessing and data)")
     chest = chest_signals(load_pkl(pkl_path))
     cols = []
     for sensor in CHEST_SENSORS:
@@ -137,20 +147,107 @@ def recording_to_windows(
     window_samples = window_sec * target_fs
     starts = window_starts(0, full.shape[0], window_samples,
                            stride_sec * target_fs)
+    x = _normalized_raw_windows(full, names, channels_to_use, normalization, starts,
+                                window_samples)
+    return x, starts / target_fs
+
+
+def _normalized_raw_windows(full, names, channels_to_use, normalization, starts,
+                            window_samples) -> np.ndarray:
+    """The raw stream of both serving pipelines: select the channels,
+    window, normalize with the recording's own statistics -> [N, C, T]."""
     ch_idx = [names.index(ch) for ch in channels_to_use]
     win = sliding_windows(full[:, ch_idx].astype(np.float32), starts,
                           window_samples)  # [N, T, C]
     y_dummy = np.ones(len(win), dtype=np.int64)
     win = normalize_subject(win, y_dummy, list(channels_to_use),
                             _inference_norm_scheme(normalization))
-    return np.ascontiguousarray(win.transpose(0, 2, 1)), starts / target_fs
+    return np.ascontiguousarray(win.transpose(0, 2, 1))
+
+
+def recording_to_hybrid_windows(
+    pkl_path: Path | str,
+    channels_to_use: list[str],
+    normalization: str,
+    features_to_use: list[str] | None = None,
+    original_fs: int = 700,
+    target_fs: int = 128,
+    window_sec: int = 60,
+    stride_sec: int = 10,
+) -> tuple[tuple[np.ndarray, np.ndarray], np.ndarray]:
+    """Raw WESAD pickle -> ((raw [N, C, T], feat [N, F]), start times (s)),
+    as training saw them: the raw stream as recording_to_windows makes it;
+    the features extracted per window from the unnormalized resampled
+    feature sensors (chest ECG, EDA, EMG, Resp, whatever the model's
+    channels), failed groups zero-filled, then z-scored with the
+    recording's own statistics (normalize_features). Both streams share one
+    window grid."""
+    full, names = _recording_grid(pkl_path, channels_to_use, original_fs,
+                                  target_fs)
+    window_samples = window_sec * target_fs
+    starts = window_starts(0, full.shape[0], window_samples, stride_sec * target_fs)
+    x_raw = _normalized_raw_windows(full, names, channels_to_use, normalization, starts,
+                                    window_samples)
+    channel_windows = {
+        ch: sliding_windows(full[:, names.index(ch)].astype(np.float64), starts,
+                            window_samples)
+        for ch in FEATURE_SENSOR_CHANNELS
+    }
+    feats = extract_features_batch(channel_windows, target_fs)
+    feats = np.nan_to_num(feats, nan=0.0, posinf=0.0, neginf=0.0)
+    if features_to_use:
+        feats = feats[:, [FEATURE_NAMES.index(f) for f in features_to_use]]
+    y_dummy = np.ones(len(x_raw), dtype=np.int64)
+    x_feat = normalize_features(feats, y_dummy, _inference_norm_scheme(normalization))
+    return (x_raw, x_feat), starts / target_fs
+
+
+def hybrid_feature_names(cfg: ExperimentConfig) -> tuple[str, ...]:
+    """The feature columns a hybrid_cnn_gru checkpoint expects, in order."""
+    return tuple(cfg.features_to_use) or FEATURE_NAMES
+
+
+def _check_feature_extractor_version(meta: dict) -> None:
+    """The features a hybrid model trained on must come from the extractor
+    that computes them live here (data/features.py
+    FEATURE_EXTRACTOR_VERSION): no stamp warns, another version raises."""
+    trained = meta.get("feature_extractor_version")
+    if trained is None:
+        import warnings
+
+        warnings.warn(
+            "hybrid checkpoint carries no feature_extractor_version stamp "
+            "(preprocessed before the stamp existed); live features are "
+            f"v{FEATURE_EXTRACTOR_VERSION} and may be skewed vs training; "
+            "re-preprocess the feature target and retrain to clear this",
+            stacklevel=3)
+    elif int(trained) != FEATURE_EXTRACTOR_VERSION:
+        raise ValueError(
+            f"hybrid checkpoint was trained on feature extractor v{trained} but this "
+            f"package computes v{FEATURE_EXTRACTOR_VERSION} features live at inference; "
+            "re-preprocess the feature target and retrain (or serve with the matching "
+            "package version)")
+
+
+def map_streams(fn, x):
+    """fn on a batch: windows, or each stream of a hybrid (windows,
+    features) pair."""
+    return tuple(fn(a) for a in x) if isinstance(x, (tuple, list)) else fn(x)
+
+
+def num_windows(x) -> int:
+    """Window count of a batch: windows [N, C, T] or a hybrid (windows,
+    features) pair."""
+    return int((x[0] if isinstance(x, (tuple, list)) else x).shape[0])
 
 
 class Predictor:
     """Batched inference for one trained model on one device.
 
     `variables` is the flax {"params", "batch_stats"} pair (numpy), as
-    `read_flax_checkpoint` returns it."""
+    `read_flax_checkpoint` returns it. For a hybrid_cnn_gru checkpoint a
+    batch is the pair (windows [N, C, T], features [N, F]), and
+    `feature_names` are its F columns."""
 
     def __init__(self, cfg: ExperimentConfig, variables: dict,
                  device: str | torch.device = "cuda",
@@ -162,11 +259,13 @@ class Predictor:
         self.target_fs = target_fs
         self.window_sec = window_sec
         self.stride_sec = stride_sec
+        self.is_hybrid = cfg.model.name == "hybrid_cnn_gru"
+        self.feature_names = hybrid_feature_names(cfg) if self.is_hybrid else ()
         self.model = self._build(variables).to(self.device).eval()
 
     def _build(self, variables: dict) -> torch.nn.Module:
         model = build_model(self.cfg.model, self.cfg.num_classes,
-                            in_channels=len(self.cfg.channels_to_use))
+                            len(self.cfg.channels_to_use), len(self.feature_names))
         load_jax_variables(model, variables["params"], variables["batch_stats"])
         return model
 
@@ -176,9 +275,10 @@ class Predictor:
                                 preprocess_meta: dict | None = None,
                                 device: str | torch.device = "cuda") -> "Predictor":
         """Build from a config + checkpoint file. preprocess_meta carries the
-        training-time resample/window/stride so serving replays them."""
+        training-time resample/window/stride so serving replays them (and a
+        hybrid run's feature extractor version)."""
         return cls(cfg, read_flax_checkpoint(checkpoint), device=device,
-                   **_geometry(preprocess_meta))
+                   **_geometry(cfg, preprocess_meta))
 
     @classmethod
     def from_files(cls, checkpoint: Path | str, config: Path | str,
@@ -198,30 +298,39 @@ class Predictor:
 
     # -- inference ------------------------------------------------------------
     def windows_from_recording(self, pkl_path: Path | str):
-        """Raw WESAD pickle -> normalized [N, C, T] windows + start times."""
+        """Raw WESAD pickle -> normalized [N, C, T] windows (for a hybrid
+        model the pair with its [N, F] features) + start times."""
+        if self.is_hybrid:
+            return recording_to_hybrid_windows(
+                pkl_path, list(self.cfg.channels_to_use), self.cfg.normalization,
+                list(self.feature_names), self.original_fs, self.target_fs,
+                self.window_sec, self.stride_sec)
         return recording_to_windows(
             pkl_path, list(self.cfg.channels_to_use), self.cfg.normalization,
             self.original_fs, self.target_fs, self.window_sec, self.stride_sec,
         )
 
-    def predict_windows(self, x: np.ndarray, batch_size: int = 64) -> np.ndarray:
-        """[N, C, T] -> probs [N, num_classes]. Every forward takes exactly
-        batch_size windows: the last batch is zero-padded."""
-        x = np.asarray(x, dtype=np.float32)
+    def predict_windows(self, x, batch_size: int = 64) -> np.ndarray:
+        """[N, C, T] (or the hybrid pair) -> probs [N, num_classes]. Every
+        forward takes exactly batch_size windows: the last batch is
+        zero-padded."""
+        x = map_streams(lambda a: np.asarray(a, dtype=np.float32), x)
+        n_all = num_windows(x)
         probs = []
         with torch.inference_mode():
-            for i in range(0, len(x), batch_size):
-                xb = x[i : i + batch_size]
-                n = len(xb)
+            for i in range(0, n_all, batch_size):
+                xb = map_streams(lambda a: a[i : i + batch_size], x)
+                n = num_windows(xb)
                 if n < batch_size:
-                    xb = np.concatenate(
-                        [xb, np.zeros((batch_size - n,) + xb.shape[1:], xb.dtype)])
-                probs.append(self.predict_tensor(torch.from_numpy(xb).to(self.device))[:n]
-                             .cpu().numpy())
+                    xb = map_streams(lambda a: np.concatenate(
+                        [a, np.zeros((batch_size - n,) + a.shape[1:], a.dtype)]), xb)
+                xt = map_streams(lambda a: torch.from_numpy(a).to(self.device), xb)
+                probs.append(self.predict_tensor(xt)[:n].cpu().numpy())
         return np.concatenate(probs, axis=0)
 
-    def predict_tensor(self, x: torch.Tensor) -> torch.Tensor:
-        """Windows [B, C, T] on the device -> softmax [B, K]."""
+    def predict_tensor(self, x) -> torch.Tensor:
+        """Windows [B, C, T] (or the hybrid pair) on the device -> softmax
+        [B, K]."""
         return torch.softmax(self.model(x), dim=-1)
 
     def predict_recording(self, pkl_path: Path | str) -> PredictionResult:
@@ -235,10 +344,13 @@ class Predictor:
         )
 
 
-def _geometry(meta: dict | None) -> dict:
+def _geometry(cfg: ExperimentConfig, meta: dict | None) -> dict:
     """Predictor's resample/window/stride arguments from a run's
-    preprocess meta."""
+    preprocess meta; for a hybrid run, its feature extractor stamp is
+    checked first."""
     meta = meta or {}
+    if cfg.model.name == "hybrid_cnn_gru":
+        _check_feature_extractor_version(meta)
     return dict(original_fs=int(meta.get("original_fs", 700)),
                 target_fs=int(meta.get("fs", 128)),
                 window_sec=int(meta.get("window_sec", 60)),
@@ -259,12 +371,14 @@ class EnsemblePredictor(Predictor):
 
     def _build(self, variables: dict) -> torch.nn.Module:
         model = build_fold_model(self.cfg.model, self.cfg.num_classes,
-                                 len(self.cfg.channels_to_use), len(self.fold_names))
+                                 len(self.cfg.channels_to_use), len(self.fold_names),
+                                 num_features=len(self.feature_names))
         load_jax_variables(model, variables["params"], variables["batch_stats"])
         return model
 
-    def predict_tensor(self, x: torch.Tensor) -> torch.Tensor:
-        lanes = x.expand((self.model.folds,) + tuple(x.shape))   # [F, B, C, T], no copy
+    def predict_tensor(self, x) -> torch.Tensor:
+        # every lane sees the batch: [F, B, ...] views, no copy
+        lanes = map_streams(lambda a: a.expand((self.model.folds,) + tuple(a.shape)), x)
         return torch.softmax(self.model(lanes), dim=-1).mean(dim=0)
 
     @classmethod
@@ -279,10 +393,10 @@ class EnsemblePredictor(Predictor):
         if not ckpts:
             raise FileNotFoundError(f"no fold_test_on_*/best_model.msgpack under {run_dir}")
         raw = json.loads((run_dir / "config.json").read_text())
-        return cls(config_from_dict(ExperimentConfig, raw),
-                   stack_variables([read_flax_checkpoint(c) for c in ckpts]),
+        cfg = config_from_dict(ExperimentConfig, raw)
+        return cls(cfg, stack_variables([read_flax_checkpoint(c) for c in ckpts]),
                    tuple(c.parent.name.removeprefix("fold_test_on_") for c in ckpts),
-                   device, **_geometry(raw.get("preprocess_meta")))
+                   device, **_geometry(cfg, raw.get("preprocess_meta")))
 
 
 def main(argv=None) -> None:

@@ -4,20 +4,25 @@
     python -m multimodalsignal_tpu_torch.main --execution serial \
         --config cfg.json --set model.gru_impl=pallas_fused --set trainer.epochs=50
     python -m multimodalsignal_tpu_torch.main --device cpu
+    python -m multimodalsignal_tpu_torch.main --from-pickles ./WESAD
+    python -m multimodalsignal_tpu_torch.main --set model.name=hybrid_cnn_gru \
+        --set raw_align_path=./data/chest_raw_align --set feature_path=./data/chest_feature
 
 Creates <output_dir>/<run_name>/run_<timestamp>/, writes config.json there
 and runs the LOSO experiment on the GPU, or on the CPU with --device cpu:
 the sharded sweep (parallel/fold_sweep.py: every fold a lane of one model,
 all in lockstep on one device), which is the config's default
 fold_execution, or with --execution serial one fold after another
-(experiments/loso.py). Not ported yet, and refused with a non-zero exit
-rather than run another way: `--hierarchical`, `--seeds` and
-`--from-pickles`.
+(experiments/loso.py). --from-pickles stages the sweep straight from the
+raw WESAD pickles (sharded only; the serial path reads the preprocess CLI's
+npy files). Not ported yet, and refused with a non-zero exit rather than run
+another way: `--hierarchical` and `--seeds`.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
 
@@ -63,7 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seeds", nargs="+", type=int, default=None,
                    help="seed-replicated sweep (not ported yet)")
     p.add_argument("--from-pickles", type=Path, default=None, metavar="WESAD",
-                   help="stage from raw WESAD pickles (not ported yet)")
+                   help="stage straight from the raw WESAD pickles at this root: "
+                        "preprocessing (resample + window) and the corpus pack in "
+                        "memory, no npy files (sharded execution only; sets "
+                        "cfg.from_pickles)")
     return p
 
 
@@ -74,7 +82,11 @@ def load_config(args) -> ExperimentConfig:
     for item in args.set:
         key, _, raw = item.partition("=")
         overrides[key.strip()] = _parse_value(raw.strip())
-    return apply_overrides(cfg, overrides) if overrides else cfg
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    if args.from_pickles is not None:
+        cfg = dataclasses.replace(cfg, from_pickles=str(args.from_pickles))
+    return cfg
 
 
 def main(argv=None) -> None:
@@ -85,11 +97,11 @@ def main(argv=None) -> None:
     if args.seeds:
         raise SystemExit("--seeds (the seed-replicated sweep) "
                          + _not_ported(3, "the other sweeps"))
-    if args.from_pickles is not None:
-        raise SystemExit("--from-pickles (staging from raw pickles) "
-                         + _not_ported(4, "preprocessing and data"))
     cfg = load_config(args)
     execution = args.execution or cfg.fold_execution
+    if cfg.from_pickles and execution != "sharded":
+        raise SystemExit("--from-pickles requires --execution sharded (the serial "
+                         "path reads the preprocess CLI's npy files)")
     validate_experiment(cfg, fold_execution=execution)
 
     from multimodalsignal_tpu_torch.experiments.loso import run_simple_experiment

@@ -1,4 +1,5 @@
-"""Model family: ChannelAttention, CnnGru, CnnGruAttention (PyTorch).
+"""Model family: ChannelAttention, CnnGru, CnnGruAttention (PyTorch); the
+hybrid model (models/hybrid.py) shares their trunk.
 
 Counterpart of multimodalsignal_tpu/models/cnn_gru.py. The public input is
 [B, C, T], as in the JAX package; the encoder works in PyTorch's
@@ -133,19 +134,25 @@ class _CnnGruBase(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         # x: [B, C, T]; `generator` feeds dropout in training mode
+        return self.head(self.trunk(x, generator), generator)
+
+    def trunk(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """[B, C, T] -> the GRU's last step [B, 2H] in the compute dtype."""
         x = x.to(self.dtype)
         if self.use_channel_attention:
             x = self.channel_attention(x)
         x = self.cnn_encoder(x)
         x = self.gru(x.transpose(1, 2), generator)
-        if not self.gru_last_prune:
-            x = x[:, -1]  # last time step
-        x = torch.relu(F.linear(x, self.head1.weight.to(self.dtype),
-                                self.head1.bias.to(self.dtype)))
+        return x if self.gru_last_prune else x[:, -1]  # last time step
+
+    def dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+
+    def head(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """head1 + ReLU + dropout + head2 -> float32 logits."""
+        x = torch.relu(self.dense(self.head1, x))
         x = dropout(x, self.dropout, generator, self.training)
-        x = F.linear(x, self.head2.weight.to(self.dtype),
-                     self.head2.bias.to(self.dtype))
-        return x.float()
+        return self.dense(self.head2, x).float()
 
 
 class CnnGruAttentionModel(_CnnGruBase):
@@ -165,23 +172,24 @@ MODELS = {"cnn_gru_attention": CnnGruAttentionModel, "cnn_gru": CnnGruModel}
 _GRU_IMPLS = {"auto": "auto", "scan": "torch", "torch": "torch", "cuda": "cuda",
               "cuda_fused": "cuda_fused", "pallas": "cuda", "pallas_db": "cuda",
               "pallas_fused": "cuda_fused"}
+# The hybrid model's feature count when the caller names none: every
+# feature the preprocessor writes (data/features.py FEATURE_NAMES).
+NUM_FEATURES = 10
 
 
-def build_model(model_cfg, num_classes: int, in_channels: int) -> _CnnGruBase:
+def build_model(model_cfg, num_classes: int, in_channels: int,
+                num_features: int = NUM_FEATURES) -> _CnnGruBase:
     """Instantiate a model from a ModelConfig (config.py). The JAX package's
-    flax modules infer the channel count at init; here it is given. The JAX
-    package's gru_impl names map onto this package's: "scan" to the plain
-    loop, "pallas" and "pallas_db" to the CUDA kernels ("cuda"), and
-    "pallas_fused" to the fused float32 BiGRU kernels ("cuda_fused")."""
-    if model_cfg.name == "hybrid_cnn_gru":
-        raise NotImplementedError(
-            "hybrid_cnn_gru is not ported yet (ROADMAP.md, queue 1: hybrid, "
-            "export, streaming, preprocessing, analysis)")
+    flax modules infer the channel count (and the hybrid model's feature
+    count) at init; here they are given. The JAX package's gru_impl names
+    map onto this package's: "scan" to the plain loop, "pallas" and
+    "pallas_db" to the CUDA kernels ("cuda"), and "pallas_fused" to the
+    fused float32 BiGRU kernels ("cuda_fused")."""
     impl = _GRU_IMPLS.get(model_cfg.gru_impl)
     if impl is None:
         raise ValueError(f"unknown gru_impl {model_cfg.gru_impl!r}; expected "
                          f"one of {sorted(_GRU_IMPLS)}")
-    return MODELS[model_cfg.name](
+    kwargs = dict(
         in_channels=in_channels,
         num_classes=num_classes,
         cnn_out_channels=model_cfg.cnn_out_channels,
@@ -193,3 +201,8 @@ def build_model(model_cfg, num_classes: int, in_channels: int) -> _CnnGruBase:
         dtype=getattr(torch, model_cfg.dtype),
         dropout=model_cfg.dropout,
     )
+    if model_cfg.name == "hybrid_cnn_gru":
+        from multimodalsignal_tpu_torch.models.hybrid import HybridCnnGruModel
+
+        return HybridCnnGruModel(num_features=num_features, **kwargs)
+    return MODELS[model_cfg.name](**kwargs)

@@ -4,7 +4,9 @@ A flax checkpoint holds two pytrees of arrays: `params` and `batch_stats`.
 Their leaves map onto the PyTorch modules as follows (the inverse of
 multimodalsignal_tpu/experiments/import_torch.py):
 
-  * Dense `kernel` [in, out]        -> Linear `weight` [out, in] (transpose)
+  * Dense `kernel` [in, out]        -> Linear `weight` [out, in] (transpose):
+    `head1`, `head2`, the channel gate's `fc1`, `fc2`, and the hybrid
+    model's feature layer `feat1`
   * Conv `kernel` [K, in, out]      -> Conv1d `weight` [out, in, K]
   * BatchNorm `scale`, `bias`       -> `weight`, `bias`; batch_stats `mean`,
     `var`                           -> `running_mean`, `running_var`
@@ -58,7 +60,9 @@ def _layout(model):
         ]
     for name, p in model.gru.named_parameters():
         out.append(("params", ("gru", name), p, _same))
-    for head in ("head1", "head2"):
+    # The hybrid model's feature branch (models/hybrid.py) beside the head.
+    dense = ("feat1",) if hasattr(model, "feat1") else ()
+    for head in dense + ("head1", "head2"):
         layer = getattr(model, head)
         out.append(("params", (head, "kernel"), layer.weight, _dense))
         out.append(("params", (head, "bias"), layer.bias, _same))

@@ -18,7 +18,8 @@ lanes:
     folds of `update`;
   * the GRU's input projections: one baddbmm per direction straight into
     the time-major [F, T, B, 3H] that the kernels read;
-  * the head: baddbmm.
+  * the head: baddbmm; a hybrid model's feature branch (feat1) is one
+    baddbmm more, concatenated with the GRU's last step before the head.
 
 The GRU under the fold axis, by ModelConfig.gru_impl (as the JAX package's
 build_model(fold_parallel=True) and the custom_vmap rules of
@@ -48,7 +49,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodalsignal_tpu_torch.models.cnn_gru import batch_norm_train, build_model
+from multimodalsignal_tpu_torch.models.cnn_gru import (
+    NUM_FEATURES,
+    batch_norm_train,
+    build_model,
+)
 from multimodalsignal_tpu_torch.models.gru import dropout, gru_cell, gru_sequence
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
@@ -98,11 +103,15 @@ class FoldStackedModel(nn.Module):
         owner, _, leaf = name.rpartition(".")
         setattr(self.get_submodule(owner), leaf, value)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+    def forward(self, x, generator: torch.Generator | None = None,
                 update: torch.Tensor | None = None) -> torch.Tensor:
-        """x [F, B, C, T] -> logits [F, B, K] float32. In training mode,
-        `update` (bool [F]) names the folds whose batch-norm running
-        statistics move (all of them without it); `generator` feeds dropout."""
+        """x [F, B, C, T] -> logits [F, B, K] float32; a hybrid model's lanes
+        take the pair (x, feat [F, B, nF]). In training mode, `update` (bool
+        [F]) names the folds whose batch-norm running statistics move (all
+        of them without it); `generator` feeds dropout."""
+        feat = None
+        if hasattr(self, "feat1"):
+            x, feat = x
         n_f, batch, chans, t = x.shape
         dt = self.dtype
         # The grouped convolutions' layout [B, F*C, T]: one copy, or none
@@ -119,6 +128,9 @@ class FoldStackedModel(nn.Module):
         # Time-major rows (t, b) per lane for the input projections: one copy.
         seq = h.view(batch, n_f, out_ch, steps).permute(1, 3, 0, 2)
         y = self._gru(seq.reshape(n_f, steps * batch, out_ch), steps, batch, generator)
+        if feat is not None:   # the hybrid model's feature branch
+            f = torch.relu(self._dense(self.feat1, feat.to(dt)))
+            y = torch.cat([y.to(dt), f], dim=-1)
         y = torch.relu(self._dense(self.head1, y))
         y = dropout(y, self.dropout, generator, self.training)
         return self._dense(self.head2, y).float()
@@ -190,14 +202,16 @@ class FoldStackedModel(nn.Module):
 
 
 def build_fold_model(model_cfg, num_classes: int, in_channels: int, folds: int,
-                     seeds: list[int] | None = None) -> FoldStackedModel:
-    """A FoldStackedModel of `folds` lanes from a ModelConfig. With `seeds`
-    (one per lane), lane f starts as build_model would under
-    torch.manual_seed(seeds[f]); without, every lane holds the same initial
-    weights, for a caller that loads its own."""
+                     seeds: list[int] | None = None,
+                     num_features: int = NUM_FEATURES) -> FoldStackedModel:
+    """A FoldStackedModel of `folds` lanes from a ModelConfig (the hybrid
+    model's with `num_features` features). With `seeds` (one per lane), lane
+    f starts as build_model would under torch.manual_seed(seeds[f]);
+    without, every lane holds the same initial weights, for a caller that
+    loads its own."""
     _check_impl(model_cfg.gru_impl)
     if seeds is None:
-        models = [build_model(model_cfg, num_classes, in_channels)] * folds
+        models = [build_model(model_cfg, num_classes, in_channels, num_features)] * folds
     else:
         if len(seeds) != folds:
             raise ValueError(f"{len(seeds)} seeds for {folds} folds")
@@ -205,5 +219,5 @@ def build_fold_model(model_cfg, num_classes: int, in_channels: int, folds: int,
         for seed in seeds:
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(seed)
-                models.append(build_model(model_cfg, num_classes, in_channels))
+                models.append(build_model(model_cfg, num_classes, in_channels, num_features))
     return FoldStackedModel(models, model_cfg.gru_impl)

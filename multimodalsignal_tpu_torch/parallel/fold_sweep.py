@@ -27,10 +27,17 @@ Where the port differs: the epoch's shuffled grid is drawn on the host by a
 numpy default_rng per fold (the JAX sweep draws it in-graph from threefry
 keys, which numpy cannot match), so the card and the CPU see the same order;
 FoldSweep.epoch takes the grid as an argument. The host syncs once per epoch
-(the logs and stop flags), never per step. One device, no mesh: folds across
-GPUs, the sweep's resume (checkpoint_every / resume), the on-disk pack
-cache, from-pickles and hybrid staging, trainer.remat and a profiler trace
-directory are not ported (ROADMAP.md).
+(the logs and stop flags), never per step.
+
+The corpus comes from the npy contract (pack_corpus), straight from WESAD
+pickles (cfg.from_pickles: pack_corpus_from_pickles), or, for
+hybrid_cnn_gru, from the raw-align and feature targets (pack_hybrid_corpus):
+the features sit on the device beside the windows and every batch gathers
+both by the same indices.
+
+One device, no mesh: folds across GPUs, the sweep's resume
+(checkpoint_every / resume), the on-disk pack cache, trainer.remat and a
+profiler trace directory are not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ from multimodalsignal_tpu_torch.data.dataset import (
     PackedCorpus,
     experiment_preprocess_meta,
     pack_corpus,
+    pack_corpus_from_pickles,
+    pack_hybrid_corpus,
     read_channel_names,
 )
 from multimodalsignal_tpu_torch.experiments.loso import (
@@ -224,13 +233,18 @@ class FoldSweep:
         self.cfg = cfg
         folds = fb.train_pool.shape[0]
         x, y, _ = corpus.flat()
+        feat = corpus.flat_feat()
         self.model = build_fold_model(cfg.model, cfg.num_classes, x.shape[1], folds,
-                                      seeds=None if variables is not None else init_seeds)
+                                      seeds=None if variables is not None else init_seeds,
+                                      **({} if feat is None else {"num_features": feat.shape[1]}))
         if variables is not None:
             load_jax_variables(self.model, variables["params"], variables["batch_stats"])
         self.model.to(self.device)
         self.opt = FoldAdam(self.model.parameters(), tcfg.learning_rate, tcfg.weight_decay)
         self.x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+        # The hybrid corpus's features [S*Wmax, nF], indexed as x.
+        self.feat = (None if feat is None else
+                     torch.from_numpy(np.ascontiguousarray(feat, np.float32)).to(self.device))
         self.y = torch.from_numpy(y.astype(np.int64)).to(self.device)
         self.cw = None
         if tcfg.use_class_weights:
@@ -270,10 +284,13 @@ class FoldSweep:
                                           self.steps_tr, batch)
                             for f, rng in enumerate(rngs))
 
-    def _batch(self, idx: torch.Tensor) -> torch.Tensor:
+    def _batch(self, idx: torch.Tensor):
         """Windows [F, B, C, T] of idx [F, B], gathered batch-major (the
-        model's grouped convolutions then read them without a copy)."""
-        return self.x[idx.T].transpose(0, 1)
+        model's grouped convolutions then read them without a copy); for a
+        hybrid corpus the pair with the features [F, B, nF] of the same
+        indices."""
+        x = self.x[idx.T].transpose(0, 1)
+        return x if self.feat is None else (x, self.feat[idx])
 
     def train_step(self, idx: torch.Tensor, w: torch.Tensor):
         """One Adam step of every fold on idx, w [F, B]; a fold whose
@@ -421,19 +438,26 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
 
 def stage_corpus(cfg: ExperimentConfig, run_output_dir: Path,
                  all_channel_names: list[str] | None = None) -> PackedCorpus:
-    """Write the run's config.json and pack the npy corpus."""
+    """Stage the sweep's corpus and write the run's config.json: straight
+    from the pickles (its preprocess meta is the pickles' windowing), the
+    hybrid raw-align and feature pack, or the npy pack."""
     if cfg.from_pickles:
-        raise NotImplementedError(
-            "from_pickles staging is not ported yet (ROADMAP.md, queue 1, item 4: "
-            "preprocessing and data); run the preprocessor and set data_path")
-    if cfg.model.name == "hybrid_cnn_gru":
-        raise NotImplementedError(
-            "hybrid_cnn_gru is not ported yet (ROADMAP.md, queue 1, item 5: hybrid, "
-            "export, streaming, import)")
+        # validate_experiment has refused the hybrid model here.
+        corpus, _, meta = pack_corpus_from_pickles(
+            cfg.from_pickles, list(cfg.subjects), list(cfg.channels_to_use),
+            cfg.classification_mode, cfg.normalization)
+        save_config(cfg, run_output_dir / "config.json", extra={"preprocess_meta": meta})
+        return corpus
+    hybrid = cfg.model.name == "hybrid_cnn_gru"
     save_config(cfg, run_output_dir / "config.json",
                 extra={"preprocess_meta": experiment_preprocess_meta(cfg)})
     if all_channel_names is None:
-        all_channel_names = read_channel_names(cfg.data_path)
+        all_channel_names = read_channel_names(cfg.raw_align_path if hybrid else cfg.data_path)
+    if hybrid:
+        return pack_hybrid_corpus(
+            cfg.raw_align_path, cfg.feature_path, list(cfg.subjects),
+            list(cfg.channels_to_use), all_channel_names,
+            list(cfg.features_to_use) or None, cfg.classification_mode, cfg.normalization)
     return pack_corpus(cfg.data_path, list(cfg.subjects), list(cfg.channels_to_use),
                        all_channel_names, cfg.classification_mode, cfg.normalization)
 

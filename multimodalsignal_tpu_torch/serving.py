@@ -8,20 +8,26 @@ Counterpart of multimodalsignal_tpu/serving.py: a dependency-free (stdlib
         --config output/.../config.json --port 8080 [--device cuda]
     python -m multimodalsignal_tpu_torch.serving --run-dir output/.../run_X
 
-The checkpoint and config are the JAX package's, read unchanged. --run-dir
-serves the run's fold ensemble (predict.EnsemblePredictor), or one fold with
---fold <subject>. Serving an exported artifact (--artifact) is not ported
-yet (ROADMAP.md).
+The checkpoint and config are either package's, read unchanged; a
+hybrid_cnn_gru run is served too. --run-dir serves the run's fold ensemble
+(predict.EnsemblePredictor), or one fold with --fold <subject>. Serving an
+exported artifact (--artifact) is not ported yet (ROADMAP.md, queue 1,
+item 5).
 
 Endpoints (all JSON):
 
   GET  /healthz
       Liveness + model card: model name, classification mode, channels,
-      expected window shape, torch device type ("platform"), requests served.
+      expected window shape, feature names (a hybrid model's; else empty),
+      torch device type ("platform"), requests served.
 
   POST /v1/predict
       Body: {"windows": [[[...T floats...] x C] x N]}           (nested lists)
          or {"windows_b64": "<base64 of a .npy float32 [N, C, T]>"}
+      A hybrid model also needs the feature stream, one row per window, in
+      the model card's feature_names order and normalized as training's:
+      {"features": [[...F floats...] x N]} or {"features_b64": ...}; a
+      missing, misshapen or non-finite stream is refused with 400.
       Reply: {"class_names", "labels", "probs", "num_windows", "latency_ms"}
       Windows must already be normalized the way training data was.
       Requests over --max-request-windows are refused with 413; clearly
@@ -59,7 +65,16 @@ from multimodalsignal_tpu_torch.experiments.predict import (
     CLASS_NAMES,
     EnsemblePredictor,
     Predictor,
+    num_windows,
 )
+
+
+def _concat_batches(parts):
+    """Requests' batches joined along the window axis, stream by stream for
+    the hybrid pair."""
+    if isinstance(parts[0], (tuple, list)):
+        return tuple(np.concatenate([p[i] for p in parts]) for i in range(len(parts[0])))
+    return np.concatenate(parts)
 
 
 class MicroBatcher:
@@ -118,7 +133,7 @@ class MicroBatcher:
             if first is None:  # close() sentinel
                 return
             batch = [first]
-            n = len(first[0])
+            n = num_windows(first[0])
             deadline = time.perf_counter() + self.max_wait_s
             while n < self.max_windows:
                 remaining = deadline - time.perf_counter()
@@ -132,23 +147,23 @@ class MicroBatcher:
                     stop = True
                     break
                 batch.append(item)
-                n += len(item[0])
+                n += num_windows(item[0])
             try:
                 # Concatenation stays INSIDE the try: a MemoryError on a
                 # pathological batch must fan out to the waiting requests,
                 # not kill the lone worker thread (which would wedge every
                 # future request in done.wait()).
                 xs = (batch[0][0] if len(batch) == 1
-                      else np.concatenate([b[0] for b in batch]))
+                      else _concat_batches([b[0] for b in batch]))
                 svc = self.service
                 with svc._lock:
                     probs = svc.predictor.predict_windows(xs, svc.batch_size)
                     svc.requests_served += len(batch)
-                    svc.windows_served += len(xs)
+                    svc.windows_served += num_windows(xs)
                     self.batches_run += 1
                 ofs = 0
                 for bx, done, slot in batch:
-                    k = len(bx)
+                    k = num_windows(bx)
                     slot["probs"] = probs[ofs : ofs + k]
                     ofs += k
                     done.set()
@@ -184,6 +199,9 @@ class PredictionService:
         self.window_shape = (len(cfg.channels_to_use),
                              predictor.window_sec * predictor.target_fs)
         self.normalization = cfg.normalization
+        # A hybrid model's feature columns; /v1/predict then needs them.
+        self.is_hybrid = predictor.is_hybrid
+        self.feature_names = list(predictor.feature_names)
         self.backend = "checkpoint"
         fold_names = getattr(predictor, "fold_names", None)
         if fold_names:
@@ -196,7 +214,7 @@ class PredictionService:
         floats run ~24 bytes each incl. separators; anything larger is
         rejected from Content-Length alone, before the body is read."""
         c, t = self.window_shape
-        per_window = c * t * 24
+        per_window = (c * t + len(self.feature_names)) * 24
         return max(1, self.max_request_windows) * per_window + 64 * 1024
 
     # -- model card -----------------------------------------------------------
@@ -209,6 +227,7 @@ class PredictionService:
             "class_names": list(self.class_names),
             "channels": self.channels,
             "window_shape": list(self.window_shape),
+            "feature_names": self.feature_names,
             "normalization": self.normalization,
             "platform": self.predictor.device.type,
             "batch_size": self.batch_size,
@@ -245,13 +264,13 @@ class PredictionService:
                 # Counter updates stay inside the lock: ThreadingHTTPServer
                 # runs handlers concurrently and += is not atomic.
                 self.requests_served += 1
-                self.windows_served += len(x)
+                self.windows_served += num_windows(x)
         latency_ms = (time.perf_counter() - t0) * 1e3
         return {
             "class_names": list(self.class_names),
             "labels": [self.class_names[int(i)] for i in probs.argmax(axis=-1)],
             "probs": [[round(float(p), 6) for p in row] for row in probs],
-            "num_windows": len(x),
+            "num_windows": num_windows(x),
             "latency_ms": round(latency_ms, 2),
         }
 
@@ -266,7 +285,7 @@ class PredictionService:
         with self._lock:
             probs = self.predictor.predict_windows(x, self.batch_size)
             self.requests_served += 1
-            self.windows_served += len(x)
+            self.windows_served += num_windows(x)
         latency_ms = (time.perf_counter() - t0) * 1e3
         labels = probs.argmax(axis=-1)
         counts = np.bincount(labels, minlength=len(self.class_names))
@@ -284,19 +303,26 @@ class PredictionService:
         }
 
     # -- input decoding ---------------------------------------------------------
-    def _decode_windows(self, payload: dict) -> np.ndarray:
-        if "windows_b64" in payload:
+    @staticmethod
+    def _decode_array(payload: dict, key: str, what: str) -> np.ndarray | None:
+        """payload[key] (nested lists) or payload[key + "_b64"] (a base64
+        .npy) as an array, or None when neither is there."""
+        if f"{key}_b64" in payload:
             try:
-                raw = base64.b64decode(payload["windows_b64"])
-                x = np.load(io.BytesIO(raw), allow_pickle=False)
+                raw = base64.b64decode(payload[f"{key}_b64"])
+                return np.load(io.BytesIO(raw), allow_pickle=False)
             except Exception as exc:
-                raise ServingError(400, f"windows_b64 is not a valid .npy: {exc}")
-        elif "windows" in payload:
+                raise ServingError(400, f"{key}_b64 is not a valid .npy: {exc}")
+        if key in payload:
             try:
-                x = np.asarray(payload["windows"], dtype=np.float32)
+                return np.asarray(payload[key], dtype=np.float32)
             except (TypeError, ValueError) as exc:
-                raise ServingError(400, f"windows is not numeric [N,C,T]: {exc}")
-        else:
+                raise ServingError(400, f"{key} is not numeric {what}: {exc}")
+        return None
+
+    def _decode_windows(self, payload: dict):
+        x = self._decode_array(payload, "windows", "[N,C,T]")
+        if x is None:
             raise ServingError(400, "body must contain 'windows' or 'windows_b64'")
         x = np.asarray(x, dtype=np.float32)
         c, t = self.window_shape
@@ -315,7 +341,24 @@ class PredictionService:
                      f"Split the batch across requests.")
         if not np.isfinite(x).all():
             raise ServingError(400, "windows contain NaN/Inf")
-        return x
+        if not self.is_hybrid:
+            return x
+        feat = self._decode_array(payload, "features", "[N,F]")
+        f = len(self.feature_names)
+        if feat is None:
+            raise ServingError(
+                400, "hybrid model: body must also contain 'features' or 'features_b64' "
+                     f"([N, {f}] rows for {self.feature_names})")
+        feat = np.asarray(feat, dtype=np.float32)
+        if feat.ndim == 1:  # single window convenience
+            feat = feat[None]
+        if feat.shape != (len(x), f):
+            raise ServingError(
+                400, f"expected features of shape [{len(x)}, {f}] ({self.feature_names}), "
+                     f"got {list(feat.shape)}")
+        if not np.isfinite(feat).all():
+            raise ServingError(400, "features contain NaN/Inf")
+        return x, feat
 
 
 class ServingError(Exception):
@@ -421,7 +464,7 @@ def main(argv=None) -> None:
 
     if args.artifact:
         p.error("--artifact is not yet ported to multimodalsignal_tpu_torch "
-                "(ROADMAP.md, queue 1, item 5: hybrid, export, streaming, import); "
+                "(ROADMAP.md, queue 1, item 5: export, streaming, import); "
                 "serve --run-dir, or --checkpoint with --config")
     if args.run_dir:
         if args.checkpoint or args.config:
@@ -436,8 +479,10 @@ def main(argv=None) -> None:
                                 max_request_windows=args.max_request_windows)
     # Warm the batched forward (and build the CUDA kernels) before accepting
     # traffic, so the first request does not pay for it.
-    warm = np.zeros((1,) + tuple(service.window_shape), np.float32)
-    service.predict_windows({"windows": warm.tolist()})
+    warm = {"windows": np.zeros((1,) + tuple(service.window_shape), np.float32).tolist()}
+    if service.is_hybrid:
+        warm["features"] = np.zeros((1, len(service.feature_names)), np.float32).tolist()
+    service.predict_windows(warm)
     service.requests_served = 0
     service.windows_served = 0
     if service._batcher is not None:

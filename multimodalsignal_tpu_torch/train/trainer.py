@@ -13,7 +13,8 @@ TrainState layout, which both packages read), and at a test evaluation
 matplotlib is missing).
 
 Semantics carried over from the JAX trainer:
-  * The fold's data is staged on the device once; batches are gathered there
+  * The fold's data is staged on the device once (the hybrid model's pair
+    of streams alike); batches are gathered there
     through a wrap-padded [steps, B] index grid with 0/1 sample weights
     (`batch_indices`), shuffled each epoch by numpy's
     default_rng(seed).permutation, so both packages see the same order.
@@ -47,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodalsignal_tpu_torch.config import TrainerConfig
-from multimodalsignal_tpu_torch.experiments.predict import resolve_device
+from multimodalsignal_tpu_torch.experiments.predict import map_streams, resolve_device
 from multimodalsignal_tpu_torch.models.convert import load_jax_variables
 from multimodalsignal_tpu_torch.train import metrics as M
 from multimodalsignal_tpu_torch.train.checkpoints import write_train_state
@@ -92,6 +93,12 @@ def batch_indices(n: int, batch_size: int, steps: int | None = None,
     idx[:take] = order[:take]
     w[:take] = 1.0
     return idx.reshape(steps, batch_size), w.reshape(steps, batch_size)
+
+
+def take(x, rows: torch.Tensor):
+    """Rows of a batch: windows [N, ...], or both streams of the hybrid
+    model's (windows, features) pair by the same rows."""
+    return map_streams(lambda a: a[rows], x)
 
 
 class EpochLog(NamedTuple):
@@ -163,9 +170,10 @@ class Trainer:
     # -- data -----------------------------------------------------------------
     def _stage(self, ds):
         """(x, y) or a dataset with .x/.y -> float32 x and int64 y on the
-        device, once per call."""
+        device, once per call. x is windows [N, C, T] or, for the hybrid
+        model, the pair (windows, features [N, F])."""
         x, y = (ds.x, ds.y) if hasattr(ds, "x") else ds
-        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        x = map_streams(lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device), x)
         return x, torch.as_tensor(np.asarray(y, np.int64), device=self.device)
 
     def _grid(self, idx: np.ndarray, w: np.ndarray):
@@ -201,7 +209,7 @@ class Trainer:
             if w[step].sum() == 0:  # an empty step changes nothing
                 continue
             rows = idx_t[step]
-            loss, wsum = self.train_step(x[rows], y[rows], w_t[step])
+            loss, wsum = self.train_step(take(x, rows), y[rows], w_t[step])
             loss_sum += loss * wsum
             w_sum += wsum
         return float(loss_sum / w_sum.clamp(min=1e-12))
@@ -219,7 +227,7 @@ class Trainer:
             for step in range(idx.shape[0]):
                 rows, wb = idx_t[step], w_t[step]
                 yb = y[rows]
-                logits = self.model(x[rows])
+                logits = self.model(take(x, rows))
                 loss, wsum = cross_entropy(logits, yb, wb, self.class_weights)
                 cm += M.confusion_matrix(yb, logits.argmax(dim=-1), k, wb)
                 probs.append(torch.softmax(logits, dim=-1))

@@ -515,8 +515,10 @@ def test_main_default_asks_for_cuda(tmp_path):
 
 
 def test_what_the_sweep_does_not_port_is_refused(tree, tmp_path):
-    """pallas_fused under the fold axis, the sweep's resume, from-pickles
-    and hybrid staging raise, naming ROADMAP.md."""
+    """pallas_fused under the fold axis and the sweep's resume raise,
+    naming ROADMAP.md; from-pickles and hybrid staging are ported
+    (tests/test_torch_from_pickles.py, tests/test_torch_hybrid.py), and
+    refused together, as in the JAX package."""
     cfg = pcfg.ModelConfig(gru_impl="pallas_fused", **MODEL)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
         build_fold_model(cfg, K, C, 2)
@@ -530,13 +532,15 @@ def test_what_the_sweep_does_not_port_is_refused(tree, tmp_path):
         cfg = dataclasses.replace(base, trainer=dataclasses.replace(base.trainer, **field))
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 1"):
             pfs.FoldSweep(corpus, fb, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 4"):
-        pfs.run_sharded_experiment(dataclasses.replace(base, from_pickles="WESAD"),
+    with pytest.raises(ValueError, match="No pickles loaded"):
+        pfs.run_sharded_experiment(dataclasses.replace(base, from_pickles=str(tmp_path / "w")),
                                    tmp_path / "p", device="cpu")
     hybrid = dataclasses.replace(base, raw_align_path="a", feature_path="b",
                                  model=dataclasses.replace(base.model, name="hybrid_cnn_gru"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pfs.run_sharded_experiment(hybrid, tmp_path / "h", device="cpu")
+    with pytest.raises(ValueError, match="does not support hybrid_cnn_gru"):
+        pfs.run_sharded_experiment(dataclasses.replace(hybrid, from_pickles="WESAD"),
+                                   tmp_path / "h", device="cpu")
+    assert not (tmp_path / "h").exists()
 
 
 def test_stack_and_lane_variables_round_trip():

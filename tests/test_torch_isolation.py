@@ -7,7 +7,9 @@ A subprocess blocks those names in sys.modules (matched exactly, so
 every module of the port (the trainer, optimizer, metrics and checkpoint
 writer among them), runs one CPU forward and one CPU training epoch that
 writes a checkpoint, and checks that the Predictor, the Trainer and the
-experiment CLI raise without CUDA when no device is named."""
+experiment CLI raise without CUDA when no device is named. The data front
+end (preprocess, features, synthetic, protocol) and the hybrid model are
+among the modules imported."""
 
 import subprocess
 import sys
@@ -80,7 +82,9 @@ SCRIPT = textwrap.dedent("""
             print("trainer default device raised")
         else:
             raise AssertionError("Trainer ran without CUDA instead of raising")
-    for name in ("main", "experiments.loso", "experiments.splits", "utils.run"):
+    for name in ("main", "experiments.loso", "experiments.splits", "utils.run",
+                 "data.preprocess", "data.features", "data.synthetic", "data.protocol",
+                 "models.hybrid", "parallel.fold_sweep"):
         assert f"multimodalsignal_tpu_torch.{name}" in names, name
     from multimodalsignal_tpu_torch.main import main
     with tempfile.TemporaryDirectory() as tmp:

@@ -227,19 +227,29 @@ def test_main_cli_on_cpu_writes_the_run_directory(tmp_path, capsys):
     (["--execution", "serial", "--from-pickles", "WESAD"], "--from-pickles"),
 ])
 def test_main_refuses_what_is_not_ported(argv, what, tmp_path):
-    """Each refusal names its own ROADMAP.md queue 1 item."""
-    item = {"--hierarchical": "item 2: the hierarchical experiment",
-            "--seeds": "item 3: the other sweeps",
-            "--from-pickles": "item 4: preprocessing and data"}[what]
+    """Each refusal of what is not ported names its own ROADMAP.md queue 1
+    item; --from-pickles is ported for the sharded sweep and refused with
+    --execution serial, as the JAX package refuses it."""
+    item = {"--hierarchical": "ROADMAP.md, queue 1, item 2: the hierarchical experiment",
+            "--seeds": "ROADMAP.md, queue 1, item 3: the other sweeps",
+            "--from-pickles": "requires --execution sharded"}[what]
     with pytest.raises(SystemExit) as exc:
         pmain.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path)])
     assert what in str(exc.value.code)
-    assert f"ROADMAP.md, queue 1, {item}" in str(exc.value.code)
+    assert item in str(exc.value.code)
     assert not any(tmp_path.iterdir())
 
 
 def test_hybrid_model_is_refused(tmp_path):
+    """The serial hybrid run is ported (tests/test_torch_hybrid.py); it is
+    still refused without both preprocess targets, and where they are
+    missing on disk, before any fold runs."""
     cfg = pcfg.ExperimentConfig(model=pcfg.ModelConfig(name="hybrid_cnn_gru"),
-                                raw_align_path="a", feature_path="b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ploso.run_simple_experiment(cfg, tmp_path, device="cpu")
+                                raw_align_path="a")
+    with pytest.raises(ValueError, match="requires raw_align_path and feature_path"):
+        ploso.run_simple_experiment(cfg, tmp_path / "r1", device="cpu")
+    cfg = dataclasses.replace(cfg, raw_align_path=str(tmp_path / "a"),
+                              feature_path=str(tmp_path / "b"))
+    with pytest.raises(FileNotFoundError, match="_channel_names.txt"):
+        ploso.run_simple_experiment(cfg, tmp_path / "r2", device="cpu")
+    assert not (tmp_path / "r2" / "cv_summary.txt").exists()
