@@ -12,24 +12,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    check each kernel's shared-memory size in C against its wrapper's
    formula, the walk kernel's row tile (gru_fwd, gru_fwd_fb, gru_bifwd), and
    the adjoint walk's (gru_bwd, gru_bwd_fb, gru_bibwd) row tile, chunks of
-   rows and workspace at 1, 2 and 15 lanes.
+   rows and workspace at 1, 2, 15 and 60 lanes, and at M2's H=32.
 3. One phase per kernel: the wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, float32 and bfloat16, both walk
    directions, at the serving/training shape (T=480, B=64, H=64; F=2 lanes
    for the _fb kernels) and a ragged one; the walk kernel also at
-   WALK_CASES (gru_fwd, and gru_bifwd in float32: H=128, the largest H each
-   dtype admits, B=1, B=256 and T=1) and FB_CASES (gru_fwd_fb: the same at
-   two lanes, and F=4 at B=128, F=15 at B=64 for row tiles 4 and 8), each
-   line with its row tile and instantiation (W^T in registers or in shared
-   memory); the adjoint walk (gru_bwd) also at ADJ_CASES (H=95 f32, 109
-   bf16, 128, B=1, B=256, T=1, and a dy that is zero but at the forward's
-   last step), gru_bwd_fb at FB_ADJ_CASES (ADJ_CASES at two lanes, F=4 at
-   B=128 and F=15 at B=64), gru_bibwd at BI_ADJ_CASES (H=95, 128, 130, B=1,
-   B=256, T=1, each direction's outputs held on their own), each line with
-   its row tile, walk blocks, instantiation and chunks; each of the three
-   twice on the same inputs with dW and db bitwise equal; then the walks'
-   float32 time as B grows, and gru_bwd_fb at 2 and 15 lanes with its waves
-   of walk blocks (walk_sweep). TF32 is off for matmul and cuDNN.
+   WALK_CASES (gru_fwd, and gru_bifwd in float32: M2's H=32, H=128, the
+   largest H each dtype admits, B=1, B=256 and T=1) and FB_CASES
+   (gru_fwd_fb: the same at two lanes, and F=4 at B=128, F=15 at B=64 for
+   row tiles 4 and 8, F=15 at H=32, and F=60 at B=64, a 4-seed replicated
+   sweep's lanes), each line with its row tile and instantiation (W^T in
+   registers or in shared memory); the adjoint walk (gru_bwd) also at
+   ADJ_CASES (H=32 with a full dy and with a dy that is zero but at the
+   forward's last step, H=95 f32, 109 bf16, 128, B=1, B=256, T=1, and the
+   last-step dy at H=64), gru_bwd_fb at FB_ADJ_CASES (ADJ_CASES at two
+   lanes, F=4 at B=128 and F=15 at B=64, F=15 at H=32 with either dy, F=60
+   at B=64), gru_bibwd at BI_ADJ_CASES (H=95, 128, 130, B=1, B=256, T=1,
+   each direction's outputs held on their own), each line with its row
+   tile, walk blocks, instantiation and chunks; each of the three twice on
+   the same inputs with dW and db bitwise equal; then the walks' float32
+   time as B grows, and gru_bwd_fb at 2, 15 and 60 lanes and gru_fwd_fb at
+   15 and 60 lanes, each line with the walk blocks an SM holds at once and
+   the waves (walk_sweep); then M2's shape (H=32; 1 lane and 15 lanes of
+   gru_fwd, gru_fwd_fb, gru_bwd, gru_bwd_fb): kernel, bound and cuDNN
+   (m2_shape_timings). Kernel inputs are drawn on the card from a seeded
+   torch generator. TF32 is off for matmul and cuDNN.
    Forward kernels (gru_fwd, gru_fwd_fb): ys, float32 rtol = atol = 1e-5,
    bfloat16 atol 0.05. Adjoint kernels (gru_bwd, gru_bwd_fb): all four
    outputs, tolerances in BWD_TOL. Then the times at the main shape: the
@@ -134,6 +141,36 @@ Phases, in order; any failure raises and the script exits non-zero:
       fold Predictors (atol 1e-5) and the CPU (PROB_ATOL); `serving
       --run-dir` answering /v1/predict with features, and 400 without.
    Then the phase's seconds.
+10. The experiments beyond plain LOSO, on the data of phases 6, 7
+    and 9:
+    a. `main --hierarchical --from-pickles <WESAD> --set
+       base.trainer.epochs=2` (f32, the default HierarchicalConfig: M1 H=64
+       x 2 layers, M2 H=32 x 1 layer, 15 folds as lanes): first the first 3
+       M2 sweep steps card vs CPU under TRAIN_TOL (sweep_parity, dropout 0);
+       then the CLI, counted (M1's sweep 3 gru_fwd_fb + 3 gru_bwd_fb a
+       train step and 3 gru_fwd_fb an eval batch, M2's 1 + 1 and 1, the
+       composed evaluation 3 + 1 gru_fwd_fb a test batch), a
+       hierarchical_summary.txt of 15 finite folds, every
+       model_m{1,2}/best_model.msgpack read back (M2's with one GRU layer),
+       the mean composed accuracy (not a gate), step_profile of an M1 and
+       an M2 sweep step;
+    b. `main --hierarchical --execution serial` on phase 6's 4 subjects
+       (f32, auto): each stage's single-fold kernels once a train step and
+       eval batch, 4 finite folds, both stages' checkpoints;
+    c. HierarchicalPredictor.from_run on a's run, fold S2: predict_recording
+       of a phase 9 pickle (counted), its labels the hard gate of the two
+       stage Predictors run by hand, its probabilities their product (atol
+       1e-6) and the CPU's (PROB_ATOL); `experiments.predict --run-dir
+       --fold S2` in a subprocess;
+    d. `main --seeds 42 43 44 45 --set trainer.epochs=2` on phase 7's data
+       (f32, 60 lanes): seed_summary.{txt,json} and seed_fold_matrix.npz;
+       3 + 3 launches a train step; seed group 0 against phase 7's f32
+       single-seed sweep under SEED_GROUP_TOL (printed whether bitwise);
+       step_profile at 60 lanes, f32 and bf16, with the peak memory;
+    e. the ablation CLI on phase 7's data (subsets ecg and fusion4 by
+       models cnn_gru_attention and cnn_gru, sharded, 2 epochs): four
+       sweeps' launches, ablation_summary.txt and four finite points.
+    Then the phase's seconds.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -178,8 +215,11 @@ from multimodalsignal_tpu_torch.config import (
     ALL_CHANNEL_NAMES,
     ALL_SUBJECTS,
     ExperimentConfig,
+    HierarchicalConfig,
     ModelConfig,
     TrainerConfig,
+    config_from_dict,
+    union_channel_indices,
 )
 from multimodalsignal_tpu_torch.data import preprocess
 from multimodalsignal_tpu_torch.data.dataset import (
@@ -193,7 +233,12 @@ from multimodalsignal_tpu_torch.data.dataset import (
 )
 from multimodalsignal_tpu_torch.data.features import FEATURE_EXTRACTOR_VERSION, FEATURE_NAMES
 from multimodalsignal_tpu_torch.data.synthetic import DEFAULT_TASKS, write_synthetic_wesad
-from multimodalsignal_tpu_torch.experiments.predict import EnsemblePredictor, Predictor
+from multimodalsignal_tpu_torch.experiments import ablation
+from multimodalsignal_tpu_torch.experiments.predict import (
+    EnsemblePredictor,
+    HierarchicalPredictor,
+    Predictor,
+)
 from multimodalsignal_tpu_torch.experiments.splits import loso_folds
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
 from multimodalsignal_tpu_torch.models.convert import (
@@ -204,13 +249,16 @@ from multimodalsignal_tpu_torch.models.convert import (
 )
 from multimodalsignal_tpu_torch.models.fold_stack import FoldStackedModel
 from multimodalsignal_tpu_torch.ops import _build, gru_cuda
+from multimodalsignal_tpu_torch.parallel import fold_sweep, replicated_sweep
 from multimodalsignal_tpu_torch.parallel.fold_sweep import (
     FoldSweep,
     build_fold_batch,
     fold_streams,
     grid_steps,
+    seed_group_streams,
     stage_corpus,
 )
+from multimodalsignal_tpu_torch.parallel.replicated_sweep import replicate_fold_batch
 from multimodalsignal_tpu_torch.serving import PredictionService, make_server
 from multimodalsignal_tpu_torch.train.checkpoints import read_flax_checkpoint
 from multimodalsignal_tpu_torch.train.trainer import Trainer, batch_indices, take
@@ -228,6 +276,10 @@ GATE_FLOPS_PER_UNIT = 22
 BWD_GATE_FLOPS_PER_UNIT = GATE_FLOPS_PER_UNIT + 21
 
 SERVE_T, SERVE_B, SERVE_H = 480, 64, 64
+# The default HierarchicalConfig's M2: one GRU layer of H=32 (its only layer
+# is the pruned last one: a lone forward walk); and the lanes of a
+# 4-seed replicated sweep of 15 folds.
+M2_H, SEED_LANES = 32, 60
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=0.0, atol=0.05)}
 # Adjoint kernels vs their plain versions, (dxg and dh0, dW and db) per dtype.
@@ -294,7 +346,7 @@ def build_phase() -> None:
                 raise AssertionError(f"ptxas {name}: {kernel} spills: {props}")
     check_adjoint_formulas(gru_cuda._bwd_library())
     lib = gru_cuda._library()
-    for h in (SERVE_H, 128, 136, 192):
+    for h in (M2_H, SERVE_H, 128, 136, 192):
         for bf16, size in ((0, 4), (1, 2)):
             for rows in (1, 2, 4) + ((8,) if gru_cuda.walk_in_registers(h) else ()):
                 c_bytes = lib.gru_walk_shared_bytes(h, bf16, rows)
@@ -303,8 +355,8 @@ def build_phase() -> None:
                         f"gru_walk_shared_bytes(H={h}, bf16={bf16}, rows={rows}): C says "
                         f"{c_bytes}, wrapper {gru_cuda.walk_shared_bytes(h, size, rows)}")
     for batch in (1, 5, 64, 65, 256, 1024):
-        for lanes in (1, 2):
-            for h in (SERVE_H, 128):
+        for lanes in (1, 2, 15, 60):
+            for h in (M2_H, SERVE_H, 128):
                 if lib.gru_walk_row_tile(batch, lanes, h) != gru_cuda.walk_row_tile(batch, lanes, h):
                     raise AssertionError(f"gru_walk_row_tile({batch}, {lanes}, {h}): C says "
                                          f"{lib.gru_walk_row_tile(batch, lanes, h)}")
@@ -321,22 +373,22 @@ def check_adjoint_formulas(bwd) -> None:
         if c_val != py_val:
             raise AssertionError(f"{what}: C says {c_val}, wrapper {py_val}")
 
-    for h in (40, SERVE_H, 65, 95, 109, 128, 130, 179):
+    for h in (M2_H, 40, SERVE_H, 65, 95, 109, 128, 130, 179):
         for bf16, size in ((0, 4), (1, 2)):
             for rows in (1,) + ((2,) if gru_cuda.walk_in_registers(h) else ()):
                 same(f"gru_adj_shared_bytes(H={h}, bf16={bf16}, rows={rows})",
                      bwd.gru_adj_shared_bytes(h, bf16, rows),
                      gru_cuda.adj_shared_bytes(h, size, rows))
     for batch in (1, 5, 64, 65, 256, 1024):
-        for lanes in (1, 2, 15):
-            for h in (SERVE_H, 128):
+        for lanes in (1, 2, 15, 60):
+            for h in (M2_H, SERVE_H, 128):
                 same(f"gru_adj_row_tile({batch}, {lanes}, {h})",
                      bwd.gru_adj_row_tile(batch, lanes, h), gru_cuda.adj_row_tile(batch, lanes, h))
         for t in (1, 37, SERVE_T):
             same(f"gru_adj_chunk_rows/partials({t}, {batch})",
                  (bwd.gru_adj_chunk_rows(t, batch), bwd.gru_adj_partials(t, batch)),
                  gru_cuda.adj_partials(t, batch))
-            for lanes in (1, 2, 15):
+            for lanes in (1, 2, 15, 60):
                 same(f"gru_adj_workspace_floats({lanes}, {t}, {batch}, {SERVE_H})",
                      bwd.gru_adj_workspace_floats(lanes, t, batch, SERVE_H),
                      gru_cuda.adj_workspace_floats(lanes, t, batch, SERVE_H))
@@ -345,7 +397,7 @@ def check_adjoint_formulas(bwd) -> None:
           f"{bwd.gru_adj_shared_bytes(SERVE_H, 0, 1)} bytes; at T={SERVE_T} B={SERVE_B}: "
           f"{parts} chunks of {chunk} rows a lane, workspace "
           + ", ".join(f"{gru_cuda.adj_workspace_floats(f, SERVE_T, SERVE_B, SERVE_H) * 4 / 2**20:.1f}"
-                      f" MiB at {f} lane{'s' * (f > 1)}" for f in (1, 2, 15)) + "; "
+                      f" MiB at {f} lane{'s' * (f > 1)}" for f in (1, 2, 15, 60)) + "; "
           "C and wrapper agree on the adjoint walk's shared memory, row tile, chunks "
           "and workspace")
 
@@ -370,16 +422,21 @@ def median_ms(fn, per_block: int, blocks: int = 5, warmup: int = 2) -> float:
 
 def kernel_inputs(lanes, t, b, h, dtype, seed):
     """Gates N(0, 1), weights and bias U(-1/sqrt(H), 1/sqrt(H)) (torch's GRU
-    init), h0 N(0, 0.5^2); made with numpy, moved to the card."""
-    rng = np.random.default_rng(seed)
+    init), h0 N(0, 0.5^2); drawn on the card from a torch generator seeded
+    with `seed` (60 lanes of gates are 354 M values, seconds each on the
+    host)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     lead = () if lanes is None else (lanes,)
     bound = 1 / math.sqrt(h)
-    xg = rng.standard_normal(lead + (t, b, 3 * h))
-    w = rng.uniform(-bound, bound, lead + (3 * h, h))
-    bias = rng.uniform(-bound, bound, lead + (3 * h,))
-    h0 = rng.standard_normal(lead + (b, h)) * 0.5
-    dev = lambda a, dt: torch.from_numpy(a).to("cuda", dt).contiguous()  # noqa: E731
-    return dev(xg, dtype), dev(w, dtype), dev(bias, dtype), dev(h0, torch.float32)
+
+    def normal(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def uniform(shape):
+        return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) * bound
+
+    return (normal(lead + (t, b, 3 * h)).to(dtype), uniform(lead + (3 * h, h)).to(dtype),
+            uniform(lead + (3 * h,)).to(dtype), normal(lead + (b, h), 0.5))
 
 
 def bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
@@ -396,23 +453,30 @@ def bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cudnn_ms(lanes, t, b, h, dtype) -> float:
+def cudnn_ms(lanes, t, b, h, dtype, calls: int = 1) -> float:
     """nn.GRU (cuDNN) over the same T, B and H: one direction, or both for
-    two lanes. It also does the input projection (input size H)."""
+    two lanes, called `calls` times one after another (cuDNN takes one
+    weight set a call). It also does the input projection (input size H)."""
     gru = torch.nn.GRU(h, h, bidirectional=lanes == 2).to("cuda", dtype)
     gru.flatten_parameters()  # one weight buffer, as cuDNN wants it
     x = torch.randn(t, b, h, device="cuda", dtype=dtype)
+
+    def forward():
+        for _ in range(calls):
+            gru(x)
+
     with torch.inference_mode():
-        return median_ms(lambda: gru(x), per_block=20)
+        return median_ms(forward, per_block=max(20 // calls, 2))
 
 
 # Shapes of the walk kernel (gru_fwd, gru_bifwd) beyond the main and the
-# ragged one, as (T, B, H, dtypes): H=128 and the largest H each dtype
-# admits (the first template's 135 / 190 and the formula's 136 / 192, W^T in
-# shared memory), one batch row, a batch that tiles 2 or 4 rows a block,
-# one step.
+# ragged one, as (T, B, H, dtypes): M2's H=32 (K padded to 64 in registers,
+# half of it zeros), H=128 and the largest H each dtype admits (the first
+# template's 135 / 190 and the formula's 136 / 192, W^T in shared memory),
+# one batch row, a batch that tiles 2 or 4 rows a block, one step.
 F32, BF16 = (torch.float32,), (torch.bfloat16,)
-WALK_CASES = [(SERVE_T, SERVE_B, 128, F32 + BF16), (SERVE_T, SERVE_B, 135, F32),
+WALK_CASES = [(SERVE_T, SERVE_B, M2_H, F32 + BF16),
+              (SERVE_T, SERVE_B, 128, F32 + BF16), (SERVE_T, SERVE_B, 135, F32),
               (SERVE_T, SERVE_B, 136, F32), (SERVE_T, SERVE_B, 190, BF16),
               (SERVE_T, SERVE_B, 192, BF16), (SERVE_T, 1, SERVE_H, F32 + BF16),
               (SERVE_T, 256, SERVE_H, F32 + BF16), (1, SERVE_B, SERVE_H, F32 + BF16)]
@@ -420,10 +484,11 @@ WALK_CASES = [(SERVE_T, SERVE_B, 128, F32 + BF16), (SERVE_T, SERVE_B, 135, F32),
 
 # Shapes of gru_fwd_fb (F lanes of the walk kernel) beyond the main and the
 # ragged one, as (F, T, B, H, dtypes): WALK_CASES at two lanes, then 4 lanes
-# at B=128 (row tile 4) and 15 at B=64 (row tile 8, the fold-parallel
-# lanes).
+# at B=128 (row tile 4), 15 at B=64 (row tile 8, the fold-parallel lanes)
+# at H=64 and at M2's H=32, and the 60 lanes of a 4-seed replicated sweep.
 FB_CASES = [(2, *case) for case in WALK_CASES] + [
-    (4, SERVE_T, 128, SERVE_H, F32 + BF16), (15, SERVE_T, SERVE_B, SERVE_H, F32 + BF16)]
+    (4, SERVE_T, 128, SERVE_H, F32 + BF16), (15, SERVE_T, SERVE_B, SERVE_H, F32 + BF16),
+    (15, SERVE_T, SERVE_B, M2_H, F32 + BF16), (SEED_LANES, SERVE_T, SERVE_B, SERVE_H, F32 + BF16)]
 
 
 def walk_plan(lanes: int, batch: int, hidden: int) -> str:
@@ -481,18 +546,19 @@ def walk_sweep() -> None:
     """The walk kernels' time at T=480, H=64 as the batch, and so the block
     count, grows, float32: one lane (gru_fwd), two (gru_bifwd), the adjoint
     walk (gru_bwd, all four of its kernels), and the F-lane adjoint
-    (gru_bwd_fb) at 2 lanes and at 15 (a sweep's folds), B=64; then the
-    F-lane forward walk (gru_fwd_fb) at 15 lanes, B=64 (row tile 8), float32
-    and bfloat16. Adjoint lines also give the walk blocks an SM holds at
-    once (CUDA's occupancy calculator) and so the waves of walk blocks.
-    Shows whether the per-step cost depends on the layout or on the
-    blocks."""
+    (gru_bwd_fb) at 2 lanes, at 15 (a sweep's folds) and at 60 (a 4-seed
+    replicated sweep's lanes), B=64; then the F-lane forward walk
+    (gru_fwd_fb) at 15 lanes, B=64 (row tile 8), float32 and bfloat16, and
+    at 60 lanes. Every line also gives the walk blocks an SM holds at once
+    (CUDA's occupancy calculator) and so the waves of walk blocks. Shows
+    whether the per-step cost depends on the layout or on the blocks."""
     f32, bf16 = torch.float32, torch.bfloat16
     for name, lanes, batches, dtype in (
             ("gru_fwd", 1, (16, 64, 128, 256), f32), ("gru_bifwd", 2, (32, 64, 128), f32),
             ("gru_bwd", 1, (16, 64, 128, 256), f32), ("gru_bwd_fb", 2, (SERVE_B,), f32),
-            ("gru_bwd_fb", 15, (SERVE_B,), f32), ("gru_fwd_fb", 15, (SERVE_B,), f32),
-            ("gru_fwd_fb", 15, (SERVE_B,), bf16)):
+            ("gru_bwd_fb", 15, (SERVE_B,), f32), ("gru_bwd_fb", SEED_LANES, (SERVE_B,), f32),
+            ("gru_fwd_fb", 15, (SERVE_B,), f32), ("gru_fwd_fb", 15, (SERVE_B,), bf16),
+            ("gru_fwd_fb", SEED_LANES, (SERVE_B,), f32)):
         adjoint = name.startswith("gru_bwd")
         for b in batches:
             if name == "gru_fwd":
@@ -512,16 +578,27 @@ def walk_sweep() -> None:
             tile = gru_cuda.adj_row_tile if adjoint else gru_cuda.walk_row_tile
             rows = tile(b, lanes, SERVE_H)
             blocks = -(-b // rows) * lanes
-            waves = ""
-            if adjoint:
-                per_sm = gru_cuda._bwd_library().gru_adj_walk_blocks_per_sm(b, lanes, SERVE_H, 0)
-                if per_sm <= 0:
-                    raise AssertionError(f"gru_adj_walk_blocks_per_sm: {per_sm}")
-                waves = (f", {per_sm} a SM at once: "
-                         f"{-(-blocks // (per_sm * gru_cuda.NUM_SMS))} wave(s)")
             print(f"walk sweep: {name} {str(dtype)[6:]} F={lanes} "
                   f"T={SERVE_T} B={b} H={SERVE_H}: {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us "
-                  f"per dependent step), {blocks} blocks of row tile {rows}{waves}")
+                  f"per dependent step), {blocks} blocks of row tile {rows}, "
+                  + waves(adjoint, b, lanes, SERVE_H, dtype))
+
+
+def waves(adjoint: bool, batch: int, lanes: int, hidden: int, dtype) -> str:
+    """The walk blocks an SM holds at once (CUDA's occupancy calculator, the
+    adjoint walk's or the forward walk kernel's) and the waves of walk
+    blocks that follow."""
+    bf16 = int(dtype == torch.bfloat16)
+    if adjoint:
+        per_sm = gru_cuda._bwd_library().gru_adj_walk_blocks_per_sm(batch, lanes, hidden, bf16)
+        rows = gru_cuda.adj_row_tile(batch, lanes, hidden)
+    else:
+        per_sm = gru_cuda._library().gru_walk_blocks_per_sm(batch, lanes, hidden, bf16)
+        rows = gru_cuda.walk_row_tile(batch, lanes, hidden)
+    if per_sm <= 0:
+        raise AssertionError(f"blocks per SM at B={batch} F={lanes} H={hidden}: {per_sm}")
+    blocks = -(-batch // rows) * lanes
+    return f"{per_sm} a SM at once: {-(-blocks // (per_sm * gru_cuda.NUM_SMS))} wave(s)"
 
 
 def bwd_bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
@@ -539,22 +616,29 @@ def bwd_bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cudnn_bwd_ms(lanes, t, b, h, dtype) -> float:
+def cudnn_bwd_ms(lanes, t, b, h, dtype, calls: int = 1) -> float:
     """Backward of nn.GRU (cuDNN) over the same T, B and H, one direction or
-    both for two lanes: forward+backward minus forward, both with autograd
-    on. It also computes the input projection's gradients."""
+    both for two lanes, called `calls` times one after another:
+    forward+backward minus forward, both with autograd on. It also computes
+    the input projection's gradients."""
     bi = lanes == 2
     gru = torch.nn.GRU(h, h, bidirectional=bi).to("cuda", dtype)
     gru.flatten_parameters()
     x = torch.randn(t, b, h, device="cuda", dtype=dtype, requires_grad=True)
     g = torch.randn(t, b, h * (2 if bi else 1), device="cuda", dtype=dtype)
+    per_block = max(20 // calls, 2)
+
+    def forward():
+        for _ in range(calls):
+            gru(x)
 
     def fwd_bwd():
-        gru(x)[0].backward(g)
+        for _ in range(calls):
+            gru(x)[0].backward(g)
 
     with torch.enable_grad():
-        both = median_ms(fwd_bwd, per_block=20)
-        fwd = median_ms(lambda: gru(x), per_block=20)
+        both = median_ms(fwd_bwd, per_block=per_block)
+        fwd = median_ms(forward, per_block=per_block)
     return both - fwd
 
 
@@ -566,8 +650,8 @@ def bwd_inputs(lanes, t, b, h, dtype, seed, reverse=False, last_only=False):
     lead = () if lanes is None else (lanes,)
     fwd = gru_cuda.gru_forward_fb_plain if lanes else gru_cuda.gru_forward_plain
     ys = fwd(xg, w, bias, h0, reverse)
-    dy = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
-        lead + (t, b, h))).to("cuda", dtype)
+    dy = torch.randn(lead + (t, b, h), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(seed + 1)).to(dtype)
     if last_only:
         keep = torch.arange(t, device="cuda") == (0 if reverse else t - 1)
         dy = torch.where(keep[:, None, None], dy, torch.zeros_like(dy)).contiguous()
@@ -575,18 +659,27 @@ def bwd_inputs(lanes, t, b, h, dtype, seed, reverse=False, last_only=False):
 
 
 # Shapes of gru_bwd (the adjoint walk) beyond the main and the ragged one,
-# as (T, B, H, dtypes, last_only): the largest H of the first template (95
-# f32, 109 bf16), H=128 (W in shared memory), one batch row, B=256 (row
-# tile 2), one step, and a dy that is zero but at the forward's last step.
-ADJ_CASES = [(SERVE_T, SERVE_B, 95, F32, False), (SERVE_T, SERVE_B, 109, BF16, False),
+# as (T, B, H, dtypes, last_only): M2's H=32 (K = 3H padded to 192 in
+# registers), also with the dy its pruned layer sends back (zero but at the
+# last step), the largest H of the first template (95 f32, 109 bf16), H=128
+# (W in shared memory), one batch row, B=256 (row tile 2), one step, and a
+# dy that is zero but at the forward's last step.
+ADJ_CASES = [(SERVE_T, SERVE_B, M2_H, F32 + BF16, False),
+             (SERVE_T, SERVE_B, M2_H, F32 + BF16, True),
+             (SERVE_T, SERVE_B, 95, F32, False), (SERVE_T, SERVE_B, 109, BF16, False),
              (SERVE_T, SERVE_B, 128, F32 + BF16, False), (SERVE_T, 1, SERVE_H, F32 + BF16, False),
              (SERVE_T, 256, SERVE_H, F32 + BF16, False), (1, SERVE_B, SERVE_H, F32 + BF16, False),
              (SERVE_T, SERVE_B, SERVE_H, F32 + BF16, True)]
 # gru_bwd_fb's (F, T, B, H, dtypes, last_only): ADJ_CASES at two lanes, then
-# 4 lanes at B=128 and 15 at B=64 (row tile 2: 256 and 480 walk blocks).
+# 4 lanes at B=128 and 15 at B=64 (row tile 2: 256 and 480 walk blocks), 15
+# at M2's H=32 with either dy, and the 60 lanes of a 4-seed replicated
+# sweep (1,920 walk blocks).
 FB_ADJ_CASES = [(2, *case) for case in ADJ_CASES] + [
     (4, SERVE_T, 128, SERVE_H, F32 + BF16, False),
-    (15, SERVE_T, SERVE_B, SERVE_H, F32 + BF16, False)]
+    (15, SERVE_T, SERVE_B, SERVE_H, F32 + BF16, False),
+    (15, SERVE_T, SERVE_B, M2_H, F32 + BF16, False),
+    (15, SERVE_T, SERVE_B, M2_H, F32 + BF16, True),
+    (SEED_LANES, SERVE_T, SERVE_B, SERVE_H, F32 + BF16, False)]
 # gru_bibwd's (T, B, H), float32 only: the first template's largest H (95),
 # H=128 and the walk's largest (130, W in shared memory), one batch row,
 # B=256 (row tile 2), one step.
@@ -680,9 +773,9 @@ def fused_inputs(t, b, h, seed, adjoint: bool):
     args = (xg.transpose(0, 1).contiguous(), w, bias, h0)
     if not adjoint:
         return args
-    dy2 = np.random.default_rng(seed + 1).standard_normal((t, 2, b, h))
-    return args + (gru_cuda.gru_bifwd_plain(*args).contiguous(),
-                   torch.from_numpy(dy2).to("cuda", torch.float32))
+    dy2 = torch.randn((t, 2, b, h), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    return args + (gru_cuda.gru_bifwd_plain(*args).contiguous(), dy2)
 
 
 def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) -> dict:
@@ -744,6 +837,38 @@ def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) ->
             "source": f"multimodalsignal_tpu_torch/ops/csrc/gru_{'bwd' if adjoint else 'fwd'}.cu",
             "replaces": source_line, "launches": 0, "max_abs_err": serve_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def m2_shape_timings() -> None:
+    """The kernels of a hierarchical run's M2 (H=32, one GRU layer, so the
+    pruned layer's lone forward walk), at T=480, B=64, float32 and
+    bfloat16: gru_fwd and gru_bwd at 1 lane (the serial M2), gru_fwd_fb and
+    gru_bwd_fb at 15 lanes (its sweep and the composed evaluation), dy at
+    the last step only as the pruned layer sends it: kernel ms, the bound,
+    and cuDNN's one-direction nn.GRU (at 15 lanes, 15 calls)."""
+    wrappers = {"gru_fwd": gru_cuda.gru_forward, "gru_fwd_fb": gru_cuda.gru_forward_fb,
+                "gru_bwd": gru_cuda.gru_backward, "gru_bwd_fb": gru_cuda.gru_backward_fb}
+    for name, lanes in (("gru_fwd", None), ("gru_fwd_fb", 15), ("gru_bwd", None),
+                        ("gru_bwd_fb", 15)):
+        adjoint = name.startswith("gru_bwd")
+        for dtype in (torch.float32, torch.bfloat16):
+            if adjoint:
+                args = bwd_inputs(lanes, SERVE_T, SERVE_B, M2_H, dtype, seed=9, last_only=True)
+                b_ms, b_by = bwd_bound_ms(lanes, SERVE_T, SERVE_B, M2_H, dtype)
+                plan = adj_plan(lanes or 1, SERVE_T, SERVE_B, M2_H)
+            else:
+                args = kernel_inputs(lanes, SERVE_T, SERVE_B, M2_H, dtype, seed=9)
+                b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, M2_H, dtype)
+                plan = walk_plan(lanes or 1, SERVE_B, M2_H)
+            ms = median_ms(lambda: wrappers[name](*args), per_block=50)
+            lib_ms = (cudnn_bwd_ms if adjoint else cudnn_ms)(
+                1, SERVE_T, SERVE_B, M2_H, dtype, calls=lanes or 1)
+            print(f"M2 shape: {name} {str(dtype)[6:]} F={lanes or 1} T={SERVE_T} B={SERVE_B} "
+                  f"H={M2_H}: kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent "
+                  f"step, {plan}, {waves(adjoint, SERVE_B, lanes or 1, M2_H, dtype)}), "
+                  f"cuDNN GRU {'backward ' if adjoint else ''}{lib_ms:.4f} ms"
+                  f"{f' ({lanes} calls)' if lanes else ''}, bound {b_ms:.5f} ms ({b_by}), "
+                  f"{b_ms / ms:.2%} of bound")
 
 
 def random_variables(cfg: ExperimentConfig, seed: int) -> dict:
@@ -968,10 +1093,11 @@ def serving_phase(dtype: str, pkl: Path) -> dict[str, int]:
 
 def check_gradients(model) -> None:
     """After one step every parameter has a finite gradient, nonzero but for
-    gru.l1_bwd_w_hh: with last-step pruning the final layer's backward
-    direction is one cell step from h0 = 0, so dL/dW_hh = h0^T dg = 0
-    exactly (the same in the JAX model)."""
-    zero_by_construction = {"gru.l1_bwd_w_hh"}
+    the last layer's gru.l{L-1}_bwd_w_hh (gru.l1_bwd_w_hh at 2 layers,
+    gru.l0_bwd_w_hh for a one-layer M2): with last-step pruning the final
+    layer's backward direction is one cell step from h0 = 0, so dL/dW_hh =
+    h0^T dg = 0 exactly (the same in the JAX model)."""
+    zero_by_construction = {f"gru.l{model.gru.num_layers - 1}_bwd_w_hh"}
     for name, p in model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all():
             raise AssertionError(f"{name}: gradient missing or not finite")
@@ -1345,6 +1471,7 @@ def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what:
         xs = card.x if card.feat is None else (card.x, card.feat)
         loss, _ = trainer.train_step(take(xs, rows), card.y[rows],
                                      torch.from_numpy(w[f, 0]).cuda())
+        check_gradients(trainer.model)
         lane = build_model(no_drop.model, cfg.num_classes, corpus.x.shape[2])
         load_jax_variables(lane, **lane_variables(card_first, f))
         loss_err, worst, share, ok = compare_steps(trainer.model, [loss.item()], lane,
@@ -1697,10 +1824,11 @@ def hybrid_ensemble_phase(run_dir: Path, pkl: Path) -> None:
           f"(max|probs - ensemble| = {err:.3e}) and HTTP {refused} without them")
 
 
-def phase9(root: Path) -> None:
+def phase9(root: Path) -> Path:
     """Phase 9 (module docstring): 9a pickles and preprocessing, 9b the
     from-pickles sweep, 9c the hybrid sweep in float32 and bfloat16, 9d the
-    hybrid serial LOSO, 9e the hybrid ensemble and its server."""
+    hybrid serial LOSO, 9e the hybrid ensemble and its server. Returns the
+    WESAD root of the pickles."""
     t_phase = time.perf_counter()
     root.mkdir()
     wesad, data, corpus, counts = pickles_phase(root)
@@ -1716,6 +1844,385 @@ def phase9(root: Path) -> None:
     hybrid_serial_phase(data, root, counts)
     hybrid_ensemble_phase(hybrid_run, wesad / "S2" / "S2.pkl")
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return wesad
+
+
+# Phase 10: the experiments beyond plain LOSO, on phase 6, 7 and 9's
+# data. The summary's per-fold line of a hierarchical run.
+HIER_FOLD_LINE = re.compile(r"  - test (S\d+): M1 acc = (\S+) \| composed acc = (\S+), "
+                            r"F1 = (\S+) \((\d+) windows\)")
+SEEDS = (42, 43, 44, 45)
+# A seed group against the single-seed sweep on the card: float32 losses as
+# TRAIN_TOL (rtol 1e-4; the grouped convolutions run 4x the groups, and
+# cuDNN may pick another algorithm, so round-off differs), and per fold at
+# most 2 windows of a confusion matrix moved (a window whose two logits sit
+# within round-off of each other flips its class: 1 leaves a cell, 1
+# enters another).
+SEED_GROUP_TOL = dict(loss=1e-4, cm_windows=2)
+
+
+@contextlib.contextmanager
+def capture_sweeps(module):
+    """Collect the SweepResult of every run_fold_sweep that `module` calls
+    by that name while the block runs (the results pass through unchanged)."""
+    real, seen = module.run_fold_sweep, []
+
+    def run(*args, **kwargs):
+        seen.append(real(*args, **kwargs))
+        return seen[-1]
+
+    module.run_fold_sweep = run
+    try:
+        yield seen
+    finally:
+        module.run_fold_sweep = real
+
+
+def sweep_profile(corpus, fb, cfg, what: str, seeds=None) -> None:
+    """step_profile of the first train step of a sweep over fb (seed groups
+    `seeds`, or cfg.seed) at the config's dropout."""
+    seeds = seeds or (cfg.seed,)
+    init, rngs = seed_group_streams(seeds, fb.train_pool.shape[0])
+    sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=init, dropout_seeds=seeds)
+    idx, w = sweep.to_device(sweep.train_grid(rngs))
+    lanes = fb.train_pool.shape[0]
+    step_profile(lambda: sweep.train_step(idx[:, 0], w[:, 0]), lanes * cfg.trainer.batch_size,
+                 f"{what} F={lanes} dropout {cfg.model.dropout}")
+    del sweep, idx, w
+    torch.cuda.empty_cache()
+
+
+def hier_sharded_phase(wesad: Path, root: Path) -> Path:
+    """10a. `main --hierarchical --from-pickles` (the sharded default), f32,
+    the default HierarchicalConfig (M1 H=64 x 2 layers, M2 H=32 x 1), 15
+    folds as lanes: first the 3 first M2 sweep steps card vs CPU
+    (sweep_parity), then the CLI (counted: M1's sweep 3 gru_fwd_fb and 3
+    gru_bwd_fb a train step, 3 gru_fwd_fb an eval batch; M2's 1, 1 and 1;
+    the composed evaluation 3 + 1 gru_fwd_fb a test batch), its summary of
+    15 finite folds, every stage's checkpoint read back, the step profiles
+    of both sweeps. Returns the run directory."""
+    out = root / "hier_sharded"
+    argv = ["--hierarchical", "--from-pickles", str(wesad), "--output-dir", str(out),
+            "--set", "base.trainer.epochs=2"]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    base = cfg.base
+    union, _, _ = union_channel_indices(cfg.m1_channels, cfg.m2_channels)
+    memo: dict = {}
+
+    def staged(channels, mode):
+        corpus = pack_corpus_from_pickles(wesad, list(base.subjects), list(channels), mode,
+                                          base.normalization, subject_cache=memo)[0]
+        return corpus, build_fold_batch(corpus, list(base.subjects), base.val_fraction,
+                                        base.seed)
+
+    def stage_cfg(channels, mode, model_cfg):
+        return dataclasses.replace(base, channels_to_use=tuple(channels),
+                                   classification_mode=mode, num_classes=2, model=model_cfg)
+
+    c1, fb1 = staged(cfg.m1_channels, "stress_binary")
+    c2, fb2 = staged(cfg.m2_channels, "amusement_binary")
+    _, fb_u = staged(union, "ternary")
+    m1_cfg = stage_cfg(cfg.m1_channels, "stress_binary", cfg.m1_model)
+    m2_cfg = stage_cfg(cfg.m2_channels, "amusement_binary", cfg.m2_model)
+    folds = len(fb_u.test_subjects)
+    sweep_parity(m2_cfg, c2, fb2, root / "hier_m2_parity", TRAIN_TOL["float32"],
+                 "hierarchical M2 float32 (H=32, 1 layer)")
+
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    cli.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    _, tr1, ev1 = sweep_expected_launches(fb1, base.trainer)
+    _, tr2, ev2 = sweep_expected_launches(fb2, base.trainer)
+    test_batches = grid_steps(fb_u.n_test, base.trainer.batch_size)
+    expected = {"gru_fwd": 0, "gru_fwd_fb": 3 * (tr1 + ev1) + (tr2 + ev2) + 4 * test_batches,
+                "gru_bwd": 0, "gru_bwd_fb": 3 * tr1 + tr2, "gru_bifwd": 0, "gru_bibwd": 0}
+    if launches != expected:
+        raise AssertionError(
+            f"hierarchical sharded: launches {launches}, expected {expected} (M1 {tr1} train "
+            f"steps, {ev1} eval batches; M2 {tr2}, {ev2}; {test_batches} composed batches)")
+    (run_dir,) = (out / cfg.run_name).iterdir()
+    summary = (run_dir / "hierarchical_summary.txt").read_text()
+    lines = HIER_FOLD_LINE.findall(summary)
+    mean = re.search(r"Mean composed accuracy: (\S+) ± (\S+)", summary)
+    numbers = [float(v) for f in lines for v in f[1:4]]
+    if (not summary.startswith("Hierarchical experiment summary (sharded)\n")
+            or sorted(f[0] for f in lines) != sorted(base.subjects) or mean is None
+            or not all(math.isfinite(v) for v in numbers + [float(mean.group(1))])):
+        raise AssertionError(f"hierarchical sharded: summary is not {folds} finite folds:\n"
+                             f"{summary}")
+    for sid in base.subjects:
+        for sub, layers in (("model_m1", cfg.m1_model.gru_num_layers),
+                            ("model_m2", cfg.m2_model.gru_num_layers)):
+            gru = read_flax_checkpoint(run_dir / f"fold_test_on_{sid}" / sub
+                                       / "best_model.msgpack")["params"]["gru"]
+            if {k.split("_")[0] for k in gru} != {f"l{i}" for i in range(layers)}:
+                raise AssertionError(f"hierarchical sharded: {sid} {sub} GRU {sorted(gru)}")
+    print(f"hierarchical sharded float32: main --hierarchical --from-pickles, {folds} folds "
+          f"as lanes, M1 {tr1} train steps + {ev1} eval batches, M2 {tr2} + {ev2}, "
+          f"{test_batches} composed test batches in {wall:.2f} s; mean composed accuracy "
+          f"{mean.group(1)} ± {mean.group(2)} (not a gate); every stage's checkpoint read "
+          f"back; launches {launches}")
+    sweep_profile(c1, fb1, m1_cfg, "hierarchical M1 float32 auto")
+    sweep_profile(c2, fb2, m2_cfg, "hierarchical M2 float32 auto (H=32, 1 layer)")
+    return run_dir
+
+
+def hier_serial_expected(cfg: HierarchicalConfig, data: Path) -> dict[str, int]:
+    """Launches of the serial hierarchical run on `data`: per fold M1's
+    Trainer (2 layers: gru_fwd_fb and gru_fwd a forward, gru_bwd_fb and
+    gru_bwd a train step) over its train steps, validation batches and test
+    batches, M2's (1 layer: gru_fwd a forward, gru_bwd a train step) over
+    its train steps and validation batches, and both forwards per composed
+    test batch; a fold without M2 training or validation windows stops
+    after M1's training."""
+    base = cfg.base
+    b, epochs = base.trainer.batch_size, base.trainer.epochs
+    labels = {s: np.load(data / f"{s}_y.npy") for s in base.subjects}
+    amuse = {s: int(np.isin(y, (1, 3)).sum()) for s, y in labels.items()}
+    every = {s: len(y) for s, y in labels.items()}
+    batches = lambda n: max(-(-n // b), 1)  # noqa: E731
+    out = dict.fromkeys(("gru_fwd", "gru_fwd_fb", "gru_bwd", "gru_bwd_fb",
+                         "gru_bifwd", "gru_bibwd"), 0)
+    for fold in loso_folds(base.subjects, base.val_fraction, base.seed):
+        n = lambda counts, sids: sum(counts[s] for s in sids)  # noqa: E731
+        tr1 = epochs * batches(n(every, fold.train_subjects))
+        ev1 = epochs * batches(n(every, fold.val_subjects))
+        out["gru_fwd_fb"] += tr1 + ev1
+        out["gru_fwd"] += tr1 + ev1
+        out["gru_bwd_fb"] += tr1
+        out["gru_bwd"] += tr1
+        n2_tr, n2_va = n(amuse, fold.train_subjects), n(amuse, fold.val_subjects)
+        if n2_tr == 0 or n2_va == 0:
+            continue
+        tr2, ev2 = epochs * batches(n2_tr), epochs * batches(n2_va)
+        test = batches(every[fold.test_subject])   # M1's test batches, then the composed
+        out["gru_fwd_fb"] += 2 * test
+        out["gru_fwd"] += tr2 + ev2 + 3 * test
+        out["gru_bwd"] += tr2
+    return out
+
+
+def hier_serial_phase(data: Path, root: Path) -> None:
+    """10b. `main --hierarchical --execution serial` on phase 6's 4-subject
+    npy data, f32, auto: one launch of each single-fold kernel of a stage a
+    train step and eval batch (hier_serial_expected), a summary of 4 finite
+    folds, both stages' checkpoints per fold."""
+    out = root / "hier_serial"
+    argv = ["--hierarchical", "--execution", "serial", "--output-dir", str(out),
+            "--set", f"base.data_path={data}", "--set", "base.subjects=" + ",".join(LOSO_SUBJECTS),
+            "--set", "base.trainer.epochs=2"]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    cli.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    expected = hier_serial_expected(cfg, data)
+    if launches != expected:
+        raise AssertionError(f"hierarchical serial: launches {launches}, expected {expected}")
+    (run_dir,) = (out / cfg.run_name).iterdir()
+    summary = (run_dir / "hierarchical_summary.txt").read_text()
+    lines = HIER_FOLD_LINE.findall(summary)
+    if (not summary.startswith("Hierarchical experiment summary\n")
+            or sorted(f[0] for f in lines) != sorted(LOSO_SUBJECTS)
+            or not all(math.isfinite(float(v)) for f in lines for v in f[1:4])):
+        raise AssertionError(f"hierarchical serial: summary is not 4 finite folds:\n{summary}")
+    for sid in LOSO_SUBJECTS:
+        for sub in ("model_m1", "model_m2"):
+            if not read_flax_checkpoint(run_dir / f"fold_test_on_{sid}" / sub
+                                        / "best_model.msgpack")["params"]:
+                raise AssertionError(f"hierarchical serial: {sid} {sub} did not read back")
+    print(f"hierarchical serial float32 auto: 4 folds in {wall:.2f} s; composed accuracy "
+          + ", ".join(f"{f[0]} {f[2]}" for f in lines) + f"; launches {launches}")
+
+
+def hier_predictor_phase(run_dir: Path, pkl: Path) -> None:
+    """10c. HierarchicalPredictor.from_run(fold S2) on 10a's run:
+    predict_recording of a phase 9 pickle (counted: a padded batch runs M1's
+    gru_fwd_fb and gru_fwd and M2's gru_fwd); its labels the hard gate of
+    the two stage Predictors run by hand, its probabilities their product
+    (atol 1e-6) and the CPU's (PROB_ATOL); then the predict CLI with
+    --run-dir --fold S2 in a subprocess."""
+    hp = HierarchicalPredictor.from_run(run_dir, "S2", device="cuda")
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    rec = hp.predict_recording(pkl)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    host_s = time.perf_counter() - t0
+    n = len(rec.labels)
+    batches = -(-n // 64)
+    expected = {"gru_fwd": 2 * batches, "gru_fwd_fb": batches, "gru_bwd": 0, "gru_bwd_fb": 0,
+                "gru_bifwd": 0, "gru_bibwd": 0}
+    if launches != expected:
+        raise AssertionError(f"hierarchical predictor: launches {launches}, expected {expected}")
+    x, _ = hp.windows_from_recording(pkl)
+    meta = json.loads((run_dir / "config.json").read_text())["preprocess_meta"]
+    stage = {}
+    for sub, pred in (("model_m1", hp.m1), ("model_m2", hp.m2)):
+        cols = [hp.channels.index(c) for c in pred.cfg.channels_to_use]
+        stage[sub] = Predictor.from_cfg_and_checkpoint(
+            pred.cfg, run_dir / "fold_test_on_S2" / sub / "best_model.msgpack", meta,
+            "cuda").predict_windows(x[:, cols])
+    p1, p2 = stage["model_m1"], stage["model_m2"]
+    gated = np.where(p1.argmax(1) == 1, 2, p2.argmax(1))
+    if not np.array_equal(rec.labels, gated):
+        raise AssertionError(f"hierarchical predictor: labels {rec.labels} are not the hard "
+                             f"gate of its stages {gated}")
+    product = np.stack([p1[:, 0] * p2[:, 0], p1[:, 0] * p2[:, 1], p1[:, 1]], axis=1)
+    err_stage = _check_probs(rec.probs, product, n, 1e-6,
+                             "hierarchical predictor vs its stage Predictors")
+    cpu_probs, cpu_labels = HierarchicalPredictor.from_run(
+        run_dir, "S2", device="cpu").predict_windows_labeled(x)
+    err_cpu = _check_probs(rec.probs, cpu_probs, n, PROB_ATOL["float32"],
+                           "hierarchical predictor vs CPU")
+    print(f"hierarchical predictor float32: {pkl.name} ({n} windows, {batches} padded "
+          f"batches) {host_s:.2f} s host; labels the hard gate of the stage Predictors; "
+          f"max|probs - stage product| = {err_stage:.3e} (atol 1e-6), max|probs - CPU| = "
+          f"{err_cpu:.3e} (atol {PROB_ATOL['float32']}), labels equal to the CPU's in "
+          f"{int((cpu_labels == rec.labels).sum())}/{n}; launches {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "pred.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "multimodalsignal_tpu_torch.experiments.predict",
+             "--run-dir", str(run_dir), "--fold", "S2", "--pkl", str(pkl), "--out", str(out)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"predict --run-dir --fold S2: {proc.stdout}{proc.stderr}")
+        got = json.loads(out.read_text())
+    if ([w["label"] for w in got["windows"]] != [rec.class_names[i] for i in rec.labels]
+            or got["class_names"] != list(rec.class_names)):
+        raise AssertionError("predict --run-dir --fold S2: labels differ from the predictor's")
+    err = _check_probs([w["probs"] for w in got["windows"]], rec.probs, n, 1e-5,
+                       "predict --run-dir --fold S2")
+    print(f"hierarchical predictor: `predict --run-dir --fold S2` in a subprocess, the same "
+          f"labels, max|probs - predictor| = {err:.3e}")
+
+
+def replicated_phase(data: Path, root: Path, single) -> None:
+    """10d. `main --seeds 42 43 44 45` on phase 7's 15-subject data, f32:
+    60 lanes (counted: 3 gru_fwd_fb and 3 gru_bwd_fb a train step, 3
+    gru_fwd_fb an eval batch); seed_summary.{txt,json} and
+    seed_fold_matrix.npz; seed group 0 against phase 7's single-seed sweep
+    `single` under SEED_GROUP_TOL, printing whether it is bitwise; then
+    step_profile at 60 lanes, f32 and bf16."""
+    out = root / "replicated"
+    argv = ["--output-dir", str(out), "--seeds", *map(str, SEEDS), "--set", "trainer.epochs=2",
+            "--set", f"data_path={data}"]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    corpus = pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
+                         read_channel_names(data))
+    fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+    folds = len(fb.test_subjects)
+    with capture_sweeps(replicated_sweep) as seen:
+        gru_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        # --- the main path: everything between reset and read is counted ---
+        cli.main(argv)
+        launches = gru_cuda.launch_counts()
+        # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    expected, train_steps, eval_batches = sweep_expected_launches(fb, cfg.trainer)
+    if launches != expected:
+        raise AssertionError(f"replicated: launches {launches}, expected {expected}")
+    (run_dir,) = (out / cfg.run_name).iterdir()
+    summary = json.loads((run_dir / "seed_summary.json").read_text())
+    matrix = np.load(run_dir / "seed_fold_matrix.npz")
+    text = (run_dir / "seed_summary.txt").read_text()
+    if (summary["seeds"] != list(SEEDS) or matrix["accuracy"].shape != (len(SEEDS), folds)
+            or not np.isfinite(matrix["accuracy"]).all()
+            or not text.startswith("Seed-replicated LOSO sweep summary\n")):
+        raise AssertionError(f"replicated: seed summary {summary}")
+    (rep,) = seen
+    group0 = slice(0, folds)
+    bitwise = (all(np.array_equal(getattr(rep.history, k)[group0], getattr(single.history, k))
+                   for k in rep.history._fields)
+               and np.array_equal(rep.test_cm[group0], single.test_cm))
+    loss_err = max(float(np.max(np.abs(getattr(rep.history, k)[group0]
+                                       - getattr(single.history, k))
+                                / np.maximum(np.abs(getattr(single.history, k)), 1e-12)))
+                   for k in ("train_loss", "val_loss"))
+    cm_moved = np.abs(rep.test_cm[group0] - single.test_cm).sum(axis=(1, 2))
+    if loss_err > SEED_GROUP_TOL["loss"] or cm_moved.max() > SEED_GROUP_TOL["cm_windows"]:
+        raise AssertionError(f"replicated: seed group 0 vs the single-seed sweep: losses "
+                             f"rel|d| {loss_err:.3e}, confusion matrices moved {cm_moved}")
+    # The seeds must train differently (on phase 7's noise labels every seed
+    # may still end at the same accuracy: the majority class).
+    group_loss = rep.history.train_loss.reshape(len(SEEDS), folds, -1)[:, :, 0].mean(axis=1)
+    if len(set(group_loss.tolist())) != len(SEEDS):
+        raise AssertionError(f"replicated: seed groups trained alike: first-epoch train "
+                             f"losses {group_loss}")
+    print(f"replicated float32: main --seeds {' '.join(map(str, SEEDS))}, {folds} folds x "
+          f"{len(SEEDS)} seeds = {len(SEEDS) * folds} lanes, {train_steps} train steps and "
+          f"{eval_batches} eval batches in {wall:.2f} s; grand mean accuracy "
+          f"{summary['grand_mean_accuracy']:.4f}, across-seed std of the mean "
+          f"{summary['seed_std_of_mean_accuracy']:.4f}, first-epoch train loss by seed "
+          + ", ".join(f"{v:.6f}" for v in group_loss) + "; seed group 0 vs phase 7's sweep: "
+          f"{'bitwise equal' if bitwise else 'not bitwise'}, losses max rel|d| {loss_err:.3e}, "
+          f"confusion-matrix windows moved {int(cm_moved.sum())}; launches {launches}")
+    rfb = replicate_fold_batch(fb, len(SEEDS))
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+        sweep_profile(corpus, rfb, c, f"replicated {dtype} auto", seeds=SEEDS)
+
+
+def ablation_phase(data: Path, root: Path) -> None:
+    """10e. The ablation CLI on phase 7's data: subsets ecg (C=1, the
+    channel gate's constant path) and fusion4 (C=4, the active gate) by
+    models cnn_gru_attention and cnn_gru, sharded, 2 epochs (counted: four
+    sweeps of 3 + 3 a train step); ablation_summary.txt and four finite
+    points."""
+    out = root / "ablation"
+    argv = ["--out", str(out), "--subsets", "ecg", "fusion4", "--set", "trainer.epochs=2",
+            "--set", f"data_path={data}"]
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    ablation.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    (run_dir,) = out.iterdir()
+    cfg = config_from_dict(ExperimentConfig,
+                           json.loads((run_dir / "base_config.json").read_text()))
+    corpus = pack_corpus(data, list(cfg.subjects), ["chest_ECG"], read_channel_names(data))
+    fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+    one, _, _ = sweep_expected_launches(fb, cfg.trainer)
+    expected = {k: 4 * v for k, v in one.items()}
+    if launches != expected:
+        raise AssertionError(f"ablation: launches {launches}, expected {expected}")
+    points = json.loads((run_dir / "ablation_results.json").read_text())
+    text = (run_dir / "ablation_summary.txt").read_text()
+    names = [f"{s}__{m}" for s in ("ecg", "fusion4") for m in ablation.DEFAULT_MODELS]
+    if ([p["name"] for p in points] != names or not all(
+            math.isfinite(p[k]) for p in points for k in ("mean_accuracy", "std_accuracy",
+                                                          "mean_f1", "std_f1"))
+            or not text.startswith("Ablation sweep summary")):
+        raise AssertionError(f"ablation: points {points}")
+    print(f"ablation float32: 2 subsets x 2 models sharded in {wall:.2f} s; "
+          + ", ".join(f"{p['name']} {p['mean_accuracy']:.4f} ({p['wall_s']:.1f} s)"
+                      for p in points) + f"; launches {launches}")
+
+
+def phase10(root: Path, wesad: Path, loso_data: Path, sweep_data: Path, single) -> None:
+    """Phase 10 (module docstring): 10a the sharded hierarchical CLI, 10b
+    the serial one, 10c the hierarchical predictor, 10d the seed-replicated
+    sweep, 10e the ablation CLI."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    run_dir = hier_sharded_phase(wesad, root)
+    hier_serial_phase(loso_data, root)
+    hier_predictor_phase(run_dir, wesad / "S2" / "S2.pkl")
+    replicated_phase(sweep_data, root, single)
+    ablation_phase(sweep_data, root)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1746,6 +2253,7 @@ def main() -> int:
                            source_line="multimodalsignal_tpu/ops/gru_pallas.py:945"),
     ]
     walk_sweep()
+    m2_shape_timings()
     with tempfile.TemporaryDirectory() as tmp:
         pkl = Path(tmp) / "S99.pkl"
         write_recording(pkl, seconds=300, seed=2)
@@ -1753,15 +2261,17 @@ def main() -> int:
         serving_phase("bfloat16", pkl)
         train_launches = training_phase("float32", Path(tmp))
         training_phase("bfloat16", Path(tmp))
-        data = write_loso_data(Path(tmp) / "loso_data", seed=4)
-        loso_launches = loso_phase("float32", data, Path(tmp))
-        loso_phase("bfloat16", data, Path(tmp))
+        loso_data = write_loso_data(Path(tmp) / "loso_data", seed=4)
+        loso_launches = loso_phase("float32", loso_data, Path(tmp))
+        loso_phase("bfloat16", loso_data, Path(tmp))
         data = write_loso_data(Path(tmp) / "sweep_data", seed=8, subjects=ALL_SUBJECTS)
-        sweep_launches, sweep_run = sweep_phase("float32", ["--set", f"data_path={data}"],
-                                                Path(tmp))
+        with capture_sweeps(fold_sweep) as seen:
+            sweep_launches, sweep_run = sweep_phase("float32", ["--set", f"data_path={data}"],
+                                                    Path(tmp))
         sweep_phase("bfloat16", ["--set", f"data_path={data}"], Path(tmp))
         ensemble_phase(sweep_run)
-        phase9(Path(tmp) / "phase9")
+        wesad = phase9(Path(tmp) / "phase9")
+        phase10(Path(tmp) / "phase10", wesad, loso_data, data, seen[0])
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
     # default execution), the fused pair's on the float32 serial LOSO path

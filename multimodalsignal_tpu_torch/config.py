@@ -5,8 +5,9 @@ overrides and `validate_experiment`).
 The port reads the JAX package's run `config.json` unchanged (the same
 frozen dataclasses; `config_from_dict` ignores keys it does not know), and
 the `config.json` it writes reads back in the JAX package's
-`config_from_dict`. `PreprocessConfig` drives data/preprocess.py. The
-hierarchical config is not ported yet (ROADMAP.md, queue 1, item 2).
+`config_from_dict`. `PreprocessConfig` drives data/preprocess.py;
+`HierarchicalConfig` the two-stage experiment (experiments/hierarchical.py,
+parallel/hierarchical_sweep.py).
 """
 
 from __future__ import annotations
@@ -253,6 +254,35 @@ def validate_experiment(cfg: ExperimentConfig,
             "feature_path=./data/chest_feature)")
 
 
+@dataclass(frozen=True)
+class HierarchicalConfig:
+    """Mirrors reference main.py:22-40 (two-stage ternary classifier): M1
+    stress vs non-stress, M2 amusement vs baseline, each with its own
+    channels and model."""
+
+    run_name: str = "hierarchical_binary"
+    m1_channels: tuple[str, ...] = ("chest_ECG", "chest_EDA", "chest_Resp")
+    m1_model: ModelConfig = field(default_factory=ModelConfig)
+    m2_channels: tuple[str, ...] = ("chest_ECG", "chest_EDA", "chest_Resp")
+    m2_model: ModelConfig = field(
+        default_factory=lambda: ModelConfig(gru_hidden_size=32, gru_num_layers=1))
+    base: ExperimentConfig = field(default_factory=ExperimentConfig)
+
+
+def _ordered_union(a: tuple[str, ...], b: tuple[str, ...]) -> list[str]:
+    seen = dict.fromkeys(a)
+    seen.update(dict.fromkeys(b))
+    return list(seen)
+
+
+def union_channel_indices(a: tuple[str, ...], b: tuple[str, ...]
+                          ) -> tuple[list[str], list[int], list[int]]:
+    """(the order-keeping union of channels a and b, a's indices into it,
+    b's indices into it): the two stages' channels of a hierarchical run."""
+    union = _ordered_union(a, b)
+    return union, [union.index(ch) for ch in a], [union.index(ch) for ch in b]
+
+
 def _to_jsonable(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
@@ -293,10 +323,35 @@ def load_config_file(path: Path | str) -> dict:
     return json.loads(text)
 
 
+def _parse_value(raw: str):
+    """Parse a --set value: JSON first, then a comma list, then a string."""
+    try:
+        return json.loads(raw)
+    except (json.JSONDecodeError, ValueError):
+        if "," in raw:
+            return tuple(v.strip() for v in raw.split(",") if v.strip())
+        return raw
+
+
+def load_experiment_config(cls: type, config_path: Path | str | None, sets: list[str]) -> Any:
+    """A CLI's config: `cls` from the file at config_path (defaults without
+    it), then each `--set KEY=VALUE` of `sets` applied as a dotted-path
+    override."""
+    cfg = config_from_dict(cls, load_config_file(config_path)) if config_path else cls()
+    overrides = {}
+    for item in sets:
+        key, _, raw = item.partition("=")
+        overrides[key.strip()] = _parse_value(raw.strip())
+    return apply_overrides(cfg, overrides) if overrides else cfg
+
+
 _NESTED = {
     "model": ModelConfig,
     "trainer": TrainerConfig,
     "early_stopping": EarlyStoppingConfig,
+    "base": ExperimentConfig,
+    "m1_model": ModelConfig,
+    "m2_model": ModelConfig,
 }
 
 

@@ -15,7 +15,10 @@ or programmatically::
 
 or, with --run-dir and no --fold (or --fold all), the fold ensemble
 (`EnsemblePredictor.from_run(run_dir)`): every fold's checkpoint a lane of
-one FoldStackedModel, the softmax averaged over folds.
+one FoldStackedModel, the softmax averaged over folds. A hierarchical run
+(its config.json has m1_channels; serial or sharded) needs --fold
+<subject> and goes to `HierarchicalPredictor.from_run(run_dir, fold)`:
+that fold's M1 and M2 on the union channels, labels by the hard gate.
 
 Pipeline per recording: resample 700 -> 128 Hz, slide 60 s / 10 s windows
 over the whole recording, normalize with the recording's own statistics,
@@ -24,9 +27,8 @@ takes each window's handcrafted features, extracted from the unnormalized
 resampled chest sensors (recording_to_hybrid_windows); its run must carry
 the feature extractor version this package computes (a missing stamp warns,
 another version raises). Inference runs on "cuda" unless the caller passes
-device="cpu"; asking for CUDA where there is none raises. The hierarchical
-predictor and wrist channels are not ported yet (ROADMAP.md, queue 1,
-items 2 and 4).
+device="cpu"; asking for CUDA where there is none raises. Wrist channels
+are not ported yet (ROADMAP.md, queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ from multimodalsignal_tpu_torch.config import (
     ALL_CHANNEL_NAMES,
     CHEST_SENSORS,
     ExperimentConfig,
+    HierarchicalConfig,
     config_from_dict,
+    union_channel_indices,
 )
 from multimodalsignal_tpu_torch.data.dataset import normalize_features, normalize_subject
 from multimodalsignal_tpu_torch.data.features import (
@@ -241,6 +245,19 @@ def num_windows(x) -> int:
     return int((x[0] if isinstance(x, (tuple, list)) else x).shape[0])
 
 
+def padded_batches(x, batch_size: int):
+    """Yield (real windows, batch) over x (windows, or a hybrid pair) in
+    batches of exactly batch_size windows, float32, the last zero-padded."""
+    x = map_streams(lambda a: np.asarray(a, dtype=np.float32), x)
+    for i in range(0, num_windows(x), batch_size):
+        xb = map_streams(lambda a: a[i : i + batch_size], x)
+        n = num_windows(xb)
+        if n < batch_size:
+            xb = map_streams(lambda a: np.concatenate(
+                [a, np.zeros((batch_size - n,) + a.shape[1:], a.dtype)]), xb)
+        yield n, xb
+
+
 class Predictor:
     """Batched inference for one trained model on one device.
 
@@ -314,16 +331,9 @@ class Predictor:
         """[N, C, T] (or the hybrid pair) -> probs [N, num_classes]. Every
         forward takes exactly batch_size windows: the last batch is
         zero-padded."""
-        x = map_streams(lambda a: np.asarray(a, dtype=np.float32), x)
-        n_all = num_windows(x)
         probs = []
         with torch.inference_mode():
-            for i in range(0, n_all, batch_size):
-                xb = map_streams(lambda a: a[i : i + batch_size], x)
-                n = num_windows(xb)
-                if n < batch_size:
-                    xb = map_streams(lambda a: np.concatenate(
-                        [a, np.zeros((batch_size - n,) + a.shape[1:], a.dtype)]), xb)
+            for n, xb in padded_batches(x, batch_size):
                 xt = map_streams(lambda a: torch.from_numpy(a).to(self.device), xb)
                 probs.append(self.predict_tensor(xt)[:n].cpu().numpy())
         return np.concatenate(probs, axis=0)
@@ -399,6 +409,92 @@ class EnsemblePredictor(Predictor):
                    device, **_geometry(cfg, raw.get("preprocess_meta")))
 
 
+class HierarchicalPredictor:
+    """Composed two-stage ternary inference from one fold of a hierarchical
+    run (counterpart of the JAX package's HierarchicalPredictor; reference
+    main.py:159-247).
+
+    M1 (stress vs non-stress) and M2 (amusement vs baseline) each see their
+    own channels of union-channel windows. Labels are the reference's hard
+    gate (main.py:241-244): stress where M1 says stress, else M2's class.
+    Probabilities are the product rule [p1(non) p2(base), p1(non) p2(fun),
+    p1(stress)]; their argmax can differ from the gated label near M1's
+    boundary."""
+
+    def __init__(self, m1: Predictor, m2: Predictor):
+        self.m1, self.m2 = m1, m2
+        union, i1, i2 = union_channel_indices(m1.cfg.channels_to_use, m2.cfg.channels_to_use)
+        self.channels = tuple(union)
+        self.device = m1.device
+        self._i1 = torch.tensor(i1, device=self.device)
+        self._i2 = torch.tensor(i2, device=self.device)
+        self.class_names = CLASS_NAMES["ternary"]
+        # Geometry and normalization travel with the stages (one run).
+        self.original_fs = m1.original_fs
+        self.target_fs = m1.target_fs
+        self.window_sec = m1.window_sec
+        self.stride_sec = m1.stride_sec
+        self.normalization = m1.cfg.normalization
+
+    @classmethod
+    def from_run(cls, run_dir: Path | str, fold: str,
+                 device: str | torch.device = "cuda") -> "HierarchicalPredictor":
+        """One fold's M1 and M2 checkpoints of a hierarchical run directory
+        (serial or sharded: fold_test_on_<fold>/model_m{1,2}/)."""
+        import dataclasses
+
+        run_dir = Path(run_dir)
+        raw = json.loads((run_dir / "config.json").read_text())
+        hcfg = config_from_dict(HierarchicalConfig, raw)
+        meta = raw.get("preprocess_meta")
+        fold_dir = run_dir / f"fold_test_on_{fold}"
+
+        def stage(channels, model_cfg, mode, sub):
+            cfg = dataclasses.replace(hcfg.base, channels_to_use=tuple(channels),
+                                      model=model_cfg, classification_mode=mode,
+                                      num_classes=2)
+            return Predictor.from_cfg_and_checkpoint(
+                cfg, fold_dir / sub / "best_model.msgpack", meta, device)
+
+        return cls(stage(hcfg.m1_channels, hcfg.m1_model, "stress_binary", "model_m1"),
+                   stage(hcfg.m2_channels, hcfg.m2_model, "amusement_binary", "model_m2"))
+
+    def windows_from_recording(self, pkl_path: Path | str) -> tuple[np.ndarray, np.ndarray]:
+        return recording_to_windows(
+            pkl_path, list(self.channels), self.normalization, self.original_fs,
+            self.target_fs, self.window_sec, self.stride_sec)
+
+    def predict_tensor(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x [B, C_union, T] on the device -> (product probs [B, 3], gated
+        labels [B])."""
+        p1 = torch.softmax(self.m1.model(x.index_select(1, self._i1)), dim=-1)
+        p2 = torch.softmax(self.m2.model(x.index_select(1, self._i2)), dim=-1)
+        probs = torch.stack([p1[:, 0] * p2[:, 0], p1[:, 0] * p2[:, 1], p1[:, 1]], dim=-1)
+        labels = torch.where(p1.argmax(dim=-1) == 1, 2, p2.argmax(dim=-1))
+        return probs, labels
+
+    def predict_windows_labeled(self, x: np.ndarray, batch_size: int = 64
+                                ) -> tuple[np.ndarray, np.ndarray]:
+        """[N, C_union, T] -> (product probs [N, 3], gated labels [N]); every
+        forward takes exactly batch_size windows, the last zero-padded."""
+        probs, labels = [], []
+        with torch.inference_mode():
+            for n, xb in padded_batches(x, batch_size):
+                p, lab = self.predict_tensor(torch.from_numpy(xb).to(self.device))
+                probs.append(p[:n].cpu().numpy())
+                labels.append(lab[:n].cpu().numpy())
+        return np.concatenate(probs), np.concatenate(labels)
+
+    def predict_windows(self, x: np.ndarray, batch_size: int = 64) -> np.ndarray:
+        return self.predict_windows_labeled(x, batch_size)[0]
+
+    def predict_recording(self, pkl_path: Path | str) -> PredictionResult:
+        x, starts_sec = self.windows_from_recording(pkl_path)
+        probs, labels = self.predict_windows_labeled(x)
+        return PredictionResult(starts_sec=starts_sec, labels=labels, probs=probs,
+                                class_names=self.class_names)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", help="one fold's best_model.msgpack")
@@ -406,7 +502,7 @@ def main(argv=None) -> None:
     p.add_argument("--run-dir", help="run directory; replaces --checkpoint/--config")
     p.add_argument("--fold", default="all",
                    help="with --run-dir: a subject id, or 'all' for the fold "
-                        "ensemble (default)")
+                        "ensemble (default); a hierarchical run needs a subject id")
     p.add_argument("--pkl", required=True, help="raw WESAD S*.pkl recording")
     p.add_argument("--out", default=None, help="write JSON here (default stdout)")
     p.add_argument("--device", default="cuda",
@@ -415,7 +511,14 @@ def main(argv=None) -> None:
     if args.run_dir:
         if args.checkpoint or args.config:
             p.error("--run-dir replaces --checkpoint/--config")
-        predictor = EnsemblePredictor.from_run(args.run_dir, args.fold, args.device)
+        raw = json.loads((Path(args.run_dir) / "config.json").read_text())
+        if "m1_channels" in raw:   # a hierarchical run: the composed two stages
+            if args.fold == "all":
+                p.error("hierarchical runs need --fold <subject> "
+                        "(per-fold M1+M2 composition)")
+            predictor = HierarchicalPredictor.from_run(args.run_dir, args.fold, args.device)
+        else:
+            predictor = EnsemblePredictor.from_run(args.run_dir, args.fold, args.device)
     elif args.checkpoint and args.config:
         predictor = Predictor.from_files(args.checkpoint, args.config, args.device)
     else:

@@ -7,6 +7,9 @@
     python -m multimodalsignal_tpu_torch.main --from-pickles ./WESAD
     python -m multimodalsignal_tpu_torch.main --set model.name=hybrid_cnn_gru \
         --set raw_align_path=./data/chest_raw_align --set feature_path=./data/chest_feature
+    python -m multimodalsignal_tpu_torch.main --seeds 42 43 44 45 [--seed-chunk 2]
+    python -m multimodalsignal_tpu_torch.main --hierarchical [--execution serial] \
+        --set base.trainer.epochs=50 --set m2_model.gru_hidden_size=32
 
 Creates <output_dir>/<run_name>/run_<timestamp>/, writes config.json there
 and runs the LOSO experiment on the GPU, or on the CPU with --device cpu:
@@ -15,45 +18,36 @@ all in lockstep on one device), which is the config's default
 fold_execution, or with --execution serial one fold after another
 (experiments/loso.py). --from-pickles stages the sweep straight from the
 raw WESAD pickles (sharded only; the serial path reads the preprocess CLI's
-npy files). Not ported yet, and refused with a non-zero exit rather than run
-another way: `--hierarchical` and `--seeds`.
+npy files). --seeds runs the seed-replicated sweep (parallel/
+replicated_sweep.py: folds x seeds as lanes, sharded only; --seed-chunk
+bounds the seed groups a launch). --hierarchical takes a HierarchicalConfig
+(overrides under base., m1_model., m2_model.) and runs the two-stage
+experiment: two sweeps and a composed evaluation (parallel/
+hierarchical_sweep.py, the default) or, with --execution serial, fold
+after fold (experiments/hierarchical.py); --from-pickles goes into its
+base config, sharded only.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 from pathlib import Path
 
 from multimodalsignal_tpu_torch.config import (
     ExperimentConfig,
-    apply_overrides,
-    config_from_dict,
-    load_config_file,
+    HierarchicalConfig,
+    load_experiment_config,
     validate_experiment,
 )
-
-
-def _not_ported(item: int, what: str) -> str:
-    return f"is not ported yet (ROADMAP.md, queue 1, item {item}: {what})"
-
-
-def _parse_value(raw: str):
-    """Parse a --set value: JSON first, then a comma list, then a string."""
-    try:
-        return json.loads(raw)
-    except (json.JSONDecodeError, ValueError):
-        if "," in raw:
-            return tuple(v.strip() for v in raw.split(",") if v.strip())
-        return raw
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", type=Path, default=None,
-                   help="JSON or YAML config file (ExperimentConfig)")
+                   help="JSON or YAML config file (ExperimentConfig, or "
+                        "HierarchicalConfig with --hierarchical)")
     p.add_argument("--execution", choices=("serial", "sharded"), default=None,
                    help="fold execution strategy (overrides the config's "
                         "fold_execution, sharded by default)")
@@ -64,9 +58,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to train (default cuda; raises without it)")
     p.add_argument("--hierarchical", action="store_true",
-                   help="the two-stage ternary experiment (not ported yet)")
+                   help="the two-stage ternary experiment (reference main.py:20)")
     p.add_argument("--seeds", nargs="+", type=int, default=None,
-                   help="seed-replicated sweep (not ported yet)")
+                   help="seed-replicated sweep: the whole LOSO at each seed, folds "
+                        "x seeds as lanes of one sweep, with training-noise error "
+                        "bars (parallel/replicated_sweep.py; sharded only)")
+    p.add_argument("--seed-chunk", type=int, default=None,
+                   help="with --seeds: at most this many seed groups a launch, one "
+                        "launch after another (bounds device memory); halved on "
+                        "running out of device memory either way")
     p.add_argument("--from-pickles", type=Path, default=None, metavar="WESAD",
                    help="stage straight from the raw WESAD pickles at this root: "
                         "preprocessing (resample + window) and the corpus pack in "
@@ -75,44 +75,70 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_config(args) -> ExperimentConfig:
-    cfg = (config_from_dict(ExperimentConfig, load_config_file(args.config))
-           if args.config is not None else ExperimentConfig())
-    overrides = {}
-    for item in args.set:
-        key, _, raw = item.partition("=")
-        overrides[key.strip()] = _parse_value(raw.strip())
-    if overrides:
-        cfg = apply_overrides(cfg, overrides)
+def load_config(args) -> ExperimentConfig | HierarchicalConfig:
+    cfg = load_experiment_config(HierarchicalConfig if args.hierarchical else ExperimentConfig,
+                                 args.config, args.set)
     if args.from_pickles is not None:
-        cfg = dataclasses.replace(cfg, from_pickles=str(args.from_pickles))
+        if args.hierarchical:
+            cfg = dataclasses.replace(cfg, base=dataclasses.replace(
+                cfg.base, from_pickles=str(args.from_pickles)))
+        else:
+            cfg = dataclasses.replace(cfg, from_pickles=str(args.from_pickles))
     return cfg
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
-    if args.hierarchical:
-        raise SystemExit("--hierarchical (the two-stage experiment) "
-                         + _not_ported(2, "the hierarchical experiment"))
-    if args.seeds:
-        raise SystemExit("--seeds (the seed-replicated sweep) "
-                         + _not_ported(3, "the other sweeps"))
-    cfg = load_config(args)
-    execution = args.execution or cfg.fold_execution
-    if cfg.from_pickles and execution != "sharded":
-        raise SystemExit("--from-pickles requires --execution sharded (the serial "
-                         "path reads the preprocess CLI's npy files)")
-    validate_experiment(cfg, fold_execution=execution)
-
-    from multimodalsignal_tpu_torch.experiments.loso import run_simple_experiment
     from multimodalsignal_tpu_torch.experiments.predict import resolve_device
-    from multimodalsignal_tpu_torch.parallel.fold_sweep import run_sharded_experiment
     from multimodalsignal_tpu_torch.utils.run import make_run_dir
 
+    args = build_parser().parse_args(argv)
+    cfg = load_config(args)
+    if args.hierarchical:
+        execution = args.execution or cfg.base.fold_execution
+        if args.seeds:
+            raise SystemExit(
+                "--seeds is not supported with --hierarchical (the "
+                "seed-replicated sweep covers the simple LOSO experiment); "
+                "it would otherwise be silently ignored.")
+        if cfg.base.from_pickles and execution != "sharded":
+            raise SystemExit(
+                "--from-pickles requires --execution sharded (the serial "
+                "hierarchical path reads the preprocessed npy contract)")
+        from multimodalsignal_tpu_torch.experiments.hierarchical import (
+            run_hierarchical_experiment,
+        )
+        from multimodalsignal_tpu_torch.parallel.hierarchical_sweep import (
+            run_hierarchical_sharded,
+        )
+
+        run = run_hierarchical_experiment if execution == "serial" else run_hierarchical_sharded
+        output_dir = cfg.base.output_dir
+    else:
+        execution = args.execution or cfg.fold_execution
+        if cfg.from_pickles and execution != "sharded":
+            raise SystemExit("--from-pickles requires --execution sharded (the serial "
+                             "path reads the preprocess CLI's npy files)")
+        if args.seeds and execution != "sharded":
+            raise SystemExit("--seeds requires --execution sharded "
+                             "(the replicated sweep is a sharded program)")
+        validate_experiment(cfg, fold_execution=execution)
+        from multimodalsignal_tpu_torch.experiments.loso import run_simple_experiment
+        from multimodalsignal_tpu_torch.parallel.fold_sweep import run_sharded_experiment
+        from multimodalsignal_tpu_torch.parallel.replicated_sweep import (
+            run_replicated_experiment,
+        )
+
+        def run_replicated(cfg, run_dir, device):
+            run_replicated_experiment(cfg, tuple(args.seeds), run_dir, device=device,
+                                      seed_chunk=args.seed_chunk)
+
+        run = (run_replicated if args.seeds else
+               run_simple_experiment if execution == "serial" else run_sharded_experiment)
+        output_dir = cfg.output_dir
+
     device = resolve_device(args.device)
-    run_dir = make_run_dir(args.output_dir or Path(cfg.output_dir), cfg.run_name)
+    run_dir = make_run_dir(args.output_dir or Path(output_dir), cfg.run_name)
     print(f"Run directory: {run_dir}")
-    run = run_simple_experiment if execution == "serial" else run_sharded_experiment
     run(cfg, run_dir, device=device)
 
 

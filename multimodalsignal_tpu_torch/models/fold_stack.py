@@ -44,6 +44,7 @@ ops/gru_pallas.py route it):
 from __future__ import annotations
 
 import copy
+from collections.abc import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -103,12 +104,15 @@ class FoldStackedModel(nn.Module):
         owner, _, leaf = name.rpartition(".")
         setattr(self.get_submodule(owner), leaf, value)
 
-    def forward(self, x, generator: torch.Generator | None = None,
+    def forward(self, x, generators: Sequence[torch.Generator] | None = None,
                 update: torch.Tensor | None = None) -> torch.Tensor:
         """x [F, B, C, T] -> logits [F, B, K] float32; a hybrid model's lanes
         take the pair (x, feat [F, B, nF]). In training mode, `update` (bool
         [F]) names the folds whose batch-norm running statistics move (all
-        of them without it); `generator` feeds dropout."""
+        of them without it); `generators` feed dropout: of G generators,
+        generator g draws the masks of the g-th of G equal groups of lanes
+        (one generator for a plain sweep; a seed-replicated sweep's seed
+        groups, parallel/replicated_sweep.py)."""
         feat = None
         if hasattr(self, "feat1"):
             x, feat = x
@@ -127,13 +131,24 @@ class FoldStackedModel(nn.Module):
         out_ch, steps = h.shape[1] // n_f, h.shape[2]
         # Time-major rows (t, b) per lane for the input projections: one copy.
         seq = h.view(batch, n_f, out_ch, steps).permute(1, 3, 0, 2)
-        y = self._gru(seq.reshape(n_f, steps * batch, out_ch), steps, batch, generator)
+        y = self._gru(seq.reshape(n_f, steps * batch, out_ch), steps, batch, generators)
         if feat is not None:   # the hybrid model's feature branch
             f = torch.relu(self._dense(self.feat1, feat.to(dt)))
             y = torch.cat([y.to(dt), f], dim=-1)
         y = torch.relu(self._dense(self.head1, y))
-        y = dropout(y, self.dropout, generator, self.training)
+        y = self._dropout(y, self.dropout, generators)
         return self._dense(self.head2, y).float()
+
+    def _dropout(self, y: torch.Tensor, rate: float,
+                 generators: Sequence[torch.Generator] | None) -> torch.Tensor:
+        """Dropout of y [F, ...], each generator for its own equal group of
+        lanes (the masks of group g are those a sweep of that group alone
+        would draw); torch's default generator without any."""
+        if not self.training or rate <= 0.0:
+            return y
+        generators = generators or [None]
+        groups = y.chunk(len(generators), dim=0)
+        return torch.cat([dropout(part, rate, g, True) for part, g in zip(groups, generators)])
 
     def _dense(self, layer, y: torch.Tensor) -> torch.Tensor:
         """y [F, N, in] @ weight [F, out, in]^T + bias [F, out], in dtype."""
@@ -165,7 +180,7 @@ class FoldStackedModel(nn.Module):
         return F.max_pool1d(torch.relu(h.to(self.dtype)), 3, stride=2, padding=1)
 
     def _gru(self, seq: torch.Tensor, steps: int, batch: int,
-             generator: torch.Generator | None) -> torch.Tensor:
+             generators: Sequence[torch.Generator] | None) -> torch.Tensor:
         """seq [F, T*B, in], rows time-major -> the last step's [F, B, 2H]."""
         gru, dt = self.gru, self.dtype
         impl = self.impl
@@ -196,7 +211,7 @@ class FoldStackedModel(nn.Module):
                 y_b = gru_sequence(xg_b, whb, bhb, h0, reverse=True)
             out = torch.cat([y_f.to(dt), y_b.to(dt)], dim=-1)      # [F, T, B, 2H]
             if layer < last:
-                out = dropout(out, gru.dropout, generator, self.training)
+                out = self._dropout(out, gru.dropout, generators)
             seq = out.view(n_f, steps * batch, 2 * hid)
         return out[:, -1]
 

@@ -367,9 +367,45 @@ int walk_launch(const void* xg, const void* w_hh, const void* b_hh, const void* 
                                             hidden, reverse, stream);
 }
 
+// Blocks of the walk kernel (LaneMajor) one SM holds at once for a tile of R
+// rows, from CUDA's occupancy calculator; a negative CUDA error if it fails.
+template <typename T, int R, bool kRegs>
+int walk_blocks_tile(int hidden) {
+  const size_t smem = walk_shared_bytes(hidden, sizeof(T), R);
+  cudaError_t err = cudaFuncSetAttribute(gru_walk_kernel<T, LaneMajor, R, kRegs>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, gru_walk_kernel<T, LaneMajor, R, kRegs>, walk_threads(hidden), smem);
+  return err == cudaSuccess ? blocks : -int(err);
+}
+
+template <typename T>
+int walk_blocks_per_sm(int batch, int lanes, int hidden) {
+  const bool regs = walk_in_registers(hidden);
+  switch (walk_row_tile(batch, lanes, hidden)) {
+    case 1:
+      return regs ? walk_blocks_tile<T, 1, true>(hidden) : walk_blocks_tile<T, 1, false>(hidden);
+    case 2:
+      return regs ? walk_blocks_tile<T, 2, true>(hidden) : walk_blocks_tile<T, 2, false>(hidden);
+    case 4:
+      return regs ? walk_blocks_tile<T, 4, true>(hidden) : walk_blocks_tile<T, 4, false>(hidden);
+    default:
+      return regs ? walk_blocks_tile<T, 8, true>(hidden) : -int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Walk blocks one SM holds at once for this shape (gru_fwd_fb's wave count
+// of ceil(B / R) * lanes blocks follows).
+int gru_walk_blocks_per_sm(int batch, int lanes, int hidden, int bf16) {
+  return bf16 ? walk_blocks_per_sm<__nv_bfloat16>(batch, lanes, hidden)
+              : walk_blocks_per_sm<float>(batch, lanes, hidden);
+}
 
 // Shared memory one block of gru_fwd / gru_fwd_fb / gru_bifwd needs for a
 // tile of `rows`.

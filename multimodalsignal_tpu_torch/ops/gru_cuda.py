@@ -347,6 +347,8 @@ def _library() -> ctypes.CDLL:
     lib.gru_walk_shared_bytes.restype = ctypes.c_longlong
     lib.gru_walk_row_tile.argtypes = [i32, i32, i32]
     lib.gru_walk_row_tile.restype = i32
+    lib.gru_walk_blocks_per_sm.argtypes = [i32] * 4
+    lib.gru_walk_blocks_per_sm.restype = i32
     return lib
 
 

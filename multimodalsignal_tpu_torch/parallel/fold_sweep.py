@@ -219,11 +219,14 @@ class FoldSweep:
     and finalize programs. `variables`, if given, is a stacked flax
     {"params", "batch_stats"} pair (leaves [F, ...]) to start from;
     otherwise fold f is initialised from torch's generator seeded with
-    `init_seeds[f]`."""
+    `init_seeds[f]`. Dropout draws from one generator per seed of
+    `dropout_seeds` (default: cfg.seed), each for its own equal group of
+    lanes (the seed groups of a replicated sweep)."""
 
     def __init__(self, corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
                  device: str | torch.device = "cuda", variables: dict | None = None,
-                 init_seeds: list[int] | None = None):
+                 init_seeds: list[int] | None = None,
+                 dropout_seeds: tuple[int, ...] | None = None):
         tcfg = cfg.trainer
         if tcfg.checkpoint_every > 0 or tcfg.resume:
             raise NotImplementedError(
@@ -260,8 +263,11 @@ class FoldSweep:
         self.test_grid = self.to_device(_stack_grids(
             sequential_grid(fb.test_pool[f], fb.n_test[f], grid_steps(fb.n_test, batch), batch)
             for f in range(folds)))
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed)
+        self.generators = [torch.Generator(device=self.device).manual_seed(s)
+                           for s in (dropout_seeds or (cfg.seed,))]
+        if folds % len(self.generators):
+            raise ValueError(f"{folds} lanes do not split into {len(self.generators)} "
+                             "equal seed groups")
         self.pl = plateau_init(tcfg.learning_rate, folds)
         self.es = early_stopping_init(folds)
         self.stopped = np.zeros(folds, bool)
@@ -298,7 +304,7 @@ class FoldSweep:
         stepped) per fold, device tensors [F]."""
         self.model.train()
         valid = w.sum(dim=1) > 0
-        logits = self.model(self._batch(idx), self.generator, update=valid)
+        logits = self.model(self._batch(idx), self.generators, update=valid)
         loss, wsum = cross_entropy(logits, self.y[idx], w, self.cw)
         self.opt.zero_grad()
         loss.sum().backward()
@@ -390,11 +396,33 @@ def fold_streams(seed: int, folds: int) -> tuple[list[int], list[np.random.Gener
             [np.random.default_rng(s) for s in shuffle.spawn(folds)])
 
 
+def seed_group_streams(seeds: tuple[int, ...], lanes: int
+                       ) -> tuple[list[int], list[np.random.Generator]]:
+    """fold_streams of `lanes` lanes in len(seeds) equal seed groups: lane
+    s*F+f takes fold f's streams of a plain F-fold sweep at seeds[s]."""
+    per_group = lanes // len(seeds)
+    if per_group * len(seeds) != lanes:
+        raise ValueError(f"{lanes} lanes are not {len(seeds)} equal seed groups")
+    init_seeds, rngs = [], []
+    for seed in seeds:
+        group_init, group_rngs = fold_streams(seed, per_group)
+        init_seeds += group_init
+        rngs += group_rngs
+    return init_seeds, rngs
+
+
 def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
-                   device: str | torch.device = "cuda") -> SweepResult:
+                   device: str | torch.device = "cuda",
+                   seeds: tuple[int, ...] | None = None) -> SweepResult:
     """Train every fold in lockstep on one device and evaluate it; returns
     per-fold stacked results (fold axis first). The stop flags are read
     after every epoch and the sweep ends once every fold has stopped.
+
+    `seeds` (a seed-replicated sweep, parallel/replicated_sweep.py): fb's
+    lanes are len(seeds) copies of one fold batch, and lane s*F+f takes
+    fold f's streams of a plain sweep at seeds[s] (fold_streams and the
+    dropout generator), so seed group s is the sweep run with seeds=
+    (seeds[s],); seeds=(cfg.seed,) is the plain sweep.
 
     Both values of cfg.sweep_dispatch run so. The JAX package's "segmented"
     scans several epochs in one device program to save host dispatches;
@@ -405,8 +433,9 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
         raise ValueError(f"unknown sweep_dispatch {cfg.sweep_dispatch!r}: expected one of "
                          f"{DISPATCHES}")
     folds = fb.train_pool.shape[0]
-    init_seeds, rngs = fold_streams(cfg.seed, folds)
-    sweep = FoldSweep(corpus, fb, cfg, device, init_seeds=init_seeds)
+    seeds = (cfg.seed,) if seeds is None else tuple(seeds)
+    init_seeds, rngs = seed_group_streams(seeds, folds)
+    sweep = FoldSweep(corpus, fb, cfg, device, init_seeds=init_seeds, dropout_seeds=seeds)
     epochs = cfg.trainer.epochs
     logs = []
     t_train = time.time()
@@ -437,20 +466,24 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
 
 
 def stage_corpus(cfg: ExperimentConfig, run_output_dir: Path,
-                 all_channel_names: list[str] | None = None) -> PackedCorpus:
-    """Stage the sweep's corpus and write the run's config.json: straight
-    from the pickles (its preprocess meta is the pickles' windowing), the
-    hybrid raw-align and feature pack, or the npy pack."""
+                 all_channel_names: list[str] | None = None,
+                 save_extra: dict | None = None) -> PackedCorpus:
+    """Stage the sweep's corpus and write the run's config.json (with
+    `save_extra`'s keys beside the config): straight from the pickles (its
+    preprocess meta is the pickles' windowing), the hybrid raw-align and
+    feature pack, or the npy pack."""
+    extra = save_extra or {}
     if cfg.from_pickles:
         # validate_experiment has refused the hybrid model here.
         corpus, _, meta = pack_corpus_from_pickles(
             cfg.from_pickles, list(cfg.subjects), list(cfg.channels_to_use),
             cfg.classification_mode, cfg.normalization)
-        save_config(cfg, run_output_dir / "config.json", extra={"preprocess_meta": meta})
+        save_config(cfg, run_output_dir / "config.json",
+                    extra={"preprocess_meta": meta, **extra})
         return corpus
     hybrid = cfg.model.name == "hybrid_cnn_gru"
     save_config(cfg, run_output_dir / "config.json",
-                extra={"preprocess_meta": experiment_preprocess_meta(cfg)})
+                extra={"preprocess_meta": experiment_preprocess_meta(cfg), **extra})
     if all_channel_names is None:
         all_channel_names = read_channel_names(cfg.raw_align_path if hybrid else cfg.data_path)
     if hybrid:

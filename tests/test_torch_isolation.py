@@ -8,8 +8,9 @@ every module of the port (the trainer, optimizer, metrics and checkpoint
 writer among them), runs one CPU forward and one CPU training epoch that
 writes a checkpoint, and checks that the Predictor, the Trainer and the
 experiment CLI raise without CUDA when no device is named. The data front
-end (preprocess, features, synthetic, protocol) and the hybrid model are
-among the modules imported."""
+end (preprocess, features, synthetic, protocol), the hybrid model and the
+experiments beyond plain LOSO (hierarchical, its sweep, the
+replicated sweep, ablation) are among the modules imported."""
 
 import subprocess
 import sys
@@ -84,7 +85,9 @@ SCRIPT = textwrap.dedent("""
             raise AssertionError("Trainer ran without CUDA instead of raising")
     for name in ("main", "experiments.loso", "experiments.splits", "utils.run",
                  "data.preprocess", "data.features", "data.synthetic", "data.protocol",
-                 "models.hybrid", "parallel.fold_sweep"):
+                 "models.hybrid", "parallel.fold_sweep", "experiments.hierarchical",
+                 "experiments.ablation", "parallel.hierarchical_sweep",
+                 "parallel.replicated_sweep"):
         assert f"multimodalsignal_tpu_torch.{name}" in names, name
     from multimodalsignal_tpu_torch.main import main
     with tempfile.TemporaryDirectory() as tmp:

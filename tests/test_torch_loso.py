@@ -222,17 +222,14 @@ def test_main_cli_on_cpu_writes_the_run_directory(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--execution", "serial", "--hierarchical"], "--hierarchical"),
-    (["--execution", "serial", "--seeds", "1", "2"], "--seeds"),
     (["--execution", "serial", "--from-pickles", "WESAD"], "--from-pickles"),
 ])
 def test_main_refuses_what_is_not_ported(argv, what, tmp_path):
-    """Each refusal of what is not ported names its own ROADMAP.md queue 1
-    item; --from-pickles is ported for the sharded sweep and refused with
-    --execution serial, as the JAX package refuses it."""
-    item = {"--hierarchical": "ROADMAP.md, queue 1, item 2: the hierarchical experiment",
-            "--seeds": "ROADMAP.md, queue 1, item 3: the other sweeps",
-            "--from-pickles": "requires --execution sharded"}[what]
+    """--from-pickles is ported for the sharded sweep and refused with
+    --execution serial, as the JAX package refuses it. (--hierarchical and
+    --seeds are ported: tests/test_torch_hierarchical.py and
+    tests/test_torch_replicated.py hold their refusals.)"""
+    item = {"--from-pickles": "requires --execution sharded"}[what]
     with pytest.raises(SystemExit) as exc:
         pmain.main(argv + ["--device", "cpu", "--output-dir", str(tmp_path)])
     assert what in str(exc.value.code)
