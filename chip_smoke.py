@@ -171,6 +171,38 @@ Phases, in order; any failure raises and the script exits non-zero:
        models cnn_gru_attention and cnn_gru, sharded, 2 epochs): four
        sweeps' launches, ablation_summary.txt and four finite points.
     Then the phase's seconds.
+11. The deployment tier, on the runs of phases 7, 9 and 10:
+    a. `experiments.export` (in process) of phase 7's f32 run (--fold all:
+       the 15-fold ensemble, and --fold S2), its bf16 run (--fold S2) and
+       phase 9's f32 hybrid run (--fold S2, artifact version 2); each
+       artifact loaded on the card against its EnsemblePredictor or
+       Predictor on the card (PROB_ATOL) and against itself on the CPU, for
+       1, 7, 64 and 100 windows, with TF32 off and again as the CLIs leave
+       it (both within PROB_ATOL of the TF32-off Predictor); the padded-64
+       forward of the artifact (cuDNN's GRU) against the Predictor's (the
+       hand-written kernels), with a trace of the f32 artifacts'; the
+       ensemble artifact run in a subprocess by torch alone, without the
+       package in sys.modules, then there through ExportedPredictor, whose
+       load packs each GRU's weights into cuDNN's layout (cuDNN's
+       weight-copy warning must not appear); `serving --artifact`
+       answering /v1/predict with backend artifact-ensemble[15];
+    b. the `experiments.streaming` CLI (in process, counted) on the phase 9
+       pickle S2 (8.5 minutes at 700 Hz): the ensemble on the native feed
+       (3 gru_fwd_fb a padded batch, no adjoint; an event a window of the
+       recording; the events the ensemble's on the stream's frozen-stats
+       windows, PROB_ATOL), one fold by --checkpoint --config --feed
+       resampled (1 gru_fwd_fb + 1 gru_fwd a batch; against the Predictor),
+       the hybrid fold S2, phase 10a's hierarchical fold S2 (1 gru_fwd_fb +
+       2 gru_fwd a batch; its labels the hard gate of its stages), the
+       ensemble artifact (no hand-written kernel; its events the checkpoint
+       stream's), and a stdin feed of 300 s at 700 Hz; events/s and the
+       real-time factor of each;
+    c. a reference-topology best_model.pt (default widths, numpy-seeded
+       weights) through the import CLI: Predictor.from_files on the card
+       against the reference model's softmax on the CPU (PROB_ATOL);
+    d. a random-weight checkpoint on chest_ECG, wrist_BVP, wrist_EDA:
+       predict_recording of the pickle on the card against the CPU.
+    Then the phase's seconds, and each part's.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -190,6 +222,7 @@ device and the repository.
 from __future__ import annotations
 
 import base64
+import collections
 import contextlib
 import dataclasses
 import io
@@ -219,11 +252,14 @@ from multimodalsignal_tpu_torch.config import (
     ModelConfig,
     TrainerConfig,
     config_from_dict,
+    save_config,
     union_channel_indices,
 )
 from multimodalsignal_tpu_torch.data import preprocess
 from multimodalsignal_tpu_torch.data.dataset import (
+    apply_channel_norm,
     build_dataset,
+    channel_norm_stats,
     from_pickles_meta,
     pack_corpus,
     pack_corpus_from_pickles,
@@ -232,12 +268,17 @@ from multimodalsignal_tpu_torch.data.dataset import (
     read_preprocess_meta,
 )
 from multimodalsignal_tpu_torch.data.features import FEATURE_EXTRACTOR_VERSION, FEATURE_NAMES
+from multimodalsignal_tpu_torch.data.resample import StreamingPolyResampler
 from multimodalsignal_tpu_torch.data.synthetic import DEFAULT_TASKS, write_synthetic_wesad
-from multimodalsignal_tpu_torch.experiments import ablation
+from multimodalsignal_tpu_torch.data.windowing import sliding_windows, window_starts
+from multimodalsignal_tpu_torch.experiments import ablation, export, import_torch, streaming
+from multimodalsignal_tpu_torch.experiments.export import ExportedPredictor
 from multimodalsignal_tpu_torch.experiments.predict import (
     EnsemblePredictor,
     HierarchicalPredictor,
     Predictor,
+    _recording_grid,
+    num_windows,
 )
 from multimodalsignal_tpu_torch.experiments.splits import loso_folds
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
@@ -260,7 +301,10 @@ from multimodalsignal_tpu_torch.parallel.fold_sweep import (
 )
 from multimodalsignal_tpu_torch.parallel.replicated_sweep import replicate_fold_batch
 from multimodalsignal_tpu_torch.serving import PredictionService, make_server
-from multimodalsignal_tpu_torch.train.checkpoints import read_flax_checkpoint
+from multimodalsignal_tpu_torch.train.checkpoints import (
+    read_flax_checkpoint,
+    write_initial_train_state,
+)
 from multimodalsignal_tpu_torch.train.trainer import Trainer, batch_indices, take
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
@@ -1590,11 +1634,16 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
 
 
 def serve_run_dir(run_dir: Path, requests) -> tuple[dict, list]:
-    """Start `python -m multimodalsignal_tpu_torch.serving --run-dir` in a
+    """serve_cli of `--run-dir run_dir`."""
+    return serve_cli(["--run-dir", str(run_dir)], requests)
+
+
+def serve_cli(args: list[str], requests) -> tuple[dict, list]:
+    """Start `python -m multimodalsignal_tpu_torch.serving *args` in a
     subprocess on a free port, read its /healthz, call requests(url) and
     stop the server; returns (the /healthz reply, what requests returned)."""
     proc = subprocess.Popen([sys.executable, "-m", "multimodalsignal_tpu_torch.serving",
-                             "--run-dir", str(run_dir), "--port", "0"],
+                             *args, "--port", "0"],
                             cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     try:
@@ -1605,7 +1654,7 @@ def serve_run_dir(run_dir: Path, requests) -> tuple[dict, list]:
             if match:
                 break
         else:
-            raise AssertionError("serving --run-dir did not start:\n" + "".join(seen))
+            raise AssertionError(f"serving {args[0]} did not start:\n" + "".join(seen))
         url = match.group(1)
         with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
             card_info = json.loads(resp.read())
@@ -1824,11 +1873,11 @@ def hybrid_ensemble_phase(run_dir: Path, pkl: Path) -> None:
           f"(max|probs - ensemble| = {err:.3e}) and HTTP {refused} without them")
 
 
-def phase9(root: Path) -> Path:
+def phase9(root: Path) -> tuple[Path, Path]:
     """Phase 9 (module docstring): 9a pickles and preprocessing, 9b the
     from-pickles sweep, 9c the hybrid sweep in float32 and bfloat16, 9d the
     hybrid serial LOSO, 9e the hybrid ensemble and its server. Returns the
-    WESAD root of the pickles."""
+    WESAD root of the pickles and the float32 hybrid sweep's run directory."""
     t_phase = time.perf_counter()
     root.mkdir()
     wesad, data, corpus, counts = pickles_phase(root)
@@ -1844,7 +1893,7 @@ def phase9(root: Path) -> Path:
     hybrid_serial_phase(data, root, counts)
     hybrid_ensemble_phase(hybrid_run, wesad / "S2" / "S2.pkl")
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
-    return wesad
+    return wesad, hybrid_run
 
 
 # Phase 10: the experiments beyond plain LOSO, on phase 6, 7 and 9's
@@ -2211,10 +2260,10 @@ def ablation_phase(data: Path, root: Path) -> None:
                       for p in points) + f"; launches {launches}")
 
 
-def phase10(root: Path, wesad: Path, loso_data: Path, sweep_data: Path, single) -> None:
+def phase10(root: Path, wesad: Path, loso_data: Path, sweep_data: Path, single) -> Path:
     """Phase 10 (module docstring): 10a the sharded hierarchical CLI, 10b
     the serial one, 10c the hierarchical predictor, 10d the seed-replicated
-    sweep, 10e the ablation CLI."""
+    sweep, 10e the ablation CLI. Returns 10a's run directory."""
     t_phase = time.perf_counter()
     root.mkdir()
     run_dir = hier_sharded_phase(wesad, root)
@@ -2223,6 +2272,399 @@ def phase10(root: Path, wesad: Path, loso_data: Path, sweep_data: Path, single) 
     replicated_phase(sweep_data, root, single)
     ablation_phase(sweep_data, root)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return run_dir
+
+
+# Phase 11: the deployment tier on phase 7, 9 and 10's runs. The stream's
+# calibration span (the CLI's default) and a stdin feed's length.
+STREAM_CALIB_SEC = 120
+STDIN_SEC = 300
+# The artifact's program is a subprocess's only code: torch, numpy and the
+# standard library, run where the package cannot be imported. Then, after a
+# marker line on stderr, the same artifact through ExportedPredictor (the
+# package put on the path), whose load packs each GRU's weights.
+ARTIFACT_ALONE = """
+import io, json, sys, zipfile
+import numpy as np, torch
+from torch.export.passes import move_to_device_pass
+path, x_path, out_path, repo = sys.argv[1:]
+with zipfile.ZipFile(path) as zf:
+    program = torch.export.load(io.BytesIO(zf.read("model.pt2")))
+program = move_to_device_pass(program, "cuda")
+torch.backends.cudnn.allow_tf32 = False
+with torch.inference_mode():
+    probs = program.module()(torch.from_numpy(np.load(x_path)).cuda())
+np.save(out_path, probs.cpu().numpy())
+leaked = sorted(n for n in sys.modules if n.startswith("multimodalsignal_tpu"))
+assert not leaked, leaked
+print("artifact ran alone on", torch.cuda.get_device_name(0))
+print("--- ExportedPredictor ---", file=sys.stderr, flush=True)
+sys.path.insert(0, repo)
+from multimodalsignal_tpu_torch.experiments.export import ExportedPredictor
+ExportedPredictor.load(path).predict_windows(np.load(x_path))
+"""
+CUDNN_COPY_WARNING = "RNN module weights are not part of single contiguous chunk"
+
+
+def artifact_phase(ens_run: Path, bf16_run: Path, hybrid_run: Path, root: Path) -> Path:
+    """11a. Export the 15-fold ensemble (--fold all), its fold S2, the bf16
+    sweep's fold S2 and the hybrid run's fold S2; each artifact on the card
+    against its Predictor (PROB_ATOL) and against itself on the CPU, for 1,
+    7, 64 and 100 windows, with TF32 off and as the CLIs leave it; the
+    program alone in a subprocess, then ExportedPredictor there without
+    cuDNN's weight-copy warning; the padded-64 forward of artifact and
+    Predictor with a trace of the artifact's; `serving --artifact`. Returns
+    the ensemble artifact."""
+    rng = np.random.default_rng(11)
+    xs = {n: rng.standard_normal((n, 3, WINDOW_T)).astype(np.float32) for n in (1, 7, 64, 100)}
+    feats = {n: rng.standard_normal((n, len(FEATURE_NAMES))).astype(np.float32) for n in xs}
+    cases = [("ensemble f32", ["--run-dir", str(ens_run)],
+              lambda d: EnsemblePredictor.from_run(ens_run, device=d), "float32"),
+             ("fold S2 f32", ["--run-dir", str(ens_run), "--fold", "S2"],
+              lambda d: Predictor.from_run(ens_run, "S2", device=d), "float32"),
+             ("fold S2 bf16", ["--run-dir", str(bf16_run), "--fold", "S2"],
+              lambda d: Predictor.from_run(bf16_run, "S2", device=d), "bfloat16"),
+             ("hybrid S2 f32 (v2)", ["--run-dir", str(hybrid_run), "--fold", "S2"],
+              lambda d: Predictor.from_run(hybrid_run, "S2", device=d), "float32")]
+    ens_artifact = None
+    for what, argv, predictor_on, dtype in cases:
+        t0 = time.perf_counter()
+        path = root / (what.split(" (")[0].replace(" ", "_") + ".mms")
+        export.main(argv + ["--out", str(path)])      # the export CLI, in process
+        t_export = time.perf_counter() - t0
+        ens_artifact = ens_artifact or path
+        ep, cpu = (ExportedPredictor.load(path, device=d) for d in ("cuda", "cpu"))
+        nodes = collections.Counter(str(n.target) for n in ep.program.graph.nodes
+                                    if n.op == "call_function")
+        pred = predictor_on("cuda")
+        if ep.meta["artifact_version"] != (2 if pred.is_hybrid else 1):
+            raise AssertionError(f"artifact {what}: meta {ep.meta}")
+        inputs = {n: (x, feats[n]) if pred.is_hybrid else x for n, x in xs.items()}
+        atol = PROB_ATOL[dtype]
+        errs, cpu_errs, tf32 = [], [], []
+        for n, x in inputs.items():
+            got = ep.predict_windows(x)
+            want = pred.predict_windows(x)
+            errs.append(_check_probs(got, want, n, atol, f"artifact {what} {n} vs Predictor"))
+            cpu_errs.append(_check_probs(got, cpu.predict_windows(x), n, atol,
+                                         f"artifact {what} {n} vs the CPU"))
+            with tf32_as_default():
+                tf32.append(_check_probs(ep.predict_windows(x), want, n, atol,
+                                         f"artifact {what} {n} with {tf32_label()}"))
+        print(f"artifact {what}: exported in {t_export:.2f} s ({path.stat().st_size / 2**20:.2f} "
+              f"MiB, {sum(nodes.values())} call nodes, {nodes['aten.gru.input']} aten.gru, "
+              f"{sum(1 for n in ep._run.graph.nodes if n.op == 'call_function')} once its GRU "
+              f"weights are packed); N = 1, 7, 64, 100: max|probs - Predictor| = {max(errs):.3e}, "
+              f"max|probs - CPU artifact| = {max(cpu_errs):.3e} (atol {atol}); with "
+              f"{tf32_label()} {max(tf32):.3e}")
+        x64 = tuple(torch.from_numpy(a).cuda() for a in
+                    (inputs[64] if pred.is_hybrid else (inputs[64],)))
+        with torch.inference_mode():
+            art_ms = median_ms(lambda: ep.predict_tensor(*x64), per_block=10)
+            pred_ms = median_ms(lambda: pred.predict_tensor(x64[0] if len(x64) == 1 else x64),
+                                per_block=10)
+            print(f"artifact {what}: padded-64 forward {art_ms:.3f} ms ({64 / art_ms * 1e3:.0f} "
+                  f"windows/s), Predictor (hand-written kernels) {pred_ms:.3f} ms "
+                  f"({64 / pred_ms * 1e3:.0f} windows/s): artifact / Predictor "
+                  f"{art_ms / pred_ms:.2f}x")
+            if what in ("ensemble f32", "fold S2 f32"):
+                trace(lambda: ep.predict_tensor(*x64), f"artifact {what.split()[0]} forward")
+        del ep, cpu, pred
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(Path(tmp) / "x.npy", xs[7])
+        proc = subprocess.run([sys.executable, "-c", ARTIFACT_ALONE, str(ens_artifact),
+                               str(Path(tmp) / "x.npy"), str(Path(tmp) / "p.npy"),
+                               str(Path(__file__).resolve().parent)],
+                              cwd=tmp, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the artifact alone: {proc.stdout}{proc.stderr}")
+        alone = np.load(Path(tmp) / "p.npy")
+    ens = EnsemblePredictor.from_run(ens_run, device="cuda")
+    err = _check_probs(alone, ens.predict_windows(xs[7]), 7, PROB_ATOL["float32"],
+                       "the ensemble artifact alone vs EnsemblePredictor")
+    warned = [part.count(CUDNN_COPY_WARNING)
+              for part in proc.stderr.split("--- ExportedPredictor ---")]
+    print(f"artifact: {proc.stdout.strip()} in a subprocess without multimodalsignal_tpu_torch "
+          f"in sys.modules; max|probs - EnsemblePredictor| = {err:.3e}; cuDNN's weight-copy "
+          f"warning printed {warned[0]} times for one call there, {warned[-1]} times by "
+          "ExportedPredictor after it (GRU weights packed at load)")
+    if len(warned) != 2 or warned[1]:
+        raise AssertionError(f"ExportedPredictor: cuDNN copied the GRU weights:\n{proc.stderr}")
+    card_info, (reply,) = serve_cli(["--artifact", str(ens_artifact)], lambda url: [
+        _post(url + "/v1/predict", {"windows": xs[1].tolist()})])
+    folds = len(ens.fold_names)
+    if card_info["backend"] != f"artifact-ensemble[{folds}]" or card_info["platform"] != "cuda":
+        raise AssertionError(f"serving --artifact /healthz: {card_info}")
+    err = _check_probs(reply["probs"], ExportedPredictor.load(ens_artifact).predict_windows(xs[1]),
+                       1, 1e-6, "serving --artifact /v1/predict")
+    print(f"artifact: serving --artifact answered /v1/predict (backend {card_info['backend']}), "
+          f"max|probs - artifact| = {err:.3e}")
+    return ens_artifact
+
+
+@contextlib.contextmanager
+def count_padded_batches():
+    """The padded batches the checkpoint predictors' forwards take while the
+    block runs: ceil(N / batch_size) per predict_windows (EnsemblePredictor
+    and Predictor) or predict_windows_labeled (HierarchicalPredictor)."""
+    seen = [0]
+    reals = {cls: getattr(cls, name) for cls, name in ((Predictor, "predict_windows"),
+                                                       (HierarchicalPredictor,
+                                                        "predict_windows_labeled"))}
+
+    def counting(real):
+        def run(self, x, batch_size=64):
+            seen[0] += -(-num_windows(x) // batch_size)
+            return real(self, x, batch_size)
+        return run
+
+    Predictor.predict_windows = counting(reals[Predictor])
+    HierarchicalPredictor.predict_windows_labeled = counting(reals[HierarchicalPredictor])
+    try:
+        yield seen
+    finally:
+        Predictor.predict_windows = reals[Predictor]
+        HierarchicalPredictor.predict_windows_labeled = reals[HierarchicalPredictor]
+
+
+def stream_cli(argv: list[str], out: Path, feed_sec: float, what: str, per_batch: dict,
+               stdin_text: str | None = None) -> list[dict]:
+    """`python -m multimodalsignal_tpu_torch.experiments.streaming` in process
+    (the main path, counted): exactly `per_batch` launches of each kernel per
+    classified padded batch; prints its events/s and real-time factor.
+    Returns the events."""
+    err = io.StringIO()
+    saved_stdin = sys.stdin
+    if stdin_text is not None:
+        sys.stdin = io.StringIO(stdin_text)
+    try:
+        with count_padded_batches() as batches, contextlib.redirect_stderr(err):
+            gru_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            # --- the main path: everything between reset and read is counted ---
+            streaming.main(argv + ["--out", str(out), "--calib-sec", str(STREAM_CALIB_SEC)])
+            launches = gru_cuda.launch_counts()
+            # --------------------------------------------------------------------
+            wall = time.perf_counter() - t0
+    finally:
+        sys.stdin = saved_stdin
+    events = [json.loads(line) for line in out.read_text().splitlines()]
+    expected = {k: per_batch.get(k, 0) * batches[0] for k in launches}
+    if launches != expected:
+        raise AssertionError(f"stream {what}: launches {launches}, expected {expected} for "
+                             f"{batches[0]} padded batches")
+    probs = np.array([e["probs"] for e in events])
+    if ([e["index"] for e in events] != list(range(len(events))) or not np.isfinite(probs).all()
+            or not np.allclose(probs.sum(1), 1.0, atol=1e-5)):
+        raise AssertionError(f"stream {what}: events out of order or probs not rows summing to 1")
+    summary = err.getvalue().strip().splitlines()[-1]
+    print(f"stream {what}: {len(events)} events, {batches[0]} padded batches in {wall:.2f} s "
+          f"host ({len(events) / wall:.1f} events/s, {feed_sec / wall:.0f}x real time); "
+          f"launches {launches}; the CLI: {summary!r}")
+    return events
+
+
+def frozen_stats_windows(feed: np.ndarray, feed_fs: int, channels: list[str]) -> np.ndarray:
+    """The windows a stream of `feed` classifies: the causal resampler (for a
+    native-rate feed), the statistics frozen on the calibration span, 60 s
+    windows at a 10 s stride -> [N, C, T] (streaming.py's semantics,
+    recomputed outside the stream)."""
+    sig = feed
+    if feed_fs != 128:
+        sig = StreamingPolyResampler(feed_fs, 128, feed.shape[1]).push(feed).astype(np.float32)
+    sig = sig[:, : len(channels)]
+    mean, std = channel_norm_stats(sig[: STREAM_CALIB_SEC * 128], channels)
+    starts = window_starts(0, len(sig), WINDOW_T, 10 * 128)
+    wins = apply_channel_norm(sliding_windows(sig, starts, WINDOW_T), channels, mean, std)
+    return np.ascontiguousarray(wins.transpose(0, 2, 1))
+
+
+def streaming_phase(ens_run: Path, hybrid_run: Path, hier_run: Path, artifact: Path,
+                    pkl: Path, root: Path) -> None:
+    """11b. The mms-stream CLI: the 15-fold ensemble on the native 700 Hz
+    chest feed of a phase 9 pickle (3 gru_fwd_fb a padded batch, no adjoint;
+    one event a window of the recording; the events the ensemble's on the
+    stream's frozen-stats windows); one fold by --checkpoint --config
+    --feed resampled (1 gru_fwd_fb + 1 gru_fwd a batch); the hybrid fold S2;
+    the hierarchical fold S2 (its labels the hard gate's); the ensemble
+    artifact (no hand-written kernel; its events the checkpoint stream's);
+    a stdin feed of 300 s at 700 Hz."""
+    ens = EnsemblePredictor.from_run(ens_run, device="cuda")
+    native, names = streaming._native_chest_grid(pkl)
+    rec_sec = len(native) / 700
+    n_windows = len(ens.windows_from_recording(pkl)[0])
+    sc = streaming.StreamingClassifier.for_predictor(ens, calib_sec=STREAM_CALIB_SEC)
+    feed = native[:, [names.index(c) for c in sc.feed_channels]]
+    pkl_argv = ["--pkl", str(pkl)]
+    events = stream_cli(["--run-dir", str(ens_run)] + pkl_argv, root / "ens.jsonl", rec_sec,
+                        f"ensemble ({len(ens.fold_names)} folds), native 700 Hz feed",
+                        {"gru_fwd_fb": 3})
+    if len(events) != n_windows:
+        raise AssertionError(f"stream ensemble: {len(events)} events for {n_windows} windows")
+    want = ens.predict_windows(frozen_stats_windows(feed, 700, list(sc.channel_names)))
+    err = _check_probs([e["probs"] for e in events], want, n_windows,
+                       PROB_ATOL["float32"] + 1e-6, "stream ensemble vs EnsemblePredictor")
+    print(f"stream ensemble: {len(events)} events = the recording's windows; max|probs - "
+          f"EnsemblePredictor on the frozen-stats windows| = {err:.3e}")
+
+    ckpt = ["--checkpoint", str(ens_run / "fold_test_on_S2" / "best_model.msgpack"),
+            "--config", str(ens_run / "config.json")]
+    one = stream_cli(ckpt + pkl_argv + ["--feed", "resampled"], root / "one.jsonl", rec_sec,
+                     "fold S2, resampled feed", {"gru_fwd_fb": 1, "gru_fwd": 1})
+    pred = Predictor.from_run(ens_run, "S2", device="cuda")
+    grid, grid_names = _recording_grid(pkl, list(pred.cfg.channels_to_use), 700, 128)
+    cols = [grid_names.index(c) for c in pred.cfg.channels_to_use]
+    err = _check_probs([e["probs"] for e in one], pred.predict_windows(frozen_stats_windows(
+        grid[:, cols].astype(np.float32), 128, list(pred.cfg.channels_to_use))), n_windows,
+        PROB_ATOL["float32"] + 1e-6, "stream fold S2 vs Predictor")
+    print(f"stream fold S2: max|probs - Predictor on the frozen-stats windows| = {err:.3e}")
+    stream_cli(["--run-dir", str(hybrid_run), "--fold", "S2"] + pkl_argv, root / "hyb.jsonl",
+               rec_sec, "hybrid fold S2, native feed", {"gru_fwd_fb": 1, "gru_fwd": 1})
+    hier = stream_cli(["--run-dir", str(hier_run), "--fold", "S2"] + pkl_argv,
+                      root / "hier.jsonl", rec_sec, "hierarchical fold S2, native feed",
+                      {"gru_fwd_fb": 1, "gru_fwd": 2})
+    hp = HierarchicalPredictor.from_run(hier_run, "S2", device="cuda")
+    x = frozen_stats_windows(native[:, [names.index(c) for c in hp.channels]], 700,
+                             list(hp.channels))
+    p1, p2 = (stage.predict_windows(x[:, [hp.channels.index(c) for c in stage.cfg.channels_to_use]])
+              for stage in (hp.m1, hp.m2))
+    gated = np.where(p1.argmax(1) == 1, 2, p2.argmax(1))
+    clear = (np.abs(p1[:, 1] - p1[:, 0]) > 1e-3) & (np.abs(p2[:, 1] - p2[:, 0]) > 1e-3)
+    labels = np.array([hp.class_names.index(e["label"]) for e in hier])
+    if len(hier) != n_windows or not np.array_equal(labels[clear], gated[clear]):
+        raise AssertionError(f"stream hierarchical: labels {labels} are not the hard gate "
+                             f"{gated} of its stages")
+    print(f"stream hierarchical: labels the hard gate of the stage Predictors in "
+          f"{int(clear.sum())}/{len(hier)} windows clear of a tie (the rest not compared)")
+    art = stream_cli(["--artifact", str(artifact)] + pkl_argv, root / "art.jsonl", rec_sec,
+                     "ensemble artifact, native feed", {})
+    err = _check_probs([e["probs"] for e in art], np.array([e["probs"] for e in events]),
+                       n_windows, PROB_ATOL["float32"] + 2e-6, "stream artifact vs ensemble stream")
+    print(f"stream artifact: max|probs - the checkpoint ensemble's stream| = {err:.3e}")
+    rows = (np.random.default_rng(12).standard_normal((STDIN_SEC * 700, 3)) * [1, 0.1, 1]
+            + [0, 2, 0])
+    text = "\n".join(",".join(f"{v:.5f}" for v in r) for r in rows)
+    stdin = stream_cli(["--run-dir", str(ens_run), "--stdin", "--input-fs", "700"],
+                       root / "stdin.jsonl", STDIN_SEC, f"ensemble, stdin {STDIN_SEC} s at 700 Hz",
+                       {"gru_fwd_fb": 3}, stdin_text=text)
+    if len(stdin) != (STDIN_SEC - 60) // 10 + 1:
+        raise AssertionError(f"stream stdin: {len(stdin)} events")
+
+
+def reference_model(in_channels: int, classes: int, seed: int) -> torch.nn.Module:
+    """The reference CnnGruAttentionModel's topology under its module names
+    (so its state_dict is a reference best_model.pt), default widths, with
+    weights and batch-norm statistics from a numpy seed."""
+    nn = torch.nn
+
+    class ChannelAttention(nn.Module):
+        def __init__(self, c, r=4):
+            super().__init__()
+            self.fc = nn.Sequential(nn.Linear(c, c // r, bias=False), nn.ReLU(),
+                                    nn.Linear(c // r, c, bias=False), nn.Sigmoid())
+
+        def forward(self, x):
+            return x * self.fc(x.mean(dim=2))[:, :, None]
+
+    class Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.channel_attention = ChannelAttention(in_channels)
+            self.cnn_encoder = nn.Sequential(
+                nn.Conv1d(in_channels, 16, 7, stride=2, padding=3, bias=False),
+                nn.BatchNorm1d(16), nn.ReLU(), nn.MaxPool1d(3, stride=2, padding=1),
+                nn.Conv1d(16, 32, 5, stride=2, padding=2, bias=False),
+                nn.BatchNorm1d(32), nn.ReLU(), nn.MaxPool1d(3, stride=2, padding=1))
+            self.gru = nn.GRU(32, 64, 2, batch_first=True, bidirectional=True)
+            self.classifier = nn.Sequential(nn.Linear(128, 64), nn.ReLU(), nn.Dropout(0.5),
+                                            nn.Linear(64, classes))
+
+        def forward(self, x):
+            out, _ = self.gru(self.cnn_encoder(self.channel_attention(x)).permute(0, 2, 1))
+            return self.classifier(out[:, -1])
+
+    model = Model().eval()
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("num_batches_tracked") or t.numel() == 0:
+                continue
+            if name.endswith("running_var"):
+                value = rng.uniform(0.5, 2.0, t.shape)
+            elif name.endswith("running_mean"):
+                value = rng.normal(0.0, 0.1, t.shape)
+            elif name.startswith("cnn_encoder") and t.dim() == 1:   # BN scale, bias
+                value = rng.uniform(0.5, 1.5, t.shape) if name.endswith("weight") else \
+                    rng.uniform(-0.1, 0.1, t.shape)
+            else:   # U(-1/sqrt(fan_in), 1/sqrt(fan_in)); GRU and dense biases by H
+                fan_in = int(np.prod(t.shape[1:])) if t.dim() > 1 else 64
+                value = rng.uniform(-1, 1, t.shape) / math.sqrt(fan_in)
+            t.copy_(torch.from_numpy(value.astype(np.float32)))
+    return model
+
+
+def import_phase(root: Path) -> None:
+    """11c. A reference best_model.pt (reference_model, default widths) ->
+    the import CLI -> Predictor.from_files on the card against the reference
+    model's softmax on the CPU (PROB_ATOL)."""
+    channels = list(ExperimentConfig().channels_to_use)
+    ref = reference_model(len(channels), 2, seed=13)
+    pt = root / "best_model.pt"
+    torch.save(ref.state_dict(), pt)
+    out = root / "imported"
+    with contextlib.redirect_stdout(io.StringIO()):
+        import_torch.main(["--pt", str(pt), "--channels", *channels, "--out", str(out)])
+    pred = Predictor.from_files(out / "best_model.msgpack", out / "config.json", device="cuda")
+    x = np.random.default_rng(14).standard_normal((7, len(channels), WINDOW_T)).astype(np.float32)
+    with torch.no_grad():
+        want = torch.softmax(ref(torch.from_numpy(x)), dim=-1).numpy()
+    err = _check_probs(pred.predict_windows(x), want, 7, PROB_ATOL["float32"],
+                       "imported checkpoint vs the reference model")
+    print(f"import: reference best_model.pt ({sum(t.numel() for t in ref.state_dict().values())} "
+          f"numbers) -> import CLI -> Predictor on the card; max|probs - the reference model's "
+          f"softmax on the CPU| = {err:.3e} (atol {PROB_ATOL['float32']})")
+
+
+def wrist_phase(pkl: Path, root: Path) -> None:
+    """11d. A random-weight checkpoint on chest_ECG, wrist_BVP, wrist_EDA:
+    predict_recording of a phase 9 pickle (its wrist block resampled from
+    the pickle's wrist sensors) on the card against the CPU (PROB_ATOL)."""
+    cfg = ExperimentConfig(channels_to_use=("chest_ECG", "wrist_BVP", "wrist_EDA"))
+    write_initial_train_state(root / "best_model.msgpack", random_variables(cfg, seed=15), 1e-3)
+    save_config(cfg, root / "config.json")
+    card_pred, cpu_pred = (Predictor.from_files(root / "best_model.msgpack",
+                                                root / "config.json", device=d)
+                           for d in ("cuda", "cpu"))
+    got, want = (p.predict_recording(pkl) for p in (card_pred, cpu_pred))
+    x, _ = card_pred.windows_from_recording(pkl)
+    if not np.abs(x[:, 1:]).max() > 0:
+        raise AssertionError("wrist: the wrist channels are empty")
+    err = _check_probs(got.probs, want.probs, len(want.probs), PROB_ATOL["float32"],
+                       "wrist checkpoint card vs CPU")
+    print(f"wrist: chest_ECG, wrist_BVP, wrist_EDA on {pkl.name} ({len(got.probs)} windows); "
+          f"max|probs - CPU| = {err:.3e} (atol {PROB_ATOL['float32']})")
+
+
+def phase11(root: Path, ens_run: Path, bf16_run: Path, hybrid_run: Path, hier_run: Path,
+            wesad: Path) -> None:
+    """Phase 11 (module docstring): 11a export and artifacts, 11b streaming,
+    11c import, 11d wrist channels."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    pkl = wesad / "S2" / "S2.pkl"
+    marks = [time.perf_counter()]
+    artifact = artifact_phase(ens_run, bf16_run, hybrid_run, root)
+    marks.append(time.perf_counter())
+    streaming_phase(ens_run, hybrid_run, hier_run, artifact, pkl, root)
+    marks.append(time.perf_counter())
+    import_phase(root)
+    marks.append(time.perf_counter())
+    wrist_phase(pkl, root)
+    marks.append(time.perf_counter())
+    split = ", ".join(f"11{k} {b - a:.1f} s" for k, a, b in zip("abcd", marks, marks[1:]))
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({split})")
 
 
 def main() -> int:
@@ -2268,10 +2710,11 @@ def main() -> int:
         with capture_sweeps(fold_sweep) as seen:
             sweep_launches, sweep_run = sweep_phase("float32", ["--set", f"data_path={data}"],
                                                     Path(tmp))
-        sweep_phase("bfloat16", ["--set", f"data_path={data}"], Path(tmp))
+        _, bf16_run = sweep_phase("bfloat16", ["--set", f"data_path={data}"], Path(tmp))
         ensemble_phase(sweep_run)
-        wesad = phase9(Path(tmp) / "phase9")
-        phase10(Path(tmp) / "phase10", wesad, loso_data, data, seen[0])
+        wesad, hybrid_run = phase9(Path(tmp) / "phase9")
+        hier_run = phase10(Path(tmp) / "phase10", wesad, loso_data, data, seen[0])
+        phase11(Path(tmp) / "phase11", sweep_run, bf16_run, hybrid_run, hier_run, wesad)
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
     # default execution), the fused pair's on the float32 serial LOSO path

@@ -122,6 +122,40 @@ def normalize_subject(x: np.ndarray, y_raw: np.ndarray,
     return out
 
 
+def channel_norm_stats(samples: np.ndarray, channel_names: list[str]
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-channel (mean, std) over a flat [M, C] span of samples, in the
+    training transform domain (log1p for chest_EDA, floored; eps 1e-8 on
+    std): the streaming form of the statistics normalize_subject computes
+    over a window batch. normalize_subject(x, y, names, "all") equals
+    apply_channel_norm(x, names, *channel_norm_stats(x.reshape(-1, C),
+    names))."""
+    x = np.asarray(samples, np.float64)
+    mean = np.empty(x.shape[1])
+    std = np.empty(x.shape[1])
+    for c, name in enumerate(channel_names):
+        col = x[:, c]
+        if name == EDA_CHANNEL:
+            col = np.log1p(np.maximum(col, _LOG1P_FLOOR))
+        mean[c] = col.mean()
+        std[c] = col.std() + 1e-8
+    return mean, std
+
+
+def apply_channel_norm(x: np.ndarray, channel_names: list[str],
+                       mean: np.ndarray, std: np.ndarray) -> np.ndarray:
+    """Normalize [..., C]-last windows with given statistics (see
+    channel_norm_stats); chest_EDA is log1p-transformed first. float32."""
+    x = np.asarray(x, dtype=np.float64)
+    out = np.empty_like(x, dtype=np.float32)
+    for c, name in enumerate(channel_names):
+        col = x[..., c]
+        if name == EDA_CHANNEL:
+            col = np.log1p(np.maximum(col, _LOG1P_FLOOR))
+        out[..., c] = ((col - mean[c]) / std[c]).astype(np.float32)
+    return out
+
+
 def normalize_features(x_feat: np.ndarray, y_raw: np.ndarray,
                        scheme: str = "baseline") -> np.ndarray:
     """Per-subject z-score of feature vectors [N, F] in float64, std + 1e-3

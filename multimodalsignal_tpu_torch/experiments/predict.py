@@ -27,8 +27,9 @@ takes each window's handcrafted features, extracted from the unnormalized
 resampled chest sensors (recording_to_hybrid_windows); its run must carry
 the feature extractor version this package computes (a missing stamp warns,
 another version raises). Inference runs on "cuda" unless the caller passes
-device="cpu"; asking for CUDA where there is none raises. Wrist channels
-are not ported yet (ROADMAP.md, queue 1, item 4).
+device="cpu"; asking for CUDA where there is none raises. A checkpoint
+trained on wrist channels (preprocess --include-wrist) gets the wrist block
+appended to the chest grid, as preprocessing makes it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import torch
 from multimodalsignal_tpu_torch.config import (
     ALL_CHANNEL_NAMES,
     CHEST_SENSORS,
+    WRIST_CHANNEL_NAMES,
     ExperimentConfig,
     HierarchicalConfig,
     config_from_dict,
@@ -56,8 +58,9 @@ from multimodalsignal_tpu_torch.data.features import (
     FEATURE_SENSOR_CHANNELS,
     extract_features_batch,
 )
+from multimodalsignal_tpu_torch.data.preprocess import _resample_wrist
 from multimodalsignal_tpu_torch.data.resample import resample_signal
-from multimodalsignal_tpu_torch.data.wesad_io import chest_signals, load_pkl
+from multimodalsignal_tpu_torch.data.wesad_io import chest_signals, load_pkl, wrist_signals
 from multimodalsignal_tpu_torch.data.windowing import sliding_windows, window_starts
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
 from multimodalsignal_tpu_torch.models.convert import load_jax_variables, stack_variables
@@ -105,19 +108,33 @@ class PredictionResult:
 
 def _recording_grid(pkl_path: Path | str, channels_to_use: list[str],
                     original_fs: int, target_fs: int) -> tuple[np.ndarray, list[str]]:
-    """Raw WESAD pickle -> resampled 8-channel chest grid [T', 8] + names."""
-    if any(ch not in ALL_CHANNEL_NAMES for ch in channels_to_use):
-        raise NotImplementedError(
-            "wrist channels in the Predictor are not ported yet (ROADMAP.md, "
-            "queue 1, item 4: preprocessing and data)")
-    chest = chest_signals(load_pkl(pkl_path))
+    """Raw WESAD pickle -> resampled channel grid [T', C_all] + its names:
+    always the 8-channel chest block (the handcrafted features read their
+    sensors from it whatever the model's channels), then the wrist block
+    when a wrist channel is asked for, made as preprocessing makes it
+    (data/preprocess.py --include-wrist), zeros for a chest-only
+    recording."""
+    data = load_pkl(pkl_path)
+    chest = chest_signals(data)
     cols = []
     for sensor in CHEST_SENSORS:
         sig = np.asarray(chest[sensor])
         if sig.ndim == 1:
             sig = sig[:, None]
         cols.append(resample_signal(sig, original_fs, target_fs))
-    return np.concatenate(cols, axis=1), list(ALL_CHANNEL_NAMES)
+    full = np.concatenate(cols, axis=1)  # [T', 8]
+    names = list(ALL_CHANNEL_NAMES)
+    if any(ch not in ALL_CHANNEL_NAMES for ch in channels_to_use):
+        wrist = wrist_signals(data)
+        if wrist is None:
+            print(f"Warning: {pkl_path} has no wrist data; "
+                  f"wrist channels filled with zeros.")
+            block = np.zeros((full.shape[0], len(WRIST_CHANNEL_NAMES)))
+        else:
+            block = _resample_wrist(wrist, target_fs, full.shape[0])
+        full = np.concatenate([full, block], axis=1)
+        names += list(WRIST_CHANNEL_NAMES)
+    return full, names
 
 
 def _inference_norm_scheme(normalization: str) -> str:

@@ -171,7 +171,7 @@ MODELS = {"cnn_gru_attention": CnnGruAttentionModel, "cnn_gru": CnnGruModel}
 # ModelConfig.gru_impl (JAX names too) -> BiGRU impl of this package.
 _GRU_IMPLS = {"auto": "auto", "scan": "torch", "torch": "torch", "cuda": "cuda",
               "cuda_fused": "cuda_fused", "pallas": "cuda", "pallas_db": "cuda",
-              "pallas_fused": "cuda_fused"}
+              "pallas_fused": "cuda_fused", "aten": "aten"}
 # The hybrid model's feature count when the caller names none: every
 # feature the preprocessor writes (data/features.py FEATURE_NAMES).
 NUM_FEATURES = 10
@@ -184,7 +184,8 @@ def build_model(model_cfg, num_classes: int, in_channels: int,
     count) at init; here they are given. The JAX package's gru_impl names
     map onto this package's: "scan" to the plain loop, "pallas" and
     "pallas_db" to the CUDA kernels ("cuda"), and "pallas_fused" to the
-    fused float32 BiGRU kernels ("cuda_fused")."""
+    fused float32 BiGRU kernels ("cuda_fused"); "aten" (this package's
+    only) is one torch.ops.aten.gru a layer, the exported artifact's."""
     impl = _GRU_IMPLS.get(model_cfg.gru_impl)
     if impl is None:
         raise ValueError(f"unknown gru_impl {model_cfg.gru_impl!r}; expected "

@@ -36,6 +36,8 @@ ops/gru_pallas.py route it):
   * "scan", "torch", and "auto" on CPU tensors: the plain loop over all
     lanes in the compute dtype (models/gru.py), as the JAX package's
     fold-parallel "auto" resolves to scan off the TPU;
+  * "aten": one `torch.ops.aten.gru` per fold and layer (models/gru.py
+    aten_gru; an exported ensemble artifact's recurrence, inference only);
   * "pallas_fused" and "cuda_fused" raise: the JAX package batches its fused
     pair into a sequential grid with no custom_vmap rule, and the port has
     no fold-batched fused walk yet (ROADMAP.md).
@@ -55,12 +57,12 @@ from multimodalsignal_tpu_torch.models.cnn_gru import (
     batch_norm_train,
     build_model,
 )
-from multimodalsignal_tpu_torch.models.gru import dropout, gru_cell, gru_sequence
+from multimodalsignal_tpu_torch.models.gru import aten_gru, dropout, gru_cell, gru_sequence
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
 # ModelConfig.gru_impl -> how the fold-stacked GRU walks.
 FOLD_IMPLS = {"auto": "auto", "pallas": "lanes", "pallas_db": "lanes",
-              "cuda": "lanes", "scan": "torch", "torch": "torch"}
+              "cuda": "lanes", "scan": "torch", "torch": "torch", "aten": "aten"}
 _FUSED = ("pallas_fused", "cuda_fused")
 
 
@@ -131,7 +133,10 @@ class FoldStackedModel(nn.Module):
         out_ch, steps = h.shape[1] // n_f, h.shape[2]
         # Time-major rows (t, b) per lane for the input projections: one copy.
         seq = h.view(batch, n_f, out_ch, steps).permute(1, 3, 0, 2)
-        y = self._gru(seq.reshape(n_f, steps * batch, out_ch), steps, batch, generators)
+        if self.impl == "aten":
+            y = self._gru_aten(seq)
+        else:
+            y = self._gru(seq.reshape(n_f, steps * batch, out_ch), steps, batch, generators)
         if feat is not None:   # the hybrid model's feature branch
             f = torch.relu(self._dense(self.feat1, feat.to(dt)))
             y = torch.cat([y.to(dt), f], dim=-1)
@@ -214,6 +219,29 @@ class FoldStackedModel(nn.Module):
                 out = self._dropout(out, gru.dropout, generators)
             seq = out.view(n_f, steps * batch, 2 * hid)
         return out[:, -1]
+
+    def _gru_aten(self, x: torch.Tensor) -> torch.Tensor:
+        """x [F, T, B, in], time-major -> the last step's [F, B, 2H], one
+        aten_gru per fold and layer (inference only); under pruning the last
+        layer is a forward-only aten_gru and the backward direction's one
+        cell step."""
+        if self.training:
+            raise NotImplementedError("gru impl 'aten' is inference only")
+        gru, dt, n_f = self.gru, self.dtype, self.folds
+        last = gru.num_layers - 1
+        lane = lambda w, f: tuple(t[f] for t in w)  # noqa: E731
+        for layer in range(gru.num_layers):
+            fwd, bwd = (tuple(getattr(gru, f"l{layer}_{d}_{n}").to(dt)
+                              for n in ("w_ih", "w_hh", "b_ih", "b_hh")) for d in ("fwd", "bwd"))
+            if self.gru_last_prune and layer == last:
+                y_f = torch.stack([aten_gru(x[f], lane(fwd, f), gru.hidden_size,
+                                            batch_first=False)[-1] for f in range(n_f)])
+                wib, whb, bib, bhb = bwd
+                xg_b = torch.baddbmm(bib[:, None], x[:, -1], wib.transpose(1, 2))
+                return torch.cat([y_f, gru_cell(xg_b, whb, bhb, torch.zeros_like(y_f))], dim=-1)
+            x = torch.stack([aten_gru(x[f], lane(fwd, f) + lane(bwd, f), gru.hidden_size,
+                                      batch_first=False) for f in range(n_f)])  # [F, T, B, 2H]
+        return x[:, -1]
 
 
 def build_fold_model(model_cfg, num_classes: int, in_channels: int, folds: int,

@@ -17,7 +17,11 @@ adjoint kernels in the backward; both directions of a full layer run as two
 lanes of one walk, the JAX package's "pallas_db"), "cuda_fused" the fused
 bidirectional float32 kernels for every full layer (the JAX package's
 "pallas_fused": gates, weights and h0 go to float32 whatever the compute
-dtype, and the output is cast back to it), and "auto" the kernels for CUDA
+dtype, and the output is cast back to it), "aten" one `torch.ops.aten.gru`
+per layer (nn.GRU's op on the same weights: what an exported artifact
+holds, experiments/export.py, since torch.export keeps it as one node
+where the plain loop unrolls to T steps, and the ctypes-bound kernels
+cannot be serialised; inference only), and "auto" the kernels for CUDA
 inputs and the plain loop otherwise (as the JAX package's "auto" picks
 Pallas on a TPU only). Under last-step pruning the final layer's forward
 walk is the single-direction kernel for "cuda" and "cuda_fused" alike, as
@@ -36,7 +40,7 @@ from torch import nn
 
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
-IMPLS = ("auto", "torch", "cuda", "cuda_fused")
+IMPLS = ("auto", "torch", "cuda", "cuda_fused", "aten")
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
@@ -79,6 +83,21 @@ def gru_sequence(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         h = gru_cell(x_gates[:, t], w_hh, b_hh, h)
         ys[t] = h
     return torch.stack(ys, dim=1)
+
+
+def aten_gru(x: torch.Tensor, weights: tuple, hidden: int,
+             batch_first: bool) -> torch.Tensor:
+    """One GRU layer as one `torch.ops.aten.gru` node (nn.GRU's op): x [B,
+    T, in] (batch_first) or [T, B, in]; `weights` the (w_ih, w_hh, b_ih,
+    b_hh) of the forward direction, then those of the backward direction
+    for a bidirectional layer. Returns the outputs, both directions
+    concatenated on the last axis; h0 = 0."""
+    dirs = len(weights) // 4
+    b = x.shape[0 if batch_first else 1]
+    h0 = torch.zeros((dirs, b, hidden), dtype=x.dtype, device=x.device)
+    y, _ = torch.ops.aten.gru.input(x, h0, list(weights), True, 1, 0.0, False,
+                                    dirs == 2, batch_first)
+    return y
 
 
 class BiGRU(nn.Module):
@@ -129,6 +148,8 @@ class BiGRU(nn.Module):
         impl = self.impl
         if impl == "auto":
             impl = "cuda" if x.is_cuda else "torch"
+        if impl == "aten":
+            return self._forward_aten(x)
         out = x.to(self.dtype)
         h0 = torch.zeros((x.shape[0], self.hidden_size), dtype=self.dtype,
                          device=x.device)
@@ -159,4 +180,22 @@ class BiGRU(nn.Module):
             out = torch.cat([y_f, y_b], dim=-1)  # [B, T, 2H]
             if layer < self.num_layers - 1:
                 out = dropout(out, self.dropout, generator, self.training)
+        return out
+
+    def _forward_aten(self, x: torch.Tensor) -> torch.Tensor:
+        """The layers as aten_gru nodes: [B, T, 2H]; under last-step pruning
+        the final layer is a forward-only aten_gru and the backward
+        direction's one cell step, [B, 2H]. Inference only."""
+        if self.training:
+            raise NotImplementedError("gru impl 'aten' is inference only")
+        out = x.to(self.dtype)
+        for layer in range(self.num_layers):
+            fwd, bwd = self._weights(layer, "fwd"), self._weights(layer, "bwd")
+            if self.last_only and layer == self.num_layers - 1:
+                wib, whb, bib, bhb = bwd
+                y_f = aten_gru(out, fwd, self.hidden_size, batch_first=True)
+                h0 = torch.zeros_like(y_f[:, -1])
+                y_b_last = gru_cell(out[:, -1] @ wib.T + bib, whb, bhb, h0)
+                return torch.cat([y_f[:, -1], y_b_last], dim=-1)
+            out = aten_gru(out, fwd + bwd, self.hidden_size, batch_first=True)
         return out

@@ -10,9 +10,10 @@ Counterpart of multimodalsignal_tpu/serving.py: a dependency-free (stdlib
 
 The checkpoint and config are either package's, read unchanged; a
 hybrid_cnn_gru run is served too. --run-dir serves the run's fold ensemble
-(predict.EnsemblePredictor), or one fold with --fold <subject>. Serving an
-exported artifact (--artifact) is not ported yet (ROADMAP.md, queue 1,
-item 5).
+(predict.EnsemblePredictor), or one fold with --fold <subject>.
+--artifact serves an exported `.mms` artifact (experiments/export.py:
+export.ExportedPredictor, no model code; its /healthz backend is
+"artifact", or "artifact-ensemble[F]" for a fold ensemble).
 
 Endpoints (all JSON):
 
@@ -174,9 +175,11 @@ class MicroBatcher:
 
 
 class PredictionService:
-    """Thread-safe wrapper of one `Predictor` for request-driven serving."""
+    """Thread-safe wrapper of one predictor for request-driven serving: a
+    `Predictor` (or EnsemblePredictor) on a checkpoint, or an
+    `export.ExportedPredictor` (an artifact, described by its meta)."""
 
-    def __init__(self, predictor: Predictor, batch_size: int = 64,
+    def __init__(self, predictor, batch_size: int = 64,
                  micro_batch_ms: float = 2.0,
                  max_request_windows: int = 256):
         self.predictor = predictor
@@ -192,20 +195,30 @@ class PredictionService:
         self.max_request_windows = max_request_windows
         self._batcher = (MicroBatcher(self, micro_batch_ms / 1e3)
                          if micro_batch_ms > 0 else None)
-        cfg = predictor.cfg
-        self.model_name = cfg.model.name
-        self.classification_mode = cfg.classification_mode
-        self.channels = list(cfg.channels_to_use)
-        self.window_shape = (len(cfg.channels_to_use),
-                             predictor.window_sec * predictor.target_fs)
-        self.normalization = cfg.normalization
         # A hybrid model's feature columns; /v1/predict then needs them.
         self.is_hybrid = predictor.is_hybrid
         self.feature_names = list(predictor.feature_names)
-        self.backend = "checkpoint"
-        fold_names = getattr(predictor, "fold_names", None)
-        if fold_names:
-            self.backend += f"-ensemble[{len(fold_names)}]"
+        meta = getattr(predictor, "meta", None)
+        if meta is not None:  # the artifact backend
+            self.model_name = meta["model"]
+            self.classification_mode = meta["classification_mode"]
+            self.channels = list(meta["channels"])
+            self.window_shape = tuple(meta["window_shape"])
+            self.normalization = meta["normalization"]
+            self.backend = "artifact"
+            folds = meta.get("ensemble_folds")
+        else:
+            cfg = predictor.cfg
+            self.model_name = cfg.model.name
+            self.classification_mode = cfg.classification_mode
+            self.channels = list(cfg.channels_to_use)
+            self.window_shape = (len(cfg.channels_to_use),
+                                 predictor.window_sec * predictor.target_fs)
+            self.normalization = cfg.normalization
+            self.backend = "checkpoint"
+            folds = getattr(predictor, "fold_names", None)
+        if folds:
+            self.backend += f"-ensemble[{len(folds)}]"
         self.class_names = CLASS_NAMES[self.classification_mode]
 
     @property
@@ -441,7 +454,9 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", help="best_model.msgpack (with --config)")
     p.add_argument("--config", help="the run's config.json (with --checkpoint)")
-    p.add_argument("--artifact", help="exported .mms artifact (not ported yet)")
+    p.add_argument("--artifact",
+                   help="exported .mms artifact (experiments/export.py): serves "
+                        "without model code; replaces --checkpoint/--config")
     p.add_argument("--run-dir", help="run directory: serves the fold ensemble (or "
                                      "one fold with --fold); replaces --checkpoint/--config")
     p.add_argument("--fold", default="all",
@@ -462,18 +477,18 @@ def main(argv=None) -> None:
                         "from Content-Length, before any allocation)")
     args = p.parse_args(argv)
 
+    if sum(map(bool, (args.artifact, args.run_dir, args.checkpoint or args.config))) > 1:
+        p.error("--artifact, --run-dir and --checkpoint/--config are mutually exclusive")
     if args.artifact:
-        p.error("--artifact is not yet ported to multimodalsignal_tpu_torch "
-                "(ROADMAP.md, queue 1, item 5: export, streaming, import); "
-                "serve --run-dir, or --checkpoint with --config")
-    if args.run_dir:
-        if args.checkpoint or args.config:
-            p.error("--run-dir replaces --checkpoint/--config")
+        from multimodalsignal_tpu_torch.experiments.export import ExportedPredictor
+
+        predictor = ExportedPredictor.load(args.artifact, args.device)
+    elif args.run_dir:
         predictor = EnsemblePredictor.from_run(args.run_dir, args.fold, args.device)
     elif args.checkpoint and args.config:
         predictor = Predictor.from_files(args.checkpoint, args.config, args.device)
     else:
-        p.error("provide --run-dir, or --checkpoint with --config")
+        p.error("provide --artifact, --run-dir, or --checkpoint with --config")
     service = PredictionService(predictor, batch_size=args.batch_size,
                                 micro_batch_ms=args.micro_batch_ms,
                                 max_request_windows=args.max_request_windows)

@@ -10,7 +10,10 @@ writes a checkpoint, and checks that the Predictor, the Trainer and the
 experiment CLI raise without CUDA when no device is named. The data front
 end (preprocess, features, synthetic, protocol), the hybrid model and the
 experiments beyond plain LOSO (hierarchical, its sweep, the
-replicated sweep, ablation) are among the modules imported."""
+replicated sweep, ablation) and the deployment tier (streaming, export,
+import) are among the modules imported; an artifact exported in the
+subprocess runs on the CPU, and ExportedPredictor.load and the stream CLI
+raise without CUDA when no device is named."""
 
 import subprocess
 import sys
@@ -100,6 +103,37 @@ SCRIPT = textwrap.dedent("""
             print("cli default device raised")
         else:
             raise AssertionError("the CLI ran without CUDA instead of raising")
+    # The deployment tier: an artifact exported here loads on the CPU when
+    # asked, and it and the stream CLI ask for CUDA by default.
+    for name in ("experiments.streaming", "experiments.export", "experiments.import_torch"):
+        assert f"multimodalsignal_tpu_torch.{name}" in names, name
+    from multimodalsignal_tpu_torch.config import save_config
+    from multimodalsignal_tpu_torch.experiments import streaming
+    from multimodalsignal_tpu_torch.experiments.export import ExportedPredictor, export_predictor
+    from multimodalsignal_tpu_torch.train.checkpoints import write_initial_train_state
+    with tempfile.TemporaryDirectory() as tmp:
+        small = Predictor(cfg, variables, device="cpu", window_sec=4, target_fs=16)
+        export_predictor(small, tmp + "/m.mms")
+        probs = ExportedPredictor.load(tmp + "/m.mms", device="cpu").predict_windows(
+            np.zeros((3, 3, 64), np.float32))
+        assert probs.shape == (3, 2)
+        try:
+            ExportedPredictor.load(tmp + "/m.mms")
+        except RuntimeError as exc:
+            assert "cuda" in str(exc)
+            print("artifact default device raised")
+        else:
+            raise AssertionError("ExportedPredictor ran without CUDA instead of raising")
+        write_initial_train_state(tmp + "/best_model.msgpack", variables, 1e-3)
+        save_config(cfg, tmp + "/config.json")
+        try:
+            streaming.main(["--checkpoint", tmp + "/best_model.msgpack",
+                            "--config", tmp + "/config.json", "--stdin"])
+        except RuntimeError as exc:
+            assert "cuda" in str(exc)
+            print("stream cli default device raised")
+        else:
+            raise AssertionError("the stream CLI ran without CUDA instead of raising")
     leaked = sorted(n for n, m in sys.modules.items() if blocked(n) and m is not None)
     assert not leaked, leaked
     print("ok")
@@ -113,4 +147,8 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
     assert "default device raised" in proc.stdout
     assert "trainer default device raised" in proc.stdout
     assert "cli default device raised" in proc.stdout
+    assert "artifact default device raised" in proc.stdout
+    assert "stream cli default device raised" in proc.stdout
+    # 38 modules before the deployment tier, then streaming, export, import_torch.
+    assert int(proc.stdout.split("imported ")[1].split()[0]) >= 41
     assert proc.stdout.strip().endswith("ok")

@@ -171,3 +171,56 @@ def test_http_errors(server):
     assert status == 413 and "limit is 12" in out["error"]
     status, _ = _post(url + "/v1/predict_recording", {"pkl_path": "/nonexistent.pkl"})
     assert status == 400
+
+
+# -- wrist channels in the Predictor ------------------------------------------------
+
+WRIST = ["chest_ECG", "wrist_BVP", "wrist_EDA"]
+
+
+@pytest.mark.parametrize("has_wrist", [True, False])
+def test_wrist_grid_and_windows_match_jax(recording, has_wrist, tmp_path, monkeypatch, capsys):
+    """A wrist checkpoint's recording grid: the chest block, then the wrist
+    block resampled as preprocessing does (zeros and a warning for a
+    chest-only recording), and its windows, bitwise the JAX package's (its
+    NumPy normalization path)."""
+    from multimodalsignal_tpu import native
+    from multimodalsignal_tpu.experiments import predict as jpredict
+    from multimodalsignal_tpu_torch.experiments import predict as ppredict
+
+    from tests.test_torch_ensemble import _write_recording
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    pkl = recording
+    if not has_wrist:
+        pkl = tmp_path / "S99.pkl"
+        _write_recording(pkl, seconds=100)
+    got, names = ppredict._recording_grid(pkl, WRIST, 700, 128)
+    out = capsys.readouterr().out
+    want, want_names = jpredict._recording_grid(pkl, WRIST, 700, 128)
+    assert names == want_names and names[8:] == ["wrist_ACC_x", "wrist_ACC_y", "wrist_ACC_z",
+                                                 "wrist_BVP", "wrist_EDA", "wrist_TEMP"]
+    np.testing.assert_array_equal(got, want)
+    assert ("no wrist data" in out) == (not has_wrist)
+    assert (got[:, 8:] == 0).all() == (not has_wrist)
+    chest, chest_names = ppredict._recording_grid(pkl, ["chest_ECG"], 700, 128)
+    assert chest_names == names[:8]
+    np.testing.assert_array_equal(chest, got[:, :8])
+    (x, starts), (jx, jstarts) = (mod.recording_to_windows(pkl, WRIST, "all")
+                                  for mod in (ppredict, jpredict))
+    assert x.shape[1:] == (3, 7680)
+    np.testing.assert_array_equal(starts, jstarts)
+    np.testing.assert_array_equal(x, jx)
+
+
+def test_wrist_predictor_matches_jax(recording, tmp_path):
+    """A random-weight checkpoint on chest_ECG, wrist_BVP, wrist_EDA
+    classifies a recording as the JAX Predictor does."""
+    from tests.test_torch_streaming import write_run
+
+    cfg = ExperimentConfig(channels_to_use=tuple(WRIST), model=ModelConfig(gru_hidden_size=8))
+    run = write_run(tmp_path / "wrist", cfg, folds=("S2",), meta={})
+    got = Predictor.from_run(run, "S2", device="cpu").predict_recording(recording)
+    want = JaxPredictor.from_run(run, "S2").predict_recording(recording)
+    np.testing.assert_allclose(got.probs, want.probs, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.starts_sec, want.starts_sec)
