@@ -203,6 +203,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     d. a random-weight checkpoint on chest_ECG, wrist_BVP, wrist_EDA:
        predict_recording of the pickle on the card against the CPU.
     Then the phase's seconds, and each part's.
+12. Mid-run resume, the sweep's profiler trace and the attention probe, on
+    the data and runs of phases 6, 7 and 10:
+    a. the 15-lane float32 sweep of phase 7's data at full width for 4
+       epochs, uncut; then with trainer.checkpoint_every=1 and
+       abort_after_epoch=2 (SweepAborted); then resumed from its bundle
+       (counted: exactly 2 epochs' gru_fwd_fb and gru_bwd_fb, and the test
+       batches); resumed against uncut under TRAIN_TOL, printed whether
+       bitwise; the bundle's size, write and read times;
+    b. the serial Trainer on fold 0 of phase 6's 4 subjects (auto, float32,
+       dropout 0.5), cut after epoch 2 and resumed the same way (counted:
+       gru_fwd_fb, gru_fwd, gru_bwd_fb and gru_bwd once a train step of the
+       remaining epochs, the forwards once an eval batch), against uncut
+       under TRAIN_TOL;
+    c. `main --profile-dir D --set trainer.epochs=1` (counted as one sweep
+       epoch): D's Chrome trace names gru_fwd_fb and gru_bwd_fb (each
+       launch's range) beside the walk kernels;
+    d. the attention probe CLI (`analysis.attention_probe`, counted: one
+       gru_fwd_fb and one gru_fwd a padded chunk of 256 windows) on phase
+       7's float32 run (C=3, the constant gate) and phase 10e's fusion4 run
+       (C=4, a rank-1 gate), rail and flatline at rates 0, 0.5 and 1; fold
+       S2 of the fusion4 run against the probe on the CPU (probabilities
+       within PROB_ATOL, gate statistics equal, accuracies within a
+       window).
+    Then the phase's seconds, and each part's.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -244,6 +268,7 @@ import numpy as np
 import torch
 
 from multimodalsignal_tpu_torch import main as cli
+from multimodalsignal_tpu_torch.analysis import attention_probe
 from multimodalsignal_tpu_torch.config import (
     ALL_CHANNEL_NAMES,
     ALL_SUBJECTS,
@@ -1002,8 +1027,11 @@ def trace(fn, what: str, n: int = 5) -> None:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # Device kernels only: a launch's record_function range (gru_cuda._call
+    # names each launch so under a profiler) shows on the device timeline too.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
         print("  trace: the profiler saw no device activity; not measured")
         return
@@ -1016,9 +1044,8 @@ def trace(fn, what: str, n: int = 5) -> None:
     busy += cur_end - cur_start
     span = spans[-1][1] - spans[0][0]
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
     print(f"  trace of {n} {what}s: device busy {total / n / 1e3:.3f} ms per "
           f"{what}, span {span / n / 1e3:.3f} ms, idle share {1 - busy / span:.2%}")
@@ -2222,12 +2249,12 @@ def replicated_phase(data: Path, root: Path, single) -> None:
         sweep_profile(corpus, rfb, c, f"replicated {dtype} auto", seeds=SEEDS)
 
 
-def ablation_phase(data: Path, root: Path) -> None:
+def ablation_phase(data: Path, root: Path) -> Path:
     """10e. The ablation CLI on phase 7's data: subsets ecg (C=1, the
     channel gate's constant path) and fusion4 (C=4, the active gate) by
     models cnn_gru_attention and cnn_gru, sharded, 2 epochs (counted: four
     sweeps of 3 + 3 a train step); ablation_summary.txt and four finite
-    points."""
+    points. Returns the ablation's run directory."""
     out = root / "ablation"
     argv = ["--out", str(out), "--subsets", "ecg", "fusion4", "--set", "trainer.epochs=2",
             "--set", f"data_path={data}"]
@@ -2258,21 +2285,23 @@ def ablation_phase(data: Path, root: Path) -> None:
     print(f"ablation float32: 2 subsets x 2 models sharded in {wall:.2f} s; "
           + ", ".join(f"{p['name']} {p['mean_accuracy']:.4f} ({p['wall_s']:.1f} s)"
                       for p in points) + f"; launches {launches}")
+    return run_dir
 
 
-def phase10(root: Path, wesad: Path, loso_data: Path, sweep_data: Path, single) -> Path:
+def phase10(root: Path, wesad: Path, loso_data: Path, sweep_data: Path,
+            single) -> tuple[Path, Path]:
     """Phase 10 (module docstring): 10a the sharded hierarchical CLI, 10b
     the serial one, 10c the hierarchical predictor, 10d the seed-replicated
-    sweep, 10e the ablation CLI. Returns 10a's run directory."""
+    sweep, 10e the ablation CLI. Returns 10a's and 10e's run directories."""
     t_phase = time.perf_counter()
     root.mkdir()
     run_dir = hier_sharded_phase(wesad, root)
     hier_serial_phase(loso_data, root)
     hier_predictor_phase(run_dir, wesad / "S2" / "S2.pkl")
     replicated_phase(sweep_data, root, single)
-    ablation_phase(sweep_data, root)
+    ablation_run = ablation_phase(sweep_data, root)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
-    return run_dir
+    return run_dir, ablation_run
 
 
 # Phase 11: the deployment tier on phase 7, 9 and 10's runs. The stream's
@@ -2397,8 +2426,11 @@ def artifact_phase(ens_run: Path, bf16_run: Path, hybrid_run: Path, root: Path) 
     folds = len(ens.fold_names)
     if card_info["backend"] != f"artifact-ensemble[{folds}]" or card_info["platform"] != "cuda":
         raise AssertionError(f"serving --artifact /healthz: {card_info}")
-    err = _check_probs(reply["probs"], ExportedPredictor.load(ens_artifact).predict_windows(xs[1]),
-                       1, 1e-6, "serving --artifact /v1/predict")
+    # The server process keeps torch's TF32 defaults (cuDNN's on), as every
+    # CLI of the port does: hold its reply against the artifact run so here.
+    with tf32_as_default():
+        want = ExportedPredictor.load(ens_artifact).predict_windows(xs[1])
+    err = _check_probs(reply["probs"], want, 1, 1e-6, "serving --artifact /v1/predict")
     print(f"artifact: serving --artifact answered /v1/predict (backend {card_info['backend']}), "
           f"max|probs - artifact| = {err:.3e}")
     return ens_artifact
@@ -2667,6 +2699,327 @@ def phase11(root: Path, ens_run: Path, bf16_run: Path, hybrid_run: Path, hier_ru
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({split})")
 
 
+# Phase 12: mid-run resume, the sweep's profiler trace and the attention
+# probe. The cut runs train RESUME_EPOCHS epochs and are cut after RESUME_CUT.
+RESUME_EPOCHS, RESUME_CUT = 4, 2
+PROBE_RATES, PROBE_KINDS = ("0", "0.5", "1"), ("rail", "flatline")
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str):
+    """The host seconds of every call of owner.<name> while the block runs
+    (the calls pass through unchanged)."""
+    real, seconds = getattr(owner, name), []
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(owner, name, call)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, name, real)
+
+
+def _param_leaves(tree: dict, prefix: str = ""):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _param_leaves(tree[key], f"{prefix}{key}/")
+        else:
+            yield prefix + key, np.asarray(tree[key])
+
+
+def resumed_vs_uncut(got_losses, want_losses, got_params: dict, want_params: dict,
+                     tol: dict, steps: int, lr: float, what: str) -> None:
+    """A resumed run against the uncut one under TRAIN_TOL (as
+    compare_steps: losses within tol['loss'] relative, every parameter
+    within 2 lr per step, at most tol['share'] of them beyond tol['elem']);
+    prints whether the two are bitwise equal (cuDNN's convolution weight
+    gradients need not be deterministic on the card)."""
+    got_losses, want_losses = np.asarray(got_losses), np.asarray(want_losses)
+    loss_err = float(np.max(np.abs(got_losses - want_losses)
+                            / np.maximum(np.abs(want_losses), 1e-12)))
+    got, want = dict(_param_leaves(got_params)), dict(_param_leaves(want_params))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: parameter trees differ")
+    diffs = [np.abs(got[k] - want[k]) for k in want]
+    worst = max(float(d.max()) for d in diffs)
+    share = sum(int((d > tol["elem"]).sum()) for d in diffs) / sum(d.size for d in diffs)
+    bitwise = (np.array_equal(got_losses, want_losses)
+               and all(np.array_equal(got[k], want[k]) for k in want))
+    summary = (f"losses max rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+               f"{share:.4%} beyond {tol['elem']}; {'bitwise equal' if bitwise else 'not bitwise'}")
+    if not (np.isfinite(got_losses).all() and loss_err <= tol["loss"]
+            and worst <= 2 * lr * steps + 1e-6 and share <= tol["share"]):
+        raise AssertionError(f"{what}: resumed vs uncut beyond TRAIN_TOL: {summary}")
+    print(f"{what}: resumed vs uncut {summary}")
+
+
+def sweep_resume_phase(data: Path, root: Path) -> None:
+    """12a. On phase 7's data, the 15-lane float32 sweep at full width for
+    RESUME_EPOCHS epochs: uncut; then with trainer.checkpoint_every=1 and
+    abort_after_epoch=RESUME_CUT (SweepAborted, a bundle a epoch); then
+    resumed from the bundle (the main path, counted: exactly the remaining
+    epochs' 3 gru_fwd_fb + 3 gru_bwd_fb a train step and 3 gru_fwd_fb an
+    eval batch). Resumed against uncut under TRAIN_TOL; the bundle's write
+    and read times."""
+    argv = ["--set", f"trainer.epochs={RESUME_EPOCHS}", "--set", f"data_path={data}"]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    corpus = pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
+                         read_channel_names(data))
+    fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+    t0 = time.perf_counter()
+    uncut = fold_sweep.run_fold_sweep(corpus, fb, cfg, "cuda")
+    uncut_s = time.perf_counter() - t0
+    ck = dataclasses.replace(cfg, trainer=dataclasses.replace(
+        cfg.trainer, checkpoint_every=1, resume=True))
+    run_dir = root / "sweep_resume"
+    run_dir.mkdir()
+    with timed_calls(fold_sweep, "_save_sweep_resume") as writes:
+        try:
+            fold_sweep.run_fold_sweep(corpus, fb, ck, "cuda", run_dir=run_dir,
+                                      abort_after_epoch=RESUME_CUT)
+        except fold_sweep.SweepAborted as exc:
+            aborted = str(exc)
+        else:
+            raise AssertionError("sweep resume: the drill did not raise SweepAborted")
+        meta = json.loads((run_dir / "sweep_resume_meta.json").read_text())
+        if meta != {"next_epoch": RESUME_CUT}:
+            raise AssertionError(f"sweep resume: bundle meta {meta}")
+        bundle_mib = (run_dir / "sweep_resume.msgpack").stat().st_size / 2**20
+        with timed_calls(fold_sweep, "_load_sweep_resume") as reads:
+            gru_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            # --- the main path: everything between reset and read is counted ---
+            resumed = fold_sweep.run_fold_sweep(corpus, fb, ck, "cuda", run_dir=run_dir)
+            launches = gru_cuda.launch_counts()
+            # --------------------------------------------------------------------
+            resumed_s = time.perf_counter() - t0
+    rest = dataclasses.replace(cfg.trainer, epochs=RESUME_EPOCHS - RESUME_CUT)
+    expected, train_steps, eval_batches = sweep_expected_launches(fb, rest)
+    if launches != expected or len(reads) != 1:
+        raise AssertionError(f"sweep resume: launches {launches}, expected {expected} "
+                             f"({train_steps} train steps, {eval_batches} eval batches); "
+                             f"{len(reads)} bundle reads")
+    for name in ("test_cm", "best_epoch", "stop_epoch"):
+        if not np.isfinite(getattr(resumed, name)).all():
+            raise AssertionError(f"sweep resume: {name} not finite")
+    steps_tr = grid_steps(fb.n_train, cfg.trainer.batch_size)
+    h = lambda r: np.concatenate([r.history.train_loss, r.history.val_loss,  # noqa: E731
+                                  r.test_loss[:, None]], axis=1)
+    resumed_vs_uncut(h(resumed), h(uncut), resumed.final_variables["params"],
+                     uncut.final_variables["params"], TRAIN_TOL["float32"],
+                     RESUME_EPOCHS * steps_tr, cfg.trainer.learning_rate,
+                     f"sweep resume float32 F={len(fb.test_subjects)}")
+    cm_moved = int(np.abs(resumed.test_cm - uncut.test_cm).sum())
+    print(f"sweep resume float32: {aborted}; resumed from epoch {RESUME_CUT} of "
+          f"{RESUME_EPOCHS}: {train_steps} train steps and {eval_batches} eval batches in "
+          f"{resumed_s:.2f} s (uncut {RESUME_EPOCHS} epochs {uncut_s:.2f} s); test "
+          f"confusion-matrix windows moved {cm_moved}; bundle {bundle_mib:.2f} MiB, write "
+          f"(device to host, msgpack, logs, generators) median "
+          f"{statistics.median(writes) * 1e3:.1f} ms of {len(writes)}, read "
+          f"{reads[0] * 1e3:.1f} ms; launches {launches}")
+
+
+def serial_resume_phase(data: Path, root: Path) -> None:
+    """12b. On phase 6's data (fold 0 of LOSO_SUBJECTS), the serial
+    Trainer (the default model, auto, float32, dropout 0.5) for
+    RESUME_EPOCHS epochs: uncut; cut after RESUME_CUT (checkpoint_every=1);
+    resumed in a new Trainer (the main path, counted: one launch of each of
+    gru_fwd_fb, gru_fwd, gru_bwd_fb, gru_bwd a train step of the remaining
+    epochs, of each forward an eval batch). Resumed against uncut under
+    TRAIN_TOL; the bundle's write and read times."""
+    cfg = cli.load_config(cli.build_parser().parse_args(
+        ["--set", f"data_path={data}", "--set", "subjects=" + ",".join(LOSO_SUBJECTS)]))
+    fold = loso_folds(cfg.subjects, cfg.val_fraction, cfg.seed)[0]
+    names = read_channel_names(data)
+    train, val = (build_dataset(data, list(sids), list(cfg.channels_to_use), names,
+                                cfg.classification_mode, cfg.normalization)
+                  for sids in (fold.train_subjects, fold.val_subjects))
+    variables = random_variables(cfg, seed=0)
+
+    def trainer(name: str, **fields):
+        tcfg = dataclasses.replace(cfg.trainer, **{"epochs": RESUME_EPOCHS, **fields})
+        return Trainer(build_model(cfg.model, 2, len(cfg.channels_to_use)), root / name,
+                       tcfg, 2, device="cuda", variables=variables)
+
+    uncut = trainer("uncut")
+    uncut.train(train, val)
+    with timed_calls(Trainer, "_save_resume") as writes:
+        trainer("cut", checkpoint_every=1, epochs=RESUME_CUT).train(train, val)
+        resumed = trainer("cut", checkpoint_every=1, resume=True)
+        with timed_calls(Trainer, "_load_resume") as reads:
+            gru_cuda.reset_launch_counts()
+            # --- the main path: everything between reset and read is counted ---
+            resumed.train(train, val)
+            launches = gru_cuda.launch_counts()
+            # --------------------------------------------------------------------
+    bs = cfg.trainer.batch_size
+    epochs = RESUME_EPOCHS - RESUME_CUT
+    train_steps, eval_batches = epochs * -(-len(train) // bs), epochs * -(-len(val) // bs)
+    expected = {"gru_fwd": train_steps + eval_batches, "gru_fwd_fb": train_steps + eval_batches,
+                "gru_bwd": train_steps, "gru_bwd_fb": train_steps, "gru_bifwd": 0,
+                "gru_bibwd": 0}
+    if launches != expected or len(reads) != 1:
+        raise AssertionError(f"serial resume: launches {launches}, expected {expected}; "
+                             f"{len(reads)} bundle reads")
+    if [e.epoch for e in resumed.history] != list(range(RESUME_CUT + 1, RESUME_EPOCHS + 1)):
+        raise AssertionError(f"serial resume: epochs {[e.epoch for e in resumed.history]}")
+    log = (root / "cut" / "training_log.txt").read_text()
+    if f"Epoch {RESUME_CUT}/{RESUME_CUT}" not in log or "Resumed from epoch" not in log:
+        raise AssertionError("serial resume: the log lost the epochs before the cut")
+    losses = lambda hist: [v for e in hist for v in (e.train_loss, e.val_loss)]  # noqa: E731
+    resumed_vs_uncut(losses(resumed.history), losses(uncut.history[RESUME_CUT:]),
+                     export_jax_variables(resumed.model)["params"],
+                     export_jax_variables(uncut.model)["params"], TRAIN_TOL["float32"],
+                     RESUME_EPOCHS * -(-len(train) // bs), cfg.trainer.learning_rate,
+                     "serial resume float32 dropout 0.5")
+    print(f"serial resume float32: fold test={fold.test_subject}, {len(train)} train and "
+          f"{len(val)} val windows, resumed from epoch {RESUME_CUT} of {RESUME_EPOCHS}: "
+          f"{train_steps} train steps, {eval_batches} eval batches; bundle "
+          f"{(root / 'cut' / 'resume_state.msgpack').stat().st_size / 2**20:.2f} MiB, write "
+          f"median {statistics.median(writes) * 1e3:.1f} ms of {len(writes)}, read "
+          f"{reads[0] * 1e3:.1f} ms; launches {launches}")
+
+
+def profile_dir_phase(data: Path, root: Path) -> None:
+    """12c. `main --profile-dir D --set trainer.epochs=1` on phase 7's data
+    (counted as one sweep epoch): the Chrome trace in D exists, and names
+    gru_fwd_fb and gru_bwd_fb (the launches' ranges) beside the walk
+    kernels."""
+    trace_dir = root / "trace"
+    argv = ["--output-dir", str(root / "profile"), "--profile-dir", str(trace_dir),
+            "--set", "trainer.epochs=1", "--set", f"data_path={data}"]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    cli.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    corpus_fb = build_fold_batch(
+        pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
+                    read_channel_names(data)), list(cfg.subjects), cfg.val_fraction, cfg.seed)
+    expected, _, _ = sweep_expected_launches(corpus_fb, cfg.trainer)
+    if launches != expected:
+        raise AssertionError(f"profile-dir: launches {launches}, expected {expected}")
+    path = trace_dir / "sweep_trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    named = collections.Counter(e.get("name") for e in events)
+    kernels = collections.Counter(e["name"].split("<")[0] for e in events
+                                  if e.get("cat") == "kernel")
+    if (named["gru_fwd_fb"] < launches["gru_fwd_fb"] or named["gru_bwd_fb"] < launches["gru_bwd_fb"]
+            or not any("gru_walk_kernel" in k for k in kernels)):
+        raise AssertionError(f"profile-dir: the trace names gru_fwd_fb {named['gru_fwd_fb']} "
+                             f"and gru_bwd_fb {named['gru_bwd_fb']} times; kernels "
+                             f"{kernels.most_common(8)}")
+    print(f"profile-dir: main --profile-dir, 1 epoch in {wall:.2f} s; {path.name} "
+          f"{path.stat().st_size / 2**20:.1f} MiB, {len(events)} events, ranges gru_fwd_fb "
+          f"{named['gru_fwd_fb']} and gru_bwd_fb {named['gru_bwd_fb']}, kernel launches "
+          f"{sum(kernels.values())} (" + ", ".join(f"{k} {n}" for k, n in
+                                                   kernels.most_common(4)) + ")")
+
+
+def probe_phase(data: Path, runs: dict[str, Path], root: Path) -> None:
+    """12d. The attention probe CLI on the card (the main path, counted:
+    one gru_fwd_fb and one gru_fwd a padded chunk of 256 windows) over
+    phase 7's run (C=3: the constant gate) and phase 10e's fusion4 run
+    (C=4, r=4: a rank-1 gate), PROBE_KINDS x PROBE_RATES; then fold S2 of
+    the fusion4 run against the probe on the CPU: the probabilities of its
+    corrupted windows within PROB_ATOL, the gate statistics equal, the
+    accuracies within a window."""
+    out = root / "probe.json"
+    argv = [a for name, run in runs.items() for a in ("--run", f"{name}={run}")]
+    argv += ["--data", str(data), "--rates", *PROBE_RATES, "--kinds", *PROBE_KINDS,
+             "--out", str(out)]
+    gru_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --- the main path: everything between reset and read is counted ---
+    attention_probe.main(argv)
+    launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    chunks, folds = 0, {}
+    for name, run in runs.items():
+        cfg = config_from_dict(ExperimentConfig, json.loads((run / "config.json").read_text()))
+        folds[name] = len(cfg.subjects)
+        for sid in cfg.subjects:
+            n = len(build_dataset(data, [sid], list(cfg.channels_to_use),
+                                  read_channel_names(data), cfg.classification_mode,
+                                  cfg.normalization))
+            chunks += len(PROBE_RATES) * len(PROBE_KINDS) * -(-n // attention_probe._EVAL_CHUNK)
+    expected = {"gru_fwd": chunks, "gru_fwd_fb": chunks, "gru_bwd": 0, "gru_bwd_fb": 0,
+                "gru_bifwd": 0, "gru_bibwd": 0}
+    if launches != expected:
+        raise AssertionError(f"probe: launches {launches}, expected {expected}")
+    results = json.loads(out.read_text())["results"]
+    for name, agg in results.items():
+        accs = [agg[k][r]["accuracy"] for k in PROBE_KINDS for r in PROBE_RATES]
+        if agg["num_folds"] != folds[name] or not all(math.isfinite(a) for a in accs):
+            raise AssertionError(f"probe: {name} gives {agg}")
+    gate = results["fusion4_r4"]["rail"]["1"]
+    const = results["attention_c3"]["rail"]["1"]
+    if const["gate_corrupted"] != 0.5 or gate["gate_corrupted"] == gate["gate_other"]:
+        raise AssertionError(f"probe: gates {const} (C=3), {gate} (C=4)")
+    print(f"probe: attention_probe CLI on the card, {len(runs)} runs of "
+          f"{'/'.join(map(str, folds.values()))} folds x {len(PROBE_KINDS)} kinds x "
+          f"{len(PROBE_RATES)} rates in {wall:.2f} s; "
+          + "; ".join(f"{name} accuracy @0/0.5/1 rail "
+                      + "/".join(f"{agg['rail'][r]['accuracy']:.4f}" for r in PROBE_RATES)
+                      + f", gate corrupted/other at rate 1 {agg['rail']['1']['gate_corrupted']:.4f}"
+                      f"/{agg['rail']['1']['gate_other']:.4f}"
+                      for name, agg in results.items()) + f"; launches {launches}")
+
+    run = runs["fusion4_r4"]
+    card_p = Predictor.from_run(run, "S2", device="cuda")
+    cpu_p = Predictor.from_run(run, "S2", device="cpu")
+    ds = build_dataset(data, ["S2"], list(card_p.cfg.channels_to_use), read_channel_names(data),
+                       card_p.cfg.classification_mode, card_p.cfg.normalization)
+    xc, _, _ = attention_probe.corrupt_windows(ds.x, 0.5, "rail", seed=1)
+    err = _check_probs(attention_probe._batched_probs(card_p, xc),
+                       attention_probe._batched_probs(cpu_p, xc), len(xc),
+                       PROB_ATOL["float32"], "probe fold S2 card vs CPU")
+    rates = [0.0, 0.5]
+    card_r, cpu_r = (attention_probe.probe_fold(p, ds.x, ds.y, rates, ["rail"], seed=1,
+                                                num_classes=2) for p in (card_p, cpu_p))
+    for r in rates:
+        a, b = card_r["rail"][f"{r:g}"], cpu_r["rail"][f"{r:g}"]
+        if (abs(a["accuracy"] - b["accuracy"]) > 1 / len(ds.y) + 1e-12 or any(
+                not (a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])))
+                for k in ("gate_corrupted", "gate_other", "gate_clean_mean"))):
+            raise AssertionError(f"probe fold S2 rate {r}: card {a}, CPU {b}")
+    print(f"probe fold S2 (fusion4, rank-1 gate): {len(xc)} windows, max|probs card - CPU| "
+          f"{err:.3e} (atol {PROB_ATOL['float32']}); probe_fold card vs CPU: accuracies "
+          + ", ".join(f"{card_r['rail'][f'{r:g}']['accuracy']:.4f}/"
+                      f"{cpu_r['rail'][f'{r:g}']['accuracy']:.4f}" for r in rates)
+          + ", gate statistics equal")
+
+
+def phase12(root: Path, data: Path, loso_data: Path, sweep_run: Path,
+            fusion4_run: Path) -> None:
+    """Phase 12 (module docstring): 12a the sweep's resume drill, 12b the
+    serial Trainer's resume, 12c main --profile-dir, 12d the attention
+    probe."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    marks = [time.perf_counter()]
+    sweep_resume_phase(data, root)
+    marks.append(time.perf_counter())
+    serial_resume_phase(loso_data, root)
+    marks.append(time.perf_counter())
+    profile_dir_phase(data, root)
+    marks.append(time.perf_counter())
+    probe_phase(data, {"attention_c3": sweep_run, "fusion4_r4": fusion4_run}, root)
+    marks.append(time.perf_counter())
+    split = ", ".join(f"12{k} {b - a:.1f} s" for k, a, b in zip("abcd", marks, marks[1:]))
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({split})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -2713,8 +3066,11 @@ def main() -> int:
         _, bf16_run = sweep_phase("bfloat16", ["--set", f"data_path={data}"], Path(tmp))
         ensemble_phase(sweep_run)
         wesad, hybrid_run = phase9(Path(tmp) / "phase9")
-        hier_run = phase10(Path(tmp) / "phase10", wesad, loso_data, data, seen[0])
+        hier_run, ablation_run = phase10(Path(tmp) / "phase10", wesad, loso_data, data,
+                                         seen[0])
         phase11(Path(tmp) / "phase11", sweep_run, bf16_run, hybrid_run, hier_run, wesad)
+        phase12(Path(tmp) / "phase12", data, loso_data, sweep_run,
+                ablation_run / "fusion4__cnn_gru_attention")
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
     # default execution), the fused pair's on the float32 serial LOSO path

@@ -7,10 +7,13 @@ fold as a lane of one model), and serves their checkpoints, its own or the
 JAX package's (`best_model.msgpack` + `config.json`, read unchanged),
 through the same HTTP routes. The GRU recurrence runs in CUDA kernels
 written by hand (ops/csrc/), built with nvcc at first use. It imports torch,
-numpy, scipy and the standard library, never JAX or the JAX package.
+numpy, scipy and the standard library (the feature-analysis tools also
+scikit-learn, matplotlib, seaborn and pandas, inside their functions),
+never JAX or the JAX package.
 
 Layer map:
-  main.py      experiment CLI (sharded sweep, --execution serial, --from-pickles)
+  main.py      experiment CLI (sharded sweep, --execution serial, --from-pickles,
+               --profile-dir)
   serving.py   HTTP server, micro-batcher
   experiments/ predict (Predictor, EnsemblePredictor, recording -> windows),
                loso (serial LOSO), splits
@@ -20,7 +23,9 @@ Layer map:
   models/      CnnGru(Attention), hybrid, BiGRU, the fold-stacked model,
                flax-weight conversion
   ops/         CUDA kernels, their wrappers and plain versions
-  train/       Trainer, Adam and FoldAdam, metrics, flax checkpoints
+  train/       Trainer, Adam and FoldAdam, metrics, flax checkpoints and
+               resume bundles
+  analysis/    preprocess checker, feature tools (host), attention probe
 """
 
 __version__ = "0.1.0"

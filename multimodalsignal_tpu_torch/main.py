@@ -10,6 +10,9 @@
     python -m multimodalsignal_tpu_torch.main --seeds 42 43 44 45 [--seed-chunk 2]
     python -m multimodalsignal_tpu_torch.main --hierarchical [--execution serial] \
         --set base.trainer.epochs=50 --set m2_model.gru_hidden_size=32
+    python -m multimodalsignal_tpu_torch.main --profile-dir ./trace
+    python -m multimodalsignal_tpu_torch.main --output-dir ./out \
+        --set trainer.checkpoint_every=5 [--set trainer.resume=true]
 
 Creates <output_dir>/<run_name>/run_<timestamp>/, writes config.json there
 and runs the LOSO experiment on the GPU, or on the CPU with --device cpu:
@@ -25,7 +28,13 @@ bounds the seed groups a launch). --hierarchical takes a HierarchicalConfig
 experiment: two sweeps and a composed evaluation (parallel/
 hierarchical_sweep.py, the default) or, with --execution serial, fold
 after fold (experiments/hierarchical.py); --from-pickles goes into its
-base config, sharded only.
+base config, sharded only. --profile-dir writes a torch.profiler trace of
+the sharded sweep (the plain LOSO sweep only). Mid-run resume has no flag,
+as in the JAX CLI: trainer.checkpoint_every=N saves the state every N
+epochs (the sweep's bundle in the run directory, the serial Trainer's in
+each fold's directory) and trainer.resume=true goes on from it; a resumed
+run names its earlier run directory (MMS_RUN_ID with MMS_NUM_PROCESSES, as
+utils/run.py says, or the library calls).
 """
 
 from __future__ import annotations
@@ -72,6 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "preprocessing (resample + window) and the corpus pack in "
                         "memory, no npy files (sharded execution only; sets "
                         "cfg.from_pickles)")
+    p.add_argument("--profile-dir", type=Path, default=None,
+                   help="write a torch.profiler trace of the sharded sweep here")
     return p
 
 
@@ -132,8 +143,11 @@ def main(argv=None) -> None:
             run_replicated_experiment(cfg, tuple(args.seeds), run_dir, device=device,
                                       seed_chunk=args.seed_chunk)
 
+        def run_sharded(cfg, run_dir, device):
+            run_sharded_experiment(cfg, run_dir, device=device, profile_dir=args.profile_dir)
+
         run = (run_replicated if args.seeds else
-               run_simple_experiment if execution == "serial" else run_sharded_experiment)
+               run_simple_experiment if execution == "serial" else run_sharded)
         output_dir = cfg.output_dir
 
     device = resolve_device(args.device)

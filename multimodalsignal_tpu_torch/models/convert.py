@@ -95,10 +95,8 @@ def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
     used = set()
     with torch.no_grad():
         for coll, path, target, transform in _layout(model):
-            node = trees[coll]
             try:
-                for key in path:
-                    node = node[key]
+                node = get_leaf(trees[coll], path)
             except KeyError as exc:
                 raise ValueError(f"{coll}/{'/'.join(path)} missing from the "
                                  "checkpoint") from exc
@@ -116,16 +114,26 @@ def load_jax_variables(model, params: dict, batch_stats: dict) -> None:
         raise ValueError(f"checkpoint leaves the model has no place for: {extra}")
 
 
+def put_leaf(tree: dict, path: tuple, value) -> None:
+    """tree[path[0]][path[1]]... = value, making the dicts on the way."""
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def get_leaf(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def export_jax_variables(model) -> dict:
     """The model's weights as a flax {"params", "batch_stats"} pair of
     nested dicts of float32 numpy arrays (stacked over the fold axis for a
     FoldStackedModel)."""
     out = {"params": {}, "batch_stats": {}}
     for coll, path, tensor, transform in _layout(model):
-        node = out[coll]
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = transform(tensor.detach()).float().cpu().numpy().copy()
+        put_leaf(out[coll], path, transform(tensor.detach()).float().cpu().numpy().copy())
     return out
 
 

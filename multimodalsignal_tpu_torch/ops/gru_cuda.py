@@ -59,6 +59,7 @@ on either device (the caller casts first, as `gru_bidirectional_fused` does).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -445,8 +446,12 @@ def _launch(entry: str, xg, w_hh, b_hh, h0, reverse: bool, fb: bool):
 
 def _call(lib: ctypes.CDLL, entry: str, tensors, ints: list[int]) -> None:
     """Call C `entry` with the tensors' pointers, the ints and the current
-    stream; raise if it returns a CUDA error."""
-    with torch.cuda.device(tensors[0].device):
+    stream; raise if it returns a CUDA error. Under a running torch.profiler
+    the launch is a range named `entry` (record_function), so a trace names
+    the entry beside its kernels; otherwise nothing is recorded."""
+    named = (torch.profiler.record_function(entry) if torch.autograd._profiler_enabled()
+             else contextlib.nullcontext())
+    with torch.cuda.device(tensors[0].device), named:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *ints, stream)
     if err != 0:

@@ -35,13 +35,27 @@ hybrid_cnn_gru, from the raw-align and feature targets (pack_hybrid_corpus):
 the features sit on the device beside the windows and every batch gathers
 both by the same indices.
 
-One device, no mesh: folds across GPUs, the sweep's resume
-(checkpoint_every / resume), the on-disk pack cache, trainer.remat and a
-profiler trace directory are not ported (ROADMAP.md, queue 1).
+Mid-run resume, as the JAX sweep does it (run_fold_sweep with a run_dir):
+every checkpoint_every epochs the whole carry is saved as
+`sweep_resume.msgpack` in the JAX carry's flax layout (state, best, early
+stopping, plateau, rng, stop flags; every lane's parameters, BN statistics,
+FoldAdam moments, count and lr), the per-epoch logs as
+`sweep_resume_logs.npz` and the next epoch in `sweep_resume_meta.json`;
+with trainer.resume and such a bundle the sweep goes on from it. The JAX
+rng leaf (threefry keys) means nothing here: it is written as zeros of its
+shape and ignored on read; the per-fold numpy shuffle streams are replayed
+instead, and the dropout generators' states sit in `sweep_resume_rng.pt`.
+`abort_after_epoch` is the JAX preemption drill (SweepAborted).
+run_sharded_experiment's `profile_dir` writes a torch.profiler trace of the
+sweep there.
+
+One device, no mesh: folds across GPUs, the on-disk pack cache and
+trainer.remat are not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import json
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -68,19 +82,32 @@ from multimodalsignal_tpu_torch.experiments.loso import (
 from multimodalsignal_tpu_torch.experiments.predict import resolve_device
 from multimodalsignal_tpu_torch.experiments.splits import loso_folds
 from multimodalsignal_tpu_torch.models.convert import (
+    _layout,
+    _to_tensor,
     export_jax_variables,
+    get_leaf,
     lane_variables,
     load_jax_variables,
+    put_leaf,
 )
 from multimodalsignal_tpu_torch.models.fold_stack import build_fold_model
 from multimodalsignal_tpu_torch.train import metrics as M
-from multimodalsignal_tpu_torch.train.checkpoints import write_initial_train_state
+from multimodalsignal_tpu_torch.train.checkpoints import (
+    unpackb,
+    variables_tree,
+    write_initial_train_state,
+    write_tree,
+)
 from multimodalsignal_tpu_torch.train.optim import (
     FoldAdam,
     early_stopping_init,
     early_stopping_update,
+    fold_adam_state_tree,
+    load_fold_adam_state_tree,
     plateau_init,
     plateau_update,
+    state_from_tree,
+    state_tree,
 )
 from multimodalsignal_tpu_torch.train.trainer import cross_entropy
 
@@ -228,10 +255,6 @@ class FoldSweep:
                  init_seeds: list[int] | None = None,
                  dropout_seeds: tuple[int, ...] | None = None):
         tcfg = cfg.trainer
-        if tcfg.checkpoint_every > 0 or tcfg.resume:
-            raise NotImplementedError(
-                "the sweep's resume (TrainerConfig.checkpoint_every / resume) is not "
-                "ported yet (ROADMAP.md, queue 1, item 1: mid-run resume)")
         self.device = resolve_device(device)
         self.cfg = cfg
         folds = fb.train_pool.shape[0]
@@ -282,6 +305,14 @@ class FoldSweep:
         """What the best state holds: parameters and BN running statistics."""
         return list(self.model.parameters()) + [
             b for name, b in self.model.named_buffers() if "running" in name]
+
+    def _best_layout(self) -> list:
+        """(collection, flax path, best-state tensor, transform) of every
+        leaf the best state holds, as models/convert.py _layout gives the
+        model's own."""
+        where = {id(t): i for i, t in enumerate(self._tracked())}
+        return [(coll, path, self.best[where[id(t)]], transform)
+                for coll, path, t, transform in _layout(self.model)]
 
     def train_grid(self, rngs: list[np.random.Generator]) -> tuple[np.ndarray, np.ndarray]:
         """One epoch's shuffled [F, steps, B] grid, fold f drawn by rngs[f]."""
@@ -375,6 +406,41 @@ class FoldSweep:
         self.stopped = stopped | (es_cfg.enabled & self.es.should_stop)
         return train_loss, val_loss, val_acc, val_f1, self.pl.lr.copy(), ~stopped
 
+    def carry_tree(self) -> dict:
+        """The JAX sweep's carry (state, best, es, pl, rng, stopped) as
+        flax's tree, every leaf [F, ...]: the TrainState of every lane
+        (parameters, BN statistics, FoldAdam's state in optax's layout),
+        the best (parameters, BN statistics), the early-stopping and
+        plateau states, zeros in place of the threefry keys [F, 2], and the
+        stop flags."""
+        best = {"params": {}, "batch_stats": {}}
+        for coll, path, tensor, transform in self._best_layout():
+            put_leaf(best[coll], path, transform(tensor).clone())
+        state = {**variables_tree(self.model),
+                 "opt_state": fold_adam_state_tree(self.model, self.opt)}
+        carry = (state, {"0": best["params"], "1": best["batch_stats"]},
+                 state_tree(self.es), state_tree(self.pl),
+                 np.zeros((self.model.folds, 2), np.uint32), self.stopped.copy())
+        return {str(i): t for i, t in enumerate(carry)}
+
+    def load_carry_tree(self, carry: dict) -> None:
+        """The inverse of carry_tree (this package's carry or the JAX
+        sweep's); the rng leaf is not read."""
+        state = carry["0"]
+        load_jax_variables(self.model, state["params"], state["batch_stats"])
+        load_fold_adam_state_tree(self.model, self.opt, state["opt_state"])
+        best = {"params": carry["1"]["0"], "batch_stats": carry["1"]["1"]}
+        with torch.no_grad():
+            for coll, path, tensor, transform in self._best_layout():
+                value = transform(_to_tensor(get_leaf(best[coll], path)))
+                if value.shape != tensor.shape:
+                    raise ValueError(f"best {coll}/{'/'.join(path)} has shape "
+                                     f"{list(value.shape)}; the model {list(tensor.shape)}")
+                tensor.copy_(value)
+        self.es = state_from_tree(self.es, carry["2"])
+        self.pl = state_from_tree(self.pl, carry["3"])
+        self.stopped = np.asarray(carry["5"], bool).reshape(self.stopped.shape)
+
     def finalize(self):
         """Restore each fold's best state and evaluate its held-out subject:
         (test loss [F], confusion matrices [F, K, K], best epoch [F],
@@ -411,12 +477,55 @@ def seed_group_streams(seeds: tuple[int, ...], lanes: int
     return init_seeds, rngs
 
 
+class SweepAborted(RuntimeError):
+    """Raised by run_fold_sweep's abort_after_epoch preemption drill."""
+
+
+_RESUME_STATE = "sweep_resume.msgpack"
+_RESUME_LOGS = "sweep_resume_logs.npz"
+_RESUME_META = "sweep_resume_meta.json"
+_RESUME_RNG = "sweep_resume_rng.pt"
+
+
+def _save_sweep_resume(run_dir: Path, sweep: FoldSweep, logs: list, next_epoch: int) -> None:
+    """The whole carry, the per-epoch logs (columns c0..c5, [F, epochs])
+    and the dropout generators' states, as the JAX sweep saves them."""
+    write_tree(run_dir / _RESUME_STATE, sweep.carry_tree())
+    np.savez(run_dir / _RESUME_LOGS,
+             **{f"c{j}": np.stack(col, axis=1) for j, col in enumerate(zip(*logs))})
+    torch.save([g.get_state() for g in sweep.generators], run_dir / _RESUME_RNG)
+    (run_dir / _RESUME_META).write_text(json.dumps({"next_epoch": next_epoch}))
+
+
+def _load_sweep_resume(run_dir: Path, sweep: FoldSweep) -> tuple[list, int]:
+    """Restore the bundle into `sweep` (a JAX sweep's too: without the
+    generators' file they stay as seeded); returns (logs, next epoch)."""
+    next_epoch = int(json.loads((run_dir / _RESUME_META).read_text())["next_epoch"])
+    sweep.load_carry_tree(unpackb((run_dir / _RESUME_STATE).read_bytes()))
+    if (run_dir / _RESUME_RNG).exists():
+        states = torch.load(run_dir / _RESUME_RNG, weights_only=True)
+        for g, state in zip(sweep.generators, states):
+            g.set_state(state)
+    with np.load(run_dir / _RESUME_LOGS) as data:
+        cols = [data[f"c{j}"] for j in range(len(data.files))]
+    return [tuple(c[:, e] for c in cols) for e in range(next_epoch)], next_epoch
+
+
 def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
                    device: str | torch.device = "cuda",
-                   seeds: tuple[int, ...] | None = None) -> SweepResult:
+                   seeds: tuple[int, ...] | None = None,
+                   run_dir: Path | str | None = None,
+                   abort_after_epoch: int | None = None) -> SweepResult:
     """Train every fold in lockstep on one device and evaluate it; returns
     per-fold stacked results (fold axis first). The stop flags are read
     after every epoch and the sweep ends once every fold has stopped.
+
+    Resume, with the JAX sweep's rules: checkpoints only with a `run_dir`
+    (every cfg.trainer.checkpoint_every epochs); cfg.trainer.resume is live
+    only where run_dir holds a bundle; `abort_after_epoch` raises
+    SweepAborted right after that epoch (and its checkpoint). The shuffle
+    streams are replayed over the epochs before the bundle's, so a resumed
+    sweep launches only the remaining epochs' work.
 
     `seeds` (a seed-replicated sweep, parallel/replicated_sweep.py): fb's
     lanes are len(seeds) copies of one fold batch, and lane s*F+f takes
@@ -428,24 +537,45 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
     scans several epochs in one device program to save host dispatches;
     here every epoch is a host loop of launches that syncs once at its end
     either way, so checking the flags less often would only run epochs in
-    which every fold coasts, which "segmented" then drops again."""
+    which every fold coasts, which "segmented" then drops again. As in the
+    JAX package, "segmented" refuses checkpoints, a live resume and the
+    drill."""
     if cfg.sweep_dispatch not in DISPATCHES:
         raise ValueError(f"unknown sweep_dispatch {cfg.sweep_dispatch!r}: expected one of "
                          f"{DISPATCHES}")
+    run_dir = None if run_dir is None else Path(run_dir)
+    checkpoint_every = cfg.trainer.checkpoint_every if run_dir is not None else 0
+    resume_live = (cfg.trainer.resume and run_dir is not None
+                   and (run_dir / _RESUME_STATE).exists())
+    if cfg.sweep_dispatch == "segmented" and (checkpoint_every > 0 or resume_live
+                                              or abort_after_epoch is not None):
+        raise ValueError(
+            "checkpoint/resume and the preemption drill are per_epoch "
+            "features (they need an epoch-granular host boundary); "
+            "segmented dispatch does not support them")
     folds = fb.train_pool.shape[0]
     seeds = (cfg.seed,) if seeds is None else tuple(seeds)
     init_seeds, rngs = seed_group_streams(seeds, folds)
     sweep = FoldSweep(corpus, fb, cfg, device, init_seeds=init_seeds, dropout_seeds=seeds)
     epochs = cfg.trainer.epochs
-    logs = []
+    logs, start_epoch = [], 0
+    if resume_live:
+        logs, start_epoch = _load_sweep_resume(run_dir, sweep)
+        for _ in range(start_epoch):   # replay the shuffle streams
+            sweep.train_grid(rngs)
+        print(f"  resumed sweep from epoch {start_epoch}", flush=True)
     t_train = time.time()
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         logs.append(sweep.epoch(*sweep.train_grid(rngs), epoch))
         stopped = sweep.stopped
-        if epoch == 0 or (epoch + 1) % 10 == 0 or stopped.all():
+        if epoch == start_epoch or (epoch + 1) % 10 == 0 or stopped.all():
             print(f"  epoch {epoch + 1}/{epochs} | mean val loss {logs[-1][1].mean():.4f} | "
                   f"{int((~stopped).sum())} folds active | {time.time() - t_train:.1f}s",
                   flush=True)
+        if checkpoint_every > 0 and (epoch + 1) % checkpoint_every == 0:
+            _save_sweep_resume(run_dir, sweep, logs, epoch + 1)
+        if abort_after_epoch is not None and epoch + 1 >= abort_after_epoch:
+            raise SweepAborted(f"aborted after epoch {epoch + 1} (drill)")
         if stopped.all():
             print(f"  all folds early-stopped at epoch {epoch + 1}")
             break
@@ -497,12 +627,16 @@ def stage_corpus(cfg: ExperimentConfig, run_output_dir: Path,
 
 def run_sharded_experiment(cfg: ExperimentConfig, run_output_dir: Path | str,
                            all_channel_names: list[str] | None = None,
-                           device: str | torch.device = "cuda"
+                           device: str | torch.device = "cuda",
+                           profile_dir: Path | str | None = None
                            ) -> tuple[list[FoldResult], dict]:
     """End-to-end LOSO as one sweep: pack the corpus, train every fold in
     lockstep, write the artifacts of experiments/loso.py's serial run (per
     fold training_log.txt, best_model.msgpack, test_probs.npy; the run's
-    config.json and cv_summary.txt)."""
+    config.json and cv_summary.txt). The run directory holds the sweep's
+    resume bundle (cfg.trainer.checkpoint_every, resume). With
+    `profile_dir`, the sweep runs under torch.profiler (CPU and CUDA
+    activities) and a Chrome trace of it is written there."""
     t0 = time.time()
     validate_experiment(cfg, fold_execution="sharded")
     device = resolve_device(device)
@@ -514,7 +648,21 @@ def run_sharded_experiment(cfg: ExperimentConfig, run_output_dir: Path | str,
     print(f"Sharded LOSO sweep: {len(fb.test_subjects)} folds as lanes on {device}")
     print(f"  staging (pack + fold batch): {time.time() - t0:.1f}s")
     print("=" * 80)
-    result = run_fold_sweep(corpus, fb, cfg, device)
+    profiler = None
+    if profile_dir is not None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+    try:
+        result = run_fold_sweep(corpus, fb, cfg, device, run_dir=run_output_dir)
+    finally:
+        if profiler is not None:
+            profiler.stop()
+            Path(profile_dir).mkdir(parents=True, exist_ok=True)
+            profiler.export_chrome_trace(str(Path(profile_dir) / "sweep_trace.json"))
+            print(f"Profiler trace written to: {profile_dir}")
 
     t_write = time.time()
     results = []

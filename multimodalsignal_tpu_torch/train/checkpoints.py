@@ -1,4 +1,5 @@
-"""Read and write the JAX package's flax checkpoints (`best_model.msgpack`).
+"""Read and write the JAX package's flax checkpoints (`best_model.msgpack`)
+and resume bundles.
 
 The JAX package writes a whole train state with flax's msgpack codec
 (multimodalsignal_tpu/train/checkpoints.py): a map with `params`,
@@ -7,9 +8,15 @@ the packed triple (shape, dtype name, C-order bytes); numpy scalars are ext
 type 3 in the same encoding. This module decodes that format with a small
 pure-Python msgpack reader and encodes it with a small writer that makes the
 bytes flax's codec makes, so the port needs neither flax nor the `msgpack`
-package. `write_train_state` writes a port model and its Adam optimizer in
-the JAX package's TrainState layout, which the JAX package's
-`restore_state` reads into a TrainState template.
+package. `train_state_tree` lays a port model and its Adam optimizer out
+as the JAX package's TrainState, and `write_tree` writes it: the JAX
+package's `restore_state` reads the file into a TrainState template, and
+`read_train_state` reads it back whole.
+
+A resume bundle is such a tree too: a tuple is flax's {"0": ..., "1": ...}
+and a NamedTuple its {field: ...} (train/optim.py state_tree), so
+`write_tree` of the port's bundle is what the JAX package's `save_state`
+writes of its own, and each package restores the other's.
 """
 
 from __future__ import annotations
@@ -20,6 +27,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multimodalsignal_tpu_torch.models.convert import _layout, load_jax_variables, put_leaf
+from multimodalsignal_tpu_torch.train.optim import (
+    adam_state_tree,
+    load_adam_state_tree,
+    optax_state,
+)
+
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 # flax splits arrays above this many bytes into chunks; the writer does not.
 _MAX_CHUNK_BYTES = 2**30
@@ -29,12 +43,19 @@ def read_flax_checkpoint(path: Path | str) -> dict:
     """best_model.msgpack -> {"params": ..., "batch_stats": ...}: nested
     dicts of numpy arrays. A bfloat16 leaf (numpy has no such dtype) comes
     back as a torch.bfloat16 tensor with the same bits. opt_state is
-    dropped."""
+    dropped (read_train_state keeps it)."""
+    state = read_train_state(path)
+    return {"params": state["params"],
+            "batch_stats": state.get("batch_stats") or {}}
+
+
+def read_train_state(path: Path | str) -> dict:
+    """A whole flax train-state file as its tree: params, batch_stats and
+    opt_state (optax's layout, train/optim.py optax_state)."""
     state = unpackb(Path(path).read_bytes())
     if not isinstance(state, dict) or "params" not in state:
         raise ValueError(f"{path} is not a flax train-state checkpoint")
-    return {"params": state["params"],
-            "batch_stats": state.get("batch_stats") or {}}
+    return state
 
 
 def unpackb(data: bytes):
@@ -150,33 +171,27 @@ class _Reader:
 # Writer
 # ---------------------------------------------------------------------------
 
-def write_train_state(path: Path | str, model, optimizer=None) -> None:
-    """Write `model` (and the Adam `optimizer` over its parameters, if
-    given) as the JAX package's TrainState: params and batch_stats in the
-    flax layout (models/convert.py), opt_state in optax's layout for
-    make_optimizer's inject_hyperparams(add_decayed_weights -> scale_by_adam
-    -> scale) chain, with torch Adam's exp_avg / exp_avg_sq as mu / nu (the
-    same transposes as the weights) and its step as both counts."""
-    from multimodalsignal_tpu_torch.models.convert import _layout
-
+def variables_tree(model) -> dict:
+    """The flax {"params", "batch_stats"} pair of `model` (models/convert.py
+    layout), copies as tensors on the model's device."""
     state = {"params": {}, "batch_stats": {}}
-    mu, nu = {}, {}
-    opt = optimizer.state if optimizer is not None else {}
-    step = 0
     for coll, path_, tensor, transform in _layout(model):
-        _put(state[coll], path_, _as_array(transform(tensor.detach())))
-        if coll != "params":
-            continue
-        moments = opt.get(tensor, {})
-        for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-            m = moments.get(key)
-            value = (np.zeros(_as_array(transform(tensor.detach())).shape, np.float32)
-                     if m is None else _as_array(transform(m.detach())))
-            _put(tree, path_, value)
-        if "step" in moments:
-            step = int(moments["step"])
-    lr = optimizer.param_groups[0]["lr"] if optimizer is not None else 0.0
-    _write(path, state, mu, nu, step, lr)
+        put_leaf(state[coll], path_, transform(tensor.detach()).clone())
+    return state
+
+
+def train_state_tree(model, optimizer=None) -> dict:
+    """`model` (and the Adam `optimizer` over its parameters, if given) as
+    the JAX package's TrainState tree: variables_tree and opt_state in
+    optax's layout (train/optim.py adam_state_tree)."""
+    return {**variables_tree(model), "opt_state": adam_state_tree(model, optimizer)}
+
+
+def load_train_state_tree(model, optimizer, tree: dict) -> None:
+    """The inverse of train_state_tree: a TrainState tree (this package's
+    or one read from the JAX package's file) into `model` and `optimizer`."""
+    load_jax_variables(model, tree["params"], tree["batch_stats"])
+    load_adam_state_tree(model, optimizer, tree["opt_state"])
 
 
 def write_initial_train_state(path: Path | str, variables: dict,
@@ -188,35 +203,28 @@ def write_initial_train_state(path: Path | str, variables: dict,
         return {k: zeros(v) if isinstance(v, dict) else np.zeros(np.shape(v), np.float32)
                 for k, v in tree.items()}
 
-    state = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
-    _write(path, state, zeros(state["params"]), zeros(state["params"]), 0, learning_rate)
+    write_tree(path, {"params": variables["params"], "batch_stats": variables["batch_stats"],
+                      "opt_state": optax_state(zeros(variables["params"]),
+                                               zeros(variables["params"]), 0, learning_rate)})
 
 
-def _write(path: Path | str, state: dict, mu: dict, nu: dict, step: int, lr) -> None:
-    """Add optax's opt_state (mu, nu, step, lr) to `state` and write it."""
-    count = np.asarray(step, np.int32)
-    state["opt_state"] = {
-        "count": count,
-        "hyperparams": {"learning_rate": np.asarray(lr, np.float32)},
-        "hyperparams_states": {},
-        "inner_state": {"0": {}, "1": {"count": count, "mu": mu, "nu": nu}, "2": {}},
-    }
+def write_tree(path: Path | str, tree) -> None:
+    """Write a tree of dicts and array leaves (numpy arrays or tensors,
+    copied to the host) with flax's codec, atomically (a temporary file
+    renamed over `path`)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp")
-    tmp.write_bytes(packb(state))
+    tmp.write_bytes(packb(_host(tree)))
     tmp.replace(path)
 
 
-def _put(tree: dict, path: tuple, value) -> None:
-    for key in path[:-1]:
-        tree = tree.setdefault(key, {})
-    tree[path[-1]] = value
-
-
-def _as_array(t: torch.Tensor) -> np.ndarray:
-    """A CPU float32 numpy copy (parameters and statistics are float32)."""
-    return t.float().cpu().numpy().copy()
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
 
 
 def packb(obj) -> bytes:

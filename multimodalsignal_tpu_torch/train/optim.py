@@ -12,6 +12,12 @@ of multimodalsignal_tpu/train/optim.py).
   * FoldAdam is the same Adam over fold-stacked parameters [F, ...], with a
     step count, a learning rate and an update mask per fold (the sweep's
     optax state under jax.vmap).
+  * Every state here goes to and from the JAX package's tree layout (flax's
+    state dict of its optax and NamedTuple states), which its checkpoints
+    and resume bundles hold: `adam_state_tree`/`load_adam_state_tree`,
+    `fold_adam_state_tree`/`load_fold_adam_state_tree`, and
+    `state_tree`/`state_from_tree` for the plateau and early-stopping
+    states.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from multimodalsignal_tpu_torch.models.convert import _layout, _to_tensor, get_leaf, put_leaf
 
 BETAS, EPS = (0.9, 0.999), 1e-8
 
@@ -83,6 +91,136 @@ class FoldAdam:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state in optax's layout
+# ---------------------------------------------------------------------------
+
+def optax_state(mu: dict, nu: dict, count, lr) -> dict:
+    """The opt_state tree of make_optimizer's optax chain,
+    inject_hyperparams(add_decayed_weights -> scale_by_adam -> scale): the
+    moment trees `mu`, `nu` in the params layout, the step `count` (int32)
+    and the learning rate (float32), scalars or [F] per fold."""
+    count = _as(count, np.int32, torch.int32)
+    return {
+        "count": count,
+        "hyperparams": {"learning_rate": _as(lr, np.float32, torch.float32)},
+        "hyperparams_states": {},
+        "inner_state": {"0": {}, "1": {"count": count, "mu": mu, "nu": nu}, "2": {}},
+    }
+
+
+def _as(value, np_dtype, torch_dtype):
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(torch_dtype).clone()
+    return np.asarray(value, np_dtype)
+
+
+def _param_layout(model):
+    """(flax path, parameter, transform) of every parameter of `model`."""
+    return [(path, t, transform) for coll, path, t, transform in _layout(model)
+            if coll == "params"]
+
+
+def adam_state_tree(model, optimizer: torch.optim.Adam | None = None) -> dict:
+    """torch Adam's state over `model`'s parameters as optax's opt_state
+    (optax_state): exp_avg / exp_avg_sq as mu / nu with the weights'
+    transposes, the step as the count, the first group's lr. Leaves are
+    tensors; a parameter without state has zero moments. No optimizer
+    gives the state of a fresh one at lr 0."""
+    state = optimizer.state if optimizer is not None else {}
+    mu, nu, step = {}, {}, 0
+    for path, param, transform in _param_layout(model):
+        moments = state.get(param, {})
+        for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            m = moments.get(key)
+            put_leaf(tree, path, torch.zeros_like(transform(param.detach())) if m is None
+                     else transform(m.detach()).clone())
+        if "step" in moments:
+            step = int(moments["step"])
+    lr = optimizer.param_groups[0]["lr"] if optimizer is not None else 0.0
+    return optax_state(mu, nu, step, lr)
+
+
+def load_adam_state_tree(model, optimizer: torch.optim.Adam, opt_state: dict) -> None:
+    """The inverse of adam_state_tree: optax's opt_state (tensor or numpy
+    leaves) into torch Adam's per-parameter state and every group's lr. A
+    count of 0 leaves the parameters without state, as a fresh optimizer
+    has them."""
+    inner = opt_state["inner_state"]["1"]
+    count = int(np.asarray(inner["count"]))
+    for path, param, transform in _param_layout(model):
+        if count == 0:
+            optimizer.state.pop(param, None)
+            continue
+        moments = {}
+        for key, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            value = transform(_to_tensor(get_leaf(inner[key], path)))
+            if value.shape != param.shape:
+                raise ValueError(f"opt_state {key}/{'/'.join(path)} has shape "
+                                 f"{list(value.shape)}; the parameter {list(param.shape)}")
+            moments[name] = torch.empty_like(param).copy_(value)
+        optimizer.state[param] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                                  **moments}
+    set_learning_rate(optimizer, np.asarray(opt_state["hyperparams"]["learning_rate"]))
+
+
+def _fold_offsets(model, opt: FoldAdam) -> list[tuple[tuple, torch.Tensor, object, int, int]]:
+    """(flax path, parameter, transform, offset, size) of every parameter
+    in FoldAdam's flat [F, P] moments."""
+    offsets, start = {}, 0
+    for p, size in zip(opt.params, opt.sizes):
+        offsets[id(p)] = (start, size)
+        start += size
+    out = [(path, p, transform, *offsets[id(p)]) for path, p, transform in _param_layout(model)]
+    if sum(size for *_, size in out) != start:
+        raise ValueError("FoldAdam holds parameters the flax layout does not name")
+    return out
+
+
+def fold_adam_state_tree(model, opt: FoldAdam) -> dict:
+    """FoldAdam's state over a FoldStackedModel as the JAX sweep's stacked
+    optax opt_state (every leaf [F, ...]; count and lr [F]). Tensor leaves."""
+    mu, nu = {}, {}
+    for path, p, transform, start, size in _fold_offsets(model, opt):
+        for tree, flat in ((mu, opt.mu), (nu, opt.nu)):
+            put_leaf(tree, path, transform(flat[:, start:start + size].reshape(p.shape)).clone())
+    return optax_state(mu, nu, opt.count, opt.lr)
+
+
+@torch.no_grad()
+def load_fold_adam_state_tree(model, opt: FoldAdam, opt_state: dict) -> None:
+    """The inverse of fold_adam_state_tree: moments, counts and learning
+    rates of every fold from a stacked optax opt_state."""
+    inner = opt_state["inner_state"]["1"]
+    for path, p, transform, start, size in _fold_offsets(model, opt):
+        for key, flat in (("mu", opt.mu), ("nu", opt.nu)):
+            value = transform(_to_tensor(get_leaf(inner[key], path)))
+            if value.shape != p.shape:
+                raise ValueError(f"opt_state {key}/{'/'.join(path)} has shape "
+                                 f"{list(value.shape)}; the parameter {list(p.shape)}")
+            flat[:, start:start + size].copy_(value.reshape(p.shape[0], size))
+    opt.count.copy_(_to_tensor(np.asarray(inner["count"], np.int32)))
+    opt.lr.copy_(_to_tensor(np.asarray(opt_state["hyperparams"]["learning_rate"], np.float32)))
+
+
+def state_tree(state: NamedTuple) -> dict:
+    """A plateau or early-stopping state as flax's state dict of the JAX
+    NamedTuple: {field: array}."""
+    return {name: np.asarray(value) for name, value in zip(state._fields, state)}
+
+
+def state_from_tree(template: NamedTuple, tree: dict) -> NamedTuple:
+    """The inverse of state_tree: a state of template's type, each field in
+    template's dtype and shape. Raises where the fields differ, as flax's
+    restore does."""
+    if set(tree) != set(template._fields):
+        raise ValueError(f"state fields {sorted(tree)} are not "
+                         f"{type(template).__name__}'s {sorted(template._fields)}")
+    return type(template)(*(
+        np.asarray(tree[name], np.asarray(old).dtype).reshape(np.shape(old))
+        for name, old in zip(template._fields, template)))
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:

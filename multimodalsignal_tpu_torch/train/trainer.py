@@ -31,14 +31,25 @@ Semantics carried over from the JAX trainer:
 Dropout draws from one `torch.Generator` on the model's device seeded with
 `seed`; `TrainerConfig.dropout_rng` is accepted and does not change that
 (the port has one generator kind). Masks cannot match the JAX package's.
-Mid-run resume (`checkpoint_every`, `resume`) is not ported yet and raises.
+
+Mid-run resume, as the JAX trainer does it: with `checkpoint_every` = k > 0
+the state is saved every k epochs (after early stopping's check, so the
+epoch that stops writes none) as `resume_state.msgpack`, the JAX bundle
+(state, best state, early-stopping state, plateau state) in flax's layout,
+with `resume_meta.json` ({"next_epoch": k}) and the dropout generator's
+state in `resume_rng.pt` beside it (the JAX bundle has no place for it).
+With `resume` and a bundle present, train() restores all of it (a JAX
+bundle too; without resume_rng.pt the generator stays as seeded), replays
+the shuffle stream over the epochs before the cut and goes on from there;
+the log keeps the epochs logged before the cut. On one CPU thread a run cut
+and resumed equals the uncut run bit for bit.
 Runs on "cuda" unless the caller passes device="cpu"; asking for CUDA where
 there is none raises.
 """
 
 from __future__ import annotations
 
-import copy
+import json
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -51,7 +62,12 @@ from multimodalsignal_tpu_torch.config import TrainerConfig
 from multimodalsignal_tpu_torch.experiments.predict import map_streams, resolve_device
 from multimodalsignal_tpu_torch.models.convert import load_jax_variables
 from multimodalsignal_tpu_torch.train import metrics as M
-from multimodalsignal_tpu_torch.train.checkpoints import write_train_state
+from multimodalsignal_tpu_torch.train.checkpoints import (
+    load_train_state_tree,
+    train_state_tree,
+    unpackb,
+    write_tree,
+)
 from multimodalsignal_tpu_torch.train.optim import (
     early_stopping_init,
     early_stopping_update,
@@ -59,7 +75,10 @@ from multimodalsignal_tpu_torch.train.optim import (
     plateau_init,
     plateau_update,
     set_learning_rate,
+    state_from_tree,
+    state_tree,
 )
+from multimodalsignal_tpu_torch.utils.run import TeeLogger
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
@@ -111,20 +130,6 @@ class EpochLog(NamedTuple):
     lr: float
 
 
-class TeeLogger:
-    """Messages to stdout and to a log file that starts with `header`."""
-
-    def __init__(self, log_file: Path, header: str):
-        self.log_file = Path(log_file)
-        self.log_file.parent.mkdir(parents=True, exist_ok=True)
-        self.log_file.write_text(header + "\n" + "=" * 50 + "\n")
-
-    def __call__(self, message: str) -> None:
-        print(message)
-        with open(self.log_file, "a") as f:
-            f.write(message + "\n")
-
-
 class Trainer:
     """Single-fold trainer with the reference's artifact contract.
 
@@ -139,10 +144,6 @@ class Trainer:
                  steps_per_epoch: int | None = None,
                  device: str | torch.device = "cuda",
                  variables: dict | None = None):
-        if cfg.checkpoint_every > 0 or cfg.resume:
-            raise NotImplementedError(
-                "mid-run resume (TrainerConfig.checkpoint_every / resume) is not "
-                "ported yet (ROADMAP.md, queue 1, item 1: mid-run resume)")
         self.device = resolve_device(device)
         self.model = model
         if variables is not None:
@@ -155,8 +156,9 @@ class Trainer:
         self.fold_dir = Path(fold_output_dir)
         self.fold_dir.mkdir(parents=True, exist_ok=True)
         self.log_file = self.fold_dir / "training_log.txt"
+        # A resumed run appends to the log, keeping the epochs before the cut.
         self._log = TeeLogger(self.log_file, header="Training log for run starting at "
-                              f"{time.strftime('%Y-%m-%d %H:%M:%S')}")
+                              f"{time.strftime('%Y-%m-%d %H:%M:%S')}", append=cfg.resume)
         self.optimizer = make_optimizer(model.parameters(), cfg.learning_rate,
                                         cfg.weight_decay)
         self.class_weights = (None if class_weights is None else torch.as_tensor(
@@ -182,12 +184,39 @@ class Trainer:
 
     # -- state ----------------------------------------------------------------
     def _snapshot(self) -> dict:
-        return {"model": copy.deepcopy(self.model.state_dict()),
-                "optimizer": copy.deepcopy(self.optimizer.state_dict())}
+        """The train state as the JAX package's TrainState tree (copies on
+        the device): what best_model.msgpack and the resume bundle hold."""
+        return train_state_tree(self.model, self.optimizer)
 
     def _restore(self, snap: dict) -> None:
-        self.model.load_state_dict(snap["model"])
-        self.optimizer.load_state_dict(snap["optimizer"])
+        load_train_state_tree(self.model, self.optimizer, snap)
+
+    # -- mid-run resume (JAX trainer.py _resume_path/_save_resume/_load_resume)
+    def _resume_path(self) -> Path:
+        return self.fold_dir / "resume_state.msgpack"
+
+    def _save_resume(self, best: dict, es_state, pl_state, next_epoch: int) -> None:
+        bundle = (self._snapshot(), best, state_tree(es_state), state_tree(pl_state))
+        write_tree(self._resume_path(), {str(i): t for i, t in enumerate(bundle)})
+        torch.save(self.generator.get_state(), self.fold_dir / "resume_rng.pt")
+        (self.fold_dir / "resume_meta.json").write_text(json.dumps({"next_epoch": next_epoch}))
+
+    def _load_resume(self, es_state, pl_state):
+        """Restore the bundle into the model, optimizer and generator;
+        returns (best snapshot, early-stopping state, plateau state, next
+        epoch)."""
+        bundle = unpackb(self._resume_path().read_bytes())
+        self._restore(bundle["1"])
+        best = self._snapshot()
+        self._restore(bundle["0"])
+        es_state = state_from_tree(es_state, bundle["2"])
+        pl_state = state_from_tree(pl_state, bundle["3"])
+        set_learning_rate(self.optimizer, pl_state.lr)
+        rng = self.fold_dir / "resume_rng.pt"
+        if rng.exists():
+            self.generator.set_state(torch.load(rng, weights_only=True))
+        meta = json.loads((self.fold_dir / "resume_meta.json").read_text())
+        return best, es_state, pl_state, int(meta["next_epoch"])
 
     # -- training -------------------------------------------------------------
     def train_step(self, xb: torch.Tensor, yb: torch.Tensor, wb: torch.Tensor):
@@ -247,8 +276,15 @@ class Trainer:
         best = self._snapshot()
         val_idx, val_w = batch_indices(int(y_va.shape[0]), cfg.batch_size)
 
+        start_epoch = 0
+        if cfg.resume and self._resume_path().exists():
+            best, es_state, pl_state, start_epoch = self._load_resume(es_state, pl_state)
+            self._log(f"Resumed from epoch {start_epoch}")
+            for _ in range(start_epoch):   # replay the shuffle stream
+                batch_indices(n, cfg.batch_size, self.steps_per_epoch, order_rng)
+
         stopped = False
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             t_start = time.time()
             idx, w = batch_indices(n, cfg.batch_size, self.steps_per_epoch, order_rng)
             train_loss = self._train_epoch(x_tr, y_tr, idx, w)
@@ -276,12 +312,14 @@ class Trainer:
                     delta=es_cfg.delta, legacy_inverted=es_cfg.legacy_inverted)
                 if es_state.improved:
                     best = self._snapshot()
-                    write_train_state(self.fold_dir / "best_model.msgpack",
-                                      self.model, self.optimizer)
+                    write_tree(self.fold_dir / "best_model.msgpack", best)
                 if es_state.should_stop:
                     self._log("Early stopping triggered")
                     stopped = True
                     break
+
+            if cfg.checkpoint_every > 0 and (epoch + 1) % cfg.checkpoint_every == 0:
+                self._save_resume(best, es_state, pl_state, epoch + 1)
 
         if es_cfg.enabled:
             self.best_epoch = es_state.best_epoch

@@ -1,5 +1,6 @@
-"""Run directories (counterpart of multimodalsignal_tpu/utils/run.py's
-`make_run_dir`; the JAX compilation cache has no counterpart here)."""
+"""Run directories and the training log (counterpart of
+multimodalsignal_tpu/utils/run.py's `make_run_dir` and `TeeLogger`; the JAX
+compilation cache has no counterpart here)."""
 
 from __future__ import annotations
 
@@ -22,3 +23,27 @@ def make_run_dir(output_root: Path | str, run_name: str) -> Path:
                / f"run_{run_id or time.strftime('%Y%m%d_%H%M%S')}")
     run_dir.mkdir(parents=True, exist_ok=True)
     return run_dir
+
+
+class TeeLogger:
+    """Messages to stdout and to a log file that starts with `header`.
+
+    With append=True an existing log is kept and the header is appended as
+    a `--- header ---` banner, so a resumed run (TrainerConfig.resume)
+    keeps the epochs logged before the cut."""
+
+    def __init__(self, log_file: Path | str, header: str | None = None,
+                 append: bool = False):
+        self.log_file = Path(log_file)
+        self.log_file.parent.mkdir(parents=True, exist_ok=True)
+        if header is not None:
+            if append and self.log_file.exists():
+                with open(self.log_file, "a") as f:
+                    f.write("\n--- " + header + " ---\n")
+            else:
+                self.log_file.write_text(header + "\n" + "=" * 50 + "\n")
+
+    def __call__(self, message: str) -> None:
+        print(message)
+        with open(self.log_file, "a") as f:
+            f.write(message + "\n")

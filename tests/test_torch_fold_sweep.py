@@ -504,6 +504,27 @@ def test_main_runs_the_sweep_by_default_and_jax_reads_its_checkpoints(tree, tmp_
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
 
 
+def test_main_profile_dir_and_checkpoints(tree, tmp_path, capsys):
+    """`main --profile-dir D` (the JAX CLI's flag) runs the sharded sweep
+    under torch.profiler and writes a Chrome trace into D; with
+    --set trainer.checkpoint_every=1 the run directory holds the sweep's
+    resume bundle after its last epoch."""
+    trace_dir = tmp_path / "trace"
+    pmain.main(["--device", "cpu", "--output-dir", str(tmp_path / "out"),
+                "--profile-dir", str(trace_dir),
+                "--set", f"data_path={tree}", "--set", "subjects=" + ",".join(SUBJECTS),
+                "--set", "model.gru_hidden_size=8", "--set", "model.cnn_out_channels=8",
+                "--set", "trainer.epochs=1", "--set", "trainer.batch_size=4",
+                "--set", "trainer.checkpoint_every=1"])
+    assert f"Profiler trace written to: {trace_dir}" in capsys.readouterr().out
+    events = json.loads((trace_dir / "sweep_trace.json").read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    (run_dir,) = (tmp_path / "out").glob("*/run_*")
+    meta = json.loads((run_dir / "sweep_resume_meta.json").read_text())
+    assert meta == {"next_epoch": 1} and (run_dir / "sweep_resume.msgpack").exists()
+
+
 def test_main_default_asks_for_cuda(tmp_path):
     """Without --device cpu the default (sharded) run raises where there is
     no CUDA, before it makes a run directory."""
@@ -515,8 +536,9 @@ def test_main_default_asks_for_cuda(tmp_path):
 
 
 def test_what_the_sweep_does_not_port_is_refused(tree, tmp_path):
-    """pallas_fused under the fold axis and the sweep's resume raise,
-    naming ROADMAP.md; from-pickles and hybrid staging are ported
+    """pallas_fused under the fold axis raises, naming ROADMAP.md (the
+    sweep's resume is ported: tests/test_torch_resume.py); from-pickles and
+    hybrid staging are ported
     (tests/test_torch_from_pickles.py, tests/test_torch_hybrid.py), and
     refused together, as in the JAX package."""
     cfg = pcfg.ModelConfig(gru_impl="pallas_fused", **MODEL)
@@ -525,13 +547,6 @@ def test_what_the_sweep_does_not_port_is_refused(tree, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
         FoldStackedModel([build_model(cfg, K, C)], "cuda_fused")
     _, base = _sweep_configs(tree)
-    names = pdata.read_channel_names(tree)
-    corpus = pdata.pack_corpus(tree, list(SUBJECTS), CHANNELS, names)
-    fb = pfs.build_fold_batch(corpus, list(SUBJECTS))
-    for field in (dict(checkpoint_every=1), dict(resume=True)):
-        cfg = dataclasses.replace(base, trainer=dataclasses.replace(base.trainer, **field))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 1"):
-            pfs.FoldSweep(corpus, fb, cfg, "cpu")
     with pytest.raises(ValueError, match="No pickles loaded"):
         pfs.run_sharded_experiment(dataclasses.replace(base, from_pickles=str(tmp_path / "w")),
                                    tmp_path / "p", device="cpu")

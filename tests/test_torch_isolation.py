@@ -1,6 +1,6 @@
-"""The port imports neither JAX, flax, optax, scikit-learn, msgpack nor
-anything of the JAX package (the GPU machine has none of them), and asks for
-CUDA by default.
+"""The port imports neither JAX, flax, optax, scikit-learn, msgpack,
+matplotlib, seaborn, pandas nor anything of the JAX package (the GPU machine
+has none of them), and asks for CUDA by default.
 
 A subprocess blocks those names in sys.modules (matched exactly, so
 `multimodalsignal_tpu_torch` still imports), imports
@@ -13,7 +13,9 @@ experiments beyond plain LOSO (hierarchical, its sweep, the
 replicated sweep, ablation) and the deployment tier (streaming, export,
 import) are among the modules imported; an artifact exported in the
 subprocess runs on the CPU, and ExportedPredictor.load and the stream CLI
-raise without CUDA when no device is named."""
+raise without CUDA when no device is named. The analysis package (the
+preprocess checker, the feature tools, the attention probe) imports too: its
+plotting and scikit-learn imports sit inside the functions."""
 
 import subprocess
 import sys
@@ -26,7 +28,7 @@ SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "sklearn", "msgpack",
-               "multimodalsignal_tpu")
+               "matplotlib", "seaborn", "pandas", "multimodalsignal_tpu")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -134,6 +136,17 @@ SCRIPT = textwrap.dedent("""
             print("stream cli default device raised")
         else:
             raise AssertionError("the stream CLI ran without CUDA instead of raising")
+    for name in ("analysis", "analysis.preprocess_check", "analysis.feature_importance",
+                 "analysis.feature_distributions", "analysis.attention_probe"):
+        assert f"multimodalsignal_tpu_torch.{name}" in names, name
+    from multimodalsignal_tpu_torch.analysis.feature_importance import require
+    try:
+        require("sklearn.ensemble")
+    except ImportError as exc:
+        assert "scikit-learn is missing" in str(exc)
+        print("analysis names sklearn")
+    else:
+        raise AssertionError("sklearn imported while blocked")
     leaked = sorted(n for n, m in sys.modules.items() if blocked(n) and m is not None)
     assert not leaked, leaked
     print("ok")
@@ -149,6 +162,8 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
     assert "cli default device raised" in proc.stdout
     assert "artifact default device raised" in proc.stdout
     assert "stream cli default device raised" in proc.stdout
-    # 38 modules before the deployment tier, then streaming, export, import_torch.
-    assert int(proc.stdout.split("imported ")[1].split()[0]) >= 41
+    assert "analysis names sklearn" in proc.stdout
+    # 38 modules before the deployment tier, then streaming, export, import_torch,
+    # then the analysis package and its four modules.
+    assert int(proc.stdout.split("imported ")[1].split()[0]) >= 46
     assert proc.stdout.strip().endswith("ok")

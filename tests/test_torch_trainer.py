@@ -204,7 +204,18 @@ def test_batch_indices_contract():
 
 
 @pytest.mark.parametrize("field", [dict(checkpoint_every=1), dict(resume=True)])
-def test_mid_run_resume_is_refused(field, tmp_path):
+def test_mid_run_resume_is_accepted(field, data, tmp_path):
+    """Both resume options build a Trainer; one epoch writes the resume
+    bundle only where checkpoint_every asks for it, and resume=True with no
+    bundle starts at epoch 0 (tests/test_torch_resume.py holds the cut and
+    resumed runs against the uncut one)."""
+    (x, y), val, _ = data
     pm = build_model(PortModelConfig(**MODEL), CLASSES, in_channels=C)
-    with pytest.raises(NotImplementedError, match="mid-run resume"):
-        Trainer(pm, tmp_path, PortTrainerConfig(**field), CLASSES, device="cpu")
+    cfg = PortTrainerConfig(**dict(TRAINER, epochs=1), **field)
+    trainer = Trainer(pm, tmp_path, cfg, CLASSES, seed=SEED, device="cpu")
+    trainer.train((x, y), val)
+    assert [h.epoch for h in trainer.history] == [1]
+    written = {name: (tmp_path / name).exists()
+               for name in ("resume_state.msgpack", "resume_meta.json", "resume_rng.pt")}
+    assert set(written.values()) == {cfg.checkpoint_every > 0}, written
+    assert "Resumed from epoch" not in (tmp_path / "training_log.txt").read_text()
