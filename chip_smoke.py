@@ -227,6 +227,37 @@ Phases, in order; any failure raises and the script exits non-zero:
        within PROB_ATOL, gate statistics equal, accuracies within a
        window).
     Then the phase's seconds, and each part's.
+13. gru_impl="pallas_fused" under the fold axis (every fold's two
+    directions as 2F lanes of the fused pair) and the pack cache, on the
+    data and runs of phases 6, 7 and 10:
+    a. gru_bifwd and gru_bibwd at L = 30 and 120 lanes (15 folds, and 4
+       seed groups of them; T=480, B=64, H=64) and a ragged L=6 against
+       their plain versions (ys at TOL, the adjoint at BWD_TOL, dW and db
+       bitwise over two runs); at the full shapes the time, the bound at L
+       lanes, row tile, blocks and waves, beside auto's two F-lane walks
+       (gru_fwd_fb / gru_bwd_fb) and cuDNN's bidirectional nn.GRU called F
+       times (fused_lanes_phase);
+    b. `main --set model.gru_impl=pallas_fused --set trainer.epochs=2` with
+       no --execution, float32 and bfloat16, 15 lanes at full width, as in
+       7: sweep_parity (the CPU side runs pallas_fused's plain versions;
+       lanes 0 and 14 against Trainer.train_step, whose single-fold model
+       walks the pair's 2 lanes), the CLI counted exactly (1 gru_bifwd, 1
+       gru_bibwd, 1 gru_fwd_fb and 1 gru_bwd_fb a train step, 1 gru_bifwd
+       and 1 gru_fwd_fb an eval batch: fold_walks), step_profile of a fused
+       step beside an auto step;
+    c. EnsemblePredictor (counted: 1 gru_bifwd + 1 gru_fwd_fb a padded
+       batch) on phase 6's serial pallas_fused run directory and on b's
+       float32 run, each against its fold Predictors and the CPU, and
+       `serving --run-dir` on phase 6's run answering /v1/predict;
+    d. `main --hierarchical --from-pickles` with m1_model.gru_impl=
+       pallas_fused and `main --seeds 42 43` fused (30 folds: 60 fused
+       lanes), both counted exactly; seed group 0 against b's float32 sweep
+       under SEED_GROUP_TOL;
+    e. the sweep CLI (1 epoch) twice on a fresh copy of phase 7's data: the
+       first stages with a miss and writes one .pack_cache entry, the
+       second reads it back, bitwise equal; both staging times; a
+       MMS_PACK_CACHE=0 run writes nothing.
+    Then the phase's seconds, and each part's.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -238,7 +269,8 @@ each other in one call (its docstring says how to run it).
 
 Prints a JSON line of the kernels (launches: gru_fwd's from the float32
 serving run, gru_bwd's from the float32 training run, the fb pair's from
-the float32 sweep, the fused pair's from the float32 serial LOSO run),
+the float32 sweep and 13b's float32 fused sweep, the fused pair's from the
+float32 serial LOSO run and 13b's float32 fused sweep),
 then, as the last line, {"ok": true, "device": {...}}. Needs one CUDA
 device and the repository.
 """
@@ -252,8 +284,10 @@ import dataclasses
 import io
 import json
 import math
+import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -313,7 +347,7 @@ from multimodalsignal_tpu_torch.models.convert import (
     load_jax_variables,
     stack_variables,
 )
-from multimodalsignal_tpu_torch.models.fold_stack import FoldStackedModel
+from multimodalsignal_tpu_torch.models.fold_stack import FOLD_IMPLS, FoldStackedModel
 from multimodalsignal_tpu_torch.ops import _build, gru_cuda
 from multimodalsignal_tpu_torch.parallel import fold_sweep, replicated_sweep
 from multimodalsignal_tpu_torch.parallel.fold_sweep import (
@@ -834,15 +868,17 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     return entry
 
 
-def fused_inputs(t, b, h, seed, adjoint: bool):
-    """kernel_inputs of two float32 lanes in the fused pair's layout: xg2
-    [T, 2, B, 3H], whh2, bhh2, h02; for the adjoint also ys2 from the plain
-    forward and dy2 N(0, 1) [T, 2, B, H]."""
-    xg, w, bias, h0 = kernel_inputs(2, t, b, h, torch.float32, seed)
+def fused_inputs(t, b, h, seed, adjoint: bool, lanes: int = 2):
+    """kernel_inputs of `lanes` float32 lanes (2: one layer's directions; 2F:
+    F folds') in the fused pair's layout: xg2 [T, L, B, 3H], whh2, bhh2,
+    h02; for the adjoint also ys2 from the plain forward and dy2 N(0, 1)
+    [T, L, B, H]."""
+    xg, w, bias, h0 = kernel_inputs(lanes, t, b, h, torch.float32, seed)
     args = (xg.transpose(0, 1).contiguous(), w, bias, h0)
+    del xg
     if not adjoint:
         return args
-    dy2 = torch.randn((t, 2, b, h), device="cuda",
+    dy2 = torch.randn((t, lanes, b, h), device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(seed + 1))
     return args + (gru_cuda.gru_bifwd_plain(*args).contiguous(), dy2)
 
@@ -1403,10 +1439,10 @@ def loso_expected_launches(cfg: ExperimentConfig) -> dict[str, int]:
             "gru_bifwd": train_steps + eval_batches, "gru_bibwd": train_steps}
 
 
-def loso_phase(dtype: str, data: Path, root: Path) -> dict[str, int]:
+def loso_phase(dtype: str, data: Path, root: Path) -> tuple[dict[str, int], Path]:
     """First-steps parity, then the experiment CLI (the main path,
     counted), its run directory's checks and the timings; returns the
-    kernel launches of the CLI run."""
+    kernel launches of the CLI run and its run directory."""
     out = root / f"loso_{dtype}"
     argv = ["--execution", "serial", "--output-dir", str(out),
             "--set", "model.gru_impl=pallas_fused", "--set", "trainer.epochs=2",
@@ -1468,7 +1504,7 @@ def loso_phase(dtype: str, data: Path, root: Path) -> dict[str, int]:
     wb = torch.ones(bs, device="cuda")
     step_profile(lambda: trainer.train_step(xb, yb, wb), bs,
                  f"loso {dtype} pallas_fused dropout {cfg.model.dropout}")
-    return launches
+    return launches, run_dir
 
 
 SWEEP_FOLD_LINE = re.compile(
@@ -1484,15 +1520,18 @@ CPU_FOLDS = 4
 
 def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what: str) -> None:
     """With dropout 0, the first 3 sweep train steps (epoch 0's grid) of all
-    F folds on the card against the port on the CPU (gru_impl "pallas": the
-    F-lane kernels' plain versions, both directions with the walk's own
-    reverse) for the first CPU_FOLDS lanes, from the same initial weights,
+    F folds on the card against the port on the CPU (for auto, gru_impl
+    "pallas": the F-lane kernels' plain versions, both directions with the
+    walk's own reverse; any other gru_impl as it is, its kernels' plain
+    versions) for the first CPU_FOLDS lanes, from the same initial weights,
     under TRAIN_TOL; then lanes 0 and F-1 of the card's first step against
     the single-fold Trainer.train_step on the card with that fold's weights
-    and batch."""
+    and batch (the same gru_impl; pallas_fused there walks the fused pair's
+    two lanes)."""
     no_drop = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0))
+    cpu_impl = "pallas" if cfg.model.gru_impl == "auto" else cfg.model.gru_impl
     cpu_cfg = dataclasses.replace(no_drop, model=dataclasses.replace(no_drop.model,
-                                                                     gru_impl="pallas"))
+                                                                     gru_impl=cpu_impl))
     folds, k = len(fb.test_subjects), CPU_FOLDS
     seeds, rngs = fold_streams(cfg.seed, folds)
     card = FoldSweep(corpus, fb, no_drop, "cuda", init_seeds=seeds)
@@ -1556,31 +1595,57 @@ def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what:
               f"Trainer.train_step on the card: {lane_summary}")
 
 
-def sweep_expected_launches(fb, tcfg) -> tuple[dict[str, int], int, int]:
-    """Launches the sweep implies with gru_impl auto (3 F-lane walks a
-    forward: layer 0's two directions and the pruned layer 1's forward walk;
-    their 3 adjoints a train step), with its train steps and eval batches
-    (2 epochs of train steps and validation batches, then the test
-    batches; the early-stopping patience exceeds the epochs)."""
+KERNELS = tuple(gru_cuda.launch_counts())
+
+
+def fold_walks(model_cfg: ModelConfig | None = None) -> tuple[dict[str, int], dict[str, int]]:
+    """The launches of one forward and of one backward of a fold-stacked
+    model, whatever its lanes: a full BiGRU layer is 2 F-lane walks
+    (gru_fwd_fb; adjoint gru_bwd_fb) for auto, pallas and pallas_db, or one
+    2F-lane fused walk (gru_bifwd; adjoint gru_bibwd) for pallas_fused; the
+    pruned last layer is one F-lane gru_fwd_fb (adjoint gru_bwd_fb). The
+    default model (2 layers, pruned, auto): 3 + 3."""
+    model_cfg = model_cfg or ModelConfig()
+    full = model_cfg.gru_num_layers - int(model_cfg.gru_last_prune)
+    fwd, bwd = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+    if FOLD_IMPLS[model_cfg.gru_impl] == "fused":
+        fwd["gru_bifwd"], bwd["gru_bibwd"] = full, full
+    else:
+        fwd["gru_fwd_fb"], bwd["gru_bwd_fb"] = 2 * full, 2 * full
+    if model_cfg.gru_last_prune:
+        fwd["gru_fwd_fb"] += 1
+        bwd["gru_bwd_fb"] += 1
+    return fwd, bwd
+
+
+def sweep_expected_launches(fb, tcfg, model_cfg: ModelConfig | None = None
+                            ) -> tuple[dict[str, int], int, int]:
+    """Launches the sweep implies (fold_walks of model_cfg, the default
+    model's 3 F-lane walks and 3 adjoints without one) over its train steps
+    and eval batches (2 epochs of train steps and validation batches, then
+    the test batches; the early-stopping patience exceeds the epochs), with
+    those counts."""
     b = tcfg.batch_size
     train = tcfg.epochs * grid_steps(fb.n_train, b)
     evals = tcfg.epochs * grid_steps(fb.n_val, b) + grid_steps(fb.n_test, b)
-    return ({"gru_fwd": 0, "gru_fwd_fb": 3 * (train + evals), "gru_bwd": 0,
-             "gru_bwd_fb": 3 * train, "gru_bifwd": 0, "gru_bibwd": 0}, train, evals)
+    fwd, bwd = fold_walks(model_cfg)
+    return ({k: fwd[k] * (train + evals) + bwd[k] * train for k in KERNELS}, train, evals)
 
 
 def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep",
                 corpus=None, parity: bool = True, profile: bool = True,
-                db_step: bool = True) -> tuple[dict[str, int], Path]:
+                db_step: bool = True, impl: str = "auto") -> tuple[dict[str, int], Path]:
     """First-steps parity, then the experiment CLI with no --execution (the
     sharded sweep: the main path, counted), its run directory's checks and
-    the step profile (auto; then one pallas_db step's launches); returns the
-    kernel launches of the CLI run and its run directory. `data_argv` names
-    the data (--set data_path=..., the hybrid targets, or --from-pickles);
-    `corpus`, if given, is what the CLI will stage from it."""
+    the step profile (of gru_impl `impl`, and for another impl than auto
+    auto's beside it; then, for auto, one pallas_db step's launches);
+    returns the kernel launches of the CLI run and its run directory.
+    `data_argv` names the data (--set data_path=..., the hybrid targets, or
+    --from-pickles); `corpus`, if given, is what the CLI will stage from
+    it."""
     out = root / f"{what}_{dtype}"
     argv = ["--output-dir", str(out), "--set", "trainer.epochs=2",
-            "--set", f"model.dtype={dtype}"] + data_argv
+            "--set", f"model.dtype={dtype}", "--set", f"model.gru_impl={impl}"] + data_argv
     cfg = cli.load_config(cli.build_parser().parse_args(argv))
     if corpus is None:
         staged = root / f"{what}_staged_{dtype}"
@@ -1602,13 +1667,14 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
     launches = gru_cuda.launch_counts()
     # --------------------------------------------------------------------
     wall = time.perf_counter() - t0
-    expected, train_steps, eval_batches = sweep_expected_launches(fb, cfg.trainer)
+    expected, train_steps, eval_batches = sweep_expected_launches(fb, cfg.trainer, cfg.model)
     if launches != expected:
         raise AssertionError(f"{what} {dtype}: launches {launches}, expected {expected} "
                              f"({train_steps} train steps, {eval_batches} eval batches)")
     (run_dir,) = (out / cfg.run_name).iterdir()
     saved = json.loads((run_dir / "config.json").read_text())
-    if saved["fold_execution"] != "sharded" or saved["model"]["dtype"] != dtype:
+    if (saved["fold_execution"] != "sharded" or saved["model"]["dtype"] != dtype
+            or saved["model"]["gru_impl"] != impl):
         raise AssertionError(f"{what} {dtype}: config.json says {saved}")
     summary = (run_dir / "cv_summary.txt").read_text()
     lines = SWEEP_FOLD_LINE.findall(summary)
@@ -1632,15 +1698,17 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
           + f" (accuracy, F1); every fold's checkpoint read by Predictor; launches {launches}")
 
     # c. Timings at the config's dropout: back-to-back sweep steps of every
-    # fold at B=64 (epoch 0's first step), gru_impl auto; then the walks
-    # one pallas_db step launches.
+    # fold at B=64 (epoch 0's first step), gru_impl `impl` (and auto beside
+    # another impl); then the walks one pallas_db step launches.
     if profile:
         seeds, rngs = fold_streams(cfg.seed, folds)
-        sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=seeds)
-        idx, w = sweep.to_device(sweep.train_grid(rngs))
         windows = folds * cfg.trainer.batch_size
-        step_profile(lambda: sweep.train_step(idx[:, 0], w[:, 0]), windows,
-                     f"{what} {dtype} auto F={folds} dropout {cfg.model.dropout}")
+        for name in dict.fromkeys((impl, "auto")):
+            c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, gru_impl=name))
+            sweep = FoldSweep(corpus, fb, c, "cuda", init_seeds=seeds)
+            idx, w = sweep.to_device(sweep.train_grid(rngs))
+            step_profile(lambda: sweep.train_step(idx[:, 0], w[:, 0]), windows,
+                         f"{what} {dtype} {name} F={folds} dropout {cfg.model.dropout}")
         if db_step:
             db_cfg = dataclasses.replace(
                 cfg, model=dataclasses.replace(cfg.model, gru_impl="pallas_db"))
@@ -1691,13 +1759,16 @@ def serve_cli(args: list[str], requests) -> tuple[dict, list]:
         proc.wait(timeout=60)
 
 
-def ensemble_phase(run_dir: Path) -> dict[str, int]:
-    """The fold ensemble of a float32 sweep's run directory: the padded
-    batches of 100 windows (the main path, counted: 3 gru_fwd_fb launches a
-    batch, no adjoint) against the mean of the per-fold Predictors (atol
-    1e-5) and the ensemble on the CPU (PROB_ATOL); the padded-64 forward's
-    time and trace; then `python -m multimodalsignal_tpu_torch.serving
-    --run-dir` answering one /v1/predict. Returns the counted launches."""
+def ensemble_phase(run_dir: Path, what: str = "ensemble", serve: bool = True
+                   ) -> dict[str, int]:
+    """The fold ensemble of a float32 run directory (a sweep's, or a serial
+    LOSO run's): the padded batches of 100 windows (the main path, counted:
+    fold_walks' forward a batch, no adjoint: 3 gru_fwd_fb for auto, 1
+    gru_bifwd + 1 gru_fwd_fb for pallas_fused) against the mean of the
+    per-fold Predictors (atol 1e-5) and the ensemble on the CPU (PROB_ATOL);
+    the padded-64 forward's time and trace; then, with `serve`, `python -m
+    multimodalsignal_tpu_torch.serving --run-dir` answering one /v1/predict.
+    Returns the counted launches."""
     ens = EnsemblePredictor.from_run(run_dir, device="cuda")
     folds = len(ens.fold_names)
     x = np.random.default_rng(5).standard_normal((100, 3, WINDOW_T)).astype(np.float32)
@@ -1707,25 +1778,27 @@ def ensemble_phase(run_dir: Path) -> dict[str, int]:
     launches = gru_cuda.launch_counts()
     # --------------------------------------------------------------------
     batches = -(-len(x) // 64)
-    expected = {"gru_fwd": 0, "gru_fwd_fb": 3 * batches, "gru_bwd": 0, "gru_bwd_fb": 0,
-                "gru_bifwd": 0, "gru_bibwd": 0}
+    expected = {k: v * batches for k, v in fold_walks(ens.cfg.model)[0].items()}
     if launches != expected:
-        raise AssertionError(f"ensemble: launches {launches}, expected {expected}")
+        raise AssertionError(f"{what}: launches {launches}, expected {expected}")
     mean = np.mean([Predictor.from_run(run_dir, s, device="cuda").predict_windows(x)
                     for s in ens.fold_names], axis=0)
-    err_mean = _check_probs(probs, mean, len(x), 1e-5, "ensemble vs mean of fold Predictors")
+    err_mean = _check_probs(probs, mean, len(x), 1e-5, f"{what} vs mean of fold Predictors")
     cpu = EnsemblePredictor.from_run(run_dir, device="cpu").predict_windows(x)
-    err_cpu = _check_probs(probs, cpu, len(x), PROB_ATOL["float32"], "ensemble vs CPU")
-    print(f"ensemble float32: {folds} folds, {len(x)} windows in {batches} padded batches; "
-          f"max|probs - mean of fold Predictors| = {err_mean:.3e} (atol 1e-5), "
-          f"max|probs - CPU| = {err_cpu:.3e} (atol {PROB_ATOL['float32']}); launches {launches}")
+    err_cpu = _check_probs(probs, cpu, len(x), PROB_ATOL["float32"], f"{what} vs CPU")
+    print(f"{what} float32 {ens.cfg.model.gru_impl}: {folds} folds, {len(x)} windows in "
+          f"{batches} padded batches; max|probs - mean of fold Predictors| = {err_mean:.3e} "
+          f"(atol 1e-5), max|probs - CPU| = {err_cpu:.3e} (atol {PROB_ATOL['float32']}); "
+          f"launches {launches}")
     xt = torch.from_numpy(x[:64]).cuda()
     with torch.inference_mode():
         fwd_ms = median_ms(lambda: ens.predict_tensor(xt), per_block=10)
-        print(f"ensemble float32: padded-64 forward of {folds} folds {fwd_ms:.3f} ms on the "
+        print(f"{what} float32: padded-64 forward of {folds} folds {fwd_ms:.3f} ms on the "
               f"device ({64 / fwd_ms * 1e3:.0f} windows/s, {64 * folds / fwd_ms * 1e3:.0f} "
               "fold-windows/s)")
-        trace(lambda: ens.predict_tensor(xt), "ensemble forward")
+        trace(lambda: ens.predict_tensor(xt), f"{what} forward")
+    if not serve:
+        return launches
     xs = np.random.default_rng(7).standard_normal((2, 3, WINDOW_T)).astype(np.float32)
     card_info, (reply,) = serve_run_dir(run_dir, lambda url: [
         _post(url + "/v1/predict", {"windows": xs.tolist()})])
@@ -1734,7 +1807,7 @@ def ensemble_phase(run_dir: Path) -> dict[str, int]:
         raise AssertionError(f"serving --run-dir /healthz: {card_info}")
     err = _check_probs(reply["probs"], ens.predict_windows(xs), 2, PROB_ATOL["float32"],
                        "serving --run-dir /v1/predict")
-    print(f"ensemble: serving --run-dir answered /v1/predict (backend {card_info['backend']}), "
+    print(f"{what}: serving --run-dir answered /v1/predict (backend {card_info['backend']}), "
           f"max|probs - ensemble| = {err:.3e}")
     return launches
 
@@ -1968,7 +2041,8 @@ def sweep_profile(corpus, fb, cfg, what: str, seeds=None) -> None:
     torch.cuda.empty_cache()
 
 
-def hier_sharded_phase(wesad: Path, root: Path) -> Path:
+def hier_sharded_phase(wesad: Path, root: Path, m1_impl: str = "auto",
+                       stages: bool = True) -> Path:
     """10a. `main --hierarchical --from-pickles` (the sharded default), f32,
     the default HierarchicalConfig (M1 H=64 x 2 layers, M2 H=32 x 1), 15
     folds as lanes: first the 3 first M2 sweep steps card vs CPU
@@ -1976,10 +2050,12 @@ def hier_sharded_phase(wesad: Path, root: Path) -> Path:
     gru_bwd_fb a train step, 3 gru_fwd_fb an eval batch; M2's 1, 1 and 1;
     the composed evaluation 3 + 1 gru_fwd_fb a test batch), its summary of
     15 finite folds, every stage's checkpoint read back, the step profiles
-    of both sweeps. Returns the run directory."""
-    out = root / "hier_sharded"
+    of both sweeps. With m1_impl (13d: pallas_fused) M1 takes that gru_impl
+    and its launches follow (fold_walks); `stages` False skips the M2
+    parity and the step profiles. Returns the run directory."""
+    out = root / f"hier_sharded_{m1_impl}"
     argv = ["--hierarchical", "--from-pickles", str(wesad), "--output-dir", str(out),
-            "--set", "base.trainer.epochs=2"]
+            "--set", "base.trainer.epochs=2", "--set", f"m1_model.gru_impl={m1_impl}"]
     cfg = cli.load_config(cli.build_parser().parse_args(argv))
     base = cfg.base
     union, _, _ = union_channel_indices(cfg.m1_channels, cfg.m2_channels)
@@ -2001,8 +2077,9 @@ def hier_sharded_phase(wesad: Path, root: Path) -> Path:
     m1_cfg = stage_cfg(cfg.m1_channels, "stress_binary", cfg.m1_model)
     m2_cfg = stage_cfg(cfg.m2_channels, "amusement_binary", cfg.m2_model)
     folds = len(fb_u.test_subjects)
-    sweep_parity(m2_cfg, c2, fb2, root / "hier_m2_parity", TRAIN_TOL["float32"],
-                 "hierarchical M2 float32 (H=32, 1 layer)")
+    if stages:
+        sweep_parity(m2_cfg, c2, fb2, root / "hier_m2_parity", TRAIN_TOL["float32"],
+                     "hierarchical M2 float32 (H=32, 1 layer)")
 
     gru_cuda.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2011,11 +2088,11 @@ def hier_sharded_phase(wesad: Path, root: Path) -> Path:
     launches = gru_cuda.launch_counts()
     # --------------------------------------------------------------------
     wall = time.perf_counter() - t0
-    _, tr1, ev1 = sweep_expected_launches(fb1, base.trainer)
-    _, tr2, ev2 = sweep_expected_launches(fb2, base.trainer)
+    m1, tr1, ev1 = sweep_expected_launches(fb1, base.trainer, cfg.m1_model)
+    m2, tr2, ev2 = sweep_expected_launches(fb2, base.trainer, cfg.m2_model)
     test_batches = grid_steps(fb_u.n_test, base.trainer.batch_size)
-    expected = {"gru_fwd": 0, "gru_fwd_fb": 3 * (tr1 + ev1) + (tr2 + ev2) + 4 * test_batches,
-                "gru_bwd": 0, "gru_bwd_fb": 3 * tr1 + tr2, "gru_bifwd": 0, "gru_bibwd": 0}
+    f1, f2 = fold_walks(cfg.m1_model)[0], fold_walks(cfg.m2_model)[0]
+    expected = {k: m1[k] + m2[k] + (f1[k] + f2[k]) * test_batches for k in KERNELS}
     if launches != expected:
         raise AssertionError(
             f"hierarchical sharded: launches {launches}, expected {expected} (M1 {tr1} train "
@@ -2037,13 +2114,15 @@ def hier_sharded_phase(wesad: Path, root: Path) -> Path:
                                        / "best_model.msgpack")["params"]["gru"]
             if {k.split("_")[0] for k in gru} != {f"l{i}" for i in range(layers)}:
                 raise AssertionError(f"hierarchical sharded: {sid} {sub} GRU {sorted(gru)}")
-    print(f"hierarchical sharded float32: main --hierarchical --from-pickles, {folds} folds "
+    print(f"hierarchical sharded float32, M1 {m1_impl}: main --hierarchical --from-pickles, "
+          f"{folds} folds "
           f"as lanes, M1 {tr1} train steps + {ev1} eval batches, M2 {tr2} + {ev2}, "
           f"{test_batches} composed test batches in {wall:.2f} s; mean composed accuracy "
           f"{mean.group(1)} ± {mean.group(2)} (not a gate); every stage's checkpoint read "
           f"back; launches {launches}")
-    sweep_profile(c1, fb1, m1_cfg, "hierarchical M1 float32 auto")
-    sweep_profile(c2, fb2, m2_cfg, "hierarchical M2 float32 auto (H=32, 1 layer)")
+    if stages:
+        sweep_profile(c1, fb1, m1_cfg, f"hierarchical M1 float32 {m1_impl}")
+        sweep_profile(c2, fb2, m2_cfg, "hierarchical M2 float32 auto (H=32, 1 layer)")
     return run_dir
 
 
@@ -2182,16 +2261,19 @@ def hier_predictor_phase(run_dir: Path, pkl: Path) -> None:
           f"labels, max|probs - predictor| = {err:.3e}")
 
 
-def replicated_phase(data: Path, root: Path, single) -> None:
+def replicated_phase(data: Path, root: Path, single, seeds=SEEDS, impl: str = "auto",
+                     profile: bool = True) -> None:
     """10d. `main --seeds 42 43 44 45` on phase 7's 15-subject data, f32:
     60 lanes (counted: 3 gru_fwd_fb and 3 gru_bwd_fb a train step, 3
     gru_fwd_fb an eval batch); seed_summary.{txt,json} and
     seed_fold_matrix.npz; seed group 0 against phase 7's single-seed sweep
     `single` under SEED_GROUP_TOL, printing whether it is bitwise; then
-    step_profile at 60 lanes, f32 and bf16."""
-    out = root / "replicated"
-    argv = ["--output-dir", str(out), "--seeds", *map(str, SEEDS), "--set", "trainer.epochs=2",
-            "--set", f"data_path={data}"]
+    step_profile at 60 lanes, f32 and bf16. 13d runs it with other `seeds`
+    and gru_impl (pallas_fused: 2 x 15 folds as 60 fused lanes), launches
+    by fold_walks, without the profile."""
+    out = root / f"replicated_{impl}"
+    argv = ["--output-dir", str(out), "--seeds", *map(str, seeds), "--set", "trainer.epochs=2",
+            "--set", f"data_path={data}", "--set", f"model.gru_impl={impl}"]
     cfg = cli.load_config(cli.build_parser().parse_args(argv))
     corpus = pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
                          read_channel_names(data))
@@ -2205,14 +2287,14 @@ def replicated_phase(data: Path, root: Path, single) -> None:
         launches = gru_cuda.launch_counts()
         # --------------------------------------------------------------------
     wall = time.perf_counter() - t0
-    expected, train_steps, eval_batches = sweep_expected_launches(fb, cfg.trainer)
+    expected, train_steps, eval_batches = sweep_expected_launches(fb, cfg.trainer, cfg.model)
     if launches != expected:
-        raise AssertionError(f"replicated: launches {launches}, expected {expected}")
+        raise AssertionError(f"replicated {impl}: launches {launches}, expected {expected}")
     (run_dir,) = (out / cfg.run_name).iterdir()
     summary = json.loads((run_dir / "seed_summary.json").read_text())
     matrix = np.load(run_dir / "seed_fold_matrix.npz")
     text = (run_dir / "seed_summary.txt").read_text()
-    if (summary["seeds"] != list(SEEDS) or matrix["accuracy"].shape != (len(SEEDS), folds)
+    if (summary["seeds"] != list(seeds) or matrix["accuracy"].shape != (len(seeds), folds)
             or not np.isfinite(matrix["accuracy"]).all()
             or not text.startswith("Seed-replicated LOSO sweep summary\n")):
         raise AssertionError(f"replicated: seed summary {summary}")
@@ -2231,19 +2313,23 @@ def replicated_phase(data: Path, root: Path, single) -> None:
                              f"rel|d| {loss_err:.3e}, confusion matrices moved {cm_moved}")
     # The seeds must train differently (on phase 7's noise labels every seed
     # may still end at the same accuracy: the majority class).
-    group_loss = rep.history.train_loss.reshape(len(SEEDS), folds, -1)[:, :, 0].mean(axis=1)
-    if len(set(group_loss.tolist())) != len(SEEDS):
+    group_loss = rep.history.train_loss.reshape(len(seeds), folds, -1)[:, :, 0].mean(axis=1)
+    if len(set(group_loss.tolist())) != len(seeds):
         raise AssertionError(f"replicated: seed groups trained alike: first-epoch train "
                              f"losses {group_loss}")
-    print(f"replicated float32: main --seeds {' '.join(map(str, SEEDS))}, {folds} folds x "
-          f"{len(SEEDS)} seeds = {len(SEEDS) * folds} lanes, {train_steps} train steps and "
+    print(f"replicated float32 {impl}: main --seeds {' '.join(map(str, seeds))}, {folds} folds "
+          f"x {len(seeds)} seeds = {len(seeds) * folds} folds as lanes, {train_steps} train "
+          f"steps and "
           f"{eval_batches} eval batches in {wall:.2f} s; grand mean accuracy "
           f"{summary['grand_mean_accuracy']:.4f}, across-seed std of the mean "
           f"{summary['seed_std_of_mean_accuracy']:.4f}, first-epoch train loss by seed "
-          + ", ".join(f"{v:.6f}" for v in group_loss) + "; seed group 0 vs phase 7's sweep: "
+          + ", ".join(f"{v:.6f}" for v in group_loss) + "; seed group 0 vs the single-seed "
+          "sweep: "
           f"{'bitwise equal' if bitwise else 'not bitwise'}, losses max rel|d| {loss_err:.3e}, "
           f"confusion-matrix windows moved {int(cm_moved.sum())}; launches {launches}")
-    rfb = replicate_fold_batch(fb, len(SEEDS))
+    if not profile:
+        return
+    rfb = replicate_fold_batch(fb, len(seeds))
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
         sweep_profile(corpus, rfb, c, f"replicated {dtype} auto", seeds=SEEDS)
@@ -3020,6 +3106,159 @@ def phase12(root: Path, data: Path, loso_data: Path, sweep_run: Path,
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({split})")
 
 
+# Phase 13: the fused pair under the fold axis and the pack cache. The fused
+# pair's lane counts beyond one layer's two: a sweep's 15 folds (30 lanes), 4 seed
+# groups of them (120), and a ragged shape (3 folds at T=37, B=5, H=40).
+FUSED_LANE_CASES = [(30, SERVE_T, SERVE_B, SERVE_H), (2 * SEED_LANES, SERVE_T, SERVE_B, SERVE_H),
+                    (6, 37, 5, 40)]
+
+
+def fused_lanes_phase() -> None:
+    """13a. gru_bifwd and gru_bibwd at L = 2F lanes (FUSED_LANE_CASES)
+    against their plain versions: ys at TOL, the adjoint's outputs at
+    BWD_TOL, dW and db bitwise over two runs; at T=480, B=64, H=64 the
+    times beside the bound at L lanes, the row tile, blocks and waves, and
+    two baselines: auto's two F-lane walks (gru_fwd_fb / gru_bwd_fb, both
+    directions) and cuDNN's bidirectional nn.GRU called F times."""
+    f32 = torch.float32
+    for lanes, t, b, h in FUSED_LANE_CASES:
+        folds = lanes // 2
+        for adjoint, name, wrapper, plain in (
+                (False, "gru_bifwd", gru_cuda.gru_bifwd, gru_cuda.gru_bifwd_plain),
+                (True, "gru_bibwd", gru_cuda.gru_bibwd, gru_cuda.gru_bibwd_plain)):
+            args = fused_inputs(t, b, h, seed=lanes + t, adjoint=adjoint, lanes=lanes)
+            got = wrapper(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            outputs = ("dxg2", "dW", "db", "dh0") if adjoint else ("ys2",)
+            got, want = (got, want) if adjoint else ((got,), (want,))
+            errs = []
+            for o, g, w in zip(outputs, got, want):
+                if g.dtype != f32 or g.shape != w.shape:
+                    raise AssertionError(f"{name} L={lanes} {o}: got {g.dtype} {list(g.shape)}")
+                tol = BWD_TOL[f32][o in ("dW", "db")] if adjoint else TOL[f32]
+                torch.testing.assert_close(g, w, **tol,
+                                           msg=lambda m, o=o: f"{name} L={lanes} {o}: {m}")
+                errs.append((g - w).abs().max().item())
+            del got, want
+            plan = adj_plan(lanes, t, b, h) if adjoint else walk_plan(lanes, b, h)
+            print(f"{name}: L={lanes} ({folds} folds) T={t} B={b} H={h} float32: max|d| "
+                  + ", ".join(f"{o} {e:.3e}" for o, e in zip(outputs, errs)) + f" ({plan})")
+            if adjoint:
+                check_deterministic(name, wrapper, args, f"L={lanes} float32")
+            if (t, b, h) == (SERVE_T, SERVE_B, SERVE_H):
+                ms = median_ms(lambda: wrapper(*args), per_block=10)
+                del args
+                b_ms, b_by = (bwd_bound_ms if adjoint else bound_ms)(lanes, t, b, h, f32)
+                if adjoint:
+                    fb = bwd_inputs(folds, t, b, h, f32, seed=lanes)
+                    two = lambda: (gru_cuda.gru_backward_fb(*fb),  # noqa: E731
+                                   gru_cuda.gru_backward_fb(*fb, reverse=True))
+                else:
+                    fb = kernel_inputs(folds, t, b, h, f32, seed=lanes)
+                    two = lambda: (gru_cuda.gru_forward_fb(*fb),  # noqa: E731
+                                   gru_cuda.gru_forward_fb(*fb, reverse=True))
+                two_ms = median_ms(two, per_block=10)
+                del fb
+                lib_ms = (cudnn_bwd_ms if adjoint else cudnn_ms)(2, t, b, h, f32, calls=folds)
+                print(f"{name} float32 at L={lanes} ({folds} folds x 2 directions) T={t} "
+                      f"B={b} H={h}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us per dependent "
+                      f"step, {plan}, {waves(adjoint, b, lanes, h, f32)}), bound "
+                      f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound; auto's two "
+                      f"gru_{'bwd' if adjoint else 'fwd'}_fb at F={folds} {two_ms:.4f} ms; "
+                      f"cuDNN bidirectional GRU {'backward ' if adjoint else ''}x{folds} "
+                      f"{lib_ms:.4f} ms")
+            else:
+                del args
+            torch.cuda.empty_cache()
+
+
+def pack_cache_phase(data: Path, root: Path) -> None:
+    """13e. The sweep CLI (1 epoch) twice on a fresh copy of phase 7's data
+    directory: the first run misses and writes one entry under
+    .pack_cache, the second reads it back (a read-only memory map), and
+    the hit's corpus equals the miss's bitwise; each run's staging seconds
+    (stage_corpus, host clock). Then a run with MMS_PACK_CACHE=0 on another
+    copy writes nothing."""
+    fresh, off = root / "cache_data", root / "cache_off_data"
+    for d in (fresh, off):
+        shutil.copytree(data, d, ignore=shutil.ignore_patterns(".pack_cache"))
+    staged = []
+    real = fold_sweep.stage_corpus
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        corpus = real(*args, **kwargs)
+        staged.append((time.perf_counter() - t0, corpus))
+        return corpus
+
+    def run(data_dir: Path, name: str) -> None:
+        cli.main(["--output-dir", str(root / name), "--set", "trainer.epochs=1",
+                  "--set", f"data_path={data_dir}"])
+
+    fold_sweep.stage_corpus = timed
+    saved = os.environ.get("MMS_PACK_CACHE")
+    try:
+        run(fresh, "cache_miss")
+        entries = list((fresh / ".pack_cache").iterdir())
+        run(fresh, "cache_hit")
+        os.environ["MMS_PACK_CACHE"] = "0"
+        run(off, "cache_off")
+    finally:
+        fold_sweep.stage_corpus = real
+        if saved is None:
+            os.environ.pop("MMS_PACK_CACHE", None)
+        else:
+            os.environ["MMS_PACK_CACHE"] = saved
+    (miss_s, miss), (hit_s, hit), (off_s, _) = staged
+    if len(entries) != 1 or list((fresh / ".pack_cache").iterdir()) != entries:
+        raise AssertionError(f"pack cache: entries after the miss {entries}")
+    if isinstance(miss.x, np.memmap) or not isinstance(hit.x, np.memmap):
+        raise AssertionError("pack cache: the second run did not read the entry back")
+    if hit.subjects != miss.subjects or not all(
+            np.array_equal(np.asarray(getattr(hit, k)), getattr(miss, k))
+            and np.asarray(getattr(hit, k)).dtype == getattr(miss, k).dtype
+            for k in ("x", "y", "mask")):
+        raise AssertionError("pack cache: the hit's corpus differs from the miss's")
+    if (off / ".pack_cache").exists():
+        raise AssertionError("pack cache: a MMS_PACK_CACHE=0 run wrote an entry")
+    size = sum(f.stat().st_size for f in entries[0].iterdir())
+    print(f"pack cache: {len(miss.subjects)} subjects, x {list(miss.x.shape)} "
+          f"({size / 2**20:.1f} MiB on disk); staging {miss_s:.3f} s on the miss (entry "
+          f"written), {hit_s:.3f} s on the hit (memory map), bitwise equal; "
+          f"MMS_PACK_CACHE=0 staged in {off_s:.3f} s and wrote nothing")
+
+
+def phase13(root: Path, data: Path, loso_run: Path, wesad: Path) -> dict[str, int]:
+    """Phase 13 (module docstring): 13a the fused pair at 2F lanes, 13b the
+    fused sweep (f32, bf16), 13c the ensembles of phase 6's serial
+    pallas_fused run and of 13b's f32 run, 13d the hierarchical run with a
+    fused M1 and --seeds 42 43 fused, 13e the pack cache. Returns 13b's
+    float32 launches (the fused sweep: the main path of this phase)."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    marks = [time.perf_counter()]
+    fused_lanes_phase()
+    marks.append(time.perf_counter())
+    with capture_sweeps(fold_sweep) as seen:
+        launches, fused_run = sweep_phase("float32", ["--set", f"data_path={data}"], root,
+                                          "fused_sweep", db_step=False, impl="pallas_fused")
+    sweep_phase("bfloat16", ["--set", f"data_path={data}"], root, "fused_sweep",
+                db_step=False, impl="pallas_fused")
+    marks.append(time.perf_counter())
+    ensemble_phase(loso_run, "serial pallas_fused ensemble")
+    ensemble_phase(fused_run, "fused sweep ensemble", serve=False)
+    marks.append(time.perf_counter())
+    hier_sharded_phase(wesad, root, m1_impl="pallas_fused", stages=False)
+    replicated_phase(data, root, seen[0], seeds=SEEDS[:2], impl="pallas_fused", profile=False)
+    marks.append(time.perf_counter())
+    pack_cache_phase(data, root)
+    marks.append(time.perf_counter())
+    split = ", ".join(f"13{k} {b - a:.1f} s" for k, a, b in zip("abcde", marks, marks[1:]))
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s ({split})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -3057,7 +3296,7 @@ def main() -> int:
         train_launches = training_phase("float32", Path(tmp))
         training_phase("bfloat16", Path(tmp))
         loso_data = write_loso_data(Path(tmp) / "loso_data", seed=4)
-        loso_launches = loso_phase("float32", loso_data, Path(tmp))
+        loso_launches, loso_run = loso_phase("float32", loso_data, Path(tmp))
         loso_phase("bfloat16", loso_data, Path(tmp))
         data = write_loso_data(Path(tmp) / "sweep_data", seed=8, subjects=ALL_SUBJECTS)
         with capture_sweeps(fold_sweep) as seen:
@@ -3071,15 +3310,19 @@ def main() -> int:
         phase11(Path(tmp) / "phase11", sweep_run, bf16_run, hybrid_run, hier_run, wesad)
         phase12(Path(tmp) / "phase12", data, loso_data, sweep_run,
                 ablation_run / "fusion4__cnn_gru_attention")
+        fused_launches = phase13(Path(tmp) / "phase13", data, loso_run, wesad)
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
-    # default execution), the fused pair's on the float32 serial LOSO path
-    # (all checked above).
+    # default execution) and the fused sweep, the fused pair's on the
+    # float32 serial LOSO path and the fused sweep (each read right after
+    # its own counted run, all checked above).
+    paths = {"gru_fwd": (serve_launches,), "gru_bwd": (train_launches,),
+             "gru_fwd_fb": (sweep_launches, fused_launches),
+             "gru_bwd_fb": (sweep_launches, fused_launches),
+             "gru_bifwd": (loso_launches, fused_launches),
+             "gru_bibwd": (loso_launches, fused_launches)}
     for k in kernels:
-        path = {"gru_fwd": serve_launches, "gru_fwd_fb": sweep_launches,
-                "gru_bwd": train_launches, "gru_bwd_fb": sweep_launches}.get(
-                    k["name"], loso_launches)
-        k["launches"] = path[k["name"]]
+        k["launches"] = sum(path[k["name"]] for path in paths[k["name"]])
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))

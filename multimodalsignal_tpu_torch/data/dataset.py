@@ -1,9 +1,19 @@
 """Dataset layer: windowed npy files -> dense, normalized [N, C, T] arrays,
 the hybrid model's (raw, feature) pairs, and the sharded sweep's packed
-corpus, from npy files or straight from WESAD pickles (counterpart of
-multimodalsignal_tpu/data/dataset.py, its NumPy float64 path; the JAX
-package's optional C++ engine and its on-disk pack cache are not ported:
-ROADMAP.md, queue 1, item 4).
+corpus, from npy files or straight from WESAD pickles, memoized on disk
+(counterpart of multimodalsignal_tpu/data/dataset.py, its NumPy float64
+path; the JAX package's optional C++ host engine is not ported).
+
+The pack cache. A packed corpus depends only on its inputs, so pack_corpus
+and pack_corpus_from_pickles keep it under `<data>/.pack_cache/<key>/`
+(x.npy, y.npy, mask.npy, meta.json), keyed on the pack inputs and the
+(mtime_ns, size) of every source file, as the JAX package does; a later
+identical pack reads it back (x as a read-only memory map) instead of
+loading and normalizing every subject again. The key's payload names this
+package: the port's pack equals the JAX package's only to float32
+round-off, so neither package reads the other's entries. `cache=False` or
+MMS_PACK_CACHE=0 turns it off; the entries are pruned, least recently used
+first, to MMS_PACK_CACHE_GB (default 16), never the newest.
 
 A preprocessed data directory (data/preprocess.py) holds, per subject,
 `S*_X.npy` windows and `S*_y.npy` raw labels (1 Base, 2 TSST, 3 Fun,
@@ -14,7 +24,10 @@ float32, the feature target's [N, F] float64."""
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import os
+import shutil
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -356,13 +369,148 @@ def _pack_subjects(pack_one, subjects, what: str) -> PackedCorpus:
     return _stack_packed(per_subject)
 
 
+# Bump when the packed layout or the normalization changes: every existing
+# pack cache entry then misses. The tag keeps the two packages' entries apart.
+_PACK_CACHE_VERSION = 1
+_PACK_CACHE_TAG = "multimodalsignal_tpu_torch"
+
+
+def _file_states(files) -> list:
+    """(name, mtime_ns, size) of each file, None for a missing one."""
+    states = []
+    for name, f in files:
+        try:
+            st = f.stat()
+            states.append([*name, st.st_mtime_ns, st.st_size])
+        except OSError:
+            states.append([*name, None, None])
+    return states
+
+
+def _cache_key(*payload) -> str:
+    text = json.dumps([_PACK_CACHE_TAG, _PACK_CACHE_VERSION, *payload])
+    return hashlib.sha256(text.encode()).hexdigest()[:24]
+
+
+def _pack_cache_key(data_path, subjects, channels_to_use, classification_mode,
+                    normalization) -> str:
+    """Key of a pack_corpus result: its inputs and the (mtime_ns, size) of
+    every subject's npy files, so a re-run preprocessor or another subject
+    set, channel set, mode or scheme never reads a stale pack."""
+    data_path = Path(data_path)
+    states = _file_states(((sid, suffix), data_path / f"{sid}_{suffix}.npy")
+                          for sid in subjects for suffix in ("X", "y"))
+    return _cache_key(list(subjects), list(channels_to_use), classification_mode,
+                      normalization, states)
+
+
+def _pickles_cache_key(wesad_root, subjects, channels_to_use, classification_mode,
+                       normalization, meta) -> str:
+    """Key of a pack_corpus_from_pickles result: its inputs, the preprocess
+    parameters and the (mtime_ns, size) of every subject's pickle and
+    questionnaire."""
+    root = Path(wesad_root)
+    states = _file_states(((f.name,), f) for sid in subjects
+                          for f in (root / sid / f"{sid}.pkl", root / sid / f"{sid}_quest.csv"))
+    return _cache_key("pickles", list(subjects), list(channels_to_use), classification_mode,
+                      normalization, meta, states)
+
+
+def _pack_cache_load(cache_dir: Path, key: str) -> PackedCorpus | None:
+    """A cached pack, or None. x comes back as a read-only memory map:
+    whoever makes a tensor of it copies it first (the sweep's staging)."""
+    entry = cache_dir / key
+    try:
+        subjects = tuple(json.loads((entry / "meta.json").read_text())["subjects"])
+        x = np.load(entry / "x.npy", mmap_mode="r")
+        y = np.load(entry / "y.npy")
+        mask = np.load(entry / "mask.npy")
+    except OSError:
+        return None
+    except (ValueError, KeyError, EOFError) as exc:  # a corrupt entry: drop it, pack again
+        print(f"Warning: dropping corrupt pack cache entry {entry} ({exc})")
+        shutil.rmtree(entry, ignore_errors=True)
+        return None
+    try:
+        entry.touch()  # recency for the LRU prune
+    except OSError:
+        pass  # a read-only cache: the hit is still a hit
+    return PackedCorpus(x, y, mask, subjects)
+
+
+def _pack_cache_store(cache_dir: Path, key: str, corpus: PackedCorpus) -> None:
+    """Write an entry atomically (a temporary directory, then a rename),
+    then prune; never raises: a read-only data directory or a full disk
+    leaves the run uncached."""
+    tmp = cache_dir / f".tmp-{key}-{os.getpid()}"
+    try:
+        tmp.mkdir(parents=True, exist_ok=True)
+        np.save(tmp / "x.npy", np.ascontiguousarray(corpus.x))
+        np.save(tmp / "y.npy", corpus.y)
+        np.save(tmp / "mask.npy", corpus.mask)
+        (tmp / "meta.json").write_text(json.dumps(
+            {"package": _PACK_CACHE_TAG, "version": _PACK_CACHE_VERSION,
+             "subjects": list(corpus.subjects)}))
+        if (cache_dir / key).exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+        else:
+            os.rename(tmp, cache_dir / key)
+    except OSError as exc:
+        print(f"Warning: pack cache write failed ({exc}); the run stays uncached.")
+        shutil.rmtree(tmp, ignore_errors=True)
+        return
+    max_bytes = int(float(os.environ.get("MMS_PACK_CACHE_GB", "16")) * (1 << 30))
+    _prune_pack_cache(cache_dir, max_bytes)
+
+
+def _prune_pack_cache(cache_dir: Path, max_bytes: int) -> None:
+    """Evict the least recently used entries until the cache fits
+    max_bytes; the newest entry (the one just written or read) stays."""
+    try:
+        sized = []
+        for e in cache_dir.iterdir():
+            if e.is_dir() and not e.name.startswith(".tmp-"):
+                size = sum(f.stat().st_size for f in e.iterdir() if f.is_file())
+                sized.append((e.stat().st_mtime_ns, size, e))
+        sized.sort(reverse=True)   # newest first
+        total = 0
+        for i, (_, size, e) in enumerate(sized):
+            total += size
+            if i > 0 and total > max_bytes:
+                shutil.rmtree(e, ignore_errors=True)
+    except OSError:
+        pass
+
+
+def _pack_cache_enabled(cache: bool | None) -> bool:
+    if cache is not None:
+        return cache
+    return os.environ.get("MMS_PACK_CACHE", "1") != "0"
+
+
+def _cached_pack(cache: bool | None, cache_dir: Path, key_fn, pack) -> PackedCorpus:
+    """pack(), or its cache entry under cache_dir (written on a miss)."""
+    if not _pack_cache_enabled(cache):
+        return pack()
+    key = key_fn()
+    hit = _pack_cache_load(cache_dir, key)
+    if hit is not None:
+        print(f"  pack cache hit: {cache_dir / key}")
+        return hit
+    corpus = pack()
+    _pack_cache_store(cache_dir, key, corpus)
+    return corpus
+
+
 def pack_corpus(data_path: Path | str, subjects: list[str], channels_to_use: list[str],
                 all_channel_names: list[str], classification_mode: str = "stress_binary",
-                normalization: str = "all") -> PackedCorpus:
+                normalization: str = "all", cache: bool | None = None) -> PackedCorpus:
     """Load and normalize every subject once and pad to [S, Wmax, C, T].
     Normalization is per subject, so one packed corpus serves every LOSO
     fold. Subjects whose files are missing are skipped; none loaded raises
-    ValueError."""
+    ValueError. The result is kept in and read back from the pack cache
+    under <data_path>/.pack_cache (module docstring; `cache=False` or
+    MMS_PACK_CACHE=0 turns it off)."""
     channel_indices = [all_channel_names.index(ch) for ch in channels_to_use]
 
     def pack_one(sid):
@@ -372,7 +520,11 @@ def pack_corpus(data_path: Path | str, subjects: list[str], channels_to_use: lis
         return (sid, *_pack_subject(*item, channel_indices, channels_to_use,
                                     classification_mode, normalization))
 
-    return _pack_subjects(pack_one, subjects, "data")
+    return _cached_pack(
+        cache, Path(data_path) / ".pack_cache",
+        lambda: _pack_cache_key(data_path, subjects, channels_to_use, classification_mode,
+                                normalization),
+        lambda: _pack_subjects(pack_one, subjects, "data"))
 
 
 def from_pickles_meta(channels_to_use, preprocess_cfg=None) -> tuple[list[str], dict]:
@@ -403,7 +555,8 @@ def pack_corpus_from_pickles(wesad_root: Path | str, subjects: list[str],
                              channels_to_use: list[str],
                              classification_mode: str = "stress_binary",
                              normalization: str = "all",
-                             subject_cache: dict | None = None
+                             subject_cache: dict | None = None,
+                             cache: bool | None = None
                              ) -> tuple[PackedCorpus, list[str], dict]:
     """The sweep's corpus straight from raw WESAD pickles: each subject's
     windows are preprocessed in memory (data/preprocess.py's raw target)
@@ -415,7 +568,11 @@ def pack_corpus_from_pickles(wesad_root: Path | str, subjects: list[str],
 
     `subject_cache` (optional dict, keyed on (sid, include_wrist)) keeps
     each subject's windows across calls, for callers that pack several
-    corpora from the same pickles; the caller owns its lifetime."""
+    corpora from the same pickles; the caller owns its lifetime. The
+    corpus is kept in and read back from the pack cache under
+    <wesad_root>/.pack_cache, keyed on the pickles' and questionnaires'
+    states (module docstring; `cache=False` or MMS_PACK_CACHE=0 turns it
+    off)."""
     from multimodalsignal_tpu_torch.config import PreprocessConfig
     from multimodalsignal_tpu_torch.data.preprocess import preprocess_subject
 
@@ -446,7 +603,12 @@ def pack_corpus_from_pickles(wesad_root: Path | str, subjects: list[str],
         return (sid, *_pack_subject(*item, channel_indices, channels_to_use,
                                     classification_mode, normalization))
 
-    return _pack_subjects(pack_one, subjects, "pickles"), all_channel_names, meta
+    corpus = _cached_pack(
+        cache, Path(wesad_root) / ".pack_cache",
+        lambda: _pickles_cache_key(wesad_root, subjects, channels_to_use, classification_mode,
+                                   normalization, meta),
+        lambda: _pack_subjects(pack_one, subjects, "pickles"))
+    return corpus, all_channel_names, meta
 
 
 def pack_hybrid_corpus(raw_align_path: Path | str, feature_path: Path | str,
@@ -458,7 +620,9 @@ def pack_hybrid_corpus(raw_align_path: Path | str, feature_path: Path | str,
     """pack_corpus over the raw-align target plus the feature stream
     aligned window for window: the sweep's form of build_hybrid_dataset.
     Per subject the raw-align and feature window counts and mapped labels
-    must agree, so the sweep's index pools address both streams."""
+    must agree, so the sweep's index pools address both streams. The raw
+    stream goes through pack_corpus's cache; the features are read again
+    every time (cheap, and uncached, as in the JAX package)."""
     corpus = pack_corpus(raw_align_path, subjects, channels_to_use, all_channel_names,
                          classification_mode, normalization)
     feat_idx = _feature_indices(feature_path, features_to_use)

@@ -33,14 +33,19 @@ ops/gru_pallas.py route it):
     a flip and a concatenation of the gates and an un-flip of the outputs
     per layer, and measured slower on an H100 in float32 and bfloat16
     (PERF.md), so the fold axis does not take it;
+  * "pallas_fused" and "cuda_fused": every layer but the pruned last one
+    runs the fused float32 pair (gru_bifwd, its adjoint gru_bibwd) with all
+    F folds' two directions as 2F lanes of one walk
+    (gru_cuda.gru_bidirectional_folds), cast back to the compute dtype; the
+    pruned last layer's forward walk is F lanes of gru_fwd_fb, as in "auto".
+    The JAX package gives its fused pair no custom_vmap rule, so Pallas's
+    batching rule walks each fold's two lanes on a grid axis of their own:
+    the same per-lane math. On CPU tensors the pair's plain versions run;
   * "scan", "torch", and "auto" on CPU tensors: the plain loop over all
     lanes in the compute dtype (models/gru.py), as the JAX package's
     fold-parallel "auto" resolves to scan off the TPU;
   * "aten": one `torch.ops.aten.gru` per fold and layer (models/gru.py
-    aten_gru; an exported ensemble artifact's recurrence, inference only);
-  * "pallas_fused" and "cuda_fused" raise: the JAX package batches its fused
-    pair into a sequential grid with no custom_vmap rule, and the port has
-    no fold-batched fused walk yet (ROADMAP.md).
+    aten_gru; an exported ensemble artifact's recurrence, inference only).
 """
 
 from __future__ import annotations
@@ -62,20 +67,15 @@ from multimodalsignal_tpu_torch.ops import gru_cuda
 
 # ModelConfig.gru_impl -> how the fold-stacked GRU walks.
 FOLD_IMPLS = {"auto": "auto", "pallas": "lanes", "pallas_db": "lanes",
-              "cuda": "lanes", "scan": "torch", "torch": "torch", "aten": "aten"}
-_FUSED = ("pallas_fused", "cuda_fused")
+              "cuda": "lanes", "pallas_fused": "fused", "cuda_fused": "fused",
+              "scan": "torch", "torch": "torch", "aten": "aten"}
 
 
 def _check_impl(gru_impl: str) -> str:
-    if gru_impl in _FUSED:
-        raise NotImplementedError(
-            f"gru_impl={gru_impl!r} under the fold axis (the sharded sweep, the "
-            "fold ensemble) is not ported yet (ROADMAP.md, queue 1, item 6: the "
-            "sweep's remaining parts); use auto, pallas or pallas_db")
     impl = FOLD_IMPLS.get(gru_impl)
     if impl is None:
         raise ValueError(f"unknown gru_impl {gru_impl!r}; expected one of "
-                         f"{sorted(FOLD_IMPLS) + list(_FUSED)}")
+                         f"{sorted(FOLD_IMPLS)}")
     return impl
 
 
@@ -208,7 +208,9 @@ class FoldStackedModel(nn.Module):
                 else:
                     y_f = gru_cuda.gru_lanes_cuda(xg_f, whf, bhf, h0)
                 return torch.cat([y_f[:, -1].to(dt), y_b_last.to(dt)], dim=-1)
-            if impl == "lanes":
+            if impl == "fused":
+                y_f, y_b = gru_cuda.gru_bidirectional_folds(xg_f, xg_b, whf, whb, bhf, bhb, h0)
+            elif impl == "lanes":
                 y_f = gru_cuda.gru_lanes_cuda(xg_f, whf, bhf, h0)
                 y_b = gru_cuda.gru_lanes_cuda(xg_b, whb, bhb, h0, reverse=True)
             else:

@@ -6,7 +6,8 @@
 //   * _bwd_kernel    (called by _gru_backward)    -> C entry gru_bwd    (one lane)
 //   * _fb_bwd_kernel (called by _gru_backward_fb) -> C entry gru_bwd_fb (F lanes)
 //   * _bibwd_kernel  (called by _bigru_backward)  -> C entry gru_bibwd  (2 lanes,
-//     the adjoint of gru_bifwd's fused BiGRU walk, float32 only)
+//     the adjoint of gru_bifwd's fused BiGRU walk, float32 only; 2F lanes
+//     for F folds under the fold axis)
 //
 // What it computes, per lane f (time-major, as the TPU kernels take it):
 //   xg [F, T, B, 3H]  input gates of the forward (gate blocks r | z | n)
@@ -15,9 +16,9 @@
 //   ys [F, T, B, H]   the forward's states; dy [F, T, B, H] their cotangent
 // -> dxg [F, T, B, 3H] in xg's dtype; dw [F, 3H, H], db [F, 3H], dh0 [F, B, H]
 //    all float32.
-// gru_bibwd takes the streams xg, ys, dy and dxg as [T, 2, B, .] (the lane
+// gru_bibwd takes the streams xg, ys, dy and dxg as [T, L, B, .] (the lane
 // inside time, as gru_bifwd writes them), walks with reverse=0 and is
-// float32 throughout; its dw comes back in torch layout [2, 3H, H], the
+// float32 throughout; its dw comes back in torch layout [L, 3H, H], the
 // transpose of the TPU kernel's dW^T [2, H, 3H].
 // The walk runs opposite to the forward: from T-1 down for reverse=0, from 0
 // up for reverse=1. h_prev[t], the state entering forward step t, is
@@ -36,9 +37,9 @@
 //
 // All three entries run the adjoint walk (gru_adj_* below): gru_bwd with
 // one lane, gru_bwd_fb with F lanes of the LaneMajor layout, gru_bibwd with
-// 2 lanes of the TimeMajor layout, where lane 1 is the backward direction,
-// already flipped in time, so both lanes walk with reverse=0 and h_prev at
-// the first forward step is h0[lane].
+// L lanes of the TimeMajor layout (2 a layer, 2F for F folds), where each odd
+// lane is a backward direction, already flipped in time, so every lane walks
+// with reverse=0 and h_prev at the first forward step is h0[lane].
 //
 // The adjoint walk. What bounds it
 // on the card is latency: at the training shape (T=480, B=64, H=64) the
@@ -903,17 +904,18 @@ int gru_bwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
 }
 
 // Counterpart of _bigru_backward: the adjoint of gru_bifwd, float32, walking
-// time backward. xg, ys, dy, dxg [T, 2, B, .]; w [2, 3H, H], bh [2, 3H],
-// h0 [2, B, H] -> dw [2, 3H, H], db [2, 3H], dh0 [2, B, H] per direction,
-// on the adjoint walk with 2 lanes of the TimeMajor layout and reverse=0.
-// dw_part is the workspace of gru_adj_workspace_floats(2, T, B, H) floats,
-// db_part holds 2 * gru_adj_partials(T, B) partials of [3H] floats.
+// time backward. xg, ys, dy, dxg [T, L, B, .]; w [L, 3H, H], bh [L, 3H],
+// h0 [L, B, H] -> dw [L, 3H, H], db [L, 3H], dh0 [L, B, H] per lane (L = 2
+// for one layer's two directions, 2F for F folds of it, as gru_bifwd lays
+// them out), on the adjoint walk with L lanes of the TimeMajor layout and
+// reverse=0. dw_part is the workspace of gru_adj_workspace_floats(L, T, B, H)
+// floats, db_part holds L * gru_adj_partials(T, B) partials of [3H] floats.
 int gru_bibwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
               const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
-              void* dw_part, void* db_part, int n_steps, int batch, int hidden,
+              void* dw_part, void* db_part, int lanes, int n_steps, int batch, int hidden,
               void* stream) {
   return adj_launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
-                                      db_part, 2, n_steps, batch, hidden, 0, stream);
+                                      db_part, lanes, n_steps, batch, hidden, 0, stream);
 }
 
 }  // extern "C"

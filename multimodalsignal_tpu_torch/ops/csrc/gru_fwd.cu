@@ -4,20 +4,21 @@
 //   * _fwd_kernel    (called by _gru_forward)    -> C entry gru_fwd    (one lane)
 //   * _fb_fwd_kernel (called by _gru_forward_fb) -> C entry gru_fwd_fb (F lanes)
 //   * _bifwd_kernel  (called by _bigru_forward)  -> C entry gru_bifwd  (2 lanes,
-//     the two directions of a BiGRU layer, float32 only)
+//     the two directions of a BiGRU layer, float32 only; 2F lanes for F folds
+//     of it under the fold axis)
 // The layout of the streams is a type (LaneMajor, TimeMajor below): gru_bifwd
-// reads the fused [T, 2, B, 3H] gates in place, direction stride B*3H, time
-// stride 2*B*3H; the TPU kernels' time chunks and `valid` masks have no
+// reads the fused [T, L, B, 3H] gates in place, lane stride B*3H, time
+// stride L*B*3H; the TPU kernels' time chunks and `valid` masks have no
 // counterpart.
 //
 // What it computes, per lane f and batch row b (time-major, as the TPU
 // kernels take it):
 //   xg [F, T, B, 3H]  input gates x @ W_ih^T + b_ih, gate blocks r | z | n
-//                     ([T, 2, B, 3H] for gru_bifwd: the lane inside time)
+//                     ([T, L, B, 3H] for gru_bifwd: the lane inside time)
 //   w  [F, 3H, H]     recurrent weights in torch layout (rows r | z | n)
 //   bh [F, 3H]        recurrent bias
 //   h0 [F, B, H]      initial state, always float32
-//   ys [F, T, B, H]   every step's state, in xg's dtype ([T, 2, B, H] for
+//   ys [F, T, B, H]   every step's state, in xg's dtype ([T, L, B, H] for
 //                     gru_bifwd)
 //     hg = h @ w^T + bh
 //     r = sigmoid(xr + hr); z = sigmoid(xz + hz); n = tanh(xn + r * hn)
@@ -442,13 +443,17 @@ int gru_fwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
                                        reverse, stream);
 }
 
-// Counterpart of _bigru_forward: both directions of one BiGRU layer, float32,
-// direction 1's gates already flipped in time, so both walk forward:
-// xg [T, 2, B, 3H], w [2, 3H, H], bh [2, 3H], h0 [2, B, H] -> ys [T, 2, B, H].
+// Counterpart of _bigru_forward: both directions of BiGRU layers, float32,
+// each backward direction's gates already flipped in time, so every lane
+// walks forward: xg [T, L, B, 3H], w [L, 3H, H], bh [L, 3H], h0 [L, B, H]
+// -> ys [T, L, B, H]. One layer is L = 2 (lane 0 forward, lane 1 backward);
+// F folds of one layer under the fold axis are L = 2F, lane 2f fold f's
+// forward direction and lane 2f + 1 its backward one ([T, F, 2, B, .]
+// viewed as [T, 2F, B, .]), each with its own weights.
 int gru_bifwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
-              int n_steps, int batch, int hidden, void* stream) {
-  return walk_launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, 2, n_steps, batch, hidden, 0,
-                                       stream);
+              int lanes, int n_steps, int batch, int hidden, void* stream) {
+  return walk_launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch, hidden,
+                                       0, stream);
 }
 
 }  // extern "C"

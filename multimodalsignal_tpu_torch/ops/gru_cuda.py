@@ -21,6 +21,10 @@ adjoint kernel), and the model-facing entry points go through those:
   * `gru_sequence_cuda`          (counterpart of `gru_sequence_pallas`)
   * `gru_bidirectional_dirbatch` (counterpart of the JAX function of that name)
   * `gru_bidirectional_fused`    (counterpart of `gru_bidirectional_pallas`)
+  * `gru_bidirectional_folds` (the fold-stacked model's fused pair: F folds
+    of one layer as 2F lanes of one walk; the counterpart of
+    gru_bidirectional_pallas under the fold vmap, whose Pallas batching
+    rule gives each fold its own two-lane walk)
   * `gru_lanes_cuda` (the fold-stacked model's walk: F lanes of one
     direction; the counterpart of the custom_vmap rules that route a fold
     vmap onto the fb kernels)
@@ -31,7 +35,7 @@ memory above, h double-buffered with one barrier a step, xg prefetched;
 `walk_row_tile` and `walk_shared_bytes` mirror how its C side picks the
 tile and sizes shared memory. The three adjoint entries run the adjoint
 walk, with their own lane count and stream layout (`gru_bwd` one lane,
-`gru_bwd_fb` F lanes, `gru_bibwd` the fused pair's two): a gate pre-pass
+`gru_bwd_fb` F lanes, `gru_bibwd` the fused pair's 2 or 2F): a gate pre-pass
 over all T, a walk that keeps only the dh chain (W's columns in registers
 up to H = 64, in shared memory above; a producer warp moves its factors and
 dht between device and shared memory a chunk of steps at a time), and a
@@ -52,9 +56,11 @@ recomputes the gates from the bf16 states, rounds the gate cotangents to
 bf16 before its products and keeps dW, db and dh0 in float32, as the TPU
 kernels do: in bf16 it is not the exact adjoint of the bf16 forward.
 The fused bidirectional pair (`gru_bifwd`, `gru_bibwd`) is float32 only, as
-`_bifwd_kernel` and `_bibwd_kernel` are: its streams are [T, 2, B, .], the
-direction inside time, and its wrappers refuse anything but float32 streams
-on either device (the caller casts first, as `gru_bidirectional_fused` does).
+`_bifwd_kernel` and `_bibwd_kernel` are: its streams are [T, L, B, .], the
+lane inside time, with an even L (each fold's forward direction, then its
+backward one: L = 2 for one layer, 2F for F folds of it), and its wrappers
+refuse anything but float32 streams on either device (the caller casts
+first, as `gru_bidirectional_folds` does).
 """
 
 from __future__ import annotations
@@ -273,12 +279,13 @@ def gru_backward_plain(xg: torch.Tensor, w_hh: torch.Tensor,
 
 def gru_bifwd_plain(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
                     h02: torch.Tensor) -> torch.Tensor:
-    """Both directions of one BiGRU layer as one forward walk, float32:
-    xg2 [T, 2, B, 3H] (direction 1 already flipped in time), whh2 [2, 3H, H],
-    bhh2 [2, 3H], h02 [2, B, H] -> ys2 [T, 2, B, H]."""
+    """L lanes of the fused walk (a BiGRU layer's two directions, or F
+    folds' as 2F lanes), all walking forward, float32: xg2 [T, L, B, 3H]
+    (the backward directions already flipped in time), whh2 [L, 3H, H],
+    bhh2 [L, 3H], h02 [L, B, H] -> ys2 [T, L, B, H]."""
     hidden = h02.shape[-1]
-    w_t = whh2.transpose(1, 2)                   # [2, H, 3H]
-    b = bhh2[:, None, :]                         # [2, 1, 3H]
+    w_t = whh2.transpose(1, 2)                   # [L, H, 3H]
+    b = bhh2[:, None, :]                         # [L, 1, 3H]
     h = h02
     ys = torch.empty(xg2.shape[:-1] + (hidden,), dtype=torch.float32,
                      device=xg2.device)
@@ -296,11 +303,11 @@ def gru_bifwd_plain(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
 
 def gru_bibwd_plain(xg2, whh2, bhh2, h02, ys2, dy2):
     """Adjoint of gru_bifwd_plain's walk, an explicit float32 loop walking
-    time backward, h_prev = [h0, ys[:-1]] read in place: xg2 [T, 2, B, 3H],
-    whh2 [2, 3H, H], bhh2 [2, 3H], h02 [2, B, H], ys2 and dy2 [T, 2, B, H]
-    -> (dxg2 [T, 2, B, 3H], dw_hh [2, 3H, H], db_hh [2, 3H], dh0 [2, B, H])."""
+    time backward, h_prev = [h0, ys[:-1]] read in place: xg2 [T, L, B, 3H],
+    whh2 [L, 3H, H], bhh2 [L, 3H], h02 [L, B, H], ys2 and dy2 [T, L, B, H]
+    -> (dxg2 [T, L, B, 3H], dw_hh [L, 3H, H], db_hh [L, 3H], dh0 [L, B, H])."""
     hidden = h02.shape[-1]
-    w_t = whh2.transpose(1, 2)                   # [2, H, 3H]
+    w_t = whh2.transpose(1, 2)                   # [L, H, 3H]
     b = bhh2[:, None, :]
     dh = torch.zeros_like(h02)
     dw_t = torch.zeros_like(w_t)
@@ -320,7 +327,7 @@ def gru_bibwd_plain(xg2, whh2, bhh2, h02, ys2, dy2):
         dr_pre = dn_pre * hn * r * (1.0 - r)
         dz_pre = dz * z * (1.0 - z)
         dxg[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
-        dg = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)   # [2, B, 3H]
+        dg = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)   # [L, B, 3H]
         dw_t += torch.matmul(hp.transpose(1, 2), dg)
         db += dg.sum(dim=1)
         dh = dht * z + torch.matmul(dg, whh2)
@@ -342,7 +349,7 @@ def _library() -> ctypes.CDLL:
     lib.gru_fwd.restype = i32
     lib.gru_fwd_fb.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.gru_fwd_fb.restype = i32
-    lib.gru_bifwd.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.gru_bifwd.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.gru_bifwd.restype = i32
     lib.gru_walk_shared_bytes.argtypes = [i32, i32, i32]
     lib.gru_walk_shared_bytes.restype = ctypes.c_longlong
@@ -364,7 +371,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_bwd.restype = i32
     lib.gru_bwd_fb.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
     lib.gru_bwd_fb.restype = i32
-    lib.gru_bibwd.argtypes = [ptr] * 12 + [i32] * 3 + [ptr]
+    lib.gru_bibwd.argtypes = [ptr] * 12 + [i32] * 4 + [ptr]
     lib.gru_bibwd.restype = i32
     lib.gru_adj_shared_bytes.argtypes = [i32, i32, i32]
     lib.gru_adj_shared_bytes.restype = ctypes.c_longlong
@@ -573,18 +580,26 @@ def gru_backward_fb(xg, w_hh, b_hh, h0, ys, dy, reverse: bool = False):
 
 def _check_bi_args(xg2, whh2, bhh2, h02, smem, **streams):
     """Validate what the fused BiGRU pair takes (both devices: the pair is
-    float32 only, as the TPU kernels are): xg2 [T, 2, B, 3H], whh2
-    [2, 3H, H], bhh2 [2, 3H], h02 [2, B, H] and `streams` (ys2, dy2)
-    [T, 2, B, H], all float32, contiguous, on one device. Returns (T, B, H)."""
-    if xg2.dim() != 4 or xg2.shape[1] != 2:
-        raise ValueError(f"xg2 must be [T, 2, B, 3H], got {list(xg2.shape)}")
+    float32 only, as the TPU kernels are): whh2 [L, 3H, H] names the lanes,
+    an even L of at least 2 (a forward and a backward direction for each
+    fold); xg2 [T, L, B, 3H], bhh2 [L, 3H], h02 [L, B, H] and `streams`
+    (ys2, dy2) [T, L, B, H], all float32, contiguous, on one device. Returns
+    (T, B, H)."""
+    if whh2.dim() != 3:
+        raise ValueError(f"whh2 must be [L, 3H, H], got {list(whh2.shape)}")
+    lanes = whh2.shape[0]
+    if lanes < 2 or lanes % 2:
+        raise ValueError(f"the fused pair walks an even number of lanes (each fold's two "
+                         f"directions), at least 2; whh2 holds {lanes}")
+    if xg2.dim() != 4 or xg2.shape[1] != lanes:
+        raise ValueError(f"xg2 must be [T, {lanes}, B, 3H], got {list(xg2.shape)}")
     n_steps, _, batch, three_h = xg2.shape
     if three_h % 3:
         raise ValueError(f"xg2's last axis must be 3H, got {three_h}")
     hidden = three_h // 3
-    want = {"whh2": (2, three_h, hidden), "bhh2": (2, three_h),
-            "h02": (2, batch, hidden)}
-    want.update({name: (n_steps, 2, batch, hidden) for name in streams})
+    want = {"whh2": (lanes, three_h, hidden), "bhh2": (lanes, three_h),
+            "h02": (lanes, batch, hidden)}
+    want.update({name: (n_steps, lanes, batch, hidden) for name in streams})
     tensors = dict(xg2=xg2, whh2=whh2, bhh2=bhh2, h02=h02, **streams)
     for name, t in tensors.items():
         if name in want and tuple(t.shape) != want[name]:
@@ -592,7 +607,7 @@ def _check_bi_args(xg2, whh2, bhh2, h02, smem, **streams):
                              f"got {list(t.shape)}")
         if t.dtype != torch.float32:
             raise TypeError(f"the fused BiGRU kernels take float32 only; {name} "
-                            f"is {t.dtype} (cast first, as gru_bidirectional_fused does)")
+                            f"is {t.dtype} (cast first, as gru_bidirectional_folds does)")
         if t.device != xg2.device:
             raise ValueError(f"{name} is on {t.device}, xg2 on {xg2.device}")
         if not t.is_contiguous():
@@ -602,17 +617,17 @@ def _check_bi_args(xg2, whh2, bhh2, h02, smem, **streams):
         raise ValueError(
             f"hidden size {hidden} needs {need} bytes of shared memory per "
             f"block; the kernel takes at most {MAX_SHARED_BYTES}")
-    if max(n_steps, batch) * 2 * three_h >= 2**31:
+    if max(n_steps, batch) * lanes * three_h >= 2**31:
         raise ValueError("a dimension is too large for the kernel's int arguments")
     return n_steps, batch, hidden
 
 
 def gru_bifwd(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
               h02: torch.Tensor) -> torch.Tensor:
-    """Both directions of one BiGRU layer as one forward walk (counterpart
-    of _bigru_forward), float32: xg2 [T, 2, B, 3H] with direction 1 already
-    flipped in time, whh2 [2, 3H, H], bhh2 [2, 3H], h02 [2, B, H]
-    -> ys2 [T, 2, B, H]."""
+    """L lanes of the fused forward walk (counterpart of _bigru_forward; L = 2
+    for one BiGRU layer's directions, 2F for F folds of it), float32:
+    xg2 [T, L, B, 3H] with every odd lane already flipped in time, whh2
+    [L, 3H, H], bhh2 [L, 3H], h02 [L, B, H] -> ys2 [T, L, B, H]."""
     n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, walk_shared_bytes)
     if xg2.device.type == "cpu":
         return gru_bifwd_plain(xg2, whh2, bhh2, h02)
@@ -622,23 +637,24 @@ def gru_bifwd(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
     if ys2.numel() == 0:
         return ys2
     _call(_library(), "gru_bifwd", (xg2, whh2, bhh2, h02, ys2),
-          [n_steps, batch, hidden])
+          [xg2.shape[1], n_steps, batch, hidden])
     gru_bifwd.launches += 1
     return ys2
 
 
 def gru_bibwd(xg2, whh2, bhh2, h02, ys2, dy2):
     """Adjoint of gru_bifwd (counterpart of _bigru_backward), float32,
-    walking time backward: xg2 [T, 2, B, 3H], whh2 [2, 3H, H], bhh2 [2, 3H],
-    h02 [2, B, H], ys2 and dy2 [T, 2, B, H] -> (dxg2 [T, 2, B, 3H],
-    dw_hh [2, 3H, H], db_hh [2, 3H], dh0 [2, B, H]), per direction."""
+    walking time backward: xg2 [T, L, B, 3H], whh2 [L, 3H, H], bhh2 [L, 3H],
+    h02 [L, B, H], ys2 and dy2 [T, L, B, H] -> (dxg2 [T, L, B, 3H],
+    dw_hh [L, 3H, H], db_hh [L, 3H], dh0 [L, B, H]), per lane."""
     n_steps, batch, hidden = _check_bi_args(xg2, whh2, bhh2, h02, adj_shared_bytes,
                                             ys2=ys2, dy2=dy2)
     if xg2.device.type == "cpu":
         return gru_bibwd_plain(xg2, whh2, bhh2, h02, ys2, dy2)
     _require_cuda(xg2)
-    grads, launched = _launch_adjoint("gru_bibwd", xg2, whh2, bhh2, h02, ys2, dy2,
-                                      2, n_steps, batch, hidden, [n_steps, batch, hidden])
+    lanes = xg2.shape[1]
+    grads, launched = _launch_adjoint("gru_bibwd", xg2, whh2, bhh2, h02, ys2, dy2, lanes,
+                                      n_steps, batch, hidden, [lanes, n_steps, batch, hidden])
     if launched:
         gru_bibwd.launches += 1
     return grads
@@ -775,21 +791,39 @@ def gru_bidirectional_dirbatch(x_gates_f, x_gates_b, w_hh_f, w_hh_b,
     return ys[0].transpose(0, 1), ys[1].flip(0).transpose(0, 1)
 
 
+def gru_bidirectional_folds(x_gates_f, x_gates_b, w_hh_f, w_hh_b, b_hh_f, b_hh_b, h0):
+    """F folds of one BiGRU layer in one fused float32 walk of 2F lanes (the
+    fold-stacked model's fused pair; counterpart of gru_bidirectional_pallas
+    under the fold vmap, whose Pallas batching rule runs each fold's own
+    two-lane walk): gates, weights, bias and h0 are cast to float32 whatever
+    the compute dtype, each backward direction's gates are flipped in time,
+    and the kernels read [T, F, 2, B, .] as [T, 2F, B, .] (lane 2f fold f's
+    forward direction, lane 2f + 1 its backward one). Time-major x_gates_*
+    [F, T, B, 3H], w_hh_* [F, 3H, H], b_hh_* [F, 3H], h0 [F, B, H] ->
+    (ys_fwd, ys_bwd), each [F, T, B, H] float32 in original time order; h0's
+    gradient sums both directions' through the stack."""
+    f32 = torch.float32
+    n_f, n_steps, batch, three_h = x_gates_f.shape
+    lanes = 2 * n_f
+    xf = x_gates_f.to(f32).transpose(0, 1)                 # [T, F, B, 3H]
+    xb = x_gates_b.to(f32).flip(1).transpose(0, 1)         # time-reversed
+    xg2 = torch.stack([xf, xb], dim=2).reshape(n_steps, lanes, batch, three_h)
+    whh2 = torch.stack([w_hh_f, w_hh_b], dim=1).to(f32).reshape(lanes, three_h, -1)
+    bhh2 = torch.stack([b_hh_f, b_hh_b], dim=1).to(f32).reshape(lanes, three_h)
+    h02 = torch.stack([h0, h0], dim=1).to(f32).reshape(lanes, batch, -1)
+    ys2 = _BiGruWalk.apply(xg2, whh2, bhh2, h02)           # [T, 2F, B, H]
+    ys2 = ys2.view(n_steps, n_f, 2, batch, -1)            # [T, F, 2, B, H]
+    return ys2[:, :, 0].transpose(0, 1), ys2[:, :, 1].flip(0).transpose(0, 1)
+
+
 def gru_bidirectional_fused(x_gates_f, x_gates_b, w_hh_f, w_hh_b,
                             b_hh_f, b_hh_b, h0):
     """Both directions of one BiGRU layer in the fused float32 walk
-    (counterpart of gru_bidirectional_pallas): gates, weights, bias and h0
-    are cast to float32 whatever the compute dtype, the backward direction's
-    gates are flipped in time, and the kernels read the time-major
-    [T, 2, B, .] layout. x_gates_* [B, T, 3H] -> (ys_fwd, ys_bwd), each
-    [B, T, H] float32 in original time order; h0's gradient sums both
-    directions' through the stack."""
-    f32 = torch.float32
-    xf = x_gates_f.transpose(0, 1)                        # [T, B, 3H]
-    xb = x_gates_b.transpose(0, 1).flip(0)                # time-reversed
-    xg2 = torch.stack([xf, xb], dim=1).to(f32).contiguous()   # [T, 2, B, 3H]
-    whh2 = torch.stack([w_hh_f, w_hh_b]).to(f32).contiguous()
-    bhh2 = torch.stack([b_hh_f, b_hh_b]).to(f32).contiguous()
-    h02 = torch.stack([h0, h0]).to(f32).contiguous()
-    ys2 = _BiGruWalk.apply(xg2, whh2, bhh2, h02)          # [T, 2, B, H]
-    return ys2[:, 0].transpose(0, 1), ys2[:, 1].flip(0).transpose(0, 1)
+    (counterpart of gru_bidirectional_pallas): gru_bidirectional_folds of
+    one fold, batch-major. x_gates_* [B, T, 3H], w_hh_* [3H, H], b_hh_*
+    [3H], h0 [B, H] -> (ys_fwd, ys_bwd), each [B, T, H] float32 in original
+    time order."""
+    ys_f, ys_b = gru_bidirectional_folds(
+        x_gates_f.transpose(0, 1)[None], x_gates_b.transpose(0, 1)[None], w_hh_f[None],
+        w_hh_b[None], b_hh_f[None], b_hh_b[None], h0[None])
+    return ys_f[0].transpose(0, 1), ys_b[0].transpose(0, 1)

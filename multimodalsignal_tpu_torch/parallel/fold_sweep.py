@@ -49,8 +49,14 @@ instead, and the dropout generators' states sit in `sweep_resume_rng.pt`.
 run_sharded_experiment's `profile_dir` writes a torch.profiler trace of the
 sweep there.
 
-One device, no mesh: folds across GPUs, the on-disk pack cache and
-trainer.remat are not ported (ROADMAP.md, queue 1).
+The corpus comes through data/dataset.py's on-disk pack cache: a hit's
+windows are a read-only memory map, copied into memory before they become
+the device tensor (corpus_tensor). Every gru_impl runs under the fold axis;
+pallas_fused walks all folds' two directions as 2F lanes of the fused pair
+(models/fold_stack.py).
+
+One device, no mesh: folds across GPUs and trainer.remat are not ported
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -241,6 +247,17 @@ def _select(dst: list[torch.Tensor], src: list[torch.Tensor], mask) -> None:
             d.copy_(torch.where(_lanes(m, d), s, d))
 
 
+def corpus_tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A corpus array as a tensor on `device`. A pack cache hit's windows
+    are a read-only memory map: they are copied into memory first, so that
+    no tensor aliases the file (torch.from_numpy of a read-only array
+    warns, and .to("cpu") would keep the alias)."""
+    a = np.ascontiguousarray(a, dtype)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
 class FoldSweep:
     """Every fold's train state on one device, with the JAX sweep's epoch
     and finalize programs. `variables`, if given, is a stacked flax
@@ -267,11 +284,10 @@ class FoldSweep:
             load_jax_variables(self.model, variables["params"], variables["batch_stats"])
         self.model.to(self.device)
         self.opt = FoldAdam(self.model.parameters(), tcfg.learning_rate, tcfg.weight_decay)
-        self.x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+        self.x = corpus_tensor(x, np.float32, self.device)
         # The hybrid corpus's features [S*Wmax, nF], indexed as x.
-        self.feat = (None if feat is None else
-                     torch.from_numpy(np.ascontiguousarray(feat, np.float32)).to(self.device))
-        self.y = torch.from_numpy(y.astype(np.int64)).to(self.device)
+        self.feat = None if feat is None else corpus_tensor(feat, np.float32, self.device)
+        self.y = corpus_tensor(y, np.int64, self.device)
         self.cw = None
         if tcfg.use_class_weights:
             cw = np.stack([balanced_class_weights(y[fb.train_pool[f, :fb.n_train[f]]],

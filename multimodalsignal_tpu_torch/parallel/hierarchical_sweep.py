@@ -53,6 +53,7 @@ from multimodalsignal_tpu_torch.parallel.fold_sweep import (
     FoldBatch,
     _stack_grids,
     build_fold_batch,
+    corpus_tensor,
     grid_steps,
     run_fold_sweep,
     sequential_grid,
@@ -76,8 +77,8 @@ def composed_fold_cms(corpus: PackedCorpus, fb: FoldBatch, stages, batch_size: i
         models.append(model.to(device).eval())
         idx.append(torch.tensor(channels, device=device))
     x, y, _ = corpus.flat()
-    x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
-    y = torch.from_numpy(y.astype(np.int64)).to(device)
+    x = corpus_tensor(x, np.float32, device)
+    y = corpus_tensor(y, np.int64, device)
     steps = grid_steps(fb.n_test, batch_size)
     rows, weights = (torch.from_numpy(a).to(device) for a in _stack_grids(
         sequential_grid(fb.test_pool[f], fb.n_test[f], steps, batch_size)

@@ -2,7 +2,8 @@
 EnsemblePredictor, the predict and serving CLIs with --run-dir) against the
 mean of its per-fold Predictors and against the JAX package's
 EnsemblePredictor, on the CPU, on a run directory written by the port's
-sharded sweep (3 folds, H = 8, conv 8, T = 128).
+sharded sweep (3 folds, H = 8, conv 8, T = 128), and on one of the serial
+LOSO CLI trained with gru_impl="pallas_fused".
 
 Tolerances: against the mean of the port's per-fold Predictors 1e-6 (the
 same lanes' arithmetic in other op orders, then a mean of 3); against the
@@ -72,6 +73,39 @@ def test_ensemble_matches_jax(run_dir, windows):
     got = EnsemblePredictor.from_run(run_dir, device="cpu").predict_windows(windows[:9])
     want = JaxEnsemble.from_run(run_dir).predict_windows(windows[:9])
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def fused_run_dir(tmp_path_factory):
+    """A serial LOSO run trained with gru_impl="pallas_fused" (config.json
+    keeps it), 1 epoch: what the fold ensemble must serve."""
+    root = tmp_path_factory.mktemp("fused")
+    data = write_tree(root / "data", SUBJECTS)
+    pmain.main(["--device", "cpu", "--execution", "serial", "--output-dir", str(root / "out"),
+                "--set", f"data_path={data}", "--set", "subjects=" + ",".join(SUBJECTS),
+                "--set", "model.gru_impl=pallas_fused", "--set", "model.gru_hidden_size=8",
+                "--set", "model.cnn_out_channels=8", "--set", "trainer.epochs=1",
+                "--set", "trainer.batch_size=4"])
+    (run,) = (root / "out" / "simple_binary").iterdir()
+    assert json.loads((run / "config.json").read_text())["model"]["gru_impl"] == "pallas_fused"
+    return run
+
+
+def test_ensemble_of_a_pallas_fused_run_matches_jax(fused_run_dir, windows):
+    """The ensemble of a pallas_fused run: its folds as 2F lanes of the
+    fused pair (the plain versions here), against the mean of the fold
+    Predictors (the single-fold fused pair, 1e-6) and the JAX package's
+    EnsemblePredictor (jax.vmap of the fused model, interpret mode: atol
+    1e-5). Building this ensemble raised before the fused pair took the
+    fold axis."""
+    ens = EnsemblePredictor.from_run(fused_run_dir, device="cpu")
+    assert ens.model.impl == "fused" and ens.fold_names == SUBJECTS
+    got = ens.predict_windows(windows[:9])
+    want = np.mean([Predictor.from_run(fused_run_dir, s, device="cpu").predict_windows(
+        windows[:9]) for s in SUBJECTS], axis=0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    jax_probs = JaxEnsemble.from_run(fused_run_dir).predict_windows(windows[:9])
+    np.testing.assert_allclose(got, jax_probs, rtol=0, atol=1e-5)
 
 
 def _write_recording(path: Path, seconds: int = 75, seed: int = 2) -> None:

@@ -261,6 +261,84 @@ def test_fold_model_matches_jax_vmap():
                                        rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", None), ("bfloat16", 2e-2)])
+def test_fold_model_pallas_fused_matches_jax_vmap(dtype, tol):
+    """gru_impl="pallas_fused" under the fold axis: every fold's two
+    directions as 2F lanes of the fused pair (its plain versions here; the
+    pruned last layer F lanes of the fb walk) against jax.vmap of the flax
+    model built with pallas_fused and fold_parallel=True (interpret-mode
+    Pallas: Pallas's batching rule walks each fold's two lanes), on the same
+    stacked weights: eval logits, train-mode per-fold losses, every gradient
+    and the new BN statistics. float32 at the tolerances of
+    test_fold_model_matches_jax_vmap; bfloat16 atol 2e-2 (bf16 rounding in
+    other op orders; the fused layer itself runs in float32 on both sides).
+    T = 64 keeps the interpret-mode walks short."""
+    folds, batch, t = 3, 5, 64
+    fields = dict(MODEL, gru_impl="pallas_fused", dtype=dtype)
+    jm = build_jax_model(jcfg.ModelConfig(**fields), K, fold_parallel=True)
+    variables = _jax_fold_variables(jm, folds, t=t)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((folds, batch, C, t)).astype(np.float32)
+    y = rng.integers(0, K, (folds, batch)).astype(np.int32)
+    w = np.ones((folds, batch), np.float32)
+    w[1, 3:] = 0.0
+
+    def loss_fn(p, bs, xb, yb, wb):
+        logits, new = jm.apply({"params": p, "batch_stats": bs}, xb, train=True,
+                               mutable=["batch_stats"])
+        return jax_cross_entropy(logits, yb, wb)[0], new["batch_stats"]
+
+    (want_loss, want_stats), want_grads = jax.vmap(
+        jax.value_and_grad(loss_fn, has_aux=True))(
+            variables["params"], variables["batch_stats"], x, y, w)
+    want_logits = jax.vmap(lambda v, xb: jm.apply(v, xb, train=False))(variables, x)
+
+    fm = build_fold_model(pcfg.ModelConfig(**fields), K, C, folds)
+    assert fm.impl == "fused"
+    load_jax_variables(fm, variables["params"], variables["batch_stats"])
+    logit_tol = dict(rtol=0, atol=tol or 1e-5)
+    fm.eval()
+    with torch.inference_mode():
+        np.testing.assert_allclose(fm(torch.from_numpy(x)).numpy(), np.asarray(want_logits),
+                                   **logit_tol)
+    fm.train()
+    loss, _ = cross_entropy(fm(torch.from_numpy(x)), torch.from_numpy(y).long(),
+                            torch.from_numpy(w))
+    loss.sum().backward()
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(want_loss),
+                               **(dict(rtol=1e-5) if tol is None else logit_tol))
+    got = _grads(fm)
+    grad_tol = dict(rtol=1e-4, atol=1e-5) if tol is None else logit_tol
+    for path, g in jax.tree_util.tree_leaves_with_path(want_grads):
+        name = "/".join(k.key for k in path)
+        np.testing.assert_allclose(got[name], np.asarray(g), **grad_tol, err_msg=name)
+    stats = export_jax_variables(fm)["batch_stats"]["cnn_encoder"]
+    for bn in ("bn1", "bn2"):
+        for s in ("mean", "var"):
+            np.testing.assert_allclose(stats[bn][s], np.asarray(want_stats["cnn_encoder"][bn][s]),
+                                       rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fold_model_pallas_fused_lanes_match_single_fold_models(dtype):
+    """Lane f of a pallas_fused FoldStackedModel (2F lanes of the fused
+    pair) against the single-fold port model with cuda_fused (the pair's
+    two lanes) and fold f's weights: eval logits, float32 within 1e-5,
+    bfloat16 within 3e-2 (as test_fold_model_bfloat16_lanes_match_single_fold_models)."""
+    cfg = pcfg.ModelConfig(gru_impl="pallas_fused", dtype=dtype, **MODEL)
+    fm = build_fold_model(cfg, K, C, 3, seeds=[3, 4, 5])
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 4, C, T)).astype(np.float32))
+    fm.eval()
+    with torch.inference_mode():
+        got = fm(x)
+        for f in range(3):
+            m = build_model(dataclasses.replace(cfg, gru_impl="cuda_fused"), K, C)
+            load_jax_variables(m, **lane_variables(export_jax_variables(fm), f))
+            m.eval()
+            torch.testing.assert_close(got[f], m(x[f]).float(), rtol=0,
+                                       atol=1e-5 if dtype == "float32" else 3e-2)
+
+
 def test_fold_adam_matches_optax_vmap():
     """FoldAdam against jax.vmap of make_optimizer's update with a learning
     rate per fold and an update mask per fold: a masked fold keeps its
@@ -349,17 +427,17 @@ def test_batched_metrics_match_per_lane():
             assert float(fn(cm)[f]) == float(fn(one))
 
 
-def _sweep_configs(data, **trainer):
+def _sweep_configs(data, gru_impl="auto", **trainer):
     fields = dict(subjects=SUBJECTS, data_path=str(data), seed=5, val_fraction=0.3,
                   channels_to_use=tuple(CHANNELS))
     tr = dict(dict(epochs=3, batch_size=4, learning_rate=5e-3, lr_plateau_patience=0),
               **trainer)
     return (jcfg.ExperimentConfig(
-                model=jcfg.ModelConfig(**MODEL), **fields,
+                model=jcfg.ModelConfig(gru_impl=gru_impl, **MODEL), **fields,
                 trainer=jcfg.TrainerConfig(early_stopping=jcfg.EarlyStoppingConfig(patience=1),
                                            **tr)),
             pcfg.ExperimentConfig(
-                model=pcfg.ModelConfig(**MODEL), **fields,
+                model=pcfg.ModelConfig(gru_impl=gru_impl, **MODEL), **fields,
                 trainer=pcfg.TrainerConfig(early_stopping=pcfg.EarlyStoppingConfig(patience=1),
                                            **tr)))
 
@@ -371,7 +449,18 @@ def test_sweep_epochs_and_finalize_match_jax(tree):
     epoch losses, accuracy, F1, lr and whether each fold still trained; the
     parameters after; the test loss, confusion matrix, best epoch and
     probabilities."""
-    cfg_j, cfg_p = _sweep_configs(tree)
+    _check_sweep_matches_jax(tree, "auto")
+
+
+def test_fused_sweep_epochs_and_finalize_match_jax(tree):
+    """The same with gru_impl="pallas_fused" on both sides: the port's
+    fused pair at 2F lanes (plain versions) against the JAX sweep's
+    vmapped interpret-mode fused kernels, at the same tolerances."""
+    _check_sweep_matches_jax(tree, "pallas_fused")
+
+
+def _check_sweep_matches_jax(tree, gru_impl: str) -> None:
+    cfg_j, cfg_p = _sweep_configs(tree, gru_impl=gru_impl)
     names = pdata.read_channel_names(tree)
     corpus = pdata.pack_corpus(tree, list(SUBJECTS), CHANNELS, names)
     fb = pfs.build_fold_batch(corpus, list(SUBJECTS), cfg_p.val_fraction, cfg_p.seed)
@@ -536,16 +625,12 @@ def test_main_default_asks_for_cuda(tmp_path):
 
 
 def test_what_the_sweep_does_not_port_is_refused(tree, tmp_path):
-    """pallas_fused under the fold axis raises, naming ROADMAP.md (the
-    sweep's resume is ported: tests/test_torch_resume.py); from-pickles and
-    hybrid staging are ported
+    """From-pickles and hybrid staging are ported
     (tests/test_torch_from_pickles.py, tests/test_torch_hybrid.py), and
-    refused together, as in the JAX package."""
-    cfg = pcfg.ModelConfig(gru_impl="pallas_fused", **MODEL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
-        build_fold_model(cfg, K, C, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 6"):
-        FoldStackedModel([build_model(cfg, K, C)], "cuda_fused")
+    refused together, as in the JAX package; a sweep of pickles that are
+    not there is refused. (pallas_fused under the fold axis is ported:
+    test_fold_model_pallas_fused_matches_jax_vmap; the sweep's resume too:
+    tests/test_torch_resume.py.)"""
     _, base = _sweep_configs(tree)
     with pytest.raises(ValueError, match="No pickles loaded"):
         pfs.run_sharded_experiment(dataclasses.replace(base, from_pickles=str(tmp_path / "w")),

@@ -4,10 +4,12 @@ the JAX package's and against its own two-step pipeline, on the CPU.
 
 The comparisons are bitwise: the port preprocesses each subject with the
 same float32 windows the preprocess CLI writes and packs them with the
-NumPy float64 normalization pack_corpus uses. The JAX package is called with
-cache=False (no .pack_cache written) and with its optional C++ engine off:
-the engine normalizes float32 windows in another summation order, and its
-NumPy path is the behaviour both packages share."""
+NumPy float64 normalization pack_corpus uses. Both packages are called with
+cache=False (no .pack_cache written: every pack here is a fresh one; the
+port's cache has its own tests, tests/test_torch_pack_cache.py), the JAX
+package with its optional C++ engine off: the engine normalizes float32
+windows in another summation order, and its NumPy path is the behaviour
+both packages share."""
 
 import json
 
@@ -67,7 +69,7 @@ def test_pack_corpus_from_pickles_matches_jax_and_two_step(channels, mode, norma
     and the preprocess meta are the CLI's (wrist channels where asked for)."""
     subjects = SUBJECTS + ["S9"]            # S9 has no pickle: skipped
     got, names, meta = pdata.pack_corpus_from_pickles(wesad, subjects, channels, mode,
-                                                      normalization)
+                                                      normalization, cache=False)
     want, jnames, jmeta = jdata.pack_corpus_from_pickles(wesad, subjects, channels, mode,
                                                          normalization, cache=False)
     _assert_same(got, want)
@@ -79,7 +81,7 @@ def test_pack_corpus_from_pickles_matches_jax_and_two_step(channels, mode, norma
     assert pdata.from_pickles_meta(channels) == jdata.from_pickles_meta(channels)
     all_names = pdata.read_channel_names(preprocessed)
     two_step = pdata.pack_corpus(preprocessed, subjects, channels, all_names, mode,
-                                 normalization)
+                                 normalization, cache=False)
     _assert_same(got, two_step)
     assert got.x.shape[1:] == (got.mask.sum(1).max(), len(channels), 7680)
     assert not (preprocessed.parent.parent / ".pack_cache").exists()
@@ -95,14 +97,15 @@ def test_subject_cache_preprocesses_each_subject_once(wesad, monkeypatch):
                         lambda sid, cfg: (calls.append(sid), real(sid, cfg))[1])
     memo = {}
     first, _, _ = pdata.pack_corpus_from_pickles(wesad, SUBJECTS[:2], CHANNELS,
-                                                 subject_cache=memo)
+                                                 subject_cache=memo, cache=False)
     second, _, _ = pdata.pack_corpus_from_pickles(wesad, SUBJECTS[:2], ["chest_ECG"],
-                                                  "ternary", subject_cache=memo)
+                                                  "ternary", subject_cache=memo, cache=False)
     assert sorted(calls) == SUBJECTS[:2] and len(memo) == 2
     monkeypatch.setattr(ppre, "preprocess_subject", real)
-    _assert_same(first, pdata.pack_corpus_from_pickles(wesad, SUBJECTS[:2], CHANNELS)[0])
+    _assert_same(first, pdata.pack_corpus_from_pickles(wesad, SUBJECTS[:2], CHANNELS,
+                                                       cache=False)[0])
     _assert_same(second, pdata.pack_corpus_from_pickles(wesad, SUBJECTS[:2], ["chest_ECG"],
-                                                        "ternary")[0])
+                                                        "ternary", cache=False)[0])
 
 
 def test_unknown_channels_and_no_pickles_are_refused(wesad, tmp_path):

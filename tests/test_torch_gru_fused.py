@@ -2,7 +2,9 @@
 multimodalsignal_tpu_torch/ops/gru_cuda.py) vs the JAX package's
 `_bigru_forward` / `_bigru_backward` (interpret mode on the CPU), the
 autograd Function and the model-facing `gru_bidirectional_fused` vs
-`jax.vjp` of `_bigru_tm` / `gru_bidirectional_pallas`, and the model's
+`jax.vjp` of `_bigru_tm` / `gru_bidirectional_pallas`, the pair at 2F lanes
+(F folds, the fold axis) and `gru_bidirectional_folds` vs `jax.vmap` of
+those two, and the model's
 `gru_impl="pallas_fused"` in bfloat16 against the JAX BiGRU. Same
 numpy-seeded inputs on both sides.
 
@@ -156,6 +158,95 @@ def test_fused_wrappers_refuse_before_any_launch():
                            z(2, 1, big), z(1, 2, 1, big), z(1, 2, 1, big))
     with pytest.raises(ValueError, match="CUDA tensors"):
         gru_cuda._require_cuda(xg2)
+    assert gru_cuda.launch_counts() == dict.fromkeys(
+        ("gru_fwd", "gru_fwd_fb", "gru_bwd", "gru_bwd_fb", "gru_bifwd", "gru_bibwd"), 0)
+
+
+def _fold_inputs(folds, seed):
+    """F folds of the fused pair in the JAX layout: xg2 [F, T, 2, B, 3H],
+    whh2 [F, 2, 3H, H], bhh2 [F, 2, 3H], h02 [F, 2, B, H], dy2
+    [F, T, 2, B, H], float32 numpy."""
+    per_fold = [_fused_inputs(seed + f) for f in range(folds)]
+    return tuple(np.stack(parts) for parts in zip(*per_fold))
+
+
+def _lanes(a: np.ndarray, time_major: bool) -> np.ndarray:
+    """[F, (T,) 2, ...] per fold -> the port's 2F lanes, [T, 2F, ...] (or
+    [2F, ...]): lane 2f fold f's forward direction, 2f + 1 its backward."""
+    if time_major:
+        a = np.swapaxes(a, 0, 1)
+        return np.ascontiguousarray(a.reshape(a.shape[0], -1, *a.shape[3:]))
+    return np.ascontiguousarray(a.reshape(-1, *a.shape[2:]))
+
+
+@pytest.mark.parametrize("folds", [1, 3])
+def test_lane_pair_matches_vmapped_bigru_tm(folds):
+    """The plain pair at L = 2F lanes (through _BiGruWalk: plain forward,
+    plain adjoint) against jax.vmap of _bigru_tm over F folds, each fold
+    its own two-lane walk (Pallas's batching rule, interpret mode): ys and
+    the gradients of xg2, whh2, bhh2 and h02."""
+    xg2, whh2, bhh2, h02, dy2 = _fold_inputs(folds, seed=10)
+    inputs = (xg2, whh2, bhh2, h02)
+    fn = jax.vmap(gru_pallas._bigru_tm)
+    outs, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in inputs))
+    want = vjp(jnp.asarray(dy2))
+    tm = (True, False, False, False)
+    lanes = [torch.from_numpy(_lanes(a, t)).requires_grad_() for a, t in zip(inputs, tm)]
+    ys2 = gru_cuda._BiGruWalk.apply(*lanes)
+    assert ys2.shape == (T, 2 * folds, B, H)
+    _close(ys2.detach(), _lanes(np.asarray(outs), True), 1e-5, "ys2")
+    got = torch.autograd.grad(ys2, lanes, torch.from_numpy(_lanes(dy2, True)))
+    for g, w, t, tol, what in zip(got, want, tm, (1e-5, 1e-4, 1e-4, 1e-5),
+                                  ("dxg2", "dW", "db", "dh0")):
+        _close(g, _lanes(np.asarray(w), t), tol, what)
+
+
+@pytest.mark.parametrize("folds", [1, 3])
+def test_bidirectional_folds_matches_vmapped_pallas(folds):
+    """gru_bidirectional_folds (F folds' per-direction gates, time-major,
+    as the fold-stacked model projects them) against jax.vmap of
+    gru_bidirectional_pallas over F folds (batch-major per fold): both
+    outputs in original time order, and the gradients of both gate streams,
+    both W_hh, both b_hh and h0 (which sums both directions')."""
+    rng = np.random.default_rng(11)
+    gates = [rng.standard_normal((folds, B, T, 3 * H)).astype(np.float32) for _ in range(2)]
+    ws = [(rng.standard_normal((folds, 3 * H, H)) * 0.3).astype(np.float32) for _ in range(2)]
+    bs = [(rng.standard_normal((folds, 3 * H)) * 0.1).astype(np.float32) for _ in range(2)]
+    h0 = (rng.standard_normal((folds, B, H)) * 0.5).astype(np.float32)
+    dys = [rng.standard_normal((folds, B, T, H)).astype(np.float32) for _ in range(2)]
+    inputs = (*gates, *ws, *bs, h0)
+    outs, vjp = jax.vjp(jax.vmap(gru_pallas.gru_bidirectional_pallas),
+                        *(jnp.asarray(a) for a in inputs))
+    want = vjp(tuple(jnp.asarray(d) for d in dys))
+    tm = lambda a: np.ascontiguousarray(np.swapaxes(a, 1, 2))  # noqa: E731
+    ts = [torch.from_numpy(tm(g)).requires_grad_() for g in gates]
+    ts += [torch.from_numpy(a).requires_grad_() for a in (*ws, *bs, h0)]
+    ys = gru_cuda.gru_bidirectional_folds(*ts)
+    for g, w, what in zip(ys, outs, ("ys_fwd", "ys_bwd")):
+        assert g.shape == (folds, T, B, H) and g.dtype == torch.float32
+        _close(g.detach(), tm(np.asarray(w)), 1e-5, what)
+    got = torch.autograd.grad(ys, ts, [torch.from_numpy(tm(d)) for d in dys])
+    names = ("dxg_f", "dxg_b", "dW_f", "dW_b", "db_f", "db_b", "dh0")
+    tols = (1e-5, 1e-5, 1e-4, 1e-4, 1e-4, 1e-4, 2e-5)  # dh0 sums both directions
+    for g, w, tol, what in zip(got, want, tols, names):
+        w = np.asarray(w)
+        _close(g, tm(w) if what.startswith("dxg") else w, tol, what)
+
+
+def test_odd_lanes_are_refused_before_any_launch():
+    """The fused pair walks each fold's two directions: an odd lane count
+    (or none) is refused by both wrappers, on the CPU as on the card, and
+    nothing is launched."""
+    z = torch.zeros
+    gru_cuda.reset_launch_counts()
+    for lanes in (1, 3, 0):
+        args = (z(4, lanes, 2, 3 * H), z(lanes, 3 * H, H), z(lanes, 3 * H), z(lanes, 2, H))
+        with pytest.raises(ValueError, match="even number of lanes"):
+            gru_cuda.gru_bifwd(*args)
+        with pytest.raises(ValueError, match="even number of lanes"):
+            gru_cuda.gru_bibwd(*args, z(4, lanes, 2, H), z(4, lanes, 2, H))
+    args = (z(4, 4, 2, 3 * H), z(4, 3 * H, H), z(4, 3 * H), z(4, 2, H))
+    assert gru_cuda.gru_bifwd(*args).shape == (4, 4, 2, H)
     assert gru_cuda.launch_counts() == dict.fromkeys(
         ("gru_fwd", "gru_fwd_fb", "gru_bwd", "gru_bwd_fb", "gru_bifwd", "gru_bibwd"), 0)
 
