@@ -258,6 +258,34 @@ Phases, in order; any failure raises and the script exits non-zero:
        second reads it back, bitwise equal; both staging times; a
        MMS_PACK_CACHE=0 run writes nothing.
     Then the phase's seconds, and each part's.
+14. The sweep split over two processes (parallel/multihost.py: a gloo
+    process group, each rank a contiguous block of the lanes, 15 folds
+    over 2: 8 + 7) with both ranks on the one card, on phase 7's data.
+    Each rank is `python chip_smoke.py rank|drill RESULTS <main argv>`
+    with MMS_COORDINATOR / MMS_NUM_PROCESSES / MMS_PROCESS_ID / MMS_RUN_ID
+    (rank_worker: main counted, reported on a "phase14 rank" line); both
+    are killed if either outlives RANK_DEADLINE_S, and a rank that fails
+    fails the phase. Every run once in this process, then as two ranks
+    (split_run): the one process's launches and each rank's exactly those
+    the whole sweep's steps imply (a rank runs every step over its own
+    lanes), the same run-directory file list, every sweep's losses and
+    parameters under TRAIN_TOL of the one process's, each rank's wall,
+    sweep and epoch seconds and peak memory beside the one process's:
+    a. auto f32, 2 epochs; the two-rank run directory served by
+       EnsemblePredictor (one padded-64 forward, counted) against the
+       one-process run's (PROB_ATOL); the train step of all 15 lanes, of
+       rank 0's 8 lanes drawing the whole sweep's dropout masks, and of
+       those 8 at dropout 0 (dropout_rng_cost);
+    b. pallas_fused f32, 1 epoch (1 each of gru_bifwd, gru_bibwd,
+       gru_fwd_fb, gru_bwd_fb a train step at 2F_r lanes);
+    c. `--seeds 42 43` (30 lanes: 15 + 15) and `--hierarchical` (M1, M2 and
+       the composed evaluation), 1 epoch; the seeds' confusion matrices
+       within SEED_GROUP_TOL;
+    d. two ranks cut after epoch 1 of 2 (the drill; a bundle with
+       next_epoch 1 and no fold directory yet), then resumed by two ranks:
+       each launches exactly the remaining epoch's walks; against 14a's
+       uncut two-rank run under TRAIN_TOL.
+    Then the phase's seconds, and each part's.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -265,14 +293,18 @@ B=64 (row tile 8), float32 and bfloat16.
 
 train_step_ab(impl, dtype), not run by main(), profiles one train step of
 whichever tree's package it is run against, for holding two trees against
-each other in one call (its docstring says how to run it).
+each other in one call (its docstring says how to run it). split_scaling
+(world), not run by main() either, runs phase 14's split over `world`
+cards, one rank each (its docstring says how to run it).
 
 Prints a JSON line of the kernels (launches: gru_fwd's from the float32
 serving run, gru_bwd's from the float32 training run, the fb pair's from
-the float32 sweep and 13b's float32 fused sweep, the fused pair's from the
-float32 serial LOSO run and 13b's float32 fused sweep),
+the float32 sweep, 13b's float32 fused sweep and both ranks of 14a and
+14b, the fused pair's from the float32 serial LOSO run, 13b's float32
+fused sweep and both ranks of 14b),
 then, as the last line, {"ok": true, "device": {...}}. Needs one CUDA
-device and the repository.
+device and the repository; with no arguments it runs every phase (the
+arguments `rank` and `drill` are phase 14's rank processes).
 """
 
 from __future__ import annotations
@@ -288,6 +320,7 @@ import os
 import pickle
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -349,7 +382,7 @@ from multimodalsignal_tpu_torch.models.convert import (
 )
 from multimodalsignal_tpu_torch.models.fold_stack import FOLD_IMPLS, FoldStackedModel
 from multimodalsignal_tpu_torch.ops import _build, gru_cuda
-from multimodalsignal_tpu_torch.parallel import fold_sweep, replicated_sweep
+from multimodalsignal_tpu_torch.parallel import fold_sweep, hierarchical_sweep, replicated_sweep
 from multimodalsignal_tpu_torch.parallel.fold_sweep import (
     FoldSweep,
     build_fold_batch,
@@ -2088,11 +2121,10 @@ def hier_sharded_phase(wesad: Path, root: Path, m1_impl: str = "auto",
     launches = gru_cuda.launch_counts()
     # --------------------------------------------------------------------
     wall = time.perf_counter() - t0
-    m1, tr1, ev1 = sweep_expected_launches(fb1, base.trainer, cfg.m1_model)
-    m2, tr2, ev2 = sweep_expected_launches(fb2, base.trainer, cfg.m2_model)
+    expected = hier_expected_launches(cfg, fb1, fb2, fb_u)
+    _, tr1, ev1 = sweep_expected_launches(fb1, base.trainer, cfg.m1_model)
+    _, tr2, ev2 = sweep_expected_launches(fb2, base.trainer, cfg.m2_model)
     test_batches = grid_steps(fb_u.n_test, base.trainer.batch_size)
-    f1, f2 = fold_walks(cfg.m1_model)[0], fold_walks(cfg.m2_model)[0]
-    expected = {k: m1[k] + m2[k] + (f1[k] + f2[k]) * test_batches for k in KERNELS}
     if launches != expected:
         raise AssertionError(
             f"hierarchical sharded: launches {launches}, expected {expected} (M1 {tr1} train "
@@ -2124,6 +2156,18 @@ def hier_sharded_phase(wesad: Path, root: Path, m1_impl: str = "auto",
         sweep_profile(c1, fb1, m1_cfg, f"hierarchical M1 float32 {m1_impl}")
         sweep_profile(c2, fb2, m2_cfg, "hierarchical M2 float32 auto (H=32, 1 layer)")
     return run_dir
+
+
+def hier_expected_launches(cfg: HierarchicalConfig, fb1, fb2, fb_u) -> dict[str, int]:
+    """Launches of the sharded hierarchical run: M1's sweep and M2's (each
+    by sweep_expected_launches over its fold batch), then the composed
+    evaluation's forwards of both stages a test batch of the union
+    corpus's fold batch fb_u."""
+    m1 = sweep_expected_launches(fb1, cfg.base.trainer, cfg.m1_model)[0]
+    m2 = sweep_expected_launches(fb2, cfg.base.trainer, cfg.m2_model)[0]
+    test_batches = grid_steps(fb_u.n_test, cfg.base.trainer.batch_size)
+    f1, f2 = fold_walks(cfg.m1_model)[0], fold_walks(cfg.m2_model)[0]
+    return {k: m1[k] + m2[k] + (f1[k] + f2[k]) * test_batches for k in KERNELS}
 
 
 def hier_serial_expected(cfg: HierarchicalConfig, data: Path) -> dict[str, int]:
@@ -2819,13 +2863,22 @@ def _param_leaves(tree: dict, prefix: str = ""):
             yield prefix + key, np.asarray(tree[key])
 
 
+def _history_losses(r) -> np.ndarray:
+    """A SweepResult's train and validation losses of every epoch, and its
+    test loss, [F, 2 * epochs + 1]."""
+    return np.concatenate([r.history.train_loss, r.history.val_loss, r.test_loss[:, None]],
+                          axis=1)
+
+
 def resumed_vs_uncut(got_losses, want_losses, got_params: dict, want_params: dict,
-                     tol: dict, steps: int, lr: float, what: str) -> None:
+                     tol: dict, steps: int, lr: float, what: str,
+                     label: str = "resumed vs uncut") -> None:
     """A resumed run against the uncut one under TRAIN_TOL (as
     compare_steps: losses within tol['loss'] relative, every parameter
     within 2 lr per step, at most tol['share'] of them beyond tol['elem']);
     prints whether the two are bitwise equal (cuDNN's convolution weight
-    gradients need not be deterministic on the card)."""
+    gradients need not be deterministic on the card). `label` names the
+    pair (phase 14: a run split over two processes against one process's)."""
     got_losses, want_losses = np.asarray(got_losses), np.asarray(want_losses)
     loss_err = float(np.max(np.abs(got_losses - want_losses)
                             / np.maximum(np.abs(want_losses), 1e-12)))
@@ -2841,8 +2894,8 @@ def resumed_vs_uncut(got_losses, want_losses, got_params: dict, want_params: dic
                f"{share:.4%} beyond {tol['elem']}; {'bitwise equal' if bitwise else 'not bitwise'}")
     if not (np.isfinite(got_losses).all() and loss_err <= tol["loss"]
             and worst <= 2 * lr * steps + 1e-6 and share <= tol["share"]):
-        raise AssertionError(f"{what}: resumed vs uncut beyond TRAIN_TOL: {summary}")
-    print(f"{what}: resumed vs uncut {summary}")
+        raise AssertionError(f"{what}: {label} beyond TRAIN_TOL: {summary}")
+    print(f"{what}: {label} {summary}")
 
 
 def sweep_resume_phase(data: Path, root: Path) -> None:
@@ -2895,9 +2948,8 @@ def sweep_resume_phase(data: Path, root: Path) -> None:
         if not np.isfinite(getattr(resumed, name)).all():
             raise AssertionError(f"sweep resume: {name} not finite")
     steps_tr = grid_steps(fb.n_train, cfg.trainer.batch_size)
-    h = lambda r: np.concatenate([r.history.train_loss, r.history.val_loss,  # noqa: E731
-                                  r.test_loss[:, None]], axis=1)
-    resumed_vs_uncut(h(resumed), h(uncut), resumed.final_variables["params"],
+    resumed_vs_uncut(_history_losses(resumed), _history_losses(uncut),
+                     resumed.final_variables["params"],
                      uncut.final_variables["params"], TRAIN_TOL["float32"],
                      RESUME_EPOCHS * steps_tr, cfg.trainer.learning_rate,
                      f"sweep resume float32 F={len(fb.test_subjects)}")
@@ -3258,12 +3310,367 @@ def phase13(root: Path, data: Path, loso_run: Path, wesad: Path) -> dict[str, in
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s ({split})")
     return launches
 
+# Phase 14: the sweep split over two processes (parallel/multihost.py), both
+# ranks on the one card, their collectives on gloo over host tensors. Each
+# rank is `python chip_smoke.py rank|drill RESULTS <main argv>` (rank_worker)
+# and reports on a line that starts with RANK_LINE.
+RANK_LINE = "phase14 rank "
+RANK_DEADLINE_S = 300
+
+
+@contextlib.contextmanager
+def drilled():
+    """The plain sweep under the preemption drill: SweepAborted after
+    epoch 1."""
+    real = fold_sweep.run_fold_sweep
+    fold_sweep.run_fold_sweep = lambda *a, **k: real(*a, abort_after_epoch=1, **k)
+    try:
+        yield
+    finally:
+        fold_sweep.run_fold_sweep = real
+
+
+def counted_main(argv: list[str], results: Path, drill: bool = False) -> dict:
+    """The experiment CLI's main(argv) in this process (the main path,
+    counted): its launches, wall seconds, the seconds of each of its
+    run_fold_sweep calls and of each sweep epoch (FoldSweep.epoch) and the
+    peak device memory; the SweepResults of its sweeps (every rank holds
+    the whole sweep's) pickled to `results` by rank 0. With `drill`, under
+    the preemption drill, whose SweepAborted must come."""
+    rank = int(os.environ.get("MMS_PROCESS_ID", "0"))
+    modules = (fold_sweep, replicated_sweep, hierarchical_sweep)
+    with contextlib.ExitStack() as stack:
+        if drill:
+            stack.enter_context(drilled())
+        seen = [stack.enter_context(capture_sweeps(m)) for m in modules]
+        sweep_s = [stack.enter_context(timed_calls(m, "run_fold_sweep")) for m in modules]
+        epoch_s = stack.enter_context(timed_calls(FoldSweep, "epoch"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gru_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        # --- the main path: everything between reset and read is counted ---
+        aborted = False
+        try:
+            cli.main(argv)
+        except fold_sweep.SweepAborted:
+            if not drill:
+                raise
+            aborted = True
+        launches = gru_cuda.launch_counts()
+        # --------------------------------------------------------------------
+        wall = time.perf_counter() - t0
+    if drill and not aborted:
+        raise AssertionError(f"rank {rank}: the drill did not raise SweepAborted")
+    if rank == 0:
+        results.write_bytes(pickle.dumps([r for found in seen for r in found]))
+    return {"rank": rank, "launches": launches, "wall_s": wall,
+            "sweep_s": [t for found in sweep_s for t in found], "epoch_s": epoch_s,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def rank_worker(args: list[str]) -> int:
+    """One rank of phase 14: args are `rank` or `drill`, the results path,
+    then main's argv (MMS_* set by spawn_ranks). TF32 off, as in main()."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mode, results, *argv = args
+    print(RANK_LINE + json.dumps(counted_main(argv, Path(results), drill=mode == "drill")),
+          flush=True)
+    return 0
+
+
+def spawn_ranks(mode: str, argv: list[str], root: Path, run_id: str, world: int = 2
+                ) -> tuple[list[dict], Path]:
+    """`world` ranks of rank_worker (rank r on cuda:{r % device_count},
+    main's rule), joined on a free port with MMS_RUN_ID run_id; all must
+    exit 0 within RANK_DEADLINE_S, or all are killed and the phase fails.
+    Returns (each rank's line in rank order, with "process_s": the host
+    seconds from the spawn to the last exit; rank 0's pickled
+    SweepResults)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    results = root / f"{run_id}_{mode}_results.pkl"
+    logs = [root / f"{run_id}_{mode}_rank{r}.log" for r in range(world)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank, log in enumerate(logs):
+            env = dict(os.environ, MMS_COORDINATOR=f"127.0.0.1:{port}",
+                       MMS_NUM_PROCESSES=str(world),
+                       MMS_PROCESS_ID=str(rank), MMS_RUN_ID=run_id,
+                       MMS_DIST_TIMEOUT=str(RANK_DEADLINE_S))
+            with open(log, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), mode, str(results), *argv],
+                    cwd=Path(__file__).resolve().parent, env=env, stdout=out,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + RANK_DEADLINE_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{mode} {run_id}: the ranks did not finish within "
+                             f"{RANK_DEADLINE_S} s:\n"
+                             + "\n".join(log.read_text()[-4000:] for log in logs)) from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    process_s = time.perf_counter() - t0
+    outs = [log.read_text() for log in logs]
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{mode} {run_id}: rank {rank} exited {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    lines = [json.loads(line[len(RANK_LINE):]) for out in outs for line in out.splitlines()
+             if line.startswith(RANK_LINE)]
+    if [line["rank"] for line in lines] != list(range(world)):
+        raise AssertionError(f"{mode} {run_id}: rank lines {lines}")
+    for line in lines:
+        line["process_s"] = process_s
+    return lines, results
+
+
+def _run_files(run_dir: Path) -> list[str]:
+    return sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())
+
+
+def split_vs_one(got: list, want: list, cfg_steps: list[tuple[int, float]], tol: dict,
+                 what: str, cm_windows: int | None = None, world: int = 2) -> None:
+    """Each SweepResult of the split run against the one-process run's
+    (resumed_vs_uncut's TRAIN_TOL check of the losses and parameters; each
+    with its (Adam steps, lr)); with `cm_windows`, every lane's test
+    confusion matrix within that many windows."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} sweeps against {len(want)}")
+    for i, (g, w, (steps, lr)) in enumerate(zip(got, want, cfg_steps)):
+        resumed_vs_uncut(_history_losses(g), _history_losses(w), g.final_variables["params"],
+                         w.final_variables["params"], tol, steps, lr,
+                         f"{what} sweep {i + 1}/{len(want)}", f"{world} ranks vs 1 process")
+        moved = np.abs(g.test_cm - w.test_cm).sum(axis=(1, 2))
+        if cm_windows is not None and moved.max() > cm_windows:
+            raise AssertionError(f"{what}: test confusion matrices moved {moved} windows")
+        print(f"{what} sweep {i + 1}: test confusion-matrix windows moved {int(moved.sum())}"
+              + ("" if cm_windows is None else f" (at most {cm_windows} a lane)"))
+
+
+def split_run(root: Path, what: str, argv: list[str], expected: dict[str, int],
+              cfg_steps: list[tuple[int, float]], tol: dict, cm_windows: int | None = None,
+              world: int = 2) -> tuple[list[dict], Path, Path, list]:
+    """`main argv` in this process, then as `world` ranks (spawn_ranks):
+    the launches of the one process and of each rank exactly `expected` (a
+    rank runs the whole sweep's steps over its own lanes), the same
+    run-directory file list, split_vs_one; each rank's wall time, sweep
+    and epoch seconds and peak memory beside the one process's. Returns
+    (the ranks' lines, the one-process and split run directories, the
+    split run's SweepResults)."""
+    one_dir, two_dir = root / f"{what}_one", root / f"{what}_split"
+    one = counted_main([*argv, "--output-dir", str(one_dir)], root / f"{what}_one.pkl")
+    lines, results = spawn_ranks("rank", [*argv, "--output-dir", str(two_dir)], root, what,
+                                 world)
+    for line in [one, *lines]:
+        if line["launches"] != expected:
+            raise AssertionError(f"{what}: rank {line['rank']} of "
+                                 f"{world if line is not one else 1} launched "
+                                 f"{line['launches']}, expected {expected}")
+    (one_run,) = (p for p in one_dir.rglob("run_*") if p.is_dir())
+    (two_run,) = (p for p in two_dir.rglob("run_*") if p.is_dir())
+    if _run_files(one_run) != _run_files(two_run):
+        raise AssertionError(f"{what}: run directories differ: {_run_files(one_run)} against "
+                             f"{_run_files(two_run)}")
+    got = pickle.loads(results.read_bytes())
+    split_vs_one(got, pickle.loads((root / f"{what}_one.pkl").read_bytes()), cfg_steps, tol,
+                 what, cm_windows, world)
+    timing = lambda d: (f"wall {d['wall_s']:.2f} s, sweeps "  # noqa: E731
+                        + "+".join(f"{t:.2f}" for t in d["sweep_s"]) + " s, epochs "
+                        + "/".join(f"{t:.3f}" for t in d["epoch_s"])
+                        + f" s, peak {d['peak_mib']:.1f} MiB")
+    print(f"{what}: 1 process {timing(one)}; "
+          + "; ".join(f"rank {d['rank']}/{world} {timing(d)}" for d in lines)
+          + f"; the ranks' processes {lines[0]['process_s']:.2f} s from spawn to exit"
+          + f"; {len(_run_files(two_run))} run-directory files as in one process; launches "
+          f"a rank {expected}")
+    return lines, one_run, two_run, got
+
+
+def dropout_rng_cost(corpus, fb, cfg) -> None:
+    """14a. ms per sweep train step at the config's dropout: all 15 lanes
+    in one process, rank 0's 8 lanes drawing the whole sweep's masks (its
+    split run's step), and those 8 lanes with dropout 0 (no masks)."""
+    folds = fb.train_pool.shape[0]
+    init, rngs = seed_group_streams((cfg.seed,), folds)
+    block = fold_sweep.rank_block(folds, 0, 2)
+    cases = [("15 lanes", cfg, None), (f"rank 0's {block[1]} lanes", cfg, block),
+             (f"rank 0's {block[1]} lanes, dropout 0",
+              dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0)),
+              block)]
+    out = []
+    for name, c, b in cases:
+        sweep = FoldSweep(corpus, fb, c, "cuda", init_seeds=init, block=b)
+        idx, w = sweep.to_device(sweep.train_grid(rngs))
+        out.append(f"{name} {median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), 5):.3f} ms")
+        del sweep, idx, w
+    torch.cuda.empty_cache()
+    print(f"sweep split dropout {cfg.model.dropout}: train step " + ", ".join(out)
+          + " (one process, one rank alone on the card)")
+
+
+def split_scaling(world: int = 4) -> None:
+    """Not run by main(): the sweep split over `world` processes, one a card
+    (rank r on cuda:r), against one process on cuda:0, on phase 7's data at
+    full width, f32 auto: the plain sweep (15 folds, 4 epochs) and --seeds
+    42 43 44 45 (60 lanes, 2 epochs), each through split_run (exact
+    launches a rank, TRAIN_TOL; the seeds' confusion matrices within
+    SEED_GROUP_TOL), with every rank's sweep and epoch seconds and peak
+    memory beside the one process's. Needs `world` cards:
+
+        python -c "import chip_smoke as cs; cs.split_scaling(4)"
+    """
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"split_scaling({world}) needs {world} cards, "
+                           f"this machine has {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card()
+    _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "scaling"
+        root.mkdir()
+        data = write_loso_data(Path(tmp) / "sweep_data", seed=8, subjects=ALL_SUBJECTS)
+        base = ["--set", f"data_path={data}"]
+        cfg = cli.load_config(cli.build_parser().parse_args(base))
+        corpus = pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
+                             read_channel_names(data))
+        fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+        steps_tr = grid_steps(fb.n_train, cfg.trainer.batch_size)
+        lr = cfg.trainer.learning_rate
+        for what, argv, epochs, cm in (("scale_sweep", [], 4, None),
+                                       ("scale_seeds", ["--seeds", *map(str, SEEDS)], 2,
+                                        SEED_GROUP_TOL["cm_windows"])):
+            argv = [*base, "--set", f"trainer.epochs={epochs}", *argv]
+            tcfg = dataclasses.replace(cfg.trainer, epochs=epochs)
+            t0 = time.perf_counter()
+            split_run(root, what, argv, sweep_expected_launches(fb, tcfg)[0],
+                      [(epochs * steps_tr, lr)], TRAIN_TOL["float32"], cm, world)
+            print(f"{what}: {time.perf_counter() - t0:.1f} s, {world} ranks on cuda:0-"
+                  f"{world - 1} against one process on cuda:0")
+
+
+def phase14(root: Path, data: Path) -> dict[str, int]:
+    """Phase 14 (module docstring): the sweep split over two processes on
+    the one card. 14a auto, 14b pallas_fused, 14c --seeds and
+    --hierarchical, 14d a two-rank run cut and resumed by two ranks.
+    Returns the launches of 14a's and 14b's two-rank runs (both ranks):
+    the main path of this phase."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    marks = [time.perf_counter()]
+    base = ["--set", f"data_path={data}", "--set", "trainer.epochs=2"]
+    cfg = cli.load_config(cli.build_parser().parse_args(base))
+    corpus = pack_corpus(data, list(cfg.subjects), list(cfg.channels_to_use),
+                         read_channel_names(data))
+    fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+    steps_tr = grid_steps(fb.n_train, cfg.trainer.batch_size)
+    lr = cfg.trainer.learning_rate
+    tol = TRAIN_TOL["float32"]
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(lines):
+        for line in lines:
+            for k in KERNELS:
+                total[k] += line["launches"][k]
+
+    # a. auto, 2 epochs; the ensemble of the two-rank run; dropout's cost.
+    expected = sweep_expected_launches(fb, cfg.trainer)[0]
+    lines, one_run, two_run, uncut = split_run(root, "split_auto", base, expected,
+                                               [(2 * steps_tr, lr)], tol)
+    add(lines)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((64, 3, WINDOW_T))
+                         .astype(np.float32)).cuda()
+    ens = EnsemblePredictor.from_run(two_run, device="cuda")
+    gru_cuda.reset_launch_counts()
+    # --- the main path: everything between reset and read is counted ---
+    with torch.inference_mode():
+        probs = ens.predict_tensor(x)
+    ens_launches = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    if ens_launches != fold_walks()[0]:
+        raise AssertionError(f"split ensemble: launches {ens_launches}")
+    with torch.inference_mode():
+        want = EnsemblePredictor.from_run(one_run, device="cuda").predict_tensor(x)
+    err = _check_probs(probs.cpu().numpy(), want.cpu().numpy(), 64, PROB_ATOL["float32"],
+                       "split ensemble vs the one-process run's")
+    print(f"split ensemble: the two-rank run directory served by EnsemblePredictor "
+          f"({len(ens.fold_names)} folds, one padded-64 forward, launches {ens_launches}); "
+          f"max|probs - the one-process run's| = {err:.3e} (atol {PROB_ATOL['float32']})")
+    del ens
+    dropout_rng_cost(corpus, fb, cfg)
+    marks.append(time.perf_counter())
+
+    # b. pallas_fused, 1 epoch.
+    fused = [*base, "--set", "trainer.epochs=1", "--set", "model.gru_impl=pallas_fused"]
+    fcfg = cli.load_config(cli.build_parser().parse_args(fused))
+    lines, *_ = split_run(root, "split_fused", fused,
+                          sweep_expected_launches(fb, fcfg.trainer, fcfg.model)[0],
+                          [(steps_tr, lr)], tol)
+    add(lines)
+    marks.append(time.perf_counter())
+
+    # c. --seeds 42 43 and --hierarchical, 1 epoch.
+    seeds = [*base, "--set", "trainer.epochs=1", "--seeds", "42", "43"]
+    scfg = cli.load_config(cli.build_parser().parse_args(seeds))
+    split_run(root, "split_seeds", seeds, sweep_expected_launches(fb, scfg.trainer)[0],
+              [(steps_tr, lr)], tol, cm_windows=SEED_GROUP_TOL["cm_windows"])
+    hier = ["--hierarchical", "--set", f"base.data_path={data}", "--set", "base.trainer.epochs=1"]
+    hcfg = cli.load_config(cli.build_parser().parse_args(hier))
+    union, _, _ = union_channel_indices(hcfg.m1_channels, hcfg.m2_channels)
+    names = read_channel_names(data)
+    b = hcfg.base
+    fb1, fb2, fb_u = (build_fold_batch(pack_corpus(data, list(b.subjects), list(ch), names, mode),
+                                       list(b.subjects), b.val_fraction, b.seed)
+                      for ch, mode in ((hcfg.m1_channels, "stress_binary"),
+                                       (hcfg.m2_channels, "amusement_binary"),
+                                       (union, "ternary")))
+    split_run(root, "split_hier", hier, hier_expected_launches(hcfg, fb1, fb2, fb_u),
+              [(grid_steps(f.n_train, b.trainer.batch_size), b.trainer.learning_rate)
+               for f in (fb1, fb2)], tol)
+    marks.append(time.perf_counter())
+
+    # d. Two ranks cut after epoch 1 of 2, resumed by two ranks.
+    ck = [*base, "--set", "trainer.checkpoint_every=1", "--set", "trainer.resume=true",
+          "--output-dir", str(root / "split_cut")]
+    spawn_ranks("drill", ck, root, "split_cut")
+    (cut_run,) = (root / "split_cut").rglob("run_split_cut")
+    meta = json.loads((cut_run / "sweep_resume_meta.json").read_text())
+    if meta != {"next_epoch": 1} or list(cut_run.glob("fold_test_on_*")):
+        raise AssertionError(f"split cut: bundle meta {meta}, {_run_files(cut_run)}")
+    lines, results = spawn_ranks("rank", ck, root, "split_cut")
+    rest = sweep_expected_launches(fb, dataclasses.replace(cfg.trainer, epochs=1))[0]
+    if any(line["launches"] != rest for line in lines):
+        raise AssertionError(f"split resume: launches {[d['launches'] for d in lines]}, "
+                             f"expected {rest} a rank (the remaining epoch)")
+    (resumed,) = pickle.loads(results.read_bytes())
+    resumed_vs_uncut(_history_losses(resumed), _history_losses(uncut[0]),
+                     resumed.final_variables["params"], uncut[0].final_variables["params"],
+                     tol, 2 * steps_tr, lr, "split resume float32 F=15")
+    print(f"split resume: 2 ranks cut after epoch 1 of 2 and resumed by 2 ranks; each rank "
+          f"launched exactly the remaining epoch's {rest}; wall "
+          + ", ".join(f"rank {d['rank']} {d['wall_s']:.2f} s" for d in lines))
+    marks.append(time.perf_counter())
+    split = ", ".join(f"14{k} {b - a:.1f} s" for k, a, b in zip("abcd", marks, marks[1:]))
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({split})")
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs a CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] in (["rank"], ["drill"]):
+        return rank_worker(sys.argv[1:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card()
@@ -3311,16 +3718,18 @@ def main() -> int:
         phase12(Path(tmp) / "phase12", data, loso_data, sweep_run,
                 ablation_run / "fusion4__cnn_gru_attention")
         fused_launches = phase13(Path(tmp) / "phase13", data, loso_run, wesad)
+        split_launches = phase14(Path(tmp) / "phase14", data)
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
-    # default execution) and the fused sweep, the fused pair's on the
-    # float32 serial LOSO path and the fused sweep (each read right after
-    # its own counted run, all checked above).
+    # default execution), the fused sweep and phase 14's two-rank runs, the
+    # fused pair's on the float32 serial LOSO path, the fused sweep and
+    # phase 14's fused two-rank run (each read right after its own counted
+    # run, all checked above).
     paths = {"gru_fwd": (serve_launches,), "gru_bwd": (train_launches,),
-             "gru_fwd_fb": (sweep_launches, fused_launches),
-             "gru_bwd_fb": (sweep_launches, fused_launches),
-             "gru_bifwd": (loso_launches, fused_launches),
-             "gru_bibwd": (loso_launches, fused_launches)}
+             "gru_fwd_fb": (sweep_launches, fused_launches, split_launches),
+             "gru_bwd_fb": (sweep_launches, fused_launches, split_launches),
+             "gru_bifwd": (loso_launches, fused_launches, split_launches),
+             "gru_bibwd": (loso_launches, fused_launches, split_launches)}
     for k in kernels:
         k["launches"] = sum(path[k["name"]] for path in paths[k["name"]])
         if k["launches"] == 0:

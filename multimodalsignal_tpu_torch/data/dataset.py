@@ -451,10 +451,14 @@ def _pack_cache_store(cache_dir: Path, key: str, corpus: PackedCorpus) -> None:
         (tmp / "meta.json").write_text(json.dumps(
             {"package": _PACK_CACHE_TAG, "version": _PACK_CACHE_VERSION,
              "subjects": list(corpus.subjects)}))
-        if (cache_dir / key).exists():
-            shutil.rmtree(tmp, ignore_errors=True)
-        else:
+        try:
             os.rename(tmp, cache_dir / key)
+        except OSError:
+            # Another process (a rank of the same sweep) stored the entry
+            # first; its copy is the same pack.
+            if not (cache_dir / key).exists():
+                raise
+            shutil.rmtree(tmp, ignore_errors=True)
     except OSError as exc:
         print(f"Warning: pack cache write failed ({exc}); the run stays uncached.")
         shutil.rmtree(tmp, ignore_errors=True)

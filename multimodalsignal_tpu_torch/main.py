@@ -35,6 +35,21 @@ epochs (the sweep's bundle in the run directory, the serial Trainer's in
 each fold's directory) and trainer.resume=true goes on from it; a resumed
 run names its earlier run directory (MMS_RUN_ID with MMS_NUM_PROCESSES, as
 utils/run.py says, or the library calls).
+
+Several processes (parallel/multihost.py), as the JAX CLI joins them: with
+MMS_COORDINATOR=host:port, MMS_NUM_PROCESSES=N and MMS_PROCESS_ID=r set
+(and one MMS_RUN_ID for all, so they share the run directory), each of the
+N processes joins a gloo process group before anything touches CUDA,
+trains on cuda:{r % device_count} (two ranks may share one GPU) and takes
+its block of the folds of the sharded sweep, the --seeds sweep or the
+--hierarchical sweep; only rank 0 writes the run directory. A group that
+cannot form raises. --execution serial is refused under more than one
+process (the serial loops know nothing of processes).
+
+    MMS_COORDINATOR=localhost:29511 MMS_NUM_PROCESSES=2 MMS_PROCESS_ID=0 \
+        MMS_RUN_ID=r1 python -m multimodalsignal_tpu_torch.main &
+    MMS_COORDINATOR=localhost:29511 MMS_NUM_PROCESSES=2 MMS_PROCESS_ID=1 \
+        MMS_RUN_ID=r1 python -m multimodalsignal_tpu_torch.main
 """
 
 from __future__ import annotations
@@ -99,7 +114,36 @@ def load_config(args) -> ExperimentConfig | HierarchicalConfig:
 
 
 def main(argv=None) -> None:
+    from multimodalsignal_tpu_torch.parallel import multihost
+
+    # Join the processes before anything touches CUDA.
+    if multihost.maybe_initialize_from_env():
+        print(f"[multihost] process {multihost.rank()}/{multihost.world_size()} up "
+              "(gloo)", flush=True)
+    try:
+        _main(argv)
+        multihost.sync("main done")
+    finally:
+        multihost.shutdown()
+
+
+def _device(name: str):
+    """The device of this process: a rank of several takes
+    cuda:{rank % device_count}."""
+    import torch
+
     from multimodalsignal_tpu_torch.experiments.predict import resolve_device
+    from multimodalsignal_tpu_torch.parallel import multihost
+
+    device = resolve_device(name)
+    if device.type == "cuda" and multihost.world_size() > 1:
+        device = torch.device("cuda", multihost.rank() % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device
+
+
+def _main(argv) -> None:
+    from multimodalsignal_tpu_torch.parallel import multihost
     from multimodalsignal_tpu_torch.utils.run import make_run_dir
 
     args = build_parser().parse_args(argv)
@@ -150,9 +194,14 @@ def main(argv=None) -> None:
                run_simple_experiment if execution == "serial" else run_sharded)
         output_dir = cfg.output_dir
 
-    device = resolve_device(args.device)
+    if execution == "serial" and multihost.world_size() > 1:
+        raise SystemExit(
+            "serial execution runs every fold in every process: with "
+            f"MMS_NUM_PROCESSES={multihost.world_size()} run the sharded sweep (the "
+            "default execution), which splits the folds over the processes")
+    device = _device(args.device)
     run_dir = make_run_dir(args.output_dir or Path(output_dir), cfg.run_name)
-    print(f"Run directory: {run_dir}")
+    multihost.log(f"Run directory: {run_dir}")
     run(cfg, run_dir, device=device)
 
 

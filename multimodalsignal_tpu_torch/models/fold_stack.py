@@ -62,7 +62,7 @@ from multimodalsignal_tpu_torch.models.cnn_gru import (
     batch_norm_train,
     build_model,
 )
-from multimodalsignal_tpu_torch.models.gru import aten_gru, dropout, gru_cell, gru_sequence
+from multimodalsignal_tpu_torch.models.gru import aten_gru, gru_cell, gru_sequence
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
 # ModelConfig.gru_impl -> how the fold-stacked GRU walks.
@@ -93,6 +93,9 @@ class FoldStackedModel(nn.Module):
         self.dropout = base.dropout
         self.gru_last_prune = base.gru_last_prune
         self.use_channel_attention = base.use_channel_attention
+        # (first lane, the sweep's lanes) where this model holds a block of
+        # a sweep split over processes (parallel/fold_sweep.py FoldSweep).
+        self.lane_span: tuple[int, int] | None = None
         for name, child in base.named_children():
             self.add_module(name, copy.deepcopy(child))
         with torch.no_grad():
@@ -147,13 +150,24 @@ class FoldStackedModel(nn.Module):
     def _dropout(self, y: torch.Tensor, rate: float,
                  generators: Sequence[torch.Generator] | None) -> torch.Tensor:
         """Dropout of y [F, ...], each generator for its own equal group of
-        lanes (the masks of group g are those a sweep of that group alone
-        would draw); torch's default generator without any."""
+        the sweep's lanes (the masks of group g are those a sweep of that
+        group alone would draw); torch's default generator without any.
+        Under `lane_span` every generator draws its whole group's masks and
+        the lanes this model holds keep theirs, so a sweep split over
+        processes draws what one process does."""
         if not self.training or rate <= 0.0:
             return y
         generators = generators or [None]
-        groups = y.chunk(len(generators), dim=0)
-        return torch.cat([dropout(part, rate, g, True) for part, g in zip(groups, generators)])
+        lo, total = self.lane_span or (0, y.shape[0])
+        per_group, keep = total // len(generators), 1.0 - rate
+        masks = []
+        for g, gen in enumerate(generators):
+            draw = torch.rand((per_group,) + y.shape[1:], generator=gen, device=y.device)
+            a, b = max(lo - g * per_group, 0), min(lo + y.shape[0] - g * per_group, per_group)
+            if a < b:
+                masks.append(draw[a:b] < keep)
+        mask = masks[0] if len(masks) == 1 else torch.cat(masks)
+        return torch.where(mask, y / keep, torch.zeros((), dtype=y.dtype, device=y.device))
 
     def _dense(self, layer, y: torch.Tensor) -> torch.Tensor:
         """y [F, N, in] @ weight [F, out, in]^T + bias [F, out], in dtype."""

@@ -55,12 +55,18 @@ the device tensor (corpus_tensor). Every gru_impl runs under the fold axis;
 pallas_fused walks all folds' two directions as 2F lanes of the fused pair
 (models/fold_stack.py).
 
-One device, no mesh: folds across GPUs and trainer.remat are not ported
-(ROADMAP.md, queue 1).
+Several processes (parallel/multihost.py, MMS_COORDINATOR /
+MMS_NUM_PROCESSES / MMS_PROCESS_ID): each rank trains one contiguous block
+of the lanes (rank_block) on its own GPU, two ranks may share one, with
+the streams those lanes have in one process and the whole sweep's dropout
+masks, so the split run equals the one-process run; the ranks gather the
+log columns and stop flags once an epoch and the results at the end, and
+only the primary writes. trainer.remat is not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -83,6 +89,7 @@ from multimodalsignal_tpu_torch.data.dataset import (
 from multimodalsignal_tpu_torch.experiments.loso import (
     FoldResult,
     balanced_class_weights,
+    summarize_results,
     write_cv_summary,
 )
 from multimodalsignal_tpu_torch.experiments.predict import resolve_device
@@ -97,6 +104,7 @@ from multimodalsignal_tpu_torch.models.convert import (
     put_leaf,
 )
 from multimodalsignal_tpu_torch.models.fold_stack import build_fold_model
+from multimodalsignal_tpu_torch.parallel import multihost
 from multimodalsignal_tpu_torch.train import metrics as M
 from multimodalsignal_tpu_torch.train.checkpoints import (
     unpackb,
@@ -212,6 +220,37 @@ def grid_steps(n: np.ndarray, batch_size: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# A sweep split over processes (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+def rank_block(lanes: int, rank: int | None = None, world: int | None = None
+               ) -> tuple[int, int]:
+    """Lanes [lo, hi) of `rank` of `world` ranks (default: this process's):
+    contiguous blocks in fold order, sized as np.array_split sizes them
+    (15 lanes over 2 ranks: 8 + 7)."""
+    rank = multihost.rank() if rank is None else rank
+    world = multihost.world_size() if world is None else world
+    if world > lanes:
+        raise ValueError(f"{world} processes for a sweep of {lanes} lanes: each process "
+                         "needs at least one")
+    size, extra = divmod(lanes, world)
+    lo = rank * size + min(rank, extra)
+    return lo, lo + size + (rank < extra)
+
+
+def take_lanes(tree, lo: int, hi: int):
+    """Lanes lo..hi-1 of every leaf of a fold-major tree (dicts, a
+    FoldBatch, arrays or tensors [F, ...]); a FoldBatch keeps its
+    test_subjects' slice."""
+    if isinstance(tree, FoldBatch):
+        return FoldBatch(**{f.name: take_lanes(getattr(tree, f.name), lo, hi)
+                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: take_lanes(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
+# ---------------------------------------------------------------------------
 # The sweep's state and programs
 # ---------------------------------------------------------------------------
 
@@ -265,23 +304,39 @@ class FoldSweep:
     otherwise fold f is initialised from torch's generator seeded with
     `init_seeds[f]`. Dropout draws from one generator per seed of
     `dropout_seeds` (default: cfg.seed), each for its own equal group of
-    lanes (the seed groups of a replicated sweep)."""
+    lanes (the seed groups of a replicated sweep).
+
+    `block` (lo, hi): this sweep holds only lanes lo..hi-1 of the sweep
+    that fb, init_seeds and variables describe (one rank's block of a sweep
+    split over processes, rank_block). Its grids keep the whole sweep's
+    steps and its dropout draws the whole sweep's masks, so each lane
+    trains as it does in one process; the grids that epoch and train_grid
+    take and give, and everything it returns, are the block's."""
 
     def __init__(self, corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
                  device: str | torch.device = "cuda", variables: dict | None = None,
                  init_seeds: list[int] | None = None,
-                 dropout_seeds: tuple[int, ...] | None = None):
+                 dropout_seeds: tuple[int, ...] | None = None,
+                 block: tuple[int, int] | None = None):
         tcfg = cfg.trainer
         self.device = resolve_device(device)
         self.cfg = cfg
-        folds = fb.train_pool.shape[0]
+        total = fb.train_pool.shape[0]
+        lo, hi = self.block = block or (0, total)
+        folds = hi - lo
+        steps = [grid_steps(n, tcfg.batch_size) for n in (fb.n_train, fb.n_val, fb.n_test)]
+        fb = take_lanes(fb, lo, hi)
         x, y, _ = corpus.flat()
         feat = corpus.flat_feat()
-        self.model = build_fold_model(cfg.model, cfg.num_classes, x.shape[1], folds,
-                                      seeds=None if variables is not None else init_seeds,
-                                      **({} if feat is None else {"num_features": feat.shape[1]}))
+        self.model = build_fold_model(
+            cfg.model, cfg.num_classes, x.shape[1], folds,
+            seeds=None if variables is not None or init_seeds is None else init_seeds[lo:hi],
+            **({} if feat is None else {"num_features": feat.shape[1]}))
         if variables is not None:
+            variables = take_lanes(variables, lo, hi)
             load_jax_variables(self.model, variables["params"], variables["batch_stats"])
+        if block is not None:
+            self.model.lane_span = (lo, total)
         self.model.to(self.device)
         self.opt = FoldAdam(self.model.parameters(), tcfg.learning_rate, tcfg.weight_decay)
         self.x = corpus_tensor(x, np.float32, self.device)
@@ -295,17 +350,16 @@ class FoldSweep:
             self.cw = torch.from_numpy(cw).to(self.device)
         self.fb = fb
         batch = tcfg.batch_size
-        self.steps_tr = grid_steps(fb.n_train, batch)
+        self.steps_tr = steps[0]
         self.val_grid = self.to_device(_stack_grids(
-            sequential_grid(fb.val_pool[f], fb.n_val[f], grid_steps(fb.n_val, batch), batch)
-            for f in range(folds)))
+            sequential_grid(fb.val_pool[f], fb.n_val[f], steps[1], batch) for f in range(folds)))
         self.test_grid = self.to_device(_stack_grids(
-            sequential_grid(fb.test_pool[f], fb.n_test[f], grid_steps(fb.n_test, batch), batch)
+            sequential_grid(fb.test_pool[f], fb.n_test[f], steps[2], batch)
             for f in range(folds)))
         self.generators = [torch.Generator(device=self.device).manual_seed(s)
                            for s in (dropout_seeds or (cfg.seed,))]
-        if folds % len(self.generators):
-            raise ValueError(f"{folds} lanes do not split into {len(self.generators)} "
+        if total % len(self.generators):
+            raise ValueError(f"{total} lanes do not split into {len(self.generators)} "
                              "equal seed groups")
         self.pl = plateau_init(tcfg.learning_rate, folds)
         self.es = early_stopping_init(folds)
@@ -331,11 +385,12 @@ class FoldSweep:
                 for coll, path, t, transform in _layout(self.model)]
 
     def train_grid(self, rngs: list[np.random.Generator]) -> tuple[np.ndarray, np.ndarray]:
-        """One epoch's shuffled [F, steps, B] grid, fold f drawn by rngs[f]."""
+        """One epoch's shuffled [F, steps, B] grid of the block's lanes, lane
+        f drawn by rngs[f] of the whole sweep's generators."""
         fb, batch = self.fb, self.cfg.trainer.batch_size
         return _stack_grids(shuffled_grid(rng, fb.train_pool[f], fb.n_train[f],
                                           self.steps_tr, batch)
-                            for f, rng in enumerate(rngs))
+                            for f, rng in enumerate(rngs[self.block[0]:self.block[1]]))
 
     def _batch(self, idx: torch.Tensor):
         """Windows [F, B, C, T] of idx [F, B], gathered batch-major (the
@@ -503,21 +558,25 @@ _RESUME_META = "sweep_resume_meta.json"
 _RESUME_RNG = "sweep_resume_rng.pt"
 
 
-def _save_sweep_resume(run_dir: Path, sweep: FoldSweep, logs: list, next_epoch: int) -> None:
-    """The whole carry, the per-epoch logs (columns c0..c5, [F, epochs])
-    and the dropout generators' states, as the JAX sweep saves them."""
-    write_tree(run_dir / _RESUME_STATE, sweep.carry_tree())
+def _save_sweep_resume(run_dir: Path, carry: dict, generators: list[torch.Generator],
+                       logs: list, next_epoch: int) -> None:
+    """The whole carry (every lane's), the per-epoch logs (columns c0..c5,
+    [F, epochs]) and the dropout generators' states, as the JAX sweep saves
+    them."""
+    write_tree(run_dir / _RESUME_STATE, carry)
     np.savez(run_dir / _RESUME_LOGS,
              **{f"c{j}": np.stack(col, axis=1) for j, col in enumerate(zip(*logs))})
-    torch.save([g.get_state() for g in sweep.generators], run_dir / _RESUME_RNG)
+    torch.save([g.get_state() for g in generators], run_dir / _RESUME_RNG)
     (run_dir / _RESUME_META).write_text(json.dumps({"next_epoch": next_epoch}))
 
 
 def _load_sweep_resume(run_dir: Path, sweep: FoldSweep) -> tuple[list, int]:
-    """Restore the bundle into `sweep` (a JAX sweep's too: without the
-    generators' file they stay as seeded); returns (logs, next epoch)."""
+    """Restore the bundle (a JAX sweep's too: without the generators' file
+    they stay as seeded) into `sweep`, its block's lanes of the carry;
+    returns (the whole sweep's logs, next epoch)."""
     next_epoch = int(json.loads((run_dir / _RESUME_META).read_text())["next_epoch"])
-    sweep.load_carry_tree(unpackb((run_dir / _RESUME_STATE).read_bytes()))
+    sweep.load_carry_tree(take_lanes(unpackb((run_dir / _RESUME_STATE).read_bytes()),
+                                     *sweep.block))
     if (run_dir / _RESUME_RNG).exists():
         states = torch.load(run_dir / _RESUME_RNG, weights_only=True)
         for g, state in zip(sweep.generators, states):
@@ -535,6 +594,13 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
     """Train every fold in lockstep on one device and evaluate it; returns
     per-fold stacked results (fold axis first). The stop flags are read
     after every epoch and the sweep ends once every fold has stopped.
+
+    Under several processes (parallel/multihost.py) each rank trains its
+    rank_block of the lanes with the streams those lanes have in one
+    process; after every epoch the ranks gather the log columns and stop
+    flags, so all of them stop at the same epoch, and at the end the
+    results, so every rank returns the whole sweep's. Only the primary
+    prints and writes the resume bundle.
 
     Resume, with the JAX sweep's rules: checkpoints only with a `run_dir`
     (every cfg.trainer.checkpoint_every epochs); cfg.trainer.resume is live
@@ -563,6 +629,10 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
     checkpoint_every = cfg.trainer.checkpoint_every if run_dir is not None else 0
     resume_live = (cfg.trainer.resume and run_dir is not None
                    and (run_dir / _RESUME_STATE).exists())
+    if run_dir is not None and cfg.trainer.resume:
+        # A file read that gates a raise and the restore: every rank must
+        # see the same bundle.
+        multihost.assert_agreement(int(resume_live), "sweep_resume existence")
     if cfg.sweep_dispatch == "segmented" and (checkpoint_every > 0 or resume_live
                                               or abort_after_epoch is not None):
         raise ValueError(
@@ -572,32 +642,48 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
     folds = fb.train_pool.shape[0]
     seeds = (cfg.seed,) if seeds is None else tuple(seeds)
     init_seeds, rngs = seed_group_streams(seeds, folds)
-    sweep = FoldSweep(corpus, fb, cfg, device, init_seeds=init_seeds, dropout_seeds=seeds)
+    primary = multihost.is_primary()
+    block = rank_block(folds)
+    sweep = multihost.agree(lambda: FoldSweep(corpus, fb, cfg, device, init_seeds=init_seeds,
+                                              dropout_seeds=seeds, block=block),
+                            "sweep build")
     epochs = cfg.trainer.epochs
     logs, start_epoch = [], 0
     if resume_live:
         logs, start_epoch = _load_sweep_resume(run_dir, sweep)
+        multihost.assert_agreement(start_epoch, "resume epoch")
         for _ in range(start_epoch):   # replay the shuffle streams
             sweep.train_grid(rngs)
-        print(f"  resumed sweep from epoch {start_epoch}", flush=True)
+        if primary:
+            print(f"  resumed sweep from epoch {start_epoch}", flush=True)
     t_train = time.time()
     for epoch in range(start_epoch, epochs):
-        logs.append(sweep.epoch(*sweep.train_grid(rngs), epoch))
-        stopped = sweep.stopped
-        if epoch == start_epoch or (epoch + 1) % 10 == 0 or stopped.all():
+        # The epoch's one gather: every rank's log columns and stop flags,
+        # also on a rank whose own folds have all stopped.
+        *log, stopped = multihost.to_host(multihost.agree(
+            lambda: (*sweep.epoch(*sweep.train_grid(rngs), epoch), sweep.stopped),
+            "sweep epoch"), "sweep epoch log")
+        logs.append(tuple(log))
+        if primary and (epoch == start_epoch or (epoch + 1) % 10 == 0 or stopped.all()):
             print(f"  epoch {epoch + 1}/{epochs} | mean val loss {logs[-1][1].mean():.4f} | "
                   f"{int((~stopped).sum())} folds active | {time.time() - t_train:.1f}s",
                   flush=True)
         if checkpoint_every > 0 and (epoch + 1) % checkpoint_every == 0:
-            _save_sweep_resume(run_dir, sweep, logs, epoch + 1)
+            carry = multihost.to_host(sweep.carry_tree(), "sweep carry")
+            if primary:
+                _save_sweep_resume(run_dir, carry, sweep.generators, logs, epoch + 1)
         if abort_after_epoch is not None and epoch + 1 >= abort_after_epoch:
             raise SweepAborted(f"aborted after epoch {epoch + 1} (drill)")
         if stopped.all():
-            print(f"  all folds early-stopped at epoch {epoch + 1}")
+            if primary:
+                print(f"  all folds early-stopped at epoch {epoch + 1}")
             break
     t_eval = time.time()
-    test_loss, test_cm, best_epoch, test_probs = sweep.finalize()
-    print(f"  test eval: {time.time() - t_eval:.1f}s", flush=True)
+    test_loss, test_cm, best_epoch, test_probs, final_variables = multihost.to_host(
+        multihost.agree(lambda: (*sweep.finalize(), export_jax_variables(sweep.model)),
+                        "sweep finalize"), "sweep results")
+    if primary:
+        print(f"  test eval: {time.time() - t_eval:.1f}s", flush=True)
 
     history = []
     for column in zip(*logs):
@@ -608,28 +694,32 @@ def run_fold_sweep(corpus: PackedCorpus, fb: FoldBatch, cfg: ExperimentConfig,
     return SweepResult(
         history=SweepHistory(*hist), best_epoch=best_epoch,
         stop_epoch=ran.astype(np.int32).sum(axis=1), test_loss=test_loss, test_cm=test_cm,
-        final_variables=export_jax_variables(sweep.model), test_probs=test_probs)
+        final_variables=final_variables, test_probs=test_probs)
 
 
 def stage_corpus(cfg: ExperimentConfig, run_output_dir: Path,
                  all_channel_names: list[str] | None = None,
                  save_extra: dict | None = None) -> PackedCorpus:
     """Stage the sweep's corpus and write the run's config.json (with
-    `save_extra`'s keys beside the config): straight from the pickles (its
-    preprocess meta is the pickles' windowing), the hybrid raw-align and
-    feature pack, or the npy pack."""
+    `save_extra`'s keys beside the config; the primary process only): straight
+    from the pickles (its preprocess meta is the pickles' windowing), the
+    hybrid raw-align and feature pack, or the npy pack."""
     extra = save_extra or {}
+
+    def save(meta) -> None:
+        if multihost.is_primary():
+            save_config(cfg, run_output_dir / "config.json",
+                        extra={"preprocess_meta": meta, **extra})
+
     if cfg.from_pickles:
         # validate_experiment has refused the hybrid model here.
         corpus, _, meta = pack_corpus_from_pickles(
             cfg.from_pickles, list(cfg.subjects), list(cfg.channels_to_use),
             cfg.classification_mode, cfg.normalization)
-        save_config(cfg, run_output_dir / "config.json",
-                    extra={"preprocess_meta": meta, **extra})
+        save(meta)
         return corpus
     hybrid = cfg.model.name == "hybrid_cnn_gru"
-    save_config(cfg, run_output_dir / "config.json",
-                extra={"preprocess_meta": experiment_preprocess_meta(cfg), **extra})
+    save(experiment_preprocess_meta(cfg))
     if all_channel_names is None:
         all_channel_names = read_channel_names(cfg.raw_align_path if hybrid else cfg.data_path)
     if hybrid:
@@ -652,18 +742,28 @@ def run_sharded_experiment(cfg: ExperimentConfig, run_output_dir: Path | str,
     config.json and cv_summary.txt). The run directory holds the sweep's
     resume bundle (cfg.trainer.checkpoint_every, resume). With
     `profile_dir`, the sweep runs under torch.profiler (CPU and CUDA
-    activities) and a Chrome trace of it is written there."""
+    activities) and a Chrome trace of it is written there: sweep_trace.json,
+    or sweep_trace_rank{r}.json from rank r > 0 of several processes.
+
+    Under several processes every rank stages the corpus and trains its
+    block of the folds (run_fold_sweep); only the primary writes the run
+    directory and prints, and every rank returns the whole run's
+    results."""
     t0 = time.time()
     validate_experiment(cfg, fold_execution="sharded")
     device = resolve_device(device)
+    primary = multihost.is_primary()
     run_output_dir = Path(run_output_dir)
     run_output_dir.mkdir(parents=True, exist_ok=True)
     corpus = stage_corpus(cfg, run_output_dir, all_channel_names)
     fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
-    print("=" * 80)
-    print(f"Sharded LOSO sweep: {len(fb.test_subjects)} folds as lanes on {device}")
-    print(f"  staging (pack + fold batch): {time.time() - t0:.1f}s")
-    print("=" * 80)
+    if primary:
+        print("=" * 80)
+        print(f"Sharded LOSO sweep: {len(fb.test_subjects)} folds as lanes on {device}"
+              + (f", split over {multihost.world_size()} processes"
+                 if multihost.world_size() > 1 else ""))
+        print(f"  staging (pack + fold batch): {time.time() - t0:.1f}s")
+        print("=" * 80)
     profiler = None
     if profile_dir is not None:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -677,7 +777,8 @@ def run_sharded_experiment(cfg: ExperimentConfig, run_output_dir: Path | str,
         if profiler is not None:
             profiler.stop()
             Path(profile_dir).mkdir(parents=True, exist_ok=True)
-            profiler.export_chrome_trace(str(Path(profile_dir) / "sweep_trace.json"))
+            name = "sweep_trace.json" if primary else f"sweep_trace_rank{multihost.rank()}.json"
+            profiler.export_chrome_trace(str(Path(profile_dir) / name))
             print(f"Profiler trace written to: {profile_dir}")
 
     t_write = time.time()
@@ -699,6 +800,10 @@ def run_sharded_experiment(cfg: ExperimentConfig, run_output_dir: Path | str,
                                   cfg.trainer.learning_rate)
         np.save(fold_dir / "test_probs.npy", result.test_probs[i][: int(fb.n_test[i])])
 
+    if not primary:
+        summary = summarize_results(results)
+        summary["sweep_wall_s"] = time.time() - t0
+        return results, summary
     with ThreadPoolExecutor(max_workers=8) as ex:
         list(ex.map(write_fold, range(len(results))))
     summary = write_cv_summary(run_output_dir / "cv_summary.txt", cfg, results)

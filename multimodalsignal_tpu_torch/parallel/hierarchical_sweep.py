@@ -20,6 +20,12 @@ sharded runs too, and hierarchical_summary.txt in the JAX package's
 sharded text. With base.from_pickles the three corpora are packed from the
 pickles through one subject cache, so each pickle is preprocessed once.
 Runs on "cuda" unless the caller passes device="cpu".
+
+Under several processes (parallel/multihost.py) both sweeps split their
+folds into the same rank blocks (fold_sweep.rank_block), so each rank
+holds both stages of its folds and runs their composed evaluation; the
+ranks gather the confusion matrices, and only the primary writes and
+prints.
 """
 
 from __future__ import annotations
@@ -49,29 +55,39 @@ from multimodalsignal_tpu_torch.experiments.hierarchical import (
 from multimodalsignal_tpu_torch.experiments.predict import resolve_device
 from multimodalsignal_tpu_torch.models.convert import lane_variables, load_jax_variables
 from multimodalsignal_tpu_torch.models.fold_stack import build_fold_model
+from multimodalsignal_tpu_torch.parallel import multihost
 from multimodalsignal_tpu_torch.parallel.fold_sweep import (
     FoldBatch,
     _stack_grids,
     build_fold_batch,
     corpus_tensor,
     grid_steps,
+    rank_block,
     run_fold_sweep,
     sequential_grid,
+    take_lanes,
 )
 from multimodalsignal_tpu_torch.train import metrics as M
 from multimodalsignal_tpu_torch.train.checkpoints import write_initial_train_state
 
 
 def composed_fold_cms(corpus: PackedCorpus, fb: FoldBatch, stages, batch_size: int,
-                      device: str | torch.device = "cuda") -> np.ndarray:
+                      device: str | torch.device = "cuda",
+                      block: tuple[int, int] | None = None) -> np.ndarray:
     """Every fold's composed ternary confusion matrix [F, 3, 3] over its
     test pool of the union-channel corpus. `stages` is (M1, M2), each a
     (ModelConfig, stacked flax variables [F, ...], channel indices into
-    the corpus's channels) triple whose lane f is fold f of `fb`."""
+    the corpus's channels) triple whose lane f is fold f of `fb`. With
+    `block` (lo, hi), only folds lo..hi-1, in the whole run's batches."""
     device = resolve_device(device)
+    steps = grid_steps(fb.n_test, batch_size)
+    if block is not None:
+        fb = take_lanes(fb, *block)
     folds = len(fb.test_subjects)
     models, idx = [], []
     for model_cfg, variables, channels in stages:
+        if block is not None:
+            variables = take_lanes(variables, *block)
         model = build_fold_model(model_cfg, 2, len(channels), folds)
         load_jax_variables(model, variables["params"], variables["batch_stats"])
         models.append(model.to(device).eval())
@@ -79,7 +95,6 @@ def composed_fold_cms(corpus: PackedCorpus, fb: FoldBatch, stages, batch_size: i
     x, y, _ = corpus.flat()
     x = corpus_tensor(x, np.float32, device)
     y = corpus_tensor(y, np.int64, device)
-    steps = grid_steps(fb.n_test, batch_size)
     rows, weights = (torch.from_numpy(a).to(device) for a in _stack_grids(
         sequential_grid(fb.test_pool[f], fb.n_test[f], steps, batch_size)
         for f in range(folds)))
@@ -100,6 +115,7 @@ def run_hierarchical_sharded(cfg: HierarchicalConfig, run_output_dir: Path | str
     """Two sweeps and the composed evaluation; returns (per-fold results,
     summary)."""
     device = resolve_device(device)
+    primary = multihost.is_primary()
     base = cfg.base
     t0 = time.time()
     run_output_dir = Path(run_output_dir)
@@ -108,12 +124,12 @@ def run_hierarchical_sharded(cfg: HierarchicalConfig, run_output_dir: Path | str
     if base.from_pickles:
         subject_cache: dict = {}
         _, meta = from_pickles_meta(union)
-        save_config(cfg, run_output_dir / "config.json", extra={"preprocess_meta": meta})
     else:
-        save_config(cfg, run_output_dir / "config.json",
-                    extra={"preprocess_meta": read_preprocess_meta(base.data_path)})
+        meta = read_preprocess_meta(base.data_path)
         if all_channel_names is None:
             all_channel_names = read_channel_names(base.data_path)
+    if primary:
+        save_config(cfg, run_output_dir / "config.json", extra={"preprocess_meta": meta})
 
     def stage(channels, mode) -> tuple[PackedCorpus, FoldBatch]:
         if base.from_pickles:
@@ -126,13 +142,13 @@ def run_hierarchical_sharded(cfg: HierarchicalConfig, run_output_dir: Path | str
         return corpus, build_fold_batch(corpus, list(base.subjects), base.val_fraction,
                                         base.seed)
 
-    print("=" * 80)
-    print(f"Sharded hierarchical experiment: 2 fold sweeps + composed eval on {device}")
-    print("=" * 80)
+    multihost.log("=" * 80)
+    multihost.log(f"Sharded hierarchical experiment: 2 fold sweeps + composed eval on {device}")
+    multihost.log("=" * 80)
 
     def sweep(channels, mode, model_cfg, tag):
         corpus, fb = stage(channels, mode)
-        print(f"\n--- Sweep {tag}: mode={mode}, channels={list(channels)} ---")
+        multihost.log(f"\n--- Sweep {tag}: mode={mode}, channels={list(channels)} ---")
         point_cfg = dataclasses.replace(base, channels_to_use=tuple(channels),
                                         classification_mode=mode, num_classes=2,
                                         model=model_cfg)
@@ -144,10 +160,11 @@ def run_hierarchical_sharded(cfg: HierarchicalConfig, run_output_dir: Path | str
     if not fb1.test_subjects == fb2.test_subjects == fb_u.test_subjects:
         raise ValueError("the M1, M2 and union corpora hold different folds: "
                          f"{fb1.test_subjects}, {fb2.test_subjects}, {fb_u.test_subjects}")
-    cms = composed_fold_cms(corpus_u, fb_u,
-                            ((cfg.m1_model, m1_result.final_variables, m1_idx),
-                             (cfg.m2_model, m2_result.final_variables, m2_idx)),
-                            base.trainer.batch_size, device)
+    cms = multihost.to_host(multihost.agree(lambda: composed_fold_cms(
+        corpus_u, fb_u, ((cfg.m1_model, m1_result.final_variables, m1_idx),
+                         (cfg.m2_model, m2_result.final_variables, m2_idx)),
+        base.trainer.batch_size, device, block=rank_block(len(fb_u.test_subjects))),
+        "composed evaluation"), "composed confusion matrices")
 
     results: list[HierarchicalFoldResult] = []
     for i, subject in enumerate(fb_u.test_subjects):
@@ -161,6 +178,8 @@ def run_hierarchical_sharded(cfg: HierarchicalConfig, run_output_dir: Path | str
             composed_f1=float(M.weighted_f1_from_cm(cm)),
             num_test_windows=int(cms[i].sum()),
             wall_s=float("nan")))
+        if not primary:
+            continue
         fold_dir = run_output_dir / f"fold_test_on_{subject}"
         for sub, result, stage_cfg in (("model_m1", m1_result, m1_cfg),
                                        ("model_m2", m2_result, m2_cfg)):
@@ -169,8 +188,12 @@ def run_hierarchical_sharded(cfg: HierarchicalConfig, run_output_dir: Path | str
                                       lane_variables(result.final_variables, i),
                                       stage_cfg.trainer.learning_rate)
 
-    summary = _write_summary_from_cms(run_output_dir, results,
-                                      cms.astype(np.float64).sum(axis=0))
+    total_cm = cms.astype(np.float64).sum(axis=0)
+    if not primary:
+        summary = summary_numbers(results, torch.from_numpy(total_cm).float())
+        summary["sweep_wall_s"] = time.time() - t0
+        return results, summary
+    summary = _write_summary_from_cms(run_output_dir, results, total_cm)
     summary["sweep_wall_s"] = time.time() - t0
     print(f"\nHierarchical sharded wall-clock: {summary['sweep_wall_s']:.2f}s")
     return results, summary

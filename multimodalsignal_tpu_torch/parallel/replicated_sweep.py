@@ -17,6 +17,13 @@ OutOfMemoryError, nothing else) is retried with the chunk halved, keeping
 the groups already finished. One GPU needs no mesh padding, so a group is
 exactly the F folds.
 
+Under several processes (parallel/multihost.py) each launch's S*F lanes
+are split into rank blocks as a plain sweep's are (fold_sweep.rank_block):
+lane s*F+f keeps its seed group's streams and dropout generator. The
+matrices come from the gathered result; a rank out of device memory makes
+every rank halve alike (multihost.agree); only the primary writes and
+prints.
+
 CLI::
 
     python -m multimodalsignal_tpu_torch.main --seeds 42 43 44 [--seed-chunk N]
@@ -33,6 +40,7 @@ import torch
 
 from multimodalsignal_tpu_torch.config import ExperimentConfig, validate_experiment
 from multimodalsignal_tpu_torch.experiments.predict import resolve_device
+from multimodalsignal_tpu_torch.parallel import multihost
 from multimodalsignal_tpu_torch.parallel.fold_sweep import (
     FoldBatch,
     build_fold_batch,
@@ -159,13 +167,13 @@ def run_replicated_experiment(cfg: ExperimentConfig, seeds: tuple[int, ...],
         chunk_seeds = tuple(remaining[:chunk])
         total = launch_idx + -(-len(remaining) // chunk)
         tc = time.time()
-        print("=" * 80)
-        print(f"Seed-replicated sweep [launch {launch_idx + 1}/{total}]: "
-              f"{per_group} folds x {len(chunk_seeds)} seeds = "
-              f"{per_group * len(chunk_seeds)} lanes on {device}")
+        multihost.log("=" * 80)
+        multihost.log(f"Seed-replicated sweep [launch {launch_idx + 1}/{total}]: "
+                      f"{per_group} folds x {len(chunk_seeds)} seeds = "
+                      f"{per_group * len(chunk_seeds)} lanes on {device}")
         if launch_idx == 0:
-            print(f"  staging: {staging_s:.1f}s")
-        print("=" * 80)
+            multihost.log(f"  staging: {staging_s:.1f}s")
+        multihost.log("=" * 80)
         try:
             result = run_fold_sweep(corpus, replicate_fold_batch(fb, len(chunk_seeds)),
                                     cfg, device, seeds=chunk_seeds)
@@ -173,9 +181,9 @@ def run_replicated_experiment(cfg: ExperimentConfig, seeds: tuple[int, ...],
             if chunk <= 1:
                 raise
             chunk = -(-chunk // 2)
-            print(f"Launch ran out of device memory; keeping the {launch_idx} completed "
-                  f"launch(es) and retrying the remaining {len(remaining)} seeds with "
-                  f"seed_chunk={chunk}. Consider model.dtype=bfloat16.")
+            multihost.log(f"Launch ran out of device memory; keeping the {launch_idx} "
+                          f"completed launch(es) and retrying the remaining {len(remaining)} "
+                          f"seeds with seed_chunk={chunk}. Consider model.dtype=bfloat16.")
             result = None
         if result is None:   # outside the handler, so the failed launch's tensors are freed
             if device.type == "cuda":
@@ -194,6 +202,8 @@ def run_replicated_experiment(cfg: ExperimentConfig, seeds: tuple[int, ...],
     summary["wall_s"] = time.time() - t0
     summary["seed_chunk"] = chunk
     summary["launch_walls_s"] = [round(w, 2) for w in chunk_walls]
+    if not multihost.is_primary():
+        return summary
     write_seed_summary(run_output_dir / "seed_summary.txt", cfg, summary)
     (run_output_dir / "seed_summary.json").write_text(json.dumps(summary, indent=2) + "\n")
     np.savez(run_output_dir / "seed_fold_matrix.npz",
