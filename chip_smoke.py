@@ -286,6 +286,32 @@ Phases, in order; any failure raises and the script exits non-zero:
        each launches exactly the remaining epoch's walks; against 14a's
        uncut two-rank run under TRAIN_TOL.
     Then the phase's seconds, and each part's.
+15. Hidden sizes past one block's shared memory (the cluster walk) and
+    fold grouping, on phase 7's data:
+    a. the C formulas of the cluster walk (cluster size, per-CTA shared
+       bytes, row tile) against gru_cuda's twins for H = 1-559 in both
+       dtypes, and ptxas's registers and spills of its instantiations; all
+       six entries at H = 137, 180, 192, 256 and each one's limit
+       (gru_cuda.walk_max_hidden / adj_max_hidden: 380 / 376 f32, 532 / 450
+       bf16), f32 and bf16 where taken, T=480 B=64 both directions, and at
+       H=256 also B=1, B=256 and T=1, against their plain versions (TOL /
+       BWD_TOL, the fused pair per direction); dW and db bitwise over two
+       runs at H=256; the limit + 1 refused with a ValueError that names the
+       limit, before any launch;
+    b. each walk at T=480 B=64 H=256: kernel ms, us per dependent step, the
+       bound (6 H^2 FLOPs a row-step forward, 12 H^2 adjoint), the plain
+       version, cuDNN's nn.GRU at H=256, cluster, row tile and waves;
+    c. the sweep CLI with model.gru_hidden_size=256 (f32 auto, 1 epoch) as
+       in 7 (first 3 steps card vs CPU on lanes 0-1, exact launches, 15
+       finite folds, a step profile); fold S2's Predictor at H=256 (counted: 2 gru_fwd_fb
+       and 2 gru_fwd for 70 windows) against the CPU (PROB_ATOL);
+    d. MMS_GRU_FOLD_GROUP=3 at F=15 (5 lanes of G*H = 192, float32 walks),
+       f32 and bf16: the first 3 sweep steps grouped against ungrouped on
+       the card under TRAIN_TOL with every walk's lanes and H recorded; the
+       CLI grouped for 1 epoch (launches exactly the ungrouped run's);
+       step ms ungrouped, grouped, grouped, ungrouped, and a trace of a
+       grouped step.
+    Then the phase's seconds, and each part's.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -299,8 +325,8 @@ cards, one rank each (its docstring says how to run it).
 
 Prints a JSON line of the kernels (launches: gru_fwd's from the float32
 serving run, gru_bwd's from the float32 training run, the fb pair's from
-the float32 sweep, 13b's float32 fused sweep and both ranks of 14a and
-14b, the fused pair's from the float32 serial LOSO run, 13b's float32
+the float32 sweep, 13b's float32 fused sweep, both ranks of 14a and 14b and
+15c's and 15d's float32 CLI runs, the fused pair's from the float32 serial LOSO run, 13b's float32
 fused sweep and both ranks of 14b),
 then, as the last line, {"ok": true, "device": {...}}. Needs one CUDA
 device and the repository; with no arguments it runs every phase (the
@@ -493,9 +519,9 @@ def build_phase() -> None:
     for batch in (1, 5, 64, 65, 256, 1024):
         for lanes in (1, 2, 15, 60):
             for h in (M2_H, SERVE_H, 128):
-                if lib.gru_walk_row_tile(batch, lanes, h) != gru_cuda.walk_row_tile(batch, lanes, h):
+                if lib.gru_walk_row_tile(batch, lanes, h, 0) != gru_cuda.walk_row_tile(batch, lanes, h):
                     raise AssertionError(f"gru_walk_row_tile({batch}, {lanes}, {h}): C says "
-                                         f"{lib.gru_walk_row_tile(batch, lanes, h)}")
+                                         f"{lib.gru_walk_row_tile(batch, lanes, h, 0)}")
     print(f"  gru_walk_shared_bytes(H={SERVE_H}, bf16=0, rows=1) = "
           f"{lib.gru_walk_shared_bytes(SERVE_H, 0, 1)} bytes; C and wrapper agree on the "
           "walk kernel's shared memory and row tile")
@@ -627,10 +653,13 @@ FB_CASES = [(2, *case) for case in WALK_CASES] + [
     (15, SERVE_T, SERVE_B, M2_H, F32 + BF16), (SEED_LANES, SERVE_T, SERVE_B, SERVE_H, F32 + BF16)]
 
 
-def walk_plan(lanes: int, batch: int, hidden: int) -> str:
+def walk_plan(lanes: int, batch: int, hidden: int, dtype=torch.float32) -> str:
     """The walk kernel's row tile and instantiation for a shape."""
-    where = "registers" if gru_cuda.walk_in_registers(hidden) else "shared memory"
-    return f"row tile {gru_cuda.walk_row_tile(batch, lanes, hidden)}, W^T in {where}"
+    item = itemsize(dtype)
+    cluster = gru_cuda.walk_cluster_size(hidden, item)
+    where = ("registers" if gru_cuda.walk_in_registers(hidden) else "shared memory"
+             if cluster == 1 else f"shared memory split over a cluster of {cluster}")
+    return f"row tile {gru_cuda.walk_row_tile(batch, lanes, hidden, item)}, W^T in {where}"
 
 
 def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
@@ -647,7 +676,7 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
                 torch.cuda.synchronize()
                 want = plain(*args, reverse=reverse)
                 err = (got.float() - want.float()).abs().max().item()
-                plan = f" ({walk_plan(shape[0] or 1, shape[2], shape[3])})"
+                plan = f" ({walk_plan(shape[0] or 1, shape[2], shape[3], dtype)})"
                 print(f"{name}: shape F={shape[0]} T={shape[1]} B={shape[2]} "
                       f"H={shape[3]} {str(dtype)[6:]} reverse={reverse}: "
                       f"max|d|={err:.3e}{plan}")
@@ -663,7 +692,7 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
         plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
         lib_ms = cudnn_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
-        plan = f", {walk_plan(lanes or 1, SERVE_B, SERVE_H)}"
+        plan = f", {walk_plan(lanes or 1, SERVE_B, SERVE_H, dtype)}"
         print(f"{name} {str(dtype)[6:]} at F={lanes or 1} T={SERVE_T} "
               f"B={SERVE_B} H={SERVE_H}: kernel {ms:.4f} ms "
               f"({ms / SERVE_T * 1e3:.3f} us per dependent step{plan}), plain "
@@ -723,30 +752,43 @@ def walk_sweep() -> None:
 def waves(adjoint: bool, batch: int, lanes: int, hidden: int, dtype) -> str:
     """The walk blocks an SM holds at once (CUDA's occupancy calculator, the
     adjoint walk's or the forward walk kernel's) and the waves of walk
-    blocks that follow."""
-    bf16 = int(dtype == torch.bfloat16)
+    blocks that follow; for the cluster walk the clusters the card holds at
+    once (cudaOccupancyMaxActiveClusters) and the waves of clusters."""
+    bf16, item = int(dtype == torch.bfloat16), torch.empty((), dtype=dtype).element_size()
     if adjoint:
-        per_sm = gru_cuda._bwd_library().gru_adj_walk_blocks_per_sm(batch, lanes, hidden, bf16)
+        lib = gru_cuda._bwd_library()
+        per_sm = lib.gru_adj_walk_blocks_per_sm(batch, lanes, hidden, bf16)
+        at_once = lib.gru_adj_walk_active_clusters(batch, lanes, hidden, bf16)
         rows = gru_cuda.adj_row_tile(batch, lanes, hidden)
+        cluster = gru_cuda.adj_cluster_size(hidden, item)
     else:
-        per_sm = gru_cuda._library().gru_walk_blocks_per_sm(batch, lanes, hidden, bf16)
-        rows = gru_cuda.walk_row_tile(batch, lanes, hidden)
-    if per_sm <= 0:
-        raise AssertionError(f"blocks per SM at B={batch} F={lanes} H={hidden}: {per_sm}")
-    blocks = -(-batch // rows) * lanes
-    return f"{per_sm} a SM at once: {-(-blocks // (per_sm * gru_cuda.NUM_SMS))} wave(s)"
+        lib = gru_cuda._library()
+        per_sm = lib.gru_walk_blocks_per_sm(batch, lanes, hidden, bf16)
+        at_once = lib.gru_walk_active_clusters(batch, lanes, hidden, bf16)
+        rows = gru_cuda.walk_row_tile(batch, lanes, hidden, item)
+        cluster = gru_cuda.walk_cluster_size(hidden, item)
+    if per_sm <= 0 or at_once <= 0:
+        raise AssertionError(f"blocks per SM / clusters at once at B={batch} F={lanes} "
+                             f"H={hidden}: {per_sm} / {at_once}")
+    tiles = -(-batch // rows) * lanes
+    if cluster == 1:
+        return f"{per_sm} a SM at once: {-(-tiles // (per_sm * gru_cuda.NUM_SMS))} wave(s)"
+    return (f"{tiles} clusters of {cluster} CTAs, {per_sm} CTA a SM, {at_once} clusters at "
+            f"once: {-(-tiles // at_once)} wave(s)")
 
 
-def bwd_bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
+def bwd_bound_ms(lanes, t, b, h, dtype, products: int = 3) -> tuple[float, str]:
     """Least time on an H100 for one adjoint call: dy, h_prev, xg read once
     and dxg written once in the stream dtype, W read once, dW, db, dh0
-    written once in f32; or the three products per step (h_prev @ W^T,
-    h_prev^T @ dg, dg @ W) and the gate math at the operands' peak rate."""
+    written once in f32; or `products` [B, H] x [H, 3H] products a row-step
+    (3: h_prev @ W^T, which the adjoint walk recomputes, h_prev^T @ dg and
+    dg @ W; 2: the last two alone, 12 H^2 FLOPs) and the gate math at the
+    operands' peak rate."""
     f = lanes or 1
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = (f * t * b * (2 * h + 2 * 3 * h) * item + f * 3 * h * h * item
               + f * (3 * h * h + 3 * h + b * h) * 4)
-    flops = f * t * b * (3 * 2 * h * 3 * h + BWD_GATE_FLOPS_PER_UNIT * h)
+    flops = f * t * b * (products * 2 * h * 3 * h + BWD_GATE_FLOPS_PER_UNIT * h)
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -997,7 +1039,7 @@ def m2_shape_timings() -> None:
             else:
                 args = kernel_inputs(lanes, SERVE_T, SERVE_B, M2_H, dtype, seed=9)
                 b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, M2_H, dtype)
-                plan = walk_plan(lanes or 1, SERVE_B, M2_H)
+                plan = walk_plan(lanes or 1, SERVE_B, M2_H, dtype)
             ms = median_ms(lambda: wrappers[name](*args), per_block=50)
             lib_ms = (cudnn_bwd_ms if adjoint else cudnn_ms)(
                 1, SERVE_T, SERVE_B, M2_H, dtype, calls=lanes or 1)
@@ -1551,12 +1593,13 @@ SWEEP_FOLD_LINE = re.compile(
 CPU_FOLDS = 4
 
 
-def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what: str) -> None:
+def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what: str,
+                 cpu_folds: int = CPU_FOLDS) -> None:
     """With dropout 0, the first 3 sweep train steps (epoch 0's grid) of all
     F folds on the card against the port on the CPU (for auto, gru_impl
     "pallas": the F-lane kernels' plain versions, both directions with the
     walk's own reverse; any other gru_impl as it is, its kernels' plain
-    versions) for the first CPU_FOLDS lanes, from the same initial weights,
+    versions) for the first `cpu_folds` lanes, from the same initial weights,
     under TRAIN_TOL; then lanes 0 and F-1 of the card's first step against
     the single-fold Trainer.train_step on the card with that fold's weights
     and batch (the same gru_impl; pallas_fused there walks the fused pair's
@@ -1565,7 +1608,7 @@ def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what:
     cpu_impl = "pallas" if cfg.model.gru_impl == "auto" else cfg.model.gru_impl
     cpu_cfg = dataclasses.replace(no_drop, model=dataclasses.replace(no_drop.model,
                                                                      gru_impl=cpu_impl))
-    folds, k = len(fb.test_subjects), CPU_FOLDS
+    folds, k = len(fb.test_subjects), cpu_folds
     seeds, rngs = fold_streams(cfg.seed, folds)
     card = FoldSweep(corpus, fb, no_drop, "cuda", init_seeds=seeds)
     variables = export_jax_variables(card.model)
@@ -1667,7 +1710,8 @@ def sweep_expected_launches(fb, tcfg, model_cfg: ModelConfig | None = None
 
 def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep",
                 corpus=None, parity: bool = True, profile: bool = True,
-                db_step: bool = True, impl: str = "auto") -> tuple[dict[str, int], Path]:
+                db_step: bool = True, impl: str = "auto", epochs: int = 2,
+                cpu_folds: int = CPU_FOLDS) -> tuple[dict[str, int], Path]:
     """First-steps parity, then the experiment CLI with no --execution (the
     sharded sweep: the main path, counted), its run directory's checks and
     the step profile (of gru_impl `impl`, and for another impl than auto
@@ -1677,7 +1721,7 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
     --from-pickles); `corpus`, if given, is what the CLI will stage from
     it."""
     out = root / f"{what}_{dtype}"
-    argv = ["--output-dir", str(out), "--set", "trainer.epochs=2",
+    argv = ["--output-dir", str(out), "--set", f"trainer.epochs={epochs}",
             "--set", f"model.dtype={dtype}", "--set", f"model.gru_impl={impl}"] + data_argv
     cfg = cli.load_config(cli.build_parser().parse_args(argv))
     if corpus is None:
@@ -1690,7 +1734,7 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
     # a. The first 3 sweep train steps, card vs CPU, and two lanes vs Trainer.
     if parity:
         sweep_parity(cfg, corpus, fb, root / f"{what}_parity_{dtype}", TRAIN_TOL[dtype],
-                     f"{what} {dtype}")
+                     f"{what} {dtype}", cpu_folds)
 
     # b. The main path: the experiment CLI's default execution.
     gru_cuda.reset_launch_counts()
@@ -3664,6 +3708,362 @@ def phase14(root: Path, data: Path) -> dict[str, int]:
     return total
 
 
+# Phase 15: the walks past one block's shared memory (the cluster walk: W
+# split over a thread block cluster of K <= 8 CTAs, h' or dg exchanged over
+# distributed shared memory) and fold grouping (MMS_GRU_FOLD_GROUP) on them.
+BIG_H = 256
+LARGE_HS = (137, 180, 192, BIG_H)   # and each entry's limit in each dtype
+ADJOINTS = ("gru_bwd", "gru_bwd_fb", "gru_bibwd")
+WRAPPERS = {"gru_fwd": (gru_cuda.gru_forward, gru_cuda.gru_forward_plain),
+            "gru_fwd_fb": (gru_cuda.gru_forward_fb, gru_cuda.gru_forward_fb_plain),
+            "gru_bifwd": (gru_cuda.gru_bifwd, gru_cuda.gru_bifwd_plain),
+            "gru_bwd": (gru_cuda.gru_backward, gru_cuda.gru_backward_plain),
+            "gru_bwd_fb": (gru_cuda.gru_backward_fb, gru_cuda.gru_backward_fb_plain),
+            "gru_bibwd": (gru_cuda.gru_bibwd, gru_cuda.gru_bibwd_plain)}
+FOLD_GROUP = 3   # 15 folds as 5 lanes of G*H = 192
+# Lanes of 15c's CPU side: at H=256 four took 93.1 s on the 8 host cores.
+BIG_H_CPU_FOLDS = 2
+
+
+def itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def entry_limit(name: str, dtype) -> int:
+    """The largest H the entry takes in this dtype (the cluster design's
+    limit: gru_cuda.walk_max_hidden / adj_max_hidden)."""
+    item = itemsize(dtype)
+    return gru_cuda.adj_max_hidden(item) if name in ADJOINTS else gru_cuda.walk_max_hidden(item)
+
+
+def entry_dtypes(name: str):
+    return (torch.float32,) if name in ("gru_bifwd", "gru_bibwd") else (torch.float32,
+                                                                        torch.bfloat16)
+
+
+def entry_inputs(name: str, t: int, b: int, h: int, dtype, seed: int, reverse: bool):
+    """Inputs of one entry on the card: one lane (gru_fwd, gru_bwd), two
+    (the _fb entries), or the fused pair's two directions."""
+    lanes = 2 if name.endswith("_fb") else None
+    if name in ("gru_bifwd", "gru_bibwd"):
+        return fused_inputs(t, b, h, seed, adjoint=name == "gru_bibwd")
+    if name in ADJOINTS:
+        return bwd_inputs(lanes, t, b, h, dtype, seed, reverse=reverse)
+    return kernel_inputs(lanes, t, b, h, dtype, seed)
+
+
+def call_entry(fn, name: str, args, reverse: bool):
+    """fn (an entry's wrapper or plain version) on args; the fused pair
+    takes no direction."""
+    if name in ("gru_bifwd", "gru_bibwd"):
+        return fn(*args)
+    return fn(*args, reverse=reverse)
+
+
+def cluster_plan(name: str, lanes: int, batch: int, hidden: int, dtype) -> str:
+    item = itemsize(dtype)
+    if name in ADJOINTS:
+        return (f"cluster of {gru_cuda.adj_cluster_size(hidden, item)}, "
+                f"{gru_cuda.adj_shared_bytes(hidden, item, 1)} bytes a CTA")
+    return (f"cluster of {gru_cuda.walk_cluster_size(hidden, item)}, row tile "
+            f"{gru_cuda.walk_row_tile(batch, lanes, hidden, item)}, "
+            f"{gru_cuda.walk_shared_bytes(hidden, item)} bytes a CTA")
+
+
+def cluster_formulas() -> None:
+    """The cluster walk's C formulas against gru_cuda's twins for every H up
+    to past both limits, both dtypes: cluster sizes, per-CTA shared bytes
+    (row tiles 1, 2, 4), row tiles at 1, 2, 5, 15 and 60 lanes; and every
+    unit of H in exactly one CTA's slice. Then ptxas's registers and spills
+    of the cluster instantiations (build_phase fails on any spill)."""
+    fwd, bwd = gru_cuda._library(), gru_cuda._bwd_library()
+    for bf16, item in ((0, 4), (1, 2)):
+        for h in range(1, 560):
+            pairs = [(f"gru_walk_cluster_size({h}, {bf16})", fwd.gru_walk_cluster_size(h, bf16),
+                      gru_cuda.walk_cluster_size(h, item)),
+                     (f"gru_adj_cluster_size({h}, {bf16})", bwd.gru_adj_cluster_size(h, bf16),
+                      gru_cuda.adj_cluster_size(h, item)),
+                     (f"gru_adj_shared_bytes({h}, {bf16}, 1)", bwd.gru_adj_shared_bytes(h, bf16, 1),
+                      gru_cuda.adj_shared_bytes(h, item, 1))]
+            pairs += [(f"gru_walk_shared_bytes({h}, {bf16}, {r})",
+                       fwd.gru_walk_shared_bytes(h, bf16, r), gru_cuda.walk_shared_bytes(h, item, r))
+                      for r in (1, 2, 4)]
+            if h % 7 == 0 or h in LARGE_HS:
+                pairs += [(f"gru_walk_row_tile({b}, {f}, {h}, {bf16})",
+                           fwd.gru_walk_row_tile(b, f, h, bf16),
+                           gru_cuda.walk_row_tile(b, f, h, item))
+                          for b in (1, 64, 65, 256) for f in (1, 2, 5, 15, 60)]
+            for what, c_val, py_val in pairs:
+                if c_val != py_val:
+                    raise AssertionError(f"{what}: C says {c_val}, wrapper {py_val}")
+            for k in {gru_cuda.walk_cluster_size(h, item), gru_cuda.adj_cluster_size(h, item)}:
+                if k:
+                    units = gru_cuda.cluster_units(h, k)
+                    owners = [j // units for j in range(h)]
+                    if owners != sorted(owners) or max(owners) >= k:
+                        raise AssertionError(f"H={h}, cluster {k}: a unit outside the cluster")
+    for name in ("gru_fwd", "gru_bwd"):
+        for kernel, props, regs in PTXAS_KERNEL.findall(_build.build_log(name)):
+            short = short_kernel_name(kernel)
+            if short.startswith("gru_walk_cluster_kernel<") or (
+                    short.startswith("gru_adj_walk_kernel<") and short.endswith(", 1>")):
+                print(f"  ptxas {name} cluster walk: {short}: {regs} registers, {props}")
+    limits = {str(d)[6:]: (gru_cuda.walk_max_hidden(itemsize(d)),
+                           gru_cuda.adj_max_hidden(itemsize(d)))
+              for d in (torch.float32, torch.bfloat16)}
+    print(f"  cluster walk: C and wrapper agree on cluster sizes, per-CTA shared memory and "
+          f"row tiles for H = 1-559; limits (forward, adjoint): {limits}")
+
+
+def large_walks_phase() -> None:
+    """15a: all six entries at H in LARGE_HS and at their limit, f32 and
+    bf16 where taken, T=480 B=64 both directions; at BIG_H also B=1, B=256
+    and T=1; each against its plain version (TOL / BWD_TOL; the fused pair's
+    adjoint per direction). dW and db bitwise over two runs at BIG_H. The
+    limit + 1 refused with a ValueError before any launch."""
+    t0 = time.perf_counter()
+    for name in WRAPPERS:
+        adjoint = name in ADJOINTS
+        fused = name in ("gru_bifwd", "gru_bibwd")
+        lanes = 2 if (name.endswith("_fb") or fused) else 1
+        for dtype in entry_dtypes(name):
+            limit = entry_limit(name, dtype)
+            shapes = [(SERVE_T, SERVE_B, h) for h in LARGE_HS + (limit,)]
+            shapes += [(SERVE_T, 1, BIG_H), (SERVE_T, 256, BIG_H), (1, SERVE_B, BIG_H)]
+            for t, b, h in shapes:
+                for reverse in ((False,) if fused else (False, True)):
+                    args = entry_inputs(name, t, b, h, dtype, seed=h + t + b, reverse=reverse)
+                    got = call_entry(WRAPPERS[name][0], name, args, reverse)
+                    torch.cuda.synchronize()
+                    want = call_entry(WRAPPERS[name][1], name, args, reverse)
+                    got = got if adjoint else (got,)
+                    want = want if adjoint else (want,)
+                    outs = ("dxg", "dW", "db", "dh0") if adjoint else ("ys",)
+                    errs = []
+                    for o, g, w in zip(outs, got, want):
+                        if g.shape != w.shape:
+                            raise AssertionError(f"{name} {o}: {list(g.shape)}")
+                        tol = (BWD_TOL[dtype][o in ("dW", "db")] if adjoint else TOL[dtype])
+                        errs.append((g.float() - w.float()).abs().max().item())
+                        # the fused pair's two directions on their own: streams
+                        # [T, 2, B, .], per-lane outputs [2, ...]
+                        parts = ([(g[:, d], w[:, d]) for d in (0, 1)] if fused and o in
+                                 ("dxg", "ys") else [(g[d], w[d]) for d in (0, 1)] if fused
+                                 else [(g, w)])
+                        for gp, wp in parts:
+                            torch.testing.assert_close(
+                                gp.float(), wp.float(), **tol,
+                                msg=lambda m, o=o: f"{name} H={h} B={b} T={t} {o}: {m}")
+                    print(f"15a {name}: F={lanes} T={t} B={b} H={h} {str(dtype)[6:]} "
+                          f"reverse={reverse}: max|d| "
+                          + ", ".join(f"{o} {e:.3e}" for o, e in zip(outs, errs))
+                          + f" ({cluster_plan(name, lanes, b, h, dtype)})")
+                    del args, got, want
+            if adjoint:
+                args = entry_inputs(name, SERVE_T, SERVE_B, BIG_H, dtype, seed=3, reverse=False)
+                check_deterministic(name, WRAPPERS[name][0], args,
+                                    f"15a H={BIG_H} {str(dtype)[6:]}")
+                del args
+            over = limit + 1
+            args = entry_inputs(name, 2, 1, over, dtype, seed=1, reverse=False)
+            before = gru_cuda.launch_counts()
+            try:
+                WRAPPERS[name][0](*args)
+            except ValueError as e:
+                if gru_cuda.launch_counts() != before or str(limit) not in str(e):
+                    raise AssertionError(f"{name} H={over}: {e}; launches moved or no limit "
+                                         "named") from e
+                print(f"15a {name} {str(dtype)[6:]} H={over}: refused before any launch: {e}")
+            else:
+                raise AssertionError(f"{name} took H={over} {dtype}, past its limit {limit}")
+            torch.cuda.empty_cache()
+    print(f"15a: {time.perf_counter() - t0:.1f} s")
+
+
+def large_timings() -> None:
+    """15b: each walk at T=480 B=64 H=BIG_H (two lanes for the _fb entries,
+    the pair's two directions): kernel ms, us per dependent step, the bound
+    (6 H^2 FLOPs a row-step forward, 12 H^2 adjoint, with the gate math), the
+    plain version, cuDNN's nn.GRU at the same H (one direction, or
+    bidirectional for two lanes), the cluster plan and its waves."""
+    for name in WRAPPERS:
+        adjoint = name in ADJOINTS
+        lanes = 2 if name.endswith("_fb") or name in ("gru_bifwd", "gru_bibwd") else None
+        for dtype in entry_dtypes(name):
+            args = entry_inputs(name, SERVE_T, SERVE_B, BIG_H, dtype, seed=7, reverse=False)
+            wrapper, plain = WRAPPERS[name]
+            ms = median_ms(lambda: wrapper(*args), per_block=20)
+            plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
+            if adjoint:
+                b_ms, b_by = bwd_bound_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype, products=2)
+                lib_ms = cudnn_bwd_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype)
+            else:
+                b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype)
+                lib_ms = cudnn_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype)
+            f = lanes or 1
+            print(f"15b {name} {str(dtype)[6:]} F={f} T={SERVE_T} B={SERVE_B} H={BIG_H}: "
+                  f"kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent step; "
+                  f"{cluster_plan(name, f, SERVE_B, BIG_H, dtype)}; "
+                  f"{waves(adjoint, SERVE_B, f, BIG_H, dtype)}), plain {plain_ms:.3f} ms, "
+                  f"cuDNN GRU {'backward ' if adjoint else ''}{lib_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound")
+            del args
+    torch.cuda.empty_cache()
+
+
+def big_sweep_phase(data: Path, root: Path) -> dict[str, int]:
+    """15c: the sweep CLI at model.gru_hidden_size=BIG_H on phase 7's data,
+    1 epoch, f32 auto (first 3 steps card vs CPU under TRAIN_TOL, exact
+    launches, finite folds, step profile); then a fold's Predictor at BIG_H,
+    counted, against the same Predictor on the CPU (PROB_ATOL). Returns the
+    CLI's launches."""
+    argv = ["--set", f"data_path={data}", "--set", f"model.gru_hidden_size={BIG_H}"]
+    launches, run_dir = sweep_phase("float32", argv, root, f"sweep_h{BIG_H}", db_step=False,
+                                    epochs=1, cpu_folds=BIG_H_CPU_FOLDS)
+    x = np.random.default_rng(15).standard_normal((70, 3, WINDOW_T)).astype(np.float32)
+    card = Predictor.from_run(run_dir, "S2", device="cuda")
+    gru_cuda.reset_launch_counts()
+    # --- the main path: everything between reset and read is counted ---
+    probs = card.predict_windows(x)
+    counts = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    want = dict.fromkeys(KERNELS, 0)
+    want["gru_fwd_fb"], want["gru_fwd"] = 2, 2   # 2 padded batches: layer 0, the pruned layer
+    if counts != want:
+        raise AssertionError(f"Predictor H={BIG_H}: launches {counts}, expected {want}")
+    cpu = Predictor.from_run(run_dir, "S2", device="cpu").predict_windows(x)
+    err = _check_probs(probs, cpu, len(x), PROB_ATOL["float32"], f"Predictor H={BIG_H}")
+    print(f"15c Predictor H={BIG_H} fold S2: 70 windows, card vs CPU max|d| {err:.3e}, "
+          f"launches {counts}")
+    return launches
+
+
+@contextlib.contextmanager
+def fold_group(g: int | None):
+    """MMS_GRU_FOLD_GROUP set to g (unset for None) for the span of the block."""
+    saved = os.environ.get(gru_cuda.FOLD_GROUP_ENV)
+    if g is None:
+        os.environ.pop(gru_cuda.FOLD_GROUP_ENV, None)
+    else:
+        os.environ[gru_cuda.FOLD_GROUP_ENV] = str(g)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(gru_cuda.FOLD_GROUP_ENV, None)
+        else:
+            os.environ[gru_cuda.FOLD_GROUP_ENV] = saved
+
+
+@contextlib.contextmanager
+def walk_shapes(seen: list):
+    """Record (entry, lanes, H) of every gru_fwd_fb and gru_bwd_fb launch."""
+    call = gru_cuda._call
+
+    def recorder(lib, entry, tensors, ints):
+        if entry in ("gru_fwd_fb", "gru_bwd_fb"):
+            seen.append((entry, tensors[0].shape[0], tensors[0].shape[-1] // 3))
+        return call(lib, entry, tensors, ints)
+
+    gru_cuda._call = recorder
+    try:
+        yield seen
+    finally:
+        gru_cuda._call = call
+
+
+def grouped_sweep_phase(data: Path, root: Path) -> dict[str, int]:
+    """15d: MMS_GRU_FOLD_GROUP=FOLD_GROUP at F=15 (5 lanes of G*H = 192,
+    float32 walks), f32 and bf16: the first 3 sweep steps (dropout 0) of all
+    15 folds grouped against ungrouped on the card under TRAIN_TOL, with the
+    lanes and H of every walk recorded; the CLI grouped for 1 epoch, counted
+    (the ungrouped run's launches); the step ms of both, ungrouped, grouped,
+    grouped, ungrouped. Returns the f32 CLI's launches."""
+    first = None
+    for dtype in ("float32", "bfloat16"):
+        argv = ["--set", f"data_path={data}", "--set", f"model.dtype={dtype}",
+                "--set", "trainer.epochs=1"]
+        cfg = cli.load_config(cli.build_parser().parse_args(argv))
+        staged = root / f"grouped_staged_{dtype}"
+        staged.mkdir(parents=True)
+        corpus = stage_corpus(cfg, staged)
+        fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+        folds = len(fb.test_subjects)
+        no_drop = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0))
+        runs = {}
+        for grouped in (False, True):
+            seeds, rngs = fold_streams(cfg.seed, folds)   # the same weights and grid
+            with fold_group(FOLD_GROUP if grouped else None), walk_shapes([]) as seen:
+                g = gru_cuda.pick_group(folds)
+                sweep = FoldSweep(corpus, fb, no_drop, "cuda", init_seeds=seeds)
+                idx, w = sweep.to_device(sweep.train_grid(rngs))
+                losses = [sweep.train_step(idx[:, s], w[:, s])[0].cpu().tolist()
+                          for s in range(3)]
+            runs[grouped] = (sweep.model, [v for row in losses for v in row], seen, g)
+        (ref, ref_losses, seen_u, _), (grp, grp_losses, seen_g, g) = runs[False], runs[True]
+        want = {(n, folds // g, g * cfg.model.gru_hidden_size) for n, _, _ in seen_g}
+        if g != FOLD_GROUP or set(seen_g) != want or len(seen_g) != len(seen_u):
+            raise AssertionError(f"grouped {dtype}: G={g}, walks {sorted(set(seen_g))}")
+        loss_err, worst, share, ok = compare_steps(grp, grp_losses, ref.cpu(), ref_losses,
+                                                   TRAIN_TOL[dtype], steps=3)
+        summary = (f"losses max rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+                   f"{share:.4%} beyond {TRAIN_TOL[dtype]['elem']}")
+        if not ok:
+            raise AssertionError(f"grouped {dtype}: grouped vs ungrouped beyond TRAIN_TOL: "
+                                 f"{summary}")
+        print(f"15d grouped {dtype}: first 3 sweep steps of {folds} folds, G={g} "
+              f"({len(seen_g)} walks of {folds // g} lanes at H'={g * cfg.model.gru_hidden_size}"
+              f" against {len(seen_u)} of {folds} at H={cfg.model.gru_hidden_size}) vs "
+              f"ungrouped on the card: {summary}")
+        del ref, grp, sweep, runs
+        with fold_group(FOLD_GROUP):
+            launches, _ = sweep_phase(dtype, ["--set", f"data_path={data}"], root,
+                                      "grouped_sweep", corpus=corpus, parity=False,
+                                      profile=False, db_step=False, epochs=1)
+        first = first or launches
+        windows = folds * cfg.trainer.batch_size
+        sweeps = {}
+        for grouped in (False, True, True, False):
+            with fold_group(FOLD_GROUP if grouped else None):
+                if grouped not in sweeps:
+                    seeds, rngs = fold_streams(cfg.seed, folds)
+                    sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=seeds)
+                    sweeps[grouped] = (sweep, sweep.to_device(sweep.train_grid(rngs)))
+                sweep, (idx, w) = sweeps[grouped]
+                ms = median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), per_block=5)
+            print(f"15d sweep {dtype} F={folds} {'grouped G=3' if grouped else 'ungrouped'}: "
+                  f"train step {ms:.3f} ms ({windows / ms * 1e3:.0f} windows/s)")
+        with fold_group(FOLD_GROUP):
+            sweep, (idx, w) = sweeps[True]
+            trace(lambda: sweep.train_step(idx[:, 0], w[:, 0]), f"grouped {dtype} train step")
+        del sweeps, sweep
+        torch.cuda.empty_cache()
+    return first
+
+
+def phase15(root: Path, data: Path) -> dict[str, int]:
+    """Phase 15 (module docstring): 15a the six entries past one block's
+    shared memory against their plain versions, 15b their times at H=256,
+    15c the sweep and a Predictor at H=256, 15d fold grouping. Returns the
+    launches of 15c's and 15d's f32 CLI runs (the main path of this
+    phase)."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    marks = [time.perf_counter()]
+    cluster_formulas()
+    large_walks_phase()
+    marks.append(time.perf_counter())
+    large_timings()
+    marks.append(time.perf_counter())
+    big = big_sweep_phase(data, root)
+    marks.append(time.perf_counter())
+    grouped = grouped_sweep_phase(data, root)
+    marks.append(time.perf_counter())
+    split = ", ".join(f"15{k} {b - a:.1f} s" for k, a, b in zip("abcd", marks, marks[1:]))
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s ({split})")
+    return {k: big[k] + grouped[k] for k in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -3719,15 +4119,17 @@ def main() -> int:
                 ablation_run / "fusion4__cnn_gru_attention")
         fused_launches = phase13(Path(tmp) / "phase13", data, loso_run, wesad)
         split_launches = phase14(Path(tmp) / "phase14", data)
+        large_launches = phase15(Path(tmp) / "phase15", data)
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
-    # default execution), the fused sweep and phase 14's two-rank runs, the
-    # fused pair's on the float32 serial LOSO path, the fused sweep and
-    # phase 14's fused two-rank run (each read right after its own counted
-    # run, all checked above).
+    # default execution), the fused sweep, phase 14's two-rank runs and
+    # phase 15's sweeps at H=256 and grouped, the fused pair's on the
+    # float32 serial LOSO path, the fused sweep and phase 14's fused
+    # two-rank run (each read right after its own counted run, all checked
+    # above).
     paths = {"gru_fwd": (serve_launches,), "gru_bwd": (train_launches,),
-             "gru_fwd_fb": (sweep_launches, fused_launches, split_launches),
-             "gru_bwd_fb": (sweep_launches, fused_launches, split_launches),
+             "gru_fwd_fb": (sweep_launches, fused_launches, split_launches, large_launches),
+             "gru_bwd_fb": (sweep_launches, fused_launches, split_launches, large_launches),
              "gru_bifwd": (loso_launches, fused_launches, split_launches),
              "gru_bibwd": (loso_launches, fused_launches, split_launches)}
     for k in kernels:

@@ -41,6 +41,15 @@ ops/gru_pallas.py route it):
     The JAX package gives its fused pair no custom_vmap rule, so Pallas's
     batching rule walks each fold's two lanes on a grid axis of their own:
     the same per-lane math. On CPU tensors the pair's plain versions run;
+  * fold grouping (MMS_GRU_FOLD_GROUP >= 2, gru_cuda.pick_group): the walks
+    whose fold axis reaches the JAX package's per-direction custom_vmap rule
+    (_FWD_CV / _BWD_CV, gru_pallas.py:756-819) walk G folds as one lane of
+    width G·H (gru_cuda.gru_lanes_cuda): under "auto", "pallas" and "cuda"
+    every layer's two directions, and under every kernel impl the pruned
+    last layer's forward walk (gru_sequence_pallas in the JAX model). Never
+    the fused pair, and never "pallas_db"'s other layers, whose JAX
+    dirbatch walks reach the fold axis through the fb kernels' rule
+    (_FWD_FB_CV), which does not group;
   * "scan", "torch", and "auto" on CPU tensors: the plain loop over all
     lanes in the compute dtype (models/gru.py), as the JAX package's
     fold-parallel "auto" resolves to scan off the TPU;
@@ -66,7 +75,7 @@ from multimodalsignal_tpu_torch.models.gru import aten_gru, gru_cell, gru_sequen
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
 # ModelConfig.gru_impl -> how the fold-stacked GRU walks.
-FOLD_IMPLS = {"auto": "auto", "pallas": "lanes", "pallas_db": "lanes",
+FOLD_IMPLS = {"auto": "auto", "pallas": "lanes", "pallas_db": "db",
               "cuda": "lanes", "pallas_fused": "fused", "cuda_fused": "fused",
               "scan": "torch", "torch": "torch", "aten": "aten"}
 
@@ -224,9 +233,10 @@ class FoldStackedModel(nn.Module):
                 return torch.cat([y_f[:, -1].to(dt), y_b_last.to(dt)], dim=-1)
             if impl == "fused":
                 y_f, y_b = gru_cuda.gru_bidirectional_folds(xg_f, xg_b, whf, whb, bhf, bhb, h0)
-            elif impl == "lanes":
-                y_f = gru_cuda.gru_lanes_cuda(xg_f, whf, bhf, h0)
-                y_b = gru_cuda.gru_lanes_cuda(xg_b, whb, bhb, h0, reverse=True)
+            elif impl in ("lanes", "db"):
+                group = impl == "lanes"
+                y_f = gru_cuda.gru_lanes_cuda(xg_f, whf, bhf, h0, group=group)
+                y_b = gru_cuda.gru_lanes_cuda(xg_b, whb, bhb, h0, reverse=True, group=group)
             else:
                 y_f = gru_sequence(xg_f, whf, bhf, h0)
                 y_b = gru_sequence(xg_b, whb, bhb, h0, reverse=True)

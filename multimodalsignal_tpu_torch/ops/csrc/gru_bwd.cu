@@ -94,6 +94,24 @@
 // twice as long a step: its stores and its loads each held the barrier,
 // whether the loads went through a register ring or cp.async, and one unit
 // a thread made the dot read 48 KB of shared memory a step.
+//
+// The cluster walk: an H whose W^T does not fit one block (f32 above
+// H = 130, bf16 above 179) is split over a thread block cluster of K CTAs
+// (adj_cluster_size: the least K <= 8 whose per-CTA share fits), which own
+// one (lane, batch row) together. CTA `rank` keeps the columns of W for its
+// own ceil(H/K) units, as W^T rows [units][3H padded to 4], and moves only
+// its units' factors and dht (its producer warp's copies shrink to that
+// slice). Each step its pair lanes turn their units' dht into dg_lo and store
+// those three values into the step's parity buffer of every CTA of the
+// cluster through distributed shared memory (mapa / st.shared::cluster); one cluster
+// barrier (barrier.cluster: the dot warps arrive with release, the producer
+// warp arrives relaxed, so its copies in flight hold nothing, and every
+// thread waits with acquire) takes the place of the dot warps' named
+// barrier; then every CTA holds the step's whole dg_lo [3H] and computes
+// its own units' slice of dh_prev = dg_lo @ W + dht z as above. The gate
+// pre-pass and the weight-gradient pass run over all T at once and are
+// unchanged: the pre-pass's shared memory ([H][97] + [H][32] floats) bounds
+// bf16 at H = 450; the cluster walk bounds f32 at H = 376 (K = 8).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,6 +178,11 @@ constexpr int kGradStage = 32;        // rows staged per round of the weight-gra
 constexpr int kGradThreads = 256;     // 16 x 16 threads of 4 x 4 outputs
 constexpr int kMaxPartials = 128;     // row chunks of the weight-gradient pass
 constexpr size_t kMaxShared = 232448;
+constexpr int kMaxCluster = 8;        // the portable thread block cluster size
+// The most threads a CTA of the cluster walk takes (576 is the most any H
+// asks for): its launch bound, below kMaxThreads, leaves ptxas registers.
+constexpr int kClusterMaxThreads = 576;
+constexpr int kNoCluster = -1;        // returned when no cluster of the size fits the card
 
 __host__ __device__ constexpr bool adj_in_registers(int hidden) {
   return hidden <= kRegMaxHidden;
@@ -169,14 +192,18 @@ __host__ __device__ constexpr bool adj_in_registers(int hidden) {
 __host__ __device__ constexpr int adj_kpad(int hidden, bool regs) {
   return regs ? kRegSub * kRegChunks * 4 : (3 * hidden + 3) / 4 * 4;
 }
+// Hidden units a CTA owns in a cluster of `cluster` CTAs (all H for one).
+__host__ __device__ constexpr int adj_units(int hidden, int cluster) {
+  return (hidden + cluster - 1) / cluster;
+}
 // The walk's dot threads (whole warps), then the producer warp.
-__host__ __device__ constexpr int adj_dot_threads(int hidden) {
+__host__ __device__ constexpr int adj_dot_threads(int hidden, int cluster) {
   return ((adj_in_registers(hidden) ? (hidden + kRegUnits - 1) / kRegUnits * kRegSub
-                                    : hidden * kSmemSub) +
+                                    : adj_units(hidden, cluster) * kSmemSub) +
           31) / 32 * 32;
 }
-__host__ __device__ constexpr int adj_threads(int hidden) {
-  return adj_dot_threads(hidden) + kProducer;
+__host__ __device__ constexpr int adj_threads(int hidden, int cluster) {
+  return adj_dot_threads(hidden, cluster) + kProducer;
 }
 
 // Rows per block of the walk: with W in registers, the least power of two
@@ -194,19 +221,32 @@ int adj_row_tile(int batch, int lanes, int hidden) {
 }
 
 __host__ __device__ constexpr int adj_chunk(bool regs) { return regs ? kRegChunk : kSmemChunk; }
-// Dynamic shared memory of the walk: W^T [H][kpad] in the stream dtype
-// (shared-memory instantiation only, padded to 16 bytes), then float32: the
-// two parity buffers of the tile's dg_lo [2][rows][kpad], and for two
-// chunks of steps the factors [2 chunk][rows][kWalkFactors][H] and dht
-// [2 chunk][rows][H].
+// Dynamic shared memory of one CTA of the walk: its W^T rows [units][kpad]
+// in the stream dtype (shared-memory instantiations only, padded to 16
+// bytes), then float32: the two parity buffers of the tile's whole dg_lo
+// [2][rows][kpad], and for two chunks of steps its units' factors
+// [2 chunk][rows][kWalkFactors][units] and dht [2 chunk][rows][units].
 __host__ __device__ constexpr size_t adj_walk_shared_bytes(int hidden, size_t itemsize,
-                                                           int rows) {
+                                                           int rows, int cluster) {
   return (adj_in_registers(hidden)
               ? 0
-              : align16(size_t(hidden) * adj_kpad(hidden, false) * itemsize)) +
+              : align16(size_t(adj_units(hidden, cluster)) * adj_kpad(hidden, false) *
+                        itemsize)) +
          (size_t(2) * rows * adj_kpad(hidden, adj_in_registers(hidden)) +
-          size_t(2) * adj_chunk(adj_in_registers(hidden)) * rows * (kWalkFactors + 1) * hidden) *
+          size_t(2) * adj_chunk(adj_in_registers(hidden)) * rows * (kWalkFactors + 1) *
+              adj_units(hidden, cluster)) *
              sizeof(float);
+}
+// CTAs per (lane, batch row) of the walk: 1 while W^T fits one block, else
+// the least cluster whose per-CTA share and threads fit; 0 where not even
+// kMaxCluster does.
+int adj_cluster_size(int hidden, size_t itemsize) {
+  if (adj_in_registers(hidden)) return 1;
+  for (int k = 1; k <= kMaxCluster; ++k)
+    if (adj_threads(hidden, k) <= (k == 1 ? kMaxThreads : kClusterMaxThreads) &&
+        adj_walk_shared_bytes(hidden, itemsize, 1, k) <= kMaxShared)
+      return k;
+  return 0;
 }
 // Dynamic shared memory of the gate pre-pass: the block's W rows as
 // [H][3 * kGateUnits + 1], padded to 16 bytes, and its h_prev rows as
@@ -217,11 +257,13 @@ __host__ __device__ constexpr int adj_gates_w_floats(int hidden) {
 __host__ __device__ constexpr size_t adj_gates_shared_bytes(int hidden) {
   return (size_t(adj_gates_w_floats(hidden)) + size_t(hidden) * kGateRows) * sizeof(float);
 }
-// The most any kernel of the adjoint walk takes; the wrapper checks it.
-__host__ __device__ constexpr size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
-  return adj_walk_shared_bytes(hidden, itemsize, rows) > adj_gates_shared_bytes(hidden)
-             ? adj_walk_shared_bytes(hidden, itemsize, rows)
-             : adj_gates_shared_bytes(hidden);
+// The most any kernel of the adjoint walk takes of one block's or CTA's
+// shared memory at this H's cluster size (kMaxCluster past the walk's
+// limit); the wrapper checks it.
+size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
+  const int cluster = adj_cluster_size(hidden, itemsize);
+  const size_t walk = adj_walk_shared_bytes(hidden, itemsize, rows, cluster ? cluster : kMaxCluster);
+  return walk > adj_gates_shared_bytes(hidden) ? walk : adj_gates_shared_bytes(hidden);
 }
 
 // Rows (t, b) of one lane per chunk of the weight-gradient pass: M / 128
@@ -390,6 +432,44 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 constexpr int kDotBarrier = 1;    // the dot warps, every step
 constexpr int kChunkBarrier = 2;  // the whole block, once per chunk of steps
 
+// Thread block cluster primitives in PTX (sm_90): this CTA's rank in its
+// cluster and the cluster's size, and a store into the shared memory of
+// CTA `rank` at the address `p` has in this CTA (distributed shared memory).
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return int(r);
+}
+__device__ __forceinline__ int cluster_ctas() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return int(n);
+}
+__device__ __forceinline__ void store_cluster(float* p, int rank, float v) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+// The cluster barrier in two halves. Every thread of every CTA of the
+// cluster arrives, with release (its shared and distributed shared memory
+// stores are seen) or relaxed (no ordering: its memory accesses in flight
+// do not hold the arrival), then waits with acquire.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync_all() {
+  cluster_arrive();
+  cluster_wait();
+}
+
 // The walk: only the dh chain, one block per (lane, tile of R rows).
 // Dot threads: U hidden units and S sub-lanes a group; each holds rows
 // c = 4 (s + S i) + e of W's columns for its units (K = 3H in 4-wide
@@ -411,9 +491,14 @@ constexpr int kChunkBarrier = 2;  // the whole block, once per chunk of steps
 // One block an SM is what the launch bounds ask for: without the minimum,
 // ptxas trades registers for a second block (which shared memory rules out
 // with W in shared memory) and spills.
-template <typename T, typename Layout, int R, bool kRegs>
+// The cluster instantiation (kCluster, W in shared memory, one row): CTA
+// `rank` of the `csize` sharing a (lane, row) owns units unit0 .. unit0 +
+// units - 1; its pair lanes store dg_lo into every CTA's buffer, and the
+// cluster barrier replaces the dot warps' named barrier (see the note at
+// the top).
+template <typename T, typename Layout, int R, bool kRegs, bool kCluster>
 __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + kProducer
-                                        : kMaxThreads, 1)
+                                  : kCluster ? kClusterMaxThreads : kMaxThreads, 1)
     gru_adj_walk_kernel(const float* __restrict__ fac, const T* __restrict__ w_hh,
                         float* __restrict__ dht_out, float* __restrict__ dh0, int n_steps,
                         int batch, int hidden, int reverse) {
@@ -422,27 +507,33 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   constexpr int P = adj_chunk(kRegs);
   constexpr int kAcc = kRegs ? 1 : 4;  // partial sums per (row, unit)
   static_assert(R * U <= S, "one (row, unit) pair a sub-lane");
+  static_assert(!(kCluster && (kRegs || R != 1)), "the cluster walk: W in shared memory, one row");
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = hidden;
   const int G = 3 * hidden;
   const int kpad = adj_kpad(H, kRegs);
+  const int csize = kCluster ? cluster_ctas() : 1;
+  const int rank = kCluster ? cluster_rank() : 0;
+  const int units = kCluster ? adj_units(H, csize) : H;
+  const int unit0 = rank * units;
   const int lane = blockIdx.y;
   const int lanes = gridDim.y;
-  const int row0 = blockIdx.x * R;
+  const int row0 = (kCluster ? blockIdx.x / csize : blockIdx.x) * R;
   const int tid = threadIdx.x;
-  const int dot_threads = adj_dot_threads(H);
+  const int dot_threads = adj_dot_threads(H, csize);
   const bool producer = tid >= dot_threads;
   const int pl = tid - dot_threads;  // producer lane
-  const int groups = (H + U - 1) / U;
-  const int g = tid / S;  // group of units g U .. g U + U - 1
+  const int groups = (units + U - 1) / U;
+  const int g = tid / S;  // group of units g U .. g U + U - 1 (of this CTA's)
   const int s = tid % S;  // sub-lane: chunks s, s + S, ...; pair s
   const int gu = g < groups ? g : 0;  // padding threads read group 0 and write nothing
+  const int mine = H - unit0 < units ? H - unit0 : units;  // this CTA's units inside H
 
-  T* w_s = reinterpret_cast<T*>(smem);  // [H][kpad]: w_s[k][c] = W[c][k], shared instantiation
+  T* w_s = reinterpret_cast<T*>(smem);  // [units][kpad]: w_s[k][c] = W[c][unit0 + k]
   float* dgbuf = reinterpret_cast<float*>(
-      smem + (kRegs ? 0 : align16(size_t(H) * kpad * sizeof(T))));  // [2][R][kpad]
-  float* fbuf = dgbuf + 2 * R * kpad;                      // [2P][R][kWalkFactors][H]
-  float* dhtbuf = fbuf + 2 * P * R * kWalkFactors * H;     // [2P][R][H]
+      smem + (kRegs ? 0 : align16(size_t(units) * kpad * sizeof(T))));  // [2][R][kpad]
+  float* fbuf = dgbuf + 2 * R * kpad;                      // [2P][R][kWalkFactors][units]
+  float* dhtbuf = fbuf + 2 * P * R * kWalkFactors * units; // [2P][R][units]
 
   const T* w = w_hh + size_t(lane) * G * H;
   for (int e = tid; e < 2 * R * kpad; e += blockDim.x) dgbuf[e] = 0.0f;
@@ -459,6 +550,13 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
           wreg[(u * kRegChunks + ci) * 4 + e] =
               !producer && k < H && c < G ? to_float(w[size_t(c) * H + k]) : 0.0f;
         }
+  } else if constexpr (kCluster) {
+    for (int e = tid; e < units * kpad; e += blockDim.x) {
+      const int c = e / units;  // read W's columns of this CTA's units row by row
+      const int kk = e - c * units;
+      w_s[size_t(kk) * kpad + c] =
+          c < G && kk < mine ? w[size_t(c) * H + unit0 + kk] : from_float<T>(0.0f);
+    }
   } else {
     for (int e = tid; e < H * kpad; e += blockDim.x) {
       const int c = e / H;  // read W row by row, write it transposed
@@ -473,10 +571,12 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   };
   // Factors and dht of (step, tile row r) in shared memory.
   auto fac_at = [&](int step, int r) {
-    return fbuf + ((step % (2 * P)) * R + r) * kWalkFactors * H;
+    return fbuf + ((step % (2 * P)) * R + r) * kWalkFactors * units;
   };
-  auto dht_at = [&](int step, int r) { return dhtbuf + ((step % (2 * P)) * R + r) * H; };
-  const bool vec = H % 4 == 0;  // 16-byte moves: every row of the factors and of dht is aligned
+  auto dht_at = [&](int step, int r) { return dhtbuf + ((step % (2 * P)) * R + r) * units; };
+  // 16-byte moves: every row of the factors and of dht, and in a cluster
+  // every CTA's slice of one, is aligned.
+  const bool vec = H % 4 == 0 && units % 4 == 0;
   auto load_chunk = [&](int c) {  // producer: cp.async of chunk c's factors
     const int last = min((c + 1) * P, n_steps);
     for (int i = c * P; i < last; ++i)
@@ -485,7 +585,17 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
         if (row0 + r >= batch) break;
         const float* src = fac + at_step(i, row0 + r) * kFactors * H;
         float* dst = fac_at(i, r);
-        if (vec) {
+        if constexpr (kCluster) {  // this CTA's units of each factor
+          for (int f = 0; f < kWalkFactors; ++f) {
+            if (vec) {
+              for (int u = 4 * pl; u < mine; u += 4 * kProducer)
+                cp_async16(dst + f * units + u, src + f * H + unit0 + u);
+            } else {
+              for (int u = pl; u < mine; u += kProducer)
+                cp_async4(dst + f * units + u, src + f * H + unit0 + u);
+            }
+          }
+        } else if (vec) {
           for (int u = 4 * pl; u < kWalkFactors * H; u += 4 * kProducer)
             cp_async16(dst + u, src + u);
         } else {
@@ -494,19 +604,19 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
       }
     cp_async_commit();
   };
-  auto store_chunk = [&](int c) {  // producer: chunk c's dht to device memory
+  auto store_chunk = [&](int c) {  // producer: chunk c's dht (of this CTA's units) to device memory
     const int last = min((c + 1) * P, n_steps);
     for (int i = c * P; i < last; ++i)
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (row0 + r >= batch) break;
-        float* out = dht_out + at_step(i, row0 + r) * H;
+        float* out = dht_out + at_step(i, row0 + r) * H + unit0;
         const float* in = dht_at(i, r);
         if (vec) {
-          for (int u = 4 * pl; u < H; u += 4 * kProducer)
+          for (int u = 4 * pl; u < mine; u += 4 * kProducer)
             *reinterpret_cast<float4*>(out + u) = *reinterpret_cast<const float4*>(in + u);
         } else {
-          for (int u = pl; u < H; u += kProducer) out[u] = in[u];
+          for (int u = pl; u < mine; u += kProducer) out[u] = in[u];
         }
       }
   };
@@ -516,23 +626,37 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
     load_chunk(0);
     cp_async_wait_all();
   }
-  __syncthreads();
+  if constexpr (kCluster)
+    cluster_sync_all();  // every CTA of the cluster has started and zeroed its dg_lo buffers
+  else
+    __syncthreads();
   if (producer) {
     for (int c = 0; c < n_chunks; ++c) {
       if (c + 1 < n_chunks) load_chunk(c + 1);
       if (c > 0) store_chunk(c - 1);
+      if constexpr (kCluster) {  // the chunk's steps' cluster barriers, arriving relaxed
+        const int last = min((c + 1) * P, n_steps);
+        for (int i = c * P; i < last; ++i) {
+          cluster_arrive_relaxed();
+          cluster_wait();
+        }
+      }
       cp_async_wait_all();
       if (c + 1 < n_chunks) named_barrier(kChunkBarrier, blockDim.x);
     }
-    __syncthreads();  // the last chunk's dht is written
+    if constexpr (kCluster)
+      cluster_sync_all();  // the last chunk's dht is written; no peer writes into this CTA after
+    else
+      __syncthreads();  // the last chunk's dht is written
     store_chunk(n_chunks - 1);
     return;
   }
 
-  // The (row, unit) pair of this sub-lane.
+  // The (row, unit) pair of this sub-lane: pk a unit of the layer, pkl of this CTA.
   const int pr = s / U;
-  const int pk = g * U + s % U;
-  const bool pair = g < groups && s < R * U && pk < H && row0 + pr < batch;
+  const int pkl = g * U + s % U;
+  const int pk = unit0 + pkl;
+  const bool pair = g < groups && s < R * U && pkl < units && pk < H && row0 + pr < batch;
   float dh = 0.0f;
   const int nchunks = kpad / 4;
   for (int step = 0; step < n_steps; ++step) {
@@ -540,19 +664,34 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
     float* buf = dgbuf + (step & 1) * R * kpad;
     float dhz = 0.0f;
     if (pair) {
-      const float* f = fac_at(step, pr) + pk;
-      const float dht = dh + f[4 * H];
+      const float* f = fac_at(step, pr) + pkl;
+      const float dht = dh + f[4 * units];
       const float dr_pre = dht * f[0];
-      const float dz_pre = dht * f[H];
-      const float dg_n = dht * f[2 * H];
-      dhz = dht * f[3 * H];
-      float* out = buf + pr * kpad;
-      out[pk] = round_to<T>(dr_pre);
-      out[H + pk] = round_to<T>(dz_pre);
-      out[2 * H + pk] = round_to<T>(dg_n);
-      dht_at(step, pr)[pk] = dht;
+      const float dz_pre = dht * f[units];
+      const float dg_n = dht * f[2 * units];
+      dhz = dht * f[3 * units];
+      const float lo[3] = {round_to<T>(dr_pre), round_to<T>(dz_pre), round_to<T>(dg_n)};
+      if constexpr (kCluster) {  // into every CTA's buffer (its own too)
+        float* out = buf + pr * kpad;
+        for (int p = 0; p < csize; ++p) {
+          store_cluster(out + pk, p, lo[0]);
+          store_cluster(out + H + pk, p, lo[1]);
+          store_cluster(out + 2 * H + pk, p, lo[2]);
+        }
+      } else {
+        float* out = buf + pr * kpad;
+        out[pk] = lo[0];
+        out[H + pk] = lo[1];
+        out[2 * H + pk] = lo[2];
+      }
+      dht_at(step, pr)[pkl] = dht;
     }
-    named_barrier(kDotBarrier, dot_threads);
+    if constexpr (kCluster) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      named_barrier(kDotBarrier, dot_threads);
+    }
     // dh[r][k] = dg_lo[r] @ W[:, k] for the group's units.
     float acc[R][U][kAcc];
 #pragma unroll
@@ -605,14 +744,17 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
 #pragma unroll
         for (int u = 0; u < U; ++u) sum[r][u] += __shfl_xor_sync(0xffffffffu, sum[r][u], off);
     if (pair) {
-      float mine = sum[0][0];
+      float own = sum[0][0];
 #pragma unroll
       for (int q = 1; q < R * U; ++q)
-        if (s == q) mine = sum[q / U][q % U];
-      dh = dhz + mine;
+        if (s == q) own = sum[q / U][q % U];
+      dh = dhz + own;
     }
   }
-  __syncthreads();
+  if constexpr (kCluster)
+    cluster_sync_all();
+  else
+    __syncthreads();
   if (pair) dh0[(size_t(lane) * batch + row0 + pr) * H + pk] = dh;
 }
 
@@ -738,29 +880,91 @@ __global__ void gru_adj_reduce(const float* __restrict__ dw_part,
   }
 }
 
-// The walk's instantiation for a shape: W in shared memory above H = 64
-// (one row a block), else W in registers with `rows` (adj_row_tile) rows.
+// The walk's instantiation for a shape: split over a cluster where W^T
+// does not fit one block, W in shared memory above H = 64 (one row a
+// block), else W in registers with `rows` (adj_row_tile) rows.
 template <typename T>
 using AdjWalkKernel = void (*)(const float*, const T*, float*, float*, int, int, int, int);
 template <typename T, typename Layout>
-AdjWalkKernel<T> adj_walk_kernel(int rows, int hidden) {
-  if (!adj_in_registers(hidden)) return gru_adj_walk_kernel<T, Layout, 1, false>;
-  return rows == 1 ? gru_adj_walk_kernel<T, Layout, 1, true>
-                   : gru_adj_walk_kernel<T, Layout, 2, true>;
+AdjWalkKernel<T> adj_walk_kernel(int rows, int hidden, int cluster) {
+  if (cluster > 1) return gru_adj_walk_kernel<T, Layout, 1, false, true>;
+  if (!adj_in_registers(hidden)) return gru_adj_walk_kernel<T, Layout, 1, false, false>;
+  return rows == 1 ? gru_adj_walk_kernel<T, Layout, 1, true, false>
+                   : gru_adj_walk_kernel<T, Layout, 2, true, false>;
 }
 
+// The cluster walk's launch: `cluster` CTAs per (lane, row) along the
+// grid's x, one cluster apiece.
+struct AdjWalkLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  AdjWalkLaunch(int lanes, int batch, int hidden, int rows, int cluster, size_t smem,
+                cudaStream_t stream) {
+    cfg.gridDim = dim3((batch + rows - 1) / rows * cluster, lanes);
+    cfg.blockDim = dim3(adj_threads(hidden, cluster));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Clusters of the walk (of one CTA without a cluster: blocks) the card
+// holds at once for this shape, from CUDA's occupancy calculator; a
+// negative CUDA error if it fails.
+template <typename T, typename Layout>
+int adj_walk_active_clusters(int batch, int lanes, int hidden) {
+  const int cluster = adj_cluster_size(hidden, sizeof(T));
+  if (cluster == 0) return -int(cudaErrorInvalidValue);
+  const int rows = adj_row_tile(batch, lanes, hidden);
+  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden, cluster);
+  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int count = 0;
+  if (err == cudaSuccess) {
+    if (cluster > 1) {
+      const AdjWalkLaunch launch(lanes, batch, hidden, rows, cluster, smem, nullptr);
+      err = cudaOccupancyMaxActiveClusters(&count, kernel, &launch.cfg);
+    } else {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel,
+                                                          adj_threads(hidden, 1), smem);
+      count *= kNumSMs;
+    }
+  }
+  return err == cudaSuccess ? count : -int(err);
+}
+
+// The walk; a cluster launch is refused (kNoCluster) before it is made when
+// no cluster of its size fits the card, and cudaLaunchKernelEx's result is
+// returned.
 template <typename T, typename Layout>
 int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lanes, int n_steps,
              int batch, int hidden, int reverse, cudaStream_t stream) {
+  const int cluster = adj_cluster_size(hidden, sizeof(T));
   const int rows = adj_row_tile(batch, lanes, hidden);
-  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden);
-  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows);
+  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden, cluster);
+  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  kernel<<<dim3((batch + rows - 1) / rows, lanes), adj_threads(hidden), smem, stream>>>(
-      fac, static_cast<const T*>(w_hh), dht, static_cast<float*>(dh0), n_steps, batch, hidden,
-      reverse);
+  if (cluster == 1) {
+    kernel<<<dim3((batch + rows - 1) / rows, lanes), adj_threads(hidden, 1), smem, stream>>>(
+        fac, static_cast<const T*>(w_hh), dht, static_cast<float*>(dh0), n_steps, batch,
+        hidden, reverse);
+    return int(cudaGetLastError());
+  }
+  const int clusters = adj_walk_active_clusters<T, Layout>(batch, lanes, hidden);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return kNoCluster;
+  const AdjWalkLaunch launch(lanes, batch, hidden, rows, cluster, smem, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, kernel, fac, static_cast<const T*>(w_hh), dht,
+                           static_cast<float*>(dh0), n_steps, batch, hidden, reverse);
+  if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
 
@@ -768,15 +972,17 @@ int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lane
 // CUDA's occupancy calculator; a negative CUDA error if it fails.
 template <typename T>
 int adj_walk_blocks_per_sm(int batch, int lanes, int hidden) {
+  const int cluster = adj_cluster_size(hidden, sizeof(T));
+  if (cluster == 0) return -int(cudaErrorInvalidValue);
   const int rows = adj_row_tile(batch, lanes, hidden);
-  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, LaneMajor>(rows, hidden);
-  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows);
+  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, LaneMajor>(rows, hidden, cluster);
+  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, adj_threads(hidden),
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        adj_threads(hidden, cluster), smem);
   return err == cudaSuccess ? blocks : -int(err);
 }
 
@@ -790,7 +996,7 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
                void* workspace, void* db_part, int lanes, int n_steps, int batch, int hidden,
                int reverse, void* stream) {
   const int rows = adj_row_tile(batch, lanes, hidden);
-  if (adj_threads(hidden) > kMaxThreads ||
+  if (adj_cluster_size(hidden, sizeof(T)) == 0 ||
       adj_shared_bytes(hidden, sizeof(T), rows) > kMaxShared)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -841,11 +1047,25 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
 
 extern "C" {
 
-// Shared memory the most demanding kernel of the adjoint walk needs for a
-// walk tile of `rows`; the wrapper checks it against the card's limit.
+// Shared memory the most demanding kernel of the adjoint walk needs of
+// one block or CTA for a walk tile of `rows`; the wrapper checks it against
+// the card's limit.
 long long gru_adj_shared_bytes(int hidden, int bf16, int rows) {
   return (long long)adj_shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float),
                                      rows);
+}
+
+// CTAs of the adjoint walk per (lane, batch row) at this H: 1 while W^T
+// fits one block, up to 8 for the cluster walk, 0 past the limit.
+int gru_adj_cluster_size(int hidden, int bf16) {
+  return adj_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+}
+
+// Clusters (blocks, without a cluster) of the adjoint walk the card holds at
+// once for this shape.
+int gru_adj_walk_active_clusters(int batch, int lanes, int hidden, int bf16) {
+  return bf16 ? adj_walk_active_clusters<__nv_bfloat16, LaneMajor>(batch, lanes, hidden)
+              : adj_walk_active_clusters<float, LaneMajor>(batch, lanes, hidden);
 }
 
 // Rows per block of the adjoint walk for this shape.

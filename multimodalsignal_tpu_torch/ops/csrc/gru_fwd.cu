@@ -28,7 +28,8 @@
 // operands are bf16 (h is rounded to bf16 before the product) and the sums
 // are float32, as the TPU kernels' bf16 mode does; otherwise all is float32.
 //
-// One kernel walks that recurrence for all three entries, gru_walk_kernel.
+// One kernel walks that recurrence for all three entries, gru_walk_kernel
+// (gru_walk_cluster_kernel where W does not fit one block, below).
 // What bounds it on the card is latency: at the serving shape (T=480, B=64,
 // H=64) the bytes (xg read once, ys written once) and the FLOPs take
 // ~0.01 ms, but the 480 steps depend on one another, so the walk costs T
@@ -65,6 +66,28 @@
 // a step), which this kernel replaced. A larger R lengthens the FMA chains
 // and the shuffles, hence R grows only when B * lanes leaves no SM free
 // (F = 4 lanes at B = 128 take R = 4, F = 15 at B = 64 take R = 8).
+//
+// The cluster walk: an H whose W does not fit one block's shared memory
+// (f32 above H = 136, bf16 above 192) is split over a thread block cluster
+// of K CTAs (walk_cluster_size: the least K <= 8, the portable cluster
+// size, whose per-CTA share fits). The K CTAs of a cluster own one (lane,
+// row tile); CTA `rank` keeps in its shared memory the rows of W of its
+// own ceil(H/K) hidden units, all three gates, [3][units][K padded to 4],
+// and the whole h operand [2][R][kpad], as the one-block walk does. Each
+// step it forms its units' r, z, n and h' exactly as above, then stores its
+// slice of h' into the next parity buffer of every CTA of the cluster
+// through distributed shared memory (mapa / st.shared::cluster), and one cluster
+// barrier (barrier.cluster arrive-release / wait-acquire) takes the place of
+// __syncthreads. A first cluster barrier lets no CTA write a peer's buffer
+// before the peer has started and laid out h0; a last one lets no CTA exit
+// while a peer could still write into it. The row tile counts K CTAs for
+// each (lane, tile) (walk_row_tile), and the launch (cudaLaunchKernelEx
+// with the cluster dimension) is refused, not run, when
+// cudaOccupancyMaxActiveClusters says no cluster of that size fits.
+// The per-step path adds the remote stores (K a gate lane) and the cluster
+// barrier's round trip to the one-block walk's; it is the only way this
+// design holds W on chip at all past H = 136 f32 / 192 bf16, up to
+// H = 380 f32 / 532 bf16 (K = 8).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,7 +135,14 @@ constexpr int kRegSub = 8;            // threads per hidden unit, W in registers
 constexpr int kRegChunks = 2;         // 4-wide K chunks per thread, W in registers
 constexpr int kSmemSub = 4;           // threads per hidden unit, W in shared memory
 constexpr int kPrefetch = 4;          // xg ring slots: steps loaded kPrefetch - 1 ahead
-constexpr int kMaxThreads = 768;      // 192 units x kSmemSub: the largest H admitted
+constexpr int kMaxThreads = 768;      // 192 units x kSmemSub: the most units a block takes
+constexpr int kMaxCluster = 8;        // the portable thread block cluster size
+// The most threads a CTA of the cluster walk takes (544 is the most any H
+// asks for): a lower launch bound than kMaxThreads leaves ptxas the
+// registers its cluster bookkeeping needs without spilling.
+constexpr int kClusterMaxThreads = 576;
+constexpr size_t kMaxShared = 232448;
+constexpr int kNoCluster = -1;        // returned when no cluster of the size fits the card
 
 __host__ __device__ constexpr bool walk_in_registers(int hidden) {
   return hidden <= kRegMaxHidden;
@@ -122,29 +152,49 @@ __host__ __device__ constexpr int walk_sub(bool regs) { return regs ? kRegSub : 
 __host__ __device__ constexpr int walk_kpad(int hidden, bool regs) {
   return regs ? kRegSub * kRegChunks * 4 : (hidden + 3) / 4 * 4;
 }
-__host__ __device__ constexpr int walk_threads(int hidden) {
-  return (hidden * walk_sub(walk_in_registers(hidden)) + 31) / 32 * 32;
+// Hidden units a CTA owns in a cluster of `cluster` CTAs (all H for one).
+__host__ __device__ constexpr int walk_units(int hidden, int cluster) {
+  return (hidden + cluster - 1) / cluster;
+}
+__host__ __device__ constexpr int walk_threads(int hidden, int cluster) {
+  return (walk_units(hidden, cluster) * walk_sub(walk_in_registers(hidden)) + 31) / 32 * 32;
 }
 
-// Rows per block: the least power of two that brings ceil(B/R) * lanes
-// blocks down to the SM count, at most the threads per unit (one gate lane
-// per row).
-int walk_row_tile(int batch, int lanes, int hidden) {
+// Dynamic shared memory of one CTA: its W rows (shared-memory
+// instantiations only, [3][units][kpad] in the stream dtype, padded to 16
+// bytes), then the two parity buffers of the tile's whole h operand,
+// [2][rows][kpad] float32.
+__host__ __device__ constexpr size_t walk_shared_bytes(int hidden, size_t itemsize, int rows,
+                                                       int cluster) {
+  return (walk_in_registers(hidden)
+              ? 0
+              : align16(size_t(3) * walk_units(hidden, cluster) * walk_kpad(hidden, false) *
+                        itemsize)) +
+         size_t(2) * rows * walk_kpad(hidden, walk_in_registers(hidden)) * sizeof(float);
+}
+
+// CTAs per (lane, row tile): 1 while W fits one block (at the most rows a
+// block takes, so for every batch), else the least cluster whose per-CTA
+// share and threads fit; 0 where not even kMaxCluster does.
+int walk_cluster_size(int hidden, size_t itemsize) {
+  if (walk_in_registers(hidden)) return 1;
+  for (int k = 1; k <= kMaxCluster; ++k)
+    if (walk_threads(hidden, k) <= (k == 1 ? kMaxThreads : kClusterMaxThreads) &&
+        walk_shared_bytes(hidden, itemsize, kSmemSub, k) <= kMaxShared)
+      return k;
+  return 0;
+}
+
+// Rows per (lane, tile): the least power of two that brings ceil(B/R) *
+// lanes * cluster CTAs down to the SM count, at most the threads per unit
+// (one gate lane per row).
+int walk_row_tile(int batch, int lanes, int hidden, int cluster) {
   const int most = walk_sub(walk_in_registers(hidden));
-  const long long want = (static_cast<long long>(batch) * lanes + kNumSMs - 1) / kNumSMs;
+  const long long want =
+      (static_cast<long long>(batch) * lanes * cluster + kNumSMs - 1) / kNumSMs;
   int rows = 1;
   while (rows < want && rows < most) rows *= 2;
   return rows;
-}
-
-// Dynamic shared memory: W (shared-memory instantiation only, [3H][kpad] in
-// the stream dtype, padded to 16 bytes), then the two parity buffers of the
-// tile's h operand, [2][rows][kpad] float32.
-__host__ __device__ constexpr size_t walk_shared_bytes(int hidden, size_t itemsize, int rows) {
-  return (walk_in_registers(hidden)
-              ? 0
-              : align16(size_t(3) * hidden * walk_kpad(hidden, false) * itemsize)) +
-         size_t(2) * rows * walk_kpad(hidden, walk_in_registers(hidden)) * sizeof(float);
 }
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -158,28 +208,66 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
-template <typename T, typename Layout, int R, bool kRegs>
-__global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden : kMaxThreads)
-    gru_walk_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
-                    const T* __restrict__ b_hh, const float* __restrict__ h0,
-                    T* __restrict__ ys, int n_steps, int batch, int hidden, int reverse) {
+// Thread block cluster primitives in PTX (sm_90): this CTA's rank in its
+// cluster and the cluster's size, and a store into the shared memory of
+// CTA `rank` at the address `p` has in this CTA (distributed shared memory).
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return int(r);
+}
+__device__ __forceinline__ int cluster_ctas() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return int(n);
+}
+__device__ __forceinline__ void store_cluster(float* p, int rank, float v) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+// The cluster barrier: every thread of every CTA of the cluster arrives
+// (release: its shared and distributed shared memory stores are seen) and
+// waits (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The walk's body, for gru_walk_kernel (one block per (lane, row tile)) and
+// gru_walk_cluster_kernel (kCluster: a cluster per (lane, row tile)).
+template <typename T, typename Layout, int R, bool kRegs, bool kCluster>
+__device__ __forceinline__ void walk_body(const T* __restrict__ xg, const T* __restrict__ w_hh,
+                                          const T* __restrict__ b_hh,
+                                          const float* __restrict__ h0, T* __restrict__ ys,
+                                          int n_steps, int batch, int hidden, int reverse) {
   constexpr int S = kRegs ? kRegSub : kSmemSub;
   static_assert(R <= S, "one gate lane per row");
+  static_assert(!(kRegs && kCluster), "the cluster walk keeps W in shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = hidden;
   const int kpad = walk_kpad(H, kRegs);
+  // The cluster walk: CTA `rank` of the `csize` sharing a (lane, row tile)
+  // owns units unit0 .. unit0 + units - 1; one block owns all H.
+  const int csize = kCluster ? cluster_ctas() : 1;
+  const int rank = kCluster ? cluster_rank() : 0;
+  const int units = kCluster ? walk_units(H, csize) : H;
+  const int unit0 = rank * units;
   const int lane = blockIdx.y;
   const int lanes = gridDim.y;
-  const int row0 = blockIdx.x * R;
+  const int row0 = (kCluster ? blockIdx.x / csize : blockIdx.x) * R;
   const int tid = threadIdx.x;
-  const int j = tid / S;   // hidden unit
-  const int s = tid % S;   // sub-lane: K chunks s, s + S, ...; gate lane of row s
-  const bool unit = j < H;
-  const int ju = unit ? j : 0;  // padding threads read unit 0 and write nothing
+  const int jl = tid / S;      // hidden unit of this CTA
+  const int j = unit0 + jl;    // ... of the layer
+  const int s = tid % S;       // sub-lane: K chunks s, s + S, ...; gate lane of row s
+  const bool unit = jl < units && j < H;
+  const int ju = unit ? jl : 0;  // padding threads read unit 0 and write nothing
 
-  T* w_s = reinterpret_cast<T*>(smem);  // [3H][kpad], shared-memory instantiation
+  T* w_s = reinterpret_cast<T*>(smem);  // [3][units][kpad], shared-memory instantiations
   float* hbuf = reinterpret_cast<float*>(
-      smem + (kRegs ? 0 : align16(size_t(3) * H * kpad * sizeof(T))));  // [2][R][kpad]
+      smem + (kRegs ? 0 : align16(size_t(3) * units * kpad * sizeof(T))));  // [2][R][kpad]
 
   const T* w = w_hh + size_t(lane) * 3 * H * H;
   for (int e = tid; e < 2 * R * kpad; e += blockDim.x) {
@@ -202,6 +290,14 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden : kMaxThreads)
           wreg[(g * kRegChunks + ci) * 4 + e] =
               unit && k < H ? to_float(w[(size_t(g) * H + j) * H + k]) : 0.0f;
         }
+  } else if constexpr (kCluster) {
+    for (int e = tid; e < 3 * units * kpad; e += blockDim.x) {
+      const int row = e / kpad;  // gate g, unit unit0 + u
+      const int k = e - row * kpad;
+      const int g = row / units;
+      const int u = unit0 + row - g * units;
+      w_s[e] = k < H && u < H ? w[(size_t(g) * H + u) * H + k] : from_float<T>(0.0f);
+    }
   } else {
     for (int e = tid; e < 3 * H * kpad; e += blockDim.x) {
       const int row = e / kpad;
@@ -234,7 +330,10 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden : kMaxThreads)
     for (int d = 0; d < kPrefetch - 1; ++d)
       if (d < n_steps) fetch(d, d);
   }
-  __syncthreads();
+  if constexpr (kCluster)
+    cluster_sync();  // every CTA of the cluster has started and laid out h0
+  else
+    __syncthreads();
 
   const int nchunks = kpad / 4;
   for (int base = 0; base < n_steps; base += kPrefetch) {
@@ -280,7 +379,7 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden : kMaxThreads)
         for (int c = s; c < nchunks; c += S) {
           float wv[3][4];
 #pragma unroll
-          for (int g = 0; g < 3; ++g) load4(w_s + (size_t(g) * H + ju) * kpad + 4 * c, wv[g]);
+          for (int g = 0; g < 3; ++g) load4(w_s + (size_t(g) * units + ju) * kpad + 4 * c, wv[g]);
           chunk(c, wv);
         }
       }
@@ -305,28 +404,124 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden : kMaxThreads)
         const float ng = tanhf(to_float(xn[d]) + rg * (hn + bn));
         hc = (1.0f - zg) * ng + zg * hc;
         const T out = from_float<T>(hc);
-        hbuf[((step + 1) & 1) * R * kpad + s * kpad + j] = to_float(out);
+        const int at = ((step + 1) & 1) * R * kpad + s * kpad + j;
         const int t = reverse ? n_steps - 1 - step : step;
-        ys[Layout::row(lane, t, row, lanes, n_steps, batch) * H + j] = out;
+        if constexpr (kCluster) {
+          ys[Layout::row(lane, t, row, lanes, n_steps, batch) * H + j] = out;
+          // This CTA's slice of h' into every CTA's next buffer (its own too).
+          for (int p = 0; p < csize; ++p) store_cluster(hbuf + at, p, to_float(out));
+        } else {
+          hbuf[at] = to_float(out);
+          ys[Layout::row(lane, t, row, lanes, n_steps, batch) * H + j] = out;
+        }
       }
-      __syncthreads();
+      if constexpr (kCluster)
+        cluster_sync();
+      else
+        __syncthreads();
     }
   }
+  if constexpr (kCluster) cluster_sync();  // no peer writes into this CTA after it exits
+}
+
+template <typename T, typename Layout, int R, bool kRegs>
+__global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden : kMaxThreads)
+    gru_walk_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
+                    const T* __restrict__ b_hh, const float* __restrict__ h0,
+                    T* __restrict__ ys, int n_steps, int batch, int hidden, int reverse) {
+  walk_body<T, Layout, R, kRegs, false>(xg, w_hh, b_hh, h0, ys, n_steps, batch, hidden,
+                                        reverse);
+}
+
+// The cluster walk: its own launch bound, with one block an SM (without the
+// minimum, ptxas trades registers for a second block and spills).
+template <typename T, typename Layout, int R>
+__global__ void __launch_bounds__(kClusterMaxThreads, 1)
+    gru_walk_cluster_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
+                            const T* __restrict__ b_hh, const float* __restrict__ h0,
+                            T* __restrict__ ys, int n_steps, int batch, int hidden,
+                            int reverse) {
+  walk_body<T, Layout, R, false, true>(xg, w_hh, b_hh, h0, ys, n_steps, batch, hidden,
+                                       reverse);
+}
+
+template <typename T, typename Layout, int R, bool kRegs, bool kCluster>
+constexpr auto walk_kernel() {
+  if constexpr (kCluster)
+    return gru_walk_cluster_kernel<T, Layout, R>;
+  else
+    return gru_walk_kernel<T, Layout, R, kRegs>;
 }
 
 template <typename T, typename Layout, int R, bool kRegs>
 int walk_launch_tile(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
                      void* ys, int lanes, int n_steps, int batch, int hidden, int reverse,
                      void* stream) {
-  const size_t smem = walk_shared_bytes(hidden, sizeof(T), R);
+  const size_t smem = walk_shared_bytes(hidden, sizeof(T), R, 1);
   cudaError_t err = cudaFuncSetAttribute(gru_walk_kernel<T, Layout, R, kRegs>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((batch + R - 1) / R, lanes);
   gru_walk_kernel<T, Layout, R, kRegs>
-      <<<grid, walk_threads(hidden), smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<grid, walk_threads(hidden, 1), smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
           static_cast<const float*>(h0), static_cast<T*>(ys), n_steps, batch, hidden, reverse);
+  return int(cudaGetLastError());
+}
+
+// The launch of the cluster walk for a tile of R rows: the grid's x holds
+// `cluster` CTAs for each row tile, one cluster apiece.
+template <int R>
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int lanes, int batch, int hidden, int cluster, size_t smem, void* stream) {
+    cfg.gridDim = dim3((batch + R - 1) / R * cluster, lanes);
+    cfg.blockDim = dim3(walk_threads(hidden, cluster));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Clusters of the cluster walk the card holds at once for this shape, or a
+// negative CUDA error.
+template <typename T, typename Layout, int R>
+int walk_active_clusters_tile(int lanes, int batch, int hidden, int cluster) {
+  const auto kernel = gru_walk_cluster_kernel<T, Layout, R>;
+  const size_t smem = walk_shared_bytes(hidden, sizeof(T), R, cluster);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    const ClusterLaunch<R> launch(lanes, batch, hidden, cluster, smem, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
+  }
+  return err == cudaSuccess ? clusters : -int(err);
+}
+
+// The cluster walk: refused (kNoCluster) before the launch when no cluster
+// of its size fits the card; cudaLaunchKernelEx's result is returned.
+template <typename T, typename Layout, int R>
+int walk_launch_cluster(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
+                        void* ys, int lanes, int n_steps, int batch, int hidden, int reverse,
+                        int cluster, void* stream) {
+  const int clusters = walk_active_clusters_tile<T, Layout, R>(lanes, batch, hidden, cluster);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return kNoCluster;
+  const ClusterLaunch<R> launch(lanes, batch, hidden, cluster,
+                                           walk_shared_bytes(hidden, sizeof(T), R, cluster),
+                                           stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &launch.cfg, gru_walk_cluster_kernel<T, Layout, R>, static_cast<const T*>(xg),
+      static_cast<const T*>(w_hh), static_cast<const T*>(b_hh), static_cast<const float*>(h0),
+      static_cast<T*>(ys), n_steps, batch, hidden, reverse);
+  if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
 
@@ -334,7 +529,7 @@ template <typename T, typename Layout, bool kRegs>
 int walk_launch_path(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
                      void* ys, int lanes, int n_steps, int batch, int hidden, int reverse,
                      void* stream) {
-  switch (walk_row_tile(batch, lanes, hidden)) {
+  switch (walk_row_tile(batch, lanes, hidden, 1)) {
     case 1:
       return walk_launch_tile<T, Layout, 1, kRegs>(xg, w_hh, b_hh, h0, ys, lanes, n_steps,
                                                    batch, hidden, reverse, stream);
@@ -352,15 +547,34 @@ int walk_launch_path(const void* xg, const void* w_hh, const void* b_hh, const v
   }
 }
 
-// The instantiation is chosen from H before any launch; a shape the wrapper
-// would have refused is refused here too, not launched.
+template <typename T, typename Layout>
+int walk_launch_cluster_path(const void* xg, const void* w_hh, const void* b_hh,
+                             const void* h0, void* ys, int lanes, int n_steps, int batch,
+                             int hidden, int reverse, int cluster, void* stream) {
+  switch (walk_row_tile(batch, lanes, hidden, cluster)) {
+    case 1:
+      return walk_launch_cluster<T, Layout, 1>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch,
+                                               hidden, reverse, cluster, stream);
+    case 2:
+      return walk_launch_cluster<T, Layout, 2>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch,
+                                               hidden, reverse, cluster, stream);
+    default:
+      return walk_launch_cluster<T, Layout, 4>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch,
+                                               hidden, reverse, cluster, stream);
+  }
+}
+
+// The instantiation is chosen from H and the dtype before any launch: W in
+// registers, W in one block's shared memory, or split over a cluster; an H
+// the wrapper would have refused is refused here too, not launched.
 template <typename T, typename Layout>
 int walk_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
                 int lanes, int n_steps, int batch, int hidden, int reverse, void* stream) {
-  const int rows = walk_row_tile(batch, lanes, hidden);
-  if (walk_threads(hidden) > kMaxThreads ||
-      walk_shared_bytes(hidden, sizeof(T), rows) > size_t(232448))
-    return int(cudaErrorInvalidValue);
+  const int cluster = walk_cluster_size(hidden, sizeof(T));
+  if (cluster == 0) return int(cudaErrorInvalidValue);
+  if (cluster > 1)
+    return walk_launch_cluster_path<T, Layout>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch,
+                                               hidden, reverse, cluster, stream);
   if (walk_in_registers(hidden))
     return walk_launch_path<T, Layout, true>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch,
                                              hidden, reverse, stream);
@@ -370,30 +584,61 @@ int walk_launch(const void* xg, const void* w_hh, const void* b_hh, const void* 
 
 // Blocks of the walk kernel (LaneMajor) one SM holds at once for a tile of R
 // rows, from CUDA's occupancy calculator; a negative CUDA error if it fails.
-template <typename T, int R, bool kRegs>
-int walk_blocks_tile(int hidden) {
-  const size_t smem = walk_shared_bytes(hidden, sizeof(T), R);
-  cudaError_t err = cudaFuncSetAttribute(gru_walk_kernel<T, LaneMajor, R, kRegs>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+template <typename T, int R, bool kRegs, bool kCluster>
+int walk_blocks_tile(int hidden, int cluster) {
+  const auto kernel = walk_kernel<T, LaneMajor, R, kRegs, kCluster>();
+  const size_t smem = walk_shared_bytes(hidden, sizeof(T), R, cluster);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, gru_walk_kernel<T, LaneMajor, R, kRegs>, walk_threads(hidden), smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        walk_threads(hidden, cluster), smem);
   return err == cudaSuccess ? blocks : -int(err);
 }
 
 template <typename T>
 int walk_blocks_per_sm(int batch, int lanes, int hidden) {
+  const int cluster = walk_cluster_size(hidden, sizeof(T));
+  if (cluster == 0) return -int(cudaErrorInvalidValue);
+  const int rows = walk_row_tile(batch, lanes, hidden, cluster);
+  if (cluster > 1) {
+    switch (rows) {
+      case 1: return walk_blocks_tile<T, 1, false, true>(hidden, cluster);
+      case 2: return walk_blocks_tile<T, 2, false, true>(hidden, cluster);
+      default: return walk_blocks_tile<T, 4, false, true>(hidden, cluster);
+    }
+  }
   const bool regs = walk_in_registers(hidden);
-  switch (walk_row_tile(batch, lanes, hidden)) {
+  switch (rows) {
     case 1:
-      return regs ? walk_blocks_tile<T, 1, true>(hidden) : walk_blocks_tile<T, 1, false>(hidden);
+      return regs ? walk_blocks_tile<T, 1, true, false>(hidden, 1)
+                  : walk_blocks_tile<T, 1, false, false>(hidden, 1);
     case 2:
-      return regs ? walk_blocks_tile<T, 2, true>(hidden) : walk_blocks_tile<T, 2, false>(hidden);
+      return regs ? walk_blocks_tile<T, 2, true, false>(hidden, 1)
+                  : walk_blocks_tile<T, 2, false, false>(hidden, 1);
     case 4:
-      return regs ? walk_blocks_tile<T, 4, true>(hidden) : walk_blocks_tile<T, 4, false>(hidden);
+      return regs ? walk_blocks_tile<T, 4, true, false>(hidden, 1)
+                  : walk_blocks_tile<T, 4, false, false>(hidden, 1);
     default:
-      return regs ? walk_blocks_tile<T, 8, true>(hidden) : -int(cudaErrorInvalidValue);
+      return regs ? walk_blocks_tile<T, 8, true, false>(hidden, 1) : -int(cudaErrorInvalidValue);
+  }
+}
+
+// Clusters of the walk (LaneMajor) the card holds at once for this shape;
+// without a cluster, the blocks it holds (blocks per SM times the SMs).
+template <typename T>
+int walk_active_clusters(int batch, int lanes, int hidden) {
+  const int cluster = walk_cluster_size(hidden, sizeof(T));
+  if (cluster == 0) return -int(cudaErrorInvalidValue);
+  if (cluster == 1) {
+    const int per_sm = walk_blocks_per_sm<T>(batch, lanes, hidden);
+    return per_sm < 0 ? per_sm : per_sm * kNumSMs;
+  }
+  switch (walk_row_tile(batch, lanes, hidden, cluster)) {
+    case 1: return walk_active_clusters_tile<T, LaneMajor, 1>(lanes, batch, hidden, cluster);
+    case 2: return walk_active_clusters_tile<T, LaneMajor, 2>(lanes, batch, hidden, cluster);
+    default: return walk_active_clusters_tile<T, LaneMajor, 4>(lanes, batch, hidden, cluster);
   }
 }
 
@@ -408,16 +653,32 @@ int gru_walk_blocks_per_sm(int batch, int lanes, int hidden, int bf16) {
               : walk_blocks_per_sm<float>(batch, lanes, hidden);
 }
 
-// Shared memory one block of gru_fwd / gru_fwd_fb / gru_bifwd needs for a
-// tile of `rows`.
-long long gru_walk_shared_bytes(int hidden, int bf16, int rows) {
-  return (long long)walk_shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float),
-                                      rows);
+// Clusters of the walk the card holds at once for this shape (blocks,
+// without a cluster); the wave count of ceil(B / R) * lanes clusters
+// follows.
+int gru_walk_active_clusters(int batch, int lanes, int hidden, int bf16) {
+  return bf16 ? walk_active_clusters<__nv_bfloat16>(batch, lanes, hidden)
+              : walk_active_clusters<float>(batch, lanes, hidden);
 }
 
-// Rows per block gru_fwd / gru_fwd_fb / gru_bifwd take for this shape.
-int gru_walk_row_tile(int batch, int lanes, int hidden) {
-  return walk_row_tile(batch, lanes, hidden);
+// CTAs of gru_fwd / gru_fwd_fb / gru_bifwd per (lane, row tile) at this H:
+// 1 while W fits one block, up to 8 for the cluster walk, 0 past the limit.
+int gru_walk_cluster_size(int hidden, int bf16) {
+  return walk_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+}
+
+// Shared memory one CTA of gru_fwd / gru_fwd_fb / gru_bifwd needs for a
+// tile of `rows` at this H's cluster size (kMaxCluster past the limit).
+long long gru_walk_shared_bytes(int hidden, int bf16, int rows) {
+  const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const int cluster = walk_cluster_size(hidden, item);
+  return (long long)walk_shared_bytes(hidden, item, rows, cluster ? cluster : kMaxCluster);
+}
+
+// Rows per (lane, tile) gru_fwd / gru_fwd_fb / gru_bifwd take for this shape.
+int gru_walk_row_tile(int batch, int lanes, int hidden, int bf16) {
+  const int cluster = walk_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  return walk_row_tile(batch, lanes, hidden, cluster ? cluster : kMaxCluster);
 }
 
 // Counterpart of _gru_forward: xg [T, B, 3H] -> ys [T, B, H].

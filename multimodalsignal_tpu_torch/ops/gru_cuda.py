@@ -27,21 +27,32 @@ adjoint kernel), and the model-facing entry points go through those:
     rule gives each fold its own two-lane walk)
   * `gru_lanes_cuda` (the fold-stacked model's walk: F lanes of one
     direction; the counterpart of the custom_vmap rules that route a fold
-    vmap onto the fb kernels)
+    vmap onto the fb kernels, fold grouping included: with
+    MMS_GRU_FOLD_GROUP >= 2, G folds as one block-diagonal lane of width
+    G·H, as gru_pallas.py:602-691 and :756-819 do)
 
 The three forward entries run the walk kernel (`gru_walk_kernel`): one
 block per (lane, tile of rows), W^T in registers up to H = 64 and in shared
 memory above, h double-buffered with one barrier a step, xg prefetched;
-`walk_row_tile` and `walk_shared_bytes` mirror how its C side picks the
-tile and sizes shared memory. The three adjoint entries run the adjoint
-walk, with their own lane count and stream layout (`gru_bwd` one lane,
-`gru_bwd_fb` F lanes, `gru_bibwd` the fused pair's 2 or 2F): a gate pre-pass
-over all T, a walk that keeps only the dh chain (W's columns in registers
-up to H = 64, in shared memory above; a producer warp moves its factors and
-dht between device and shared memory a chunk of steps at a time), and a
-weight-gradient pass over all T, summed in a fixed order; `adj_row_tile`,
-`adj_shared_bytes`, `adj_partials` and `adj_workspace_floats` mirror its C
-side and size every entry's checks and workspaces.
+where W does not fit one block (f32 above H = 136, bf16 above 192) a thread
+block cluster of K <= 8 CTAs shares each (lane, row tile), each CTA holding
+W's rows of its own ceil(H/K) units and sending its slice of h' to every
+CTA over distributed shared memory, one cluster barrier a step.
+`walk_cluster_size`, `walk_row_tile` and `walk_shared_bytes` mirror how its
+C side picks the cluster and the tile and sizes shared memory. The three
+adjoint entries run the adjoint walk, with their own lane count and stream
+layout (`gru_bwd` one lane, `gru_bwd_fb` F lanes, `gru_bibwd` the fused
+pair's 2 or 2F): a gate pre-pass over all T, a walk that keeps only the dh
+chain (W's columns in registers up to H = 64, in shared memory above, split
+over a cluster above H = 130 f32 / 179 bf16, the step's dg exchanged over
+distributed shared memory; a producer warp moves its factors and dht
+between device and shared memory a chunk of steps at a time), and a
+weight-gradient pass over all T, summed in a fixed order;
+`adj_cluster_size`, `adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
+`adj_workspace_floats` mirror its C side and size every entry's checks and
+workspaces. An H past the cluster design's limit (`walk_max_hidden`,
+`adj_max_hidden`: 380 / 376 in float32, 532 / 450 in bfloat16) is refused
+before any launch.
 
 The wrappers take the TPU kernels' time-major layout. A wrapper given CPU
 tensors runs its plain PyTorch version (`*_plain`: a Python loop over time
@@ -68,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -82,6 +94,14 @@ NUM_SMS = 132
 WALK_REG_MAX_HIDDEN = 64
 WALK_SUBLANES = {True: 8, False: 4}   # by "W in registers"
 WALK_REG_KPAD = 64                     # K padded to 8 sub-lanes x 2 chunks of 4
+# Threads a block or CTA of either walk takes at most, the portable thread
+# block cluster size (the most CTAs that split one walk's W), and what the C
+# entries return when no cluster of that size fits the card.
+MAX_THREADS = 768
+MAX_CLUSTER = 8
+NO_CLUSTER = -1
+# ... and the most a CTA of either cluster walk takes (its launch bound).
+CLUSTER_MAX_THREADS = 576
 # The adjoint walk's layout (csrc/gru_bwd.cu): K = 3H padded to 8 sub-lanes
 # x 6 chunks of 4 with W in registers; at most 2 rows a block with W in
 # registers, 1 with W in shared memory; the steps its producer warp moves at
@@ -91,6 +111,8 @@ WALK_REG_KPAD = 64                     # K padded to 8 sub-lanes x 2 chunks of 4
 # partials.
 ADJ_REG_KPAD = 192
 ADJ_MOST_ROWS = {True: 2, False: 1}   # by "W in registers"
+ADJ_SMEM_SUBLANES = 4                  # dot threads per unit, W in shared memory
+ADJ_PRODUCER = 32                      # the producer warp
 ADJ_CHUNK = {True: 16, False: 4}
 ADJ_WALK_FACTORS = 5
 ADJ_GATE_ROWS = ADJ_GATE_UNITS = 32
@@ -117,48 +139,126 @@ def _row_tile(batch: int, lanes: int, most: int) -> int:
     return rows
 
 
-def walk_row_tile(batch: int, lanes: int, hidden: int) -> int:
-    """Rows per block of the walk kernel (as gru_walk_row_tile in C), at
-    most the threads per hidden unit."""
-    return _row_tile(batch, lanes, WALK_SUBLANES[walk_in_registers(hidden)])
+def cluster_units(hidden: int, cluster: int) -> int:
+    """Hidden units one CTA of a cluster of `cluster` owns (as walk_units
+    and adj_units in C): CTA r owns r * units .. (r + 1) * units - 1, those
+    inside H."""
+    return -(-hidden // cluster)
+
+
+def _walk_bytes(hidden: int, itemsize: int, rows: int, cluster: int) -> int:
+    regs = walk_in_registers(hidden)
+    kpad = WALK_REG_KPAD if regs else -(-hidden // 4) * 4
+    w = 0 if regs else (3 * cluster_units(hidden, cluster) * kpad * itemsize + 15) // 16 * 16
+    return w + 2 * rows * kpad * 4
+
+
+def _walk_threads(hidden: int, cluster: int) -> int:
+    return -(-cluster_units(hidden, cluster) * WALK_SUBLANES[walk_in_registers(hidden)] // 32) * 32
+
+
+def walk_cluster_size(hidden: int, itemsize: int) -> int:
+    """CTAs of the walk kernel per (lane, row tile) (as gru_walk_cluster_size
+    in C): 1 while W fits one block at the most rows a block takes, else the
+    least cluster up to MAX_CLUSTER whose per-CTA share of W and threads
+    fit; 0 past the design's limit."""
+    if walk_in_registers(hidden):
+        return 1
+    for k in range(1, MAX_CLUSTER + 1):
+        if (_walk_threads(hidden, k) <= (MAX_THREADS if k == 1 else CLUSTER_MAX_THREADS)
+                and _walk_bytes(hidden, itemsize, WALK_SUBLANES[False], k) <= MAX_SHARED_BYTES):
+            return k
+    return 0
+
+
+def walk_row_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> int:
+    """Rows per (lane, tile) of the walk kernel (as gru_walk_row_tile in C),
+    at most the threads per hidden unit; a cluster's K CTAs count as K
+    blocks toward the SMs."""
+    cluster = walk_cluster_size(hidden, itemsize) or MAX_CLUSTER
+    return _row_tile(batch, lanes * cluster, WALK_SUBLANES[walk_in_registers(hidden)])
 
 
 def walk_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
-    """Shared memory per block of the walk kernel (as gru_walk_shared_bytes
-    in C): W [3H, K padded to 4] in the stream dtype, padded to 16 bytes,
-    for the shared-memory instantiation, then two f32 buffers of the tile's
-    h operand, [rows, K padded]. `rows` defaults to the most a block takes,
-    so the limit on H holds for every batch."""
-    regs = walk_in_registers(hidden)
-    rows = WALK_SUBLANES[regs] if rows is None else rows
-    kpad = WALK_REG_KPAD if regs else -(-hidden // 4) * 4
-    w = 0 if regs else (3 * hidden * kpad * itemsize + 15) // 16 * 16
-    return w + 2 * rows * kpad * 4
+    """Shared memory per block or CTA of the walk kernel (as
+    gru_walk_shared_bytes in C): W's rows of the CTA's units [3, units, K
+    padded to 4] in the stream dtype, padded to 16 bytes (all H in one
+    block; none with W in registers), then two f32 buffers of the tile's
+    whole h operand, [rows, K padded], at this H's cluster size
+    (MAX_CLUSTER past the limit, so the bytes show why). `rows` defaults to
+    the most a block takes, so the limit on H holds for every batch."""
+    rows = WALK_SUBLANES[walk_in_registers(hidden)] if rows is None else rows
+    cluster = walk_cluster_size(hidden, itemsize) or MAX_CLUSTER
+    return _walk_bytes(hidden, itemsize, rows, cluster)
 
 
 def adj_row_tile(batch: int, lanes: int, hidden: int) -> int:
     """Rows per block of gru_bwd's walk (as gru_adj_row_tile in C), at most
-    ADJ_MOST_ROWS (1 with W in shared memory)."""
+    ADJ_MOST_ROWS (1 with W in shared memory, in one block or a cluster)."""
     return _row_tile(batch, lanes, ADJ_MOST_ROWS[walk_in_registers(hidden)])
 
 
-def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
-    """Shared memory of the most demanding kernel of gru_bwd (as
-    gru_adj_shared_bytes in C): the walk's W^T [H, 3H padded to 4] in the
-    stream dtype, padded to 16 bytes, for the shared-memory instantiation,
-    then two f32 buffers of the tile's dg, [rows, K padded], and for two
-    chunks of steps the f32 factors [2 chunk, rows, 5, H] and dht
-    [2 chunk, rows, H]; or the gate pre-pass's f32 W slice [H, 3 * 32 + 1],
-    padded to 16 bytes, and h_prev [H, 32], whichever is larger. `rows`
-    defaults to the most a block takes."""
+def _adj_walk_bytes(hidden: int, itemsize: int, rows: int, cluster: int) -> int:
     regs = walk_in_registers(hidden)
-    rows = ADJ_MOST_ROWS[regs] if rows is None else rows
+    units = cluster_units(hidden, cluster)
     kpad = ADJ_REG_KPAD if regs else -(-3 * hidden // 4) * 4
-    w = 0 if regs else (hidden * kpad * itemsize + 15) // 16 * 16
-    per_row = 2 * ADJ_CHUNK[regs] * (ADJ_WALK_FACTORS + 1) * hidden
-    walk = w + (2 * rows * kpad + rows * per_row) * 4
+    w = 0 if regs else (units * kpad * itemsize + 15) // 16 * 16
+    per_row = 2 * ADJ_CHUNK[regs] * (ADJ_WALK_FACTORS + 1) * units
+    return w + (2 * rows * kpad + rows * per_row) * 4
+
+
+def adj_cluster_size(hidden: int, itemsize: int) -> int:
+    """CTAs of the adjoint walk per (lane, batch row) (as
+    gru_adj_cluster_size in C): 1 while W^T fits one block, else the least
+    cluster up to MAX_CLUSTER whose per-CTA share and threads (its units'
+    dot threads and the producer warp) fit; 0 past the walk's limit."""
+    if walk_in_registers(hidden):
+        return 1
+    for k in range(1, MAX_CLUSTER + 1):
+        threads = -(-cluster_units(hidden, k) * ADJ_SMEM_SUBLANES // 32) * 32 + ADJ_PRODUCER
+        if (threads <= (MAX_THREADS if k == 1 else CLUSTER_MAX_THREADS)
+                and _adj_walk_bytes(hidden, itemsize, 1, k) <= MAX_SHARED_BYTES):
+            return k
+    return 0
+
+
+def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
+    """Shared memory of the most demanding kernel of gru_bwd, per block or
+    CTA (as gru_adj_shared_bytes in C): the walk's W^T rows of the CTA's
+    units [units, 3H padded to 4] in the stream dtype, padded to 16 bytes
+    (all H in one block; none with W in registers), then two f32 buffers of
+    the tile's whole dg, [rows, K padded], and for two chunks of steps its
+    units' f32 factors [2 chunk, rows, 5, units] and dht [2 chunk, rows,
+    units], at this H's cluster size (MAX_CLUSTER past the limit); or the
+    gate pre-pass's f32 W slice [H, 3 * 32 + 1], padded to 16 bytes, and
+    h_prev [H, 32], whichever is larger. `rows` defaults to the most a
+    block takes."""
+    rows = ADJ_MOST_ROWS[walk_in_registers(hidden)] if rows is None else rows
+    cluster = adj_cluster_size(hidden, itemsize) or MAX_CLUSTER
     gates = (-(-hidden * (3 * ADJ_GATE_UNITS + 1) // 4) * 4 + hidden * ADJ_GATE_ROWS) * 4
-    return max(walk, gates)
+    return max(_adj_walk_bytes(hidden, itemsize, rows, cluster), gates)
+
+
+@functools.cache
+def max_hidden(smem, itemsize: int) -> int:
+    """The largest H whose every smaller H a kernel's shared-memory formula
+    (walk_shared_bytes or adj_shared_bytes) admits in this dtype."""
+    hidden = 1
+    while smem(hidden + 1, itemsize) <= MAX_SHARED_BYTES:
+        hidden += 1
+    return hidden
+
+
+def walk_max_hidden(itemsize: int) -> int:
+    """The largest H of gru_fwd, gru_fwd_fb and gru_bifwd (380 f32, 532
+    bf16: a cluster of 8 CTAs)."""
+    return max_hidden(walk_shared_bytes, itemsize)
+
+
+def adj_max_hidden(itemsize: int) -> int:
+    """The largest H of gru_bwd, gru_bwd_fb and gru_bibwd (376 f32: a
+    cluster of 8 CTAs; 450 bf16: the gate pre-pass's shared memory)."""
+    return max_hidden(adj_shared_bytes, itemsize)
 
 
 def adj_partials(n_steps: int, batch: int) -> tuple[int, int]:
@@ -353,10 +453,14 @@ def _library() -> ctypes.CDLL:
     lib.gru_bifwd.restype = i32
     lib.gru_walk_shared_bytes.argtypes = [i32, i32, i32]
     lib.gru_walk_shared_bytes.restype = ctypes.c_longlong
-    lib.gru_walk_row_tile.argtypes = [i32, i32, i32]
+    lib.gru_walk_row_tile.argtypes = [i32] * 4
     lib.gru_walk_row_tile.restype = i32
+    lib.gru_walk_cluster_size.argtypes = [i32, i32]
+    lib.gru_walk_cluster_size.restype = i32
     lib.gru_walk_blocks_per_sm.argtypes = [i32] * 4
     lib.gru_walk_blocks_per_sm.restype = i32
+    lib.gru_walk_active_clusters.argtypes = [i32] * 4
+    lib.gru_walk_active_clusters.restype = i32
     return lib
 
 
@@ -379,6 +483,10 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_adj_row_tile.restype = i32
     lib.gru_adj_walk_blocks_per_sm.argtypes = [i32] * 4
     lib.gru_adj_walk_blocks_per_sm.restype = i32
+    lib.gru_adj_cluster_size.argtypes = [i32, i32]
+    lib.gru_adj_cluster_size.restype = i32
+    lib.gru_adj_walk_active_clusters.argtypes = [i32] * 4
+    lib.gru_adj_walk_active_clusters.restype = i32
     lib.gru_adj_chunk_rows.argtypes = [i32, i32]
     lib.gru_adj_chunk_rows.restype = ctypes.c_longlong
     lib.gru_adj_partials.argtypes = [i32, i32]
@@ -418,14 +526,22 @@ def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
                         f"({xg.dtype}), got {w_hh.dtype} and {b_hh.dtype}")
     if h0.dtype != torch.float32:
         raise TypeError(f"h0 must be float32 (the carry), got {h0.dtype}")
-    need = (smem or walk_shared_bytes)(hidden, xg.element_size())
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"hidden size {hidden} needs {need} bytes of shared memory per "
-            f"block in {xg.dtype}; the kernel takes at most {MAX_SHARED_BYTES}")
+    _check_hidden(smem or walk_shared_bytes, hidden, xg.element_size(), xg.dtype)
     if max(*lead, n_steps, batch) * three_h >= 2**31:
         raise ValueError("a dimension is too large for the kernel's int arguments")
     return (lead or (1,))[0], n_steps, batch, hidden
+
+
+def _check_hidden(smem, hidden: int, itemsize: int, dtype) -> None:
+    """Refuse, before any launch, an H whose per-CTA shared memory exceeds
+    the card's even with W split over a cluster of MAX_CLUSTER CTAs."""
+    need = smem(hidden, itemsize)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"hidden size {hidden} needs {need} bytes of shared memory per block "
+            f"(W split over a cluster of up to {MAX_CLUSTER} CTAs) in {dtype}; the "
+            f"kernel takes at most {MAX_SHARED_BYTES}, so H up to "
+            f"{max_hidden(smem, itemsize)}")
 
 
 def _require_cuda(xg) -> None:
@@ -461,6 +577,9 @@ def _call(lib: ctypes.CDLL, entry: str, tensors, ints: list[int]) -> None:
     with torch.cuda.device(tensors[0].device), named:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *ints, stream)
+    if err == NO_CLUSTER:
+        raise RuntimeError(f"{entry} launch refused: no thread block cluster of the walk's "
+                           "size fits the card (cudaOccupancyMaxActiveClusters is 0)")
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
@@ -612,11 +731,7 @@ def _check_bi_args(xg2, whh2, bhh2, h02, smem, **streams):
             raise ValueError(f"{name} is on {t.device}, xg2 on {xg2.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    need = smem(hidden, 4)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"hidden size {hidden} needs {need} bytes of shared memory per "
-            f"block; the kernel takes at most {MAX_SHARED_BYTES}")
+    _check_hidden(smem, hidden, 4, torch.float32)
     if max(n_steps, batch) * lanes * three_h >= 2**31:
         raise ValueError("a dimension is too large for the kernel's int arguments")
     return n_steps, batch, hidden
@@ -761,17 +876,98 @@ def gru_sequence_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor,
     return ys.transpose(0, 1)
 
 
+# ---------------------------------------------------------------------------
+# Fold grouping (counterpart of gru_pallas.py:602-691): G folds as one lane
+# of width G·H, the hidden states fold-major along the features, the gate
+# columns gate-major, W block-diagonal (the zero blocks cancel the cross-fold
+# terms exactly). Off by default, as in the JAX package, where it measured
+# slower on a TPU; MMS_GRU_FOLD_GROUP >= 2 turns it on with that preferred
+# group size.
+# ---------------------------------------------------------------------------
+
+FOLD_GROUP_ENV = "MMS_GRU_FOLD_GROUP"
+
+
+def pick_group(lanes: int) -> int:
+    """Folds a group holds (counterpart of _pick_group): 1 unless
+    MMS_GRU_FOLD_GROUP >= 2; then the first of (that size, 4, 3, 2) no
+    larger than it that divides the lane count, else 1."""
+    top = int(os.environ.get(FOLD_GROUP_ENV, 1))
+    if top <= 1:
+        return 1
+    for g in (top, 4, 3, 2):
+        if g <= top and lanes % g == 0:
+            return g
+    return 1
+
+
+def _group_cols(x: torch.Tensor, fg: int, g: int) -> torch.Tensor:
+    """[F, *lead, 3H] -> [Fg, *lead, 3GH] with gate-major columns."""
+    lead, h, n = x.shape[1:-1], x.shape[-1] // 3, x.dim() - 2
+    y = x.reshape((fg, g) + lead + (3, h))
+    perm = (0,) + tuple(range(2, 2 + n)) + (2 + n, 1, 3 + n)
+    return y.permute(perm).reshape((fg,) + lead + (3 * g * h,))
+
+
+def _ungroup_cols(y: torch.Tensor, fg: int, g: int) -> torch.Tensor:
+    """Inverse of _group_cols."""
+    lead, h, n = y.shape[1:-1], y.shape[-1] // (3 * g), y.dim() - 2
+    z = y.reshape((fg,) + lead + (3, g, h))
+    perm = (0, 2 + n) + tuple(range(1, 1 + n)) + (1 + n, 3 + n)
+    return z.permute(perm).reshape((fg * g,) + lead + (3 * h,))
+
+
+def _group_h(x: torch.Tensor, fg: int, g: int) -> torch.Tensor:
+    """[F, *lead, H] -> [Fg, *lead, GH] (fold-major columns)."""
+    lead, h, n = x.shape[1:-1], x.shape[-1], x.dim() - 2
+    y = x.reshape((fg, g) + lead + (h,))
+    perm = (0,) + tuple(range(2, 2 + n)) + (1, 2 + n)
+    return y.permute(perm).reshape((fg,) + lead + (g * h,))
+
+
+def _ungroup_h(y: torch.Tensor, fg: int, g: int) -> torch.Tensor:
+    """Inverse of _group_h."""
+    lead, h, n = y.shape[1:-1], y.shape[-1] // g, y.dim() - 2
+    z = y.reshape((fg,) + lead + (g, h))
+    perm = (0, 1 + n) + tuple(range(1, 1 + n)) + (2 + n,)
+    return z.permute(perm).reshape((fg * g,) + lead + (h,))
+
+
+def _blockdiag_w(w_hh: torch.Tensor, fg: int, g: int) -> torch.Tensor:
+    """Per-fold [F, 3H, H] recurrent weights -> block-diagonal [Fg, 3GH, GH]:
+    rows (gate, fold, H_out) gate-major, columns (fold, H_in) fold-major.
+    Its gradient through autograd is the diagonal blocks of the grouped dW,
+    what the JAX rule's _diag_dw extracts."""
+    h = w_hh.shape[-1]
+    w = w_hh.reshape(fg, g, 3, h, h)
+    eye = torch.eye(g, dtype=w_hh.dtype, device=w_hh.device)
+    return torch.einsum("fgtoi,gk->ftgoki", w, eye).reshape(fg, 3 * g * h, g * h)
+
+
 def gru_lanes_cuda(x_gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                   h0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+                   h0: torch.Tensor, reverse: bool = False,
+                   group: bool = True) -> torch.Tensor:
     """F lanes of one GRU direction in one kernel walk (the fold-stacked
     model's walk; counterpart of gru_sequence_pallas under the fold vmap):
     time-major x_gates [F, T, B, 3H], w_hh [F, 3H, H], b_hh [F, 3H],
     h0 [F, B, H] -> ys [F, T, B, H] in the stream dtype (bf16 gates select
-    the kernel's bf16 mode)."""
+    the kernel's bf16 mode). With `group` and pick_group(F) = G >= 2 (the
+    JAX rule's grouped branch, gru_pallas.py:756-819), float32 throughout:
+    the F folds walk as F/G lanes of width G·H, and ys is cast back to the
+    stream dtype; autograd through the regrouping gives the per-fold
+    gradients."""
     dt = _stream_dtype(x_gates)
-    return _GruWalkFb.apply(x_gates.to(dt).contiguous(), w_hh.to(dt).contiguous(),
-                            b_hh.to(dt).contiguous(), h0.float().contiguous(),
-                            bool(reverse))
+    g = pick_group(x_gates.shape[0]) if group else 1
+    if g == 1:
+        return _GruWalkFb.apply(x_gates.to(dt).contiguous(), w_hh.to(dt).contiguous(),
+                                b_hh.to(dt).contiguous(), h0.float().contiguous(),
+                                bool(reverse))
+    f32, fg = torch.float32, x_gates.shape[0] // g
+    ys = _GruWalkFb.apply(_group_cols(x_gates.to(f32), fg, g).contiguous(),
+                          _blockdiag_w(w_hh.to(f32), fg, g).contiguous(),
+                          _group_cols(b_hh.to(f32), fg, g).contiguous(),
+                          _group_h(h0.float(), fg, g).contiguous(), bool(reverse))
+    return _ungroup_h(ys, fg, g).to(dt)
 
 
 def gru_bidirectional_dirbatch(x_gates_f, x_gates_b, w_hh_f, w_hh_b,

@@ -53,7 +53,10 @@ The corpus comes through data/dataset.py's on-disk pack cache: a hit's
 windows are a read-only memory map, copied into memory before they become
 the device tensor (corpus_tensor). Every gru_impl runs under the fold axis;
 pallas_fused walks all folds' two directions as 2F lanes of the fused pair
-(models/fold_stack.py).
+(models/fold_stack.py). With MMS_GRU_FOLD_GROUP >= 2 the per-direction
+F-lane walks take G folds as one lane of width G·H in float32 (fold
+grouping: auto, pallas and cuda every layer, every impl's pruned last layer;
+models/fold_stack.py says which walks and why).
 
 Several processes (parallel/multihost.py, MMS_COORDINATOR /
 MMS_NUM_PROCESSES / MMS_PROCESS_ID): each rank trains one contiguous block

@@ -116,7 +116,7 @@ def test_cpu_tensors_do_not_count_launches():
 def test_cuda_argument_checks():
     """What the kernel does not take is refused before any launch: wrong
     shapes, dtypes, non-contiguous tensors, a hidden size whose W^T does not
-    fit in shared memory."""
+    fit in shared memory even split over a cluster of 8 CTAs."""
     xg, w, b, h0 = (torch.from_numpy(a) for a in _inputs(7, t=4))
     xg = xg.transpose(0, 1).contiguous()
     check = gru_cuda._check_cuda_args
@@ -134,17 +134,20 @@ def test_cuda_argument_checks():
         check(xg.double(), w.double(), b.double(), h0, fb=False)
     with pytest.raises(ValueError, match="contiguous"):
         check(xg.transpose(0, 1).contiguous().transpose(0, 1), w, b, h0, fb=False)
-    big = 256  # W^T alone is 256 * 768 * 4 bytes > 227 KB
+    # A CTA's eighth of W (48 units x 384 x 4 bytes x 3 gates) and h exceed 227 KB.
+    big = WALK_MAX_HIDDEN["float32"] + 1
     with pytest.raises(ValueError, match="shared memory"):
         check(torch.zeros(2, 1, 3 * big), torch.zeros(3 * big, big),
               torch.zeros(3 * big), torch.zeros(1, big), fb=False)
 
 
 # Largest hidden sizes the walk kernel (gru_fwd, gru_fwd_fb) takes, from its
-# shared-memory formula, and the largest the first forward template took
-# (from its formula, W^T [H, 3H] plus 4 rows of carry, operand and hg, within
-# 232,448 bytes); every H up to the old limit is still taken.
-WALK_MAX_HIDDEN = {"float32": 136, "bfloat16": 192}
+# shared-memory formula (W split over a thread block cluster of up to 8
+# CTAs: each CTA's share of W and the whole h within 232,448 bytes), and the
+# largest the first forward template took (from its formula, W^T [H, 3H]
+# plus 4 rows of carry, operand and hg); every H up to the old limits is
+# still taken.
+WALK_MAX_HIDDEN = {"float32": 380, "bfloat16": 532}
 FIRST_MAX_HIDDEN = {"float32": 135, "bfloat16": 190}
 
 
@@ -158,15 +161,17 @@ def _walk_args(h, dtype, lanes=None):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_walk_kernel_admits_every_earlier_hidden_size(dtype):
     """gru_fwd's argument check follows the walk kernel's shared-memory
-    formula: it takes every H the first template took, and refuses the
-    first H past the new limit before any launch."""
+    formula: it takes every H the first template took and every H the
+    cluster walk holds, and refuses the first H past that limit before any
+    launch, naming the limit."""
     item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     assert gru_cuda.walk_shared_bytes(WALK_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
     assert gru_cuda.walk_shared_bytes(WALK_MAX_HIDDEN[dtype] + 1, item) > gru_cuda.MAX_SHARED_BYTES
     for h in range(1, WALK_MAX_HIDDEN[dtype] + 1):
         assert gru_cuda._check_cuda_args(*_walk_args(h, dtype), fb=False) == (1, 1, 1, h)
     assert WALK_MAX_HIDDEN[dtype] >= FIRST_MAX_HIDDEN[dtype]
-    with pytest.raises(ValueError, match="shared memory"):
+    assert gru_cuda.walk_max_hidden(item) == WALK_MAX_HIDDEN[dtype]
+    with pytest.raises(ValueError, match=f"shared memory.*H up to {WALK_MAX_HIDDEN[dtype]}"):
         gru_cuda._check_cuda_args(*_walk_args(WALK_MAX_HIDDEN[dtype] + 1, dtype), fb=False)
 
 
@@ -175,8 +180,8 @@ def test_walk_kernel_admits_every_earlier_hidden_size(dtype):
 def test_fb_walk_admits_every_earlier_hidden_size(dtype, lanes):
     """gru_fwd_fb runs the walk kernel too: _check_cuda_args(fb=True) takes
     every H up to the first template's limit (135 f32, 190 bf16) and the
-    walk kernel's own (136, 192) for any lane count, and refuses the first
-    H past it before any launch."""
+    walk kernel's own (380, 532 with the cluster walk) for any lane count,
+    and refuses the first H past it before any launch."""
     for h in range(1, WALK_MAX_HIDDEN[dtype] + 1):
         assert gru_cuda._check_cuda_args(*_walk_args(h, dtype, lanes), fb=True) == (lanes, 1, 1, h)
     with pytest.raises(ValueError, match="shared memory"):
@@ -209,3 +214,106 @@ def test_fb_lanes_reach_row_tiles_four_and_eight(lanes, batch, rows):
     the serving shape does not: F=4 at B=128 tiles 4 rows a block, the 15
     fold-parallel lanes at B=64 tile 8."""
     assert gru_cuda.walk_row_tile(batch, lanes, 64) == rows
+
+
+# Past one block's shared memory the walks split W over a thread block
+# cluster (f32 above H = 136 forward / 130 adjoint, bf16 above 192 / 179).
+ONE_BLOCK_MAX_HIDDEN = {"float32": (136, 130), "bfloat16": (192, 179)}
+BIG_H = 256
+
+
+def _partitioned(hidden: int, cluster: int) -> bool:
+    """Every unit of H in exactly one CTA's slice, none empty."""
+    units = gru_cuda.cluster_units(hidden, cluster)
+    slices = [range(r * units, min(hidden, (r + 1) * units)) for r in range(cluster)]
+    return [j for s in slices for j in s] == list(range(hidden)) and all(slices)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cluster_twins_cover_every_hidden_size_to_256(dtype):
+    """For H = 1-256 the Python twins of the C formulas (walk_cluster_size,
+    adj_cluster_size, walk_shared_bytes, adj_shared_bytes) pick the least
+    cluster whose per-CTA share fits: one block up to the old limits, 2-8
+    CTAs above, every unit in exactly one CTA's slice, the per-CTA bytes
+    within the card's and the CTA's threads within the cluster walk's
+    launch bound."""
+    item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    walk_max, adj_max = ONE_BLOCK_MAX_HIDDEN[dtype]
+    for h in range(1, BIG_H + 1):
+        k = gru_cuda.walk_cluster_size(h, item)
+        assert (k == 1) == (h <= walk_max) and 1 <= k <= gru_cuda.MAX_CLUSTER, (h, k)
+        assert _partitioned(h, k)
+        assert gru_cuda.walk_shared_bytes(h, item) <= gru_cuda.MAX_SHARED_BYTES
+        if k > 1:
+            most = gru_cuda.WALK_SUBLANES[False]
+            assert gru_cuda._walk_threads(h, k) <= gru_cuda.CLUSTER_MAX_THREADS
+            assert (gru_cuda._walk_bytes(h, item, most, k - 1) > gru_cuda.MAX_SHARED_BYTES
+                    or gru_cuda._walk_threads(h, k - 1) > gru_cuda.CLUSTER_MAX_THREADS)
+        a = gru_cuda.adj_cluster_size(h, item)
+        assert (a == 1) == (h <= adj_max) and 1 <= a <= gru_cuda.MAX_CLUSTER, (h, a)
+        assert _partitioned(h, a)
+        assert gru_cuda.adj_shared_bytes(h, item) <= gru_cuda.MAX_SHARED_BYTES
+        if a > 1:
+            assert gru_cuda._adj_walk_bytes(h, item, 1, a - 1) > gru_cuda.MAX_SHARED_BYTES
+
+
+def _entry_args(entry: str, h: int, dtype: str):
+    dt = getattr(torch, dtype)
+    z = torch.zeros
+    if entry in ("gru_bifwd", "gru_bibwd"):
+        args = (z(2, 2, 1, 3 * h), z(2, 3 * h, h), z(2, 3 * h), z(2, 1, h))
+        return args + ((z(2, 2, 1, h), z(2, 2, 1, h)) if entry == "gru_bibwd" else ())
+    lead = (2,) if entry.endswith("_fb") else ()
+    args = (z(lead + (2, 1, 3 * h), dtype=dt), z(lead + (3 * h, h), dtype=dt),
+            z(lead + (3 * h,), dtype=dt), z(lead + (1, h)))
+    if entry.startswith("gru_bwd"):
+        args += (z(lead + (2, 1, h), dtype=dt), z(lead + (2, 1, h), dtype=dt))
+    return args
+
+
+def _check_entry(entry: str, args):
+    """The entry's own argument check, as its wrapper runs it before any
+    launch."""
+    if entry == "gru_bifwd":
+        return gru_cuda._check_bi_args(*args, gru_cuda.walk_shared_bytes)
+    if entry == "gru_bibwd":
+        return gru_cuda._check_bi_args(*args[:4], gru_cuda.adj_shared_bytes, ys2=args[4],
+                                       dy2=args[5])
+    fb = entry.endswith("_fb")
+    if entry.startswith("gru_bwd"):
+        return gru_cuda._check_bwd_args(*args, fb=fb)
+    return gru_cuda._check_cuda_args(*args, fb=fb)
+
+
+@pytest.mark.parametrize("entry,dtype", [
+    ("gru_fwd", "float32"), ("gru_fwd", "bfloat16"), ("gru_fwd_fb", "float32"),
+    ("gru_fwd_fb", "bfloat16"), ("gru_bifwd", "float32"), ("gru_bwd", "float32"),
+    ("gru_bwd", "bfloat16"), ("gru_bwd_fb", "float32"), ("gru_bwd_fb", "bfloat16"),
+    ("gru_bibwd", "float32")])
+def test_every_entry_admits_256_and_refuses_past_its_limit(entry, dtype):
+    """Every entry's check admits H=256 (a cluster of 4 CTAs in f32, 2 in
+    bf16) and refuses the first H past its limit (forward 380 / 532, adjoint
+    376 / 450) with a ValueError that names the limit."""
+    item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    adjoint = entry in ("gru_bwd", "gru_bwd_fb", "gru_bibwd")
+    limit = gru_cuda.adj_max_hidden(item) if adjoint else gru_cuda.walk_max_hidden(item)
+    assert _check_entry(entry, _entry_args(entry, BIG_H, dtype))[-1] == BIG_H
+    assert _check_entry(entry, _entry_args(entry, limit, dtype))[-1] == limit
+    with pytest.raises(ValueError, match=f"H up to {limit}$"):
+        _check_entry(entry, _entry_args(entry, limit + 1, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_walk_at_h256_matches_pallas(reverse, dtype):
+    """At H=256 (the cluster walk on the card) the plain version, which the
+    wrapper runs on CPU tensors, matches gru_sequence_pallas in interpret
+    mode, T=9, B=3, with W at torch's GRU scale (1/sqrt(H), as the models
+    initialise it)."""
+    xg, w, b, h0 = _inputs(20, b=3, t=9, h=BIG_H)
+    w = (w / 0.3 / np.sqrt(BIG_H)).astype(np.float32)
+    (xg, w, b, h0), (txg, tw, tb, th0) = _both((xg, w, b, h0), dtype)
+    want = gru_pallas.gru_sequence_pallas(xg, w, b, h0, reverse=reverse)
+    got = gru_cuda.gru_sequence_cuda(txg, tw, tb, th0, reverse=reverse)
+    assert got.shape == (3, 9, BIG_H)
+    _assert_close(got, want, dtype)

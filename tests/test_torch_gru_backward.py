@@ -208,8 +208,9 @@ def test_backward_argument_checks():
         check(xg, w, b, h0, ys, dy, fb=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gru_cuda._launch_bwd("gru_bwd", xg, w, b, h0, ys, dy, False, fb=False)
-    # In f32 the walk's W^T (131 x 396) and its step buffers exceed 227 KB.
-    big = 131
+    # In f32 a CTA's eighth of the walk's W^T (48 x 1132) and its step
+    # buffers exceed 227 KB.
+    big = ADJ_MAX_HIDDEN["float32"] + 1
     assert gru_cuda.adj_shared_bytes(64, 4) <= gru_cuda.MAX_SHARED_BYTES
     z = torch.zeros
     with pytest.raises(ValueError, match="shared memory"):
@@ -217,10 +218,12 @@ def test_backward_argument_checks():
               z(1, 2, 1, big), z(1, 2, 1, big), fb=True)
 
 
-# Largest hidden sizes the adjoint walk takes (its shared-memory formula),
-# and the largest the first adjoint template took; every adjoint entry
-# still takes every H up to the old limit.
-ADJ_MAX_HIDDEN = {"float32": 130, "bfloat16": 179}
+# Largest hidden sizes the adjoint walk takes (its shared-memory formula:
+# f32 a CTA's share of W^T split over a cluster of 8, bf16 the gate
+# pre-pass's W slice and h_prev), and the largest the first adjoint
+# template took; every adjoint entry still takes every H up to the old
+# limits.
+ADJ_MAX_HIDDEN = {"float32": 376, "bfloat16": 450}
 FIRST_BWD_MAX_HIDDEN = {"float32": 95, "bfloat16": 109}
 
 
@@ -237,14 +240,16 @@ def _bwd_args(h, dtype, lanes=None):
 def test_adjoint_walk_admits_every_earlier_hidden_size(dtype):
     """gru_bwd's argument check follows the adjoint walk's formula: it takes
     every H the first template took (95 f32, 109 bf16) and every H up to its
-    own limit, and refuses the first H past it before any launch."""
+    own limit, and refuses the first H past it before any launch, naming
+    the limit."""
     item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     assert gru_cuda.adj_shared_bytes(ADJ_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
     assert gru_cuda.adj_shared_bytes(ADJ_MAX_HIDDEN[dtype] + 1, item) > gru_cuda.MAX_SHARED_BYTES
     assert ADJ_MAX_HIDDEN[dtype] >= FIRST_BWD_MAX_HIDDEN[dtype]
+    assert gru_cuda.adj_max_hidden(item) == ADJ_MAX_HIDDEN[dtype]
     for h in range(1, ADJ_MAX_HIDDEN[dtype] + 1):
         assert gru_cuda._check_bwd_args(*_bwd_args(h, dtype), fb=False) == (1, 2, 1, h)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match=f"shared memory.*H up to {ADJ_MAX_HIDDEN[dtype]}"):
         gru_cuda._check_bwd_args(*_bwd_args(ADJ_MAX_HIDDEN[dtype] + 1, dtype), fb=False)
 
 
@@ -252,7 +257,7 @@ def test_adjoint_walk_admits_every_earlier_hidden_size(dtype):
                                          ("gru_bibwd", "float32")])
 def test_fb_and_fused_adjoints_admit_every_walk_hidden_size(entry, dtype):
     """gru_bwd_fb (at 2 and at 15 lanes) and gru_bibwd run the adjoint walk
-    and are checked by its formula: they take every H up to 130 (f32) / 179
+    and are checked by its formula: they take every H up to 376 (f32) / 450
     (bf16), so every H the first template took, and refuse the next one
     before any launch."""
     most = ADJ_MAX_HIDDEN[dtype]
@@ -338,3 +343,31 @@ def test_every_adjoint_entry_gets_the_walk_workspaces(entry, lanes, monkeypatch)
     assert dtypes[-2:] == [torch.float32, torch.float32]
     assert [tuple(g.shape) for g in grads] == [tuple(xg.shape), tuple(w.shape),
                                                tuple(bias.shape), tuple(h0.shape)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_backward_at_h256_matches_pallas(reverse, dtype):
+    """At H=256 (the adjoint's cluster walk on the card) the plain adjoint
+    matches `_gru_backward` in interpret mode, T=9, B=3, from the JAX
+    forward's ys."""
+    h, b, t = 256, 3, 9
+    rng = np.random.default_rng(40 + reverse)
+    xg = rng.standard_normal((t, b, 3 * h)).astype(np.float32)
+    w = (rng.standard_normal((3 * h, h)) / np.sqrt(h)).astype(np.float32)
+    bias = (rng.standard_normal(3 * h) * 0.1).astype(np.float32)
+    h0 = (rng.standard_normal((b, h)) * 0.5).astype(np.float32)
+    dy = rng.standard_normal((t, b, h)).astype(np.float32)
+    jdt, tdt = JDT[dtype], getattr(torch, dtype)
+    jx, jw, jb, jdy = (jnp.asarray(a, jdt) for a in (xg, w, bias, dy))
+    jys = gru_pallas._gru_forward(jx, jw, jb, jnp.asarray(h0), reverse)
+    want = gru_pallas._gru_backward(jx, jw, jb, jnp.asarray(h0), jys, jdy, reverse)
+    ys = torch.from_numpy(np.array(jnp.asarray(jys, jnp.float32))).to(tdt)
+    args = [torch.from_numpy(a).to(tdt) for a in (xg, w, bias)]
+    args += [torch.from_numpy(h0), ys, torch.from_numpy(dy).to(tdt)]
+    dxg, dw, db, dh0 = gru_cuda.gru_backward_plain(*args, reverse=reverse)
+    t_dxg, t_dh0, t_dw = TOL[dtype]
+    _close(dxg, want[0], t_dxg, dtype, "dxg")
+    _close(dw, want[1], t_dw, dtype, "dW")
+    _close(db, want[2], t_dw, dtype, "db")
+    _close(dh0, want[3], t_dh0, dtype, "dh0")

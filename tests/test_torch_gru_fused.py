@@ -130,7 +130,8 @@ def test_bidirectional_fused_grads_match_pallas():
 def test_fused_wrappers_refuse_before_any_launch():
     """bf16 streams (the pair is float32 only), wrong shapes and
     non-contiguous tensors are refused on the CPU as on the card; so is a
-    hidden size whose W^T does not fit in shared memory."""
+    hidden size whose W^T does not fit in shared memory even split over a
+    cluster of 8 CTAs."""
     xg2, whh2, bhh2, h02, dy2 = (torch.from_numpy(a) for a in _fused_inputs(4, t=4))
     ys2 = torch.zeros_like(dy2)
     gru_cuda.reset_launch_counts()
@@ -151,7 +152,9 @@ def test_fused_wrappers_refuse_before_any_launch():
     with pytest.raises(ValueError, match="contiguous"):
         gru_cuda.gru_bibwd(xg2, whh2, bhh2, h02, ys2,
                            dy2.transpose(0, 2).contiguous().transpose(0, 2))
-    big = 131  # the adjoint walk's W^T (131 x 396) and step buffers exceed 227 KB
+    # A CTA's eighth of the adjoint walk's W^T (48 x 1132) and its step
+    # buffers exceed 227 KB even split over a cluster of 8.
+    big = 377
     z = torch.zeros
     with pytest.raises(ValueError, match="shared memory"):
         gru_cuda.gru_bibwd(z(1, 2, 1, 3 * big), z(2, 3 * big, big), z(2, 3 * big),
@@ -303,16 +306,17 @@ def test_pallas_fused_bf16_bigru_matches_jax(layers, prune):
         f"{excess[..., H:].max():.1f} in the second")
 
 
-@pytest.mark.parametrize("hidden", [1, 8, 64, 65, 128, 135, 136])
+@pytest.mark.parametrize("hidden", [1, 8, 64, 65, 128, 135, 136, 137, 256, 380])
 def test_bifwd_admits_every_earlier_hidden_size(hidden):
     """gru_bifwd's check follows the walk kernel's shared-memory formula: it
-    takes every H up to 135 (the first template's limit) and 136, on the
-    CPU as on the card, and refuses 137 before any launch."""
+    takes every H up to 135 (the first template's limit), 136 (one block's)
+    and 380 (a cluster of 8 CTAs), on the CPU as on the card, and refuses
+    381 before any launch."""
     z = torch.zeros
     args = (z(1, 2, 1, 3 * hidden), z(2, 3 * hidden, hidden), z(2, 3 * hidden), z(2, 1, hidden))
     assert gru_cuda._check_bi_args(*args, gru_cuda.walk_shared_bytes) == (1, 1, hidden)
     assert gru_cuda.gru_bifwd(*args).shape == (1, 2, 1, hidden)
-    big = 137
-    with pytest.raises(ValueError, match="shared memory"):
+    big = 381
+    with pytest.raises(ValueError, match="shared memory.*H up to 380"):
         gru_cuda.gru_bifwd(z(1, 2, 1, 3 * big), z(2, 3 * big, big), z(2, 3 * big),
                            z(2, 1, big))
