@@ -291,18 +291,17 @@ Phases, in order; any failure raises and the script exits non-zero:
     a. the C formulas of the cluster walk (cluster size, per-CTA shared
        bytes, row tile) against gru_cuda's twins for H = 1-559 in both
        dtypes, and ptxas's registers and spills of its instantiations; all
-       six entries at H = 137, 180, 192, 256 and each one's limit
-       (gru_cuda.walk_max_hidden / adj_max_hidden: 380 / 376 f32, 532 / 450
-       bf16), f32 and bf16 where taken, T=480 B=64 both directions, and at
+       six entries at H = 137, 180, 192, 256 and the cluster design's limit
+       (380 / 376 f32, 532 / 450 bf16; past it the streamed walk, phase
+       16), f32 and bf16 where taken, T=480 B=64 both directions, and at
        H=256 also B=1, B=256 and T=1, against their plain versions (TOL /
        BWD_TOL, the fused pair per direction); dW and db bitwise over two
-       runs at H=256; the limit + 1 refused with a ValueError that names the
-       limit, before any launch;
+       runs at H=256;
     b. each walk at T=480 B=64 H=256: kernel ms, us per dependent step, the
        bound (6 H^2 FLOPs a row-step forward, 12 H^2 adjoint), the plain
        version, cuDNN's nn.GRU at H=256, cluster, row tile and waves;
     c. the sweep CLI with model.gru_hidden_size=256 (f32 auto, 1 epoch) as
-       in 7 (first 3 steps card vs CPU on lanes 0-1, exact launches, 15
+       in 7 (first 3 steps card vs CPU on lanes 0-1 at B=16, exact launches, 15
        finite folds, a step profile); fold S2's Predictor at H=256 (counted: 2 gru_fwd_fb
        and 2 gru_fwd for 70 windows) against the CPU (PROB_ATOL);
     d. MMS_GRU_FOLD_GROUP=3 at F=15 (5 lanes of G*H = 192, float32 walks),
@@ -312,6 +311,34 @@ Phases, in order; any failure raises and the script exits non-zero:
        step ms ungrouped, grouped, grouped, ungrouped, and a trace of a
        grouped step.
     Then the phase's seconds, and each part's.
+16. The streamed walks (past the cluster walk's limit), the host window
+    engine and trainer.remat, on phase 7's data:
+    a. the C plans (gru_walk_plan, gru_adj_plan: instantiation, cluster,
+       row tile, resident and streamed units a CTA, shared bytes,
+       workspace) against gru_cuda's twins for H = 1-1100 in both dtypes,
+       ptxas's registers of the streamed instantiations; all six entries
+       at H = 381 / 377 (forward / adjoint), 451 (the adjoint), 512, 768
+       and 1024, f32 and bf16 where taken, T=480 B=64 both directions, and
+       at H=512 also B=1, B=256 and T=1, against their plain versions; dW
+       and db bitwise over two runs at H=512; past the streamed walk's
+       limit a ValueError naming it, before any launch;
+    b. each entry at H = 512 and 1024, T=480 B=64: kernel ms, us a step,
+       the bound, the plain version, cuDNN's nn.GRU, the plan, its waves
+       and the bytes of W streamed from L2 a step;
+    c. a Predictor at H=512 against the CPU (counted), the sweep at H=512
+       (first 3 steps card vs CPU on lanes 0-1 at B=16 under TRAIN_TOL; 3
+       counted steps at B=64), MMS_GRU_FOLD_GROUP=3 at H=256 (G*H = 768,
+       streamed) against ungrouped under TRAIN_TOL;
+    d. the host window engine built and used: pack_corpus of phase 7's
+       data through it once a subject (cache off), against the NumPy path,
+       and both packs' seconds;
+    e. trainer.remat: the f32 and bf16 sweep, 3 steps on against off under
+       TRAIN_TOL (bitwise or not), exact launches in both modes; step ms and
+       peak MiB off, on, on, off at 15 lanes (H = 64 and 256) and 60 lanes.
+    Then the phase's seconds, and each part's.
+Every sweep's expected launches follow trainer.remat (default true): a
+train step runs each forward walk twice, the forward and its recompute in
+the backward, and each adjoint once.
 The fused pair (gru_bifwd, gru_bibwd) has kernel phases as in 3, float32
 only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
@@ -325,8 +352,8 @@ cards, one rank each (its docstring says how to run it).
 
 Prints a JSON line of the kernels (launches: gru_fwd's from the float32
 serving run, gru_bwd's from the float32 training run, the fb pair's from
-the float32 sweep, 13b's float32 fused sweep, both ranks of 14a and 14b and
-15c's and 15d's float32 CLI runs, the fused pair's from the float32 serial LOSO run, 13b's float32
+the float32 sweep, 13b's float32 fused sweep, both ranks of 14a and 14b,
+15c's and 15d's float32 CLI runs and 16c's counted runs, the fused pair's from the float32 serial LOSO run, 13b's float32
 fused sweep and both ranks of 14b),
 then, as the last line, {"ok": true, "device": {...}}. Needs one CUDA
 device and the repository; with no arguments it runs every phase (the
@@ -339,6 +366,7 @@ import base64
 import collections
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -545,14 +573,14 @@ def check_adjoint_formulas(bwd) -> None:
         for lanes in (1, 2, 15, 60):
             for h in (M2_H, SERVE_H, 128):
                 same(f"gru_adj_row_tile({batch}, {lanes}, {h})",
-                     bwd.gru_adj_row_tile(batch, lanes, h), gru_cuda.adj_row_tile(batch, lanes, h))
+                     bwd.gru_adj_row_tile(batch, lanes, h, 0), gru_cuda.adj_row_tile(batch, lanes, h))
         for t in (1, 37, SERVE_T):
             same(f"gru_adj_chunk_rows/partials({t}, {batch})",
                  (bwd.gru_adj_chunk_rows(t, batch), bwd.gru_adj_partials(t, batch)),
                  gru_cuda.adj_partials(t, batch))
             for lanes in (1, 2, 15, 60):
                 same(f"gru_adj_workspace_floats({lanes}, {t}, {batch}, {SERVE_H})",
-                     bwd.gru_adj_workspace_floats(lanes, t, batch, SERVE_H),
+                     bwd.gru_adj_workspace_floats(lanes, t, batch, SERVE_H, 0),
                      gru_cuda.adj_workspace_floats(lanes, t, batch, SERVE_H))
     chunk, parts = gru_cuda.adj_partials(SERVE_T, SERVE_B)
     print(f"  gru_adj_shared_bytes(H={SERVE_H}, bf16=0, rows=1) = "
@@ -615,10 +643,13 @@ def bound_ms(lanes, t, b, h, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cudnn_ms(lanes, t, b, h, dtype, calls: int = 1) -> float:
+def cudnn_ms(lanes, t, b, h, dtype, calls: int = 1, per_block: int | None = None,
+             blocks: int = 5) -> float:
     """nn.GRU (cuDNN) over the same T, B and H: one direction, or both for
     two lanes, called `calls` times one after another (cuDNN takes one
-    weight set a call). It also does the input projection (input size H)."""
+    weight set a call), the median of `blocks` blocks of `per_block` (by
+    default max(20 // calls, 2)). It also does the input projection (input
+    size H)."""
     gru = torch.nn.GRU(h, h, bidirectional=lanes == 2).to("cuda", dtype)
     gru.flatten_parameters()  # one weight buffer, as cuDNN wants it
     x = torch.randn(t, b, h, device="cuda", dtype=dtype)
@@ -628,7 +659,7 @@ def cudnn_ms(lanes, t, b, h, dtype, calls: int = 1) -> float:
             gru(x)
 
     with torch.inference_mode():
-        return median_ms(forward, per_block=max(20 // calls, 2))
+        return median_ms(forward, per_block=per_block or max(20 // calls, 2), blocks=blocks)
 
 
 # Shapes of the walk kernel (gru_fwd, gru_bifwd) beyond the main and the
@@ -759,14 +790,13 @@ def waves(adjoint: bool, batch: int, lanes: int, hidden: int, dtype) -> str:
         lib = gru_cuda._bwd_library()
         per_sm = lib.gru_adj_walk_blocks_per_sm(batch, lanes, hidden, bf16)
         at_once = lib.gru_adj_walk_active_clusters(batch, lanes, hidden, bf16)
-        rows = gru_cuda.adj_row_tile(batch, lanes, hidden)
-        cluster = gru_cuda.adj_cluster_size(hidden, item)
+        plan = gru_cuda.adj_plan(batch, lanes, 1, hidden, item)
     else:
         lib = gru_cuda._library()
         per_sm = lib.gru_walk_blocks_per_sm(batch, lanes, hidden, bf16)
         at_once = lib.gru_walk_active_clusters(batch, lanes, hidden, bf16)
-        rows = gru_cuda.walk_row_tile(batch, lanes, hidden, item)
-        cluster = gru_cuda.walk_cluster_size(hidden, item)
+        plan = gru_cuda.walk_plan(batch, lanes, hidden, item)
+    rows, cluster = plan["rows"], plan["cluster"]
     if per_sm <= 0 or at_once <= 0:
         raise AssertionError(f"blocks per SM / clusters at once at B={batch} F={lanes} "
                              f"H={hidden}: {per_sm} / {at_once}")
@@ -794,7 +824,8 @@ def bwd_bound_ms(lanes, t, b, h, dtype, products: int = 3) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cudnn_bwd_ms(lanes, t, b, h, dtype, calls: int = 1) -> float:
+def cudnn_bwd_ms(lanes, t, b, h, dtype, calls: int = 1, per_block: int | None = None,
+                 blocks: int = 5) -> float:
     """Backward of nn.GRU (cuDNN) over the same T, B and H, one direction or
     both for two lanes, called `calls` times one after another:
     forward+backward minus forward, both with autograd on. It also computes
@@ -804,7 +835,7 @@ def cudnn_bwd_ms(lanes, t, b, h, dtype, calls: int = 1) -> float:
     gru.flatten_parameters()
     x = torch.randn(t, b, h, device="cuda", dtype=dtype, requires_grad=True)
     g = torch.randn(t, b, h * (2 if bi else 1), device="cuda", dtype=dtype)
-    per_block = max(20 // calls, 2)
+    per_block = per_block or max(20 // calls, 2)
 
     def forward():
         for _ in range(calls):
@@ -815,8 +846,8 @@ def cudnn_bwd_ms(lanes, t, b, h, dtype, calls: int = 1) -> float:
             gru(x)[0].backward(g)
 
     with torch.enable_grad():
-        both = median_ms(fwd_bwd, per_block=per_block)
-        fwd = median_ms(forward, per_block=per_block)
+        both = median_ms(fwd_bwd, per_block=per_block, blocks=blocks)
+        fwd = median_ms(forward, per_block=per_block, blocks=blocks)
     return both - fwd
 
 
@@ -1700,18 +1731,22 @@ def sweep_expected_launches(fb, tcfg, model_cfg: ModelConfig | None = None
     model's 3 F-lane walks and 3 adjoints without one) over its train steps
     and eval batches (2 epochs of train steps and validation batches, then
     the test batches; the early-stopping patience exceeds the epochs), with
-    those counts."""
+    those counts. Under tcfg.remat (the default) a train step runs each
+    forward walk twice (the forward, then its recompute in the backward)
+    and each adjoint once."""
     b = tcfg.batch_size
     train = tcfg.epochs * grid_steps(fb.n_train, b)
     evals = tcfg.epochs * grid_steps(fb.n_val, b) + grid_steps(fb.n_test, b)
     fwd, bwd = fold_walks(model_cfg)
-    return ({k: fwd[k] * (train + evals) + bwd[k] * train for k in KERNELS}, train, evals)
+    forwards = train * (2 if tcfg.remat else 1) + evals
+    return ({k: fwd[k] * forwards + bwd[k] * train for k in KERNELS}, train, evals)
 
 
 def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep",
                 corpus=None, parity: bool = True, profile: bool = True,
                 db_step: bool = True, impl: str = "auto", epochs: int = 2,
-                cpu_folds: int = CPU_FOLDS) -> tuple[dict[str, int], Path]:
+                cpu_folds: int = CPU_FOLDS, parity_batch: int | None = None
+                ) -> tuple[dict[str, int], Path]:
     """First-steps parity, then the experiment CLI with no --execution (the
     sharded sweep: the main path, counted), its run directory's checks and
     the step profile (of gru_impl `impl`, and for another impl than auto
@@ -1719,7 +1754,7 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
     returns the kernel launches of the CLI run and its run directory.
     `data_argv` names the data (--set data_path=..., the hybrid targets, or
     --from-pickles); `corpus`, if given, is what the CLI will stage from
-    it."""
+    it; `parity_batch`, if given, the batch of the parity steps."""
     out = root / f"{what}_{dtype}"
     argv = ["--output-dir", str(out), "--set", f"trainer.epochs={epochs}",
             "--set", f"model.dtype={dtype}", "--set", f"model.gru_impl={impl}"] + data_argv
@@ -1733,7 +1768,9 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
 
     # a. The first 3 sweep train steps, card vs CPU, and two lanes vs Trainer.
     if parity:
-        sweep_parity(cfg, corpus, fb, root / f"{what}_parity_{dtype}", TRAIN_TOL[dtype],
+        pcfg = cfg if parity_batch is None else dataclasses.replace(
+            cfg, trainer=dataclasses.replace(cfg.trainer, batch_size=parity_batch))
+        sweep_parity(pcfg, corpus, fb, root / f"{what}_parity_{dtype}", TRAIN_TOL[dtype],
                      f"{what} {dtype}", cpu_folds)
 
     # b. The main path: the experiment CLI's default execution.
@@ -1794,7 +1831,9 @@ def sweep_phase(dtype: str, data_argv: list[str], root: Path, what: str = "sweep
             gru_cuda.reset_launch_counts()
             db.train_step(idx[:, 0], w[:, 0])
             one = gru_cuda.launch_counts()
-            if (one["gru_fwd_fb"], one["gru_bwd_fb"], sum(one.values())) != (3, 3, 6):
+            twice = 2 if db_cfg.trainer.remat else 1   # remat: each walk again in the backward
+            if (one["gru_fwd_fb"], one["gru_bwd_fb"], sum(one.values())) != (
+                    3 * twice, 3, 3 * twice + 3):
                 raise AssertionError(f"{what} {dtype} pallas_db: one step launched {one}")
             print(f"{what} {dtype} pallas_db: one step launched {one} "
                   "(per-direction F-lane walks)")
@@ -3721,17 +3760,32 @@ WRAPPERS = {"gru_fwd": (gru_cuda.gru_forward, gru_cuda.gru_forward_plain),
             "gru_bwd_fb": (gru_cuda.gru_backward_fb, gru_cuda.gru_backward_fb_plain),
             "gru_bibwd": (gru_cuda.gru_bibwd, gru_cuda.gru_bibwd_plain)}
 FOLD_GROUP = 3   # 15 folds as 5 lanes of G*H = 192
-# Lanes of 15c's CPU side: at H=256 four took 93.1 s on the 8 host cores.
+# Lanes of 15c's CPU side: at H=256 four took 93.1 s on the 8 host cores;
+# and the batch of 15c's and 16c's card-vs-CPU steps (at H=512 and B=64 two
+# lanes took 177 s there).
 BIG_H_CPU_FOLDS = 2
+WIDE_PARITY_BATCH = 16
 
 
 def itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+@functools.cache
 def entry_limit(name: str, dtype) -> int:
-    """The largest H the entry takes in this dtype (the cluster design's
-    limit: gru_cuda.walk_max_hidden / adj_max_hidden)."""
+    """The largest H of the entry's one-block and cluster design in this
+    dtype (past it the streamed walk runs: phase 16)."""
+    item = itemsize(dtype)
+    streamed = gru_cuda.adj_streamed if name in ADJOINTS else gru_cuda.walk_streamed
+    hidden = 1
+    while not streamed(hidden + 1, item):
+        hidden += 1
+    return hidden
+
+
+def stream_limit(name: str, dtype) -> int:
+    """The largest H the entry takes in this dtype (the streamed walk's:
+    gru_cuda.walk_max_hidden / adj_max_hidden)."""
     item = itemsize(dtype)
     return gru_cuda.adj_max_hidden(item) if name in ADJOINTS else gru_cuda.walk_max_hidden(item)
 
@@ -3760,14 +3814,17 @@ def call_entry(fn, name: str, args, reverse: bool):
     return fn(*args, reverse=reverse)
 
 
-def cluster_plan(name: str, lanes: int, batch: int, hidden: int, dtype) -> str:
+def cluster_plan(name: str, lanes: int, batch: int, hidden: int, dtype,
+                 n_steps: int = SERVE_T) -> str:
+    """The entry's plan at this shape (gru_cuda.walk_plan / adj_plan)."""
     item = itemsize(dtype)
-    if name in ADJOINTS:
-        return (f"cluster of {gru_cuda.adj_cluster_size(hidden, item)}, "
-                f"{gru_cuda.adj_shared_bytes(hidden, item, 1)} bytes a CTA")
-    return (f"cluster of {gru_cuda.walk_cluster_size(hidden, item)}, row tile "
-            f"{gru_cuda.walk_row_tile(batch, lanes, hidden, item)}, "
-            f"{gru_cuda.walk_shared_bytes(hidden, item)} bytes a CTA")
+    plan = (gru_cuda.adj_plan(batch, lanes, n_steps, hidden, item) if name in ADJOINTS
+            else gru_cuda.walk_plan(batch, lanes, hidden, item))
+    text = (f"{plan['instantiation']}, cluster of {plan['cluster']}, row tile {plan['rows']}, "
+            f"{plan['shared_bytes']} bytes a CTA")
+    if plan["instantiation"] == "streamed":
+        text += f", W of {plan['resident']} units resident, {plan['streamed']} streamed a CTA"
+    return text
 
 
 def cluster_formulas() -> None:
@@ -3815,111 +3872,120 @@ def cluster_formulas() -> None:
           f"row tiles for H = 1-559; limits (forward, adjoint): {limits}")
 
 
+def entry_vs_plain(tag: str, name: str, t: int, b: int, h: int, dtype, reverse: bool) -> None:
+    """The entry's wrapper on the card against its plain version on the
+    same inputs (TOL / BWD_TOL; the fused pair's two directions each on
+    their own), printing the largest differences and the plan."""
+    adjoint = name in ADJOINTS
+    fused = name in ("gru_bifwd", "gru_bibwd")
+    lanes = 2 if (name.endswith("_fb") or fused) else 1
+    args = entry_inputs(name, t, b, h, dtype, seed=h + t + b, reverse=reverse)
+    got = call_entry(WRAPPERS[name][0], name, args, reverse)
+    torch.cuda.synchronize()
+    want = call_entry(WRAPPERS[name][1], name, args, reverse)
+    got = got if adjoint else (got,)
+    want = want if adjoint else (want,)
+    outs = ("dxg", "dW", "db", "dh0") if adjoint else ("ys",)
+    errs = []
+    for o, g, w in zip(outs, got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name} {o}: {list(g.shape)}")
+        tol = (BWD_TOL[dtype][o in ("dW", "db")] if adjoint else TOL[dtype])
+        errs.append((g.float() - w.float()).abs().max().item())
+        # the fused pair's two directions on their own: streams [T, 2, B, .],
+        # per-lane outputs [2, ...]
+        parts = ([(g[:, d], w[:, d]) for d in (0, 1)] if fused and o in ("dxg", "ys")
+                 else [(g[d], w[d]) for d in (0, 1)] if fused else [(g, w)])
+        for gp, wp in parts:
+            torch.testing.assert_close(
+                gp.float(), wp.float(), **tol,
+                msg=lambda m, o=o: f"{name} H={h} B={b} T={t} {o}: {m}")
+    print(f"{tag} {name}: F={lanes} T={t} B={b} H={h} {str(dtype)[6:]} reverse={reverse}: "
+          "max|d| " + ", ".join(f"{o} {e:.3e}" for o, e in zip(outs, errs))
+          + f" ({cluster_plan(name, lanes, b, h, dtype, t)})")
+
+
 def large_walks_phase() -> None:
-    """15a: all six entries at H in LARGE_HS and at their limit, f32 and
-    bf16 where taken, T=480 B=64 both directions; at BIG_H also B=1, B=256
-    and T=1; each against its plain version (TOL / BWD_TOL; the fused pair's
-    adjoint per direction). dW and db bitwise over two runs at BIG_H. The
-    limit + 1 refused with a ValueError before any launch."""
+    """15a: all six entries at H in LARGE_HS and at the cluster design's
+    limit, f32 and bf16 where taken, T=480 B=64 both directions; at BIG_H
+    also B=1, B=256 and T=1; each against its plain version (TOL / BWD_TOL;
+    the fused pair's adjoint per direction). dW and db bitwise over two runs
+    at BIG_H. (Past the cluster design's limit: phase 16.)"""
     t0 = time.perf_counter()
     for name in WRAPPERS:
         adjoint = name in ADJOINTS
         fused = name in ("gru_bifwd", "gru_bibwd")
-        lanes = 2 if (name.endswith("_fb") or fused) else 1
         for dtype in entry_dtypes(name):
             limit = entry_limit(name, dtype)
             shapes = [(SERVE_T, SERVE_B, h) for h in LARGE_HS + (limit,)]
             shapes += [(SERVE_T, 1, BIG_H), (SERVE_T, 256, BIG_H), (1, SERVE_B, BIG_H)]
             for t, b, h in shapes:
                 for reverse in ((False,) if fused else (False, True)):
-                    args = entry_inputs(name, t, b, h, dtype, seed=h + t + b, reverse=reverse)
-                    got = call_entry(WRAPPERS[name][0], name, args, reverse)
-                    torch.cuda.synchronize()
-                    want = call_entry(WRAPPERS[name][1], name, args, reverse)
-                    got = got if adjoint else (got,)
-                    want = want if adjoint else (want,)
-                    outs = ("dxg", "dW", "db", "dh0") if adjoint else ("ys",)
-                    errs = []
-                    for o, g, w in zip(outs, got, want):
-                        if g.shape != w.shape:
-                            raise AssertionError(f"{name} {o}: {list(g.shape)}")
-                        tol = (BWD_TOL[dtype][o in ("dW", "db")] if adjoint else TOL[dtype])
-                        errs.append((g.float() - w.float()).abs().max().item())
-                        # the fused pair's two directions on their own: streams
-                        # [T, 2, B, .], per-lane outputs [2, ...]
-                        parts = ([(g[:, d], w[:, d]) for d in (0, 1)] if fused and o in
-                                 ("dxg", "ys") else [(g[d], w[d]) for d in (0, 1)] if fused
-                                 else [(g, w)])
-                        for gp, wp in parts:
-                            torch.testing.assert_close(
-                                gp.float(), wp.float(), **tol,
-                                msg=lambda m, o=o: f"{name} H={h} B={b} T={t} {o}: {m}")
-                    print(f"15a {name}: F={lanes} T={t} B={b} H={h} {str(dtype)[6:]} "
-                          f"reverse={reverse}: max|d| "
-                          + ", ".join(f"{o} {e:.3e}" for o, e in zip(outs, errs))
-                          + f" ({cluster_plan(name, lanes, b, h, dtype)})")
-                    del args, got, want
+                    entry_vs_plain("15a", name, t, b, h, dtype, reverse)
             if adjoint:
                 args = entry_inputs(name, SERVE_T, SERVE_B, BIG_H, dtype, seed=3, reverse=False)
                 check_deterministic(name, WRAPPERS[name][0], args,
                                     f"15a H={BIG_H} {str(dtype)[6:]}")
                 del args
-            over = limit + 1
-            args = entry_inputs(name, 2, 1, over, dtype, seed=1, reverse=False)
-            before = gru_cuda.launch_counts()
-            try:
-                WRAPPERS[name][0](*args)
-            except ValueError as e:
-                if gru_cuda.launch_counts() != before or str(limit) not in str(e):
-                    raise AssertionError(f"{name} H={over}: {e}; launches moved or no limit "
-                                         "named") from e
-                print(f"15a {name} {str(dtype)[6:]} H={over}: refused before any launch: {e}")
-            else:
-                raise AssertionError(f"{name} took H={over} {dtype}, past its limit {limit}")
             torch.cuda.empty_cache()
     print(f"15a: {time.perf_counter() - t0:.1f} s")
 
 
+def time_entry(tag: str, name: str, dtype, h: int, per_block: int = 20,
+               blocks: int = 5) -> float:
+    """One entry at T=480 B=64 (two lanes for the _fb entries, the pair's
+    two directions): kernel ms (median of `blocks` blocks of `per_block`
+    calls), us per dependent step, the bound (6 H^2 FLOPs a row-step
+    forward, 12 H^2 adjoint, with the gate math, or the bytes), the plain
+    version (one call), cuDNN's nn.GRU at the same H (one direction, or
+    bidirectional for two lanes; as many calls as the kernel's where fewer
+    than 20 a block), the plan and its waves.
+    Returns the kernel ms."""
+    adjoint = name in ADJOINTS
+    lanes = 2 if name.endswith("_fb") or name in ("gru_bifwd", "gru_bibwd") else None
+    library_block = None if per_block >= 20 else per_block
+    args = entry_inputs(name, SERVE_T, SERVE_B, h, dtype, seed=7, reverse=False)
+    wrapper, plain_fn = WRAPPERS[name]
+    ms = median_ms(lambda: wrapper(*args), per_block=per_block, blocks=blocks,
+                   warmup=1 if per_block < 20 else 2)
+    plain_ms = median_ms(lambda: plain_fn(*args), per_block=1, blocks=1, warmup=0)
+    if adjoint:
+        b_ms, b_by = bwd_bound_ms(lanes, SERVE_T, SERVE_B, h, dtype, products=2)
+        lib_ms = cudnn_bwd_ms(lanes, SERVE_T, SERVE_B, h, dtype, per_block=library_block,
+                              blocks=blocks)
+    else:
+        b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, h, dtype)
+        lib_ms = cudnn_ms(lanes, SERVE_T, SERVE_B, h, dtype, per_block=library_block,
+                          blocks=blocks)
+    f = lanes or 1
+    print(f"{tag} {name} {str(dtype)[6:]} F={f} T={SERVE_T} B={SERVE_B} H={h}: "
+          f"kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent step; "
+          f"{cluster_plan(name, f, SERVE_B, h, dtype)}; "
+          f"{waves(adjoint, SERVE_B, f, h, dtype)}), plain {plain_ms:.3f} ms, "
+          f"cuDNN GRU {'backward ' if adjoint else ''}{lib_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound")
+    del args
+    return ms
+
+
 def large_timings() -> None:
-    """15b: each walk at T=480 B=64 H=BIG_H (two lanes for the _fb entries,
-    the pair's two directions): kernel ms, us per dependent step, the bound
-    (6 H^2 FLOPs a row-step forward, 12 H^2 adjoint, with the gate math), the
-    plain version, cuDNN's nn.GRU at the same H (one direction, or
-    bidirectional for two lanes), the cluster plan and its waves."""
+    """15b: each walk at T=480 B=64 H=BIG_H (time_entry)."""
     for name in WRAPPERS:
-        adjoint = name in ADJOINTS
-        lanes = 2 if name.endswith("_fb") or name in ("gru_bifwd", "gru_bibwd") else None
         for dtype in entry_dtypes(name):
-            args = entry_inputs(name, SERVE_T, SERVE_B, BIG_H, dtype, seed=7, reverse=False)
-            wrapper, plain = WRAPPERS[name]
-            ms = median_ms(lambda: wrapper(*args), per_block=20)
-            plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
-            if adjoint:
-                b_ms, b_by = bwd_bound_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype, products=2)
-                lib_ms = cudnn_bwd_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype)
-            else:
-                b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype)
-                lib_ms = cudnn_ms(lanes, SERVE_T, SERVE_B, BIG_H, dtype)
-            f = lanes or 1
-            print(f"15b {name} {str(dtype)[6:]} F={f} T={SERVE_T} B={SERVE_B} H={BIG_H}: "
-                  f"kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent step; "
-                  f"{cluster_plan(name, f, SERVE_B, BIG_H, dtype)}; "
-                  f"{waves(adjoint, SERVE_B, f, BIG_H, dtype)}), plain {plain_ms:.3f} ms, "
-                  f"cuDNN GRU {'backward ' if adjoint else ''}{lib_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound")
-            del args
+            time_entry("15b", name, dtype, BIG_H)
     torch.cuda.empty_cache()
 
 
 def big_sweep_phase(data: Path, root: Path) -> dict[str, int]:
     """15c: the sweep CLI at model.gru_hidden_size=BIG_H on phase 7's data,
-    1 epoch, f32 auto (first 3 steps card vs CPU under TRAIN_TOL, exact
+    1 epoch, f32 auto (first 3 steps card vs CPU at B=16 under TRAIN_TOL, exact
     launches, finite folds, step profile); then a fold's Predictor at BIG_H,
     counted, against the same Predictor on the CPU (PROB_ATOL). Returns the
     CLI's launches."""
     argv = ["--set", f"data_path={data}", "--set", f"model.gru_hidden_size={BIG_H}"]
     launches, run_dir = sweep_phase("float32", argv, root, f"sweep_h{BIG_H}", db_step=False,
-                                    epochs=1, cpu_folds=BIG_H_CPU_FOLDS)
+                                    epochs=1, cpu_folds=BIG_H_CPU_FOLDS,
+                                    parity_batch=WIDE_PARITY_BATCH)
     x = np.random.default_rng(15).standard_normal((70, 3, WINDOW_T)).astype(np.float32)
     card = Predictor.from_run(run_dir, "S2", device="cuda")
     gru_cuda.reset_launch_counts()
@@ -4064,6 +4130,367 @@ def phase15(root: Path, data: Path) -> dict[str, int]:
     return {k: big[k] + grouped[k] for k in KERNELS}
 
 
+# Phase 16: the streamed walks (every H past the cluster walk's limit: W
+# streamed from L2 past a cluster's shared memory), the host window engine
+# and trainer.remat.
+WIDE_H = 512
+STREAM_HS = {False: (381, 512, 768, 1024), True: (377, 451, 512, 768, 1024)}  # by "adjoint"
+STREAM_TIMED_HS = (512, 1024)
+WIDE_CPU_FOLDS = 2
+
+
+def stream_formulas() -> None:
+    """16a: the C plans (gru_walk_plan, gru_adj_plan: instantiation, cluster,
+    row tile, resident and streamed units a CTA, shared bytes, workspace)
+    against gru_cuda's twins for H = 1-1100, both dtypes, at 1, 2, 15 and
+    60 lanes; then ptxas's registers of the streamed instantiations (the
+    build fails on any spill)."""
+    shapes = ((64, 1), (64, 2), (64, 15), (1, 2), (256, 2), (64, 60))
+    checked = 0
+    for item in (4, 2):
+        for h in range(1, 1101):
+            for batch, lanes in (shapes if h % 5 == 0 or h > 370 else shapes[:2]):
+                for adjoint in (False, True):
+                    want = (gru_cuda.adj_plan(batch, lanes, SERVE_T, h, item) if adjoint
+                            else gru_cuda.walk_plan(batch, lanes, h, item))
+                    got = gru_cuda.c_plan(adjoint, batch, lanes, h, item, SERVE_T)
+                    if got != want:
+                        raise AssertionError(f"plan H={h} itemsize={item} B={batch} F={lanes} "
+                                             f"adjoint={adjoint}: C {got}, wrapper {want}")
+                    checked += 1
+    for name in ("gru_fwd", "gru_bwd"):
+        for kernel, props, regs in PTXAS_KERNEL.findall(_build.build_log(name)):
+            short = short_kernel_name(kernel)
+            if "stream" in short or "tiled" in short or "pad_rows" in short or "transpose" in short:
+                print(f"  ptxas {name} streamed walk: {short}: {regs} registers, {props}")
+    limits = {str(d)[6:]: (gru_cuda.walk_max_hidden(itemsize(d)),
+                           gru_cuda.adj_max_hidden(itemsize(d)))
+              for d in (torch.float32, torch.bfloat16)}
+    print(f"16a: C and wrapper agree on {checked} plans for H = 1-1100; limits (forward, "
+          f"adjoint): {limits}")
+
+
+def empty_entry_args(name: str, h: int, dtype) -> tuple:
+    """Uninitialized inputs of an entry on the card at T=2, B=1 and H (for a
+    check that reads shapes only)."""
+    z = functools.partial(torch.empty, device="cuda")
+    if name in ("gru_bifwd", "gru_bibwd"):
+        args = (z(2, 2, 1, 3 * h), z(2, 3 * h, h), z(2, 3 * h), z(2, 1, h))
+        return args + ((z(2, 2, 1, h), z(2, 2, 1, h)) if name == "gru_bibwd" else ())
+    lead = (2,) if name.endswith("_fb") else ()
+    args = (z(lead + (2, 1, 3 * h), dtype=dtype), z(lead + (3 * h, h), dtype=dtype),
+            z(lead + (3 * h,), dtype=dtype), z(lead + (1, h)))
+    if name in ADJOINTS:
+        args += (z(lead + (2, 1, h), dtype=dtype), z(lead + (2, 1, h), dtype=dtype))
+    return args
+
+
+def stream_walks_phase() -> None:
+    """16a: all six entries at STREAM_HS (H = 381 forward / 377 adjoint, the
+    first streamed f32 sizes, 451 where the bf16 adjoint streams, 512, 768,
+    1024), f32 and bf16 where taken, T=480 B=64 both directions; at H=512
+    also B=1, B=256 and T=1; each against its plain version (TOL / BWD_TOL,
+    entry_vs_plain). dW and db bitwise over two runs at H=512. Past the
+    streamed walk's limit a ValueError before any launch, naming it."""
+    t0 = time.perf_counter()
+    for name in WRAPPERS:
+        adjoint = name in ADJOINTS
+        fused = name in ("gru_bifwd", "gru_bibwd")
+        for dtype in entry_dtypes(name):
+            shapes = [(SERVE_T, SERVE_B, h) for h in STREAM_HS[adjoint]]
+            shapes += [(SERVE_T, 1, WIDE_H), (SERVE_T, 256, WIDE_H), (1, SERVE_B, WIDE_H)]
+            for t, b, h in shapes:
+                for reverse in ((False,) if fused else (False, True)):
+                    entry_vs_plain("16a", name, t, b, h, dtype, reverse)
+            if adjoint:
+                args = entry_inputs(name, SERVE_T, SERVE_B, WIDE_H, dtype, seed=3, reverse=False)
+                check_deterministic(name, WRAPPERS[name][0], args,
+                                    f"16a H={WIDE_H} {str(dtype)[6:]}")
+                del args
+            limit = stream_limit(name, dtype)
+            over = limit + 1
+            args = empty_entry_args(name, over, dtype)
+            before = gru_cuda.launch_counts()
+            try:
+                WRAPPERS[name][0](*args)
+            except ValueError as e:
+                if gru_cuda.launch_counts() != before or str(limit) not in str(e):
+                    raise AssertionError(f"{name} H={over}: {e}; launches moved or no limit "
+                                         "named") from e
+                print(f"16a {name} {str(dtype)[6:]} H={over}: refused before any launch: {e}")
+            else:
+                raise AssertionError(f"{name} took H={over} {dtype}, past its limit {limit}")
+            torch.cuda.empty_cache()
+    print(f"16a: {time.perf_counter() - t0:.1f} s")
+
+
+def stream_timings() -> None:
+    """16b: each entry at H = 512 and 1024 (time_entry: kernel ms, us a
+    step, the bound, the plain version, cuDNN's nn.GRU, the plan and its
+    waves) and the bytes of W the streamed walk reads from L2 a step (its
+    streamed units' rows, every CTA of every (lane, row tile)). (The
+    one-block and cluster walks are re-timed at H = 64 by the kernel phases
+    and at H = 256 by 15b.)"""
+    for name in WRAPPERS:
+        adjoint = name in ADJOINTS
+        lanes = 2 if name.endswith("_fb") or name in ("gru_bifwd", "gru_bibwd") else 1
+        for dtype in entry_dtypes(name):
+            for h in STREAM_TIMED_HS:
+                time_entry("16b", name, dtype, h, per_block=3, blocks=3)
+                item = itemsize(dtype)
+                plan = (gru_cuda.adj_plan(SERVE_B, lanes, SERVE_T, h, item) if adjoint
+                        else gru_cuda.walk_plan(SERVE_B, lanes, h, item))
+                per_unit = (-(-3 * h // 4) * 4 if adjoint else 3 * (-(-h // 4) * 4)) * item
+                ctas = -(-SERVE_B // plan["rows"]) * lanes * plan["cluster"]
+                print(f"16b {name} {str(dtype)[6:]} H={h}: W streamed from L2 a step "
+                      f"{plan['streamed'] * per_unit * ctas / 1e6:.2f} MB "
+                      f"({plan['streamed']} units x {per_unit} bytes x {ctas} CTAs)")
+            torch.cuda.empty_cache()
+
+
+def wide_sweep_phase(data: Path, root: Path) -> dict[str, int]:
+    """16c: a fold's Predictor at model.gru_hidden_size=WIDE_H (random
+    weights) against the same Predictor on the CPU (PROB_ATOL), counted;
+    then the sweep at WIDE_H on phase 7's data, f32: the first 3 steps on
+    the card against the CPU on lanes 0-1 under TRAIN_TOL (sweep_parity, at
+    B = WIDE_PARITY_BATCH), and 3 counted steps at the config's B=64 and
+    dropout (remat: each forward walk
+    twice a step, each adjoint once); then MMS_GRU_FOLD_GROUP=3 at H=BIG_H
+    (5 lanes of G*H = 768: the streamed walk) against ungrouped for 3 steps
+    under TRAIN_TOL. Returns the counted launches."""
+    argv = ["--set", f"data_path={data}", "--set", f"model.gru_hidden_size={WIDE_H}"]
+    cfg = cli.load_config(cli.build_parser().parse_args(argv))
+    variables = random_variables(cfg, 16)
+    x = np.random.default_rng(16).standard_normal((70, len(cfg.channels_to_use), WINDOW_T))
+    x = x.astype(np.float32)
+    card = Predictor(cfg, variables, device="cuda")
+    gru_cuda.reset_launch_counts()
+    # --- the main path: everything between reset and read is counted ---
+    probs = card.predict_windows(x)
+    counts = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    want = dict.fromkeys(KERNELS, 0)
+    want["gru_fwd_fb"], want["gru_fwd"] = 2, 2   # 2 padded batches: layer 0, the pruned layer
+    if counts != want:
+        raise AssertionError(f"Predictor H={WIDE_H}: launches {counts}, expected {want}")
+    cpu = Predictor(cfg, variables, device="cpu").predict_windows(x)
+    err = _check_probs(probs, cpu, len(x), PROB_ATOL["float32"], f"Predictor H={WIDE_H}")
+    print(f"16c Predictor H={WIDE_H}: 70 windows, card vs CPU max|d| {err:.3e}, "
+          f"launches {counts}")
+    total = dict(counts)
+
+    staged = root / "wide_staged"
+    staged.mkdir(parents=True)
+    corpus = stage_corpus(cfg, staged)
+    fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
+    folds = len(fb.test_subjects)
+    small = dataclasses.replace(cfg, trainer=dataclasses.replace(
+        cfg.trainer, batch_size=WIDE_PARITY_BATCH))
+    sweep_parity(small, corpus, fb, root, TRAIN_TOL["float32"],
+                 f"16c sweep H={WIDE_H} B={WIDE_PARITY_BATCH}", cpu_folds=WIDE_CPU_FOLDS)
+    seeds, rngs = fold_streams(cfg.seed, folds)
+    sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=seeds)
+    idx, w = sweep.to_device(sweep.train_grid(rngs))
+    t0 = time.perf_counter()
+    gru_cuda.reset_launch_counts()
+    # --- the main path: everything between reset and read is counted ---
+    losses = [sweep.train_step(idx[:, s], w[:, s])[0] for s in range(3)]
+    torch.cuda.synchronize()
+    counts = gru_cuda.launch_counts()
+    # --------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    fwd, bwd = fold_walks(cfg.model)
+    twice = 2 if cfg.trainer.remat else 1
+    want = {k: 3 * (twice * fwd[k] + bwd[k]) for k in KERNELS}
+    if counts != want or not all(torch.isfinite(v).all() for v in losses):
+        raise AssertionError(f"sweep H={WIDE_H}: launches {counts}, expected {want}; "
+                             f"losses {losses}")
+    print(f"16c sweep H={WIDE_H} f32 F={folds}: 3 steps in {wall:.2f} s "
+          f"({wall / 3 * 1e3:.1f} ms a step), launches {counts} (remat {cfg.trainer.remat})")
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    del sweep, idx, w
+    torch.cuda.empty_cache()
+
+    gargv = ["--set", f"data_path={data}", "--set", f"model.gru_hidden_size={BIG_H}",
+             "--set", "model.dropout=0.0"]
+    gcfg = cli.load_config(cli.build_parser().parse_args(gargv))
+    runs = {}
+    for grouped in (False, True):
+        seeds, rngs = fold_streams(gcfg.seed, folds)
+        with fold_group(FOLD_GROUP if grouped else None), walk_shapes([]) as seen:
+            sweep = FoldSweep(corpus, fb, gcfg, "cuda", init_seeds=seeds)
+            idx, w = sweep.to_device(sweep.train_grid(rngs))
+            gl = [sweep.train_step(idx[:, s], w[:, s])[0].cpu().tolist() for s in range(3)]
+        runs[grouped] = (sweep.model, [v for row in gl for v in row], seen)
+        del sweep
+    (ref, ref_losses, seen_u), (grp, grp_losses, seen_g) = runs[False], runs[True]
+    width = FOLD_GROUP * BIG_H
+    if {(lanes, hid) for _, lanes, hid in seen_g} != {(folds // FOLD_GROUP, width)} or (
+            not gru_cuda.walk_streamed(width, 4)):
+        raise AssertionError(f"grouped H={BIG_H}: walks {sorted(set(seen_g))}")
+    loss_err, worst, share, ok = compare_steps(grp, grp_losses, ref.cpu(), ref_losses,
+                                               TRAIN_TOL["float32"], steps=3)
+    summary = (f"losses max rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+               f"{share:.4%} beyond {TRAIN_TOL['float32']['elem']}")
+    if not ok:
+        raise AssertionError(f"grouped H={BIG_H}: beyond TRAIN_TOL of ungrouped: {summary}")
+    print(f"16c grouped f32 H={BIG_H}, G={FOLD_GROUP}: {len(seen_g)} walks of "
+          f"{folds // FOLD_GROUP} lanes at H'={width} (streamed) against {len(seen_u)} of "
+          f"{folds} at H={BIG_H}, first 3 sweep steps: {summary}")
+    del runs, ref, grp
+    torch.cuda.empty_cache()
+    return total
+
+
+def engine_phase(data: Path) -> None:
+    """16d: the host window engine. native.available() is true; phase 7's
+    pack_corpus (cache off) goes through the engine's fused pack, once a
+    subject; the pack against the NumPy path (max abs difference, labels and
+    masks equal); pack seconds, engine against NumPy."""
+    from multimodalsignal_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError("the host window engine did not build on this host")
+    cfg = cli.load_config(cli.build_parser().parse_args(["--set", f"data_path={data}"]))
+    names = read_channel_names(data)
+    args = (data, list(cfg.subjects), list(cfg.channels_to_use), names,
+            cfg.classification_mode, cfg.normalization)
+    native.reset_call_counts()
+    t0 = time.perf_counter()
+    eng = pack_corpus(*args, cache=False)
+    eng_s = time.perf_counter() - t0
+    calls = native.call_counts()
+    if calls["pack_subject_f32"] != len(eng.subjects):
+        raise AssertionError(f"engine: {calls} for {len(eng.subjects)} subjects")
+    available = native.available
+    native.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        plain = pack_corpus(*args, cache=False)
+        plain_s = time.perf_counter() - t0
+    finally:
+        native.available = available
+    if not (np.array_equal(eng.y, plain.y) and np.array_equal(eng.mask, plain.mask)):
+        raise AssertionError("engine: labels or masks differ from the NumPy path")
+    diff = float(np.abs(eng.x - plain.x).max())
+    if diff > 2e-5 * max(1.0, float(np.abs(plain.x).max())):
+        raise AssertionError(f"engine: the pack is {diff:.3e} from the NumPy path")
+    print(f"16d engine: built with {native.build_flags() or 'a library an earlier process built'}"
+          f"; pack_corpus of {len(eng.subjects)} subjects x {eng.x.shape[1]} windows x "
+          f"{eng.x.shape[2]} channels x {eng.x.shape[3]}: engine {eng_s:.3f} s "
+          f"({calls['pack_subject_f32']} fused packs), NumPy {plain_s:.3f} s; max|engine - "
+          f"NumPy| {diff:.3e}, labels and masks equal")
+
+
+def remat_step(corpus, fb, cfg, what: str, seeds=None) -> None:
+    """Step ms (median of 3 blocks of 3 steps) and peak MiB of one step of
+    a sweep over fb, trainer.remat off and on, in the order off, on, on,
+    off."""
+    seeds = seeds or (cfg.seed,)
+    out = {}
+    for remat in (False, True, True, False):
+        init, rngs = seed_group_streams(seeds, fb.train_pool.shape[0])
+        c = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, remat=remat))
+        sweep = FoldSweep(corpus, fb, c, "cuda", init_seeds=init, dropout_seeds=seeds)
+        idx, w = sweep.to_device(sweep.train_grid(rngs))
+        ms = median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), per_block=3, blocks=3,
+                       warmup=1)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sweep.train_step(idx[:, 0], w[:, 0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out.setdefault(remat, []).append((ms, peak, held))
+        del sweep, idx, w
+        torch.cuda.empty_cache()
+    text = "; ".join(
+        f"remat {'on' if r else 'off'}: step " + " / ".join(f"{ms:.3f}" for ms, _, _ in v)
+        + f" ms, peak {v[0][1] / 2**20:.1f} MiB ({v[0][2] / 2**20:.1f} held before)"
+        for r, v in out.items())
+    print(f"16e {what}: {text}")
+
+
+def remat_phase(data: Path, root: Path) -> None:
+    """16e: trainer.remat. The f32 and bf16 sweep at F=15, B=64 (phase 7's
+    data, the config's dropout): 3 steps with remat on against off under
+    TRAIN_TOL (the max difference, and whether bitwise), with exact launches
+    in both modes (on: each forward walk twice a step); then step ms and
+    peak MiB off and on at 15 lanes (H = 64 and 256) and at 60 lanes (4
+    seeds, H = 64)."""
+    t0 = time.perf_counter()
+    base = cli.load_config(cli.build_parser().parse_args(["--set", f"data_path={data}"]))
+    staged = root / "remat_staged"
+    staged.mkdir(parents=True)
+    corpus = stage_corpus(base, staged)
+    fb = build_fold_batch(corpus, list(base.subjects), base.val_fraction, base.seed)
+    folds = len(fb.test_subjects)
+    fwd, bwd = fold_walks(base.model)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, dtype=dtype))
+        runs = {}
+        for remat in (False, True):
+            seeds, rngs = fold_streams(cfg.seed, folds)   # the same weights and grid
+            c = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, remat=remat))
+            sweep = FoldSweep(corpus, fb, c, "cuda", init_seeds=seeds)
+            idx, w = sweep.to_device(sweep.train_grid(rngs))
+            gru_cuda.reset_launch_counts()
+            losses = [sweep.train_step(idx[:, s], w[:, s])[0].cpu().tolist() for s in range(3)]
+            counts = gru_cuda.launch_counts()
+            want = {k: 3 * ((2 if remat else 1) * fwd[k] + bwd[k]) for k in KERNELS}
+            if counts != want:
+                raise AssertionError(f"remat {remat} {dtype}: launches {counts}, expected {want}")
+            runs[remat] = (sweep.model, [v for row in losses for v in row], counts)
+            del sweep, idx, w
+        (off, off_losses, off_counts), (on, on_losses, on_counts) = runs[False], runs[True]
+        bitwise = off_losses == on_losses and all(
+            torch.equal(a, b) for a, b in zip(on.parameters(), off.parameters()))
+        loss_err, worst, share, ok = compare_steps(on, on_losses, off.cpu(), off_losses,
+                                                   TRAIN_TOL[dtype], steps=3)
+        summary = (f"losses max rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+                   f"{share:.4%} beyond {TRAIN_TOL[dtype]['elem']}")
+        if not ok:
+            raise AssertionError(f"remat {dtype}: on vs off beyond TRAIN_TOL: {summary}")
+        print(f"16e remat {dtype} F={folds}: 3 steps at dropout {cfg.model.dropout}, on vs off "
+              f"{'bitwise equal' if bitwise else 'not bitwise'}: {summary}; launches off "
+              f"{off_counts}, on {on_counts}")
+        del runs, on, off
+        torch.cuda.empty_cache()
+    for h in (SERVE_H, BIG_H):
+        cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, gru_hidden_size=h))
+        remat_step(corpus, fb, cfg, f"float32 F={folds} H={h}")
+    rfb = replicate_fold_batch(fb, len(SEEDS))
+    remat_step(corpus, rfb, base, f"float32 F={len(SEEDS) * folds} ({len(SEEDS)} seeds) "
+               f"H={SERVE_H}", seeds=SEEDS)
+    print(f"16e: {time.perf_counter() - t0:.1f} s")
+
+
+def phase16(root: Path, data: Path) -> dict[str, int]:
+    """Phase 16 (module docstring): 16a the streamed walks' plans and the
+    six entries against their plain versions past the cluster walk's limit,
+    16b their times at H = 512 and 1024 and the re-timed H = 64 and 256,
+    16c a Predictor and the sweep at H = 512 and fold grouping at G*H = 768,
+    16d the host window engine, 16e trainer.remat. Returns 16c's counted
+    launches (the main path of this phase)."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    marks = [time.perf_counter()]
+    stream_formulas()
+    stream_walks_phase()
+    marks.append(time.perf_counter())
+    stream_timings()
+    marks.append(time.perf_counter())
+    wide = wide_sweep_phase(data, root)
+    marks.append(time.perf_counter())
+    engine_phase(data)
+    marks.append(time.perf_counter())
+    remat_phase(data, root)
+    marks.append(time.perf_counter())
+    split = ", ".join(f"16{k} {b - a:.1f} s" for k, a, b in zip("abcde", marks, marks[1:]))
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({split})")
+    return wide
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -4120,6 +4547,7 @@ def main() -> int:
         fused_launches = phase13(Path(tmp) / "phase13", data, loso_run, wesad)
         split_launches = phase14(Path(tmp) / "phase14", data)
         large_launches = phase15(Path(tmp) / "phase15", data)
+        wide_launches = phase16(Path(tmp) / "phase16", data)
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
     # default execution), the fused sweep, phase 14's two-rank runs and
@@ -4128,8 +4556,10 @@ def main() -> int:
     # two-rank run (each read right after its own counted run, all checked
     # above).
     paths = {"gru_fwd": (serve_launches,), "gru_bwd": (train_launches,),
-             "gru_fwd_fb": (sweep_launches, fused_launches, split_launches, large_launches),
-             "gru_bwd_fb": (sweep_launches, fused_launches, split_launches, large_launches),
+             "gru_fwd_fb": (sweep_launches, fused_launches, split_launches, large_launches,
+                            wide_launches),
+             "gru_bwd_fb": (sweep_launches, fused_launches, split_launches, large_launches,
+                            wide_launches),
              "gru_bifwd": (loso_launches, fused_launches, split_launches),
              "gru_bibwd": (loso_launches, fused_launches, split_launches)}
     for k in kernels:

@@ -141,9 +141,10 @@ class TrainerConfig:
     # N epochs; 0 disables. `resume=True` continues from that file if present.
     checkpoint_every: int = 0
     resume: bool = False
-    # Rematerialize forward activations in the sweep's backward pass
-    # (jax.checkpoint): trades ~1.3x FLOPs for a large activation-memory cut —
-    # needed when all folds' train steps run concurrently on one chip.
+    # Rematerialize the fold-stacked model's forward activations in the
+    # sweep's backward pass (FoldStackedModel.forward_remat, as the JAX
+    # sweep's jax.checkpoint); the same result. On an H100 it costs 15-26 % a
+    # sweep step and lowers no peak (PERF.md); the default is the JAX one.
     remat: bool = True
     # Dropout-mask bit generator: "auto" = TPU hardware PRNG ("rbg") on TPU,
     # threefry elsewhere. Only the dropout stream changes — seeds, init, and

@@ -1,8 +1,16 @@
 """Dataset layer: windowed npy files -> dense, normalized [N, C, T] arrays,
 the hybrid model's (raw, feature) pairs, and the sharded sweep's packed
 corpus, from npy files or straight from WESAD pickles, memoized on disk
-(counterpart of multimodalsignal_tpu/data/dataset.py, its NumPy float64
-path; the JAX package's optional C++ host engine is not ported).
+(counterpart of multimodalsignal_tpu/data/dataset.py).
+
+The host window engine. As in the JAX package, float32 windows take the
+C++ engine (native/) where it is built: normalize_subject's
+use_native=None, the fused select + z-score + transpose of every packer
+(_pack_subject: pack_corpus, with the subject's X memory-mapped, and the
+pickles' pack), double accumulators over the float32 data. The NumPy
+float64 path below stays the oracle, and what runs where the engine did
+not build; the two agree to float32 round-off, and the port's engine packs
+equal the JAX package's bit for bit (the same source and flags).
 
 The pack cache. A packed corpus depends only on its inputs, so pack_corpus
 and pack_corpus_from_pickles keep it under `<data>/.pack_cache/<key>/`
@@ -33,6 +41,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from multimodalsignal_tpu_torch import native
 
 EDA_CHANNEL = "chest_EDA"
 # Floor for the EDA log1p (keeps it defined when FFT resampling rings below
@@ -71,16 +81,16 @@ def experiment_preprocess_meta(cfg) -> dict | None:
     return meta
 
 
-def load_subject_windows(data_path: Path | str, sid: str):
+def load_subject_windows(data_path: Path | str, sid: str, mmap: bool = False):
     """One subject's (X [N, T, C_all], y_raw [N]), or None with a warning
-    when its files are missing."""
+    when its files are missing; with `mmap` X is a read-only memory map."""
     data_path = Path(data_path)
     x_file = data_path / f"{sid}_X.npy"
     y_file = data_path / f"{sid}_y.npy"
     if not x_file.exists() or not y_file.exists():
         print(f"Warning: Skipping subject {sid} for data, file not found.")
         return None
-    return np.load(x_file), np.load(y_file)
+    return np.load(x_file, mmap_mode="r" if mmap else None), np.load(y_file)
 
 
 def map_labels(y_raw: np.ndarray, mode: str) -> tuple[np.ndarray, np.ndarray]:
@@ -102,7 +112,8 @@ def map_labels(y_raw: np.ndarray, mode: str) -> tuple[np.ndarray, np.ndarray]:
 
 
 def normalize_subject(x: np.ndarray, y_raw: np.ndarray,
-                      channel_names: list[str], scheme: str = "all") -> np.ndarray:
+                      channel_names: list[str], scheme: str = "all",
+                      use_native: bool | None = None) -> np.ndarray:
     """Per-subject normalization of [N, T, C] windows with float64 stats.
 
     scheme="all":      z-score per channel over all windows; chest_EDA gets
@@ -110,11 +121,21 @@ def normalize_subject(x: np.ndarray, y_raw: np.ndarray,
     scheme="baseline": stats from Base-only (y_raw == 1) windows, with the
                        all-window stats when a subject has none.
     scheme="none":     passthrough.
+
+    use_native=None takes the C++ engine's channel_stats_f32 and
+    normalize_windows_f32 for float32 windows where it is built (double
+    accumulation over the float32 data; float32 round-off from the NumPy
+    path); float64 windows, use_native=False and an engine that did not
+    build take the NumPy float64 path below.
     """
     if scheme == "none":
         return x.astype(np.float32)
     if scheme not in NORMALIZATION_SCHEMES:
         raise ValueError(f"Unknown normalization scheme: {scheme}")
+    if use_native is None:
+        use_native = np.asarray(x).dtype == np.float32
+    if use_native and native.available():
+        return _normalize_subject_native(x, y_raw, channel_names, scheme)
     x = np.asarray(x, dtype=np.float64)
     out = np.empty_like(x, dtype=np.float32)
     if scheme == "baseline":
@@ -133,6 +154,33 @@ def normalize_subject(x: np.ndarray, y_raw: np.ndarray,
             mean, std = ref[:, :, c].mean(), ref[:, :, c].std() + 1e-8
             out[:, :, c] = ((x[:, :, c] - mean) / std).astype(np.float32)
     return out
+
+
+def _log1p_mask(channel_names) -> np.ndarray:
+    return np.array([name == EDA_CHANNEL for name in channel_names], dtype=np.uint8)
+
+
+def _stat_rows(y_raw: np.ndarray, scheme: str) -> np.ndarray:
+    """The windows whose statistics normalize a subject: the Base windows
+    under "baseline" (all of them, with a warning, where it has none), else
+    all."""
+    if scheme == "baseline":
+        if (y_raw == 1).any():
+            return y_raw == 1
+        print("Warning: no baseline windows; falling back to all-data stats.")
+    return np.ones(len(y_raw), bool)
+
+
+def _normalize_subject_native(x: np.ndarray, y_raw: np.ndarray, channel_names: list[str],
+                              scheme: str) -> np.ndarray:
+    """normalize_subject through the engine (counterpart of the JAX
+    package's _normalize_subject_native)."""
+    xw = np.ascontiguousarray(x, dtype=np.float32)
+    mask = _log1p_mask(channel_names)
+    rows = _stat_rows(y_raw, scheme)
+    ref = xw if rows.all() else np.ascontiguousarray(xw[rows])
+    mean, std = native.channel_stats_f32(ref, mask)
+    return native.normalize_windows_f32(xw.copy(), mean, std + 1e-8, mask)
 
 
 def channel_norm_stats(samples: np.ndarray, channel_names: list[str]
@@ -347,12 +395,25 @@ def _stack_packed(per_subject) -> PackedCorpus:
     return PackedCorpus(x_out, y_out, mask, tuple(sid for sid, _, _ in per_subject))
 
 
+def _fused_pack(normalization: str) -> bool:
+    """Whether the packers take the engine's fused pack: a z-score scheme
+    and an engine that built (the JAX package's _pack_arrays_native)."""
+    return normalization in ("all", "baseline") and native.available()
+
+
 def _pack_subject(x_raw, y_raw, channel_indices, channels_to_use, classification_mode,
                   normalization) -> tuple[np.ndarray, np.ndarray]:
     """One subject's windows [N, T, C_all] -> (x [keep, C, T], y [keep]):
     select the channels, map the labels, normalize, drop what the mode does
-    not keep. The npy and the pickle staging share it."""
+    not keep. The npy and the pickle staging share it. Float32 windows (a
+    memory map will do) take the engine's fused pack where _fused_pack
+    says, in two streaming passes; otherwise the NumPy path."""
     y, keep = map_labels(y_raw, classification_mode)
+    if _fused_pack(normalization) and x_raw.dtype == np.float32 and x_raw.ndim == 3:
+        x = native.pack_subject_f32(x_raw, np.asarray(channel_indices),
+                                    _log1p_mask(channels_to_use),
+                                    _stat_rows(y_raw, normalization), keep)
+        return x, y[keep]
     x_norm = normalize_subject(x_raw[:, :, channel_indices], y_raw, channels_to_use,
                                normalization)
     return x_norm[keep].transpose(0, 2, 1), y[keep]
@@ -371,7 +432,8 @@ def _pack_subjects(pack_one, subjects, what: str) -> PackedCorpus:
 
 # Bump when the packed layout or the normalization changes: every existing
 # pack cache entry then misses. The tag keeps the two packages' entries apart.
-_PACK_CACHE_VERSION = 1
+# 2: the packs go through the host window engine (float32 round-off).
+_PACK_CACHE_VERSION = 2
 _PACK_CACHE_TAG = "multimodalsignal_tpu_torch"
 
 
@@ -518,7 +580,8 @@ def pack_corpus(data_path: Path | str, subjects: list[str], channels_to_use: lis
     channel_indices = [all_channel_names.index(ch) for ch in channels_to_use]
 
     def pack_one(sid):
-        item = load_subject_windows(data_path, sid)
+        # The engine's fused pack streams the subject's X from a memory map.
+        item = load_subject_windows(data_path, sid, mmap=_fused_pack(normalization))
         if item is None:
             return None
         return (sid, *_pack_subject(*item, channel_indices, channels_to_use,

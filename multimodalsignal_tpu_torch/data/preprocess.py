@@ -54,7 +54,7 @@ from multimodalsignal_tpu_torch.data.wesad_io import (
     load_subject_pkl,
     wrist_signals,
 )
-from multimodalsignal_tpu_torch.data.windowing import segment_protocol, sliding_windows
+from multimodalsignal_tpu_torch.data.windowing import segment_protocol, sliding_windows_fast
 
 
 def _write_names(path: Path, names) -> None:
@@ -131,7 +131,8 @@ def preprocess_subject(sid: str, cfg: PreprocessConfig
             protocol, TASK_TO_LABEL_MAP, cfg.original_chest_fs, cfg.raw_fs,
             cfg.raw_window_sec, cfg.raw_stride_sec)
         # float32 before the gather: the npy holds float32 windows.
-        X_raw = sliding_windows(raw.astype(np.float32), raw_starts, cfg.raw_window_samples)
+        X_raw = sliding_windows_fast(raw.astype(np.float32), raw_starts,
+                                     cfg.raw_window_samples)
         if "raw" in cfg.targets:
             out["raw"] = (X_raw, raw_labels)
 

@@ -1,5 +1,6 @@
-"""Sliding-window segmentation and label assignment (a copy of
-multimodalsignal_tpu/data/windowing.py without the C++ gather).
+"""Sliding-window segmentation and label assignment (counterpart of
+multimodalsignal_tpu/data/windowing.py; sliding_windows_fast gathers with
+the port's host window engine, native/).
 
 Parity target: reference preprocess.py:160-200 — per protocol row, minute
 timestamps are converted to sample indices at the original rate, scaled to the
@@ -33,6 +34,17 @@ def sliding_windows(signal: np.ndarray, starts: np.ndarray, window_samples: int)
         return np.empty((0, window_samples) + trailing, dtype=signal.dtype)
     idx = starts[:, None] + np.arange(window_samples)[None, :]
     return signal[idx]
+
+
+def sliding_windows_fast(signal: np.ndarray, starts: np.ndarray,
+                         window_samples: int) -> np.ndarray:
+    """sliding_windows through the host window engine's gather for float32
+    signals where it is built; bit for bit the NumPy gather."""
+    from multimodalsignal_tpu_torch import native
+
+    if len(starts) > 0 and signal.dtype == np.float32 and native.available():
+        return native.sliding_windows_f32(signal, starts, window_samples)
+    return sliding_windows(signal, starts, window_samples)
 
 
 def segment_protocol(

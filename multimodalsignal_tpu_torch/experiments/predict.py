@@ -61,7 +61,11 @@ from multimodalsignal_tpu_torch.data.features import (
 from multimodalsignal_tpu_torch.data.preprocess import _resample_wrist
 from multimodalsignal_tpu_torch.data.resample import resample_signal
 from multimodalsignal_tpu_torch.data.wesad_io import chest_signals, load_pkl, wrist_signals
-from multimodalsignal_tpu_torch.data.windowing import sliding_windows, window_starts
+from multimodalsignal_tpu_torch.data.windowing import (
+    sliding_windows,
+    sliding_windows_fast,
+    window_starts,
+)
 from multimodalsignal_tpu_torch.models.cnn_gru import build_model
 from multimodalsignal_tpu_torch.models.convert import load_jax_variables, stack_variables
 from multimodalsignal_tpu_torch.models.fold_stack import build_fold_model
@@ -178,8 +182,8 @@ def _normalized_raw_windows(full, names, channels_to_use, normalization, starts,
     """The raw stream of both serving pipelines: select the channels,
     window, normalize with the recording's own statistics -> [N, C, T]."""
     ch_idx = [names.index(ch) for ch in channels_to_use]
-    win = sliding_windows(full[:, ch_idx].astype(np.float32), starts,
-                          window_samples)  # [N, T, C]
+    win = sliding_windows_fast(full[:, ch_idx].astype(np.float32), starts,
+                               window_samples)  # [N, T, C]
     y_dummy = np.ones(len(win), dtype=np.int64)
     win = normalize_subject(win, y_dummy, list(channels_to_use),
                             _inference_norm_scheme(normalization))

@@ -55,6 +55,11 @@ ops/gru_pallas.py route it):
     fold-parallel "auto" resolves to scan off the TPU;
   * "aten": one `torch.ops.aten.gru` per fold and layer (models/gru.py
     aten_gru; an exported ensemble artifact's recurrence, inference only).
+
+`forward_remat` is the train forward with its activations recomputed in
+the backward (trainer.remat; the JAX sweep's jax.checkpoint of apply_train):
+each kernel walk of the forward then runs twice a train step, its adjoint
+once.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodalsignal_tpu_torch.models.cnn_gru import (
     NUM_FEATURES,
@@ -105,6 +111,9 @@ class FoldStackedModel(nn.Module):
         # (first lane, the sweep's lanes) where this model holds a block of
         # a sweep split over processes (parallel/fold_sweep.py FoldSweep).
         self.lane_span: tuple[int, int] | None = None
+        # Set while forward_remat recomputes: the batch-norm running
+        # statistics then do not move a second time.
+        self._replaying = False
         for name, child in base.named_children():
             self.add_module(name, copy.deepcopy(child))
         with torch.no_grad():
@@ -156,6 +165,39 @@ class FoldStackedModel(nn.Module):
         y = self._dropout(y, self.dropout, generators)
         return self._dense(self.head2, y).float()
 
+    def forward_remat(self, x, generators: Sequence[torch.Generator] | None = None,
+                      update: torch.Tensor | None = None) -> torch.Tensor:
+        """forward in training mode with its activations recomputed in the
+        backward instead of kept (trainer.remat; counterpart of the JAX
+        sweep's jax.checkpoint(apply_train), parallel/fold_sweep.py:250-253:
+        the model's forward only, not the loss), under non-reentrant
+        torch.utils.checkpoint. The recompute draws the forward's dropout
+        masks (every generator is put back to its state at the forward, and
+        then to where the forward left it) and moves no batch-norm running
+        statistic (they moved once, in the forward, as JAX's new batch_stats
+        come out of the checkpointed function once), so a step equals one
+        without remat (bit for bit on one CPU thread)."""
+        gens = list(generators or ())
+        start = [g.get_state() for g in gens]
+        ran = []
+
+        def run(inputs):
+            if not ran:
+                ran.append(True)
+                return self(inputs, generators, update)
+            after = [g.get_state() for g in gens]
+            for g, state in zip(gens, start):
+                g.set_state(state)
+            self._replaying = True
+            try:
+                return self(inputs, generators, update)
+            finally:
+                self._replaying = False
+                for g, state in zip(gens, after):
+                    g.set_state(state)
+
+        return checkpoint(run, x, use_reentrant=False)
+
     def _dropout(self, y: torch.Tensor, rate: float,
                  generators: Sequence[torch.Generator] | None) -> torch.Tensor:
         """Dropout of y [F, ...], each generator for its own equal group of
@@ -198,6 +240,8 @@ class FoldStackedModel(nn.Module):
         h = F.conv1d(h, w.reshape(-1, *w.shape[2:]).to(self.dtype), None, conv.stride,
                      conv.padding, groups=self.folds)
         mean, var = bn.running_mean.view(-1), bn.running_var.view(-1)
+        if self.training and self._replaying:   # forward_remat's recompute
+            mean, var = mean.clone(), var.clone()
         if self.training:
             mask = None if update is None else update[:, None].expand(w.shape[:2]).reshape(-1)
             h = batch_norm_train(h, bn.weight.reshape(-1), bn.bias.reshape(-1), mean, var,

@@ -112,6 +112,28 @@
 // pre-pass and the weight-gradient pass run over all T at once and are
 // unchanged: the pre-pass's shared memory ([H][97] + [H][32] floats) bounds
 // bf16 at H = 450; the cluster walk bounds f32 at H = 376 (K = 8).
+//
+// The streamed walk: past those limits (adj_streamed) the walk is
+// gru_adj_stream_kernel, a cluster of kMaxCluster CTAs per (lane, tile of R
+// <= 4 rows) that exchanges dg_lo over distributed shared memory with one
+// cluster barrier a step, as the cluster walk does, but keeps only as many
+// of its units' W^T rows in shared memory as fit beside its dg buffers, its
+// factor and dht chunks, its units' dh and its threads' copy rings
+// (adj_stream_resident). The others are read every step from a padded W^T
+// [H][3H padded to 4] that gru_adj_transpose_kernel writes into the
+// workspace before the walk (12.6 MB at H = 1024 in f32, so after the first
+// step the reads hit the H100's 50 MB L2), each dot thread copying its own
+// 4-value chunks with cp.async into a ring of two slots in shared memory,
+// one chunk ahead of its FMAs. Every byte streamed serves the tile's R rows
+// (a (row, unit) pair a sub-lane). A CTA walks its units in passes of
+// (dot threads) / kSmemSub units, with each pair's dh in shared memory, so
+// H is bounded only by those buffers (adj_max_hidden in gru_cuda.py). Its
+// gate pre-pass is gru_adj_gates_kernel with the K loop tiled (kTiled:
+// kGateK units of W and h_prev at a time, static shared memory that does
+// not grow with H, the same sums in the same order), and the
+// weight-gradient pass and the reduction are the same kernels, whose tiles
+// are static: at F = 15, T = 480, B = 64 the workspace is ~12 GB at
+// H = 512 and ~36 GB at H = 1024 (adj_workspace_floats).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,6 +205,16 @@ constexpr int kMaxCluster = 8;        // the portable thread block cluster size
 // asks for): its launch bound, below kMaxThreads, leaves ptxas registers.
 constexpr int kClusterMaxThreads = 576;
 constexpr int kNoCluster = -1;        // returned when no cluster of the size fits the card
+// The streamed walk: the most dot threads of a CTA, the most rows of a tile
+// (a (row, unit) pair a sub-lane), the slots of each dot thread's cp.async
+// ring; and the K tile of the streamed walk's gate pre-pass.
+constexpr int kStreamDotThreads = 512;
+constexpr int kStreamMostRows = 4;
+constexpr int kStreamStages = 2;
+constexpr int kGateK = 64;
+// Clusters of kMaxCluster CTAs of one CTA an SM that an H100 runs at once
+// (cudaOccupancyMaxActiveClusters: 15, not 132 / 8).
+constexpr int kStreamClusters = 15;
 
 __host__ __device__ constexpr bool adj_in_registers(int hidden) {
   return hidden <= kRegMaxHidden;
@@ -257,13 +289,90 @@ __host__ __device__ constexpr int adj_gates_w_floats(int hidden) {
 __host__ __device__ constexpr size_t adj_gates_shared_bytes(int hidden) {
   return (size_t(adj_gates_w_floats(hidden)) + size_t(hidden) * kGateRows) * sizeof(float);
 }
-// The most any kernel of the adjoint walk takes of one block's or CTA's
-// shared memory at this H's cluster size (kMaxCluster past the walk's
-// limit); the wrapper checks it.
-size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
+// The most any kernel of the one-block or cluster design takes of one
+// block's or CTA's shared memory at this H's cluster size (kMaxCluster past
+// the walk's limit).
+size_t adj_cluster_shared_bytes(int hidden, size_t itemsize, int rows) {
   const int cluster = adj_cluster_size(hidden, itemsize);
   const size_t walk = adj_walk_shared_bytes(hidden, itemsize, rows, cluster ? cluster : kMaxCluster);
   return walk > adj_gates_shared_bytes(hidden) ? walk : adj_gates_shared_bytes(hidden);
+}
+// Whether this H runs the streamed walk: past the one-block and cluster
+// design's limit (its walk's or its gate pre-pass's shared memory).
+bool adj_streamed(int hidden, size_t itemsize) {
+  return adj_cluster_size(hidden, itemsize) == 0 ||
+         adj_cluster_shared_bytes(hidden, itemsize,
+                                  adj_in_registers(hidden) ? kRegMostRows : 1) > kMaxShared;
+}
+// The streamed walk: kMaxCluster CTAs, ceil(H / kMaxCluster) units each.
+__host__ __device__ constexpr int adj_stream_units(int hidden) {
+  return adj_units(hidden, kMaxCluster);
+}
+__host__ __device__ constexpr int adj_stream_dot_threads(int hidden) {
+  return (adj_stream_units(hidden) * kSmemSub + 31) / 32 * 32 < kStreamDotThreads
+             ? (adj_stream_units(hidden) * kSmemSub + 31) / 32 * 32
+             : kStreamDotThreads;
+}
+// Shared memory of a streamed CTA beside its resident W^T rows, float32:
+// the two parity buffers of the tile's whole dg_lo [2][rows][kpad], for two
+// chunks of steps its units' factors [2P][rows][5][units] and dht
+// [2P][rows][units], its pairs' dh [rows][units], padded to 16 bytes; then
+// every dot thread's ring of kStreamStages slots of 4 values in the stream
+// dtype.
+__host__ __device__ constexpr size_t adj_stream_fixed_bytes(int hidden, size_t itemsize,
+                                                            int rows) {
+  return align16((size_t(2) * rows * adj_kpad(hidden, false) +
+                  (size_t(2) * kSmemChunk * (kWalkFactors + 1) + 1) * rows *
+                      adj_stream_units(hidden)) *
+                 sizeof(float)) +
+         size_t(adj_stream_dot_threads(hidden)) * kStreamStages * 4 * itemsize;
+}
+// Units of a streamed CTA whose W^T rows [kpad] stay in shared memory; -1
+// where not even the fixed part fits.
+int adj_stream_resident(int hidden, size_t itemsize, int rows) {
+  const size_t fixed = adj_stream_fixed_bytes(hidden, itemsize, rows);
+  if (fixed > kMaxShared) return -1;
+  const size_t unit = size_t(adj_kpad(hidden, false)) * itemsize;
+  long long res = static_cast<long long>((kMaxShared - fixed) / unit);
+  if (res > adj_stream_units(hidden)) res = adj_stream_units(hidden);
+  while (res > 0 && align16(size_t(res) * unit) + fixed > kMaxShared) --res;
+  return int(res);
+}
+size_t adj_stream_shared_bytes(int hidden, size_t itemsize, int rows) {
+  const int res = adj_stream_resident(hidden, itemsize, rows);
+  return (res > 0 ? align16(size_t(res) * adj_kpad(hidden, false) * itemsize) : 0) +
+         adj_stream_fixed_bytes(hidden, itemsize, rows);
+}
+// The most rows a streamed tile takes at this H (a power of two up to
+// kStreamMostRows whose fixed part fits; 1 where none does), and the row
+// tile: the least power of two that brings ceil(B/R) * lanes clusters down
+// to those the card runs at once (one wave), at most that.
+int adj_stream_most_rows(int hidden, size_t itemsize) {
+  for (int r = kStreamMostRows; r > 1; r /= 2)
+    if (adj_stream_fixed_bytes(hidden, itemsize, r) <= kMaxShared) return r;
+  return 1;
+}
+int adj_stream_row_tile(int batch, int lanes, int hidden, size_t itemsize) {
+  const int most = adj_stream_most_rows(hidden, itemsize);
+  const long long want =
+      (static_cast<long long>(batch) * lanes + kStreamClusters - 1) / kStreamClusters;
+  int rows = 1;
+  while (rows < want && rows < most) rows *= 2;
+  return rows;
+}
+// Shared memory of the streamed walk's gate pre-pass (static).
+constexpr size_t kGateTiledBytes = size_t(kGateK) * (3 * kGateUnits + 1 + kGateRows) * sizeof(float);
+// The most any kernel of the adjoint walk takes of one block's or CTA's
+// shared memory for a walk tile of `rows`; the wrapper checks it.
+size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
+  if (!adj_streamed(hidden, itemsize)) return adj_cluster_shared_bytes(hidden, itemsize, rows);
+  const size_t walk = adj_stream_shared_bytes(hidden, itemsize, rows);
+  return walk > kGateTiledBytes ? walk : kGateTiledBytes;
+}
+// Rows per block (or streamed tile) of the walk for this shape.
+int adj_rows(int batch, int lanes, int hidden, size_t itemsize) {
+  return adj_streamed(hidden, itemsize) ? adj_stream_row_tile(batch, lanes, hidden, itemsize)
+                                        : adj_row_tile(batch, lanes, hidden);
 }
 
 // Rows (t, b) of one lane per chunk of the weight-gradient pass: M / 128
@@ -281,11 +390,22 @@ int adj_partials(int n_steps, int batch) {
 }
 // The f32 workspace each entry takes as dw_part: the factors [rows][6][H] and
 // dht [rows][H] (rows = lanes * T * B, in the streams' order), then the dW
-// partials [lanes][partials][3H][H].
-long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden) {
+// partials [lanes][partials][3H][H]; for the streamed walk then, from a
+// 16-byte boundary, W^T padded [lanes][H][kpad] in the stream dtype.
+long long adj_wt_offset(int lanes, int n_steps, int batch, int hidden) {
   const long long rows = static_cast<long long>(lanes) * n_steps * batch;
-  return rows * hidden * (kFactors + 1) +
-         static_cast<long long>(lanes) * adj_partials(n_steps, batch) * 3 * hidden * hidden;
+  const long long base = rows * hidden * (kFactors + 1) +
+      static_cast<long long>(lanes) * adj_partials(n_steps, batch) * 3 * hidden * hidden;
+  return (base + 3) / 4 * 4;
+}
+long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, size_t itemsize) {
+  const long long rows = static_cast<long long>(lanes) * n_steps * batch;
+  const long long base = rows * hidden * (kFactors + 1) +
+      static_cast<long long>(lanes) * adj_partials(n_steps, batch) * 3 * hidden * hidden;
+  if (!adj_streamed(hidden, itemsize)) return base;
+  const long long wt = static_cast<long long>(lanes) * hidden * adj_kpad(hidden, false) *
+                       static_cast<long long>(itemsize);
+  return adj_wt_offset(lanes, n_steps, batch, hidden) + (wt + 15) / 16 * 4;
 }
 
 // h_prev of (lane, step t, row b, unit k): the state entering forward step
@@ -397,6 +517,119 @@ __global__ void __launch_bounds__(kGateThreads)
   }
 }
 
+// gru_adj_gates_kernel for the streamed walk: the same tile of kGateRows
+// rows x kGateUnits units and the same sums in the same order, with the K
+// loop taken kGateK units at a time through static shared memory, so that
+// its shared memory does not grow with H; h_prev of the block's own units
+// (for cz) comes from device memory.
+template <typename T, typename Layout>
+__global__ void __launch_bounds__(kGateThreads)
+    gru_adj_gates_tiled_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
+                               const T* __restrict__ b_hh, const float* __restrict__ h0,
+                               const T* __restrict__ ys, const T* __restrict__ dy,
+                               float* __restrict__ fac, int n_steps, int batch, int hidden,
+                               int reverse) {
+  constexpr int WS = 3 * kGateUnits + 1;
+  __shared__ __align__(16) float ws[kGateK * WS];        // ws[kk][g*32 + jj] = W[g*H + j0 + jj][k0 + kk]
+  __shared__ __align__(16) float hs[kGateK * kGateRows];  // h_prev of unit k0 + kk, row m0 + m
+  const int H = hidden;
+  const int G = 3 * hidden;
+  const int lane = blockIdx.z;
+  const int lanes = gridDim.z;
+  const long long n_rows = static_cast<long long>(n_steps) * batch;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kGateRows;
+  const int j0 = blockIdx.y * kGateUnits;
+  const int tid = threadIdx.x;
+  const T* w = w_hh + size_t(lane) * G * H;
+
+  const int jj = tid % kGateUnits;
+  const int rg = tid / kGateUnits;
+  float acc[3][4];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[g][i] = 0.0f;
+  for (int k0 = 0; k0 < H; k0 += kGateK) {
+    for (int e = tid; e < 3 * kGateUnits * kGateK; e += kGateThreads) {
+      const int gj = e / kGateK;
+      const int kk = e - gj * kGateK;
+      const int g = gj / kGateUnits;
+      const int j = j0 + gj - g * kGateUnits;
+      ws[kk * WS + gj] =
+          j < H && k0 + kk < H ? to_float(w[(size_t(g) * H + j) * H + k0 + kk]) : 0.0f;
+    }
+    for (int e = tid; e < kGateRows * kGateK; e += kGateThreads) {
+      const int kk = e / kGateRows;
+      const int m = e - kk * kGateRows;
+      float v = 0.0f;
+      if (m0 + m < n_rows && k0 + kk < H) {
+        const int t = int((m0 + m) / batch);
+        const int b = int(m0 + m - static_cast<long long>(t) * batch);
+        v = adj_h_prev<T, Layout>(ys, h0, lane, t, b, k0 + kk, lanes, n_steps, batch, H,
+                                  reverse);
+      }
+      hs[e] = v;
+    }
+    __syncthreads();
+    const int kn = H - k0 < kGateK ? H - k0 : kGateK;
+    for (int kk = 0; kk < kn; ++kk) {
+      const float4 h4 = *reinterpret_cast<const float4*>(hs + kk * kGateRows + 4 * rg);
+      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float wv = ws[kk * WS + g * kGateUnits + jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[g][i] = fmaf(hv[i], wv, acc[g][i]);
+      }
+    }
+    __syncthreads();
+  }
+  const int j = j0 + jj;
+  if (j >= H) return;
+  const T* bias = b_hh + size_t(lane) * G;
+  const float br = to_float(bias[j]);
+  const float bz = to_float(bias[H + j]);
+  const float bn = to_float(bias[2 * H + j]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + 4 * rg + i;
+    if (m >= n_rows) break;
+    const int t = int(m / batch);
+    const int b = int(m - static_cast<long long>(t) * batch);
+    const size_t at = Layout::row(lane, t, b, lanes, n_steps, batch);
+    const T* x = xg + at * G;
+    const float r = sigmoid(to_float(x[j]) + (acc[0][i] + br));
+    const float z = sigmoid(to_float(x[H + j]) + (acc[1][i] + bz));
+    const float hn = acc[2][i] + bn;
+    const float n = tanhf(to_float(x[2 * H + j]) + r * hn);
+    const float hp = adj_h_prev<T, Layout>(ys, h0, lane, t, b, j, lanes, n_steps, batch, H,
+                                           reverse);
+    const float cn = (1.0f - z) * (1.0f - n * n);
+    float* f = fac + at * kFactors * H + j;
+    f[0] = cn * (hn * r * (1.0f - r));
+    f[H] = (hp - n) * z * (1.0f - z);
+    f[2 * H] = cn * r;
+    f[3 * H] = z;
+    f[4 * H] = to_float(dy[at * H + j]);
+    f[5 * H] = cn;
+  }
+}
+
+// w [lanes][3H][H] -> w_t [lanes][H][kpad], w_t[k][c] = w[c][k], zeros past
+// 3H: the W^T rows the streamed walk reads.
+template <typename T>
+__global__ void gru_adj_transpose_kernel(const T* __restrict__ w, T* __restrict__ w_t,
+                                         int lanes, int hidden, int kpad) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long per_lane = static_cast<long long>(hidden) * kpad;
+  if (i >= lanes * per_lane) return;
+  const long long lane = i / per_lane;
+  const long long rest = i - lane * per_lane;
+  const int k = int(rest / kpad);
+  const int c = int(rest - static_cast<long long>(k) * kpad);
+  w_t[i] = c < 3 * hidden ? w[(lane * 3 * hidden + c) * hidden + k] : from_float<T>(0.0f);
+}
+
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
@@ -417,6 +650,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+// cp.async of 4 values of the stream dtype (16 bytes f32, 8 bytes bf16).
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void cp_async_4(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -758,6 +997,221 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   if (pair) dh0[(size_t(lane) * batch + row0 + pr) * H + pk] = dh;
 }
 
+// The streamed walk (see the note at the top): a cluster of kMaxCluster
+// CTAs per (lane, tile of R rows), the dot threads and a producer warp as
+// in the cluster walk. CTA `rank` owns units unit0 .. unit0 + units - 1 and
+// walks them in passes of (dot threads) / S units, S = kSmemSub: first every
+// pass's pairs (sub-lane s < R: row s of the pass's unit) turn dht into
+// dg_lo, stored into every CTA's buffer, and keep dht z as the pair's dh in
+// shared memory; one cluster barrier; then every pass's dot, W^T of units
+// below `resident` from shared memory, of the others from w_t in device
+// memory through the thread's cp.async ring, and the pair adds its sum to
+// its dh.
+template <typename T, typename Layout, int R>
+__global__ void __launch_bounds__(kStreamDotThreads + kProducer, 1)
+    gru_adj_stream_kernel(const float* __restrict__ fac, const T* __restrict__ w_t,
+                          float* __restrict__ dht_out, float* __restrict__ dh0, int n_steps,
+                          int batch, int hidden, int reverse, int resident) {
+  constexpr int S = kSmemSub;
+  constexpr int P = kSmemChunk;
+  static_assert(R <= S, "one (row, unit) pair a sub-lane");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = hidden;
+  const int kpad = adj_kpad(H, false);
+  const int nchunks = kpad / 4;
+  const int csize = cluster_ctas();
+  const int rank = cluster_rank();
+  const int units = adj_units(H, csize);
+  const int unit0 = rank * units;
+  const int mine = H - unit0 < units ? (H > unit0 ? H - unit0 : 0) : units;  // inside H
+  const int lane = blockIdx.y;
+  const int lanes = gridDim.y;
+  const int row0 = blockIdx.x / csize * R;
+  const int tid = threadIdx.x;
+  const int dot_threads = blockDim.x - kProducer;
+  const bool producer = tid >= dot_threads;
+  const int pl = tid - dot_threads;  // producer lane
+  const int per_pass = dot_threads / S;
+  const int s = tid % S;
+
+  const size_t w_bytes = resident > 0 ? align16(size_t(resident) * kpad * sizeof(T)) : 0;
+  T* w_s = reinterpret_cast<T*>(smem);  // [resident][kpad]: w_s[kk][c] = W[c][unit0 + kk]
+  float* dgbuf = reinterpret_cast<float*>(smem + w_bytes);   // [2][R][kpad]
+  float* fbuf = dgbuf + 2 * R * kpad;                         // [2P][R][kWalkFactors][units]
+  float* dhtbuf = fbuf + 2 * P * R * kWalkFactors * units;    // [2P][R][units]
+  float* dhc = dhtbuf + 2 * P * R * units;                    // [R][units]: the pairs' dh
+  T* ring = reinterpret_cast<T*>(
+                smem + w_bytes +
+                align16((size_t(2) * R * kpad + (size_t(2) * P * (kWalkFactors + 1) + 1) * R *
+                                                     units) * sizeof(float))) +
+            size_t(tid) * kStreamStages * 4;                  // [kStreamStages][4]
+  const T* wt = w_t + size_t(lane) * H * kpad;                // [H][kpad]
+
+  for (int e = tid; e < 2 * R * kpad; e += blockDim.x) dgbuf[e] = 0.0f;
+  for (int e = tid; e < R * units; e += blockDim.x) dhc[e] = 0.0f;
+  for (int e = tid; e < resident * kpad; e += blockDim.x) {
+    const int kk = e / kpad;
+    w_s[e] = kk < mine ? wt[size_t(unit0) * kpad + e] : from_float<T>(0.0f);
+  }
+
+  auto at_step = [&](int step, int row) {
+    const int t = reverse ? step : n_steps - 1 - step;
+    return Layout::row(lane, t, row, lanes, n_steps, batch);
+  };
+  auto fac_at = [&](int step, int r) {
+    return fbuf + ((step % (2 * P)) * R + r) * kWalkFactors * units;
+  };
+  auto dht_at = [&](int step, int r) { return dhtbuf + ((step % (2 * P)) * R + r) * units; };
+  const bool vec = H % 4 == 0 && units % 4 == 0;
+  auto load_chunk = [&](int c) {  // producer: cp.async of chunk c's factors (this CTA's units)
+    const int last = min((c + 1) * P, n_steps);
+    for (int i = c * P; i < last; ++i)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (row0 + r >= batch) break;
+        const float* src = fac + at_step(i, row0 + r) * kFactors * H;
+        float* dst = fac_at(i, r);
+        for (int f = 0; f < kWalkFactors; ++f) {
+          if (vec) {
+            for (int u = 4 * pl; u < mine; u += 4 * kProducer)
+              cp_async16(dst + f * units + u, src + f * H + unit0 + u);
+          } else {
+            for (int u = pl; u < mine; u += kProducer)
+              cp_async4(dst + f * units + u, src + f * H + unit0 + u);
+          }
+        }
+      }
+    cp_async_commit();
+  };
+  auto store_chunk = [&](int c) {  // producer: chunk c's dht (this CTA's units) to device memory
+    const int last = min((c + 1) * P, n_steps);
+    for (int i = c * P; i < last; ++i)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (row0 + r >= batch) break;
+        float* out = dht_out + at_step(i, row0 + r) * H + unit0;
+        const float* in = dht_at(i, r);
+        if (vec) {
+          for (int u = 4 * pl; u < mine; u += 4 * kProducer)
+            *reinterpret_cast<float4*>(out + u) = *reinterpret_cast<const float4*>(in + u);
+        } else {
+          for (int u = pl; u < mine; u += kProducer) out[u] = in[u];
+        }
+      }
+  };
+
+  const int n_chunks = (n_steps + P - 1) / P;
+  if (producer) {
+    load_chunk(0);
+    cp_async_wait_all();
+  }
+  cluster_sync_all();  // every CTA of the cluster has started and zeroed its dg_lo buffers
+  if (producer) {
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) load_chunk(c + 1);
+      if (c > 0) store_chunk(c - 1);
+      const int last = min((c + 1) * P, n_steps);
+      for (int i = c * P; i < last; ++i) {  // the chunk's steps' cluster barriers, relaxed
+        cluster_arrive_relaxed();
+        cluster_wait();
+      }
+      cp_async_wait_all();
+      if (c + 1 < n_chunks) named_barrier(kChunkBarrier, blockDim.x);
+    }
+    cluster_sync_all();  // the last chunk's dht is written; no peer writes into this CTA after
+    store_chunk(n_chunks - 1);
+    return;
+  }
+
+  for (int step = 0; step < n_steps; ++step) {
+    if (step > 0 && step % P == 0) named_barrier(kChunkBarrier, blockDim.x);
+    float* buf = dgbuf + (step & 1) * R * kpad;
+    for (int p0 = 0; p0 < units; p0 += per_pass) {
+      const int jl = p0 + tid / S;
+      if (jl < mine && s < R && row0 + s < batch) {
+        const float* f = fac_at(step, s) + jl;
+        const float dht = dhc[s * units + jl] + f[4 * units];
+        const float lo[3] = {round_to<T>(dht * f[0]), round_to<T>(dht * f[units]),
+                             round_to<T>(dht * f[2 * units])};
+        dhc[s * units + jl] = dht * f[3 * units];
+        float* out = buf + s * kpad + unit0 + jl;
+        for (int p = 0; p < csize; ++p) {  // into every CTA's buffer (its own too)
+          store_cluster(out, p, lo[0]);
+          store_cluster(out + H, p, lo[1]);
+          store_cluster(out + 2 * H, p, lo[2]);
+        }
+        dht_at(step, s)[jl] = dht;
+      }
+    }
+    cluster_arrive();
+    cluster_wait();
+    for (int p0 = 0; p0 < units; p0 += per_pass) {  // the same bounds for every dot thread
+      const int jl = p0 + tid / S;
+      const bool unit = jl < mine;
+      float acc[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] = 0.0f;
+      auto chunk = [&](int c, const float (&wv)[4]) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float dv[4];
+          load4(buf + r * kpad + 4 * c, dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(dv[e], wv[e], acc[r][e]);
+        }
+      };
+      if (unit && jl < resident) {
+#pragma unroll 2
+        for (int c = s; c < nchunks; c += S) {
+          float wv[4];
+          load4(w_s + size_t(jl) * kpad + 4 * c, wv);
+          chunk(c, wv);
+        }
+      } else if (unit) {
+        // Chunks s, s + S, ... of the unit's W^T row, each copied into the
+        // ring one chunk ahead of its FMAs; a slot is refilled one iteration
+        // after it was read.
+        const T* wu = wt + size_t(unit0 + jl) * kpad;
+        const int n = (nchunks - s + S - 1) / S;
+        auto issue = [&](int i) {  // one commit group a chunk, which wait_group 0 waits for
+          cp_async_4(ring + (i % kStreamStages) * 4, wu + 4 * (s + S * i));
+          cp_async_commit();
+        };
+        if (n > 0) issue(0);
+        for (int i = 0; i < n; ++i) {
+          cp_async_wait_all();  // chunk i has landed
+          float wv[4];
+          load4(ring + (i % kStreamStages) * 4, wv);
+          if (i + 1 < n) issue(i + 1);
+          chunk(s + S * i, wv);
+        }
+      }
+      float sum[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) sum[r] = ((acc[r][0] + acc[r][1]) + acc[r][2]) + acc[r][3];
+#pragma unroll
+      for (int off = S / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+      if (unit && s < R && row0 + s < batch) {
+        float own = sum[0];
+#pragma unroll
+        for (int q = 1; q < R; ++q)
+          if (s == q) own = sum[q];
+        dhc[s * units + jl] += own;
+      }
+    }
+  }
+  cluster_sync_all();
+  for (int p0 = 0; p0 < units; p0 += per_pass) {
+    const int jl = p0 + tid / S;
+    if (jl < mine && s < R && row0 + s < batch)
+      dh0[(size_t(lane) * batch + row0 + s) * H + unit0 + jl] = dhc[s * units + jl];
+  }
+}
+
 // Weight-gradient pass: dW^T[k][c] = sum over rows of h_prev[k] dg_lo[c]
 // and db[c] = sum of the f32 dg[c], for one chunk of rows (t, b) of one
 // lane, in row order, where dg is rebuilt from dht and the factors with the
@@ -913,11 +1367,85 @@ struct AdjWalkLaunch {
   }
 };
 
+// The streamed walk's launch: kMaxCluster CTAs per (lane, row tile) along
+// the grid's x, one cluster apiece.
+struct AdjStreamLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  AdjStreamLaunch(int lanes, int batch, int hidden, int rows, size_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3((batch + rows - 1) / rows * kMaxCluster, lanes);
+    cfg.blockDim = dim3(adj_stream_dot_threads(hidden) + kProducer);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kMaxCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename T>
+using AdjStreamKernel = void (*)(const float*, const T*, float*, float*, int, int, int, int, int);
+template <typename T, typename Layout>
+AdjStreamKernel<T> adj_stream_kernel(int rows) {
+  return rows == 1 ? gru_adj_stream_kernel<T, Layout, 1>
+                   : rows == 2 ? gru_adj_stream_kernel<T, Layout, 2>
+                               : gru_adj_stream_kernel<T, Layout, 4>;
+}
+
+// Clusters of the streamed walk the card holds at once for this shape, or a
+// negative CUDA error.
+template <typename T, typename Layout>
+int adj_stream_active_clusters(int batch, int lanes, int hidden) {
+  const int rows = adj_stream_row_tile(batch, lanes, hidden, sizeof(T));
+  const AdjStreamKernel<T> kernel = adj_stream_kernel<T, Layout>(rows);
+  const size_t smem = adj_stream_shared_bytes(hidden, sizeof(T), rows);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int count = 0;
+  if (err == cudaSuccess) {
+    const AdjStreamLaunch launch(lanes, batch, hidden, rows, smem, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&count, kernel, &launch.cfg);
+  }
+  return err == cudaSuccess ? count : -int(err);
+}
+
+// The streamed walk, after its W^T is written into the workspace (w_t);
+// refused (kNoCluster) before the launch when no cluster fits the card.
+template <typename T, typename Layout>
+int adj_stream_walk(const float* fac, const void* w_hh, void* w_t, float* dht, void* dh0,
+                    int lanes, int n_steps, int batch, int hidden, int reverse,
+                    cudaStream_t stream) {
+  const int rows = adj_stream_row_tile(batch, lanes, hidden, sizeof(T));
+  const int resident = adj_stream_resident(hidden, sizeof(T), rows);
+  if (resident < 0) return int(cudaErrorInvalidValue);
+  const int clusters = adj_stream_active_clusters<T, Layout>(batch, lanes, hidden);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return kNoCluster;
+  const int kpad = adj_kpad(hidden, false);
+  const long long n = static_cast<long long>(lanes) * hidden * kpad;
+  gru_adj_transpose_kernel<T><<<unsigned((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(w_hh), static_cast<T*>(w_t), lanes, hidden, kpad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const AdjStreamLaunch launch(lanes, batch, hidden, rows,
+                               adj_stream_shared_bytes(hidden, sizeof(T), rows), stream);
+  err = cudaLaunchKernelEx(&launch.cfg, adj_stream_kernel<T, Layout>(rows), fac,
+                           static_cast<const T*>(w_t), dht, static_cast<float*>(dh0), n_steps,
+                           batch, hidden, reverse, resident);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
 // Clusters of the walk (of one CTA without a cluster: blocks) the card
 // holds at once for this shape, from CUDA's occupancy calculator; a
 // negative CUDA error if it fails.
 template <typename T, typename Layout>
 int adj_walk_active_clusters(int batch, int lanes, int hidden) {
+  if (adj_streamed(hidden, sizeof(T)))
+    return adj_stream_active_clusters<T, Layout>(batch, lanes, hidden);
   const int cluster = adj_cluster_size(hidden, sizeof(T));
   if (cluster == 0) return -int(cudaErrorInvalidValue);
   const int rows = adj_row_tile(batch, lanes, hidden);
@@ -972,6 +1500,18 @@ int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lane
 // CUDA's occupancy calculator; a negative CUDA error if it fails.
 template <typename T>
 int adj_walk_blocks_per_sm(int batch, int lanes, int hidden) {
+  if (adj_streamed(hidden, sizeof(T))) {
+    const int rows = adj_stream_row_tile(batch, lanes, hidden, sizeof(T));
+    const AdjStreamKernel<T> kernel = adj_stream_kernel<T, LaneMajor>(rows);
+    const size_t smem = adj_stream_shared_bytes(hidden, sizeof(T), rows);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, adj_stream_dot_threads(hidden) + kProducer, smem);
+    return err == cudaSuccess ? blocks : -int(err);
+  }
   const int cluster = adj_cluster_size(hidden, sizeof(T));
   if (cluster == 0) return -int(cudaErrorInvalidValue);
   const int rows = adj_row_tile(batch, lanes, hidden);
@@ -995,8 +1535,9 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
                const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
                void* workspace, void* db_part, int lanes, int n_steps, int batch, int hidden,
                int reverse, void* stream) {
-  const int rows = adj_row_tile(batch, lanes, hidden);
-  if (adj_cluster_size(hidden, sizeof(T)) == 0 ||
+  const bool streamed = adj_streamed(hidden, sizeof(T));
+  const int rows = adj_rows(batch, lanes, hidden, sizeof(T));
+  if ((!streamed && adj_cluster_size(hidden, sizeof(T)) == 0) ||
       adj_shared_bytes(hidden, sizeof(T), rows) > kMaxShared)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1005,24 +1546,35 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
   float* dht = fac + n_rows * kFactors * hidden;
   float* dw_part = dht + n_rows * hidden;
 
-  const size_t gates_smem = adj_gates_shared_bytes(hidden);
-  cudaError_t err = cudaFuncSetAttribute(gru_adj_gates_kernel<T, Layout>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(gates_smem));
-  if (err != cudaSuccess) return int(err);
   const long long lane_rows = static_cast<long long>(n_steps) * batch;
-  gru_adj_gates_kernel<T, Layout>
-      <<<dim3(unsigned((lane_rows + kGateRows - 1) / kGateRows),
-              (hidden + kGateUnits - 1) / kGateUnits, lanes),
-         kGateThreads, gates_smem, s>>>(
-          static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
-          static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
-          fac, n_steps, batch, hidden, reverse);
+  const dim3 gates_grid(unsigned((lane_rows + kGateRows - 1) / kGateRows),
+                        (hidden + kGateUnits - 1) / kGateUnits, lanes);
+  cudaError_t err = cudaSuccess;
+  if (streamed) {
+    gru_adj_gates_tiled_kernel<T, Layout><<<gates_grid, kGateThreads, 0, s>>>(
+        static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
+        static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
+        fac, n_steps, batch, hidden, reverse);
+  } else {
+    const size_t gates_smem = adj_gates_shared_bytes(hidden);
+    err = cudaFuncSetAttribute(gru_adj_gates_kernel<T, Layout>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(gates_smem));
+    if (err != cudaSuccess) return int(err);
+    gru_adj_gates_kernel<T, Layout><<<gates_grid, kGateThreads, gates_smem, s>>>(
+        static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
+        static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
+        fac, n_steps, batch, hidden, reverse);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  const int e = adj_walk<T, Layout>(fac, w_hh, dht, dh0, lanes, n_steps, batch, hidden,
-                                    reverse, s);
+  const int e =
+      streamed
+          ? adj_stream_walk<T, Layout>(
+                fac, w_hh,
+                static_cast<float*>(workspace) + adj_wt_offset(lanes, n_steps, batch, hidden),
+                dht, dh0, lanes, n_steps, batch, hidden, reverse, s)
+          : adj_walk<T, Layout>(fac, w_hh, dht, dh0, lanes, n_steps, batch, hidden, reverse, s);
   if (e != 0) return e;
 
   const int parts = adj_partials(n_steps, batch);
@@ -1056,9 +1608,37 @@ long long gru_adj_shared_bytes(int hidden, int bf16, int rows) {
 }
 
 // CTAs of the adjoint walk per (lane, batch row) at this H: 1 while W^T
-// fits one block, up to 8 for the cluster walk, 0 past the limit.
+// fits one block, up to 8 for the cluster walk, 0 past the cluster walk's
+// limit.
 int gru_adj_cluster_size(int hidden, int bf16) {
   return adj_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+}
+
+// The adjoint walk's plan for this shape, as seven numbers: the
+// instantiation (0 W in registers, 1 one block, 2 the cluster walk, 3 the
+// streamed walk), the CTAs per (lane, row tile), the row tile, a CTA's units
+// whose W^T rows are resident in shared memory and those streamed from
+// device memory, the most shared bytes a block or CTA of its kernels takes,
+// and the floats of its workspace at T = n_steps.
+void gru_adj_plan(int batch, int lanes, int n_steps, int hidden, int bf16, long long* out) {
+  const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const int rows = adj_rows(batch, lanes, hidden, item);
+  if (adj_streamed(hidden, item)) {
+    const int res = adj_stream_resident(hidden, item, rows);
+    out[0] = 3;
+    out[1] = kMaxCluster;
+    out[3] = res;
+    out[4] = adj_stream_units(hidden) - (res > 0 ? res : 0);
+  } else {
+    const int cluster = adj_cluster_size(hidden, item);
+    out[0] = adj_in_registers(hidden) ? 0 : cluster == 1 ? 1 : 2;
+    out[1] = cluster;
+    out[3] = adj_units(hidden, cluster);
+    out[4] = 0;
+  }
+  out[2] = rows;
+  out[5] = (long long)adj_shared_bytes(hidden, item, rows);
+  out[6] = adj_workspace_floats(lanes, n_steps, batch, hidden, item);
 }
 
 // Clusters (blocks, without a cluster) of the adjoint walk the card holds at
@@ -1068,9 +1648,9 @@ int gru_adj_walk_active_clusters(int batch, int lanes, int hidden, int bf16) {
               : adj_walk_active_clusters<float, LaneMajor>(batch, lanes, hidden);
 }
 
-// Rows per block of the adjoint walk for this shape.
-int gru_adj_row_tile(int batch, int lanes, int hidden) {
-  return adj_row_tile(batch, lanes, hidden);
+// Rows per block (or streamed tile) of the adjoint walk for this shape.
+int gru_adj_row_tile(int batch, int lanes, int hidden, int bf16) {
+  return adj_rows(batch, lanes, hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
 }
 
 // Walk blocks one SM holds at once for this shape (the wave count of
@@ -1086,8 +1666,9 @@ long long gru_adj_chunk_rows(int n_steps, int batch) { return adj_chunk_rows(n_s
 int gru_adj_partials(int n_steps, int batch) { return adj_partials(n_steps, batch); }
 
 // Floats of the workspace an entry with `lanes` lanes takes as dw_part.
-long long gru_adj_workspace_floats(int lanes, int n_steps, int batch, int hidden) {
-  return adj_workspace_floats(lanes, n_steps, batch, hidden);
+long long gru_adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, int bf16) {
+  return adj_workspace_floats(lanes, n_steps, batch, hidden,
+                              bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
 }
 
 // Counterpart of _gru_backward: one lane, on the adjoint walk. dw_part is

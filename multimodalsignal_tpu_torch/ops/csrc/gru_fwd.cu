@@ -88,6 +88,27 @@
 // barrier's round trip to the one-block walk's; it is the only way this
 // design holds W on chip at all past H = 136 f32 / 192 bf16, up to
 // H = 380 f32 / 532 bf16 (K = 8).
+//
+// The streamed walk: past that limit (gru_walk_stream_kernel) a cluster of
+// kMaxCluster CTAs still owns one (lane, row tile) and exchanges h' over
+// distributed shared memory with one cluster barrier a step, but a CTA no
+// longer holds all of its units' W rows. It keeps as many units' rows
+// [resident][3][kpad] in shared memory as fit beside its h buffers, its
+// units' f32 carry and its threads' copy rings (stream_resident), and reads
+// the other units' rows from device memory every step: W_hh is 12.6 MB at
+// H = 1024 in f32, a quarter of the H100's 50 MB L2, so after the first
+// step those reads hit L2. They go through a padded copy of W ([3H][kpad],
+// written by gru_pad_rows_kernel before the walk, so that every 4-value
+// chunk is aligned), each thread copying its own chunks with cp.async into
+// a ring of two slots in shared memory: the next chunk is in flight while
+// the thread's FMAs consume this one, and no barrier waits for the copies.
+// What bounds it is those bytes: every (lane, row tile) reads the streamed
+// part of W once a step, so a CTA takes as many batch rows as its gate
+// lanes carry (kStreamMostRows, two a gate lane, fewer where the h buffers
+// do not fit), and each byte read from L2 serves the whole row tile. A CTA
+// walks its units in passes of blockDim / kSmemSub units (one pass up to
+// H = 1024), so the only limit on H is its h buffers, its carry and its
+// rings: f32 up to H = walk_max_hidden in gru_cuda.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,6 +164,14 @@ constexpr int kMaxCluster = 8;        // the portable thread block cluster size
 constexpr int kClusterMaxThreads = 576;
 constexpr size_t kMaxShared = 232448;
 constexpr int kNoCluster = -1;        // returned when no cluster of the size fits the card
+// The streamed walk: the most threads of a CTA, the most rows of a tile
+// (two a gate lane), and the slots of each thread's cp.async ring.
+constexpr int kStreamThreads = 512;
+constexpr int kStreamMostRows = 8;
+constexpr int kStreamStages = 2;
+// Clusters of kMaxCluster CTAs of one CTA an SM that an H100 runs at once
+// (cudaOccupancyMaxActiveClusters: 15, not 132 / 8).
+constexpr int kStreamClusters = 15;
 
 __host__ __device__ constexpr bool walk_in_registers(int hidden) {
   return hidden <= kRegMaxHidden;
@@ -197,6 +226,72 @@ int walk_row_tile(int batch, int lanes, int hidden, int cluster) {
   return rows;
 }
 
+// The streamed walk (past walk_cluster_size's limit): kMaxCluster CTAs per
+// (lane, row tile), each owning ceil(H / kMaxCluster) units.
+__host__ __device__ constexpr int stream_units(int hidden) {
+  return walk_units(hidden, kMaxCluster);
+}
+__host__ __device__ constexpr int stream_threads(int hidden) {
+  return (stream_units(hidden) * kSmemSub + 31) / 32 * 32 < kStreamThreads
+             ? (stream_units(hidden) * kSmemSub + 31) / 32 * 32
+             : kStreamThreads;
+}
+// Shared memory of a streamed CTA beside its resident W rows: the two
+// parity buffers of the tile's whole h operand [2][rows][kpad] f32, its
+// units' f32 carry [rows][units] (padded to 16 bytes), and every thread's
+// ring of kStreamStages slots of 3 gates x 4 values in the stream dtype.
+__host__ __device__ constexpr size_t stream_fixed_bytes(int hidden, size_t itemsize, int rows) {
+  return size_t(2) * rows * walk_kpad(hidden, false) * sizeof(float) +
+         align16(size_t(rows) * stream_units(hidden) * sizeof(float)) +
+         size_t(stream_threads(hidden)) * kStreamStages * 3 * 4 * itemsize;
+}
+// One unit's three W rows, K padded to 4, in the stream dtype.
+__host__ __device__ constexpr size_t stream_unit_bytes(int hidden, size_t itemsize) {
+  return size_t(3) * walk_kpad(hidden, false) * itemsize;
+}
+// Units of a CTA whose W rows stay in shared memory: as many as fit beside
+// the fixed part (all of its units at most); -1 where not even that fits.
+int stream_resident(int hidden, size_t itemsize, int rows) {
+  const size_t fixed = stream_fixed_bytes(hidden, itemsize, rows);
+  if (fixed > kMaxShared) return -1;
+  const size_t unit = stream_unit_bytes(hidden, itemsize);
+  long long res = static_cast<long long>((kMaxShared - fixed) / unit);
+  if (res > stream_units(hidden)) res = stream_units(hidden);
+  while (res > 0 && align16(size_t(res) * unit) + fixed > kMaxShared) --res;
+  return int(res);
+}
+// Dynamic shared memory of a streamed CTA for a tile of `rows`: its
+// resident W rows, padded to 16 bytes, then the fixed part.
+size_t stream_shared_bytes(int hidden, size_t itemsize, int rows) {
+  const int res = stream_resident(hidden, itemsize, rows);
+  return (res > 0 ? align16(size_t(res) * stream_unit_bytes(hidden, itemsize)) : 0) +
+         stream_fixed_bytes(hidden, itemsize, rows);
+}
+// The most rows a streamed tile takes at this H: the largest power of two up
+// to kStreamMostRows whose fixed part fits; 1 where none does.
+int stream_most_rows(int hidden, size_t itemsize) {
+  for (int r = kStreamMostRows; r > 1; r /= 2)
+    if (stream_fixed_bytes(hidden, itemsize, r) <= kMaxShared) return r;
+  return 1;
+}
+// Rows per (lane, tile) of the streamed walk: the least power of two that
+// brings ceil(B/R) * lanes clusters down to those the card runs at once
+// (one wave), at most stream_most_rows.
+int stream_row_tile(int batch, int lanes, int hidden, size_t itemsize) {
+  const int most = stream_most_rows(hidden, itemsize);
+  const long long want =
+      (static_cast<long long>(batch) * lanes + kStreamClusters - 1) / kStreamClusters;
+  int rows = 1;
+  while (rows < want && rows < most) rows *= 2;
+  return rows;
+}
+// Elements of the padded copy of W the streamed walk reads ([lanes][3H]
+// [kpad] in the stream dtype); 0 for the other instantiations.
+long long walk_workspace_elems(int lanes, int hidden, size_t itemsize) {
+  if (walk_cluster_size(hidden, itemsize) != 0) return 0;
+  return static_cast<long long>(lanes) * 3 * hidden * walk_kpad(hidden, false);
+}
+
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
@@ -226,6 +321,21 @@ __device__ __forceinline__ void store_cluster(float* p, int rank, float v) {
   unsigned remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+// cp.async of 4 values of the stream dtype (16 bytes f32, 8 bytes bf16) from
+// device into this thread's own shared memory; the thread waits for its
+// copies with cp.async.wait_all.
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_4(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The cluster barrier: every thread of every CTA of the cluster arrives
@@ -445,6 +555,185 @@ __global__ void __launch_bounds__(kClusterMaxThreads, 1)
                                        reverse);
 }
 
+// The streamed walk (see the note at the top): a cluster of kMaxCluster
+// CTAs per (lane, tile of R rows). CTA `rank` owns units unit0 .. unit0 +
+// units - 1 and walks them in passes of blockDim / S units, S = kSmemSub
+// threads a unit with K split across them as in the cluster walk. Units
+// below `resident` read their rows of W from shared memory, the others from
+// w_pad in device memory through the thread's cp.async ring. Gate lane s
+// does the gate math of rows s, s + S, ..., reading xg (loaded before the
+// dot) and the f32 carry of (row, unit) from shared memory.
+template <typename T, typename Layout, int R>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    gru_walk_stream_kernel(const T* __restrict__ xg, const T* __restrict__ w_pad,
+                           const T* __restrict__ b_hh, const float* __restrict__ h0,
+                           T* __restrict__ ys, int n_steps, int batch, int hidden, int reverse,
+                           int resident) {
+  constexpr int S = kSmemSub;
+  constexpr int RG = (R + S - 1) / S;  // rows per gate lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = hidden;
+  const int kpad = walk_kpad(H, false);
+  const int nchunks = kpad / 4;
+  const int csize = cluster_ctas();
+  const int rank = cluster_rank();
+  const int units = walk_units(H, csize);
+  const int unit0 = rank * units;
+  const int mine = H - unit0 < units ? (H > unit0 ? H - unit0 : 0) : units;  // inside H
+  const int lane = blockIdx.y;
+  const int lanes = gridDim.y;
+  const int row0 = blockIdx.x / csize * R;
+  const int tid = threadIdx.x;
+  const int per_pass = blockDim.x / S;
+  const int s = tid % S;
+
+  const size_t w_bytes = resident > 0 ? align16(size_t(resident) * 3 * kpad * sizeof(T)) : 0;
+  T* w_s = reinterpret_cast<T*>(smem);                        // [resident][3][kpad]
+  float* hbuf = reinterpret_cast<float*>(smem + w_bytes);     // [2][R][kpad]
+  float* carry = hbuf + 2 * R * kpad;                          // [R][units]
+  T* ring = reinterpret_cast<T*>(smem + w_bytes + size_t(2) * R * kpad * sizeof(float) +
+                                 align16(size_t(R) * units * sizeof(float))) +
+            size_t(tid) * kStreamStages * 12;                  // [kStreamStages][3][4]
+  const T* w = w_pad + size_t(lane) * 3 * H * kpad;            // [3H][kpad]
+
+  for (int e = tid; e < 2 * R * kpad; e += blockDim.x) {
+    const int r = e / kpad;
+    const int k = e - r * kpad;
+    float v = 0.0f;
+    if (r < R && k < H && row0 + r < batch)
+      v = to_float(from_float<T>(h0[(size_t(lane) * batch + row0 + r) * H + k]));
+    hbuf[e] = v;
+  }
+  for (int e = tid; e < R * units; e += blockDim.x) {
+    const int r = e / units;
+    const int u = e - r * units;
+    carry[e] = u < mine && row0 + r < batch
+                   ? h0[(size_t(lane) * batch + row0 + r) * H + unit0 + u]
+                   : 0.0f;
+  }
+  for (int e = tid; e < resident * 3 * kpad; e += blockDim.x) {
+    const int rw = e / kpad;  // unit rw / 3, gate rw % 3
+    const int k = e - rw * kpad;
+    const int u = rw / 3;
+    const int g = rw - 3 * u;
+    w_s[e] = u < mine ? w[(size_t(g) * H + unit0 + u) * kpad + k] : from_float<T>(0.0f);
+  }
+  cluster_sync();  // every CTA of the cluster has started and laid out h0
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int t = reverse ? n_steps - 1 - step : step;
+    const float* hb = hbuf + (step & 1) * R * kpad;
+    float* hnext = hbuf + ((step + 1) & 1) * R * kpad;
+    for (int p0 = 0; p0 < units; p0 += per_pass) {  // the same bounds for every thread
+      const int jl = p0 + tid / S;
+      const bool unit = jl < mine;
+      const int j = unit0 + jl;
+      // The gate lane's bias and xg, loaded before the dot that hides them.
+      float br = 0.0f, bz = 0.0f, bn = 0.0f;
+      T xr[RG], xz[RG], xn[RG];
+#pragma unroll
+      for (int i = 0; i < RG; ++i) {
+        xr[i] = xz[i] = xn[i] = from_float<T>(0.0f);
+        const int r = s + S * i;
+        if (unit && r < R && row0 + r < batch) {
+          const T* x = xg + Layout::row(lane, t, row0 + r, lanes, n_steps, batch) * 3 * H;
+          xr[i] = x[j];
+          xz[i] = x[H + j];
+          xn[i] = x[2 * H + j];
+        }
+      }
+      if (unit && s < R) {
+        const T* b = b_hh + size_t(lane) * 3 * H;
+        br = to_float(b[j]);
+        bz = to_float(b[H + j]);
+        bn = to_float(b[2 * H + j]);
+      }
+      float acc[3][R];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[g][r] = 0.0f;
+      auto chunk = [&](int c, const float (&wv)[3][4]) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float hv[4];
+          load4(hb + r * kpad + 4 * c, hv);
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[g][r] = fmaf(hv[e], wv[g][e], acc[g][r]);
+        }
+      };
+      if (unit && jl < resident) {
+        const T* wu = w_s + size_t(jl) * 3 * kpad;
+#pragma unroll(R >= 8 ? 1 : 2)  // more unrolling spills under the 512-thread bound
+        for (int c = s; c < nchunks; c += S) {
+          float wv[3][4];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) load4(wu + g * kpad + 4 * c, wv[g]);
+          chunk(c, wv);
+        }
+      } else if (unit) {
+        // Chunks s, s + S, ... of the unit's three rows, each copied into the
+        // ring one chunk ahead of its FMAs; a slot is refilled one iteration
+        // after it was read.
+        const T* wu = w + size_t(j) * kpad;
+        const int n = (nchunks - s + S - 1) / S;
+        auto issue = [&](int i) {
+          T* slot = ring + (i % kStreamStages) * 12;
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            cp_async_4(slot + 4 * g, wu + size_t(g) * H * kpad + 4 * (s + S * i));
+        };
+        if (n > 0) issue(0);
+        for (int i = 0; i < n; ++i) {
+          cp_async_wait_all();  // chunk i has landed
+          float wv[3][4];
+          const T* slot = ring + (i % kStreamStages) * 12;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) load4(slot + 4 * g, wv[g]);
+          if (i + 1 < n) issue(i + 1);
+          chunk(s + S * i, wv);
+        }
+      }
+#pragma unroll
+      for (int off = S / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[g][r] += __shfl_xor_sync(0xffffffffu, acc[g][r], off);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!unit || r % S != s || row0 + r >= batch) continue;
+        const int i = r / S;
+        const float rg = sigmoid(to_float(xr[i]) + (acc[0][r] + br));
+        const float zg = sigmoid(to_float(xz[i]) + (acc[1][r] + bz));
+        const float ng = tanhf(to_float(xn[i]) + rg * (acc[2][r] + bn));
+        float* hc = carry + r * units + jl;
+        *hc = (1.0f - zg) * ng + zg * *hc;
+        const T out = from_float<T>(*hc);
+        ys[Layout::row(lane, t, row0 + r, lanes, n_steps, batch) * H + j] = out;
+        // This CTA's slice of h' into every CTA's next buffer (its own too).
+        for (int p = 0; p < csize; ++p) store_cluster(hnext + r * kpad + j, p, to_float(out));
+      }
+    }
+    cluster_sync();
+  }
+  cluster_sync();  // no peer writes into this CTA after it exits
+}
+
+// W [rows][cols] -> w_pad [rows][kpad], zeros past cols: the aligned copy
+// the streamed walk reads its streamed rows from.
+template <typename T>
+__global__ void gru_pad_rows_kernel(const T* __restrict__ w, T* __restrict__ w_pad,
+                                    long long rows, int cols, int kpad) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= rows * kpad) return;
+  const long long row = i / kpad;
+  const int k = int(i - row * kpad);
+  w_pad[i] = k < cols ? w[row * cols + k] : from_float<T>(0.0f);
+}
+
 template <typename T, typename Layout, int R, bool kRegs, bool kCluster>
 constexpr auto walk_kernel() {
   if constexpr (kCluster)
@@ -525,6 +814,91 @@ int walk_launch_cluster(const void* xg, const void* w_hh, const void* b_hh, cons
   return int(cudaGetLastError());
 }
 
+// The launch of the streamed walk for a tile of R rows: the grid's x holds
+// kMaxCluster CTAs for each row tile, one cluster apiece.
+template <int R>
+struct StreamLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  StreamLaunch(int lanes, int batch, int hidden, size_t smem, void* stream) {
+    cfg.gridDim = dim3((batch + R - 1) / R * kMaxCluster, lanes);
+    cfg.blockDim = dim3(stream_threads(hidden));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kMaxCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Clusters of the streamed walk the card holds at once for this shape, or a
+// negative CUDA error.
+template <typename T, typename Layout, int R>
+int stream_active_clusters_tile(int lanes, int batch, int hidden) {
+  const auto kernel = gru_walk_stream_kernel<T, Layout, R>;
+  const size_t smem = stream_shared_bytes(hidden, sizeof(T), R);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    const StreamLaunch<R> launch(lanes, batch, hidden, smem, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
+  }
+  return err == cudaSuccess ? clusters : -int(err);
+}
+
+// The streamed walk: W padded into w_pad, then the walk; refused
+// (kNoCluster) before the launch when no cluster fits the card.
+template <typename T, typename Layout, int R>
+int walk_launch_stream(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
+                       void* ys, void* w_pad, int lanes, int n_steps, int batch, int hidden,
+                       int reverse, void* stream) {
+  const int resident = stream_resident(hidden, sizeof(T), R);
+  if (resident < 0) return int(cudaErrorInvalidValue);
+  const int clusters = stream_active_clusters_tile<T, Layout, R>(lanes, batch, hidden);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return kNoCluster;
+  const int kpad = walk_kpad(hidden, false);
+  const long long rows = static_cast<long long>(lanes) * 3 * hidden;
+  const int pad_threads = 256;
+  gru_pad_rows_kernel<T><<<unsigned((rows * kpad + pad_threads - 1) / pad_threads), pad_threads,
+                           0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(w_hh), static_cast<T*>(w_pad), rows, hidden, kpad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const StreamLaunch<R> launch(lanes, batch, hidden, stream_shared_bytes(hidden, sizeof(T), R),
+                               stream);
+  err = cudaLaunchKernelEx(&launch.cfg, gru_walk_stream_kernel<T, Layout, R>,
+                           static_cast<const T*>(xg), static_cast<const T*>(w_pad),
+                           static_cast<const T*>(b_hh), static_cast<const float*>(h0),
+                           static_cast<T*>(ys), n_steps, batch, hidden, reverse, resident);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+template <typename T, typename Layout>
+int walk_launch_stream_path(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
+                            void* ys, void* w_pad, int lanes, int n_steps, int batch,
+                            int hidden, int reverse, void* stream) {
+  switch (stream_row_tile(batch, lanes, hidden, sizeof(T))) {
+    case 1:
+      return walk_launch_stream<T, Layout, 1>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps,
+                                              batch, hidden, reverse, stream);
+    case 2:
+      return walk_launch_stream<T, Layout, 2>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps,
+                                              batch, hidden, reverse, stream);
+    case 4:
+      return walk_launch_stream<T, Layout, 4>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps,
+                                              batch, hidden, reverse, stream);
+    default:
+      return walk_launch_stream<T, Layout, 8>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps,
+                                              batch, hidden, reverse, stream);
+  }
+}
+
 template <typename T, typename Layout, bool kRegs>
 int walk_launch_path(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
                      void* ys, int lanes, int n_steps, int batch, int hidden, int reverse,
@@ -565,13 +939,20 @@ int walk_launch_cluster_path(const void* xg, const void* w_hh, const void* b_hh,
 }
 
 // The instantiation is chosen from H and the dtype before any launch: W in
-// registers, W in one block's shared memory, or split over a cluster; an H
-// the wrapper would have refused is refused here too, not launched.
+// registers, W in one block's shared memory, split over a cluster, or
+// streamed past the cluster's limit; an H the wrapper would have refused is
+// refused here too, not launched.
 template <typename T, typename Layout>
 int walk_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
-                int lanes, int n_steps, int batch, int hidden, int reverse, void* stream) {
+                void* w_pad, int lanes, int n_steps, int batch, int hidden, int reverse,
+                void* stream) {
   const int cluster = walk_cluster_size(hidden, sizeof(T));
-  if (cluster == 0) return int(cudaErrorInvalidValue);
+  if (cluster == 0) {
+    if (stream_shared_bytes(hidden, sizeof(T), stream_most_rows(hidden, sizeof(T))) > kMaxShared)
+      return int(cudaErrorInvalidValue);
+    return walk_launch_stream_path<T, Layout>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps,
+                                              batch, hidden, reverse, stream);
+  }
   if (cluster > 1)
     return walk_launch_cluster_path<T, Layout>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch,
                                                hidden, reverse, cluster, stream);
@@ -597,10 +978,30 @@ int walk_blocks_tile(int hidden, int cluster) {
   return err == cudaSuccess ? blocks : -int(err);
 }
 
+template <typename T, int R>
+int stream_blocks_tile(int hidden) {
+  const auto kernel = gru_walk_stream_kernel<T, LaneMajor, R>;
+  const size_t smem = stream_shared_bytes(hidden, sizeof(T), R);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, stream_threads(hidden),
+                                                        smem);
+  return err == cudaSuccess ? blocks : -int(err);
+}
+
 template <typename T>
 int walk_blocks_per_sm(int batch, int lanes, int hidden) {
   const int cluster = walk_cluster_size(hidden, sizeof(T));
-  if (cluster == 0) return -int(cudaErrorInvalidValue);
+  if (cluster == 0) {
+    switch (stream_row_tile(batch, lanes, hidden, sizeof(T))) {
+      case 1: return stream_blocks_tile<T, 1>(hidden);
+      case 2: return stream_blocks_tile<T, 2>(hidden);
+      case 4: return stream_blocks_tile<T, 4>(hidden);
+      default: return stream_blocks_tile<T, 8>(hidden);
+    }
+  }
   const int rows = walk_row_tile(batch, lanes, hidden, cluster);
   if (cluster > 1) {
     switch (rows) {
@@ -630,7 +1031,14 @@ int walk_blocks_per_sm(int batch, int lanes, int hidden) {
 template <typename T>
 int walk_active_clusters(int batch, int lanes, int hidden) {
   const int cluster = walk_cluster_size(hidden, sizeof(T));
-  if (cluster == 0) return -int(cudaErrorInvalidValue);
+  if (cluster == 0) {
+    switch (stream_row_tile(batch, lanes, hidden, sizeof(T))) {
+      case 1: return stream_active_clusters_tile<T, LaneMajor, 1>(lanes, batch, hidden);
+      case 2: return stream_active_clusters_tile<T, LaneMajor, 2>(lanes, batch, hidden);
+      case 4: return stream_active_clusters_tile<T, LaneMajor, 4>(lanes, batch, hidden);
+      default: return stream_active_clusters_tile<T, LaneMajor, 8>(lanes, batch, hidden);
+    }
+  }
   if (cluster == 1) {
     const int per_sm = walk_blocks_per_sm<T>(batch, lanes, hidden);
     return per_sm < 0 ? per_sm : per_sm * kNumSMs;
@@ -668,40 +1076,74 @@ int gru_walk_cluster_size(int hidden, int bf16) {
 }
 
 // Shared memory one CTA of gru_fwd / gru_fwd_fb / gru_bifwd needs for a
-// tile of `rows` at this H's cluster size (kMaxCluster past the limit).
+// tile of `rows` at this H's cluster size, or the streamed walk's past the
+// cluster's limit.
 long long gru_walk_shared_bytes(int hidden, int bf16, int rows) {
   const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   const int cluster = walk_cluster_size(hidden, item);
-  return (long long)walk_shared_bytes(hidden, item, rows, cluster ? cluster : kMaxCluster);
+  if (cluster == 0) return (long long)stream_shared_bytes(hidden, item, rows);
+  return (long long)walk_shared_bytes(hidden, item, rows, cluster);
 }
 
 // Rows per (lane, tile) gru_fwd / gru_fwd_fb / gru_bifwd take for this shape.
 int gru_walk_row_tile(int batch, int lanes, int hidden, int bf16) {
-  const int cluster = walk_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
-  return walk_row_tile(batch, lanes, hidden, cluster ? cluster : kMaxCluster);
+  const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const int cluster = walk_cluster_size(hidden, item);
+  if (cluster == 0) return stream_row_tile(batch, lanes, hidden, item);
+  return walk_row_tile(batch, lanes, hidden, cluster);
 }
 
-// Counterpart of _gru_forward: xg [T, B, 3H] -> ys [T, B, H].
-int gru_fwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
-            int n_steps, int batch, int hidden, int reverse, int bf16, void* stream) {
-  if (bf16) {
-    return walk_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, 1, n_steps, batch,
-                                                 hidden, reverse, stream);
+// The walk's plan for this shape, as seven numbers: the instantiation (0 W
+// in registers, 1 W in one block's shared memory, 2 the cluster walk, 3 the
+// streamed walk), the CTAs per (lane, row tile), the row tile, a CTA's
+// units whose W rows are resident in shared memory and those streamed from
+// device memory, the CTA's dynamic shared bytes, and the elements of the
+// w_pad workspace.
+void gru_walk_plan(int batch, int lanes, int hidden, int bf16, long long* out) {
+  const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const int cluster = walk_cluster_size(hidden, item);
+  const int rows = gru_walk_row_tile(batch, lanes, hidden, bf16);
+  if (cluster == 0) {
+    const int res = stream_resident(hidden, item, rows);
+    out[0] = 3;
+    out[1] = kMaxCluster;
+    out[3] = res;
+    out[4] = stream_units(hidden) - (res > 0 ? res : 0);
+  } else {
+    out[0] = walk_in_registers(hidden) ? 0 : cluster == 1 ? 1 : 2;
+    out[1] = cluster;
+    out[3] = walk_units(hidden, cluster);
+    out[4] = 0;
   }
-  return walk_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, 1, n_steps, batch, hidden,
+  out[2] = rows;
+  out[5] = gru_walk_shared_bytes(hidden, bf16, rows);
+  out[6] = walk_workspace_elems(lanes, hidden, item);
+}
+
+// Counterpart of _gru_forward: xg [T, B, 3H] -> ys [T, B, H]. w_pad is the
+// streamed walk's workspace of gru_walk_plan's elements in xg's dtype
+// (unread by the other instantiations).
+int gru_fwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
+            void* w_pad, int n_steps, int batch, int hidden, int reverse, int bf16,
+            void* stream) {
+  if (bf16) {
+    return walk_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, w_pad, 1, n_steps,
+                                                 batch, hidden, reverse, stream);
+  }
+  return walk_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, w_pad, 1, n_steps, batch, hidden,
                                        reverse, stream);
 }
 
 // Counterpart of _gru_forward_fb: xg [F, T, B, 3H] -> ys [F, T, B, H].
 int gru_fwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
-               int lanes, int n_steps, int batch, int hidden, int reverse, int bf16,
-               void* stream) {
+               void* w_pad, int lanes, int n_steps, int batch, int hidden, int reverse,
+               int bf16, void* stream) {
   if (bf16) {
-    return walk_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, lanes, n_steps,
-                                                 batch, hidden, reverse, stream);
+    return walk_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, w_pad, lanes,
+                                                 n_steps, batch, hidden, reverse, stream);
   }
-  return walk_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch, hidden,
-                                       reverse, stream);
+  return walk_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps, batch,
+                                       hidden, reverse, stream);
 }
 
 // Counterpart of _bigru_forward: both directions of BiGRU layers, float32,
@@ -712,9 +1154,9 @@ int gru_fwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
 // forward direction and lane 2f + 1 its backward one ([T, F, 2, B, .]
 // viewed as [T, 2F, B, .]), each with its own weights.
 int gru_bifwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
-              int lanes, int n_steps, int batch, int hidden, void* stream) {
-  return walk_launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, lanes, n_steps, batch, hidden,
-                                       0, stream);
+              void* w_pad, int lanes, int n_steps, int batch, int hidden, void* stream) {
+  return walk_launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps, batch,
+                                       hidden, 0, stream);
 }
 
 }  // extern "C"

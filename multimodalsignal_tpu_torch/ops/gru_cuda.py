@@ -37,22 +37,31 @@ memory above, h double-buffered with one barrier a step, xg prefetched;
 where W does not fit one block (f32 above H = 136, bf16 above 192) a thread
 block cluster of K <= 8 CTAs shares each (lane, row tile), each CTA holding
 W's rows of its own ceil(H/K) units and sending its slice of h' to every
-CTA over distributed shared memory, one cluster barrier a step.
-`walk_cluster_size`, `walk_row_tile` and `walk_shared_bytes` mirror how its
-C side picks the cluster and the tile and sizes shared memory. The three
-adjoint entries run the adjoint walk, with their own lane count and stream
-layout (`gru_bwd` one lane, `gru_bwd_fb` F lanes, `gru_bibwd` the fused
-pair's 2 or 2F): a gate pre-pass over all T, a walk that keeps only the dh
-chain (W's columns in registers up to H = 64, in shared memory above, split
-over a cluster above H = 130 f32 / 179 bf16, the step's dg exchanged over
+CTA over distributed shared memory, one cluster barrier a step; past the
+cluster's limit (f32 above H = 380, bf16 above 532) the streamed walk
+(`gru_walk_stream_kernel`): a cluster of 8 as before, each CTA keeping as
+many of its units' W rows in shared memory as fit and streaming the rest
+every step from a padded copy of W (`w_pad`, which the wrapper allocates)
+through a per-thread cp.async ring, up to 8 rows a tile. The three adjoint
+entries run the adjoint walk, with their own lane count and stream layout
+(`gru_bwd` one lane, `gru_bwd_fb` F lanes, `gru_bibwd` the fused pair's 2
+or 2F): a gate pre-pass over all T, a walk that keeps only the dh chain
+(W's columns in registers up to H = 64, in shared memory above, split over
+a cluster above H = 130 f32 / 179 bf16, the step's dg exchanged over
 distributed shared memory; a producer warp moves its factors and dht
-between device and shared memory a chunk of steps at a time), and a
-weight-gradient pass over all T, summed in a fixed order;
-`adj_cluster_size`, `adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
-`adj_workspace_floats` mirror its C side and size every entry's checks and
-workspaces. An H past the cluster design's limit (`walk_max_hidden`,
-`adj_max_hidden`: 380 / 376 in float32, 532 / 450 in bfloat16) is refused
-before any launch.
+between device and shared memory a chunk of steps at a time; past H = 376
+f32 / 450 bf16 the streamed walk, W^T streamed from a padded transpose in
+the workspace, up to 4 rows a tile, after a pre-pass whose K loop is
+tiled), and a weight-gradient pass over all T, summed in a fixed order.
+`walk_plan` and `adj_plan` (with `walk_cluster_size`, `walk_row_tile`,
+`walk_shared_bytes`, `walk_workspace_elems`, `adj_cluster_size`,
+`adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
+`adj_workspace_floats`) mirror how the C side picks the instantiation, the
+cluster and the tile, and sizes shared memory and workspaces; they size
+every entry's checks and allocations. An H past the streamed walk's limit
+(`walk_max_hidden`, `adj_max_hidden`: 21564 / 4453 in float32, 24452 /
+4622 in bfloat16, where its step buffers at one row fill a CTA's shared
+memory) is refused before any launch.
 
 The wrappers take the TPU kernels' time-major layout. A wrapper given CPU
 tensors runs its plain PyTorch version (`*_plain`: a Python loop over time
@@ -119,6 +128,20 @@ ADJ_GATE_ROWS = ADJ_GATE_UNITS = 32
 ADJ_FACTORS = 6
 ADJ_GRAD_STAGE = 32
 ADJ_MAX_PARTIALS = 128
+# The streamed walks, past the cluster walks' limits (csrc/*.cu): the most
+# threads (dot threads, for the adjoint) of a CTA, the most rows of a tile
+# (forward: two a gate lane; adjoint: a (row, unit) pair a sub-lane), the
+# slots of each thread's cp.async ring, and the K tile of the streamed
+# adjoint's gate pre-pass. An instantiation is one of INSTANTIATIONS, in
+# the order of the C plans' first number.
+STREAM_THREADS = 512
+STREAM_MOST_ROWS = {False: 8, True: 4}   # by "adjoint"
+STREAM_STAGES = 2
+# Clusters of MAX_CLUSTER CTAs of one CTA an SM that an H100 runs at once
+# (cudaOccupancyMaxActiveClusters: 15, not NUM_SMS / 8).
+STREAM_CLUSTERS = 15
+ADJ_GATE_K = 64
+INSTANTIATIONS = ("registers", "one block", "cluster", "streamed")
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -161,7 +184,7 @@ def walk_cluster_size(hidden: int, itemsize: int) -> int:
     """CTAs of the walk kernel per (lane, row tile) (as gru_walk_cluster_size
     in C): 1 while W fits one block at the most rows a block takes, else the
     least cluster up to MAX_CLUSTER whose per-CTA share of W and threads
-    fit; 0 past the design's limit."""
+    fit; 0 past the cluster design's limit, where the streamed walk runs."""
     if walk_in_registers(hidden):
         return 1
     for k in range(1, MAX_CLUSTER + 1):
@@ -171,11 +194,97 @@ def walk_cluster_size(hidden: int, itemsize: int) -> int:
     return 0
 
 
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _stream_threads(hidden: int) -> int:
+    """Threads (the adjoint: dot threads) of a streamed CTA: 4 a unit of
+    its ceil(H / MAX_CLUSTER), whole warps, at most STREAM_THREADS."""
+    units = cluster_units(hidden, MAX_CLUSTER)
+    return min(-(-units * ADJ_SMEM_SUBLANES // 32) * 32, STREAM_THREADS)
+
+
+def _stream_fixed(hidden: int, itemsize: int, rows: int, adjoint: bool) -> int:
+    """Shared bytes of a streamed CTA beside its resident W rows (as
+    stream_fixed_bytes / adj_stream_fixed_bytes in C). Forward: the two h
+    buffers [2, rows, K padded to 4] f32, the units' f32 carry [rows,
+    units] padded to 16 bytes, every thread's ring of 3 gates x 4 values a
+    slot. Adjoint: the two dg_lo buffers [2, rows, 3H padded to 4], for two
+    chunks of steps the units' five factors and dht, the pairs' dh, all f32
+    and padded to 16 bytes, then every dot thread's ring of 4 values a
+    slot."""
+    units = cluster_units(hidden, MAX_CLUSTER)
+    rings = _stream_threads(hidden) * STREAM_STAGES * itemsize
+    if adjoint:
+        kpad = -(-3 * hidden // 4) * 4
+        per_row = 2 * ADJ_CHUNK[False] * (ADJ_WALK_FACTORS + 1) + 1
+        return _a16((2 * rows * kpad + per_row * rows * units) * 4) + rings * 4
+    kpad = -(-hidden // 4) * 4
+    return 2 * rows * kpad * 4 + _a16(rows * units * 4) + rings * 12
+
+
+def _stream_unit_bytes(hidden: int, itemsize: int, adjoint: bool) -> int:
+    """One unit's resident W in the stream dtype: its three rows [3, K
+    padded to 4] forward, its W^T row [3H padded to 4] adjoint."""
+    return (-(-3 * hidden // 4) * 4 if adjoint else 3 * (-(-hidden // 4) * 4)) * itemsize
+
+
+def stream_resident(hidden: int, itemsize: int, rows: int, adjoint: bool = False) -> int:
+    """Units of a streamed CTA whose W rows stay in shared memory at this
+    row tile (as stream_resident / adj_stream_resident in C): as many as fit
+    beside the fixed part, all of its units at most; -1 where not even the
+    fixed part fits."""
+    fixed = _stream_fixed(hidden, itemsize, rows, adjoint)
+    if fixed > MAX_SHARED_BYTES:
+        return -1
+    unit = _stream_unit_bytes(hidden, itemsize, adjoint)
+    res = min(cluster_units(hidden, MAX_CLUSTER), (MAX_SHARED_BYTES - fixed) // unit)
+    while res > 0 and _a16(res * unit) + fixed > MAX_SHARED_BYTES:
+        res -= 1
+    return res
+
+
+def _stream_bytes(hidden: int, itemsize: int, rows: int, adjoint: bool) -> int:
+    res = stream_resident(hidden, itemsize, rows, adjoint)
+    unit = _stream_unit_bytes(hidden, itemsize, adjoint)
+    return (_a16(res * unit) if res > 0 else 0) + _stream_fixed(hidden, itemsize, rows, adjoint)
+
+
+def _stream_row_tile(batch: int, lanes: int, hidden: int, itemsize: int, adjoint: bool) -> int:
+    """Rows per (lane, tile) of a streamed walk (as stream_row_tile /
+    adj_stream_row_tile in C): the least power of two that brings
+    ceil(B / R) * lanes clusters down to STREAM_CLUSTERS (one wave), at most
+    stream_most_rows."""
+    want, most = -(-batch * lanes // STREAM_CLUSTERS), stream_most_rows(hidden, itemsize, adjoint)
+    rows = 1
+    while rows < want and rows < most:
+        rows *= 2
+    return rows
+
+
+def stream_most_rows(hidden: int, itemsize: int, adjoint: bool = False) -> int:
+    """The most rows a streamed tile takes at this H: the largest power of
+    two up to STREAM_MOST_ROWS whose fixed part fits; 1 where none does."""
+    rows = STREAM_MOST_ROWS[adjoint]
+    while rows > 1 and _stream_fixed(hidden, itemsize, rows, adjoint) > MAX_SHARED_BYTES:
+        rows //= 2
+    return rows
+
+
+def walk_streamed(hidden: int, itemsize: int) -> bool:
+    """Whether gru_fwd, gru_fwd_fb and gru_bifwd run the streamed walk at
+    this H: past the cluster walk's limit (380 f32, 532 bf16)."""
+    return walk_cluster_size(hidden, itemsize) == 0
+
+
 def walk_row_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> int:
     """Rows per (lane, tile) of the walk kernel (as gru_walk_row_tile in C),
     at most the threads per hidden unit; a cluster's K CTAs count as K
-    blocks toward the SMs."""
-    cluster = walk_cluster_size(hidden, itemsize) or MAX_CLUSTER
+    blocks toward the SMs (the streamed walk: _stream_row_tile)."""
+    if walk_streamed(hidden, itemsize):
+        return _stream_row_tile(batch, lanes, hidden, itemsize, adjoint=False)
+    cluster = walk_cluster_size(hidden, itemsize)
     return _row_tile(batch, lanes * cluster, WALK_SUBLANES[walk_in_registers(hidden)])
 
 
@@ -184,17 +293,51 @@ def walk_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> in
     gru_walk_shared_bytes in C): W's rows of the CTA's units [3, units, K
     padded to 4] in the stream dtype, padded to 16 bytes (all H in one
     block; none with W in registers), then two f32 buffers of the tile's
-    whole h operand, [rows, K padded], at this H's cluster size
-    (MAX_CLUSTER past the limit, so the bytes show why). `rows` defaults to
-    the most a block takes, so the limit on H holds for every batch."""
+    whole h operand, [rows, K padded], at this H's cluster size; past the
+    cluster's limit the streamed walk's resident rows and fixed part
+    (_stream_fixed). `rows` defaults to the most a block takes, so the limit
+    on H holds for every batch."""
+    if walk_streamed(hidden, itemsize):
+        rows = stream_most_rows(hidden, itemsize) if rows is None else rows
+        return _stream_bytes(hidden, itemsize, rows, adjoint=False)
     rows = WALK_SUBLANES[walk_in_registers(hidden)] if rows is None else rows
-    cluster = walk_cluster_size(hidden, itemsize) or MAX_CLUSTER
-    return _walk_bytes(hidden, itemsize, rows, cluster)
+    return _walk_bytes(hidden, itemsize, rows, walk_cluster_size(hidden, itemsize))
 
 
-def adj_row_tile(batch: int, lanes: int, hidden: int) -> int:
+def walk_workspace_elems(lanes: int, hidden: int, itemsize: int) -> int:
+    """Elements, in the stream dtype, of the padded copy of W [lanes, 3H,
+    K padded to 4] the streamed walk reads its streamed rows from (as
+    walk_workspace_elems in C); 0 for the other instantiations."""
+    if not walk_streamed(hidden, itemsize):
+        return 0
+    return lanes * 3 * hidden * (-(-hidden // 4) * 4)
+
+
+def walk_plan(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> dict:
+    """The forward walk's plan for this shape (as gru_walk_plan in C): the
+    instantiation, CTAs per (lane, row tile), the row tile, a CTA's units
+    whose W rows are resident in shared memory and those streamed, its
+    shared bytes, and the w_pad workspace's elements."""
+    rows = walk_row_tile(batch, lanes, hidden, itemsize)
+    if walk_streamed(hidden, itemsize):
+        res = stream_resident(hidden, itemsize, rows)
+        kind, cluster, streamed = 3, MAX_CLUSTER, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
+    else:
+        cluster = walk_cluster_size(hidden, itemsize)
+        kind = 0 if walk_in_registers(hidden) else 1 if cluster == 1 else 2
+        res, streamed = cluster_units(hidden, cluster), 0
+    return dict(instantiation=INSTANTIATIONS[kind], cluster=cluster, rows=rows,
+                resident=res, streamed=streamed,
+                shared_bytes=walk_shared_bytes(hidden, itemsize, rows),
+                workspace=walk_workspace_elems(lanes, hidden, itemsize))
+
+
+def adj_row_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> int:
     """Rows per block of gru_bwd's walk (as gru_adj_row_tile in C), at most
-    ADJ_MOST_ROWS (1 with W in shared memory, in one block or a cluster)."""
+    ADJ_MOST_ROWS (1 with W in shared memory, in one block or a cluster);
+    the streamed walk's: _stream_row_tile."""
+    if adj_streamed(hidden, itemsize):
+        return _stream_row_tile(batch, lanes, hidden, itemsize, adjoint=True)
     return _row_tile(batch, lanes, ADJ_MOST_ROWS[walk_in_registers(hidden)])
 
 
@@ -222,6 +365,27 @@ def adj_cluster_size(hidden: int, itemsize: int) -> int:
     return 0
 
 
+def _adj_cluster_bytes(hidden: int, itemsize: int, rows: int) -> int:
+    """adj_shared_bytes of the one-block and cluster design (as
+    adj_cluster_shared_bytes in C)."""
+    cluster = adj_cluster_size(hidden, itemsize) or MAX_CLUSTER
+    gates = (-(-hidden * (3 * ADJ_GATE_UNITS + 1) // 4) * 4 + hidden * ADJ_GATE_ROWS) * 4
+    return max(_adj_walk_bytes(hidden, itemsize, rows, cluster), gates)
+
+
+def adj_streamed(hidden: int, itemsize: int) -> bool:
+    """Whether gru_bwd, gru_bwd_fb and gru_bibwd run the streamed walk at
+    this H (as adj_streamed in C): past the one-block and cluster design's
+    limit, its walk's (376 f32) or its gate pre-pass's (450 bf16)."""
+    return (adj_cluster_size(hidden, itemsize) == 0 or _adj_cluster_bytes(
+        hidden, itemsize, ADJ_MOST_ROWS[walk_in_registers(hidden)]) > MAX_SHARED_BYTES)
+
+
+# The streamed adjoint's gate pre-pass: static [ADJ_GATE_K, 3 * 32 + 1]
+# W slice and [ADJ_GATE_K, 32] h_prev, f32.
+ADJ_GATE_TILED_BYTES = ADJ_GATE_K * (3 * ADJ_GATE_UNITS + 1 + ADJ_GATE_ROWS) * 4
+
+
 def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
     """Shared memory of the most demanding kernel of gru_bwd, per block or
     CTA (as gru_adj_shared_bytes in C): the walk's W^T rows of the CTA's
@@ -229,14 +393,16 @@ def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int
     (all H in one block; none with W in registers), then two f32 buffers of
     the tile's whole dg, [rows, K padded], and for two chunks of steps its
     units' f32 factors [2 chunk, rows, 5, units] and dht [2 chunk, rows,
-    units], at this H's cluster size (MAX_CLUSTER past the limit); or the
-    gate pre-pass's f32 W slice [H, 3 * 32 + 1], padded to 16 bytes, and
-    h_prev [H, 32], whichever is larger. `rows` defaults to the most a
-    block takes."""
+    units], at this H's cluster size; or the gate pre-pass's f32 W slice
+    [H, 3 * 32 + 1], padded to 16 bytes, and h_prev [H, 32], whichever is
+    larger. Past that design's limit the streamed walk's resident rows and
+    fixed part (_stream_fixed), or its tiled pre-pass's, whichever is
+    larger. `rows` defaults to the most a block takes."""
+    if adj_streamed(hidden, itemsize):
+        rows = stream_most_rows(hidden, itemsize, adjoint=True) if rows is None else rows
+        return max(_stream_bytes(hidden, itemsize, rows, adjoint=True), ADJ_GATE_TILED_BYTES)
     rows = ADJ_MOST_ROWS[walk_in_registers(hidden)] if rows is None else rows
-    cluster = adj_cluster_size(hidden, itemsize) or MAX_CLUSTER
-    gates = (-(-hidden * (3 * ADJ_GATE_UNITS + 1) // 4) * 4 + hidden * ADJ_GATE_ROWS) * 4
-    return max(_adj_walk_bytes(hidden, itemsize, rows, cluster), gates)
+    return _adj_cluster_bytes(hidden, itemsize, rows)
 
 
 @functools.cache
@@ -250,14 +416,15 @@ def max_hidden(smem, itemsize: int) -> int:
 
 
 def walk_max_hidden(itemsize: int) -> int:
-    """The largest H of gru_fwd, gru_fwd_fb and gru_bifwd (380 f32, 532
-    bf16: a cluster of 8 CTAs)."""
+    """The largest H of gru_fwd, gru_fwd_fb and gru_bifwd: the streamed
+    walk's, set by its h buffers, carry and copy rings at one row."""
     return max_hidden(walk_shared_bytes, itemsize)
 
 
 def adj_max_hidden(itemsize: int) -> int:
-    """The largest H of gru_bwd, gru_bwd_fb and gru_bibwd (376 f32: a
-    cluster of 8 CTAs; 450 bf16: the gate pre-pass's shared memory)."""
+    """The largest H of gru_bwd, gru_bwd_fb and gru_bibwd: the streamed
+    walk's, set by its dg buffers, factor and dht chunks, dh and copy rings
+    at one row."""
     return max_hidden(adj_shared_bytes, itemsize)
 
 
@@ -272,13 +439,39 @@ def adj_partials(n_steps: int, batch: int) -> tuple[int, int]:
     return chunk, -(-rows // chunk)
 
 
-def adj_workspace_floats(lanes: int, n_steps: int, batch: int, hidden: int) -> int:
+def adj_workspace_floats(lanes: int, n_steps: int, batch: int, hidden: int,
+                         itemsize: int = 4) -> int:
     """Floats of the workspace gru_bwd takes as dw_part (as
     gru_adj_workspace_floats in C): the six factors and dht of every
-    (lane, t, b, unit), then the dW partials [lanes, chunks, 3H, H]."""
+    (lane, t, b, unit), then the dW partials [lanes, chunks, 3H, H]; for the
+    streamed walk then, from a 16-byte boundary, W^T padded [lanes, H, 3H
+    padded to 4] in the stream dtype."""
     rows = lanes * n_steps * batch
     parts = adj_partials(n_steps, batch)[1]
-    return rows * hidden * (ADJ_FACTORS + 1) + lanes * parts * 3 * hidden * hidden
+    base = rows * hidden * (ADJ_FACTORS + 1) + lanes * parts * 3 * hidden * hidden
+    if not adj_streamed(hidden, itemsize):
+        return base
+    wt = lanes * hidden * (-(-3 * hidden // 4) * 4) * itemsize
+    return -(-base // 4) * 4 + -(-wt // 16) * 4
+
+
+def adj_plan(batch: int, lanes: int, n_steps: int, hidden: int, itemsize: int = 4) -> dict:
+    """The adjoint walk's plan for this shape (as gru_adj_plan in C): the
+    instantiation, CTAs per (lane, row tile), the row tile, a CTA's units
+    whose W^T rows are resident in shared memory and those streamed, the
+    most shared bytes of its kernels, and the workspace floats."""
+    rows = adj_row_tile(batch, lanes, hidden, itemsize)
+    if adj_streamed(hidden, itemsize):
+        res = stream_resident(hidden, itemsize, rows, adjoint=True)
+        kind, cluster, streamed = 3, MAX_CLUSTER, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
+    else:
+        cluster = adj_cluster_size(hidden, itemsize)
+        kind = 0 if walk_in_registers(hidden) else 1 if cluster == 1 else 2
+        res, streamed = cluster_units(hidden, cluster), 0
+    return dict(instantiation=INSTANTIATIONS[kind], cluster=cluster, rows=rows,
+                resident=res, streamed=streamed,
+                shared_bytes=adj_shared_bytes(hidden, itemsize, rows),
+                workspace=adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize))
 
 
 # ---------------------------------------------------------------------------
@@ -445,12 +638,14 @@ def _library() -> ctypes.CDLL:
 
     lib = _build.library("gru_fwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gru_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.gru_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.gru_fwd.restype = i32
-    lib.gru_fwd_fb.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.gru_fwd_fb.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.gru_fwd_fb.restype = i32
-    lib.gru_bifwd.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.gru_bifwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.gru_bifwd.restype = i32
+    lib.gru_walk_plan.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_walk_plan.restype = None
     lib.gru_walk_shared_bytes.argtypes = [i32, i32, i32]
     lib.gru_walk_shared_bytes.restype = ctypes.c_longlong
     lib.gru_walk_row_tile.argtypes = [i32] * 4
@@ -479,7 +674,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_bibwd.restype = i32
     lib.gru_adj_shared_bytes.argtypes = [i32, i32, i32]
     lib.gru_adj_shared_bytes.restype = ctypes.c_longlong
-    lib.gru_adj_row_tile.argtypes = [i32, i32, i32]
+    lib.gru_adj_row_tile.argtypes = [i32] * 4
     lib.gru_adj_row_tile.restype = i32
     lib.gru_adj_walk_blocks_per_sm.argtypes = [i32] * 4
     lib.gru_adj_walk_blocks_per_sm.restype = i32
@@ -491,9 +686,30 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_adj_chunk_rows.restype = ctypes.c_longlong
     lib.gru_adj_partials.argtypes = [i32, i32]
     lib.gru_adj_partials.restype = i32
-    lib.gru_adj_workspace_floats.argtypes = [i32, i32, i32, i32]
+    lib.gru_adj_workspace_floats.argtypes = [i32] * 5
     lib.gru_adj_workspace_floats.restype = ctypes.c_longlong
+    lib.gru_adj_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_adj_plan.restype = None
     return lib
+
+
+PLAN_FIELDS = ("instantiation", "cluster", "rows", "resident", "streamed", "shared_bytes",
+               "workspace")
+
+
+def c_plan(adjoint: bool, batch: int, lanes: int, hidden: int, itemsize: int,
+           n_steps: int = 1) -> dict:
+    """gru_walk_plan or gru_adj_plan from the built library, in the form of
+    walk_plan / adj_plan."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    bf16 = int(itemsize == 2)
+    if adjoint:
+        _bwd_library().gru_adj_plan(batch, lanes, n_steps, hidden, bf16, out)
+    else:
+        _library().gru_walk_plan(batch, lanes, hidden, bf16, out)
+    plan = dict(zip(PLAN_FIELDS, out))
+    plan["instantiation"] = INSTANTIATIONS[plan["instantiation"]]
+    return plan
 
 
 def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
@@ -534,13 +750,14 @@ def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
 
 def _check_hidden(smem, hidden: int, itemsize: int, dtype) -> None:
     """Refuse, before any launch, an H whose per-CTA shared memory exceeds
-    the card's even with W split over a cluster of MAX_CLUSTER CTAs."""
+    the card's even in the streamed walk at one row a tile (its h or dg
+    buffers, its chunks and its copy rings, with no W resident)."""
     need = smem(hidden, itemsize)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"hidden size {hidden} needs {need} bytes of shared memory per block "
-            f"(W split over a cluster of up to {MAX_CLUSTER} CTAs) in {dtype}; the "
-            f"kernel takes at most {MAX_SHARED_BYTES}, so H up to "
+            f"(the streamed walk's step buffers at one row, W streamed) in {dtype}; "
+            f"the kernel takes at most {MAX_SHARED_BYTES}, so H up to "
             f"{max_hidden(smem, itemsize)}")
 
 
@@ -562,9 +779,16 @@ def _launch(entry: str, xg, w_hh, b_hh, h0, reverse: bool, fb: bool):
     ys = torch.empty(xg.shape[:-1] + (hidden,), dtype=xg.dtype, device=xg.device)
     if ys.numel() == 0:
         return ys, False
-    _call(_library(), entry, (xg, w_hh, b_hh, h0, ys),
+    _call(_library(), entry, (xg, w_hh, b_hh, h0, ys, _walk_workspace(xg, f, hidden)),
           ([f] if fb else []) + [n_steps, batch, hidden] + _mode_args(xg, reverse))
     return ys, True
+
+
+def _walk_workspace(xg, lanes: int, hidden: int) -> torch.Tensor:
+    """The forward entries' w_pad: the streamed walk's padded copy of W in
+    xg's dtype (walk_workspace_elems; empty for the other instantiations)."""
+    return torch.empty(walk_workspace_elems(lanes, hidden, xg.element_size()),
+                       dtype=xg.dtype, device=xg.device)
 
 
 def _call(lib: ctypes.CDLL, entry: str, tensors, ints: list[int]) -> None:
@@ -628,12 +852,13 @@ def _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb: bool):
     return dims
 
 
-def _adjoint_workspaces(lanes: int, n_steps: int, batch: int,
-                        hidden: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+def _adjoint_workspaces(lanes: int, n_steps: int, batch: int, hidden: int,
+                        itemsize: int = 4) -> tuple[tuple[int, ...], tuple[int, ...]]:
     """Shapes of the two f32 workspaces an adjoint entry with `lanes` lanes
     takes (dw_part, db_part): the adjoint walk's flat workspace (factors,
-    dht and dW partials) and its db partials per lane and chunk of rows."""
-    return ((adj_workspace_floats(lanes, n_steps, batch, hidden),),
+    dht, dW partials and, streamed, W^T) and its db partials per lane and
+    chunk of rows."""
+    return ((adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize),),
             (lanes, adj_partials(n_steps, batch)[1], 3 * hidden))
 
 
@@ -652,7 +877,7 @@ def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, n_steps:
         for g in (dw, db, dh0):
             g.zero_()
         return (dxg, dw, db, dh0), False
-    dw_shape, db_shape = _adjoint_workspaces(lanes, n_steps, batch, hidden)
+    dw_shape, db_shape = _adjoint_workspaces(lanes, n_steps, batch, hidden, xg.element_size())
     dw_part = torch.empty(dw_shape, **f32)
     db_part = torch.empty(db_shape, **f32)
     _call(_bwd_library(), entry,
@@ -751,7 +976,8 @@ def gru_bifwd(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
                       device=xg2.device)
     if ys2.numel() == 0:
         return ys2
-    _call(_library(), "gru_bifwd", (xg2, whh2, bhh2, h02, ys2),
+    _call(_library(), "gru_bifwd",
+          (xg2, whh2, bhh2, h02, ys2, _walk_workspace(xg2, xg2.shape[1], hidden)),
           [xg2.shape[1], n_steps, batch, hidden])
     gru_bifwd.launches += 1
     return ys2

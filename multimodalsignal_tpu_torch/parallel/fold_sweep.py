@@ -64,7 +64,14 @@ of the lanes (rank_block) on its own GPU, two ranks may share one, with
 the streams those lanes have in one process and the whole sweep's dropout
 masks, so the split run equals the one-process run; the ranks gather the
 log columns and stop flags once an epoch and the results at the end, and
-only the primary writes. trainer.remat is not ported (ROADMAP.md, queue 1).
+only the primary writes.
+
+trainer.remat (default True, as in the JAX package): the train step runs
+the model's forward under FoldStackedModel.forward_remat, which recomputes
+the activations in the backward instead of keeping them (the JAX sweep's
+jax.checkpoint of apply_train): every forward walk then runs twice a step,
+every adjoint once; the results are those without remat (bit for bit on
+one CPU thread).
 """
 
 from __future__ import annotations
@@ -409,7 +416,8 @@ class FoldSweep:
         stepped) per fold, device tensors [F]."""
         self.model.train()
         valid = w.sum(dim=1) > 0
-        logits = self.model(self._batch(idx), self.generators, update=valid)
+        forward = self.model.forward_remat if self.cfg.trainer.remat else self.model
+        logits = forward(self._batch(idx), self.generators, update=valid)
         loss, wsum = cross_entropy(logits, self.y[idx], w, self.cw)
         self.opt.zero_grad()
         loss.sum().backward()

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 import multimodalsignal_tpu.native as jnative
+import multimodalsignal_tpu_torch.native as pnative
 from multimodalsignal_tpu import config as jcfg
 from multimodalsignal_tpu.data import dataset as jdata
 from multimodalsignal_tpu_torch import config as pcfg
@@ -34,7 +35,10 @@ CHANNELS = ["chest_ECG", "chest_EDA", "chest_Resp"]
 
 @pytest.fixture(autouse=True)
 def numpy_engine(monkeypatch):
+    """Both packages' NumPy paths (the host engines' own agreement is
+    tests/test_torch_native.py's)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")

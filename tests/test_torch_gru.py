@@ -7,6 +7,8 @@ Tolerances: float32 rtol = atol = 1e-5 (the two sides sum the step's
 product in different orders); bfloat16 atol 0.05 with bf16 outputs, as in
 tests/test_gru_pallas.py's bf16 tests."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,40 +136,54 @@ def test_cuda_argument_checks():
         check(xg.double(), w.double(), b.double(), h0, fb=False)
     with pytest.raises(ValueError, match="contiguous"):
         check(xg.transpose(0, 1).contiguous().transpose(0, 1), w, b, h0, fb=False)
-    # A CTA's eighth of W (48 units x 384 x 4 bytes x 3 gates) and h exceed 227 KB.
+    # Past the streamed walk's limit its h buffers, carry and copy rings at
+    # one row exceed 227 KB (the check reads shapes only: meta tensors).
     big = WALK_MAX_HIDDEN["float32"] + 1
+    meta = dict(device="meta")
     with pytest.raises(ValueError, match="shared memory"):
-        check(torch.zeros(2, 1, 3 * big), torch.zeros(3 * big, big),
-              torch.zeros(3 * big), torch.zeros(1, big), fb=False)
+        check(torch.empty(2, 1, 3 * big, **meta), torch.empty(3 * big, big, **meta),
+              torch.empty(3 * big, **meta), torch.empty(1, big, **meta), fb=False)
 
 
 # Largest hidden sizes the walk kernel (gru_fwd, gru_fwd_fb) takes, from its
-# shared-memory formula (W split over a thread block cluster of up to 8
-# CTAs: each CTA's share of W and the whole h within 232,448 bytes), and the
-# largest the first forward template took (from its formula, W^T [H, 3H]
-# plus 4 rows of carry, operand and hg); every H up to the old limits is
-# still taken.
-WALK_MAX_HIDDEN = {"float32": 380, "bfloat16": 532}
+# shared-memory formula: the cluster walk's (W split over a thread block
+# cluster of up to 8 CTAs: each CTA's share of W and the whole h within
+# 232,448 bytes) and, past it, the streamed walk's (W streamed from device
+# memory; its h buffers, carry and copy rings at one row within 232,448
+# bytes); and the largest the first forward template took (from its
+# formula, W^T [H, 3H] plus 4 rows of carry, operand and hg); every H up to
+# the old limits is still taken.
+CLUSTER_MAX_HIDDEN = {"float32": 380, "bfloat16": 532}
+WALK_MAX_HIDDEN = {"float32": 21564, "bfloat16": 24452}
 FIRST_MAX_HIDDEN = {"float32": 135, "bfloat16": 190}
+STREAMED_HS = (381, 451, 512, 533, 768, 1024, 2048)
 
 
 def _walk_args(h, dtype, lanes=None):
-    dt = getattr(torch, dtype)
+    """Arguments of the walk's check at H, on the meta device (the check
+    reads shapes, dtypes and layouts only)."""
+    dt = dict(dtype=getattr(torch, dtype), device="meta")
     lead = () if lanes is None else (lanes,)
-    return (torch.zeros(lead + (1, 1, 3 * h), dtype=dt), torch.zeros(lead + (3 * h, h), dtype=dt),
-            torch.zeros(lead + (3 * h,), dtype=dt), torch.zeros(lead + (1, h)))
+    return (torch.empty(lead + (1, 1, 3 * h), **dt), torch.empty(lead + (3 * h, h), **dt),
+            torch.empty(lead + (3 * h,), **dt), torch.empty(lead + (1, h), device="meta"))
+
+
+def _walk_hs(dtype):
+    """Every H up to the cluster walk's limit, some streamed ones, and the
+    streamed walk's limit."""
+    return [*range(1, CLUSTER_MAX_HIDDEN[dtype] + 1), *STREAMED_HS, WALK_MAX_HIDDEN[dtype]]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_walk_kernel_admits_every_earlier_hidden_size(dtype):
     """gru_fwd's argument check follows the walk kernel's shared-memory
-    formula: it takes every H the first template took and every H the
-    cluster walk holds, and refuses the first H past that limit before any
-    launch, naming the limit."""
+    formula: it takes every H the first template took, every H the cluster
+    walk holds and the streamed walk's beyond, and refuses the first H past
+    the streamed walk's limit before any launch, naming the limit."""
     item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     assert gru_cuda.walk_shared_bytes(WALK_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
     assert gru_cuda.walk_shared_bytes(WALK_MAX_HIDDEN[dtype] + 1, item) > gru_cuda.MAX_SHARED_BYTES
-    for h in range(1, WALK_MAX_HIDDEN[dtype] + 1):
+    for h in _walk_hs(dtype):
         assert gru_cuda._check_cuda_args(*_walk_args(h, dtype), fb=False) == (1, 1, 1, h)
     assert WALK_MAX_HIDDEN[dtype] >= FIRST_MAX_HIDDEN[dtype]
     assert gru_cuda.walk_max_hidden(item) == WALK_MAX_HIDDEN[dtype]
@@ -179,10 +195,10 @@ def test_walk_kernel_admits_every_earlier_hidden_size(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fb_walk_admits_every_earlier_hidden_size(dtype, lanes):
     """gru_fwd_fb runs the walk kernel too: _check_cuda_args(fb=True) takes
-    every H up to the first template's limit (135 f32, 190 bf16) and the
-    walk kernel's own (380, 532 with the cluster walk) for any lane count,
+    every H up to the first template's limit (135 f32, 190 bf16), the
+    cluster walk's (380, 532) and the streamed walk's for any lane count,
     and refuses the first H past it before any launch."""
-    for h in range(1, WALK_MAX_HIDDEN[dtype] + 1):
+    for h in _walk_hs(dtype):
         assert gru_cuda._check_cuda_args(*_walk_args(h, dtype, lanes), fb=True) == (lanes, 1, 1, h)
     with pytest.raises(ValueError, match="shared memory"):
         gru_cuda._check_cuda_args(*_walk_args(WALK_MAX_HIDDEN[dtype] + 1, dtype, lanes),
@@ -258,8 +274,10 @@ def test_cluster_twins_cover_every_hidden_size_to_256(dtype):
 
 
 def _entry_args(entry: str, h: int, dtype: str):
+    """An entry's arguments at H, on the meta device (its check reads
+    shapes, dtypes and layouts only)."""
     dt = getattr(torch, dtype)
-    z = torch.zeros
+    z = functools.partial(torch.empty, device="meta")
     if entry in ("gru_bifwd", "gru_bibwd"):
         args = (z(2, 2, 1, 3 * h), z(2, 3 * h, h), z(2, 3 * h), z(2, 1, h))
         return args + ((z(2, 2, 1, h), z(2, 2, 1, h)) if entry == "gru_bibwd" else ())
@@ -292,8 +310,9 @@ def _check_entry(entry: str, args):
     ("gru_bibwd", "float32")])
 def test_every_entry_admits_256_and_refuses_past_its_limit(entry, dtype):
     """Every entry's check admits H=256 (a cluster of 4 CTAs in f32, 2 in
-    bf16) and refuses the first H past its limit (forward 380 / 532, adjoint
-    376 / 450) with a ValueError that names the limit."""
+    bf16) and refuses the first H past its limit (the streamed walks':
+    forward 21564 / 24452, adjoint 4453 / 4622) with a ValueError that
+    names the limit."""
     item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     adjoint = entry in ("gru_bwd", "gru_bwd_fb", "gru_bibwd")
     limit = gru_cuda.adj_max_hidden(item) if adjoint else gru_cuda.walk_max_hidden(item)

@@ -14,6 +14,8 @@ sides (measured differences under 3e-5), but one f32 round-off in a
 recomputed gate can flip a bf16 rounding of dg, so atol 1e-2 on dh0 and
 5e-2 on dW/db (sums over 185 terms)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,29 +210,42 @@ def test_backward_argument_checks():
         check(xg, w, b, h0, ys, dy, fb=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gru_cuda._launch_bwd("gru_bwd", xg, w, b, h0, ys, dy, False, fb=False)
-    # In f32 a CTA's eighth of the walk's W^T (48 x 1132) and its step
-    # buffers exceed 227 KB.
+    # Past the streamed walk's limit its dg buffers, factor chunks, dh and
+    # copy rings at one row exceed 227 KB (the check reads shapes only:
+    # meta tensors).
     big = ADJ_MAX_HIDDEN["float32"] + 1
     assert gru_cuda.adj_shared_bytes(64, 4) <= gru_cuda.MAX_SHARED_BYTES
-    z = torch.zeros
+    z = functools.partial(torch.empty, device="meta")
     with pytest.raises(ValueError, match="shared memory"):
         check(z(1, 2, 1, 3 * big), z(1, 3 * big, big), z(1, 3 * big), z(1, 1, big),
               z(1, 2, 1, big), z(1, 2, 1, big), fb=True)
 
 
-# Largest hidden sizes the adjoint walk takes (its shared-memory formula:
-# f32 a CTA's share of W^T split over a cluster of 8, bf16 the gate
-# pre-pass's W slice and h_prev), and the largest the first adjoint
-# template took; every adjoint entry still takes every H up to the old
-# limits.
-ADJ_MAX_HIDDEN = {"float32": 376, "bfloat16": 450}
+# Largest hidden sizes the adjoint walk takes (its shared-memory formula):
+# the one-block and cluster design's (f32 a CTA's share of W^T split over a
+# cluster of 8, bf16 the gate pre-pass's W slice and h_prev) and, past it,
+# the streamed walk's (W^T streamed from device memory; its dg buffers,
+# factor chunks, dh and copy rings at one row); and the largest the first
+# adjoint template took; every adjoint entry still takes every H up to the
+# old limits.
+CLUSTER_ADJ_MAX_HIDDEN = {"float32": 376, "bfloat16": 450}
+ADJ_MAX_HIDDEN = {"float32": 4453, "bfloat16": 4622}
 FIRST_BWD_MAX_HIDDEN = {"float32": 95, "bfloat16": 109}
+STREAMED_HS = (377, 451, 512, 768, 1024, 2048)
+
+
+def _adj_hs(dtype):
+    """Every H up to the cluster design's limit, some streamed ones, and
+    the streamed walk's limit."""
+    return [*range(1, CLUSTER_ADJ_MAX_HIDDEN[dtype] + 1), *STREAMED_HS, ADJ_MAX_HIDDEN[dtype]]
 
 
 def _bwd_args(h, dtype, lanes=None):
+    """Arguments of the adjoint's check at H, on the meta device (the check
+    reads shapes, dtypes and layouts only)."""
     dt = getattr(torch, dtype)
     lead = () if lanes is None else (lanes,)
-    z = torch.zeros
+    z = functools.partial(torch.empty, device="meta")
     return (z(lead + (2, 1, 3 * h), dtype=dt), z(lead + (3 * h, h), dtype=dt),
             z(lead + (3 * h,), dtype=dt), z(lead + (1, h)), z(lead + (2, 1, h), dtype=dt),
             z(lead + (2, 1, h), dtype=dt))
@@ -239,15 +254,16 @@ def _bwd_args(h, dtype, lanes=None):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_adjoint_walk_admits_every_earlier_hidden_size(dtype):
     """gru_bwd's argument check follows the adjoint walk's formula: it takes
-    every H the first template took (95 f32, 109 bf16) and every H up to its
-    own limit, and refuses the first H past it before any launch, naming
-    the limit."""
+    every H the first template took (95 f32, 109 bf16), every H up to the
+    cluster design's limit and the streamed walk's beyond, and refuses the
+    first H past the streamed walk's limit before any launch, naming the
+    limit."""
     item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     assert gru_cuda.adj_shared_bytes(ADJ_MAX_HIDDEN[dtype], item) <= gru_cuda.MAX_SHARED_BYTES
     assert gru_cuda.adj_shared_bytes(ADJ_MAX_HIDDEN[dtype] + 1, item) > gru_cuda.MAX_SHARED_BYTES
     assert ADJ_MAX_HIDDEN[dtype] >= FIRST_BWD_MAX_HIDDEN[dtype]
     assert gru_cuda.adj_max_hidden(item) == ADJ_MAX_HIDDEN[dtype]
-    for h in range(1, ADJ_MAX_HIDDEN[dtype] + 1):
+    for h in _adj_hs(dtype):
         assert gru_cuda._check_bwd_args(*_bwd_args(h, dtype), fb=False) == (1, 2, 1, h)
     with pytest.raises(ValueError, match=f"shared memory.*H up to {ADJ_MAX_HIDDEN[dtype]}"):
         gru_cuda._check_bwd_args(*_bwd_args(ADJ_MAX_HIDDEN[dtype] + 1, dtype), fb=False)
@@ -258,13 +274,13 @@ def test_adjoint_walk_admits_every_earlier_hidden_size(dtype):
 def test_fb_and_fused_adjoints_admit_every_walk_hidden_size(entry, dtype):
     """gru_bwd_fb (at 2 and at 15 lanes) and gru_bibwd run the adjoint walk
     and are checked by its formula: they take every H up to 376 (f32) / 450
-    (bf16), so every H the first template took, and refuse the next one
-    before any launch."""
+    (bf16), so every H the first template took, and the streamed walk's
+    beyond, and refuse the first H past its limit before any launch."""
     most = ADJ_MAX_HIDDEN[dtype]
-    z = torch.zeros
+    z = functools.partial(torch.empty, device="meta")
     if entry == "gru_bwd_fb":
         for lanes in (2, 15):
-            for h in range(1, most + 1):
+            for h in _adj_hs(dtype):
                 assert gru_cuda._check_bwd_args(*_bwd_args(h, dtype, lanes), fb=True) == (
                     lanes, 2, 1, h)
             with pytest.raises(ValueError, match="shared memory"):
@@ -275,7 +291,7 @@ def test_fb_and_fused_adjoints_admit_every_walk_hidden_size(entry, dtype):
         return (z(2, 2, 1, 3 * h), z(2, 3 * h, h), z(2, 3 * h), z(2, 1, h), z(2, 2, 1, h),
                 z(2, 2, 1, h))
 
-    for h in range(1, most + 1):
+    for h in _adj_hs(dtype):
         xg2, whh2, bhh2, h02, ys2, dy2 = bi_args(h)
         assert gru_cuda._check_bi_args(xg2, whh2, bhh2, h02, gru_cuda.adj_shared_bytes,
                                        ys2=ys2, dy2=dy2) == (2, 1, h)

@@ -15,6 +15,8 @@ within one bf16 ulp of the JAX module's: the fused layer runs in float32 on
 both sides and is rounded to bf16 once, and the last layer's walk runs the
 single-direction kernels' bf16 mode on both sides."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,10 +154,10 @@ def test_fused_wrappers_refuse_before_any_launch():
     with pytest.raises(ValueError, match="contiguous"):
         gru_cuda.gru_bibwd(xg2, whh2, bhh2, h02, ys2,
                            dy2.transpose(0, 2).contiguous().transpose(0, 2))
-    # A CTA's eighth of the adjoint walk's W^T (48 x 1132) and its step
-    # buffers exceed 227 KB even split over a cluster of 8.
-    big = 377
-    z = torch.zeros
+    # Past the streamed adjoint's limit its step buffers at one row exceed
+    # 227 KB (the check reads shapes only: meta tensors).
+    big = gru_cuda.adj_max_hidden(4) + 1
+    z = functools.partial(torch.empty, device="meta")
     with pytest.raises(ValueError, match="shared memory"):
         gru_cuda.gru_bibwd(z(1, 2, 1, 3 * big), z(2, 3 * big, big), z(2, 3 * big),
                            z(2, 1, big), z(1, 2, 1, big), z(1, 2, 1, big))
@@ -310,13 +312,18 @@ def test_pallas_fused_bf16_bigru_matches_jax(layers, prune):
 def test_bifwd_admits_every_earlier_hidden_size(hidden):
     """gru_bifwd's check follows the walk kernel's shared-memory formula: it
     takes every H up to 135 (the first template's limit), 136 (one block's)
-    and 380 (a cluster of 8 CTAs), on the CPU as on the card, and refuses
-    381 before any launch."""
+    and 380 (a cluster of 8 CTAs), on the CPU as on the card, and 381 too
+    (the streamed walk); it refuses the first H past the streamed walk's
+    limit before any launch."""
     z = torch.zeros
     args = (z(1, 2, 1, 3 * hidden), z(2, 3 * hidden, hidden), z(2, 3 * hidden), z(2, 1, hidden))
     assert gru_cuda._check_bi_args(*args, gru_cuda.walk_shared_bytes) == (1, 1, hidden)
     assert gru_cuda.gru_bifwd(*args).shape == (1, 2, 1, hidden)
-    big = 381
-    with pytest.raises(ValueError, match="shared memory.*H up to 380"):
-        gru_cuda.gru_bifwd(z(1, 2, 1, 3 * big), z(2, 3 * big, big), z(2, 3 * big),
-                           z(2, 1, big))
+    past = 381
+    assert gru_cuda.gru_bifwd(z(1, 2, 1, 3 * past), z(2, 3 * past, past), z(2, 3 * past),
+                              z(2, 1, past)).shape == (1, 2, 1, past)
+    limit = gru_cuda.walk_max_hidden(4)
+    big, e = limit + 1, functools.partial(torch.empty, device="meta")   # shapes only
+    with pytest.raises(ValueError, match=f"shared memory.*H up to {limit}"):
+        gru_cuda.gru_bifwd(e(1, 2, 1, 3 * big), e(2, 3 * big, big), e(2, 3 * big),
+                           e(2, 1, big))

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 import multimodalsignal_tpu.native as jnative
+import multimodalsignal_tpu_torch.native as pnative
 from multimodalsignal_tpu import config as jcfg
 from multimodalsignal_tpu.data import dataset as jdata
 from multimodalsignal_tpu.experiments import loso as jloso
@@ -101,9 +102,11 @@ def tree(tmp_path_factory):
 
 @pytest.fixture
 def numpy_engine(monkeypatch):
-    """The JAX package's NumPy path (its C++ engine normalizes float32 in
-    another summation order) and no on-disk pack cache."""
+    """Both packages' NumPy paths (their C++ engines normalize float32 in
+    another summation order, with an OpenMP reduction) and no on-disk pack
+    cache."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
     monkeypatch.setenv("MMS_PACK_CACHE", "0")
 
 

@@ -17,6 +17,7 @@ raise without CUDA when no device is named. The analysis package (the
 preprocess checker, the feature tools, the attention probe) imports too: its
 plotting and scikit-learn imports sit inside the functions."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -167,3 +168,77 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
     # then the analysis package and its four modules.
     assert int(proc.stdout.split("imported ")[1].split()[0]) >= 46
     assert proc.stdout.strip().endswith("ok")
+
+
+# The port's host window engine: built from its own source into its own
+# build directory, with every file the build, the load and a pack open, and
+# every process the build starts, recorded by audit hooks.
+NATIVE_SCRIPT = textwrap.dedent("""
+    import sys, tempfile
+    from pathlib import Path
+
+    for name in list(sys.modules):
+        if name == "multimodalsignal_tpu" or name.startswith("multimodalsignal_tpu."):
+            del sys.modules[name]
+    sys.modules["multimodalsignal_tpu"] = None
+
+    seen = []
+    def audit(event, args):
+        if event in ("open", "os.listdir", "os.scandir"):
+            seen.append(str(args[0]))
+        elif event == "ctypes.dlopen":
+            seen.append(str(args[0]))
+        elif event == "subprocess.Popen":
+            seen.extend(str(a) for a in args[1])
+    sys.addaudithook(audit)
+
+    import numpy as np
+    from multimodalsignal_tpu_torch import native
+    from multimodalsignal_tpu_torch.data import dataset, windowing
+    with tempfile.TemporaryDirectory() as tmp:
+        native.BUILD_DIR = Path(tmp) / "build"      # a fresh build
+        assert native.available()
+        assert native.library_path().parent == native.BUILD_DIR
+        rng = np.random.default_rng(0)
+        data = Path(tmp) / "data"
+        data.mkdir()
+        names = ["chest_ECG", "chest_EDA", "chest_Resp"]
+        for sid in ("S2", "S3"):
+            np.save(data / f"{sid}_X.npy", (rng.standard_normal((6, 32, 3)) ** 2).astype(np.float32))
+            np.save(data / f"{sid}_y.npy", np.array([1, 1, 2, 3, 4, 2]))
+        dataset.pack_corpus(data, ["S2", "S3"], names, names, cache=False)
+        windowing.sliding_windows_fast(np.zeros((64, 3), np.float32), np.array([0, 8]), 16)
+        dataset.normalize_subject(np.ones((4, 16, 3), np.float32), np.ones(4), names)
+        counts = native.call_counts()
+        assert counts["pack_subject_f32"] == 2 and counts["sliding_windows_f32"] == 1, counts
+        assert counts["channel_stats_f32"] == 1, counts
+    for path in seen:
+        print("touched", path)
+    print("ok")
+""")
+
+
+def test_native_engine_never_reads_or_loads_the_jax_packages():
+    """The port's engine imports nothing of the JAX package and never reads,
+    builds from or loads anything under multimodalsignal_tpu/native/: its
+    g++ takes the port's own window_engine.cpp, and the library it loads is
+    the one it built, under its own build directory."""
+    proc = subprocess.run([sys.executable, "-c", NATIVE_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+    touched = [line[len("touched "):] for line in proc.stdout.splitlines()
+               if line.startswith("touched ")]
+    jax_native = (REPO / "multimodalsignal_tpu" / "native").resolve()
+    port_source = (REPO / "multimodalsignal_tpu_torch" / "native" / "window_engine.cpp")
+    assert str(port_source) in touched          # g++ built the port's source
+    assert any(t.endswith(".so") and "libwindow_engine-" in t for t in touched)
+    for path in touched:
+        resolved = Path(path).resolve() if path.startswith("/") else (REPO / path).resolve()
+        assert jax_native not in resolved.parents and resolved != jax_native, path
+    tree = ast.parse((REPO / "multimodalsignal_tpu_torch" / "native" / "__init__.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            mods = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module]
+            assert not any(m == "multimodalsignal_tpu" or m.startswith("multimodalsignal_tpu.")
+                           for m in mods), mods

@@ -144,7 +144,7 @@ def test_an_entry_the_jax_package_wrote_is_not_read(data_dir, monkeypatch):
     (jax_entry,) = _entries(data_dir)
     loaded, real = [], D.load_subject_windows
     monkeypatch.setattr(D, "load_subject_windows",
-                        lambda path, sid: (loaded.append(sid), real(path, sid))[1])
+                        lambda path, sid, **kw: (loaded.append(sid), real(path, sid, **kw))[1])
     fresh = _pack(data_dir, cache=True)
     assert loaded == ["S2", "S3"] and len(_entries(data_dir)) == 2
     monkeypatch.setattr(D, "load_subject_windows", _boom)

@@ -182,15 +182,17 @@ WRIST = ["chest_ECG", "wrist_BVP", "wrist_EDA"]
 def test_wrist_grid_and_windows_match_jax(recording, has_wrist, tmp_path, monkeypatch, capsys):
     """A wrist checkpoint's recording grid: the chest block, then the wrist
     block resampled as preprocessing does (zeros and a warning for a
-    chest-only recording), and its windows, bitwise the JAX package's (its
-    NumPy normalization path)."""
+    chest-only recording), and its windows, bitwise the JAX package's (both
+    packages' NumPy normalization paths)."""
     from multimodalsignal_tpu import native
     from multimodalsignal_tpu.experiments import predict as jpredict
+    from multimodalsignal_tpu_torch import native as pnative
     from multimodalsignal_tpu_torch.experiments import predict as ppredict
 
     from tests.test_torch_ensemble import _write_recording
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
     pkl = recording
     if not has_wrist:
         pkl = tmp_path / "S99.pkl"
