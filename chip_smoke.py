@@ -95,8 +95,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    data directory of the config's 15 subjects x 48 windows (as in 6), so
    every fold is one of F=15 lanes at full model width:
    a. with dropout 0, the first 3 sweep train steps of all 15 folds on the
-      card, lanes 0-3 against the port on the CPU (gru_impl "pallas": the
-      F-lane kernels' plain versions; 4 lanes there, CPU_FOLDS, as 15 took
+      card, lanes 0-1 against the port on the CPU (gru_impl "pallas": the
+      F-lane kernels' plain versions; 2 lanes there, CPU_FOLDS, as 15 took
       over 60 s), under TRAIN_TOL; then lanes 0 and 14 of the
       card's first step against the single-fold Trainer.train_step on the
       card with that fold's weights and batch (sweep_parity);
@@ -210,7 +210,10 @@ Phases, in order; any failure raises and the script exits non-zero:
        abort_after_epoch=2 (SweepAborted); then resumed from its bundle
        (counted: exactly 2 epochs' gru_fwd_fb and gru_bwd_fb, and the test
        batches); resumed against uncut under TRAIN_TOL, printed whether
-       bitwise; the bundle's size, write and read times;
+       bitwise; the bundle's size, write and read times; the uncut sweep
+       run again, bitwise equal (train steps hold cuDNN to its
+       deterministic algorithms), and once with cuDNN's default algorithms
+       (their drift from it and the seconds of each, printed);
     b. the serial Trainer on fold 0 of phase 6's 4 subjects (auto, float32,
        dropout 0.5), cut after epoch 2 and resumed the same way (counted:
        gru_fwd_fb, gru_fwd, gru_bwd_fb and gru_bwd once a train step of the
@@ -301,7 +304,7 @@ Phases, in order; any failure raises and the script exits non-zero:
        bound (6 H^2 FLOPs a row-step forward, 12 H^2 adjoint), the plain
        version, cuDNN's nn.GRU at H=256, cluster, row tile and waves;
     c. the sweep CLI with model.gru_hidden_size=256 (f32 auto, 1 epoch) as
-       in 7 (first 3 steps card vs CPU on lanes 0-1 at B=16, exact launches, 15
+       in 7 (first 3 steps card vs CPU on lane 0 at B=16, exact launches, 15
        finite folds, a step profile); fold S2's Predictor at H=256 (counted: 2 gru_fwd_fb
        and 2 gru_fwd for 70 windows) against the CPU (PROB_ATOL);
     d. MMS_GRU_FOLD_GROUP=3 at F=15 (5 lanes of G*H = 192, float32 walks),
@@ -311,24 +314,37 @@ Phases, in order; any failure raises and the script exits non-zero:
        step ms ungrouped, grouped, grouped, ungrouped, and a trace of a
        grouped step.
     Then the phase's seconds, and each part's.
-16. The streamed walks (past the cluster walk's limit), the host window
-    engine and trainer.remat, on phase 7's data:
-    a. the C plans (gru_walk_plan, gru_adj_plan: instantiation, cluster,
-       row tile, resident and streamed units a CTA, shared bytes,
-       workspace) against gru_cuda's twins for H = 1-1100 in both dtypes,
-       ptxas's registers of the streamed instantiations; all six entries
-       at H = 381 / 377 (forward / adjoint), 451 (the adjoint), 512, 768
-       and 1024, f32 and bf16 where taken, T=480 B=64 both directions, and
-       at H=512 also B=1, B=256 and T=1, against their plain versions; dW
-       and db bitwise over two runs at H=512; past the streamed walk's
-       limit a ValueError naming it, before any launch;
+16. The walks past the cluster walk's limit (the grid walk: W held across
+    a group of CTAs spanning the card, the state exchanged through L2 with
+    a group barrier a step, launched cooperatively; past its limit the
+    streamed walk), the host window engine and trainer.remat, on phase 7's
+    data:
+    a. the C plans (gru_walk_plan, gru_adj_plan: instantiation, cluster or
+       group, row tile or work item rows, resident and streamed units a
+       CTA, shared bytes, workspace, groups at once and threads) against
+       gru_cuda's twins for H = 1-2200 in both dtypes, ptxas's registers of
+       the grid and streamed instantiations; all six entries at H = 381 /
+       377 (forward / adjoint), 451 (the adjoint), 512, 768 and 1024 (the
+       grid walk where it takes them), f32 and bf16 where taken, T=480 B=64
+       (both directions at H=512), at H=512 also B=1, B=256 and T=1 both
+       directions, the _fb entries
+       also at 15 lanes, and at the first H past the grid walk's limit
+       (the streamed walk) at T=16, against their plain versions; dW and db
+       bitwise over two runs at H=512 and past the grid walk's limit; past
+       the streamed walk's limit a ValueError naming it, before any launch;
     b. each entry at H = 512 and 1024, T=480 B=64: kernel ms, us a step,
-       the bound, the plain version, cuDNN's nn.GRU, the plan, its waves
-       and the bytes of W streamed from L2 a step;
+       the bound, the plain version, cuDNN's nn.GRU, the plan, its groups
+       and rounds (or clusters and waves), the bytes read from L2 a step
+       (W streamed, or the state exchanged) beside the streamed walk's
+       time before the grid walk took the shape;
+       gru_fwd and gru_bwd f32 at H=381 (the grid walk's fixed cost a step);
+       a profile of one gru_bwd call at 512 and 1024, f32 and bf16, split
+       by kernel;
     c. a Predictor at H=512 against the CPU (counted), the sweep at H=512
-       (first 3 steps card vs CPU on lanes 0-1 at B=16 under TRAIN_TOL; 3
-       counted steps at B=64), MMS_GRU_FOLD_GROUP=3 at H=256 (G*H = 768,
-       streamed) against ungrouped under TRAIN_TOL;
+       (first 3 steps card vs CPU on lane 0 at B=16 under TRAIN_TOL; 3
+       counted steps at B=64, their ms a step), MMS_GRU_FOLD_GROUP=3 at
+       H=256 (G*H = 768, past the cluster walk) against ungrouped under
+       TRAIN_TOL;
     d. the host window engine built and used: pack_corpus of phase 7's
        data through it once a subject (cache off), against the NumPy path,
        and both packs' seconds;
@@ -801,6 +817,13 @@ def waves(adjoint: bool, batch: int, lanes: int, hidden: int, dtype) -> str:
         raise AssertionError(f"blocks per SM / clusters at once at B={batch} F={lanes} "
                              f"H={hidden}: {per_sm} / {at_once}")
     tiles = -(-batch // rows) * lanes
+    if plan["instantiation"] == "grid":
+        if at_once < plan["groups"]:
+            raise AssertionError(f"grid walk at B={batch} F={lanes} H={hidden}: the card "
+                                 f"holds {at_once} groups at once, the plan {plan['groups']}")
+        return (f"{tiles} work items, groups of {cluster} CTAs ({per_sm} a SM), "
+                f"{plan['groups']} at once (the card holds {at_once}): "
+                f"{-(-tiles // plan['groups'])} round(s)")
     if cluster == 1:
         return f"{per_sm} a SM at once: {-(-tiles // (per_sm * gru_cuda.NUM_SMS))} wave(s)"
     return (f"{tiles} clusters of {cluster} CTAs, {per_sm} CTA a SM, {at_once} clusters at "
@@ -1619,9 +1642,11 @@ SWEEP_FOLD_LINE = re.compile(
 
 
 # Folds of sweep_parity's CPU side: all 15 took 62.8 s (float32) and 83.8 s
-# (bfloat16) on the 8 host cores beside an H100, so the CPU runs the first 4
-# lanes; lanes are independent, so they are held against the card's first 4.
-CPU_FOLDS = 4
+# (bfloat16) on the 8 host cores beside an H100, and 4 took 18-21 s a sweep
+# on a slower host, where the whole script came within 11 s of its 1200 s;
+# so the CPU runs the first 2 lanes; lanes are independent, so they are
+# held against the card's first 2.
+CPU_FOLDS = 2
 
 
 def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what: str,
@@ -2959,9 +2984,8 @@ def resumed_vs_uncut(got_losses, want_losses, got_params: dict, want_params: dic
     """A resumed run against the uncut one under TRAIN_TOL (as
     compare_steps: losses within tol['loss'] relative, every parameter
     within 2 lr per step, at most tol['share'] of them beyond tol['elem']);
-    prints whether the two are bitwise equal (cuDNN's convolution weight
-    gradients need not be deterministic on the card). `label` names the
-    pair (phase 14: a run split over two processes against one process's)."""
+    prints whether the two are bitwise equal. `label` names the pair
+    (phase 14: a run split over two processes against one process's)."""
     got_losses, want_losses = np.asarray(got_losses), np.asarray(want_losses)
     loss_err = float(np.max(np.abs(got_losses - want_losses)
                             / np.maximum(np.abs(want_losses), 1e-12)))
@@ -2981,6 +3005,39 @@ def resumed_vs_uncut(got_losses, want_losses, got_params: dict, want_params: dic
     print(f"{what}: {label} {summary}")
 
 
+def repeat_vs_uncut(corpus, fb, cfg, uncut, uncut_s: float, steps: int) -> None:
+    """The uncut sweep run again: bitwise equal to the first run, as the
+    train steps hold cuDNN to its deterministic algorithms. Then once with
+    cuDNN's default algorithms (the train steps' context replaced by a
+    no-op), printing how far its atomic sums moved it from the first run
+    (not checked: that drift is what the context removes) and the seconds
+    of each, which are what the deterministic algorithms cost."""
+    t0 = time.perf_counter()
+    again = fold_sweep.run_fold_sweep(corpus, fb, cfg, "cuda")
+    again_s = time.perf_counter() - t0
+    got, want = dict(_param_leaves(again.final_variables["params"])), dict(
+        _param_leaves(uncut.final_variables["params"]))
+    if not (np.array_equal(_history_losses(again), _history_losses(uncut))
+            and all(np.array_equal(got[k], want[k]) for k in want)):
+        raise AssertionError("sweep float32: two uncut runs are not bitwise equal")
+    deterministic = fold_sweep.deterministic_convolutions
+    fold_sweep.deterministic_convolutions = contextlib.nullcontext
+    try:
+        t0 = time.perf_counter()
+        default = fold_sweep.run_fold_sweep(corpus, fb, cfg, "cuda")
+        default_s = time.perf_counter() - t0
+    finally:
+        fold_sweep.deterministic_convolutions = deterministic
+    loss_d = float(np.max(np.abs(_history_losses(default) - _history_losses(uncut))))
+    got = dict(_param_leaves(default.final_variables["params"]))
+    param_d = max(float(np.max(np.abs(got[k] - want[k]))) for k in want)
+    print(f"sweep float32 F={len(fb.test_subjects)}: a second uncut run bitwise equal to "
+          f"the first; {RESUME_EPOCHS} epochs ({steps} train steps) {uncut_s:.3f} s and "
+          f"{again_s:.3f} s with cuDNN's deterministic algorithms, {default_s:.3f} s with "
+          f"its default algorithms, which moved the losses by max|d| {loss_d:.3e} and the "
+          f"parameters by {param_d:.3e}")
+
+
 def sweep_resume_phase(data: Path, root: Path) -> None:
     """12a. On phase 7's data, the 15-lane float32 sweep at full width for
     RESUME_EPOCHS epochs: uncut; then with trainer.checkpoint_every=1 and
@@ -2997,6 +3054,8 @@ def sweep_resume_phase(data: Path, root: Path) -> None:
     t0 = time.perf_counter()
     uncut = fold_sweep.run_fold_sweep(corpus, fb, cfg, "cuda")
     uncut_s = time.perf_counter() - t0
+    steps_tr = grid_steps(fb.n_train, cfg.trainer.batch_size)
+    repeat_vs_uncut(corpus, fb, cfg, uncut, uncut_s, RESUME_EPOCHS * steps_tr)
     ck = dataclasses.replace(cfg, trainer=dataclasses.replace(
         cfg.trainer, checkpoint_every=1, resume=True))
     run_dir = root / "sweep_resume"
@@ -3030,7 +3089,6 @@ def sweep_resume_phase(data: Path, root: Path) -> None:
     for name in ("test_cm", "best_epoch", "stop_epoch"):
         if not np.isfinite(getattr(resumed, name)).all():
             raise AssertionError(f"sweep resume: {name} not finite")
-    steps_tr = grid_steps(fb.n_train, cfg.trainer.batch_size)
     resumed_vs_uncut(_history_losses(resumed), _history_losses(uncut),
                      resumed.final_variables["params"],
                      uncut.final_variables["params"], TRAIN_TOL["float32"],
@@ -3760,10 +3818,10 @@ WRAPPERS = {"gru_fwd": (gru_cuda.gru_forward, gru_cuda.gru_forward_plain),
             "gru_bwd_fb": (gru_cuda.gru_backward_fb, gru_cuda.gru_backward_fb_plain),
             "gru_bibwd": (gru_cuda.gru_bibwd, gru_cuda.gru_bibwd_plain)}
 FOLD_GROUP = 3   # 15 folds as 5 lanes of G*H = 192
-# Lanes of 15c's CPU side: at H=256 four took 93.1 s on the 8 host cores;
-# and the batch of 15c's and 16c's card-vs-CPU steps (at H=512 and B=64 two
-# lanes took 177 s there).
-BIG_H_CPU_FOLDS = 2
+# Lanes of 15c's and 16c's CPU side (at H=256 four took 93.1 s on the 8
+# host cores, at H=512 two took 53.4 s at B=16), and the batch of their
+# card-vs-CPU steps (at H=512 and B=64 two lanes took 177 s there).
+BIG_H_CPU_FOLDS = 1
 WIDE_PARITY_BATCH = 16
 
 
@@ -3795,10 +3853,11 @@ def entry_dtypes(name: str):
                                                                         torch.bfloat16)
 
 
-def entry_inputs(name: str, t: int, b: int, h: int, dtype, seed: int, reverse: bool):
-    """Inputs of one entry on the card: one lane (gru_fwd, gru_bwd), two
+def entry_inputs(name: str, t: int, b: int, h: int, dtype, seed: int, reverse: bool,
+                 lanes: int = 2):
+    """Inputs of one entry on the card: one lane (gru_fwd, gru_bwd), `lanes`
     (the _fb entries), or the fused pair's two directions."""
-    lanes = 2 if name.endswith("_fb") else None
+    lanes = lanes if name.endswith("_fb") else None
     if name in ("gru_bifwd", "gru_bibwd"):
         return fused_inputs(t, b, h, seed, adjoint=name == "gru_bibwd")
     if name in ADJOINTS:
@@ -3820,6 +3879,10 @@ def cluster_plan(name: str, lanes: int, batch: int, hidden: int, dtype,
     item = itemsize(dtype)
     plan = (gru_cuda.adj_plan(batch, lanes, n_steps, hidden, item) if name in ADJOINTS
             else gru_cuda.walk_plan(batch, lanes, hidden, item))
+    if plan["instantiation"] == "grid":
+        return (f"grid, groups of {plan['cluster']} CTAs of {plan['resident']} units and "
+                f"{plan['threads']} threads, {plan['groups']} groups at once, work items of "
+                f"{plan['rows']} rows, {plan['shared_bytes']} bytes a CTA")
     text = (f"{plan['instantiation']}, cluster of {plan['cluster']}, row tile {plan['rows']}, "
             f"{plan['shared_bytes']} bytes a CTA")
     if plan["instantiation"] == "streamed":
@@ -3872,14 +3935,16 @@ def cluster_formulas() -> None:
           f"row tiles for H = 1-559; limits (forward, adjoint): {limits}")
 
 
-def entry_vs_plain(tag: str, name: str, t: int, b: int, h: int, dtype, reverse: bool) -> None:
+def entry_vs_plain(tag: str, name: str, t: int, b: int, h: int, dtype, reverse: bool,
+                   lanes: int = 2) -> None:
     """The entry's wrapper on the card against its plain version on the
     same inputs (TOL / BWD_TOL; the fused pair's two directions each on
-    their own), printing the largest differences and the plan."""
+    their own), printing the largest differences and the plan; the _fb
+    entries at `lanes` lanes."""
     adjoint = name in ADJOINTS
     fused = name in ("gru_bifwd", "gru_bibwd")
-    lanes = 2 if (name.endswith("_fb") or fused) else 1
-    args = entry_inputs(name, t, b, h, dtype, seed=h + t + b, reverse=reverse)
+    lanes = lanes if (name.endswith("_fb") or fused) else 1
+    args = entry_inputs(name, t, b, h, dtype, seed=h + t + b, reverse=reverse, lanes=lanes)
     got = call_entry(WRAPPERS[name][0], name, args, reverse)
     torch.cuda.synchronize()
     want = call_entry(WRAPPERS[name][1], name, args, reverse)
@@ -3969,10 +4034,11 @@ def time_entry(tag: str, name: str, dtype, h: int, per_block: int = 20,
 
 
 def large_timings() -> None:
-    """15b: each walk at T=480 B=64 H=BIG_H (time_entry)."""
+    """15b: each walk at T=480 B=64 H=BIG_H (time_entry, the median of 3
+    blocks of 5 calls)."""
     for name in WRAPPERS:
         for dtype in entry_dtypes(name):
-            time_entry("15b", name, dtype, BIG_H)
+            time_entry("15b", name, dtype, BIG_H, per_block=5, blocks=3)
     torch.cuda.empty_cache()
 
 
@@ -4136,20 +4202,64 @@ def phase15(root: Path, data: Path) -> dict[str, int]:
 WIDE_H = 512
 STREAM_HS = {False: (381, 512, 768, 1024), True: (377, 451, 512, 768, 1024)}  # by "adjoint"
 STREAM_TIMED_HS = (512, 1024)
-WIDE_CPU_FOLDS = 2
+# 16b also times gru_fwd and gru_bwd in float32 at the first H of the grid
+# walk, where a step's FMAs are few: its per-step cost is the walk's fixed
+# one (the group barrier and the first tile's L2 round trip).
+GRID_FLOOR_H = 381
+WIDE_CPU_FOLDS = 1
+# Steps of 16a's checks past the grid walk's limit (the streamed walks).
+PAST_GRID_T = 16
+# The streamed walks at T=480, B=64 as 16b timed them before the grid walk
+# took these shapes (PERF.md section 6: NVIDIA H100 80GB HBM3, 700.00 W),
+# ms a call by (entry, dtype, H); bf16 gru_fwd and gru_fwd_fb at H=512 ran
+# the cluster walk.
+STREAMED_MS = {
+    ("gru_fwd", "float32", 512): 9.0800, ("gru_fwd", "bfloat16", 512): 6.7959,
+    ("gru_fwd", "float32", 1024): 29.4845, ("gru_fwd", "bfloat16", 1024): 26.3508,
+    ("gru_fwd_fb", "float32", 512): 18.2596, ("gru_fwd_fb", "bfloat16", 512): 10.3297,
+    ("gru_fwd_fb", "float32", 1024): 63.7680, ("gru_fwd_fb", "bfloat16", 1024): 52.6791,
+    ("gru_bifwd", "float32", 512): 18.2241, ("gru_bifwd", "float32", 1024): 64.7573,
+    ("gru_bwd", "float32", 512): 34.7171, ("gru_bwd", "bfloat16", 512): 37.9117,
+    ("gru_bwd", "float32", 1024): 109.9084, ("gru_bwd", "bfloat16", 1024): 95.3366,
+    ("gru_bwd_fb", "float32", 512): 56.3667, ("gru_bwd_fb", "bfloat16", 512): 61.1349,
+    ("gru_bwd_fb", "float32", 1024): 195.6502, ("gru_bwd_fb", "bfloat16", 1024): 161.1102,
+    ("gru_bibwd", "float32", 512): 56.4506, ("gru_bibwd", "float32", 1024): 196.0654}
+
+
+def entry_lanes(name: str) -> int:
+    return 2 if name.endswith("_fb") or name in ("gru_bifwd", "gru_bibwd") else 1
+
+
+def entry_plan(name: str, lanes: int, batch: int, hidden: int, dtype, n_steps: int = SERVE_T):
+    item = itemsize(dtype)
+    return (gru_cuda.adj_plan(batch, lanes, n_steps, hidden, item) if name in ADJOINTS
+            else gru_cuda.walk_plan(batch, lanes, hidden, item))
+
+
+@functools.cache
+def grid_end(name: str, dtype) -> int:
+    """The first H past the cluster design's limit at which the entry, at
+    T=480 B=64 and its lanes, no longer runs the grid walk (the streamed
+    walk runs there)."""
+    hidden = entry_limit(name, dtype) + 1
+    while entry_plan(name, entry_lanes(name), SERVE_B, hidden, dtype)["instantiation"] == "grid":
+        hidden += 1
+    return hidden
 
 
 def stream_formulas() -> None:
-    """16a: the C plans (gru_walk_plan, gru_adj_plan: instantiation, cluster,
-    row tile, resident and streamed units a CTA, shared bytes, workspace)
-    against gru_cuda's twins for H = 1-1100, both dtypes, at 1, 2, 15 and
-    60 lanes; then ptxas's registers of the streamed instantiations (the
-    build fails on any spill)."""
+    """16a: the C plans (gru_walk_plan, gru_adj_plan: instantiation, cluster
+    or grid group, row tile or work item rows, resident and streamed units a
+    CTA, shared bytes, workspace, the grid walk's groups at once and
+    threads) against gru_cuda's twins for H = 1-2200 (past the grid walk's
+    limit in both dtypes), both dtypes, at 1, 2, 15 and 60 lanes; then
+    ptxas's registers of the grid and streamed instantiations (the build
+    fails on any spill)."""
     shapes = ((64, 1), (64, 2), (64, 15), (1, 2), (256, 2), (64, 60))
     checked = 0
     for item in (4, 2):
-        for h in range(1, 1101):
-            for batch, lanes in (shapes if h % 5 == 0 or h > 370 else shapes[:2]):
+        for h in range(1, 2201):
+            for batch, lanes in (shapes if h % 5 == 0 else shapes[:2]):
                 for adjoint in (False, True):
                     want = (gru_cuda.adj_plan(batch, lanes, SERVE_T, h, item) if adjoint
                             else gru_cuda.walk_plan(batch, lanes, h, item))
@@ -4161,13 +4271,17 @@ def stream_formulas() -> None:
     for name in ("gru_fwd", "gru_bwd"):
         for kernel, props, regs in PTXAS_KERNEL.findall(_build.build_log(name)):
             short = short_kernel_name(kernel)
-            if "stream" in short or "tiled" in short or "pad_rows" in short or "transpose" in short:
+            if "grid" in short:
+                print(f"  ptxas {name} grid walk: {short}: {regs} registers, {props}")
+            elif ("stream" in short or "tiled" in short or "pad_rows" in short
+                  or "transpose" in short):
                 print(f"  ptxas {name} streamed walk: {short}: {regs} registers, {props}")
     limits = {str(d)[6:]: (gru_cuda.walk_max_hidden(itemsize(d)),
                            gru_cuda.adj_max_hidden(itemsize(d)))
               for d in (torch.float32, torch.bfloat16)}
-    print(f"16a: C and wrapper agree on {checked} plans for H = 1-1100; limits (forward, "
-          f"adjoint): {limits}")
+    ends = {f"{n} {str(d)[6:]}": grid_end(n, d) for n in WRAPPERS for d in entry_dtypes(n)}
+    print(f"16a: C and wrapper agree on {checked} plans for H = 1-2200; limits (forward, "
+          f"adjoint): {limits}; first streamed H at B={SERVE_B} and each entry's lanes: {ends}")
 
 
 def empty_entry_args(name: str, h: int, dtype) -> tuple:
@@ -4187,26 +4301,38 @@ def empty_entry_args(name: str, h: int, dtype) -> tuple:
 
 def stream_walks_phase() -> None:
     """16a: all six entries at STREAM_HS (H = 381 forward / 377 adjoint, the
-    first streamed f32 sizes, 451 where the bf16 adjoint streams, 512, 768,
-    1024), f32 and bf16 where taken, T=480 B=64 both directions; at H=512
-    also B=1, B=256 and T=1; each against its plain version (TOL / BWD_TOL,
-    entry_vs_plain). dW and db bitwise over two runs at H=512. Past the
-    streamed walk's limit a ValueError before any launch, naming it."""
+    first f32 sizes past the cluster walk, 451 where the bf16 adjoint
+    leaves it, 512, 768, 1024: the grid walk), f32 and bf16 where taken,
+    T=480 B=64; at H=512 also B=1, B=256 and T=1; at the first H past the
+    grid walk's limit (grid_end: the streamed walk) at T=PAST_GRID_T; both
+    directions at H=512 and past the limit, one elsewhere; each against its
+    plain version (TOL / BWD_TOL,
+    entry_vs_plain). gru_fwd_fb and gru_bwd_fb also at 15 lanes, H=512 (the
+    grid walk's groups taking the lanes in turn, two passes of rows). dW and
+    db bitwise over two runs at H=512 (grid) and past the grid walk's limit
+    (streamed). Past the streamed walk's limit a ValueError before any
+    launch, naming it."""
     t0 = time.perf_counter()
     for name in WRAPPERS:
         adjoint = name in ADJOINTS
         fused = name in ("gru_bifwd", "gru_bibwd")
         for dtype in entry_dtypes(name):
             shapes = [(SERVE_T, SERVE_B, h) for h in STREAM_HS[adjoint]]
-            shapes += [(SERVE_T, 1, WIDE_H), (SERVE_T, 256, WIDE_H), (1, SERVE_B, WIDE_H)]
+            shapes += [(SERVE_T, 1, WIDE_H), (SERVE_T, 256, WIDE_H), (1, SERVE_B, WIDE_H),
+                       (PAST_GRID_T, SERVE_B, grid_end(name, dtype))]
             for t, b, h in shapes:
-                for reverse in ((False,) if fused else (False, True)):
+                both = not fused and h in (WIDE_H, grid_end(name, dtype))
+                for reverse in ((False, True) if both else (False,)):
                     entry_vs_plain("16a", name, t, b, h, dtype, reverse)
+            if name.endswith("_fb") and dtype == torch.float32:
+                entry_vs_plain("16a", name, SERVE_T, SERVE_B, WIDE_H, dtype, False, lanes=15)
             if adjoint:
-                args = entry_inputs(name, SERVE_T, SERVE_B, WIDE_H, dtype, seed=3, reverse=False)
-                check_deterministic(name, WRAPPERS[name][0], args,
-                                    f"16a H={WIDE_H} {str(dtype)[6:]}")
-                del args
+                for t, h in ((SERVE_T, WIDE_H), (PAST_GRID_T, grid_end(name, dtype))):
+                    args = entry_inputs(name, t, SERVE_B, h, dtype, seed=3, reverse=False)
+                    check_deterministic(name, WRAPPERS[name][0], args,
+                                        f"16a H={h} T={t} {str(dtype)[6:]} "
+                                        f"({entry_plan(name, entry_lanes(name), SERVE_B, h, dtype, t)['instantiation']})")
+                    del args
             limit = stream_limit(name, dtype)
             over = limit + 1
             args = empty_entry_args(name, over, dtype)
@@ -4226,25 +4352,50 @@ def stream_walks_phase() -> None:
 
 def stream_timings() -> None:
     """16b: each entry at H = 512 and 1024 (time_entry: kernel ms, us a
-    step, the bound, the plain version, cuDNN's nn.GRU, the plan and its
-    waves) and the bytes of W the streamed walk reads from L2 a step (its
-    streamed units' rows, every CTA of every (lane, row tile)). (The
-    one-block and cluster walks are re-timed at H = 64 by the kernel phases
-    and at H = 256 by 15b.)"""
+    step, the bound, the plain version, cuDNN's nn.GRU, the plan, its
+    groups or clusters and rounds or waves) beside the streamed walk's time at
+    the same shape, and the bytes a step reads from L2 in all CTAs: W (the
+    streamed walk's streamed rows) and the state (the grid walk's exchange:
+    every CTA reads its work item's whole h, or dg_lo, each step); then a
+    profile of one gru_bwd call at each H and dtype after a warm-up, split
+    by kernel (pre-pass, walk, weight-gradient pass, reduction); and gru_fwd
+    and gru_bwd in float32 at GRID_FLOOR_H, the grid walk's fixed cost a
+    step. (The one-block and cluster walks are re-timed at H = 64 by the
+    kernel phases and at H = 256 by 15b.)"""
     for name in WRAPPERS:
         adjoint = name in ADJOINTS
-        lanes = 2 if name.endswith("_fb") or name in ("gru_bifwd", "gru_bibwd") else 1
+        lanes = entry_lanes(name)
         for dtype in entry_dtypes(name):
             for h in STREAM_TIMED_HS:
-                time_entry("16b", name, dtype, h, per_block=3, blocks=3)
+                ms = time_entry("16b", name, dtype, h, per_block=3, blocks=3)
                 item = itemsize(dtype)
-                plan = (gru_cuda.adj_plan(SERVE_B, lanes, SERVE_T, h, item) if adjoint
-                        else gru_cuda.walk_plan(SERVE_B, lanes, h, item))
-                per_unit = (-(-3 * h // 4) * 4 if adjoint else 3 * (-(-h // 4) * 4)) * item
-                ctas = -(-SERVE_B // plan["rows"]) * lanes * plan["cluster"]
-                print(f"16b {name} {str(dtype)[6:]} H={h}: W streamed from L2 a step "
-                      f"{plan['streamed'] * per_unit * ctas / 1e6:.2f} MB "
-                      f"({plan['streamed']} units x {per_unit} bytes x {ctas} CTAs)")
+                plan = entry_plan(name, lanes, SERVE_B, h, dtype)
+                if plan["instantiation"] == "grid":
+                    kt = gru_cuda.grid_plan(SERVE_B, lanes, h, item, adjoint)["kt"]
+                    k = -(-(3 * h if adjoint else h) // kt) * kt
+                    ctas = plan["cluster"] * plan["groups"]
+                    w_mb, state_mb = 0.0, ctas * plan["rows"] * k * item / 1e6
+                    how = (f"{ctas} CTAs x {plan['rows']} rows x {k} x {item} bytes of state, "
+                           "no W")
+                else:
+                    per_unit = (-(-3 * h // 4) * 4 if adjoint else 3 * (-(-h // 4) * 4)) * item
+                    ctas = -(-SERVE_B // plan["rows"]) * lanes * plan["cluster"]
+                    w_mb, state_mb = plan["streamed"] * per_unit * ctas / 1e6, 0.0
+                    how = f"{plan['streamed']} units x {per_unit} bytes x {ctas} CTAs of W"
+                before = STREAMED_MS.get((name, str(dtype)[6:], h))
+                print(f"16b {name} {str(dtype)[6:]} H={h}: {plan['instantiation']} walk; read "
+                      f"from L2 a step: W {w_mb:.2f} MB, state {state_mb:.2f} MB ({how}); streamed "
+                      + (f"{before:.4f} ms, now {ms:.4f} ms ({before / ms:.2f}x)" if before
+                         else "not measured at this shape"))
+            torch.cuda.empty_cache()
+    for name in ("gru_fwd", "gru_bwd"):
+        time_entry("16b", name, torch.float32, GRID_FLOOR_H, per_block=3, blocks=3)
+    for dtype in entry_dtypes("gru_bwd"):
+        for h in STREAM_TIMED_HS:
+            args = entry_inputs("gru_bwd", SERVE_T, SERVE_B, h, dtype, seed=11, reverse=False)
+            trace(lambda: gru_cuda.gru_backward(*args), f"16b gru_bwd {str(dtype)[6:]} H={h} "
+                  "call", n=1)
+            del args
             torch.cuda.empty_cache()
 
 
@@ -4252,7 +4403,7 @@ def wide_sweep_phase(data: Path, root: Path) -> dict[str, int]:
     """16c: a fold's Predictor at model.gru_hidden_size=WIDE_H (random
     weights) against the same Predictor on the CPU (PROB_ATOL), counted;
     then the sweep at WIDE_H on phase 7's data, f32: the first 3 steps on
-    the card against the CPU on lanes 0-1 under TRAIN_TOL (sweep_parity, at
+    the card against the CPU on lane 0 under TRAIN_TOL (sweep_parity, at
     B = WIDE_PARITY_BATCH), and 3 counted steps at the config's B=64 and
     dropout (remat: each forward walk
     twice a step, each adjoint once); then MMS_GRU_FOLD_GROUP=3 at H=BIG_H
@@ -4334,8 +4485,9 @@ def wide_sweep_phase(data: Path, root: Path) -> dict[str, int]:
                f"{share:.4%} beyond {TRAIN_TOL['float32']['elem']}")
     if not ok:
         raise AssertionError(f"grouped H={BIG_H}: beyond TRAIN_TOL of ungrouped: {summary}")
+    plan = gru_cuda.walk_plan(SERVE_B, folds // FOLD_GROUP, width, 4)["instantiation"]
     print(f"16c grouped f32 H={BIG_H}, G={FOLD_GROUP}: {len(seen_g)} walks of "
-          f"{folds // FOLD_GROUP} lanes at H'={width} (streamed) against {len(seen_u)} of "
+          f"{folds // FOLD_GROUP} lanes at H'={width} ({plan}) against {len(seen_u)} of "
           f"{folds} at H={BIG_H}, first 3 sweep steps: {summary}")
     del runs, ref, grp
     torch.cuda.empty_cache()
@@ -4466,12 +4618,12 @@ def remat_phase(data: Path, root: Path) -> None:
 
 
 def phase16(root: Path, data: Path) -> dict[str, int]:
-    """Phase 16 (module docstring): 16a the streamed walks' plans and the
-    six entries against their plain versions past the cluster walk's limit,
-    16b their times at H = 512 and 1024 and the re-timed H = 64 and 256,
-    16c a Predictor and the sweep at H = 512 and fold grouping at G*H = 768,
-    16d the host window engine, 16e trainer.remat. Returns 16c's counted
-    launches (the main path of this phase)."""
+    """Phase 16 (module docstring): 16a the grid and streamed walks' plans
+    and the six entries against their plain versions past the cluster
+    walk's limit, 16b their times at H = 512 and 1024 and the adjoint's
+    split, 16c a Predictor and the sweep at H = 512 and fold grouping at
+    G*H = 768, 16d the host window engine, 16e trainer.remat. Returns 16c's
+    counted launches (the main path of this phase)."""
     t_phase = time.perf_counter()
     root.mkdir()
     marks = [time.perf_counter()]

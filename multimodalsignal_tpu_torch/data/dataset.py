@@ -407,13 +407,16 @@ def _pack_subject(x_raw, y_raw, channel_indices, channels_to_use, classification
     select the channels, map the labels, normalize, drop what the mode does
     not keep. The npy and the pickle staging share it. Float32 windows (a
     memory map will do) take the engine's fused pack where _fused_pack
-    says, in two streaming passes; otherwise the NumPy path."""
+    says, in two streaming passes; otherwise the NumPy path, which is also
+    where a subject with no windows (so no statistics rows) goes, as the
+    JAX package's packers send it: an empty pack and an all-false mask row."""
     y, keep = map_labels(y_raw, classification_mode)
     if _fused_pack(normalization) and x_raw.dtype == np.float32 and x_raw.ndim == 3:
-        x = native.pack_subject_f32(x_raw, np.asarray(channel_indices),
-                                    _log1p_mask(channels_to_use),
-                                    _stat_rows(y_raw, normalization), keep)
-        return x, y[keep]
+        stat_rows = _stat_rows(y_raw, normalization)
+        if stat_rows.any():
+            x = native.pack_subject_f32(x_raw, np.asarray(channel_indices),
+                                        _log1p_mask(channels_to_use), stat_rows, keep)
+            return x, y[keep]
     x_norm = normalize_subject(x_raw[:, :, channel_indices], y_raw, channels_to_use,
                                normalization)
     return x_norm[keep].transpose(0, 2, 1), y[keep]

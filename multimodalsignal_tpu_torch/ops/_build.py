@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its own into
 `build/lib<name>-<hash>.so` beside this file (the directory is git-ignored).
-The hash covers the source and the compiler flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. nvcc's output, including
+The hash covers the source, the headers of csrc/ and the compiler flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as it
+is. nvcc's output, including
 `-Xptxas -v`'s registers and shared memory per kernel, is kept beside the
 library as `lib<name>-<hash>.log`.
 
@@ -51,9 +52,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the headers of
+    csrc/ (any of them may be included) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

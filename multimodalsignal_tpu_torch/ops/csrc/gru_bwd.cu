@@ -113,7 +113,35 @@
 // unchanged: the pre-pass's shared memory ([H][97] + [H][32] floats) bounds
 // bf16 at H = 450; the cluster walk bounds f32 at H = 376 (K = 8).
 //
-// The streamed walk: past those limits (adj_streamed) the walk is
+// The grid walk: past those limits (adj_streamed), wherever one lane's W
+// fits the card's aggregate shared memory (f32 to H = 1320, bf16 to 2112 at
+// B = 64, one lane: grid_plan), gru_adj_grid_kernel replaces the streamed
+// walk below, which re-read from L2 every step the W^T rows its clusters
+// could not hold (199.8 MB a step at f32 H = 1024, chip_smoke.py 16b) and
+// ran its 16 clusters in two waves. As the forward's grid walk: a group of G CTAs, one
+// CTA an SM, walks a work item (a lane and up to 64 rows); CTA `rank` keeps
+// the W^T rows of its ceil(H / G) units, loaded once an item. Each step the
+// pairs' dg_lo goes into an exchange buffer in device memory [2 parity]
+// [rows][3H padded to a tile], a group barrier (a counter in device memory,
+// release add, acquire loads), then every CTA reads the item's whole dg_lo
+// back from L2 a K tile at a time through a cp.async ring of up to 8 tiles
+// and sums its units' dg_lo @ W, in f32 on CUDA cores, in bf16 on the
+// tensor cores as the forward's grid walk (f32 sums in both). The
+// exchange moves dg_lo, G x rows x 3H values a step; exchanging per-CTA
+// partials of dh_prev instead would move 2 x G x rows x H, two thirds of it
+// in f32 but more in bf16 (the partials stay f32), and needs a second pass
+// over G partials a step in a fixed order; dg_lo keeps one kernel skeleton
+// with the forward's and one read a step. The next step's factors are
+// loaded before the K loop that hides them, and the next step's dg_lo is
+// formed right after it. Launched cooperatively after the plan's groups are
+// checked against the card's occupancy, as the forward's; dW and db come
+// from the same weight-gradient pass and reduction, so they stay the same
+// bits from run to run. What bounds it: the dg_lo bytes every CTA reads each
+// step (100.7 MB at f32 H = 1024) and the group barrier, not W's bytes; and
+// past it, at H >= 1024, the two passes over all T, which now take more
+// than half of gru_bwd (chip_smoke.py 16b).
+//
+// The streamed walk: past the grid walk's limit the walk is
 // gru_adj_stream_kernel, a cluster of kMaxCluster CTAs per (lane, tile of R
 // <= 4 rows) that exchanges dg_lo over distributed shared memory with one
 // cluster barrier a step, as the cluster walk does, but keeps only as many
@@ -215,6 +243,8 @@ constexpr int kGateK = 64;
 // Clusters of kMaxCluster CTAs of one CTA an SM that an H100 runs at once
 // (cudaOccupancyMaxActiveClusters: 15, not 132 / 8).
 constexpr int kStreamClusters = 15;
+
+#include "gru_grid.cuh"
 
 __host__ __device__ constexpr bool adj_in_registers(int hidden) {
   return hidden <= kRegMaxHidden;
@@ -369,6 +399,13 @@ size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
   const size_t walk = adj_stream_shared_bytes(hidden, itemsize, rows);
   return walk > kGateTiledBytes ? walk : kGateTiledBytes;
 }
+// The grid walk's plan where it takes the shape: past the one-block and
+// cluster design's limit, wherever one lane's W fits the card (ctas 0
+// elsewhere).
+GridPlan adj_grid(int batch, int lanes, int hidden, size_t itemsize) {
+  return adj_streamed(hidden, itemsize) ? grid_plan(batch, lanes, hidden, itemsize, true)
+                                        : GridPlan{};
+}
 // Rows per block (or streamed tile) of the walk for this shape.
 int adj_rows(int batch, int lanes, int hidden, size_t itemsize) {
   return adj_streamed(hidden, itemsize) ? adj_stream_row_tile(batch, lanes, hidden, itemsize)
@@ -390,8 +427,9 @@ int adj_partials(int n_steps, int batch) {
 }
 // The f32 workspace each entry takes as dw_part: the factors [rows][6][H] and
 // dht [rows][H] (rows = lanes * T * B, in the streams' order), then the dW
-// partials [lanes][partials][3H][H]; for the streamed walk then, from a
-// 16-byte boundary, W^T padded [lanes][H][kpad] in the stream dtype.
+// partials [lanes][partials][3H][H]; then, from a 16-byte boundary, the grid
+// walk's exchange buffers and counters (grid_workspace_bytes) or the
+// streamed walk's W^T padded [lanes][H][kpad] in the stream dtype.
 long long adj_wt_offset(int lanes, int n_steps, int batch, int hidden) {
   const long long rows = static_cast<long long>(lanes) * n_steps * batch;
   const long long base = rows * hidden * (kFactors + 1) +
@@ -403,6 +441,10 @@ long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, si
   const long long base = rows * hidden * (kFactors + 1) +
       static_cast<long long>(lanes) * adj_partials(n_steps, batch) * 3 * hidden * hidden;
   if (!adj_streamed(hidden, itemsize)) return base;
+  const GridPlan grid = grid_plan(batch, lanes, hidden, itemsize, true);
+  if (grid.ctas > 0)
+    return adj_wt_offset(lanes, n_steps, batch, hidden) +
+           static_cast<long long>(grid_workspace_bytes(grid, itemsize) / 4);
   const long long wt = static_cast<long long>(lanes) * hidden * adj_kpad(hidden, false) *
                        static_cast<long long>(itemsize);
   return adj_wt_offset(lanes, n_steps, batch, hidden) + (wt + 15) / 16 * 4;
@@ -656,9 +698,6 @@ __device__ __forceinline__ void cp_async_4(float* dst, const float* src) { cp_as
 __device__ __forceinline__ void cp_async_4(__nv_bfloat16* dst, const __nv_bfloat16* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -1212,6 +1251,302 @@ __global__ void __launch_bounds__(kStreamDotThreads + kProducer, 1)
   }
 }
 
+// The grid walk (see the note at the top): a group of p.ctas CTAs, one an
+// SM, walks one work item (a lane and up to p.rows batch rows) at a time;
+// p.groups groups run at once and take the items in turn. CTA `rank` keeps
+// the W^T rows of its p.units units (w_s[row][c] = W[c][unit0 + k], row
+// v x unit pairs + q for unit k = q U + v), in shared memory for the whole
+// item. Thread (row group, unit pair, sub-lane s) owns the (row, unit) pairs
+// of its row s and its two units (its kGridRows rows interleave with the
+// pass's other row groups'). A step: the pairs' dg_lo (their dht times the
+// factors, rounded to the stream dtype) goes into the exchange buffer of the
+// step's parity in device memory, dht to dht_out, dht z into shared memory;
+// the group barrier; then the whole dg_lo of the item's rows is read back
+// p.kt columns at a time through a ring of p.stages tiles that every thread
+// fills with cp.async, each thread sums
+// its rows x units over K chunks s, s + kGridSub, ... of each tile, an xor
+// butterfly completes the sums, and dh = dht z + sum is the pair's; the
+// next step's factors are loaded before that K loop, which hides them, and
+// the next step's dg_lo follows right after it.
+template <typename T, typename Layout>
+__global__ void __launch_bounds__(grid_max_threads(true), 1)
+    gru_adj_grid_kernel(const float* __restrict__ fac, const T* __restrict__ w_hh,
+                        float* __restrict__ dht_out, float* __restrict__ dh0,
+                        T* __restrict__ exch, unsigned* __restrict__ counters, int lanes,
+                        int n_steps, int batch, int hidden, int reverse, GridPlan p) {
+  constexpr int S = kGridSub;
+  constexpr int R = kGridRows;
+  constexpr int U = grid_thread_units(true);
+  constexpr int RS = R / S;                 // rows of a pair lane
+  constexpr int CH = 16 / int(sizeof(T));   // elements of one 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = hidden;
+  const int kx = grid_kx(3 * H, p.kt);
+  const int kw = kx + kGridPad;
+  const int kt = p.kt + kGridPad;
+  const int u = p.units;
+  const int pairs = (u + U - 1) / U;  // unit pairs of the CTA
+  const int group = blockIdx.x / p.ctas;
+  const int rank = blockIdx.x - group * p.ctas;
+  const int unit0 = rank * u;
+  const int mine = H - unit0 < u ? (H > unit0 ? H - unit0 : 0) : u;  // inside H
+  const int tid = threadIdx.x;
+  const int s = tid % S;
+  const int q = tid / S % pairs;
+  const int rg = tid / (S * pairs);
+  const int row_groups_pass = p.pass_rows / R;
+  const bool worker = rg < row_groups_pass;  // the others only copy
+
+  T* w_s = reinterpret_cast<T*>(smem);  // [U][pairs][kw]: unit q U + v at row v pairs + q
+  unsigned char* after_w = smem + align16(size_t(pairs) * U * kw * sizeof(T));
+  T* tiles = reinterpret_cast<T*>(after_w);  // [stages][pass_rows][kt]
+  float* dhz = reinterpret_cast<float*>(
+      after_w + size_t(p.stages) * p.pass_rows * kt * sizeof(T));  // [rows][u]
+  T* ex = exch + size_t(group) * 2 * p.rows * kx;  // [2][rows][kx]
+  unsigned* counter = counters + group;
+  unsigned arrivals = 0;
+  const int row_groups = (batch + p.rows - 1) / p.rows;
+  const int items = lanes * row_groups;
+  const int passes = (p.rows + p.pass_rows - 1) / p.pass_rows;
+  const int ntiles = kx / p.kt;
+  // The 16-byte chunk of every tile row this thread copies, and its rows: a
+  // tile row is p.kt / CH chunks (8, 16 or 32), which divides the block.
+  const int copy_col = tid % (p.kt / CH) * CH;
+  const int copy_row = tid / (p.kt / CH);
+  const int copy_rows = blockDim.x / (p.kt / CH);
+  // bf16: the products on the tensor cores, as the forward's grid walk does:
+  // warp (m, n, k) takes 16-row tile m of the pass, unit octet n and every
+  // kslices-th 16-column step of each K tile; its f32 sums (the first four
+  // floats of acc) go to the ring's memory as partials after the K loop and
+  // are summed over the K slices in a fixed order by the pair lanes; the
+  // FMAs run where the pass or the partials do not suit it.
+  const int warp = tid / 32;
+  const int lane32 = tid % 32;
+  const int mtiles = p.pass_rows / 16;
+  const int octets = (u + 7) / 8;
+  int kslices = mtiles > 0 ? int(blockDim.x / 32) / (mtiles * octets) : 0;
+  if (kslices > p.kt / 16) kslices = p.kt / 16;
+  const bool tensor = sizeof(T) == 2 && p.pass_rows % 16 == 0 && kslices > 0 &&
+                      size_t(kslices) * p.pass_rows * u * sizeof(float) <=
+                          size_t(p.stages) * p.pass_rows * kt * sizeof(T);
+  const int mma_m = mtiles > 0 ? warp % mtiles : 0;
+  const int mma_n = mtiles > 0 ? warp / mtiles % octets : 0;
+  const int mma_k = mtiles > 0 ? warp / (mtiles * octets) : 0;
+  const bool mma_warp = tensor && mma_k < kslices;
+
+  for (int item = group; item < items; item += p.groups) {
+    const int lane = item / row_groups;
+    const int b0 = (item - lane * row_groups) * p.rows;
+    const int nb = batch - b0 < p.rows ? batch - b0 : p.rows;
+    const T* w = w_hh + size_t(lane) * 3 * H * H;
+    const int wrows = pairs * U;
+    for (int e = tid; e < wrows * kw; e += blockDim.x) {
+      const int c = e / wrows;  // read W's columns of this CTA's units row by row
+      const int kk = e - c * wrows;
+      w_s[(size_t(kk % U) * pairs + kk / U) * kw + c] =
+          c < 3 * H && kk < mine ? w[size_t(c) * H + unit0 + kk] : from_float<T>(0.0f);
+    }
+    // Rows past the batch stay zero in both parity buffers.
+    for (int e = tid; e < (p.rows - nb) * 3 * H; e += blockDim.x) {
+      const int r = nb + e / (3 * H);
+      const int c = e - (r - nb) * 3 * H;
+      const int k = c % H;
+      if (k >= unit0 && k < unit0 + mine) {
+        ex[size_t(r) * kx + c] = from_float<T>(0.0f);
+        ex[size_t(p.rows + r) * kx + c] = from_float<T>(0.0f);
+      }
+    }
+    auto at_step = [&](int step, int r) {
+      const int t = reverse ? step : n_steps - 1 - step;
+      return Layout::row(lane, t, b0 + r, lanes, n_steps, batch);
+    };
+    // The pair (row pr0 + (s + S i) RG + rg, unit q U + v) of this thread,
+    // RG the pass's row groups (rows of a thread interleave with the other
+    // row groups', so a warp's loads of neighbouring rows meet other banks).
+    auto pair_row = [&](int pr0, int i) { return pr0 + (s + S * i) * row_groups_pass + rg; };
+    auto pair_ok = [&](int pr0, int i, int v) {
+      return worker && pair_row(pr0, i) < nb && q * U + v < mine;
+    };
+    // Factors a_r, cz, a_n, z, dy of `step` for the thread's pairs of a pass.
+    auto fetch = [&](int step, int pr0, float (&fv)[RS][U][kWalkFactors]) {
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+#pragma unroll
+        for (int v = 0; v < U; ++v) {
+          const bool ok = step < n_steps && pair_ok(pr0, i, v);
+          const float* f =
+              ok ? fac + at_step(step, pair_row(pr0, i)) * kFactors * H + unit0 + q * U + v
+                 : nullptr;
+#pragma unroll
+          for (int k = 0; k < kWalkFactors; ++k) fv[i][v][k] = ok ? f[k * H] : 0.0f;
+        }
+    };
+    // dht = dh + dy; dg_lo into the step's parity buffer, dht out, dht z kept.
+    auto front = [&](int step, int pr0, const float (&dh)[RS][U],
+                     const float (&fv)[RS][U][kWalkFactors]) {
+      T* buf = ex + size_t(step & 1) * p.rows * kx;
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+#pragma unroll
+        for (int v = 0; v < U; ++v) {
+          if (!pair_ok(pr0, i, v)) continue;
+          const int r = pair_row(pr0, i);
+          const int kk = unit0 + q * U + v;
+          const float dht = dh[i][v] + fv[i][v][4];
+          T* out = buf + size_t(r) * kx + kk;
+          out[0] = from_float<T>(dht * fv[i][v][0]);
+          out[H] = from_float<T>(dht * fv[i][v][1]);
+          out[2 * H] = from_float<T>(dht * fv[i][v][2]);
+          dhz[r * u + q * U + v] = dht * fv[i][v][3];
+          dht_out[at_step(step, r) * H + kk] = dht;
+        }
+    };
+    for (int pass = 0; pass < passes; ++pass) {
+      float fv[RS][U][kWalkFactors];
+      float zero[RS][U];
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+#pragma unroll
+        for (int v = 0; v < U; ++v) zero[i][v] = 0.0f;
+      fetch(0, pass * p.pass_rows, fv);
+      front(0, pass * p.pass_rows, zero, fv);
+    }
+    group_sync(counter, arrivals += p.ctas);
+
+    for (int step = 0; step < n_steps; ++step) {
+      const T* cur = ex + size_t(step & 1) * p.rows * kx;
+      for (int pass = 0; pass < passes; ++pass) {
+        const int pr0 = pass * p.pass_rows;
+        float fv[RS][U][kWalkFactors];
+        fetch(step + 1, pr0, fv);
+        auto load_tile = [&](int tile) {  // tile `tile` of this pass into its ring slot
+          if (tile < ntiles) {
+            T* dst = tiles + size_t(tile % p.stages) * p.pass_rows * kt + copy_col;
+            const T* src = cur + size_t(tile) * p.kt + copy_col;
+            for (int r = copy_row; r < p.pass_rows; r += copy_rows) {
+              const bool valid = pr0 + r < p.rows;
+              cp_async16_zfill(dst + r * kt, src + (valid ? size_t(pr0 + r) * kx : 0), valid);
+            }
+          }
+          cp_async_commit();
+        };
+        float acc[R][U];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int v = 0; v < U; ++v) acc[i][v] = 0.0f;
+        for (int tile = 0; tile < p.stages - 1; ++tile) load_tile(tile);
+        for (int tile = 0; tile < ntiles; ++tile) {
+          cp_async_wait_pending(p.stages - 2);
+          __syncthreads();  // the tile is in; the slot refilled next is read by no one
+          load_tile(tile + p.stages - 1);
+          if (tensor) {
+            if (mma_warp) {
+              const T* ds = tiles + size_t(tile % p.stages) * p.pass_rows * kt;
+              const T* a_row = ds + size_t(mma_m * 16 + lane32 % 16) * kt + lane32 / 16 * 8;
+              // W^T's row of this lane's unit of the octet (a unit past u
+              // reads the last one: its columns are dropped below).
+              int b_unit = mma_n * 8 + lane32 % 8;
+              if (b_unit > u - 1) b_unit = u - 1;
+              const T* b_row = w_s + (size_t(b_unit % U) * pairs + b_unit / U) * kw +
+                               tile * p.kt + lane32 / 8 % 2 * 8;
+              for (int kk = mma_k; kk < p.kt / 16; kk += kslices) {
+                unsigned a[4], b[2];
+                ldmatrix_x4(a, a_row + kk * 16);
+                ldmatrix_x2(b, b_row + kk * 16);
+                mma_bf16_16816(&acc[0][0], a, b);
+              }
+            }
+          } else if (worker) {
+            const T* ds = tiles + size_t(tile % p.stages) * p.pass_rows * kt + size_t(rg) * kt;
+            const T* ws = w_s + size_t(q) * kw + tile * p.kt;
+#pragma unroll 1  // unrolled, the chunks' loads spilled under a 512-thread bound
+            for (int cc = 0; cc < p.kt / (4 * S); ++cc) {
+              const int c = 4 * (s + S * cc);
+              float wv[U][4];
+#pragma unroll
+              for (int v = 0; v < U; ++v) load4(ws + size_t(v) * pairs * kw + c, wv[v]);
+#pragma unroll
+              for (int i = 0; i < R; ++i) {
+                float dv[4];
+                load4(ds + size_t(i) * row_groups_pass * kt + c, dv);
+#pragma unroll
+                for (int v = 0; v < U; ++v)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) acc[i][v] = fmaf(dv[e], wv[v][e], acc[i][v]);
+              }
+            }
+          }
+        }
+        float dh[RS][U];
+#pragma unroll
+        for (int i = 0; i < RS; ++i)
+#pragma unroll
+          for (int v = 0; v < U; ++v) dh[i][v] = 0.0f;
+        if (tensor) {
+          __syncthreads();  // no warp reads the ring any more: it takes the partials
+          float* part = reinterpret_cast<float*>(tiles);  // [kslices][pass_rows][u]
+          if (mma_warp) {
+            const float* c = &acc[0][0];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = mma_m * 16 + lane32 / 4 + e / 2 * 8;
+              const int col = mma_n * 8 + lane32 % 4 * 2 + e % 2;
+              if (col < u) part[(size_t(mma_k) * p.pass_rows + row) * u + col] = c[e];
+            }
+          }
+          __syncthreads();
+#pragma unroll
+          for (int i8 = 0; i8 < R; ++i8) {
+            if (i8 % S != s) continue;
+            const int i = i8 / S;
+#pragma unroll
+            for (int v = 0; v < U; ++v) {
+              if (!pair_ok(pr0, i, v)) continue;
+              const int rl = pair_row(pr0, i) - pr0;
+              float sum = 0.0f;
+              for (int k = 0; k < kslices; ++k)
+                sum += part[(size_t(k) * p.pass_rows + rl) * u + q * U + v];
+              dh[i][v] = dhz[pair_row(pr0, i) * u + q * U + v] + sum;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int off = S / 2; off > 0; off >>= 1)
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+#pragma unroll
+              for (int v = 0; v < U; ++v) acc[i][v] += __shfl_xor_sync(0xffffffffu, acc[i][v], off);
+#pragma unroll
+          for (int i8 = 0; i8 < R; ++i8) {
+            if (i8 % S != s) continue;
+            const int i = i8 / S;
+#pragma unroll
+            for (int v = 0; v < U; ++v)
+              if (pair_ok(pr0, i, v))
+                dh[i][v] = dhz[pair_row(pr0, i) * u + q * U + v] + acc[i8][v];
+          }
+        }
+        if (step + 1 < n_steps) {
+          front(step + 1, pr0, dh, fv);
+        } else {
+#pragma unroll
+          for (int i = 0; i < RS; ++i)
+#pragma unroll
+            for (int v = 0; v < U; ++v)
+              if (pair_ok(pr0, i, v))
+                dh0[(size_t(lane) * batch + b0 + pair_row(pr0, i)) * H + unit0 + q * U + v] =
+                    dh[i][v];
+        }
+        __syncthreads();  // the ring's slots are free for the next pass
+      }
+      // The next step's dg_lo is in; after the last step, no CTA of the
+      // group starts the next item's writes while a peer still reads.
+      group_sync(counter, arrivals += p.ctas);
+    }
+  }
+}
+
 // Weight-gradient pass: dW^T[k][c] = sum over rows of h_prev[k] dg_lo[c]
 // and db[c] = sum of the f32 dg[c], for one chunk of rows (t, b) of one
 // lane, in row order, where dg is rebuilt from dht and the factors with the
@@ -1444,6 +1779,11 @@ int adj_stream_walk(const float* fac, const void* w_hh, void* w_t, float* dht, v
 // negative CUDA error if it fails.
 template <typename T, typename Layout>
 int adj_walk_active_clusters(int batch, int lanes, int hidden) {
+  const GridPlan grid = adj_grid(batch, lanes, hidden, sizeof(T));
+  if (grid.ctas > 0) {
+    const int resident = grid_resident_ctas(gru_adj_grid_kernel<T, Layout>, grid);
+    return resident < 0 ? resident : resident / grid.ctas;
+  }
   if (adj_streamed(hidden, sizeof(T)))
     return adj_stream_active_clusters<T, Layout>(batch, lanes, hidden);
   const int cluster = adj_cluster_size(hidden, sizeof(T));
@@ -1500,6 +1840,17 @@ int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lane
 // CUDA's occupancy calculator; a negative CUDA error if it fails.
 template <typename T>
 int adj_walk_blocks_per_sm(int batch, int lanes, int hidden) {
+  const GridPlan grid = adj_grid(batch, lanes, hidden, sizeof(T));
+  if (grid.ctas > 0) {
+    int per_sm = 0;
+    const auto kernel = gru_adj_grid_kernel<T, LaneMajor>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(grid.smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, grid.threads,
+                                                          size_t(grid.smem));
+    return err == cudaSuccess ? per_sm : -int(err);
+  }
   if (adj_streamed(hidden, sizeof(T))) {
     const int rows = adj_stream_row_tile(batch, lanes, hidden, sizeof(T));
     const AdjStreamKernel<T> kernel = adj_stream_kernel<T, LaneMajor>(rows);
@@ -1568,12 +1919,16 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
+  float* aux = static_cast<float*>(workspace) + adj_wt_offset(lanes, n_steps, batch, hidden);
+  const GridPlan grid = adj_grid(batch, lanes, hidden, sizeof(T));
   const int e =
-      streamed
-          ? adj_stream_walk<T, Layout>(
-                fac, w_hh,
-                static_cast<float*>(workspace) + adj_wt_offset(lanes, n_steps, batch, hidden),
-                dht, dh0, lanes, n_steps, batch, hidden, reverse, s)
+      grid.ctas > 0
+          ? grid_launch<T>(gru_adj_grid_kernel<T, Layout>, grid, aux, s, lanes, n_steps, batch,
+                           hidden, reverse, static_cast<const float*>(fac),
+                           static_cast<const T*>(w_hh), dht, static_cast<float*>(dh0))
+      : streamed
+          ? adj_stream_walk<T, Layout>(fac, w_hh, aux, dht, dh0, lanes, n_steps, batch, hidden,
+                                       reverse, s)
           : adj_walk<T, Layout>(fac, w_hh, dht, dh0, lanes, n_steps, batch, hidden, reverse, s);
   if (e != 0) return e;
 
@@ -1614,30 +1969,45 @@ int gru_adj_cluster_size(int hidden, int bf16) {
   return adj_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
 }
 
-// The adjoint walk's plan for this shape, as seven numbers: the
+// The adjoint walk's plan for this shape, as nine numbers: the
 // instantiation (0 W in registers, 1 one block, 2 the cluster walk, 3 the
-// streamed walk), the CTAs per (lane, row tile), the row tile, a CTA's units
-// whose W^T rows are resident in shared memory and those streamed from
-// device memory, the most shared bytes a block or CTA of its kernels takes,
-// and the floats of its workspace at T = n_steps.
+// grid walk, 4 the streamed walk), the CTAs per (lane, row tile) (the grid
+// walk: of a group), the row tile (the grid walk: rows of a work item), a
+// CTA's units whose W^T rows are resident in shared memory and those
+// streamed from device memory, the most shared bytes a block or CTA of its
+// kernels takes, the floats of its workspace at T = n_steps, and for the
+// grid walk the groups at once and a CTA's threads (0 otherwise).
 void gru_adj_plan(int batch, int lanes, int n_steps, int hidden, int bf16, long long* out) {
   const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  const int rows = adj_rows(batch, lanes, hidden, item);
-  if (adj_streamed(hidden, item)) {
-    const int res = adj_stream_resident(hidden, item, rows);
+  const GridPlan grid = adj_grid(batch, lanes, hidden, item);
+  out[7] = out[8] = 0;
+  if (grid.ctas > 0) {
     out[0] = 3;
-    out[1] = kMaxCluster;
-    out[3] = res;
-    out[4] = adj_stream_units(hidden) - (res > 0 ? res : 0);
-  } else {
-    const int cluster = adj_cluster_size(hidden, item);
-    out[0] = adj_in_registers(hidden) ? 0 : cluster == 1 ? 1 : 2;
-    out[1] = cluster;
-    out[3] = adj_units(hidden, cluster);
+    out[1] = grid.ctas;
+    out[2] = grid.rows;
+    out[3] = grid.units;
     out[4] = 0;
+    out[5] = grid.smem > (long long)kGateTiledBytes ? grid.smem : (long long)kGateTiledBytes;
+    out[7] = grid.groups;
+    out[8] = grid.threads;
+  } else {
+    const int rows = adj_rows(batch, lanes, hidden, item);
+    if (adj_streamed(hidden, item)) {
+      const int res = adj_stream_resident(hidden, item, rows);
+      out[0] = 4;
+      out[1] = kMaxCluster;
+      out[3] = res;
+      out[4] = adj_stream_units(hidden) - (res > 0 ? res : 0);
+    } else {
+      const int cluster = adj_cluster_size(hidden, item);
+      out[0] = adj_in_registers(hidden) ? 0 : cluster == 1 ? 1 : 2;
+      out[1] = cluster;
+      out[3] = adj_units(hidden, cluster);
+      out[4] = 0;
+    }
+    out[2] = rows;
+    out[5] = (long long)adj_shared_bytes(hidden, item, rows);
   }
-  out[2] = rows;
-  out[5] = (long long)adj_shared_bytes(hidden, item, rows);
   out[6] = adj_workspace_floats(lanes, n_steps, batch, hidden, item);
 }
 

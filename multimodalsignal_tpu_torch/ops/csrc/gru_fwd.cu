@@ -89,8 +89,46 @@
 // design holds W on chip at all past H = 136 f32 / 192 bf16, up to
 // H = 380 f32 / 532 bf16 (K = 8).
 //
-// The streamed walk: past that limit (gru_walk_stream_kernel) a cluster of
-// kMaxCluster CTAs still owns one (lane, row tile) and exchanges h' over
+// The grid walk: past the cluster's limit, wherever one lane's W fits the
+// card's aggregate shared memory (f32 to H = 1408, bf16 to 2112 at B = 64,
+// one lane: grid_plan), gru_walk_grid_kernel replaces the streamed walk
+// below, which re-read from L2 every step the part of W its clusters could
+// not hold (93.6 MB a step at f32 H = 1024, chip_smoke.py 16b) and ran in
+// waves of the 15 clusters the card holds. A group of G CTAs, one CTA an SM, walks one
+// work item (a lane and up to 64 batch rows); CTA `rank` keeps the W rows of
+// its ceil(H / G) units in shared memory, loaded once an item and never
+// re-read from device memory. What must cross between CTAs each step is the
+// state: each CTA writes its units' slice of h' (rounded to the stream
+// dtype) into an exchange buffer in device memory, [2 parity][rows][K padded
+// to a tile], and after a group barrier (a counter in device memory: a
+// release add, then acquire loads until all G arrivals are in; in place of
+// barrier.cluster, since a group is larger than a cluster) every CTA reads
+// the item's whole h back from L2, a K tile (128 or 64 columns, grid_plan)
+// at a time, into a ring of up to 8 tiles in shared memory that every
+// thread keeps filled with cp.async (.cg: in the generic proxy, so the
+// acquire orders it without a proxy fence; TMA bulk copies would need
+// one). In f32, thread (row group, unit, sub-lane s) forms its unit's r,
+// z, n sums for 8 rows over chunks s, s + 8, ... of each tile on CUDA cores
+// (TF32 would break the f32 tolerance); in bf16 the warps take 16-row x
+// 8-unit tiles of the products on the tensor cores (mma.sync m16n8k16 from
+// ldmatrix of the h tile and W's rows, f32 sums, K split over the warps and
+// the slices' partials summed in a fixed order), the FMAs only where the
+// pass makes no whole 16-row tile. Sub-lane s does row s's gate math. The
+// G CTAs wait on each other every step, so the kernel is launched
+// cooperatively (cudaLaunchAttributeCooperative: admitted only with every
+// block resident) after the plan's groups are checked against the card's
+// occupancy; a shape the plan cannot place is planned onto the streamed walk,
+// statically, never launched to hang. G is the least group whose CTAs' share
+// of W fits beside the tile ring and the carry; that sets how many groups
+// run at once (at most the work items, which they take in turn), and the
+// groups then spread over the 132 SMs. What bounds it: the state bytes
+// every CTA reads each step (G x rows x H in the stream dtype, 33.5 MB at f32
+// H = 1024: L2 bandwidth) and a fixed cost a step (the group barrier's
+// round trips and the first tile's L2 latency, which chip_smoke.py 16b
+// shows at H = 381, where the FMAs are few), not W's bytes.
+//
+// The streamed walk: past the grid walk's limit (gru_walk_stream_kernel) a
+// cluster of kMaxCluster CTAs still owns one (lane, row tile) and exchanges h' over
 // distributed shared memory with one cluster barrier a step, but a CTA no
 // longer holds all of its units' W rows. It keeps as many units' rows
 // [resident][3][kpad] in shared memory as fit beside its h buffers, its
@@ -172,6 +210,8 @@ constexpr int kStreamStages = 2;
 // Clusters of kMaxCluster CTAs of one CTA an SM that an H100 runs at once
 // (cudaOccupancyMaxActiveClusters: 15, not 132 / 8).
 constexpr int kStreamClusters = 15;
+
+#include "gru_grid.cuh"
 
 __host__ __device__ constexpr bool walk_in_registers(int hidden) {
   return hidden <= kRegMaxHidden;
@@ -285,10 +325,14 @@ int stream_row_tile(int batch, int lanes, int hidden, size_t itemsize) {
   while (rows < want && rows < most) rows *= 2;
   return rows;
 }
-// Elements of the padded copy of W the streamed walk reads ([lanes][3H]
-// [kpad] in the stream dtype); 0 for the other instantiations.
-long long walk_workspace_elems(int lanes, int hidden, size_t itemsize) {
+// Elements, in the stream dtype, of the workspace the forward entries take
+// as w_pad: the grid walk's exchange buffers and counters, or the padded
+// copy of W the streamed walk reads ([lanes][3H][kpad]); 0 for the other
+// instantiations.
+long long walk_workspace_elems(int batch, int lanes, int hidden, size_t itemsize) {
   if (walk_cluster_size(hidden, itemsize) != 0) return 0;
+  const GridPlan g = grid_plan(batch, lanes, hidden, itemsize, false);
+  if (g.ctas > 0) return static_cast<long long>(grid_workspace_bytes(g, itemsize) / itemsize);
   return static_cast<long long>(lanes) * 3 * hidden * walk_kpad(hidden, false);
 }
 
@@ -734,6 +778,255 @@ __global__ void gru_pad_rows_kernel(const T* __restrict__ w, T* __restrict__ w_p
   w_pad[i] = k < cols ? w[row * cols + k] : from_float<T>(0.0f);
 }
 
+// The grid walk (see the note at the top): a group of p.ctas CTAs, one an
+// SM, walks one work item (a lane and up to p.rows batch rows) at a time;
+// p.groups groups run at once and take the items in turn. CTA `rank` keeps
+// the W rows of its p.units units, [3][units][kx + pad], in shared memory
+// for the whole item. A step reads the whole h operand of the item's rows
+// from the exchange buffer of its parity in device memory (L2), p.kt
+// columns at a time through a ring of p.stages tiles that every thread
+// fills with cp.async, passes of p.pass_rows rows; thread (row group, unit,
+// sub-lane s) sums the r, z and n products of its kGridRows rows (row i of
+// the pass's row groups interleaved: i x row groups + its own) over K
+// chunks s, s + kGridSub, ... of each tile, an xor butterfly completes
+// them, and sub-lane s does the gate math of its row s, writing h' to ys
+// and to the other parity buffer; then the group barrier.
+template <typename T, typename Layout>
+__global__ void __launch_bounds__(grid_max_threads(false), 1)
+    gru_walk_grid_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
+                         const T* __restrict__ b_hh, const float* __restrict__ h0,
+                         T* __restrict__ ys, T* __restrict__ exch, unsigned* __restrict__ counters,
+                         int lanes, int n_steps, int batch, int hidden, int reverse, GridPlan p) {
+  constexpr int S = kGridSub;
+  constexpr int R = kGridRows;
+  constexpr int RS = R / S;                 // rows a gate lane
+  constexpr int CH = 16 / int(sizeof(T));   // elements of one 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = hidden;
+  const int kx = grid_kx(H, p.kt);
+  const int kw = kx + kGridPad;
+  const int kt = p.kt + kGridPad;
+  const int u = p.units;
+  const int group = blockIdx.x / p.ctas;
+  const int rank = blockIdx.x - group * p.ctas;
+  const int unit0 = rank * u;
+  const int mine = H - unit0 < u ? (H > unit0 ? H - unit0 : 0) : u;  // inside H
+  const int tid = threadIdx.x;
+  const int s = tid % S;
+  const int jl = tid / S % u;
+  const int rg = tid / (S * u);
+  const int row_groups_pass = p.pass_rows / R;
+  const bool worker = rg < row_groups_pass;  // the others only copy
+  const bool unit = worker && jl < mine;
+  const int j = unit0 + jl;
+
+  T* w_s = reinterpret_cast<T*>(smem);  // [3][u][kw]
+  unsigned char* after_w = smem + align16(size_t(3) * u * kw * sizeof(T));
+  T* tiles = reinterpret_cast<T*>(after_w);  // [stages][pass_rows][kt]
+  float* carry = reinterpret_cast<float*>(
+      after_w + size_t(p.stages) * p.pass_rows * kt * sizeof(T));  // [rows][u]
+  T* ex = exch + size_t(group) * 2 * p.rows * kx;  // [2][rows][kx]
+  unsigned* counter = counters + group;
+  unsigned arrivals = 0;
+  const int row_groups = (batch + p.rows - 1) / p.rows;
+  const int items = lanes * row_groups;
+  const int passes = (p.rows + p.pass_rows - 1) / p.pass_rows;
+  const int ntiles = kx / p.kt;
+  // The 16-byte chunk of every tile row this thread copies, and its rows: a
+  // tile row is p.kt / CH chunks (8, 16 or 32), which divides the block.
+  const int copy_col = tid % (p.kt / CH) * CH;
+  const int copy_row = tid / (p.kt / CH);
+  const int copy_rows = blockDim.x / (p.kt / CH);
+  // bf16: the products on the tensor cores. Warp (m, n, k) takes 16-row
+  // tile m of the pass, unit octet n (its three gates' 8-column tiles) and
+  // every kslices-th 16-column step of each K tile; its f32 sums live in
+  // acc[g][0..3], go to the ring's memory as partials after the K loop and
+  // are summed over the K slices in a fixed order by the gate lanes. Where
+  // the pass's rows make no whole 16-row tile, the warps cannot take every
+  // (m, n) or the partials do not fit the ring, the FMAs run instead.
+  const int warp = tid / 32;
+  const int lane32 = tid % 32;
+  const int mtiles = p.pass_rows / 16;
+  const int octets = (u + 7) / 8;
+  int kslices = mtiles > 0 ? int(blockDim.x / 32) / (mtiles * octets) : 0;
+  if (kslices > p.kt / 16) kslices = p.kt / 16;
+  const bool tensor = sizeof(T) == 2 && p.pass_rows % 16 == 0 && kslices > 0 &&
+                      size_t(kslices) * p.pass_rows * 3 * u * sizeof(float) <=
+                          size_t(p.stages) * p.pass_rows * kt * sizeof(T);
+  const int mma_m = mtiles > 0 ? warp % mtiles : 0;
+  const int mma_n = mtiles > 0 ? warp / mtiles % octets : 0;
+  const int mma_k = mtiles > 0 ? warp / (mtiles * octets) : 0;
+  const bool mma_warp = tensor && mma_k < kslices;
+
+  for (int item = group; item < items; item += p.groups) {
+    const int lane = item / row_groups;
+    const int b0 = (item - lane * row_groups) * p.rows;
+    const int nb = batch - b0 < p.rows ? batch - b0 : p.rows;
+    const T* w = w_hh + size_t(lane) * 3 * H * H;
+    for (int e = tid; e < 3 * u * kw; e += blockDim.x) {
+      const int row = e / kw;  // gate row / u, unit row % u
+      const int k = e - row * kw;
+      const int g = row / u;
+      const int ul = row - g * u;
+      w_s[e] = k < H && ul < mine ? w[(size_t(g) * H + unit0 + ul) * H + k] : from_float<T>(0.0f);
+    }
+    // The carry, and h0 rounded to the stream dtype as step 0's operand (the
+    // other parity's rows zeroed, so rows past the batch stay finite).
+    for (int e = tid; e < p.rows * u; e += blockDim.x) {
+      const int r = e / u;
+      const int ul = e - r * u;
+      const float v =
+          r < nb && ul < mine ? h0[(size_t(lane) * batch + b0 + r) * H + unit0 + ul] : 0.0f;
+      carry[e] = v;
+      if (ul < mine) {
+        ex[size_t(r) * kx + unit0 + ul] = from_float<T>(v);
+        ex[size_t(p.rows + r) * kx + unit0 + ul] = from_float<T>(0.0f);
+      }
+    }
+    float br = 0.0f, bz = 0.0f, bn = 0.0f;
+    if (unit) {
+      const T* b = b_hh + size_t(lane) * 3 * H;
+      br = to_float(b[j]);
+      bz = to_float(b[H + j]);
+      bn = to_float(b[2 * H + j]);
+    }
+    group_sync(counter, arrivals += p.ctas);
+
+    for (int step = 0; step < n_steps; ++step) {
+      const int t = reverse ? n_steps - 1 - step : step;
+      const T* cur = ex + size_t(step & 1) * p.rows * kx;
+      T* nxt = ex + size_t((step + 1) & 1) * p.rows * kx;
+      for (int pass = 0; pass < passes; ++pass) {
+        const int pr0 = pass * p.pass_rows;
+        // The gate lane's xg, loaded before the K loop that hides them.
+        T xr[RS], xz[RS], xn[RS];
+#pragma unroll
+        for (int i = 0; i < RS; ++i) {
+          xr[i] = xz[i] = xn[i] = from_float<T>(0.0f);
+          const int r = pr0 + (s + S * i) * row_groups_pass + rg;
+          if (unit && r < nb) {
+            const T* x = xg + Layout::row(lane, t, b0 + r, lanes, n_steps, batch) * 3 * H;
+            xr[i] = x[j];
+            xz[i] = x[H + j];
+            xn[i] = x[2 * H + j];
+          }
+        }
+        auto load_tile = [&](int tile) {  // tile `tile` of this pass into its ring slot
+          if (tile < ntiles) {
+            T* dst = tiles + size_t(tile % p.stages) * p.pass_rows * kt + copy_col;
+            const T* src = cur + size_t(tile) * p.kt + copy_col;
+            for (int r = copy_row; r < p.pass_rows; r += copy_rows) {
+              const bool valid = pr0 + r < p.rows;
+              cp_async16_zfill(dst + r * kt, src + (valid ? size_t(pr0 + r) * kx : 0), valid);
+            }
+          }
+          cp_async_commit();
+        };
+        float acc[3][R];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int i = 0; i < R; ++i) acc[g][i] = 0.0f;
+        for (int tile = 0; tile < p.stages - 1; ++tile) load_tile(tile);
+        for (int tile = 0; tile < ntiles; ++tile) {
+          cp_async_wait_pending(p.stages - 2);
+          __syncthreads();  // the tile is in; the slot refilled next is read by no one
+          load_tile(tile + p.stages - 1);
+          if (tensor) {
+            if (mma_warp) {
+              const T* hs = tiles + size_t(tile % p.stages) * p.pass_rows * kt;
+              const T* a_row = hs + size_t(mma_m * 16 + lane32 % 16) * kt + lane32 / 16 * 8;
+              // W's row of this lane's unit of the octet (a unit past u
+              // reads the last one: its columns are dropped below).
+              int b_unit = mma_n * 8 + lane32 % 8;
+              if (b_unit > u - 1) b_unit = u - 1;
+              const T* b_row = w_s + size_t(b_unit) * kw + tile * p.kt + lane32 / 8 % 2 * 8;
+              for (int kk = mma_k; kk < p.kt / 16; kk += kslices) {
+                unsigned a[4];
+                ldmatrix_x4(a, a_row + kk * 16);
+#pragma unroll
+                for (int g = 0; g < 3; ++g) {
+                  unsigned b[2];
+                  ldmatrix_x2(b, b_row + size_t(g) * u * kw + kk * 16);
+                  mma_bf16_16816(acc[g], a, b);
+                }
+              }
+            }
+          } else if (worker) {
+            const T* hs = tiles + size_t(tile % p.stages) * p.pass_rows * kt + size_t(rg) * kt;
+            const T* ws = w_s + size_t(jl) * kw + tile * p.kt;
+#pragma unroll 1  // unrolled, the chunks' loads spill under the 512-thread bound
+            for (int cc = 0; cc < p.kt / (4 * S); ++cc) {
+              const int c = 4 * (s + S * cc);
+              float wv[3][4];
+#pragma unroll
+              for (int g = 0; g < 3; ++g) load4(ws + size_t(g) * u * kw + c, wv[g]);
+#pragma unroll
+              for (int i = 0; i < R; ++i) {
+                float hv[4];
+                load4(hs + size_t(i) * row_groups_pass * kt + c, hv);
+#pragma unroll
+                for (int g = 0; g < 3; ++g)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) acc[g][i] = fmaf(hv[e], wv[g][e], acc[g][i]);
+              }
+            }
+          }
+        }
+        if (tensor) {
+          __syncthreads();  // no warp reads the ring any more: it takes the partials
+          float* part = reinterpret_cast<float*>(tiles);  // [kslices][pass_rows][3 u]
+          if (mma_warp) {
+#pragma unroll
+            for (int g = 0; g < 3; ++g)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int row = mma_m * 16 + lane32 / 4 + e / 2 * 8;
+                const int col = mma_n * 8 + lane32 % 4 * 2 + e % 2;
+                if (col < u) part[(size_t(mma_k) * p.pass_rows + row) * 3 * u + g * u + col] = acc[g][e];
+              }
+          }
+          __syncthreads();
+#pragma unroll
+          for (int i8 = 0; i8 < R; ++i8) {
+            if (!worker || i8 % S != s) continue;
+            const int rl = i8 * row_groups_pass + rg;
+#pragma unroll
+            for (int g = 0; g < 3; ++g) {
+              float sum = 0.0f;
+              for (int k = 0; k < kslices; ++k) sum += part[(size_t(k) * p.pass_rows + rl) * 3 * u + g * u + jl];
+              acc[g][i8] = sum;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int off = S / 2; off > 0; off >>= 1)
+#pragma unroll
+            for (int g = 0; g < 3; ++g)
+#pragma unroll
+              for (int i = 0; i < R; ++i) acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
+        }
+#pragma unroll
+        for (int i8 = 0; i8 < R; ++i8) {
+          const int r = pr0 + i8 * row_groups_pass + rg;
+          if (!unit || i8 % S != s || r >= nb) continue;
+          const int i = i8 / S;
+          const float rgate = sigmoid(to_float(xr[i]) + (acc[0][i8] + br));
+          const float zg = sigmoid(to_float(xz[i]) + (acc[1][i8] + bz));
+          const float ng = tanhf(to_float(xn[i]) + rgate * (acc[2][i8] + bn));
+          float* hc = carry + r * u + jl;
+          *hc = (1.0f - zg) * ng + zg * *hc;
+          const T out = from_float<T>(*hc);
+          ys[Layout::row(lane, t, b0 + r, lanes, n_steps, batch) * H + j] = out;
+          nxt[size_t(r) * kx + j] = out;
+        }
+        __syncthreads();  // the ring's slots are free for the next pass
+      }
+      group_sync(counter, arrivals += p.ctas);
+    }
+  }
+}
+
 template <typename T, typename Layout, int R, bool kRegs, bool kCluster>
 constexpr auto walk_kernel() {
   if constexpr (kCluster)
@@ -938,16 +1231,25 @@ int walk_launch_cluster_path(const void* xg, const void* w_hh, const void* b_hh,
   }
 }
 
-// The instantiation is chosen from H and the dtype before any launch: W in
-// registers, W in one block's shared memory, split over a cluster, or
-// streamed past the cluster's limit; an H the wrapper would have refused is
-// refused here too, not launched.
+// The instantiation is chosen from the shape and the dtype before any
+// launch: W in registers, W in one block's shared memory, split over a
+// cluster, held across a group of CTAs spanning the card past the cluster's
+// limit, or streamed where not even that holds one lane's W; an H the
+// wrapper would have refused is refused here too, not launched. w_pad is
+// the grid walk's exchange workspace or the streamed walk's padded W.
 template <typename T, typename Layout>
 int walk_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
                 void* w_pad, int lanes, int n_steps, int batch, int hidden, int reverse,
                 void* stream) {
   const int cluster = walk_cluster_size(hidden, sizeof(T));
   if (cluster == 0) {
+    const GridPlan grid = grid_plan(batch, lanes, hidden, sizeof(T), false);
+    if (grid.ctas > 0)
+      return grid_launch<T>(gru_walk_grid_kernel<T, Layout>, grid, w_pad,
+                            static_cast<cudaStream_t>(stream), lanes, n_steps, batch, hidden,
+                            reverse, static_cast<const T*>(xg), static_cast<const T*>(w_hh),
+                            static_cast<const T*>(b_hh), static_cast<const float*>(h0),
+                            static_cast<T*>(ys));
     if (stream_shared_bytes(hidden, sizeof(T), stream_most_rows(hidden, sizeof(T))) > kMaxShared)
       return int(cudaErrorInvalidValue);
     return walk_launch_stream_path<T, Layout>(xg, w_hh, b_hh, h0, ys, w_pad, lanes, n_steps,
@@ -994,6 +1296,17 @@ int stream_blocks_tile(int hidden) {
 template <typename T>
 int walk_blocks_per_sm(int batch, int lanes, int hidden) {
   const int cluster = walk_cluster_size(hidden, sizeof(T));
+  const GridPlan grid = grid_plan(batch, lanes, hidden, sizeof(T), false);
+  if (cluster == 0 && grid.ctas > 0) {
+    int per_sm = 0;
+    const auto kernel = gru_walk_grid_kernel<T, LaneMajor>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(grid.smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, grid.threads,
+                                                          size_t(grid.smem));
+    return err == cudaSuccess ? per_sm : -int(err);
+  }
   if (cluster == 0) {
     switch (stream_row_tile(batch, lanes, hidden, sizeof(T))) {
       case 1: return stream_blocks_tile<T, 1>(hidden);
@@ -1031,6 +1344,11 @@ int walk_blocks_per_sm(int batch, int lanes, int hidden) {
 template <typename T>
 int walk_active_clusters(int batch, int lanes, int hidden) {
   const int cluster = walk_cluster_size(hidden, sizeof(T));
+  const GridPlan grid = grid_plan(batch, lanes, hidden, sizeof(T), false);
+  if (cluster == 0 && grid.ctas > 0) {
+    const int resident = grid_resident_ctas(gru_walk_grid_kernel<T, LaneMajor>, grid);
+    return resident < 0 ? resident : resident / grid.ctas;
+  }
   if (cluster == 0) {
     switch (stream_row_tile(batch, lanes, hidden, sizeof(T))) {
       case 1: return stream_active_clusters_tile<T, LaneMajor, 1>(lanes, batch, hidden);
@@ -1062,8 +1380,8 @@ int gru_walk_blocks_per_sm(int batch, int lanes, int hidden, int bf16) {
 }
 
 // Clusters of the walk the card holds at once for this shape (blocks,
-// without a cluster); the wave count of ceil(B / R) * lanes clusters
-// follows.
+// without a cluster; the grid walk's groups); the wave count of
+// ceil(B / R) * lanes clusters follows.
 int gru_walk_active_clusters(int batch, int lanes, int hidden, int bf16) {
   return bf16 ? walk_active_clusters<__nv_bfloat16>(batch, lanes, hidden)
               : walk_active_clusters<float>(batch, lanes, hidden);
@@ -1077,7 +1395,8 @@ int gru_walk_cluster_size(int hidden, int bf16) {
 
 // Shared memory one CTA of gru_fwd / gru_fwd_fb / gru_bifwd needs for a
 // tile of `rows` at this H's cluster size, or the streamed walk's past the
-// cluster's limit.
+// cluster's limit (the grid walk's, which depends on the batch and lanes,
+// is gru_walk_plan's).
 long long gru_walk_shared_bytes(int hidden, int bf16, int rows) {
   const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   const int cluster = walk_cluster_size(hidden, item);
@@ -1085,7 +1404,8 @@ long long gru_walk_shared_bytes(int hidden, int bf16, int rows) {
   return (long long)walk_shared_bytes(hidden, item, rows, cluster);
 }
 
-// Rows per (lane, tile) gru_fwd / gru_fwd_fb / gru_bifwd take for this shape.
+// Rows per (lane, tile) gru_fwd / gru_fwd_fb / gru_bifwd take for this
+// shape (the streamed walk's past the cluster's limit).
 int gru_walk_row_tile(int batch, int lanes, int hidden, int bf16) {
   const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   const int cluster = walk_cluster_size(hidden, item);
@@ -1093,36 +1413,51 @@ int gru_walk_row_tile(int batch, int lanes, int hidden, int bf16) {
   return walk_row_tile(batch, lanes, hidden, cluster);
 }
 
-// The walk's plan for this shape, as seven numbers: the instantiation (0 W
+// The walk's plan for this shape, as nine numbers: the instantiation (0 W
 // in registers, 1 W in one block's shared memory, 2 the cluster walk, 3 the
-// streamed walk), the CTAs per (lane, row tile), the row tile, a CTA's
-// units whose W rows are resident in shared memory and those streamed from
-// device memory, the CTA's dynamic shared bytes, and the elements of the
-// w_pad workspace.
+// grid walk, 4 the streamed walk), the CTAs per (lane, row tile) (the grid
+// walk: of a group), the row tile (the grid walk: rows of a work item), a
+// CTA's units whose W rows are resident in shared memory and those streamed
+// from device memory, the CTA's dynamic shared bytes, the elements of the
+// w_pad workspace, and for the grid walk the groups at once and a CTA's
+// threads (0 otherwise).
 void gru_walk_plan(int batch, int lanes, int hidden, int bf16, long long* out) {
   const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
   const int cluster = walk_cluster_size(hidden, item);
-  const int rows = gru_walk_row_tile(batch, lanes, hidden, bf16);
-  if (cluster == 0) {
-    const int res = stream_resident(hidden, item, rows);
+  const GridPlan grid = grid_plan(batch, lanes, hidden, item, false);
+  out[7] = out[8] = 0;
+  if (cluster == 0 && grid.ctas > 0) {
     out[0] = 3;
-    out[1] = kMaxCluster;
-    out[3] = res;
-    out[4] = stream_units(hidden) - (res > 0 ? res : 0);
-  } else {
-    out[0] = walk_in_registers(hidden) ? 0 : cluster == 1 ? 1 : 2;
-    out[1] = cluster;
-    out[3] = walk_units(hidden, cluster);
+    out[1] = grid.ctas;
+    out[2] = grid.rows;
+    out[3] = grid.units;
     out[4] = 0;
+    out[5] = grid.smem;
+    out[7] = grid.groups;
+    out[8] = grid.threads;
+  } else {
+    const int rows = gru_walk_row_tile(batch, lanes, hidden, bf16);
+    if (cluster == 0) {
+      const int res = stream_resident(hidden, item, rows);
+      out[0] = 4;
+      out[1] = kMaxCluster;
+      out[3] = res;
+      out[4] = stream_units(hidden) - (res > 0 ? res : 0);
+    } else {
+      out[0] = walk_in_registers(hidden) ? 0 : cluster == 1 ? 1 : 2;
+      out[1] = cluster;
+      out[3] = walk_units(hidden, cluster);
+      out[4] = 0;
+    }
+    out[2] = rows;
+    out[5] = gru_walk_shared_bytes(hidden, bf16, rows);
   }
-  out[2] = rows;
-  out[5] = gru_walk_shared_bytes(hidden, bf16, rows);
-  out[6] = walk_workspace_elems(lanes, hidden, item);
+  out[6] = walk_workspace_elems(batch, lanes, hidden, item);
 }
 
 // Counterpart of _gru_forward: xg [T, B, 3H] -> ys [T, B, H]. w_pad is the
-// streamed walk's workspace of gru_walk_plan's elements in xg's dtype
-// (unread by the other instantiations).
+// grid or streamed walk's workspace of gru_walk_plan's elements in xg's
+// dtype (unread by the other instantiations).
 int gru_fwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, void* ys,
             void* w_pad, int n_steps, int batch, int hidden, int reverse, int bf16,
             void* stream) {

@@ -38,11 +38,19 @@ where W does not fit one block (f32 above H = 136, bf16 above 192) a thread
 block cluster of K <= 8 CTAs shares each (lane, row tile), each CTA holding
 W's rows of its own ceil(H/K) units and sending its slice of h' to every
 CTA over distributed shared memory, one cluster barrier a step; past the
-cluster's limit (f32 above H = 380, bf16 above 532) the streamed walk
-(`gru_walk_stream_kernel`): a cluster of 8 as before, each CTA keeping as
-many of its units' W rows in shared memory as fit and streaming the rest
-every step from a padded copy of W (`w_pad`, which the wrapper allocates)
-through a per-thread cp.async ring, up to 8 rows a tile. The three adjoint
+cluster's limit (f32 above H = 380, bf16 above 532) the grid walk
+(`gru_walk_grid_kernel`, `grid_plan`): a group of CTAs spanning the card,
+one an SM, each holding W's rows of its units for a whole work item (a
+lane and up to 64 rows), the state exchanged each step through buffers in
+device memory (`w_pad`, which the wrapper allocates) with a group barrier,
+launched cooperatively, the groups taking the lanes in turn, the bf16
+products on the tensor cores (mma.sync), the f32 ones on CUDA cores; and where
+not even the card's shared memory holds one lane's W (f32 above H = 1408,
+bf16 above 2112 at B = 64) the streamed walk (`gru_walk_stream_kernel`): a
+cluster of 8 as before, each CTA keeping as many of its units' W rows in
+shared memory as fit and streaming the rest every step from a padded copy
+of W (`w_pad`) through a per-thread cp.async ring, up to 8 rows a tile.
+The three adjoint
 entries run the adjoint walk, with their own lane count and stream layout
 (`gru_bwd` one lane, `gru_bwd_fb` F lanes, `gru_bibwd` the fused pair's 2
 or 2F): a gate pre-pass over all T, a walk that keeps only the dh chain
@@ -50,14 +58,17 @@ or 2F): a gate pre-pass over all T, a walk that keeps only the dh chain
 a cluster above H = 130 f32 / 179 bf16, the step's dg exchanged over
 distributed shared memory; a producer warp moves its factors and dht
 between device and shared memory a chunk of steps at a time; past H = 376
-f32 / 450 bf16 the streamed walk, W^T streamed from a padded transpose in
-the workspace, up to 4 rows a tile, after a pre-pass whose K loop is
-tiled), and a weight-gradient pass over all T, summed in a fixed order.
-`walk_plan` and `adj_plan` (with `walk_cluster_size`, `walk_row_tile`,
+f32 / 450 bf16 the grid walk, dg exchanged through the workspace as the
+forward's h, up to H = 1320 f32 / 2112 bf16 at B = 64, then the streamed
+walk, W^T streamed from a padded transpose in the workspace, up to 4 rows a
+tile, both after a pre-pass whose K loop is tiled), and a weight-gradient
+pass over all T, summed in a fixed order. `walk_plan`, `adj_plan` and
+`grid_plan` (with `walk_cluster_size`, `walk_row_tile`,
 `walk_shared_bytes`, `walk_workspace_elems`, `adj_cluster_size`,
 `adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
 `adj_workspace_floats`) mirror how the C side picks the instantiation, the
-cluster and the tile, and sizes shared memory and workspaces; they size
+cluster or group and the tile, and sizes shared memory and workspaces
+(`c_plan` reads the C plans on the card); they size
 every entry's checks and allocations. An H past the streamed walk's limit
 (`walk_max_hidden`, `adj_max_hidden`: 21564 / 4453 in float32, 24452 /
 4622 in bfloat16, where its step buffers at one row fill a CTA's shared
@@ -141,7 +152,23 @@ STREAM_STAGES = 2
 # (cudaOccupancyMaxActiveClusters: 15, not NUM_SMS / 8).
 STREAM_CLUSTERS = 15
 ADJ_GATE_K = 64
-INSTANTIATIONS = ("registers", "one block", "cluster", "streamed")
+# The grid walks (csrc/gru_grid.cuh), between the cluster walks and the
+# streamed ones: the K tiles of the exchanged state a plan may take (the
+# first preferred), elements past every shared row, the least and the most
+# tiles in the cp.async ring, sub-lanes splitting K, batch rows a thread,
+# hidden units a thread, the most threads of a CTA and the most batch rows
+# of a work item; and what the entries return when the card cannot hold a
+# plan's groups at once.
+GRID_KTS = (128, 64)
+GRID_PAD = 16
+GRID_MIN_STAGES, GRID_MAX_STAGES = 3, 8
+GRID_SUB = 8
+GRID_ROWS = 8
+GRID_UNITS = {False: 1, True: 2}   # by "adjoint"
+GRID_THREADS = {False: 512, True: 384}   # by "adjoint": the kernels' launch bounds
+GRID_ITEM_ROWS = 64
+NO_GROUP = -2
+INSTANTIATIONS = ("registers", "one block", "cluster", "grid", "streamed")
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -273,9 +300,98 @@ def stream_most_rows(hidden: int, itemsize: int, adjoint: bool = False) -> int:
 
 
 def walk_streamed(hidden: int, itemsize: int) -> bool:
-    """Whether gru_fwd, gru_fwd_fb and gru_bifwd run the streamed walk at
-    this H: past the cluster walk's limit (380 f32, 532 bf16)."""
+    """Whether gru_fwd, gru_fwd_fb and gru_bifwd are past the cluster walk's
+    limit at this H (380 f32, 532 bf16): the grid walk runs there where
+    grid_plan takes the shape, the streamed walk elsewhere."""
     return walk_cluster_size(hidden, itemsize) == 0
+
+
+def _grid_cta(hidden: int, itemsize: int, rows: int, units: int, adjoint: bool,
+              kt: int) -> tuple[int, int, int, int]:
+    """A grid CTA owning `units` units for work items of `rows` rows (as
+    grid_cta in C): (threads, rows a pass, tiles in the ring, shared bytes).
+    Threads: GRID_SUB a (group of GRID_UNITS units, group of GRID_ROWS
+    rows), whole warps, at most GRID_THREADS; 0 where not even one row
+    group fits. Shared: W's rows of its units ([3, units, K padded to kt +
+    GRID_PAD] forward; W^T [unit pairs x 2, 3H padded to kt + GRID_PAD]
+    adjoint) in the stream dtype and f32 [rows, units] (the carry, or the
+    adjoint's dht z), each padded to 16 bytes, then as many tiles [pass rows,
+    kt + GRID_PAD] as fit, at most GRID_MAX_STAGES (the bytes count
+    GRID_MIN_STAGES where fewer fit)."""
+    groups_u = -(-units // GRID_UNITS[adjoint])
+    per_group = GRID_SUB * groups_u
+    row_groups = min(-(-rows // GRID_ROWS), GRID_THREADS[adjoint] // per_group)
+    if row_groups < 1:
+        return 0, 0, 0, 0
+    pass_rows = GRID_ROWS * row_groups
+    if adjoint:
+        w = groups_u * 2 * (_grid_kx(3 * hidden, kt) + GRID_PAD) * itemsize
+    else:
+        w = 3 * units * (_grid_kx(hidden, kt) + GRID_PAD) * itemsize
+    fixed = _a16(w) + _a16(rows * units * 4)
+    stage = pass_rows * (kt + GRID_PAD) * itemsize
+    stages = min((MAX_SHARED_BYTES - fixed) // stage if fixed < MAX_SHARED_BYTES else 0,
+                 GRID_MAX_STAGES)
+    threads = -(-per_group * row_groups // 32) * 32
+    return threads, pass_rows, stages, fixed + max(stages, GRID_MIN_STAGES) * stage
+
+
+def _grid_kx(k: int, kt: int) -> int:
+    return -(-k // kt) * kt
+
+
+def grid_plan(batch: int, lanes: int, hidden: int, itemsize: int = 4,
+              adjoint: bool = False) -> dict | None:
+    """The grid walk's plan (as grid_plan in C), or None where one lane's W
+    does not fit the card's shared memory: the plan with the wider K tile
+    of GRID_KTS (fewer tiles, so fewer barriers a step) unless the narrower
+    one takes the shape in fewer rounds of work items or the wider one does
+    not take it at all (_grid_plan_kt)."""
+    if batch < 1 or lanes < 1:
+        return None
+    wide, narrow = (_grid_plan_kt(batch, lanes, hidden, itemsize, adjoint, kt)
+                    for kt in GRID_KTS)
+    if wide is None or narrow is None:
+        return wide or narrow
+    items = lanes * -(-batch // wide["rows"])
+    return wide if -(-items // wide["groups"]) <= -(-items // narrow["groups"]) else narrow
+
+
+def _grid_plan_kt(batch: int, lanes: int, hidden: int, itemsize: int, adjoint: bool,
+                  kt: int) -> dict | None:
+    """The grid plan with K tiles of kt (as grid_plan_kt in C): the least
+    group whose CTAs' share of W fits (one CTA an SM) gives the most groups
+    the card holds at once, at most the work items (lanes x row groups of
+    at most GRID_ITEM_ROWS rows); the groups then spread over the NUM_SMS,
+    each CTA owning as few units as that leaves. Returns CTAs a group,
+    groups at once, units a CTA, rows of a work item and of a pass, the K
+    tile, tiles in the ring, threads and shared bytes of a CTA, and the
+    exchange buffers' elements [groups, 2, rows, K padded to kt]."""
+    rows = min(batch, GRID_ITEM_ROWS)
+    items = lanes * -(-batch // rows)
+
+    def fits(cta):
+        return cta[0] > 0 and cta[2] >= GRID_MIN_STAGES and cta[3] <= MAX_SHARED_BYTES
+
+    least = next((g for g in range(1, NUM_SMS + 1)
+                  if fits(_grid_cta(hidden, itemsize, rows, -(-hidden // g), adjoint, kt))), 0)
+    if not least:
+        return None
+    groups = min(items, NUM_SMS // least)
+    units = -(-hidden // (NUM_SMS // groups))
+    cta = _grid_cta(hidden, itemsize, rows, units, adjoint, kt)
+    if not fits(cta):
+        units = -(-hidden // least)
+        cta = _grid_cta(hidden, itemsize, rows, units, adjoint, kt)
+    return dict(ctas=-(-hidden // units), groups=groups, units=units, rows=rows,
+                pass_rows=cta[1], kt=kt, stages=cta[2], threads=cta[0], smem=cta[3],
+                exchange=groups * 2 * rows * _grid_kx(3 * hidden if adjoint else hidden, kt))
+
+
+def grid_workspace_bytes(plan: dict, itemsize: int) -> int:
+    """Bytes of a grid walk's workspace: the exchange buffers, then a
+    counter a group, each from a 16-byte boundary."""
+    return _a16(plan["exchange"] * itemsize) + _a16(plan["groups"] * 4)
 
 
 def walk_row_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> int:
@@ -304,32 +420,49 @@ def walk_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> in
     return _walk_bytes(hidden, itemsize, rows, walk_cluster_size(hidden, itemsize))
 
 
-def walk_workspace_elems(lanes: int, hidden: int, itemsize: int) -> int:
-    """Elements, in the stream dtype, of the padded copy of W [lanes, 3H,
-    K padded to 4] the streamed walk reads its streamed rows from (as
-    walk_workspace_elems in C); 0 for the other instantiations."""
+def walk_workspace_elems(batch: int, lanes: int, hidden: int, itemsize: int) -> int:
+    """Elements, in the stream dtype, of the workspace the forward entries
+    take as w_pad (as walk_workspace_elems in C): the grid walk's exchange
+    buffers and counters (grid_workspace_bytes), or the padded copy of W
+    [lanes, 3H, K padded to 4] the streamed walk reads its streamed rows
+    from; 0 for the other instantiations."""
     if not walk_streamed(hidden, itemsize):
         return 0
+    grid = grid_plan(batch, lanes, hidden, itemsize)
+    if grid is not None:
+        return grid_workspace_bytes(grid, itemsize) // itemsize
     return lanes * 3 * hidden * (-(-hidden // 4) * 4)
+
+
+def _grid_fields(grid: dict, shared_bytes: int) -> dict:
+    return dict(instantiation="grid", cluster=grid["ctas"], rows=grid["rows"],
+                resident=grid["units"], streamed=0, shared_bytes=shared_bytes,
+                groups=grid["groups"], threads=grid["threads"])
 
 
 def walk_plan(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> dict:
     """The forward walk's plan for this shape (as gru_walk_plan in C): the
-    instantiation, CTAs per (lane, row tile), the row tile, a CTA's units
-    whose W rows are resident in shared memory and those streamed, its
-    shared bytes, and the w_pad workspace's elements."""
+    instantiation, CTAs per (lane, row tile) (the grid walk: of a group),
+    the row tile (the grid walk: rows of a work item), a CTA's units whose W
+    rows are resident in shared memory and those streamed, its shared bytes,
+    the w_pad workspace's elements, and the grid walk's groups at once and
+    threads a CTA (0 for the others)."""
+    grid = grid_plan(batch, lanes, hidden, itemsize) if walk_streamed(hidden, itemsize) else None
+    workspace = walk_workspace_elems(batch, lanes, hidden, itemsize)
+    if grid is not None:
+        return dict(_grid_fields(grid, grid["smem"]), workspace=workspace)
     rows = walk_row_tile(batch, lanes, hidden, itemsize)
     if walk_streamed(hidden, itemsize):
         res = stream_resident(hidden, itemsize, rows)
-        kind, cluster, streamed = 3, MAX_CLUSTER, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
+        kind, cluster, streamed = 4, MAX_CLUSTER, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
     else:
         cluster = walk_cluster_size(hidden, itemsize)
         kind = 0 if walk_in_registers(hidden) else 1 if cluster == 1 else 2
         res, streamed = cluster_units(hidden, cluster), 0
     return dict(instantiation=INSTANTIATIONS[kind], cluster=cluster, rows=rows,
                 resident=res, streamed=streamed,
-                shared_bytes=walk_shared_bytes(hidden, itemsize, rows),
-                workspace=walk_workspace_elems(lanes, hidden, itemsize))
+                shared_bytes=walk_shared_bytes(hidden, itemsize, rows), groups=0, threads=0,
+                workspace=workspace)
 
 
 def adj_row_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> int:
@@ -374,9 +507,11 @@ def _adj_cluster_bytes(hidden: int, itemsize: int, rows: int) -> int:
 
 
 def adj_streamed(hidden: int, itemsize: int) -> bool:
-    """Whether gru_bwd, gru_bwd_fb and gru_bibwd run the streamed walk at
-    this H (as adj_streamed in C): past the one-block and cluster design's
-    limit, its walk's (376 f32) or its gate pre-pass's (450 bf16)."""
+    """Whether gru_bwd, gru_bwd_fb and gru_bibwd are past the one-block and
+    cluster design's limit at this H (as adj_streamed in C), its walk's (376
+    f32) or its gate pre-pass's (450 bf16): the grid walk runs there where
+    grid_plan takes the shape, the streamed walk elsewhere, both after the
+    K-tiled pre-pass."""
     return (adj_cluster_size(hidden, itemsize) == 0 or _adj_cluster_bytes(
         hidden, itemsize, ADJ_MOST_ROWS[walk_in_registers(hidden)]) > MAX_SHARED_BYTES)
 
@@ -451,27 +586,38 @@ def adj_workspace_floats(lanes: int, n_steps: int, batch: int, hidden: int,
     base = rows * hidden * (ADJ_FACTORS + 1) + lanes * parts * 3 * hidden * hidden
     if not adj_streamed(hidden, itemsize):
         return base
+    grid = grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
+    if grid is not None:
+        return -(-base // 4) * 4 + grid_workspace_bytes(grid, itemsize) // 4
     wt = lanes * hidden * (-(-3 * hidden // 4) * 4) * itemsize
     return -(-base // 4) * 4 + -(-wt // 16) * 4
 
 
 def adj_plan(batch: int, lanes: int, n_steps: int, hidden: int, itemsize: int = 4) -> dict:
     """The adjoint walk's plan for this shape (as gru_adj_plan in C): the
-    instantiation, CTAs per (lane, row tile), the row tile, a CTA's units
-    whose W^T rows are resident in shared memory and those streamed, the
-    most shared bytes of its kernels, and the workspace floats."""
+    instantiation, CTAs per (lane, row tile) (the grid walk: of a group),
+    the row tile (the grid walk: rows of a work item), a CTA's units whose
+    W^T rows are resident in shared memory and those streamed, the most
+    shared bytes of its kernels, the workspace floats, and the grid walk's
+    groups at once and threads a CTA (0 for the others)."""
+    workspace = adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize)
+    grid = (grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
+            if adj_streamed(hidden, itemsize) else None)
+    if grid is not None:
+        return dict(_grid_fields(grid, max(grid["smem"], ADJ_GATE_TILED_BYTES)),
+                    workspace=workspace)
     rows = adj_row_tile(batch, lanes, hidden, itemsize)
     if adj_streamed(hidden, itemsize):
         res = stream_resident(hidden, itemsize, rows, adjoint=True)
-        kind, cluster, streamed = 3, MAX_CLUSTER, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
+        kind, cluster, streamed = 4, MAX_CLUSTER, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
     else:
         cluster = adj_cluster_size(hidden, itemsize)
         kind = 0 if walk_in_registers(hidden) else 1 if cluster == 1 else 2
         res, streamed = cluster_units(hidden, cluster), 0
     return dict(instantiation=INSTANTIATIONS[kind], cluster=cluster, rows=rows,
                 resident=res, streamed=streamed,
-                shared_bytes=adj_shared_bytes(hidden, itemsize, rows),
-                workspace=adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize))
+                shared_bytes=adj_shared_bytes(hidden, itemsize, rows), groups=0, threads=0,
+                workspace=workspace)
 
 
 # ---------------------------------------------------------------------------
@@ -694,7 +840,7 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 PLAN_FIELDS = ("instantiation", "cluster", "rows", "resident", "streamed", "shared_bytes",
-               "workspace")
+               "workspace", "groups", "threads")
 
 
 def c_plan(adjoint: bool, batch: int, lanes: int, hidden: int, itemsize: int,
@@ -779,15 +925,16 @@ def _launch(entry: str, xg, w_hh, b_hh, h0, reverse: bool, fb: bool):
     ys = torch.empty(xg.shape[:-1] + (hidden,), dtype=xg.dtype, device=xg.device)
     if ys.numel() == 0:
         return ys, False
-    _call(_library(), entry, (xg, w_hh, b_hh, h0, ys, _walk_workspace(xg, f, hidden)),
+    _call(_library(), entry, (xg, w_hh, b_hh, h0, ys, _walk_workspace(xg, batch, f, hidden)),
           ([f] if fb else []) + [n_steps, batch, hidden] + _mode_args(xg, reverse))
     return ys, True
 
 
-def _walk_workspace(xg, lanes: int, hidden: int) -> torch.Tensor:
-    """The forward entries' w_pad: the streamed walk's padded copy of W in
-    xg's dtype (walk_workspace_elems; empty for the other instantiations)."""
-    return torch.empty(walk_workspace_elems(lanes, hidden, xg.element_size()),
+def _walk_workspace(xg, batch: int, lanes: int, hidden: int) -> torch.Tensor:
+    """The forward entries' w_pad: the grid walk's exchange buffers and
+    counters or the streamed walk's padded copy of W, in xg's dtype
+    (walk_workspace_elems; empty for the other instantiations)."""
+    return torch.empty(walk_workspace_elems(batch, lanes, hidden, xg.element_size()),
                        dtype=xg.dtype, device=xg.device)
 
 
@@ -804,6 +951,10 @@ def _call(lib: ctypes.CDLL, entry: str, tensors, ints: list[int]) -> None:
     if err == NO_CLUSTER:
         raise RuntimeError(f"{entry} launch refused: no thread block cluster of the walk's "
                            "size fits the card (cudaOccupancyMaxActiveClusters is 0)")
+    if err == NO_GROUP:
+        raise RuntimeError(f"{entry} launch refused: the card cannot hold every CTA of the "
+                           "grid walk's groups at once (its plan counts one CTA on each of "
+                           f"{NUM_SMS} SMs)")
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
@@ -977,7 +1128,7 @@ def gru_bifwd(xg2: torch.Tensor, whh2: torch.Tensor, bhh2: torch.Tensor,
     if ys2.numel() == 0:
         return ys2
     _call(_library(), "gru_bifwd",
-          (xg2, whh2, bhh2, h02, ys2, _walk_workspace(xg2, xg2.shape[1], hidden)),
+          (xg2, whh2, bhh2, h02, ys2, _walk_workspace(xg2, batch, xg2.shape[1], hidden)),
           [xg2.shape[1], n_steps, batch, hidden])
     gru_bifwd.launches += 1
     return ys2

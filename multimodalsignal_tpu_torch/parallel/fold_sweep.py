@@ -133,7 +133,7 @@ from multimodalsignal_tpu_torch.train.optim import (
     state_from_tree,
     state_tree,
 )
-from multimodalsignal_tpu_torch.train.trainer import cross_entropy
+from multimodalsignal_tpu_torch.train.trainer import cross_entropy, deterministic_convolutions
 
 DISPATCHES = ("per_epoch", "segmented")
 
@@ -417,10 +417,11 @@ class FoldSweep:
         self.model.train()
         valid = w.sum(dim=1) > 0
         forward = self.model.forward_remat if self.cfg.trainer.remat else self.model
-        logits = forward(self._batch(idx), self.generators, update=valid)
-        loss, wsum = cross_entropy(logits, self.y[idx], w, self.cw)
-        self.opt.zero_grad()
-        loss.sum().backward()
+        with deterministic_convolutions():
+            logits = forward(self._batch(idx), self.generators, update=valid)
+            loss, wsum = cross_entropy(logits, self.y[idx], w, self.cw)
+            self.opt.zero_grad()
+            loss.sum().backward()
         self.opt.step(valid)
         return loss.detach(), wsum.detach(), valid
 

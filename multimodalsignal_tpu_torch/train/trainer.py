@@ -49,6 +49,7 @@ there is none raises.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -79,6 +80,22 @@ from multimodalsignal_tpu_torch.train.optim import (
     state_tree,
 )
 from multimodalsignal_tpu_torch.utils.run import TeeLogger
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN restricted to its deterministic algorithms while a train step
+    runs. Its default convolution weight-gradient algorithms may sum with
+    atomics, so two runs of the same steps from the same state part by
+    rounding, which training then amplifies: a resumed run drifted from the
+    uncut one. The GRU kernels and every other op of a step are already
+    deterministic, as the JAX package's steps are."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
@@ -223,10 +240,11 @@ class Trainer:
         """One Adam step on one batch in training mode. Returns (loss, sum of
         weights) as device tensors; the parameters keep their gradients."""
         self.model.train()
-        logits = self.model(xb, self.generator)
-        loss, wsum = cross_entropy(logits, yb, wb, self.class_weights)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with deterministic_convolutions():
+            logits = self.model(xb, self.generator)
+            loss, wsum = cross_entropy(logits, yb, wb, self.class_weights)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         self.optimizer.step()
         return loss.detach(), wsum.detach()
 

@@ -1,9 +1,12 @@
-"""The walks at every hidden size the JAX kernels take (the streamed walk
-past the cluster walk's limit), on the CPU: the plans of the six entries
-(gru_cuda's Python twins of the C plans), their shared memory for H = 1-1100,
-the argument checks at the new hidden sizes and past the new limit, the
-plain versions of all six entries at H = 384 and 512 against the JAX
-package's Pallas kernels in interpret mode, and fold grouping at G·H = 768.
+"""The walks at every hidden size the JAX kernels take (past the cluster
+walk's limit the grid walk, W held across a group of CTAs spanning the
+card, wherever one lane's W fits; the streamed walk past that), on the CPU:
+the plans of the six entries (gru_cuda's Python twins of the C plans),
+their shared memory for H = 1-1100, the grid plans' co-residency and
+exchange workspaces, the argument checks at the new hidden sizes and past
+the new limit, the plain versions of all six entries at H = 384 and 512
+against the JAX package's Pallas kernels in interpret mode, and fold
+grouping at G·H = 768.
 
 Tolerances are those of tests/test_torch_gru.py (forward: float32 rtol =
 atol = 1e-5; bfloat16 atol 0.05 on bf16 outputs), tests/test_torch_gru_backward.py
@@ -26,32 +29,137 @@ DTYPES = {"float32": (torch.float32, jnp.float32, 4), "bfloat16": (torch.bfloat1
 # The one-block limits (forward, adjoint) and the cluster limits, by dtype.
 ONE_BLOCK = {"float32": (136, 130), "bfloat16": (192, 179)}
 CLUSTER = {"float32": (380, 376), "bfloat16": (532, 450)}
+# The grid walk's last H at B=64 (forward, adjoint), one lane: past it one
+# lane's W no longer fits the card's shared memory and the walks stream.
+GRID = {"float32": (1408, 1320), "bfloat16": (2112, 2112)}
 NEW_HS = (381, 377, 451, 512, 768, 1024)
 T, B = 4, 2
+
+
+def _plan(adjoint, batch, lanes, h, item):
+    return (gru_cuda.adj_plan(batch, lanes, 480, h, item) if adjoint
+            else gru_cuda.walk_plan(batch, lanes, h, item))
+
+
+def _check_units(plan, h):
+    """Every unit of H in exactly one CTA's slice: the grid walk's G CTAs
+    of `resident` units, the others' clusters of ceil(H / cluster)."""
+    if plan["instantiation"] == "grid":
+        assert plan["streamed"] == 0
+        assert (plan["cluster"] - 1) * plan["resident"] < h <= plan["cluster"] * plan["resident"]
+        return
+    units = gru_cuda.cluster_units(h, plan["cluster"])
+    if plan["instantiation"] == "streamed":
+        assert plan["cluster"] == gru_cuda.MAX_CLUSTER
+        assert plan["resident"] >= 0 and plan["resident"] + plan["streamed"] == units
+    else:
+        assert plan["resident"] == units and plan["streamed"] == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_twins_pick_one_block_then_cluster_then_streamed(dtype):
     """The forward walk: W in registers to H = 64, one block to 136 / 192,
-    a cluster to 380 / 532, streamed above; the adjoint: one block to
-    130 / 179, a cluster to 376 / 450, streamed above. Every plan's units
-    are resident or streamed, and only the streamed plans stream any."""
+    a cluster to 380 / 532, then the grid walk (to H = 1100 at B=64 and two
+    lanes); the adjoint: one block to 130 / 179, a cluster to 376 / 450,
+    then the grid walk. Every plan's units are resident or streamed, and
+    only the streamed plans stream any; past the cluster's limit is where
+    both the grid and the streamed walk run (walk_streamed, adj_streamed)."""
     item = DTYPES[dtype][2]
     for adjoint, one, most in ((False, *(x[0] for x in (ONE_BLOCK[dtype], CLUSTER[dtype]))),
                                (True, *(x[1] for x in (ONE_BLOCK[dtype], CLUSTER[dtype])))):
         for h in range(1, 1101):
-            plan = (gru_cuda.adj_plan(64, 2, 480, h, item) if adjoint
-                    else gru_cuda.walk_plan(64, 2, h, item))
+            plan = _plan(adjoint, 64, 2, h, item)
             want = ("registers" if h <= 64 else "one block" if h <= one
-                    else "cluster" if h <= most else "streamed")
+                    else "cluster" if h <= most else "grid")
             assert plan["instantiation"] == want, (adjoint, h, plan)
-            units = gru_cuda.cluster_units(h, plan["cluster"])
-            if want == "streamed":
-                assert plan["cluster"] == gru_cuda.MAX_CLUSTER
-                assert plan["resident"] >= 0 and plan["resident"] + plan["streamed"] == units
-            else:
-                assert plan["resident"] == units and plan["streamed"] == 0
+            _check_units(plan, h)
         assert (gru_cuda.adj_streamed if adjoint else gru_cuda.walk_streamed)(most + 1, item)
+
+
+ORDER = ("registers", "one block", "cluster", "grid", "streamed")
+
+
+@pytest.mark.parametrize("adjoint", [False, True], ids=["forward", "adjoint"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lanes", [1, 2, 15, 60])
+def test_instantiation_order_registers_block_cluster_grid_streamed(lanes, dtype, adjoint):
+    """For every H to past the grid walk's limit (every H at B=64, every
+    7th at B = 1 and 256): the instantiation never goes back in the order
+    registers, one block, cluster, grid, streamed; the grid walk takes over
+    right after the cluster's limit, and at B=64 and one lane it holds to
+    GRID's H, streamed one past it."""
+    item = DTYPES[dtype][2]
+    most = CLUSTER[dtype][adjoint]
+    last = GRID[dtype][adjoint]
+    for batch in (1, 64, 256):
+        seen = 0
+        for h in range(1, last + 40):
+            if batch != 64 and h % 7 and h not in (most + 1, last, last + 1):
+                continue
+            plan = _plan(adjoint, batch, lanes, h, item)
+            kind = ORDER.index(plan["instantiation"])
+            assert kind >= seen, (batch, h, plan)
+            seen = kind
+            _check_units(plan, h)
+            if h == most + 1:
+                assert plan["instantiation"] == "grid", (batch, h, plan)
+            if lanes == 1 and batch == 64 and h in (last, last + 1):
+                assert plan["instantiation"] == ("grid" if h == last else "streamed"), (h, plan)
+
+
+@pytest.mark.parametrize("adjoint", [False, True], ids=["forward", "adjoint"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 64, 256])
+def test_grid_plans_fit_and_are_co_resident(batch, dtype, adjoint):
+    """Every grid plan to past its limit, at 1, 2, 15 and 60 lanes: a CTA's
+    shared bytes within the card's 232,448 (the adjoint's plan also covers
+    its K-tiled pre-pass), its threads whole warps within GRID_THREADS,
+    the groups' CTAs one an SM (G x groups <= 132), no more groups than
+    work items, and passes of whole thread row groups covering the item's
+    rows; where no group fits, the plan is the streamed walk's."""
+    item = DTYPES[dtype][2]
+    for lanes in (1, 2, 15, 60):
+        for h in range(CLUSTER[dtype][adjoint] + 1, GRID[dtype][adjoint] + 40, 3):
+            grid = gru_cuda.grid_plan(batch, lanes, h, item, adjoint)
+            plan = _plan(adjoint, batch, lanes, h, item)
+            if grid is None:
+                assert plan["instantiation"] == "streamed", (lanes, h, plan)
+                continue
+            assert plan["instantiation"] == "grid"
+            assert grid["smem"] <= gru_cuda.MAX_SHARED_BYTES
+            assert plan["shared_bytes"] <= gru_cuda.MAX_SHARED_BYTES
+            assert grid["threads"] % 32 == 0 and 0 < grid["threads"] <= gru_cuda.GRID_THREADS[adjoint]
+            assert grid["ctas"] * grid["groups"] <= gru_cuda.NUM_SMS, (lanes, h, grid)
+            items = lanes * -(-batch // grid["rows"])
+            assert grid["groups"] <= items and grid["rows"] == min(batch, 64)
+            assert grid["pass_rows"] % gru_cuda.GRID_ROWS == 0
+            assert (plan["groups"], plan["threads"]) == (grid["groups"], grid["threads"])
+
+
+@pytest.mark.parametrize("adjoint", [False, True], ids=["forward", "adjoint"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_exchange_workspace(dtype, adjoint):
+    """The grid walk's workspace: the exchange buffers [groups, 2, rows, K
+    padded to the plan's K tile] (K = H forward, 3H adjoint) in the stream
+    dtype, then a 32-bit counter a group, each from a 16-byte boundary: the
+    forward's w_pad elements, the adjoint's floats after its factors, dht
+    and dW partials (from a 16-byte boundary)."""
+    item = DTYPES[dtype][2]
+    for h, batch, lanes in ((CLUSTER[dtype][adjoint] + 1, 64, 1), (1024, 64, 2),
+                            (1024, 256, 15), (777, 5, 3)):
+        grid = gru_cuda.grid_plan(batch, lanes, h, item, adjoint)
+        assert grid["kt"] in gru_cuda.GRID_KTS
+        k = -(-(3 * h if adjoint else h) // grid["kt"]) * grid["kt"]
+        assert grid["exchange"] == grid["groups"] * 2 * grid["rows"] * k
+        nbytes = -(-grid["exchange"] * item // 16) * 16 + -(-grid["groups"] * 4 // 16) * 16
+        assert gru_cuda.grid_workspace_bytes(grid, item) == nbytes
+        if adjoint:
+            rows, parts = lanes * 5 * batch, gru_cuda.adj_partials(5, batch)[1]
+            base = rows * h * 7 + lanes * parts * 3 * h * h
+            assert gru_cuda.adj_workspace_floats(lanes, 5, batch, h, item) == (
+                -(-base // 4) * 4 + nbytes // 4)
+        else:
+            assert gru_cuda.walk_workspace_elems(batch, lanes, h, item) == nbytes // item
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -74,20 +182,25 @@ def test_shared_bytes_fit_for_every_hidden_size_to_1100(dtype):
 def test_streamed_workspaces():
     """The streamed forward's w_pad holds W padded [lanes, 3H, K padded to
     4]; the streamed adjoint's workspace adds W^T padded [lanes, H, 3H
-    padded to 4] in the stream dtype from a 16-byte boundary; the other
-    instantiations need none of either. At F=15, T=480, B=64 the adjoint's
-    workspace is ~12 GB at H=512 and ~36 GB at H=1024."""
-    assert gru_cuda.walk_workspace_elems(2, 380, 4) == 0
-    assert gru_cuda.walk_workspace_elems(2, 381, 4) == 2 * 3 * 381 * 384
-    assert gru_cuda.walk_workspace_elems(2, 512, 2) == 0
+    padded to 4] in the stream dtype from a 16-byte boundary; the one-block
+    and cluster instantiations need none of either (the grid walk's:
+    test_grid_exchange_workspace). Both stream past the grid walk's limit.
+    At F=15, T=480, B=64 the adjoint's workspace is ~12 GB at H=512 and
+    ~36 GB at H=1024 (its factors and dW partials)."""
+    assert gru_cuda.walk_workspace_elems(3, 2, 380, 4) == 0
+    assert gru_cuda.walk_plan(3, 2, 1600, 4)["instantiation"] == "streamed"
+    assert gru_cuda.walk_workspace_elems(3, 2, 1600, 4) == 2 * 3 * 1600 * 1600
+    assert gru_cuda.walk_workspace_elems(3, 2, 512, 2) == 0
     base = gru_cuda.adj_workspace_floats(2, 5, 3, 376, 4)
     rows, parts = 2 * 5 * 3, gru_cuda.adj_partials(5, 3)[1]
     assert base == rows * 376 * 7 + 2 * parts * 3 * 376 * 376
     assert gru_cuda.adj_workspace_floats(2, 5, 3, 450, 2) == (
         rows * 450 * 7 + 2 * parts * 3 * 450 * 450)
-    got = gru_cuda.adj_workspace_floats(2, 5, 3, 451, 2)
-    plain = rows * 451 * 7 + 2 * parts * 3 * 451 * 451
-    assert got == -(-plain // 4) * 4 + -(-2 * 451 * 1356 * 2 // 16) * 4
+    h = 2600
+    assert gru_cuda.adj_plan(3, 2, 5, h, 2)["instantiation"] == "streamed"
+    got = gru_cuda.adj_workspace_floats(2, 5, 3, h, 2)
+    plain = rows * h * 7 + 2 * parts * 3 * h * h
+    assert got == -(-plain // 4) * 4 + -(-2 * h * (3 * h) * 2 // 16) * 4
     assert 11e9 < gru_cuda.adj_workspace_floats(15, 480, 64, 512) * 4 < 13e9
     assert 35e9 < gru_cuda.adj_workspace_floats(15, 480, 64, 1024) * 4 < 37e9
 
@@ -129,12 +242,17 @@ ENTRIES = [("gru_fwd", "float32"), ("gru_fwd", "bfloat16"), ("gru_fwd_fb", "floa
 def test_checks_take_the_new_hidden_sizes_and_refuse_past_the_limit(entry, dtype):
     """Every entry's check takes H = 381, 377, 451, 512, 768 and 1024 and
     refuses the first H past the streamed walk's limit before any launch,
-    with a message that names the limit; the limit lies far past 1024."""
+    with a message that names the limit; the limit lies far past 1024 and
+    is where it was before the grid walk (which moves no limit), and the H at the
+    grid walk's ends are taken too."""
     item = DTYPES[dtype][2]
     adjoint = entry in ("gru_bwd", "gru_bwd_fb", "gru_bibwd")
     limit = gru_cuda.adj_max_hidden(item) if adjoint else gru_cuda.walk_max_hidden(item)
-    assert limit > 4 * 1024 if adjoint else limit > 16 * 1024
-    for h in NEW_HS + (limit,):
+    assert limit == {(False, 4): 21564, (True, 4): 4453, (False, 2): 24452,
+                     (True, 2): 4622}[(adjoint, item)]
+    ends = tuple(h for d in GRID.values() for h in d) + tuple(h + 1 for d in GRID.values()
+                                                              for h in d)
+    for h in NEW_HS + ends + (limit,):
         assert _check(entry, _meta_args(entry, h, dtype))[-1] == h
     with pytest.raises(ValueError, match=f"step buffers at one row.*H up to {limit}$"):
         _check(entry, _meta_args(entry, limit + 1, dtype))

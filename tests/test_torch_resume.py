@@ -340,3 +340,39 @@ def flax_state_dict(tree):
     from flax import serialization
 
     return serialization.to_state_dict(tree)
+
+
+@pytest.mark.parametrize("which", ["serial", "sweep"])
+def test_train_steps_run_under_deterministic_cudnn(which, data, variables, staged, tree,
+                                                   tmp_path):
+    """A train step's forward and backward run with cuDNN held to its
+    deterministic algorithms (on the card its default convolution
+    weight-gradient algorithms may sum with atomics, and a resumed run then
+    drifts from the uncut one); the setting is restored after the step.
+    Seen from gradient hooks on every parameter, which fire inside the
+    backward pass."""
+    if which == "serial":
+        trainer = _trainer(tmp_path, variables)
+        model = trainer.model
+        x, y = data[0]
+        step = lambda: trainer.train_step(torch.as_tensor(x[:16]),  # noqa: E731
+                                          torch.as_tensor(y[:16], dtype=torch.int64),
+                                          torch.ones(16))
+    else:
+        corpus, fb = staged
+        sweep = pfs.FoldSweep(corpus, fb, _sweep_config(tree), "cpu")
+        model = sweep.model
+        idx, w = sweep.to_device(sweep.train_grid(
+            [np.random.default_rng(f) for f in range(len(fb.test_subjects))]))
+        step = lambda: sweep.train_step(idx[:, 0], w[:, 0])  # noqa: E731
+    seen = []
+    handles = [p.register_hook(lambda g: seen.append(torch.backends.cudnn.deterministic))
+               for p in model.parameters()]
+    saved = torch.backends.cudnn.deterministic
+    try:
+        step()
+    finally:
+        for h in handles:
+            h.remove()
+    assert len(seen) == len(list(model.parameters())) and all(seen)
+    assert torch.backends.cudnn.deterministic == saved
