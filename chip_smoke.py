@@ -95,8 +95,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    data directory of the config's 15 subjects x 48 windows (as in 6), so
    every fold is one of F=15 lanes at full model width:
    a. with dropout 0, the first 3 sweep train steps of all 15 folds on the
-      card, lanes 0-1 against the port on the CPU (gru_impl "pallas": the
-      F-lane kernels' plain versions; 2 lanes there, CPU_FOLDS, as 15 took
+      card, lane 0 against the port on the CPU (gru_impl "pallas": the
+      F-lane kernels' plain versions; 1 lane there, CPU_FOLDS, as 15 took
       over 60 s), under TRAIN_TOL; then lanes 0 and 14 of the
       card's first step against the single-fold Trainer.train_step on the
       card with that fold's weights and batch (sweep_parity);
@@ -264,12 +264,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. The sweep split over two processes (parallel/multihost.py: a gloo
     process group, each rank a contiguous block of the lanes, 15 folds
     over 2: 8 + 7) with both ranks on the one card, on phase 7's data.
-    Each rank is `python chip_smoke.py rank|drill RESULTS <main argv>`
-    with MMS_COORDINATOR / MMS_NUM_PROCESSES / MMS_PROCESS_ID / MMS_RUN_ID
-    (rank_worker: main counted, reported on a "phase14 rank" line); both
-    are killed if either outlives RANK_DEADLINE_S, and a rank that fails
-    fails the phase. Every run once in this process, then as two ranks
-    (split_run): the one process's launches and each rank's exactly those
+    Each rank is `python chip_smoke.py jobs JOBS.json` with
+    MMS_NUM_PROCESSES / MMS_PROCESS_ID (rank_worker: each job's main
+    counted under its own MMS_COORDINATOR and MMS_RUN_ID, one after
+    another, reported on a "phase14 rank" line); both are killed if either
+    outlives RANK_DEADLINE_S a job, and a rank that fails fails the phase.
+    Every run once in this process, then the runs of a-c and d's cut as the
+    jobs of one pair of rank processes (split_runs; a process's start and
+    its first sweep's set-up, ~15 s a rank, are paid once, not once a run):
+    the one process's launches and each rank's exactly those
     the whole sweep's steps imply (a rank runs every step over its own
     lanes), the same run-directory file list, every sweep's losses and
     parameters under TRAIN_TOL of the one process's, each rank's wall,
@@ -285,7 +288,8 @@ Phases, in order; any failure raises and the script exits non-zero:
        the composed evaluation), 1 epoch; the seeds' confusion matrices
        within SEED_GROUP_TOL;
     d. two ranks cut after epoch 1 of 2 (the drill; a bundle with
-       next_epoch 1 and no fold directory yet), then resumed by two ranks:
+       next_epoch 1 and no fold directory yet), then resumed by two new
+       rank processes:
        each launches exactly the remaining epoch's walks; against 14a's
        uncut two-rank run under TRAIN_TOL.
     Then the phase's seconds, and each part's.
@@ -304,15 +308,15 @@ Phases, in order; any failure raises and the script exits non-zero:
        bound (6 H^2 FLOPs a row-step forward, 12 H^2 adjoint), the plain
        version, cuDNN's nn.GRU at H=256, cluster, row tile and waves;
     c. the sweep CLI with model.gru_hidden_size=256 (f32 auto, 1 epoch) as
-       in 7 (first 3 steps card vs CPU on lane 0 at B=16, exact launches, 15
+       in 7 (first 3 steps card vs CPU on lane 0 at B=8, exact launches, 15
        finite folds, a step profile); fold S2's Predictor at H=256 (counted: 2 gru_fwd_fb
        and 2 gru_fwd for 70 windows) against the CPU (PROB_ATOL);
     d. MMS_GRU_FOLD_GROUP=3 at F=15 (5 lanes of G*H = 192, float32 walks),
        f32 and bf16: the first 3 sweep steps grouped against ungrouped on
        the card under TRAIN_TOL with every walk's lanes and H recorded; the
        CLI grouped for 1 epoch (launches exactly the ungrouped run's);
-       step ms ungrouped, grouped, grouped, ungrouped, and a trace of a
-       grouped step.
+       step ms (the median of 3 blocks of 5 steps) ungrouped, grouped,
+       grouped, ungrouped, and a trace of a grouped step.
     Then the phase's seconds, and each part's.
 16. The walks past the cluster walk's limit (the grid walk: W held across
     a group of CTAs spanning the card, the state exchanged through L2 with
@@ -341,7 +345,7 @@ Phases, in order; any failure raises and the script exits non-zero:
        a profile of one gru_bwd call at 512 and 1024, f32 and bf16, split
        by kernel;
     c. a Predictor at H=512 against the CPU (counted), the sweep at H=512
-       (first 3 steps card vs CPU on lane 0 at B=16 under TRAIN_TOL; 3
+       (first 3 steps card vs CPU on lane 0 at B=8 under TRAIN_TOL; 3
        counted steps at B=64, their ms a step), MMS_GRU_FOLD_GROUP=3 at
        H=256 (G*H = 768, past the cluster walk) against ungrouped under
        TRAIN_TOL;
@@ -351,6 +355,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     e. trainer.remat: the f32 and bf16 sweep, 3 steps on against off under
        TRAIN_TOL (bitwise or not), exact launches in both modes; step ms and
        peak MiB off, on, on, off at 15 lanes (H = 64 and 256) and 60 lanes.
+    Then the phase's seconds, and each part's.
+17. The card's CI and the bench's captured train step (bench.py's step on
+    the port: B=64, C=3, T=7680, pallas_db, one fixed batch; a CUDA graph
+    of forward, backward, capturable Adam and the batch-norm update, the
+    dropout generator registered with it):
+    a. `python -m multimodalsignal_tpu_torch.gpu_ci --baseline <new file>
+       -- --steps 100` in a subprocess: exit 0, the CUDA kernel tier
+       (tests/test_torch_cuda_kernels.py under pytest -m cuda) all passed,
+       the bench's last line with bench.py's four keys, its launches per
+       captured step one eager step's, the pin created from it;
+    b. float32 and bfloat16 at dropout 0: 3 replays of the captured step
+       from the same weights (the weights and Adam's state restored in
+       place after the warm-up) against 3 eager steps under TRAIN_TOL; the
+       launches the graph holds equal one eager step's (1 each of gru_fwd,
+       gru_fwd_fb, gru_bwd, gru_bwd_fb); a replay from the restored state
+       repeats the first loss bitwise;
+    c. at dropout 0.5 two replays from one state give different losses
+       (new masks each replay);
+    d. the bench's captured step and, from the same make_train_step, the
+       eager step, float32 and bfloat16 at dropout 0.5: ms and steps/s of
+       each, and traces of both. The float32 captured step is bench_torch
+       here (10 eager warm-up steps, the capture, 3 reps of 100 replays;
+       counted: 11 launches of each of the four kernels, the replays
+       unseen by the counters), its graph traced; the bfloat16 one is a's
+       bench, the trace c's graph of the same step;
+    e. the gate (gpu_ci.check_baseline) against pins of 10x and 0.5x a's
+       value: exit 2, then 0; against a pin of another metric: 1.
     Then the phase's seconds, and each part's.
 Every sweep's expected launches follow trainer.remat (default true): a
 train step runs each forward walk twice, the forward and its recompute in
@@ -369,15 +400,18 @@ cards, one rank each (its docstring says how to run it).
 Prints a JSON line of the kernels (launches: gru_fwd's from the float32
 serving run, gru_bwd's from the float32 training run, the fb pair's from
 the float32 sweep, 13b's float32 fused sweep, both ranks of 14a and 14b,
-15c's and 15d's float32 CLI runs and 16c's counted runs, the fused pair's from the float32 serial LOSO run, 13b's float32
-fused sweep and both ranks of 14b),
+15c's and 15d's float32 CLI runs and 16c's counted runs, the fused pair's
+from the float32 serial LOSO run, 13b's float32 fused sweep and both ranks
+of 14b; the four single-fold kernels also 17d's float32 bench run, its
+warm-up steps and its capture),
 then, as the last line, {"ok": true, "device": {...}}. Needs one CUDA
 device and the repository; with no arguments it runs every phase (the
-arguments `rank` and `drill` are phase 14's rank processes).
+argument `jobs` makes it one of phase 14's rank processes).
 """
 
 from __future__ import annotations
 
+import ast
 import base64
 import collections
 import contextlib
@@ -404,6 +438,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multimodalsignal_tpu_torch import bench, gpu_ci
 from multimodalsignal_tpu_torch import main as cli
 from multimodalsignal_tpu_torch.analysis import attention_probe
 from multimodalsignal_tpu_torch.config import (
@@ -467,6 +502,7 @@ from multimodalsignal_tpu_torch.train.checkpoints import (
     read_flax_checkpoint,
     write_initial_train_state,
 )
+from multimodalsignal_tpu_torch.train.optim import make_optimizer
 from multimodalsignal_tpu_torch.train.trainer import Trainer, batch_indices, take
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
@@ -754,6 +790,16 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     return entry
 
 
+# Timing-only repetitions of walk_sweep and m2_shape_timings: the median of
+# 3 blocks of 20 calls (5 of 50 before; cut to keep the whole script inside
+# its time limit).
+SWEEP_PER_BLOCK, SWEEP_BLOCKS = 20, 3
+
+
+def sweep_ms(fn) -> float:
+    return median_ms(fn, per_block=SWEEP_PER_BLOCK, blocks=SWEEP_BLOCKS)
+
+
 def walk_sweep() -> None:
     """The walk kernels' time at T=480, H=64 as the batch, and so the block
     count, grows, float32: one lane (gru_fwd), two (gru_bifwd), the adjoint
@@ -775,18 +821,18 @@ def walk_sweep() -> None:
         for b in batches:
             if name == "gru_fwd":
                 args = kernel_inputs(None, SERVE_T, b, SERVE_H, dtype, seed=7)
-                ms = median_ms(lambda: gru_cuda.gru_forward(*args), per_block=50)
+                ms = sweep_ms(lambda: gru_cuda.gru_forward(*args))
             elif name == "gru_fwd_fb":
                 args = kernel_inputs(lanes, SERVE_T, b, SERVE_H, dtype, seed=7)
-                ms = median_ms(lambda: gru_cuda.gru_forward_fb(*args), per_block=50)
+                ms = sweep_ms(lambda: gru_cuda.gru_forward_fb(*args))
             elif name == "gru_bifwd":
                 args = fused_inputs(SERVE_T, b, SERVE_H, seed=7, adjoint=False)
-                ms = median_ms(lambda: gru_cuda.gru_bifwd(*args), per_block=50)
+                ms = sweep_ms(lambda: gru_cuda.gru_bifwd(*args))
             else:
                 fb = name == "gru_bwd_fb"
                 args = bwd_inputs(lanes if fb else None, SERVE_T, b, SERVE_H, dtype, seed=7)
                 wrapper = gru_cuda.gru_backward_fb if fb else gru_cuda.gru_backward
-                ms = median_ms(lambda: wrapper(*args), per_block=50)
+                ms = sweep_ms(lambda: wrapper(*args))
             tile = gru_cuda.adj_row_tile if adjoint else gru_cuda.walk_row_tile
             rows = tile(b, lanes, SERVE_H)
             blocks = -(-b // rows) * lanes
@@ -1094,9 +1140,9 @@ def m2_shape_timings() -> None:
                 args = kernel_inputs(lanes, SERVE_T, SERVE_B, M2_H, dtype, seed=9)
                 b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, M2_H, dtype)
                 plan = walk_plan(lanes or 1, SERVE_B, M2_H, dtype)
-            ms = median_ms(lambda: wrappers[name](*args), per_block=50)
+            ms = sweep_ms(lambda: wrappers[name](*args))
             lib_ms = (cudnn_bwd_ms if adjoint else cudnn_ms)(
-                1, SERVE_T, SERVE_B, M2_H, dtype, calls=lanes or 1)
+                1, SERVE_T, SERVE_B, M2_H, dtype, calls=lanes or 1, blocks=SWEEP_BLOCKS)
             print(f"M2 shape: {name} {str(dtype)[6:]} F={lanes or 1} T={SERVE_T} B={SERVE_B} "
                   f"H={M2_H}: kernel {ms:.4f} ms ({ms / SERVE_T * 1e3:.3f} us per dependent "
                   f"step, {plan}, {waves(adjoint, SERVE_B, lanes or 1, M2_H, dtype)}), "
@@ -1417,11 +1463,12 @@ def first_steps_parity(model_cfg, variables, x, y, batches, tcfg, root: Path,
 
 def step_profile(step, windows: int, what: str) -> None:
     """ms per train step `step()` of `windows` windows (CUDA events around
-    blocks of 5 back-to-back steps), the peak device memory of one step
-    (max_memory_allocated after reset_peak_memory_stats: what was held
-    before the step plus what it allocated), and a profiler trace of
-    back-to-back steps."""
-    step_ms = median_ms(step, per_block=5)
+    blocks of 5 back-to-back steps, the median of 3 blocks: 5 before, cut
+    to keep the whole script inside its time limit), the peak device
+    memory of one step (max_memory_allocated after reset_peak_memory_stats:
+    what was held before the step plus what it allocated), and a profiler
+    trace of back-to-back steps."""
+    step_ms = median_ms(step, per_block=5, blocks=3)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1642,11 +1689,13 @@ SWEEP_FOLD_LINE = re.compile(
 
 
 # Folds of sweep_parity's CPU side: all 15 took 62.8 s (float32) and 83.8 s
-# (bfloat16) on the 8 host cores beside an H100, and 4 took 18-21 s a sweep
-# on a slower host, where the whole script came within 11 s of its 1200 s;
-# so the CPU runs the first 2 lanes; lanes are independent, so they are
-# held against the card's first 2.
-CPU_FOLDS = 2
+# (bfloat16) on the 8 host cores beside an H100, 4 took 18-21 s a sweep on a
+# slower host, where the whole script came within 11 s of its 1200 s, and 2
+# took 7.4-13.4 s, seven sweeps a run, where a slower host took the whole
+# script past 1200 s; so the CPU runs lane 0, held against the card's lane
+# 0 (lanes are independent; lanes 0 and F-1 are also held against the
+# single-fold Trainer.train_step on the card).
+CPU_FOLDS = 1
 
 
 def sweep_parity(cfg: ExperimentConfig, corpus, fb, root: Path, tol: dict, what: str,
@@ -2594,6 +2643,7 @@ def artifact_phase(ens_run: Path, bf16_run: Path, hybrid_run: Path, root: Path) 
              ("hybrid S2 f32 (v2)", ["--run-dir", str(hybrid_run), "--fold", "S2"],
               lambda d: Predictor.from_run(hybrid_run, "S2", device=d), "float32")]
     ens_artifact = None
+    seconds = {}
     for what, argv, predictor_on, dtype in cases:
         t0 = time.perf_counter()
         path = root / (what.split(" (")[0].replace(" ", "_") + ".mms")
@@ -2638,7 +2688,9 @@ def artifact_phase(ens_run: Path, bf16_run: Path, hybrid_run: Path, root: Path) 
                 trace(lambda: ep.predict_tensor(*x64), f"artifact {what.split()[0]} forward")
         del ep, cpu, pred
         torch.cuda.empty_cache()
+        seconds[what] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         np.save(Path(tmp) / "x.npy", xs[7])
         proc = subprocess.run([sys.executable, "-c", ARTIFACT_ALONE, str(ens_artifact),
@@ -2659,6 +2711,8 @@ def artifact_phase(ens_run: Path, bf16_run: Path, hybrid_run: Path, root: Path) 
           "ExportedPredictor after it (GRU weights packed at load)")
     if len(warned) != 2 or warned[1]:
         raise AssertionError(f"ExportedPredictor: cuDNN copied the GRU weights:\n{proc.stderr}")
+    seconds["alone"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     card_info, (reply,) = serve_cli(["--artifact", str(ens_artifact)], lambda url: [
         _post(url + "/v1/predict", {"windows": xs[1].tolist()})])
     folds = len(ens.fold_names)
@@ -2671,6 +2725,8 @@ def artifact_phase(ens_run: Path, bf16_run: Path, hybrid_run: Path, root: Path) 
     err = _check_probs(reply["probs"], want, 1, 1e-6, "serving --artifact /v1/predict")
     print(f"artifact: serving --artifact answered /v1/predict (backend {card_info['backend']}), "
           f"max|probs - artifact| = {err:.3e}")
+    seconds["serving --artifact"] = time.perf_counter() - t0
+    print("11a: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     return ens_artifact
 
 
@@ -3453,7 +3509,7 @@ def phase13(root: Path, data: Path, loso_run: Path, wesad: Path) -> dict[str, in
 
 # Phase 14: the sweep split over two processes (parallel/multihost.py), both
 # ranks on the one card, their collectives on gloo over host tensors. Each
-# rank is `python chip_smoke.py rank|drill RESULTS <main argv>` (rank_worker)
+# rank is `python chip_smoke.py jobs JOBS.json` (rank_worker)
 # and reports on a line that starts with RANK_LINE.
 RANK_LINE = "phase14 rank "
 RANK_DEADLINE_S = 300
@@ -3510,49 +3566,68 @@ def counted_main(argv: list[str], results: Path, drill: bool = False) -> dict:
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
 
 
-def rank_worker(args: list[str]) -> int:
-    """One rank of phase 14: args are `rank` or `drill`, the results path,
-    then main's argv (MMS_* set by spawn_ranks). TF32 off, as in main()."""
+def rank_worker(jobs_file: str) -> int:
+    """One rank of phase 14: runs each job of `jobs_file` (spawn_ranks'
+    JSON list: run id, coordinator, results path, main's argv, drill) in
+    turn, counted_main under that job's MMS_COORDINATOR and MMS_RUN_ID
+    (main joins the job's process group and leaves it), each reported on a
+    RANK_LINE line with its index. TF32 off, as in main()."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mode, results, *argv = args
-    print(RANK_LINE + json.dumps(counted_main(argv, Path(results), drill=mode == "drill")),
-          flush=True)
+    for i, job in enumerate(json.loads(Path(jobs_file).read_text())):
+        os.environ["MMS_COORDINATOR"] = job["coordinator"]
+        os.environ["MMS_RUN_ID"] = job["run_id"]
+        line = counted_main(job["argv"], Path(job["results"]), drill=job["drill"])
+        print(RANK_LINE + json.dumps({"job": i, **line}), flush=True)
     return 0
 
 
-def spawn_ranks(mode: str, argv: list[str], root: Path, run_id: str, world: int = 2
-                ) -> tuple[list[dict], Path]:
-    """`world` ranks of rank_worker (rank r on cuda:{r % device_count},
-    main's rule), joined on a free port with MMS_RUN_ID run_id; all must
-    exit 0 within RANK_DEADLINE_S, or all are killed and the phase fails.
-    Returns (each rank's line in rank order, with "process_s": the host
-    seconds from the spawn to the last exit; rank 0's pickled
-    SweepResults)."""
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    results = root / f"{run_id}_{mode}_results.pkl"
-    logs = [root / f"{run_id}_{mode}_rank{r}.log" for r in range(world)]
+def free_ports(n: int) -> list[int]:
+    """n distinct free ports on the loopback (all bound at once, then
+    released)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def spawn_ranks(jobs: list[tuple[str, list[str], bool]], root: Path, name: str,
+                world: int = 2) -> list[tuple[list[dict], Path]]:
+    """`world` rank processes (rank r on cuda:{r % device_count}, main's
+    rule) that run `jobs`, (run id, main's argv, drill) each, one after
+    another, each job's ranks joined on a free port of its own; all must
+    exit 0 within RANK_DEADLINE_S a job, or all are killed and the phase
+    fails. Returns, for each job, (each rank's line in rank order, with
+    "process_s": the host seconds from the spawn to the last exit; rank 0's
+    pickled SweepResults)."""
+    specs = [{"run_id": run_id, "argv": argv, "drill": drill,
+              "coordinator": f"127.0.0.1:{port}",
+              "results": str(root / f"{run_id}_{'drill' if drill else 'rank'}_results.pkl")}
+             for (run_id, argv, drill), port in zip(jobs, free_ports(len(jobs)))]
+    jobs_file = root / f"{name}_jobs.json"
+    jobs_file.write_text(json.dumps(specs))
+    logs = [root / f"{name}_rank{r}.log" for r in range(world)]
     procs = []
+    deadline_s = RANK_DEADLINE_S * len(jobs)
     t0 = time.perf_counter()
     try:
         for rank, log in enumerate(logs):
-            env = dict(os.environ, MMS_COORDINATOR=f"127.0.0.1:{port}",
-                       MMS_NUM_PROCESSES=str(world),
-                       MMS_PROCESS_ID=str(rank), MMS_RUN_ID=run_id,
+            env = dict(os.environ, MMS_NUM_PROCESSES=str(world), MMS_PROCESS_ID=str(rank),
                        MMS_DIST_TIMEOUT=str(RANK_DEADLINE_S))
             with open(log, "w") as out:
                 procs.append(subprocess.Popen(
-                    [sys.executable, str(Path(__file__).resolve()), mode, str(results), *argv],
+                    [sys.executable, str(Path(__file__).resolve()), "jobs", str(jobs_file)],
                     cwd=Path(__file__).resolve().parent, env=env, stdout=out,
                     stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + RANK_DEADLINE_S
+        deadline = time.monotonic() + deadline_s
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1.0))
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"{mode} {run_id}: the ranks did not finish within "
-                             f"{RANK_DEADLINE_S} s:\n"
+        raise AssertionError(f"{name}: the ranks did not finish within {deadline_s} s:\n"
                              + "\n".join(log.read_text()[-4000:] for log in logs)) from None
     finally:
         for p in procs:
@@ -3563,15 +3638,19 @@ def spawn_ranks(mode: str, argv: list[str], root: Path, run_id: str, world: int 
     outs = [log.read_text() for log in logs]
     for rank, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"{mode} {run_id}: rank {rank} exited {p.returncode}:\n"
+            raise AssertionError(f"{name}: rank {rank} exited {p.returncode}:\n"
                                  f"{out[-6000:]}")
     lines = [json.loads(line[len(RANK_LINE):]) for out in outs for line in out.splitlines()
              if line.startswith(RANK_LINE)]
-    if [line["rank"] for line in lines] != list(range(world)):
-        raise AssertionError(f"{mode} {run_id}: rank lines {lines}")
-    for line in lines:
-        line["process_s"] = process_s
-    return lines, results
+    out = []
+    for i, spec in enumerate(specs):
+        got = [line for line in lines if line["job"] == i]
+        if [line["rank"] for line in got] != list(range(world)):
+            raise AssertionError(f"{name} job {spec['run_id']}: rank lines {got}")
+        for line in got:
+            line["process_s"] = process_s
+        out.append((got, Path(spec["results"])))
+    return out
 
 
 def _run_files(run_dir: Path) -> list[str]:
@@ -3597,49 +3676,61 @@ def split_vs_one(got: list, want: list, cfg_steps: list[tuple[int, float]], tol:
               + ("" if cm_windows is None else f" (at most {cm_windows} a lane)"))
 
 
-def split_run(root: Path, what: str, argv: list[str], expected: dict[str, int],
-              cfg_steps: list[tuple[int, float]], tol: dict, cm_windows: int | None = None,
-              world: int = 2) -> tuple[list[dict], Path, Path, list]:
-    """`main argv` in this process, then as `world` ranks (spawn_ranks):
-    the launches of the one process and of each rank exactly `expected` (a
-    rank runs the whole sweep's steps over its own lanes), the same
-    run-directory file list, split_vs_one; each rank's wall time, sweep
-    and epoch seconds and peak memory beside the one process's. Returns
-    (the ranks' lines, the one-process and split run directories, the
-    split run's SweepResults)."""
-    one_dir, two_dir = root / f"{what}_one", root / f"{what}_split"
-    one = counted_main([*argv, "--output-dir", str(one_dir)], root / f"{what}_one.pkl")
-    lines, results = spawn_ranks("rank", [*argv, "--output-dir", str(two_dir)], root, what,
-                                 world)
-    for line in [one, *lines]:
-        if line["launches"] != expected:
-            raise AssertionError(f"{what}: rank {line['rank']} of "
-                                 f"{world if line is not one else 1} launched "
-                                 f"{line['launches']}, expected {expected}")
-    (one_run,) = (p for p in one_dir.rglob("run_*") if p.is_dir())
-    (two_run,) = (p for p in two_dir.rglob("run_*") if p.is_dir())
-    if _run_files(one_run) != _run_files(two_run):
-        raise AssertionError(f"{what}: run directories differ: {_run_files(one_run)} against "
-                             f"{_run_files(two_run)}")
-    got = pickle.loads(results.read_bytes())
-    split_vs_one(got, pickle.loads((root / f"{what}_one.pkl").read_bytes()), cfg_steps, tol,
-                 what, cm_windows, world)
-    timing = lambda d: (f"wall {d['wall_s']:.2f} s, sweeps "  # noqa: E731
-                        + "+".join(f"{t:.2f}" for t in d["sweep_s"]) + " s, epochs "
-                        + "/".join(f"{t:.3f}" for t in d["epoch_s"])
-                        + f" s, peak {d['peak_mib']:.1f} MiB")
-    print(f"{what}: 1 process {timing(one)}; "
-          + "; ".join(f"rank {d['rank']}/{world} {timing(d)}" for d in lines)
-          + f"; the ranks' processes {lines[0]['process_s']:.2f} s from spawn to exit"
-          + f"; {len(_run_files(two_run))} run-directory files as in one process; launches "
-          f"a rank {expected}")
-    return lines, one_run, two_run, got
+# One run of split_runs: (name, main's argv, the launches expected of the one
+# process and of each rank, each sweep's (Adam steps, lr), tol, cm_windows).
+SplitRun = tuple[str, list[str], dict[str, int], list[tuple[int, float]], dict, int | None]
+
+
+def split_runs(root: Path, name: str, runs: list[SplitRun], world: int = 2,
+               tail: tuple = ()) -> tuple[list[tuple[list[dict], Path, Path, list]], list]:
+    """Each run's `main argv` in this process, then all of them as jobs of
+    one set of `world` rank processes (spawn_ranks), then `tail`'s jobs
+    there ((run id, argv, drill) each); for each run: the launches of the
+    one process and of each rank exactly `expected` (a rank runs the whole
+    sweep's steps over its own lanes), the same run-directory file list,
+    split_vs_one; each rank's wall time, sweep and epoch seconds and peak
+    memory beside the one process's. Returns (for each run: the ranks'
+    lines, the one-process and split run directories, the split run's
+    SweepResults), and the tail jobs' (lines, results)."""
+    ones = [counted_main([*argv, "--output-dir", str(root / f"{what}_one")],
+                         root / f"{what}_one.pkl") for what, argv, *_ in runs]
+    spawned = spawn_ranks([(what, [*argv, "--output-dir", str(root / f"{what}_split")], False)
+                           for what, argv, *_ in runs] + list(tail), root, name, world)
+    out = []
+    for (what, _, expected, cfg_steps, tol, cm_windows), one, (lines, results) in zip(
+            runs, ones, spawned):
+        for line in [one, *lines]:
+            if line["launches"] != expected:
+                raise AssertionError(f"{what}: rank {line['rank']} of "
+                                     f"{world if line is not one else 1} launched "
+                                     f"{line['launches']}, expected {expected}")
+        (one_run,) = (p for p in (root / f"{what}_one").rglob("run_*") if p.is_dir())
+        (two_run,) = (p for p in (root / f"{what}_split").rglob("run_*") if p.is_dir())
+        if _run_files(one_run) != _run_files(two_run):
+            raise AssertionError(f"{what}: run directories differ: {_run_files(one_run)} "
+                                 f"against {_run_files(two_run)}")
+        got = pickle.loads(results.read_bytes())
+        split_vs_one(got, pickle.loads((root / f"{what}_one.pkl").read_bytes()), cfg_steps,
+                     tol, what, cm_windows, world)
+        timing = lambda d: (f"wall {d['wall_s']:.2f} s, sweeps "  # noqa: E731
+                            + "+".join(f"{t:.2f}" for t in d["sweep_s"]) + " s, epochs "
+                            + "/".join(f"{t:.3f}" for t in d["epoch_s"])
+                            + f" s, peak {d['peak_mib']:.1f} MiB")
+        print(f"{what}: 1 process {timing(one)}; "
+              + "; ".join(f"rank {d['rank']}/{world} {timing(d)}" for d in lines)
+              + f"; {len(_run_files(two_run))} run-directory files as in one process; "
+              f"launches a rank {expected}")
+        out.append((lines, one_run, two_run, got))
+    print(f"{name}: the {world} rank processes ran {len(spawned)} jobs in turn, "
+          f"{spawned[0][0][0]['process_s']:.2f} s from spawn to exit")
+    return out, spawned[len(runs):]
 
 
 def dropout_rng_cost(corpus, fb, cfg) -> None:
-    """14a. ms per sweep train step at the config's dropout: all 15 lanes
-    in one process, rank 0's 8 lanes drawing the whole sweep's masks (its
-    split run's step), and those 8 lanes with dropout 0 (no masks)."""
+    """14a. ms per sweep train step at the config's dropout (the median
+    of 3 blocks of 5 steps): all 15 lanes in one process, rank 0's 8 lanes
+    drawing the whole sweep's masks (its split run's step), and those 8
+    lanes with dropout 0 (no masks)."""
     folds = fb.train_pool.shape[0]
     init, rngs = seed_group_streams((cfg.seed,), folds)
     block = fold_sweep.rank_block(folds, 0, 2)
@@ -3651,7 +3742,8 @@ def dropout_rng_cost(corpus, fb, cfg) -> None:
     for name, c, b in cases:
         sweep = FoldSweep(corpus, fb, c, "cuda", init_seeds=init, block=b)
         idx, w = sweep.to_device(sweep.train_grid(rngs))
-        out.append(f"{name} {median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), 5):.3f} ms")
+        ms = median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), 5, blocks=3)
+        out.append(f"{name} {ms:.3f} ms")
         del sweep, idx, w
     torch.cuda.empty_cache()
     print(f"sweep split dropout {cfg.model.dropout}: train step " + ", ".join(out)
@@ -3687,16 +3779,18 @@ def split_scaling(world: int = 4) -> None:
         fb = build_fold_batch(corpus, list(cfg.subjects), cfg.val_fraction, cfg.seed)
         steps_tr = grid_steps(fb.n_train, cfg.trainer.batch_size)
         lr = cfg.trainer.learning_rate
+        runs = []
         for what, argv, epochs, cm in (("scale_sweep", [], 4, None),
                                        ("scale_seeds", ["--seeds", *map(str, SEEDS)], 2,
                                         SEED_GROUP_TOL["cm_windows"])):
-            argv = [*base, "--set", f"trainer.epochs={epochs}", *argv]
             tcfg = dataclasses.replace(cfg.trainer, epochs=epochs)
-            t0 = time.perf_counter()
-            split_run(root, what, argv, sweep_expected_launches(fb, tcfg)[0],
-                      [(epochs * steps_tr, lr)], TRAIN_TOL["float32"], cm, world)
-            print(f"{what}: {time.perf_counter() - t0:.1f} s, {world} ranks on cuda:0-"
-                  f"{world - 1} against one process on cuda:0")
+            runs.append((what, [*base, "--set", f"trainer.epochs={epochs}", *argv],
+                         sweep_expected_launches(fb, tcfg)[0], [(epochs * steps_tr, lr)],
+                         TRAIN_TOL["float32"], cm))
+        t0 = time.perf_counter()
+        split_runs(root, "scale", runs, world)
+        print(f"scale: {time.perf_counter() - t0:.1f} s, {world} ranks on cuda:0-"
+              f"{world - 1} against one process on cuda:0")
 
 
 def phase14(root: Path, data: Path) -> dict[str, int]:
@@ -3723,11 +3817,44 @@ def phase14(root: Path, data: Path) -> dict[str, int]:
             for k in KERNELS:
                 total[k] += line["launches"][k]
 
-    # a. auto, 2 epochs; the ensemble of the two-rank run; dropout's cost.
-    expected = sweep_expected_launches(fb, cfg.trainer)[0]
-    lines, one_run, two_run, uncut = split_run(root, "split_auto", base, expected,
-                                               [(2 * steps_tr, lr)], tol)
-    add(lines)
+    # a. auto, 2 epochs; b. pallas_fused, 1 epoch; c. --seeds 42 43 and
+    # --hierarchical, 1 epoch; then d's cut: all as jobs of one pair of ranks.
+    fused = [*base, "--set", "trainer.epochs=1", "--set", "model.gru_impl=pallas_fused"]
+    fcfg = cli.load_config(cli.build_parser().parse_args(fused))
+    seeds = [*base, "--set", "trainer.epochs=1", "--seeds", "42", "43"]
+    scfg = cli.load_config(cli.build_parser().parse_args(seeds))
+    hier = ["--hierarchical", "--set", f"base.data_path={data}", "--set", "base.trainer.epochs=1"]
+    hcfg = cli.load_config(cli.build_parser().parse_args(hier))
+    union, _, _ = union_channel_indices(hcfg.m1_channels, hcfg.m2_channels)
+    names = read_channel_names(data)
+    b = hcfg.base
+    fb1, fb2, fb_u = (build_fold_batch(pack_corpus(data, list(b.subjects), list(ch), names, mode),
+                                       list(b.subjects), b.val_fraction, b.seed)
+                      for ch, mode in ((hcfg.m1_channels, "stress_binary"),
+                                       (hcfg.m2_channels, "amusement_binary"),
+                                       (union, "ternary")))
+    ck = [*base, "--set", "trainer.checkpoint_every=1", "--set", "trainer.resume=true",
+          "--output-dir", str(root / "split_cut")]
+    runs = [("split_auto", base, sweep_expected_launches(fb, cfg.trainer)[0],
+             [(2 * steps_tr, lr)], tol, None),
+            ("split_fused", fused, sweep_expected_launches(fb, fcfg.trainer, fcfg.model)[0],
+             [(steps_tr, lr)], tol, None),
+            ("split_seeds", seeds, sweep_expected_launches(fb, scfg.trainer)[0],
+             [(steps_tr, lr)], tol, SEED_GROUP_TOL["cm_windows"]),
+            ("split_hier", hier, hier_expected_launches(hcfg, fb1, fb2, fb_u),
+             [(grid_steps(f.n_train, b.trainer.batch_size), b.trainer.learning_rate)
+              for f in (fb1, fb2)], tol, None)]
+    done, _ = split_runs(root, "split", runs, tail=[("split_cut", ck, True)])
+    add(done[0][0])
+    add(done[1][0])
+    (cut_run,) = (root / "split_cut").rglob("run_split_cut")
+    meta = json.loads((cut_run / "sweep_resume_meta.json").read_text())
+    if meta != {"next_epoch": 1} or list(cut_run.glob("fold_test_on_*")):
+        raise AssertionError(f"split cut: bundle meta {meta}, {_run_files(cut_run)}")
+    marks.append(time.perf_counter())
+
+    # a's two-rank run directory served; dropout's cost.
+    _, one_run, two_run, uncut = done[0]
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((64, 3, WINDOW_T))
                          .astype(np.float32)).cuda()
     ens = EnsemblePredictor.from_run(two_run, device="cuda")
@@ -3750,44 +3877,8 @@ def phase14(root: Path, data: Path) -> dict[str, int]:
     dropout_rng_cost(corpus, fb, cfg)
     marks.append(time.perf_counter())
 
-    # b. pallas_fused, 1 epoch.
-    fused = [*base, "--set", "trainer.epochs=1", "--set", "model.gru_impl=pallas_fused"]
-    fcfg = cli.load_config(cli.build_parser().parse_args(fused))
-    lines, *_ = split_run(root, "split_fused", fused,
-                          sweep_expected_launches(fb, fcfg.trainer, fcfg.model)[0],
-                          [(steps_tr, lr)], tol)
-    add(lines)
-    marks.append(time.perf_counter())
-
-    # c. --seeds 42 43 and --hierarchical, 1 epoch.
-    seeds = [*base, "--set", "trainer.epochs=1", "--seeds", "42", "43"]
-    scfg = cli.load_config(cli.build_parser().parse_args(seeds))
-    split_run(root, "split_seeds", seeds, sweep_expected_launches(fb, scfg.trainer)[0],
-              [(steps_tr, lr)], tol, cm_windows=SEED_GROUP_TOL["cm_windows"])
-    hier = ["--hierarchical", "--set", f"base.data_path={data}", "--set", "base.trainer.epochs=1"]
-    hcfg = cli.load_config(cli.build_parser().parse_args(hier))
-    union, _, _ = union_channel_indices(hcfg.m1_channels, hcfg.m2_channels)
-    names = read_channel_names(data)
-    b = hcfg.base
-    fb1, fb2, fb_u = (build_fold_batch(pack_corpus(data, list(b.subjects), list(ch), names, mode),
-                                       list(b.subjects), b.val_fraction, b.seed)
-                      for ch, mode in ((hcfg.m1_channels, "stress_binary"),
-                                       (hcfg.m2_channels, "amusement_binary"),
-                                       (union, "ternary")))
-    split_run(root, "split_hier", hier, hier_expected_launches(hcfg, fb1, fb2, fb_u),
-              [(grid_steps(f.n_train, b.trainer.batch_size), b.trainer.learning_rate)
-               for f in (fb1, fb2)], tol)
-    marks.append(time.perf_counter())
-
-    # d. Two ranks cut after epoch 1 of 2, resumed by two ranks.
-    ck = [*base, "--set", "trainer.checkpoint_every=1", "--set", "trainer.resume=true",
-          "--output-dir", str(root / "split_cut")]
-    spawn_ranks("drill", ck, root, "split_cut")
-    (cut_run,) = (root / "split_cut").rglob("run_split_cut")
-    meta = json.loads((cut_run / "sweep_resume_meta.json").read_text())
-    if meta != {"next_epoch": 1} or list(cut_run.glob("fold_test_on_*")):
-        raise AssertionError(f"split cut: bundle meta {meta}, {_run_files(cut_run)}")
-    lines, results = spawn_ranks("rank", ck, root, "split_cut")
+    # d. The cut run resumed by two new rank processes.
+    ((lines, results),) = spawn_ranks([("split_cut", ck, False)], root, "split_resume")
     rest = sweep_expected_launches(fb, dataclasses.replace(cfg.trainer, epochs=1))[0]
     if any(line["launches"] != rest for line in lines):
         raise AssertionError(f"split resume: launches {[d['launches'] for d in lines]}, "
@@ -3800,7 +3891,9 @@ def phase14(root: Path, data: Path) -> dict[str, int]:
           f"launched exactly the remaining epoch's {rest}; wall "
           + ", ".join(f"rank {d['rank']} {d['wall_s']:.2f} s" for d in lines))
     marks.append(time.perf_counter())
-    split = ", ".join(f"14{k} {b - a:.1f} s" for k, a, b in zip("abcd", marks, marks[1:]))
+    split = ", ".join(f"{k} {b - a:.1f} s" for k, a, b in zip(
+        ("14a-c and 14d's cut", "14a's ensemble and dropout cost", "14d's resume"),
+        marks, marks[1:]))
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({split})")
     return total
 
@@ -3820,9 +3913,11 @@ WRAPPERS = {"gru_fwd": (gru_cuda.gru_forward, gru_cuda.gru_forward_plain),
 FOLD_GROUP = 3   # 15 folds as 5 lanes of G*H = 192
 # Lanes of 15c's and 16c's CPU side (at H=256 four took 93.1 s on the 8
 # host cores, at H=512 two took 53.4 s at B=16), and the batch of their
-# card-vs-CPU steps (at H=512 and B=64 two lanes took 177 s there).
+# card-vs-CPU steps (at H=512 and B=64 two lanes took 177 s there, one lane
+# at B=16 19.7 s at H=256 and 34.9 s at H=512, the script's largest CPU
+# parts on a host that took it past 1200 s).
 BIG_H_CPU_FOLDS = 1
-WIDE_PARITY_BATCH = 16
+WIDE_PARITY_BATCH = 8
 
 
 def itemsize(dtype) -> int:
@@ -4044,7 +4139,7 @@ def large_timings() -> None:
 
 def big_sweep_phase(data: Path, root: Path) -> dict[str, int]:
     """15c: the sweep CLI at model.gru_hidden_size=BIG_H on phase 7's data,
-    1 epoch, f32 auto (first 3 steps card vs CPU at B=16 under TRAIN_TOL, exact
+    1 epoch, f32 auto (first 3 steps card vs CPU at B=8 under TRAIN_TOL, exact
     launches, finite folds, step profile); then a fold's Predictor at BIG_H,
     counted, against the same Predictor on the CPU (PROB_ATOL). Returns the
     CLI's launches."""
@@ -4162,7 +4257,8 @@ def grouped_sweep_phase(data: Path, root: Path) -> dict[str, int]:
                     sweep = FoldSweep(corpus, fb, cfg, "cuda", init_seeds=seeds)
                     sweeps[grouped] = (sweep, sweep.to_device(sweep.train_grid(rngs)))
                 sweep, (idx, w) = sweeps[grouped]
-                ms = median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), per_block=5)
+                ms = median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), per_block=5,
+                               blocks=3)
             print(f"15d sweep {dtype} F={folds} {'grouped G=3' if grouped else 'ungrouped'}: "
                   f"train step {ms:.3f} ms ({windows / ms * 1e3:.0f} windows/s)")
         with fold_group(FOLD_GROUP):
@@ -4535,7 +4631,7 @@ def engine_phase(data: Path) -> None:
 
 
 def remat_step(corpus, fb, cfg, what: str, seeds=None) -> None:
-    """Step ms (median of 3 blocks of 3 steps) and peak MiB of one step of
+    """Step ms (median of 3 blocks of 1 step) and peak MiB of one step of
     a sweep over fb, trainer.remat off and on, in the order off, on, on,
     off."""
     seeds = seeds or (cfg.seed,)
@@ -4545,7 +4641,7 @@ def remat_step(corpus, fb, cfg, what: str, seeds=None) -> None:
         c = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, remat=remat))
         sweep = FoldSweep(corpus, fb, c, "cuda", init_seeds=init, dropout_seeds=seeds)
         idx, w = sweep.to_device(sweep.train_grid(rngs))
-        ms = median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), per_block=3, blocks=3,
+        ms = median_ms(lambda: sweep.train_step(idx[:, 0], w[:, 0]), per_block=1, blocks=3,
                        warmup=1)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
@@ -4643,17 +4739,242 @@ def phase16(root: Path, data: Path) -> dict[str, int]:
     return wide
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the card's CI (gpu_ci: the CUDA kernel tier, the bench, the gate)
+# and the bench's captured train step
+# ---------------------------------------------------------------------------
+
+CI_BENCH_STEPS = 100
+BENCH_WARMUP = 10   # bench.py's --warmup default
+# One single-fold train step of the default model under pallas_db (both
+# directions of layer 0 as two lanes, the pruned layer 1's forward walk).
+ONE_STEP_LAUNCHES = {"gru_fwd": 1, "gru_fwd_fb": 1, "gru_bwd": 1, "gru_bwd_fb": 1,
+                     "gru_bifwd": 0, "gru_bibwd": 0}
+CAPTURE_WARMUP = 2
+PARITY_STEPS = 3
+RESULT_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_LINE = re.compile(r"bench: .*, captured CUDA graph, ([\d.]+) ms a step; "
+                        r"launches per captured step (\{.*\})")
+
+
+def gpu_ci_phase(root: Path) -> tuple[dict, float]:
+    """17a: `python -m multimodalsignal_tpu_torch.gpu_ci --baseline <new
+    file> -- --steps 100` in a subprocess: exit 0, the kernel tier's pass
+    count with nothing failed or skipped, the bench's last line with
+    bench.py's four keys, the launches per captured step it reports equal
+    to one eager step's, the pin created from it. Returns (the bench's
+    result, its ms a step)."""
+    pin = root / "gpu_bench_baseline.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "multimodalsignal_tpu_torch.gpu_ci", "--baseline", str(pin),
+         "--", "--steps", str(CI_BENCH_STEPS)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"gpu_ci exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    tier = re.search(r"(\d+) passed[^\n]*in ([\d.]+)s", proc.stdout)
+    if tier is None or re.search(r"\d+ (failed|skipped|error)", proc.stdout):
+        raise AssertionError(f"gpu_ci: the kernel tier's summary is not all passed:\n"
+                             f"{proc.stdout[-4000:]}")
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    result = json.loads(lines[-1])
+    if set(result) != RESULT_KEYS or not result["value"] > 0:
+        raise AssertionError(f"gpu_ci: the bench's line is not bench.py's: {result}")
+    if json.loads(pin.read_text())["steps_per_sec"] != result["value"]:
+        raise AssertionError("gpu_ci: the baseline it created is not the bench's value")
+    bench_line = BENCH_LINE.search(proc.stdout)
+    if bench_line is None:
+        raise AssertionError(f"gpu_ci: no bench line with its launches:\n{proc.stdout[-4000:]}")
+    launches = ast.literal_eval(bench_line.group(2))
+    if launches != {k: n for k, n in ONE_STEP_LAUNCHES.items() if n}:
+        raise AssertionError(f"gpu_ci: the bench's captured step launched {launches}, "
+                             f"expected {ONE_STEP_LAUNCHES}")
+    print(f"gpu_ci: exit 0 in {seconds:.1f} s; kernel tier {tier.group(1)} passed, 0 failed, "
+          f"in {tier.group(2)} s; {bench_line.group(0)}")
+    print(f"gpu_ci: {json.dumps(result)}")
+    return result, float(bench_line.group(1))
+
+
+def gate_phase(result: dict, root: Path) -> None:
+    """17e: the gate against pins of 10x and 0.5x the measured value: 2, then
+    0, whatever the run's noise; against a pin of another metric: 1, no
+    verdict."""
+    for factor, metric, want in ((10.0, result["metric"], 2), (0.5, result["metric"], 0),
+                                 (0.5, "another dtype's metric", 1)):
+        pin = root / f"pin_{factor}_{want}.json"
+        pin.write_text(json.dumps({"metric": metric, "tolerance": 0.05,
+                                   "steps_per_sec": result["value"] * factor, "note": "test"}))
+        rc = gpu_ci.check_baseline(result, pin, update=False)
+        if rc != want:
+            raise AssertionError(f"gpu_ci's gate at a pin of {factor}x ({metric}): exit {rc}, "
+                                 f"want {want}")
+
+
+def bench_setup(dtype: str, dropout: float, capturable: bool, variables: dict):
+    """The bench's model (pallas_db) at `dropout` with `variables`' weights,
+    Adam (capturable or not), the fixed batch and a seeded generator: (model,
+    optimizer, generator, make_train_step's step)."""
+    model = bench.bench_model(3, "pallas_db", dtype, dropout=dropout)
+    load_jax_variables(model, variables["params"], variables["batch_stats"])
+    model.cuda()
+    opt = make_optimizer(model.parameters(), LR, 1e-4)
+    if capturable:
+        bench.make_capturable(opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, y, w = bench.fixed_batch(BATCH, 3, WINDOW_T, "cuda")
+    return model, opt, gen, bench.make_train_step(model, opt, x, y, w, gen)
+
+
+def restore(model, opt, state: dict) -> None:
+    """Put the weights and batch statistics back in place (the graph holds
+    their addresses) and Adam's moments and step counts back to zero."""
+    model.load_state_dict(state)
+    with torch.no_grad():
+        for group in opt.state.values():
+            for t in group.values():
+                t.zero_()
+
+
+def captured_vs_eager(dtype: str, variables: dict):
+    """17b-c. From the same weights at dropout 0, PARITY_STEPS replays of the
+    captured step (after its warm-up and capture, the weights and Adam's
+    state restored) against as many eager steps (Adam as make_optimizer
+    returns it), under TRAIN_TOL; launches in the captured step equal one
+    eager step's (ONE_STEP_LAUNCHES). A replay from the restored state
+    repeats the first loss bitwise at dropout 0; at dropout 0.5 two replays
+    from the same state differ (the generator registered with the graph
+    draws new masks). Returns that dropout-0.5 graph (the bench's step)
+    and the step it captured, which keeps alive the tensors it reads."""
+    eager, _, _, step = bench_setup(dtype, 0.0, False, variables)
+    gru_cuda.reset_launch_counts()
+    want = [step().item()]
+    eager_launches = gru_cuda.launch_counts()
+    want += [step().item() for _ in range(PARITY_STEPS - 1)]
+    model, opt, gen, step = bench_setup(dtype, 0.0, True, variables)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    graph, loss, launches = bench.capture(step, CAPTURE_WARMUP, gen)
+    if launches != eager_launches or launches != ONE_STEP_LAUNCHES:
+        raise AssertionError(f"captured step {dtype}: launches {launches}, one eager step "
+                             f"{eager_launches}, expected {ONE_STEP_LAUNCHES}")
+    restore(model, opt, start)
+    got = []
+    for _ in range(PARITY_STEPS):
+        graph.replay()
+        got.append(loss.item())
+    tol = TRAIN_TOL[dtype]
+    loss_err, worst, share, ok = compare_steps(model, got, eager.cpu(), want, tol)
+    summary = (f"losses max rel|d| {loss_err:.3e}, parameters max|d| {worst:.3e}, "
+               f"{share:.4%} beyond {tol['elem']}")
+    if not ok:
+        raise AssertionError(f"captured step {dtype}: replays vs eager beyond TRAIN_TOL: "
+                             f"{summary}; losses {got} vs {want}")
+    restore(model, opt, start)
+    graph.replay()
+    if loss.item() != got[0]:
+        raise AssertionError(f"captured step {dtype}: a replay from the restored state gave "
+                             f"{loss.item()}, the first {got[0]}")
+    print(f"captured step {dtype}, dropout 0: {PARITY_STEPS} replays vs eager steps, losses "
+          + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(got, want))
+          + f"; {summary}; launches in the graph {launches} = one eager step's; a replay "
+          "from the restored state repeats the first loss bitwise")
+    model, opt, gen, step = bench_setup(dtype, ModelConfig.dropout, True, variables)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    graph, loss, _ = bench.capture(step, CAPTURE_WARMUP, gen)
+    draws = []
+    for _ in range(2):
+        restore(model, opt, start)
+        graph.replay()
+        draws.append(loss.item())
+    if draws[0] == draws[1] or not all(math.isfinite(v) for v in draws):
+        raise AssertionError(f"captured step {dtype}, dropout {ModelConfig.dropout}: two "
+                             f"replays from one state gave losses {draws}: the masks did not "
+                             "change")
+    print(f"captured step {dtype}, dropout {ModelConfig.dropout}: two replays from one state, "
+          f"losses {draws[0]:.6f} and {draws[1]:.6f}: new masks each replay")
+    return graph, step
+
+
+def bench_f32() -> tuple[dict, dict[str, int]]:
+    """17d's main path: the bench's float32 captured step (bench.bench_torch:
+    BENCH_WARMUP eager steps, the capture, 3 reps of CI_BENCH_STEPS replays),
+    counted. The counters see the warm-up steps and the capture, never a
+    replay: BENCH_WARMUP + 1 launches of each kernel of one step. Returns
+    (bench_torch's result, the counts)."""
+    gru_cuda.reset_launch_counts()
+    # --- the main path: the bench's captured step ---
+    out = bench.bench_torch(BATCH, 3, WINDOW_T, CI_BENCH_STEPS, BENCH_WARMUP, "pallas_db",
+                            "float32")
+    launches = gru_cuda.launch_counts()
+    # -----------------------------------------------
+    want = {k: (BENCH_WARMUP + 1) * n for k, n in ONE_STEP_LAUNCHES.items()}
+    if out["launches"] != ONE_STEP_LAUNCHES or launches != want:
+        raise AssertionError(f"bench float32: launches {launches}, expected {want}; per "
+                             f"captured step {out['launches']}, expected {ONE_STEP_LAUNCHES}")
+    return out, launches
+
+
+def step_timings(dtype: str, variables: dict, captured_ms: float, graph,
+                 where: str) -> None:
+    """17d. The bench's captured step's ms (`captured_ms`, measured `where`)
+    beside the eager step's from the same make_train_step (CUDA events
+    around blocks of 5), both at the config's dropout; traces of `graph`'s
+    replays and of eager steps."""
+    _, _, _, eager_step = bench_setup(dtype, ModelConfig.dropout, False, variables)
+    eager_ms = median_ms(eager_step, per_block=5)
+    print(f"bench step {dtype} (B={BATCH}, C=3, T={WINDOW_T}, dropout {ModelConfig.dropout}): "
+          f"captured {captured_ms:.4f} ms ({1e3 / captured_ms:.3f} steps/s, {where}, "
+          f"{CI_BENCH_STEPS} replays x 3), eager {eager_ms:.4f} ms ({1e3 / eager_ms:.3f} "
+          f"steps/s), eager / captured {eager_ms / captured_ms:.2f}x")
+    trace(graph.replay, f"captured {dtype} step")
+    trace(eager_step, f"eager {dtype} step")
+
+
+def phase17(root: Path) -> dict[str, int]:
+    """Phase 17 (module docstring): 17a gpu_ci in a subprocess, 17b-c the
+    captured step against the eager one and its dropout masks, f32 and
+    bf16, 17d the captured and eager step times, 17e the gate's mechanics.
+    Returns 17d's float32 counted launches (the main path of this phase)."""
+    t_phase = time.perf_counter()
+    root.mkdir()
+    marks = [time.perf_counter()]
+    result, ci_ms = gpu_ci_phase(root)
+    marks.append(time.perf_counter())
+    cfg = ExperimentConfig(model=ModelConfig(gru_impl="pallas_db"))
+    variables = random_variables(cfg, seed=0)
+    captured_vs_eager("float32", variables)
+    bf16_graph, bf16_step = captured_vs_eager("bfloat16", variables)
+    marks.append(time.perf_counter())
+    out, launches = bench_f32()   # out holds the graph and the tensors it reads
+    step_timings("float32", variables, out["ms"], out["graph"], "bench_torch here")
+    # bfloat16's captured step is 17a's bench (the same shape and replays);
+    # its trace is 17c's graph of the same step.
+    step_timings("bfloat16", variables, ci_ms, bf16_graph, "gpu_ci's bench")
+    del bf16_graph, bf16_step, out
+    marks.append(time.perf_counter())
+    gate_phase(result, root)
+    marks.append(time.perf_counter())
+    split = ", ".join(f"17{k} {b - a:.1f} s" for k, a, b in zip(("a", "b-c", "d", "e"),
+                                                               marks, marks[1:]))
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({split})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs a CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] in (["rank"], ["drill"]):
-        return rank_worker(sys.argv[1:])
+    if sys.argv[1:2] == ["jobs"]:
+        return rank_worker(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card()
+    laps = [("", time.perf_counter())]
+    lap = lambda what: laps.append((what, time.perf_counter()))  # noqa: E731
     build_phase()
+    lap("build")
     kernels = [
         kernel_phase("gru_fwd", gru_cuda.gru_forward, gru_cuda.gru_forward_plain,
                      fb=False, source_line="multimodalsignal_tpu/ops/gru_pallas.py:77"),
@@ -4672,24 +4993,35 @@ def main() -> int:
                            adjoint=True,
                            source_line="multimodalsignal_tpu/ops/gru_pallas.py:945"),
     ]
+    lap("kernels")
     walk_sweep()
+    lap("walk sweep")
     m2_shape_timings()
+    lap("M2 shapes")
     with tempfile.TemporaryDirectory() as tmp:
         pkl = Path(tmp) / "S99.pkl"
         write_recording(pkl, seconds=300, seed=2)
         serve_launches = serving_phase("float32", pkl)
         serving_phase("bfloat16", pkl)
+        lap("serving")
         train_launches = training_phase("float32", Path(tmp))
         training_phase("bfloat16", Path(tmp))
+        lap("training")
         loso_data = write_loso_data(Path(tmp) / "loso_data", seed=4)
         loso_launches, loso_run = loso_phase("float32", loso_data, Path(tmp))
         loso_phase("bfloat16", loso_data, Path(tmp))
+        lap("LOSO")
         data = write_loso_data(Path(tmp) / "sweep_data", seed=8, subjects=ALL_SUBJECTS)
         with capture_sweeps(fold_sweep) as seen:
             sweep_launches, sweep_run = sweep_phase("float32", ["--set", f"data_path={data}"],
                                                     Path(tmp))
         _, bf16_run = sweep_phase("bfloat16", ["--set", f"data_path={data}"], Path(tmp))
+        lap("sweep")
         ensemble_phase(sweep_run)
+        lap("ensemble")
+        print(f"phases 1-8: {laps[-1][1] - laps[0][1]:.1f} s ("
+              + ", ".join(f"{w} {t - laps[i][1]:.1f} s" for i, (w, t) in enumerate(laps[1:]))
+              + ")")
         wesad, hybrid_run = phase9(Path(tmp) / "phase9")
         hier_run, ablation_run = phase10(Path(tmp) / "phase10", wesad, loso_data, data,
                                          seen[0])
@@ -4700,18 +5032,21 @@ def main() -> int:
         split_launches = phase14(Path(tmp) / "phase14", data)
         large_launches = phase15(Path(tmp) / "phase15", data)
         wide_launches = phase16(Path(tmp) / "phase16", data)
+        ci_launches = phase17(Path(tmp) / "phase17")
     # launches: gru_fwd's on the float32 serving path, gru_bwd's on the
     # float32 training path, the fb pair's on the float32 sweep (the CLI's
     # default execution), the fused sweep, phase 14's two-rank runs and
     # phase 15's sweeps at H=256 and grouped, the fused pair's on the
     # float32 serial LOSO path, the fused sweep and phase 14's fused
-    # two-rank run (each read right after its own counted run, all checked
-    # above).
-    paths = {"gru_fwd": (serve_launches,), "gru_bwd": (train_launches,),
+    # two-rank run, and the four of the bench's float32 run (phase 17: its
+    # warm-up steps and the capture) (each read right after its own counted
+    # run, all checked above).
+    paths = {"gru_fwd": (serve_launches, ci_launches),
+             "gru_bwd": (train_launches, ci_launches),
              "gru_fwd_fb": (sweep_launches, fused_launches, split_launches, large_launches,
-                            wide_launches),
+                            wide_launches, ci_launches),
              "gru_bwd_fb": (sweep_launches, fused_launches, split_launches, large_launches,
-                            wide_launches),
+                            wide_launches, ci_launches),
              "gru_bifwd": (loso_launches, fused_launches, split_launches),
              "gru_bibwd": (loso_launches, fused_launches, split_launches)}
     for k in kernels:

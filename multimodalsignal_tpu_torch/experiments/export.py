@@ -10,7 +10,7 @@ runs with torch alone, without this package's model code:
         --checkpoint output/.../fold_test_on_S2/best_model.msgpack \\
         --config output/.../config.json --out model.mms
     python -m multimodalsignal_tpu_torch.experiments.export \\
-        --run-dir output/.../run_X [--fold all|S2] --out ensemble.mms
+        --run-dir output/.../run_X [--fold all|S2] --out ensemble.mms [--platforms cpu]
 
     from multimodalsignal_tpu_torch.experiments.export import ExportedPredictor
     ep = ExportedPredictor.load("model.mms")        # on "cuda" by default
@@ -18,7 +18,9 @@ runs with torch alone, without this package's model code:
 
 Artifact format (`.mms` = a zip): `model.pt2` (the ExportedProgram) and
 `meta.json` (the JAX artifact's keys: class names, channels, window
-geometry, normalization, platforms ["cpu", "cuda"], ensemble folds; with
+geometry, normalization, platforms (`--platforms`, default ["cpu", "cuda"]:
+`ExportedPredictor.load` refuses a device whose platform is not listed, as a
+`jax.export` artifact refuses an unlisted one), ensemble folds; with
 `torch_version` in place of `jax_version` and `"format": "torch.export"`).
 Version 1 takes windows [N, C, T]; version 2 (a hybrid model) the pair
 (windows, features [N, F]).
@@ -66,9 +68,26 @@ from multimodalsignal_tpu_torch.models.fold_stack import build_fold_model
 ARTIFACT_VERSION = 1
 HYBRID_ARTIFACT_VERSION = 2
 SUPPORTED_ARTIFACT_VERSIONS = (1, 2)
-PLATFORMS = ("cpu", "cuda")
+PLATFORMS = ("cpu", "cuda")   # every platform an artifact may list; the default
 # Export with an example batch of at least 2, or the batch specialises to 1.
 _EXAMPLE_BATCH = 2
+
+
+def check_platforms(platforms) -> tuple[str, ...]:
+    """The platforms an artifact lists: a non-empty subset of PLATFORMS, in
+    the order given, each once. tpu is refused: the program is a
+    torch.export program, which runs on a CPU or a CUDA device."""
+    platforms = tuple(dict.fromkeys(platforms))
+    if not platforms:
+        raise ValueError(f"an artifact lists at least one platform of {list(PLATFORMS)}")
+    if "tpu" in platforms:
+        raise ValueError("platform 'tpu' is not one a torch.export artifact runs on "
+                         f"(the port's are {list(PLATFORMS)}); a TPU artifact is the "
+                         "JAX package's export (multimodalsignal_tpu.experiments.export)")
+    unknown = [q for q in platforms if q not in PLATFORMS]
+    if unknown:
+        raise ValueError(f"unknown platform(s) {unknown}; choose from {list(PLATFORMS)}")
+    return platforms
 
 
 class _Probs(nn.Module):
@@ -128,11 +147,13 @@ def _artifact_module(predictor) -> _Probs:
     return _Probs(model.eval(), None if fold_names is None else len(fold_names))
 
 
-def export_predictor(predictor, out_path: Path | str) -> dict:
+def export_predictor(predictor, out_path: Path | str,
+                     platforms: tuple[str, ...] = PLATFORMS) -> dict:
     """Write `predictor`'s (a Predictor or an EnsemblePredictor) inference
-    function and weights to `out_path`; returns the artifact's meta dict.
-    The batch dimension is symbolic: one export serves any N without
-    padding."""
+    function and weights to `out_path`, for `platforms` (check_platforms);
+    returns the artifact's meta dict. The batch dimension is symbolic: one
+    export serves any N without padding."""
+    platforms = check_platforms(platforms)
     cfg = predictor.cfg
     module = _artifact_module(predictor)
     c = len(cfg.channels_to_use)
@@ -165,7 +186,7 @@ def export_predictor(predictor, out_path: Path | str) -> dict:
         "target_fs": predictor.target_fs,
         "original_fs": predictor.original_fs,
         "normalization": cfg.normalization,
-        "platforms": list(PLATFORMS),
+        "platforms": list(platforms),
         "torch_version": torch.__version__,
         "ensemble_folds": list(fold_names) if fold_names is not None else None,
     }
@@ -238,7 +259,8 @@ class ExportedPredictor:
     def load(cls, path: Path | str, device: str | torch.device = "cuda"
              ) -> "ExportedPredictor":
         """Read the artifact and move its program to `device` (raises if it
-        names CUDA and there is none)."""
+        names CUDA and there is none, or if the artifact does not list the
+        device's platform)."""
         device = resolve_device(device)
         with zipfile.ZipFile(Path(path)) as zf:
             names = set(zf.namelist())
@@ -250,6 +272,9 @@ class ExportedPredictor:
                         else "not a torch.export artifact")
                 raise ValueError(f"{path} has no model.pt2: {what}")
             blob = zf.read("model.pt2")
+        if device.type not in meta.get("platforms", PLATFORMS):
+            raise ValueError(f"{path} was exported for {meta['platforms']}, not "
+                             f"{device.type}; export it again with --platforms naming it")
         if meta.get("artifact_version") not in SUPPORTED_ARTIFACT_VERSIONS:
             raise ValueError(
                 f"artifact version {meta.get('artifact_version')} not in "
@@ -330,7 +355,14 @@ def main(argv=None) -> None:
                    help="with --run-dir: a subject id, or 'all' for the fold "
                         "ensemble (default)")
     p.add_argument("--out", required=True, help="artifact path (.mms)")
+    p.add_argument("--platforms", default=",".join(PLATFORMS),
+                   help="comma-separated platforms the artifact may be loaded on, "
+                        f"a subset of {','.join(PLATFORMS)} (default all)")
     args = p.parse_args(argv)
+    try:
+        platforms = check_platforms(s.strip() for s in args.platforms.split(",") if s.strip())
+    except ValueError as exc:
+        p.error(f"--platforms: {exc}")
     # The export traces a CPU copy of the weights: the artifact holds no device.
     if args.run_dir:
         if args.checkpoint or args.config:
@@ -340,7 +372,7 @@ def main(argv=None) -> None:
         predictor = Predictor.from_files(args.checkpoint, args.config, device="cpu")
     else:
         p.error("provide --run-dir, or --checkpoint with --config")
-    meta = export_predictor(predictor, args.out)
+    meta = export_predictor(predictor, args.out, platforms)
     size_kb = Path(args.out).stat().st_size / 1024
     folds = meta.get("ensemble_folds")
     kind = f"{len(folds)}-fold ensemble" if folds else "single fold"

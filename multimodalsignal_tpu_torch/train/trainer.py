@@ -114,6 +114,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights: torch.Ten
     return (ce * w).sum(dim=-1) / wsum.clamp(min=1e-12), wsum
 
 
+def train_step(model, optimizer, generator: torch.Generator | None, xb: torch.Tensor,
+               yb: torch.Tensor, wb: torch.Tensor,
+               class_weights: torch.Tensor | None = None):
+    """One Adam step of `model` on one batch in training mode, dropout drawn
+    from `generator`, the forward and backward under
+    deterministic_convolutions. Returns (loss, sum of weights) as device
+    tensors; the parameters keep their gradients. Nothing in it reads a
+    device value on the host, so on CUDA it can be captured in a CUDA graph
+    (bench.py) when the optimizer is capturable."""
+    model.train()
+    with deterministic_convolutions():
+        logits = model(xb, generator)
+        loss, wsum = cross_entropy(logits, yb, wb, class_weights)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    optimizer.step()
+    return loss.detach(), wsum.detach()
+
+
 def batch_indices(n: int, batch_size: int, steps: int | None = None,
                   rng: np.random.Generator | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Wrap-padded [steps, B] index grid + 0/1 weights. With rng: shuffled
@@ -239,14 +258,8 @@ class Trainer:
     def train_step(self, xb: torch.Tensor, yb: torch.Tensor, wb: torch.Tensor):
         """One Adam step on one batch in training mode. Returns (loss, sum of
         weights) as device tensors; the parameters keep their gradients."""
-        self.model.train()
-        with deterministic_convolutions():
-            logits = self.model(xb, self.generator)
-            loss, wsum = cross_entropy(logits, yb, wb, self.class_weights)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        self.optimizer.step()
-        return loss.detach(), wsum.detach()
+        return train_step(self.model, self.optimizer, self.generator, xb, yb, wb,
+                          self.class_weights)
 
     def _train_epoch(self, x, y, idx: np.ndarray, w: np.ndarray) -> float:
         idx_t, w_t = self._grid(idx, w)

@@ -14,6 +14,7 @@ rounds to 6 decimals)."""
 
 import collections
 import json
+import re
 import threading
 import urllib.request
 import zipfile
@@ -235,6 +236,48 @@ def test_export_cli(runs, tmp_path, capsys):
     for argv in (["--run-dir", str(run), "--config", "c.json"], []):
         with pytest.raises(SystemExit):
             pexport.main(argv + ["--out", str(tmp_path / "x.mms")])
+
+
+@pytest.mark.parametrize("platforms", ["cpu", "cuda", "cuda,cpu", "cpu,cuda,cpu"])
+def test_platforms_are_recorded_and_enforced_at_load(runs, tmp_path, capsys, platforms):
+    """--platforms (JAX export.py's flag): the list goes into the meta's
+    `platforms` in the order given, once each, as the JAX CLI records its
+    own; ExportedPredictor.load refuses a device whose platform the meta
+    lacks, as a jax.export artifact refuses an unlisted platform."""
+    run, out = runs["raw"], tmp_path / "m.mms"
+    pexport.main(["--checkpoint", str(run / "fold_test_on_S2" / "best_model.msgpack"),
+                  "--config", str(run / "config.json"), "--out", str(out),
+                  "--platforms", platforms])
+    want = list(dict.fromkeys(platforms.split(",")))
+    assert f"for {want}" in capsys.readouterr().out
+    with zipfile.ZipFile(out) as zf:
+        assert json.loads(zf.read("meta.json"))["platforms"] == want
+    if "cpu" in want:
+        probs = ExportedPredictor.load(out, device="cpu").predict_windows(_inputs(3, False))
+        assert probs.shape == (3, 2)
+    else:
+        with pytest.raises(ValueError, match=r"exported for \['cuda'\], not cpu"):
+            ExportedPredictor.load(out, device="cpu")
+
+
+@pytest.mark.parametrize("platforms, message", [
+    ("tpu", "not one a torch.export artifact runs on"),
+    ("cpu,tpu", "not one a torch.export artifact runs on"),
+    ("cpu,rocm", r"unknown platform\(s\) \['rocm'\]"),
+    (",", "at least one platform"),
+])
+def test_platforms_flag_refuses(runs, tmp_path, capsys, platforms, message):
+    """An empty list, tpu or an unknown platform ends the CLI with a message
+    before anything is traced; export_predictor refuses the same."""
+    run = runs["raw"]
+    with pytest.raises(SystemExit):
+        pexport.main(["--run-dir", str(run), "--out", str(tmp_path / "x.mms"),
+                      "--platforms", platforms])
+    assert re.search(message, capsys.readouterr().err)
+    assert not (tmp_path / "x.mms").exists()
+    with pytest.raises(ValueError, match=message):
+        export_predictor(Predictor.from_run(run, "S2", device="cpu"), tmp_path / "y.mms",
+                         tuple(p for p in platforms.split(",") if p))
 
 
 def test_serving_artifact_backend(exported, capsys):

@@ -15,7 +15,9 @@ import) are among the modules imported; an artifact exported in the
 subprocess runs on the CPU, and ExportedPredictor.load and the stream CLI
 raise without CUDA when no device is named. The analysis package (the
 preprocess checker, the feature tools, the attention probe) imports too: its
-plotting and scikit-learn imports sit inside the functions."""
+plotting and scikit-learn imports sit inside the functions. The bench raises
+without CUDA unless asked for the CPU, and the GPU CI entry refuses the
+host."""
 
 import ast
 import subprocess
@@ -148,6 +150,24 @@ SCRIPT = textwrap.dedent("""
         print("analysis names sklearn")
     else:
         raise AssertionError("sklearn imported while blocked")
+    # The CI tier: the bench and the CI entry ask for CUDA by default.
+    for name in ("bench", "gpu_ci"):
+        assert f"multimodalsignal_tpu_torch.{name}" in names, name
+    from multimodalsignal_tpu_torch import bench, gpu_ci
+    try:
+        bench.main(["--batch", "2", "--seq", "256", "--steps", "1", "--warmup", "1"])
+    except RuntimeError as exc:
+        assert "cuda" in str(exc)
+        print("bench default device raised")
+    else:
+        raise AssertionError("the bench ran without CUDA instead of raising")
+    try:
+        gpu_ci.main([])
+    except SystemExit as exc:
+        assert "CUDA host" in str(exc.code)
+        print("gpu_ci raised")
+    else:
+        raise AssertionError("gpu_ci ran without CUDA instead of raising")
     leaked = sorted(n for n, m in sys.modules.items() if blocked(n) and m is not None)
     assert not leaked, leaked
     print("ok")
@@ -164,9 +184,11 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
     assert "artifact default device raised" in proc.stdout
     assert "stream cli default device raised" in proc.stdout
     assert "analysis names sklearn" in proc.stdout
+    assert "bench default device raised" in proc.stdout
+    assert "gpu_ci raised" in proc.stdout
     # 38 modules before the deployment tier, then streaming, export, import_torch,
-    # then the analysis package and its four modules.
-    assert int(proc.stdout.split("imported ")[1].split()[0]) >= 46
+    # then the analysis package and its four modules, then bench and gpu_ci.
+    assert int(proc.stdout.split("imported ")[1].split()[0]) >= 48
     assert proc.stdout.strip().endswith("ok")
 
 
