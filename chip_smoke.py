@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    check each kernel's shared-memory size in C against its wrapper's
    formula, the walk kernel's row tile (gru_fwd, gru_fwd_fb, gru_bifwd), and
    the adjoint walk's (gru_bwd, gru_bwd_fb, gru_bibwd) row tile, chunks of
-   rows and workspace at 1, 2, 15 and 60 lanes, and at M2's H=32.
+   rows, the two passes' grids (gru_adj_pass_plan) and workspace at 1, 2,
+   15 and 60 lanes, and at M2's H=32.
 3. One phase per kernel: the wrapper on CUDA tensors against its plain
    PyTorch version on the same inputs, float32 and bfloat16, both walk
    directions, at the serving/training shape (T=480, B=64, H=64; F=2 lanes
@@ -45,7 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    as forward+backward minus forward; it also does the input projection),
    and us per dependent step (ms / T); for each adjoint kernel also a
    profiler trace of its four kernels (gate pre-pass, walk, weight-gradient
-   pass, reduction).
+   pass, reduction) and its split by kernel (adjoint_split: each of the two
+   passes over all T beside its bound and torch.mm's time for its product).
+   Then the passes' sub-phase (passes_phase): one call of gru_bwd_fb at 15
+   and 60 lanes (H=64) and 15 lanes at H=256, and of gru_bwd at H=1024,
+   f32 and bf16, split by kernel; the pre-pass's six factors read back from
+   the workspace against their plain version (gru_cuda.adj_factors_plain).
 4. The serving path: the default-config CnnGruAttention model (C=3,
    T=7680, H=64, 2 layers) with weights from a numpy seed, in float32 and
    bfloat16, behind the port's HTTP server: GET /healthz, POST /v1/predict
@@ -627,21 +633,30 @@ def check_adjoint_formulas(bwd) -> None:
                 same(f"gru_adj_row_tile({batch}, {lanes}, {h})",
                      bwd.gru_adj_row_tile(batch, lanes, h, 0), gru_cuda.adj_row_tile(batch, lanes, h))
         for t in (1, 37, SERVE_T):
-            same(f"gru_adj_chunk_rows/partials({t}, {batch})",
-                 (bwd.gru_adj_chunk_rows(t, batch), bwd.gru_adj_partials(t, batch)),
-                 gru_cuda.adj_partials(t, batch))
             for lanes in (1, 2, 15, 60):
+                for h in (M2_H, SERVE_H, 256, 1024):
+                    same(f"gru_adj_chunk_rows/partials({lanes}, {t}, {batch}, {h})",
+                         (bwd.gru_adj_chunk_rows(lanes, t, batch, h),
+                          bwd.gru_adj_partials(lanes, t, batch, h)),
+                         gru_cuda.adj_partials(lanes, t, batch, h))
+                    for size in (4, 2):
+                        c_pass = gru_cuda.c_pass_plan(lanes, t, batch, h, size)
+                        same(f"gru_adj_pass_plan({lanes}, {t}, {batch}, {h}, {size})", c_pass,
+                             gru_cuda.adj_pass_plan(lanes, t, batch, h, size,
+                                                    capacity=c_pass["capacity"]))
                 same(f"gru_adj_workspace_floats({lanes}, {t}, {batch}, {SERVE_H})",
                      bwd.gru_adj_workspace_floats(lanes, t, batch, SERVE_H, 0),
                      gru_cuda.adj_workspace_floats(lanes, t, batch, SERVE_H))
-    chunk, parts = gru_cuda.adj_partials(SERVE_T, SERVE_B)
+    chunk, parts = gru_cuda.adj_partials(1, SERVE_T, SERVE_B, SERVE_H)
+    caps = [gru_cuda.c_pass_plan(1, SERVE_T, SERVE_B, SERVE_H, size)["capacity"] for size in (4, 2)]
     print(f"  gru_adj_shared_bytes(H={SERVE_H}, bf16=0, rows=1) = "
-          f"{bwd.gru_adj_shared_bytes(SERVE_H, 0, 1)} bytes; at T={SERVE_T} B={SERVE_B}: "
-          f"{parts} chunks of {chunk} rows a lane, workspace "
+          f"{bwd.gru_adj_shared_bytes(SERVE_H, 0, 1)} bytes; the gate pre-pass holds "
+          f"{caps[0]} / {caps[1]} blocks at once (f32 / bf16); at T={SERVE_T} B={SERVE_B} "
+          f"one lane: {parts} chunks of {chunk} rows, workspace "
           + ", ".join(f"{gru_cuda.adj_workspace_floats(f, SERVE_T, SERVE_B, SERVE_H) * 4 / 2**20:.1f}"
                       f" MiB at {f} lane{'s' * (f > 1)}" for f in (1, 2, 15, 60)) + "; "
-          "C and wrapper agree on the adjoint walk's shared memory, row tile, chunks "
-          "and workspace")
+          "C and wrapper agree on the adjoint walk's shared memory, row tile, chunks, "
+          "the passes' grids and workspace")
 
 
 def median_ms(fn, per_block: int, blocks: int = 5, warmup: int = 2) -> float:
@@ -791,9 +806,9 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
 
 
 # Timing-only repetitions of walk_sweep and m2_shape_timings: the median of
-# 3 blocks of 20 calls (5 of 50 before; cut to keep the whole script inside
-# its time limit).
-SWEEP_PER_BLOCK, SWEEP_BLOCKS = 20, 3
+# 3 blocks of 10 calls (5 of 50, then 3 of 20 before; cut to keep the whole
+# script inside its time limit).
+SWEEP_PER_BLOCK, SWEEP_BLOCKS = 10, 3
 
 
 def sweep_ms(fn) -> float:
@@ -965,12 +980,105 @@ BI_ADJ_CASES = [(SERVE_T, SERVE_B, 95), (SERVE_T, SERVE_B, 128), (SERVE_T, SERVE
                 (SERVE_T, 1, SERVE_H), (SERVE_T, 256, SERVE_H), (1, SERVE_B, SERVE_H)]
 
 
+# The adjoint's two passes over all T (the gate pre-pass and the
+# weight-gradient pass) take their products on the tensor cores: 3xTF32 in
+# f32, three TF32 products for one, so a third of the H100's 495 TFLOP/s;
+# bf16 at its 989.
+PASS_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+PASS_KERNELS = {"pre-pass": "gru_adj_gates_kernel", "walk": "walk",
+                "weight-gradient": "gru_adj_wgrad_kernel", "reduction": "gru_adj_reduce"}
+
+
+def pass_bounds(lanes, t, b, h, dtype) -> dict[str, tuple[float, str]]:
+    """Least time on an H100 of each pass of one adjoint call, the larger of
+    its bytes over the memory rate and its [T*B, H] x [H, 3H] products (6
+    T B H^2 FLOPs a lane) over PASS_PEAK_FLOPS. Pre-pass: xg, h_prev (ys),
+    dy and W read once in the stream dtype, h0 in f32, the six f32 factors
+    written once. Weight-gradient: four of the factors and dht read in f32,
+    h_prev in the stream dtype, dxg written in the stream dtype, dW and db
+    in f32."""
+    f = lanes or 1
+    item = torch.empty((), dtype=dtype).element_size()
+    m = f * t * b
+    flops = 6 * m * h * h
+    nbytes = {"pre-pass": m * (5 * h * item + 6 * h * 4) + f * (3 * h * h + 3 * h) * item
+              + f * b * h * 4,
+              "weight-gradient": m * (5 * h * 4 + 4 * h * item) + f * (3 * h * h + 3 * h) * 4}
+    out = {}
+    for name, n in nbytes.items():
+        t_bytes = n / MEM_BYTES_PER_S * 1e3
+        t_ops = flops / PASS_PEAK_FLOPS[dtype] * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def mm_ms(lanes, t, b, h, dtype) -> float:
+    """torch.mm of [T*B, H] x [H, 3H] in the stream dtype (TF32 off), once a
+    lane: a yardstick of the passes' product, not on the port's path."""
+    a = torch.randn(t * b, h, device="cuda").to(dtype)
+    w = torch.randn(h, 3 * h, device="cuda").to(dtype)
+    calls = lanes or 1
+
+    def run():
+        for _ in range(calls):
+            torch.mm(a, w)
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return median_ms(run, per_block=max(20 // calls, 2), blocks=3, warmup=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def adjoint_split(fn, lanes, t, b, h, dtype, what: str, calls: int = 3) -> dict[str, float]:
+    """`calls` calls of an adjoint entry (fn) after a warm-up call, split by
+    kernel (torch.profiler): each pass's ms a call beside its bound
+    (pass_bounds) and torch.mm's time for its product (mm_ms), the walk and
+    the reduction; a part's ms is the mean over the calls the trace holds it
+    for (the profiler has dropped a kernel's record now and then). Returns ms
+    by part (None: not in the trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(PASS_KERNELS, 0.0)
+    seen = dict.fromkeys(PASS_KERNELS, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        part = next((k for k, v in PASS_KERNELS.items() if v in e.name and k != "walk"),
+                    "walk" if "gru_adj" in e.name else None)
+        if part:
+            total[part] += e.time_range.elapsed_us() / 1e3
+            seen[part] += 1
+    # The walk is one kernel a call but for the streamed walk's transpose.
+    split = {k: total[k] / min(seen[k], calls) if seen[k] else None for k in PASS_KERNELS}
+    if not any(seen.values()):
+        print(f"  {what}: the profiler saw no device activity; not measured")
+        return split
+    bounds = pass_bounds(lanes, t, b, h, dtype)
+    lib = mm_ms(lanes, t, b, h, dtype)
+    print(f"  {what} F={lanes or 1} T={t} B={b} H={h} {str(dtype)[6:]}, a call by kernel "
+          f"(mean of {calls}): "
+          + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f} ms")
+                      + (f" (bound {bounds[k][0]:.4f} ms, {bounds[k][1]}; "
+                         f"torch.mm {lib:.4f} ms)" if k in bounds else "")
+                      for k, v in split.items()))
+    return split
+
+
 def adj_plan(lanes: int, t: int, batch: int, hidden: int) -> str:
     """The adjoint walk's row tile, walk blocks, instantiation and chunks of
     rows."""
     where = "registers" if gru_cuda.walk_in_registers(hidden) else "shared memory"
     rows = gru_cuda.adj_row_tile(batch, lanes, hidden)
-    chunk, parts = gru_cuda.adj_partials(t, batch)
+    chunk, parts = gru_cuda.adj_partials(lanes, t, batch, hidden)
     return (f"row tile {rows}, {-(-batch // rows) * lanes} walk blocks, W in {where}, "
             f"{parts} chunks of {chunk} rows a lane")
 
@@ -1034,6 +1142,7 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
               f"{plain_ms:.3f} ms, cuDNN GRU backward {lib_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by}), {b_ms / ms:.2%} of bound")
         trace(lambda: wrapper(*args), f"{str(dtype)[6:]} {name} call")
+        adjoint_split(lambda: wrapper(*args), lanes, SERVE_T, SERVE_B, SERVE_H, dtype, name)
         if dtype == torch.float32:
             entry = {"name": name, "route": "cuda",
                      "source": "multimodalsignal_tpu_torch/ops/csrc/gru_bwd.cu",
@@ -1041,6 +1150,49 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
                      "max_abs_err": serve_err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     return entry
+
+
+# The passes' sub-phase: (entry, lanes, H) at T=480, B=64: a sweep step's
+# adjoint (15 lanes), the 4-seed replicated sweep's (60), the sweep at
+# H=256, and one lane at H=1024.
+PASS_SHAPES = (("gru_bwd_fb", 15, SERVE_H), ("gru_bwd_fb", SEED_LANES, SERVE_H),
+               ("gru_bwd_fb", 15, 256), ("gru_bwd", 1, 1024))
+
+
+def passes_phase() -> None:
+    """The adjoint's two passes over all T: one call of each PASS_SHAPES
+    entry in f32 and bf16 split by kernel (adjoint_split: each pass's ms,
+    its bound and torch.mm's), then the pre-pass's six factors read back
+    from gru_bwd_fb's workspace (gru_cuda.adj_factors_cuda, 15 lanes at H=64
+    and 2 at H=256, both directions) against its plain version on the same
+    inputs (ys a GRU-like state in (-1, 1)): f32 rtol = atol = 1e-5, bf16 at
+    BWD_TOL's dxg tolerance."""
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, lanes, h in PASS_SHAPES:
+            xg, w, bias, h0 = kernel_inputs(None if name == "gru_bwd" else lanes, SERVE_T,
+                                            SERVE_B, h, dtype, seed=lanes + h)
+            ys = torch.tanh(torch.randn(xg.shape[:-1] + (h,), device="cuda")).to(dtype)
+            dy = torch.randn(ys.shape, device="cuda").to(dtype)
+            wrapper = gru_cuda.gru_backward if name == "gru_bwd" else gru_cuda.gru_backward_fb
+            adjoint_split(lambda: wrapper(xg, w, bias, h0, ys, dy), lanes, SERVE_T, SERVE_B, h,
+                          dtype, f"passes {name}")
+            del xg, w, bias, h0, ys, dy
+            torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else BWD_TOL[dtype][0]
+        for lanes, h in ((15, SERVE_H), (2, 256)):
+            for reverse in (False, True):
+                xg, w, bias, h0 = kernel_inputs(lanes, SERVE_T, SERVE_B, h, dtype, seed=h)
+                ys = torch.tanh(torch.randn(xg.shape[:-1] + (h,), device="cuda")).to(dtype)
+                args = (xg, w, bias, h0, ys, torch.randn(ys.shape, device="cuda").to(dtype))
+                got = gru_cuda.adj_factors_cuda(*args, reverse=reverse)
+                want = gru_cuda.adj_factors_plain(*args, reverse=reverse)
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"pre-pass factors: {m}")
+                print(f"passes: pre-pass factors F={lanes} H={h} {str(dtype)[6:]} "
+                      f"reverse={reverse}: max|d| {(got - want).abs().max().item():.3e} against "
+                      f"the plain version ({tol})")
+    print(f"passes: {time.perf_counter() - t0:.1f} s")
 
 
 def fused_inputs(t, b, h, seed, adjoint: bool, lanes: int = 2):
@@ -1113,6 +1265,7 @@ def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) ->
           f"({b_by}), {b_ms / ms:.2%} of bound")
     if adjoint:
         trace(lambda: wrapper(*args), f"float32 {name} call")
+        adjoint_split(lambda: wrapper(*args), 2, SERVE_T, SERVE_B, SERVE_H, torch.float32, name)
     return {"name": name, "route": "cuda",
             "source": f"multimodalsignal_tpu_torch/ops/csrc/gru_{'bwd' if adjoint else 'fwd'}.cu",
             "replaces": source_line, "launches": 0, "max_abs_err": serve_err, "ms": ms,
@@ -4489,8 +4642,8 @@ def stream_timings() -> None:
     for dtype in entry_dtypes("gru_bwd"):
         for h in STREAM_TIMED_HS:
             args = entry_inputs("gru_bwd", SERVE_T, SERVE_B, h, dtype, seed=11, reverse=False)
-            trace(lambda: gru_cuda.gru_backward(*args), f"16b gru_bwd {str(dtype)[6:]} H={h} "
-                  "call", n=1)
+            adjoint_split(lambda: gru_cuda.gru_backward(*args), None, SERVE_T, SERVE_B, h, dtype,
+                          "16b gru_bwd")
             del args
             torch.cuda.empty_cache()
 
@@ -4994,6 +5147,8 @@ def main() -> int:
                            source_line="multimodalsignal_tpu/ops/gru_pallas.py:945"),
     ]
     lap("kernels")
+    passes_phase()
+    lap("passes")
     walk_sweep()
     lap("walk sweep")
     m2_shape_timings()

@@ -48,12 +48,11 @@
 // -> dh' = dht z + dg_lo @ W. Everything else moves off it, into kernels
 // that run over all T at once:
 //   * gru_adj_gates_kernel (pre-pass): hg = h_prev @ W^T + bh for every
-//     (t, b) as a [T*B, H] x [H, 3H] product (a block: 32 rows x 32 units,
-//     W's slice and h_prev staged in shared memory), then r, z, n and six
-//     f32 factors per (t, b, unit): a_r = cn cr, cz, a_n = cn r, z, dy[t]
-//     and cn, where cz = (h_prev - n) z (1 - z), cn = (1 - z)(1 - n^2),
-//     cr = hn r (1 - r). A step of the walk is then dr_pre = dht a_r,
-//     dz_pre = dht cz, dg_n = dht a_n and dht z.
+//     (t, b) as a [T*B, H] x [H, 3H] product on the tensor cores, then r,
+//     z, n and six f32 factors per (t, b, unit): a_r = cn cr, cz, a_n =
+//     cn r, z, dy[t] and cn, where cz = (h_prev - n) z (1 - z), cn = (1 -
+//     z)(1 - n^2), cr = hn r (1 - r). A step of the walk is then dr_pre =
+//     dht a_r, dz_pre = dht cz, dg_n = dht a_n and dht z.
 //   * gru_adj_walk_kernel: one block per (lane, tile of R batch rows), R
 //     chosen before the launch from (B, lanes) (adj_row_tile: R = 1 at
 //     B=64, 64 blocks a lane while B * lanes <= 132; R <= 2 with W in
@@ -75,12 +74,49 @@
 //     warps' barrier of each step is another named barrier without it.
 //   * gru_adj_wgrad_kernel (post-pass): rebuilds dg = dht x (a_r, cz, a_n)
 //     with the walk's own products, writes dxg (dn_pre = dht cn), and sums
-//     dW^T = h_prev^T @ dg_lo and db = sum dg over chunks of rows (t, b) in
-//     row order (blocks of 64 units x 64 gate columns), each chunk's
-//     partial written in torch layout; gru_adj_reduce sums the chunks in
-//     chunk order. dW and db are the same bits from run to run (no atomics).
+//     dW = dg_lo^T @ h_prev and db = sum dg over chunks of rows (t, b) on
+//     the tensor cores, each chunk's partial written in torch layout;
+//     gru_adj_reduce sums the chunks in chunk order. dW and db are the same
+//     bits from run to run (no atomics, a fixed order of sums).
 // The workspace (the factors, dht and the dW partials) comes from the
 // wrapper as dw_part, the db partials as db_part.
+//
+// The two passes over all T. Both are [T*B, H] x [H, 3H] products with an
+// elementwise prologue or epilogue: 6 T B H^2 FLOPs a lane each (193 GFLOP
+// at T=480, B=64, H=1024), against ~11 H (pre-pass) and ~9 H (weight
+// gradient) f32 words a row of device memory, so they are bound by bytes
+// at the sweep's H=64 and by the tensor cores from H of a few hundred up.
+// Both take their products on the tensor cores with f32 sums: bf16 streams
+// through mma.sync m16n8k16 (bf16 operands, as the TPU kernels' bf16 mode
+// takes them), f32 streams as 3xTF32 through m16n8k8 (each operand split
+// into a TF32 head and a TF32 residual, three products summed in f32:
+// ~1e-6 relative where one TF32 product leaves ~5e-4, too far for the
+// adjoint's 1e-4; each K step's products start from zero and join the
+// f32 sum by a rounded add, as the tensor cores' own accumulation over a
+// chunk's thousands of rows drifted). Their shared memory does not grow
+// with H: the pre-pass's leaves room for two blocks an SM, the
+// weight-gradient pass's ring takes one.
+//   * The pre-pass: a block owns one lane's 32 units (all three gates'
+//     columns of W, so one thread's sums hold r, z and n of its (row, unit)
+//     pairs and it writes their six factors) and walks row tiles of 128
+//     rows, blockIdx.x, + gridDim.x, ... (as many blocks as the card holds
+//     at once, split over the lanes' unit tiles). Its work is one sequence
+//     of (row tile, K chunk of 32) items through a cp.async ring of three
+//     stages, so the next tile's first chunks are in flight during a
+//     tile's epilogue. Up to H = 128 the block's W slice is loaded once and
+//     stays in shared memory; past it each item brings its W chunk.
+//   * The weight-gradient pass: a block holds a 128 x 128 tile of dW (gate
+//     columns x units) and takes one chunk's rows 32 at a time through a
+//     ring of three stages: cp.async brings the next stages' h_prev,
+//     factors, dht (and cn) while the block rebuilds this stage's dg (db's
+//     compensated sums and dxg in the same sweep, by the blocks of unit
+//     tile 0) and sums its products. The rows are split into chunks only as
+//     far as the lanes' tiles take to fill the SMs (adj_chunk_rows): one
+//     chunk at H >= 256 and 15 lanes, or at H = 1024 and one lane (192
+//     tiles). What bounds them on the card (chip_smoke.py passes_phase,
+//     PERF.md): bytes at H=64, where they run at 2-4x that bound; past a
+//     few hundred the weight-gradient pass's re-reads of the factors and
+//     dht from L2, once a unit tile.
 // Per-step budget at H=64, R=1 (cycles, roughly): the pair lane's five
 // shared loads, add and four multiplies with the dg_lo stores ~60, the
 // barrier ~40, six 16-byte shared loads per dot thread and 96 FMAs in four
@@ -108,10 +144,10 @@
 // warp arrives relaxed, so its copies in flight hold nothing, and every
 // thread waits with acquire) takes the place of the dot warps' named
 // barrier; then every CTA holds the step's whole dg_lo [3H] and computes
-// its own units' slice of dh_prev = dg_lo @ W + dht z as above. The gate
-// pre-pass and the weight-gradient pass run over all T at once and are
-// unchanged: the pre-pass's shared memory ([H][97] + [H][32] floats) bounds
-// bf16 at H = 450; the cluster walk bounds f32 at H = 376 (K = 8).
+// its own units' slice of dh_prev = dg_lo @ W + dht z as above. The
+// cluster walk bounds f32 at H = 376 (K = 8); bf16 leaves it past H = 450
+// (kAdjClusterMostBf16), where the gate pre-pass's shared memory ended it
+// before the passes were redesigned.
 //
 // The grid walk: past those limits (adj_streamed), wherever one lane's W
 // fits the card's aggregate shared memory (f32 to H = 1320, bf16 to 2112 at
@@ -137,9 +173,7 @@
 // checked against the card's occupancy, as the forward's; dW and db come
 // from the same weight-gradient pass and reduction, so they stay the same
 // bits from run to run. What bounds it: the dg_lo bytes every CTA reads each
-// step (100.7 MB at f32 H = 1024) and the group barrier, not W's bytes; and
-// past it, at H >= 1024, the two passes over all T, which now take more
-// than half of gru_bwd (chip_smoke.py 16b).
+// step (100.7 MB at f32 H = 1024) and the group barrier, not W's bytes.
 //
 // The streamed walk: past the grid walk's limit the walk is
 // gru_adj_stream_kernel, a cluster of kMaxCluster CTAs per (lane, tile of R
@@ -155,13 +189,10 @@
 // one chunk ahead of its FMAs. Every byte streamed serves the tile's R rows
 // (a (row, unit) pair a sub-lane). A CTA walks its units in passes of
 // (dot threads) / kSmemSub units, with each pair's dh in shared memory, so
-// H is bounded only by those buffers (adj_max_hidden in gru_cuda.py). Its
-// gate pre-pass is gru_adj_gates_kernel with the K loop tiled (kTiled:
-// kGateK units of W and h_prev at a time, static shared memory that does
-// not grow with H, the same sums in the same order), and the
-// weight-gradient pass and the reduction are the same kernels, whose tiles
-// are static: at F = 15, T = 480, B = 64 the workspace is ~12 GB at
-// H = 512 and ~36 GB at H = 1024 (adj_workspace_floats).
+// H is bounded only by those buffers (adj_max_hidden in gru_cuda.py). The
+// passes are the same kernels at every H: at F = 15, T = 480, B = 64 the
+// workspace is ~6.7 GB at H = 512 and ~13.4 GB at H = 1024, the factors and
+// dht with one dW partial a lane (adj_workspace_floats).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,13 +251,24 @@ constexpr int kProducer = 32;         // the producer warp
 constexpr int kMaxThreads = 768;
 constexpr int kFactors = 6;           // a_r, cz, a_n, z, dy, cn per (step, row, unit)
 constexpr int kWalkFactors = 5;       // the first five: what the walk reads
-constexpr int kGateRows = 32;         // (t, b) rows per block of the gate pre-pass
-constexpr int kGateUnits = 32;        // hidden units per block of the gate pre-pass
-constexpr int kGateThreads = kGateRows / 4 * kGateUnits;  // 4 rows a thread
-constexpr int kGradTile = 64;         // k and c extent of a weight-gradient block
-constexpr int kGradStage = 32;        // rows staged per round of the weight-gradient pass
-constexpr int kGradThreads = 256;     // 16 x 16 threads of 4 x 4 outputs
-constexpr int kMaxPartials = 128;     // row chunks of the weight-gradient pass
+// The gate pre-pass (gru_adj_gates_kernel): a tile of kGateRows rows (t, b)
+// x kGateUnits units (their 3 x kGateUnits gate columns of W), K = H in
+// chunks of kGateK through a ring of kGateStages stages; W's slice stays in
+// shared memory for the block's whole run up to H = kGateResidentK.
+constexpr int kGateRows = 128;
+constexpr int kGateUnits = 32;
+constexpr int kGateCols = 3 * kGateUnits;
+constexpr int kGateK = 32;
+constexpr int kGateStages = 3;
+constexpr int kGateResidentK = 128;
+constexpr int kGateThreads = 256;     // 8 warps: 4 row groups x 2 unit halves
+// The weight-gradient pass (gru_adj_wgrad_kernel): a block's tile of dW,
+// kGradTile gate columns x kGradTile units, its rows (t, b) kGradStage at
+// a time through a ring of kGradStages stages.
+constexpr int kGradTile = 128;
+constexpr int kGradStage = 32;
+constexpr int kGradStages = 3;
+constexpr int kGradThreads = 256;     // 8 warps: 2 column groups x 4 unit groups
 constexpr size_t kMaxShared = 232448;
 constexpr int kMaxCluster = 8;        // the portable thread block cluster size
 // The most threads a CTA of the cluster walk takes (576 is the most any H
@@ -235,11 +277,10 @@ constexpr int kClusterMaxThreads = 576;
 constexpr int kNoCluster = -1;        // returned when no cluster of the size fits the card
 // The streamed walk: the most dot threads of a CTA, the most rows of a tile
 // (a (row, unit) pair a sub-lane), the slots of each dot thread's cp.async
-// ring; and the K tile of the streamed walk's gate pre-pass.
+// ring.
 constexpr int kStreamDotThreads = 512;
 constexpr int kStreamMostRows = 4;
 constexpr int kStreamStages = 2;
-constexpr int kGateK = 64;
 // Clusters of kMaxCluster CTAs of one CTA an SM that an H100 runs at once
 // (cudaOccupancyMaxActiveClusters: 15, not 132 / 8).
 constexpr int kStreamClusters = 15;
@@ -310,14 +351,43 @@ int adj_cluster_size(int hidden, size_t itemsize) {
       return k;
   return 0;
 }
-// Dynamic shared memory of the gate pre-pass: the block's W rows as
-// [H][3 * kGateUnits + 1], padded to 16 bytes, and its h_prev rows as
-// [H][kGateRows], float32.
-__host__ __device__ constexpr int adj_gates_w_floats(int hidden) {
-  return (hidden * (3 * kGateUnits + 1) + 3) / 4 * 4;
+// Dynamic shared memory of the two passes over all T, which does not grow
+// with H. The gate pre-pass: W's slice [3 x kGateUnits][kGateResidentK + 16
+// bytes] in the stream dtype (resident up to H = kGateResidentK; past it the
+// same bytes hold the ring's kGateStages W chunks [3 x kGateUnits][kGateK +
+// 16 bytes]), then the ring's h_prev chunks [kGateStages][kGateRows][kGateK
+// + 16 bytes]. The weight-gradient pass: kGradStages stages of kGradStage rows, each
+// h_prev [rows][kGradTile + 8] in the stream dtype and the factors (then
+// f32 dg) [rows][kGradTile + 8], dht and cn [rows][kGradTile] in f32; in bf16
+// one tile of dg_lo [rows][kGradTile + 8]; kGradTile f32 for db; each
+// stage's rows' places in the streams, [kGradStages][rows] int.
+__host__ __device__ constexpr int adj_gate_a_stride(size_t itemsize) {
+  return kGateK + int(16 / itemsize);
 }
-__host__ __device__ constexpr size_t adj_gates_shared_bytes(int hidden) {
-  return (size_t(adj_gates_w_floats(hidden)) + size_t(hidden) * kGateRows) * sizeof(float);
+__host__ __device__ constexpr int adj_gate_w_stride(size_t itemsize) {
+  return kGateResidentK + int(16 / itemsize);
+}
+__host__ __device__ constexpr size_t adj_gates_shared_bytes(size_t itemsize) {
+  return (size_t(kGateCols) * adj_gate_w_stride(itemsize) +
+          size_t(kGateStages) * kGateRows * adj_gate_a_stride(itemsize)) *
+         itemsize;
+}
+static_assert(kGateStages * (kGateK + 4) <= kGateResidentK + 4 &&
+                  kGateStages * (kGateK + 8) <= kGateResidentK + 8,
+              "the streamed W chunks fit where the resident W slice lies");
+__host__ __device__ constexpr size_t adj_grad_stage_bytes(size_t itemsize) {
+  return size_t(kGradStage) * ((kGradTile + 8) * itemsize + (kGradTile + 8) * sizeof(float) +
+                               2 * kGradTile * sizeof(float));
+}
+__host__ __device__ constexpr size_t adj_grad_shared_bytes(size_t itemsize) {
+  return kGradStages * adj_grad_stage_bytes(itemsize) +
+         (itemsize == sizeof(float) ? 0 : size_t(kGradStage) * (kGradTile + 8) * itemsize) +
+         kGradTile * sizeof(float) + kGradStages * kGradStage * sizeof(int);
+}
+__host__ __device__ constexpr size_t adj_pass_shared_bytes(size_t itemsize) {
+  return adj_gates_shared_bytes(itemsize) > adj_grad_shared_bytes(itemsize)
+             ? adj_gates_shared_bytes(itemsize)
+             : adj_grad_shared_bytes(itemsize);
 }
 // The most any kernel of the one-block or cluster design takes of one
 // block's or CTA's shared memory at this H's cluster size (kMaxCluster past
@@ -325,12 +395,17 @@ __host__ __device__ constexpr size_t adj_gates_shared_bytes(int hidden) {
 size_t adj_cluster_shared_bytes(int hidden, size_t itemsize, int rows) {
   const int cluster = adj_cluster_size(hidden, itemsize);
   const size_t walk = adj_walk_shared_bytes(hidden, itemsize, rows, cluster ? cluster : kMaxCluster);
-  return walk > adj_gates_shared_bytes(hidden) ? walk : adj_gates_shared_bytes(hidden);
+  return walk > adj_pass_shared_bytes(itemsize) ? walk : adj_pass_shared_bytes(itemsize);
 }
+// The bf16 adjoint leaves the cluster walk past this H, where the gate
+// pre-pass's shared memory ended it before the passes were redesigned; the
+// cluster walk beyond it (to ~515) has not been timed against the grid walk.
+constexpr int kAdjClusterMostBf16 = 450;
 // Whether this H runs the streamed walk: past the one-block and cluster
-// design's limit (its walk's or its gate pre-pass's shared memory).
+// design's limit.
 bool adj_streamed(int hidden, size_t itemsize) {
   return adj_cluster_size(hidden, itemsize) == 0 ||
+         (itemsize != sizeof(float) && hidden > kAdjClusterMostBf16) ||
          adj_cluster_shared_bytes(hidden, itemsize,
                                   adj_in_registers(hidden) ? kRegMostRows : 1) > kMaxShared;
 }
@@ -390,14 +465,12 @@ int adj_stream_row_tile(int batch, int lanes, int hidden, size_t itemsize) {
   while (rows < want && rows < most) rows *= 2;
   return rows;
 }
-// Shared memory of the streamed walk's gate pre-pass (static).
-constexpr size_t kGateTiledBytes = size_t(kGateK) * (3 * kGateUnits + 1 + kGateRows) * sizeof(float);
 // The most any kernel of the adjoint walk takes of one block's or CTA's
 // shared memory for a walk tile of `rows`; the wrapper checks it.
 size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
   if (!adj_streamed(hidden, itemsize)) return adj_cluster_shared_bytes(hidden, itemsize, rows);
   const size_t walk = adj_stream_shared_bytes(hidden, itemsize, rows);
-  return walk > kGateTiledBytes ? walk : kGateTiledBytes;
+  return walk > adj_pass_shared_bytes(itemsize) ? walk : adj_pass_shared_bytes(itemsize);
 }
 // The grid walk's plan where it takes the shape: past the one-block and
 // cluster design's limit, wherever one lane's W fits the card (ctas 0
@@ -412,17 +485,22 @@ int adj_rows(int batch, int lanes, int hidden, size_t itemsize) {
                                         : adj_row_tile(batch, lanes, hidden);
 }
 
-// Rows (t, b) of one lane per chunk of the weight-gradient pass: M / 128
-// rounded up to a whole stage, at least one stage; the chunk count is the
-// number of dW / db partials.
-long long adj_chunk_rows(int n_steps, int batch) {
+// Rows (t, b) of one lane per chunk of the weight-gradient pass: as many
+// chunks as the lanes' dW tiles (kGradTile x kGradTile of [3H, H]) take to
+// fill the SMs without passing their count, one where the tiles alone fill
+// them; whole stages of kGradStage rows. The chunk count is the number of
+// dW / db partials.
+long long adj_chunk_rows(int lanes, int n_steps, int batch, int hidden) {
   const long long rows = static_cast<long long>(n_steps) * batch;
-  const long long per = rows > kMaxPartials ? (rows + kMaxPartials - 1) / kMaxPartials : 1;
-  return (per + kGradStage - 1) / kGradStage * kGradStage;
+  const long long tiles = static_cast<long long>(lanes) * ((hidden + kGradTile - 1) / kGradTile) *
+                          ((3 * hidden + kGradTile - 1) / kGradTile);
+  const long long want = tiles >= kNumSMs ? 1 : kNumSMs / tiles;
+  const long long per = (rows + want - 1) / want;
+  return per > kGradStage ? (per + kGradStage - 1) / kGradStage * kGradStage : kGradStage;
 }
-int adj_partials(int n_steps, int batch) {
+int adj_partials(int lanes, int n_steps, int batch, int hidden) {
   const long long rows = static_cast<long long>(n_steps) * batch;
-  const long long chunk = adj_chunk_rows(n_steps, batch);
+  const long long chunk = adj_chunk_rows(lanes, n_steps, batch, hidden);
   return int((rows + chunk - 1) / chunk);
 }
 // The f32 workspace each entry takes as dw_part: the factors [rows][6][H] and
@@ -433,13 +511,15 @@ int adj_partials(int n_steps, int batch) {
 long long adj_wt_offset(int lanes, int n_steps, int batch, int hidden) {
   const long long rows = static_cast<long long>(lanes) * n_steps * batch;
   const long long base = rows * hidden * (kFactors + 1) +
-      static_cast<long long>(lanes) * adj_partials(n_steps, batch) * 3 * hidden * hidden;
+      static_cast<long long>(lanes) * adj_partials(lanes, n_steps, batch, hidden) * 3 * hidden *
+          hidden;
   return (base + 3) / 4 * 4;
 }
 long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, size_t itemsize) {
   const long long rows = static_cast<long long>(lanes) * n_steps * batch;
   const long long base = rows * hidden * (kFactors + 1) +
-      static_cast<long long>(lanes) * adj_partials(n_steps, batch) * 3 * hidden * hidden;
+      static_cast<long long>(lanes) * adj_partials(lanes, n_steps, batch, hidden) * 3 * hidden *
+          hidden;
   if (!adj_streamed(hidden, itemsize)) return base;
   const GridPlan grid = grid_plan(batch, lanes, hidden, itemsize, true);
   if (grid.ctas > 0)
@@ -448,213 +528,6 @@ long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, si
   const long long wt = static_cast<long long>(lanes) * hidden * adj_kpad(hidden, false) *
                        static_cast<long long>(itemsize);
   return adj_wt_offset(lanes, n_steps, batch, hidden) + (wt + 15) / 16 * 4;
-}
-
-// h_prev of (lane, step t, row b, unit k): the state entering forward step
-// t, in the stream dtype's values.
-template <typename T, typename Layout>
-__device__ __forceinline__ float adj_h_prev(const T* __restrict__ ys,
-                                            const float* __restrict__ h0, int lane, int t, int b,
-                                            int k, int lanes, int n_steps, int batch,
-                                            int hidden, int reverse) {
-  const int tp = reverse ? t + 1 : t - 1;
-  if (tp >= 0 && tp < n_steps)
-    return to_float(ys[Layout::row(lane, tp, b, lanes, n_steps, batch) * hidden + k]);
-  return round_to<T>(h0[(size_t(lane) * batch + b) * hidden + k]);
-}
-
-// Gate pre-pass, every (lane, t, b, unit j) at once: hg = h_prev @ W^T + bh
-// for a tile of kGateRows rows and kGateUnits units (thread: 4 rows x 1
-// unit x 3 gates), then r, z, n and the gate adjoint's factors
-//   cz = (h_prev - n) z (1 - z), cn = (1 - z)(1 - n^2), cr = hn r (1 - r),
-//   a_r = cn cr, a_n = cn r,
-// stored as a_r, cz, a_n, z, dy[t] (f32), cn: the walk turns dht into
-// dr_pre = dht a_r, dz_pre = dht cz, dg_n = dht a_n and dht z, and the
-// weight-gradient pass repeats those products and adds dn_pre = dht cn.
-template <typename T, typename Layout>
-__global__ void __launch_bounds__(kGateThreads)
-    gru_adj_gates_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
-                         const T* __restrict__ b_hh, const float* __restrict__ h0,
-                         const T* __restrict__ ys, const T* __restrict__ dy,
-                         float* __restrict__ fac, int n_steps, int batch, int hidden,
-                         int reverse) {
-  constexpr int WS = 3 * kGateUnits + 1;  // row of the W slice, padded against bank conflicts
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = hidden;
-  const int G = 3 * hidden;
-  float* ws = reinterpret_cast<float*>(smem);  // [H][WS]: ws[k][g*32 + jj] = W[g*H + j0 + jj][k]
-  float* hs = ws + adj_gates_w_floats(H);      // [H][kGateRows]: h_prev of unit k, row m0 + m
-  const int lane = blockIdx.z;
-  const int lanes = gridDim.z;
-  const long long n_rows = static_cast<long long>(n_steps) * batch;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kGateRows;
-  const int j0 = blockIdx.y * kGateUnits;
-  const int tid = threadIdx.x;
-
-  const T* w = w_hh + size_t(lane) * G * H;
-  for (int e = tid; e < 3 * kGateUnits * H; e += kGateThreads) {
-    const int gj = e / H;
-    const int k = e - gj * H;
-    const int g = gj / kGateUnits;
-    const int j = j0 + gj - g * kGateUnits;
-    ws[k * WS + gj] = j < H ? to_float(w[(size_t(g) * H + j) * H + k]) : 0.0f;
-  }
-  for (int e = tid; e < kGateRows * H; e += kGateThreads) {
-    const int k = e / kGateRows;
-    const int m = e - k * kGateRows;
-    float v = 0.0f;
-    if (m0 + m < n_rows) {
-      const int t = int((m0 + m) / batch);
-      const int b = int(m0 + m - static_cast<long long>(t) * batch);
-      v = adj_h_prev<T, Layout>(ys, h0, lane, t, b, k, lanes, n_steps, batch, H, reverse);
-    }
-    hs[e] = v;
-  }
-  __syncthreads();
-
-  const int jj = tid % kGateUnits;
-  const int rg = tid / kGateUnits;  // rows 4 rg .. 4 rg + 3, the same for the whole warp
-  float acc[3][4];
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[g][i] = 0.0f;
-  for (int k = 0; k < H; ++k) {
-    const float4 h4 = *reinterpret_cast<const float4*>(hs + k * kGateRows + 4 * rg);
-    const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      const float wv = ws[k * WS + g * kGateUnits + jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[g][i] = fmaf(hv[i], wv, acc[g][i]);
-    }
-  }
-  const int j = j0 + jj;
-  if (j >= H) return;
-  const T* bias = b_hh + size_t(lane) * G;
-  const float br = to_float(bias[j]);
-  const float bz = to_float(bias[H + j]);
-  const float bn = to_float(bias[2 * H + j]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + 4 * rg + i;
-    if (m >= n_rows) break;
-    const int t = int(m / batch);
-    const int b = int(m - static_cast<long long>(t) * batch);
-    const size_t at = Layout::row(lane, t, b, lanes, n_steps, batch);
-    const T* x = xg + at * G;
-    const float r = sigmoid(to_float(x[j]) + (acc[0][i] + br));
-    const float z = sigmoid(to_float(x[H + j]) + (acc[1][i] + bz));
-    const float hn = acc[2][i] + bn;
-    const float n = tanhf(to_float(x[2 * H + j]) + r * hn);
-    const float hp = hs[j * kGateRows + 4 * rg + i];
-    const float cn = (1.0f - z) * (1.0f - n * n);
-    float* f = fac + at * kFactors * H + j;
-    f[0] = cn * (hn * r * (1.0f - r));
-    f[H] = (hp - n) * z * (1.0f - z);
-    f[2 * H] = cn * r;
-    f[3 * H] = z;
-    f[4 * H] = to_float(dy[at * H + j]);
-    f[5 * H] = cn;
-  }
-}
-
-// gru_adj_gates_kernel for the streamed walk: the same tile of kGateRows
-// rows x kGateUnits units and the same sums in the same order, with the K
-// loop taken kGateK units at a time through static shared memory, so that
-// its shared memory does not grow with H; h_prev of the block's own units
-// (for cz) comes from device memory.
-template <typename T, typename Layout>
-__global__ void __launch_bounds__(kGateThreads)
-    gru_adj_gates_tiled_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
-                               const T* __restrict__ b_hh, const float* __restrict__ h0,
-                               const T* __restrict__ ys, const T* __restrict__ dy,
-                               float* __restrict__ fac, int n_steps, int batch, int hidden,
-                               int reverse) {
-  constexpr int WS = 3 * kGateUnits + 1;
-  __shared__ __align__(16) float ws[kGateK * WS];        // ws[kk][g*32 + jj] = W[g*H + j0 + jj][k0 + kk]
-  __shared__ __align__(16) float hs[kGateK * kGateRows];  // h_prev of unit k0 + kk, row m0 + m
-  const int H = hidden;
-  const int G = 3 * hidden;
-  const int lane = blockIdx.z;
-  const int lanes = gridDim.z;
-  const long long n_rows = static_cast<long long>(n_steps) * batch;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kGateRows;
-  const int j0 = blockIdx.y * kGateUnits;
-  const int tid = threadIdx.x;
-  const T* w = w_hh + size_t(lane) * G * H;
-
-  const int jj = tid % kGateUnits;
-  const int rg = tid / kGateUnits;
-  float acc[3][4];
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[g][i] = 0.0f;
-  for (int k0 = 0; k0 < H; k0 += kGateK) {
-    for (int e = tid; e < 3 * kGateUnits * kGateK; e += kGateThreads) {
-      const int gj = e / kGateK;
-      const int kk = e - gj * kGateK;
-      const int g = gj / kGateUnits;
-      const int j = j0 + gj - g * kGateUnits;
-      ws[kk * WS + gj] =
-          j < H && k0 + kk < H ? to_float(w[(size_t(g) * H + j) * H + k0 + kk]) : 0.0f;
-    }
-    for (int e = tid; e < kGateRows * kGateK; e += kGateThreads) {
-      const int kk = e / kGateRows;
-      const int m = e - kk * kGateRows;
-      float v = 0.0f;
-      if (m0 + m < n_rows && k0 + kk < H) {
-        const int t = int((m0 + m) / batch);
-        const int b = int(m0 + m - static_cast<long long>(t) * batch);
-        v = adj_h_prev<T, Layout>(ys, h0, lane, t, b, k0 + kk, lanes, n_steps, batch, H,
-                                  reverse);
-      }
-      hs[e] = v;
-    }
-    __syncthreads();
-    const int kn = H - k0 < kGateK ? H - k0 : kGateK;
-    for (int kk = 0; kk < kn; ++kk) {
-      const float4 h4 = *reinterpret_cast<const float4*>(hs + kk * kGateRows + 4 * rg);
-      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        const float wv = ws[kk * WS + g * kGateUnits + jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[g][i] = fmaf(hv[i], wv, acc[g][i]);
-      }
-    }
-    __syncthreads();
-  }
-  const int j = j0 + jj;
-  if (j >= H) return;
-  const T* bias = b_hh + size_t(lane) * G;
-  const float br = to_float(bias[j]);
-  const float bz = to_float(bias[H + j]);
-  const float bn = to_float(bias[2 * H + j]);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + 4 * rg + i;
-    if (m >= n_rows) break;
-    const int t = int(m / batch);
-    const int b = int(m - static_cast<long long>(t) * batch);
-    const size_t at = Layout::row(lane, t, b, lanes, n_steps, batch);
-    const T* x = xg + at * G;
-    const float r = sigmoid(to_float(x[j]) + (acc[0][i] + br));
-    const float z = sigmoid(to_float(x[H + j]) + (acc[1][i] + bz));
-    const float hn = acc[2][i] + bn;
-    const float n = tanhf(to_float(x[2 * H + j]) + r * hn);
-    const float hp = adj_h_prev<T, Layout>(ys, h0, lane, t, b, j, lanes, n_steps, batch, H,
-                                           reverse);
-    const float cn = (1.0f - z) * (1.0f - n * n);
-    float* f = fac + at * kFactors * H + j;
-    f[0] = cn * (hn * r * (1.0f - r));
-    f[H] = (hp - n) * z * (1.0f - z);
-    f[2 * H] = cn * r;
-    f[3 * H] = z;
-    f[4 * H] = to_float(dy[at * H + j]);
-    f[5 * H] = cn;
-  }
 }
 
 // w [lanes][3H][H] -> w_t [lanes][H][kpad], w_t[k][c] = w[c][k], zeros past
@@ -1547,23 +1420,428 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
   }
 }
 
-// Weight-gradient pass: dW^T[k][c] = sum over rows of h_prev[k] dg_lo[c]
-// and db[c] = sum of the f32 dg[c], for one chunk of rows (t, b) of one
-// lane, in row order, where dg is rebuilt from dht and the factors with the
-// walk's own products; blocks of k-tile 0 also write dxg. A block holds
-// kGradTile units x kGradTile gate columns (thread: 4 x 4), stages
-// kGradStage rows of h_prev and dg at a time in shared memory, and writes
-// its partial in torch layout [3H][H]; gru_adj_reduce sums the chunks in a
-// fixed order.
+// ---------------------------------------------------------------------------
+// The two passes over all T: the gate pre-pass and the weight-gradient pass,
+// on the tensor cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// 16 bytes of a pass's tile: 4 f32 or 8 bf16 values, from device memory by
+// cp.async where the source is a whole aligned piece of the same type,
+// else value by value (zeros past `left` values, a float source rounded to
+// the tile's type).
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+__device__ __forceinline__ void piece_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+template <typename T>
+__device__ __forceinline__ void zero_piece(T* dst) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+}
+template <typename T, typename S>
+__device__ __forceinline__ void copy_piece(T* dst, const S* src, int left, bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  if constexpr (sizeof(T) == sizeof(S)) {
+    if (vec) {
+      piece_async(dst, src);
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) dst[e] = from_float<T>(e < left ? to_float(src[e]) : 0.0f);
+}
+
+// Two consecutive values (8-byte aligned f32, 4-byte aligned bf16) as floats,
+// and two f32 stores.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// The h_prev row of (lane, step t, row b): ys at the step the forward took
+// before t, or nullptr at the forward's first step, whose h_prev is h0.
 template <typename T, typename Layout>
-__global__ void __launch_bounds__(kGradThreads)
+__device__ __forceinline__ const T* h_prev_row(const T* __restrict__ ys, int lane, int t, int b,
+                                               int lanes, int n_steps, int batch, int hidden,
+                                               int reverse) {
+  const int tp = reverse ? t + 1 : t - 1;
+  return tp >= 0 && tp < n_steps ? ys + Layout::row(lane, tp, b, lanes, n_steps, batch) * hidden
+                                 : nullptr;
+}
+
+// 3xTF32 products of f32 operands: x = hi + lo, each with TF32's 10-bit
+// mantissa (the low 13 bits masked off), and a b ~ a_hi b_hi + a_hi b_lo +
+// a_lo b_hi (the small terms first), summed in f32 by mma.sync m16n8k8:
+// ~1e-6 relative where one TF32 product leaves ~5e-4.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+__device__ __forceinline__ void mma_tf32_1688(float* d, unsigned a0, unsigned a1, unsigned a2,
+                                              unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// d += a b: a as [hi 0-3][lo 4-7] (the m16n8k8 A fragment), b as [hi 0-1][lo 2-3].
+__device__ __forceinline__ void mma_3xtf32(float* d, const unsigned (&a)[8],
+                                           const unsigned (&b)[4]) {
+  mma_tf32_1688(d, a[4], a[5], a[6], a[7], b[0], b[1]);
+  mma_tf32_1688(d, a[0], a[1], a[2], a[3], b[2], b[3]);
+  mma_tf32_1688(d, a[0], a[1], a[2], a[3], b[0], b[1]);
+}
+// The m16n8k8 A fragment of rows (r, r + 8) x columns (k, k + 4) of a
+// row-major f32 tile (p at row r, column k), split.
+__device__ __forceinline__ void a_frag_tf32(unsigned (&a)[8], const float* p, int stride) {
+  split_tf32(p[0], a[0], a[4]);
+  split_tf32(p[8 * stride], a[1], a[5]);
+  split_tf32(p[4], a[2], a[6]);
+  split_tf32(p[8 * stride + 4], a[3], a[7]);
+}
+// ldmatrix of four transposed 8x8 b16 tiles: lane l gets two values of
+// column l / 4 of each, rows 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Gate pre-pass, every (lane, t, b, unit j) at once: hg = h_prev @ W^T + bh
+// as a [T*B, H] x [H, 3H] product on the tensor cores, then r, z, n and the
+// gate adjoint's factors
+//   cz = (h_prev - n) z (1 - z), cn = (1 - z)(1 - n^2), cr = hn r (1 - r),
+//   a_r = cn cr, a_n = cn r,
+// stored as a_r, cz, a_n, z, dy[t] (f32), cn: the walk turns dht into
+// dr_pre = dht a_r, dz_pre = dht cz, dg_n = dht a_n and dht z, and the
+// weight-gradient pass repeats those products and adds dn_pre = dht cn.
+// A block owns one lane's kGateUnits units (all three gates' columns of W,
+// so one thread's sums hold r, z and n of its (row, unit) pairs) and walks
+// row tiles blockIdx.x, + gridDim.x, ...; its work is one sequence of (row
+// tile, K chunk) items through a cp.async ring of kGateStages stages, so
+// the next tile's first chunks are in flight during a tile's epilogue. Up
+// to H = kGateResidentK W's slice is loaded once and stays; past it each
+// item brings its own W chunk. Warp w: rows 32 (w % 4) .. + 31 (two m16
+// tiles), units 16 (w / 4) .. + 15 of each gate (two n8 tiles a gate).
+// f32: 3xTF32 (mma m16n8k8); bf16: mma m16n8k16, f32 sums.
+template <typename T, typename Layout>
+__global__ void __launch_bounds__(kGateThreads, 2)
+    gru_adj_gates_kernel(const T* __restrict__ xg, const T* __restrict__ w_hh,
+                         const T* __restrict__ b_hh, const float* __restrict__ h0,
+                         const T* __restrict__ ys, const T* __restrict__ dy,
+                         float* __restrict__ fac, int n_steps, int batch, int hidden,
+                         int reverse) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int E = 16 / sizeof(T);                  // values of a 16-byte piece
+  constexpr int AS = adj_gate_a_stride(sizeof(T));   // row of an h_prev chunk (and a W chunk)
+  constexpr int WR = adj_gate_w_stride(sizeof(T));   // row of the resident W slice
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* w_s = reinterpret_cast<T*>(smem);  // [kGateCols][WR], or kGateStages x [kGateCols][AS]
+  T* a_s = w_s + kGateCols * WR;        // kGateStages x [kGateRows][AS]
+  const int H = hidden;
+  const int G = 3 * hidden;
+  const int lane = blockIdx.z;
+  const int lanes = gridDim.z;
+  const int j0 = blockIdx.y * kGateUnits;
+  const int n_rows = n_steps * batch;  // a lane's rows (t, b); adj_launch keeps row indices ints
+  const int tiles = (n_rows + kGateRows - 1) / kGateRows;
+  const int nk = (H + kGateK - 1) / kGateK;
+  const bool resident = H <= kGateResidentK;
+  const int mine = int(blockIdx.x) < tiles ? (tiles - 1 - int(blockIdx.x)) / int(gridDim.x) + 1 : 0;
+  const int items = mine * nk;
+  const int tid = threadIdx.x;
+  const T* w = w_hh + size_t(lane) * G * H;
+  const bool vec = H % E == 0 && aligned16(ys) && aligned16(w_hh) && aligned16(h0);
+  // Two units at a time in the epilogue: every row of every stream then
+  // starts 8-byte (f32) or 4-byte (bf16) aligned, as the tensors' bases are.
+  const bool pairs = H % 2 == 0 && aligned16(xg) && aligned16(b_hh) && aligned16(ys) &&
+                     aligned16(dy) && aligned16(h0) && aligned16(fac);
+
+  // W's rows of the tile's units, K columns k0 .. k0 + kGateK - 1, into rows
+  // [gate * kGateUnits + unit] of `dst`.
+  auto load_w = [&](T* dst, int stride, int k0) {
+    for (int p = tid; p < kGateCols * (kGateK / E); p += kGateThreads) {
+      const int cc = p / (kGateK / E);
+      const int kk = (p - cc * (kGateK / E)) * E;
+      const int gate = cc / kGateUnits;
+      const int j = j0 + cc - gate * kGateUnits;
+      const int k = k0 + kk;
+      T* d = dst + cc * stride + kk;
+      if (j < H && k < H)
+        copy_piece(d, w + (size_t(gate) * H + j) * H + k, H - k, vec);
+      else
+        zero_piece(d);
+    }
+  };
+  // h_prev of a tile's rows, K columns k0 .. k0 + kGateK - 1. A thread
+  // copies the same kRowsA rows of every tile at the same K offset; their
+  // sources are found once a tile: a row of ys (>= 0), h0's row b (-1 - b),
+  // or none past the lane's rows.
+  constexpr int kPiecesRow = kGateK / E;
+  constexpr int kRowStep = kGateThreads / kPiecesRow;
+  constexpr int kRowsA = kGateRows / kRowStep;
+  constexpr int kNoRow = -0x7fffffff;
+  const int a_rr = tid / kPiecesRow;
+  const int a_kk = (tid % kPiecesRow) * E;
+  int a_tile = -1;
+  int a_src[kRowsA];
+  auto load_a = [&](T* dst, int tile, int k0) {
+    if (tile != a_tile) {
+      a_tile = tile;
+#pragma unroll
+      for (int r = 0; r < kRowsA; ++r) {
+        const int m = tile * kGateRows + a_rr + r * kRowStep;
+        const int t = m / batch;
+        const int b = m - t * batch;
+        const int tp = reverse ? t + 1 : t - 1;
+        a_src[r] = m >= n_rows ? kNoRow
+                   : tp >= 0 && tp < n_steps ? int(Layout::row(lane, tp, b, lanes, n_steps, batch))
+                                             : -1 - b;
+      }
+    }
+    const int k = k0 + a_kk;
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r) {
+      T* d = dst + (a_rr + r * kRowStep) * AS + a_kk;
+      if (a_src[r] == kNoRow || k >= H)
+        zero_piece(d);
+      else if (a_src[r] >= 0)
+        copy_piece(d, ys + size_t(a_src[r]) * H + k, H - k, vec);
+      else
+        copy_piece(d, h0 + (size_t(lane) * batch - 1 - a_src[r]) * H + k, H - k, vec);
+    }
+  };
+  auto load_item = [&](int q) {
+    const int i = q / nk;
+    const int kc = q - i * nk;
+    const int slot = q % kGateStages;
+    load_a(a_s + slot * kGateRows * AS, int(blockIdx.x + i * gridDim.x), kc * kGateK);
+    if (!resident) load_w(w_s + slot * kGateCols * AS, AS, kc * kGateK);
+  };
+
+  if (resident && items > 0)  // committed with the first item
+    for (int kc = 0; kc < nk; ++kc) load_w(w_s + kc * kGateK, WR, kc * kGateK);
+#pragma unroll
+  for (int q = 0; q < kGateStages - 1; ++q) {
+    if (q < items) load_item(q);
+    cp_async_commit();
+  }
+
+  const int warp = tid / 32;
+  const int wl = tid % 32;
+  const int wm = warp % 4;  // rows 32 wm .. 32 wm + 31 of the tile
+  const int wn = warp / 4;  // units 16 wn .. 16 wn + 15 of each gate
+  const int g = wl / 4;
+  const int tig = wl % 4;
+  float acc[2][3][2][4];  // [m16 tile][gate][n8 tile][fragment]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][gt][s][e] = 0.0f;
+
+  for (int q = 0; q < items; ++q) {
+    cp_async_wait<kGateStages - 2>();
+    __syncthreads();  // item q is in; every warp is done with item q - 1's stage
+    if (q + kGateStages - 1 < items) load_item(q + kGateStages - 1);
+    cp_async_commit();
+    const int i_tile = q / nk;
+    const int kc = q - i_tile * nk;
+    const int slot = q % kGateStages;
+    const T* a = a_s + slot * kGateRows * AS;
+    const T* wk = resident ? w_s + kc * kGateK : w_s + slot * kGateCols * AS;
+    const int ws = resident ? WR : AS;
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int ks = 0; ks < kGateK / 16; ++ks) {
+        unsigned af[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          ldmatrix_x4(af[i], a + (wm * 32 + i * 16 + (wl & 7) + ((wl >> 3) & 1) * 8) * AS +
+                                 ks * 16 + (wl >> 4) * 8);
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          unsigned bf[4];
+          ldmatrix_x4(bf, wk + (gt * kGateUnits + wn * 16 + (wl & 7) + (wl >> 4) * 8) * ws +
+                              ks * 16 + ((wl >> 3) & 1) * 8);
+          const unsigned b0[2] = {bf[0], bf[1]};
+          const unsigned b1[2] = {bf[2], bf[3]};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16_16816(acc[i][gt][0], af[i], b0);
+            mma_bf16_16816(acc[i][gt][1], af[i], b1);
+          }
+        }
+      }
+    } else {
+#pragma unroll 1  // as the weight-gradient pass's: unrolled, the split fragments spilled
+      for (int ks = 0; ks < kGateK / 8; ++ks) {
+        unsigned af[2][8];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          a_frag_tf32(af[i], reinterpret_cast<const float*>(a) + (wm * 32 + i * 16 + g) * AS +
+                                 ks * 8 + tig, AS);
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const float* bp = reinterpret_cast<const float*>(wk) +
+                              (gt * kGateUnits + wn * 16 + s * 8 + g) * ws + ks * 8 + tig;
+            unsigned bf[4];
+            split_tf32(bp[0], bf[0], bf[2]);
+            split_tf32(bp[4], bf[1], bf[3]);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_3xtf32(acc[i][gt][s], af[i], bf);
+          }
+      }
+    }
+    if (kc < nk - 1) continue;
+
+    // The tile's epilogue: r, z, n and the six factors of each (row, unit)
+    // pair this thread's sums hold (rows g, g + 8 of each m16 tile, units
+    // 2 tig, 2 tig + 1 of each n8 tile), two units at a time where H is
+    // even. Loads read a row inside the lane (past its last, the last), so
+    // that the compiler may issue them all before the stores.
+    const int m0 = int(blockIdx.x + i_tile * gridDim.x) * kGateRows;
+    const T* bias = b_hh + size_t(lane) * G;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + wm * 32 + i * 16 + g + 8 * hh;
+        const bool row_in = m < n_rows;
+        const int mc = row_in ? m : n_rows - 1;
+        const int t = mc / batch;
+        const int b = mc - t * batch;
+        const size_t at = Layout::row(lane, t, b, lanes, n_steps, batch);
+        const T* x = xg + at * G;
+        const T* hrow = h_prev_row<T, Layout>(ys, lane, t, b, lanes, n_steps, batch, H, reverse);
+        const float* h0row = h0 + (size_t(lane) * batch + b) * H;
+        const T* dyrow = dy + at * H;
+        float* f = fac + at * kFactors * H;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int j = j0 + wn * 16 + s * 8 + 2 * tig;
+          const float* hg_r = &acc[i][0][s][2 * hh];
+          const float* hg_z = &acc[i][1][s][2 * hh];
+          const float* hg_n = &acc[i][2][s][2 * hh];
+          auto gate = [&](float xr, float xz, float xn, float br, float bz, float bn, float hp,
+                          float dyv, int e, float* out) {
+            const float r = sigmoid(xr + (hg_r[e] + br));
+            const float z = sigmoid(xz + (hg_z[e] + bz));
+            const float hn = hg_n[e] + bn;
+            const float n = tanhf(xn + r * hn);
+            const float cn = (1.0f - z) * (1.0f - n * n);
+            out[0] = cn * (hn * r * (1.0f - r));
+            out[1] = (hp - n) * z * (1.0f - z);
+            out[2] = cn * r;
+            out[3] = z;
+            out[4] = dyv;
+            out[5] = cn;
+          };
+          if (pairs) {
+            if (j >= H) continue;
+            const float2 xr = load2(x + j), xz = load2(x + H + j), xn = load2(x + 2 * H + j);
+            const float2 br = load2(bias + j), bz = load2(bias + H + j),
+                         bn = load2(bias + 2 * H + j);
+            const float2 dyv = load2(dyrow + j);
+            float2 hp;
+            if (hrow) {
+              hp = load2(hrow + j);
+            } else {
+              hp = load2(h0row + j);
+              hp = make_float2(round_to<T>(hp.x), round_to<T>(hp.y));
+            }
+            float o0[kFactors], o1[kFactors];
+            gate(xr.x, xz.x, xn.x, br.x, bz.x, bn.x, hp.x, dyv.x, 0, o0);
+            gate(xr.y, xz.y, xn.y, br.y, bz.y, bn.y, hp.y, dyv.y, 1, o1);
+            if (row_in)
+#pragma unroll
+              for (int q = 0; q < kFactors; ++q) store2(f + q * H + j, o0[q], o1[q]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int je = j + e;
+              if (je >= H) continue;
+              const float hp = hrow ? to_float(hrow[je]) : round_to<T>(h0row[je]);
+              float o[kFactors];
+              gate(to_float(x[je]), to_float(x[H + je]), to_float(x[2 * H + je]),
+                   to_float(bias[je]), to_float(bias[H + je]), to_float(bias[2 * H + je]), hp,
+                   to_float(dyrow[je]), e, o);
+              if (row_in)
+#pragma unroll
+                for (int q = 0; q < kFactors; ++q) f[q * H + je] = o[q];
+            }
+          }
+        }
+        asm volatile("" ::: "memory");  // one row's loads in flight at a time: no spills
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][gt][s][e] = 0.0f;
+  }
+  cp_async_wait<0>();
+}
+
+// Weight-gradient pass: dW[c][k] = sum over rows of dg_lo[c] h_prev[k] and
+// db[c] = sum of the f32 dg[c], for one chunk of rows (t, b) of one lane,
+// where dg is rebuilt from dht and the factors with the walk's own products
+// (dg = dht x (a_r | cz | a_n), dg_lo rounded to the stream dtype); blocks
+// of unit tile 0 also write dxg (dn_pre = dht cn) and db. A block holds
+// kGradTile gate columns x kGradTile units of dW and takes its chunk's rows
+// kGradStage at a time through kGradStages stages: while one stage's dg and
+// products are computed, cp.async brings the next stages' h_prev, factors
+// and dht (and cn, for dxg). Warp w: columns 64 (w / 4) .. + 63 (four m16
+// tiles), units 32 (w % 4) .. + 31 (four n8 tiles); f32: 3xTF32, bf16: mma
+// m16n8k16 (the operands bf16 already, so the products are exact), f32
+// sums. Each chunk's partial is written in torch layout [3H][H];
+// gru_adj_reduce sums the chunks in chunk order.
+// One block an SM: its ring of three stages takes most of the SM's shared
+// memory (and in f32 the 3xTF32 split fragments beside the 64 sums a thread
+// take more than 128 registers).
+template <typename T, typename Layout>
+__global__ void __launch_bounds__(kGradThreads, 1)
     gru_adj_wgrad_kernel(const float* __restrict__ fac, const float* __restrict__ dht,
                          const T* __restrict__ ys, const float* __restrict__ h0,
                          T* __restrict__ dxg, float* __restrict__ dw_part,
                          float* __restrict__ db_part, int n_steps, int batch, int hidden,
                          int reverse, int chunk_rows) {
-  __shared__ __align__(16) float hs[kGradStage][kGradTile];
-  __shared__ __align__(16) float ds[kGradStage][kGradTile];
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int E = 16 / sizeof(T);
+  constexpr int HS = kGradTile + 8;  // row of an h_prev stage (and of bf16 dg_lo)
+  constexpr int FS = kGradTile + 8;  // row of a factor / f32 dg stage
+  constexpr int DS = kGradTile;      // row of a dht stage
+  constexpr size_t kStage = adj_grad_stage_bytes(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto h_at = [&](int slot) { return reinterpret_cast<T*>(smem + slot * kStage); };
+  auto f_at = [&](int slot) {
+    return reinterpret_cast<float*>(smem + slot * kStage + kGradStage * HS * sizeof(T));
+  };
+  auto d_at = [&](int slot) { return f_at(slot) + kGradStage * FS; };
+  auto cn_at = [&](int slot) { return d_at(slot) + kGradStage * DS; };  // unit tile 0: dxg's cn
+  T* dg_s = reinterpret_cast<T*>(smem + kGradStages * kStage);  // bf16: [kGradStage][HS]
+  float* db_x = reinterpret_cast<float*>(smem + kGradStages * kStage +
+                                         (kBf16 ? kGradStage * HS * sizeof(T) : 0));
+  // Each stage's rows' places in the streams ([kGradStages][kGradStage]; -1 past the
+  // chunk): row indices, which adj_launch keeps inside an int.
+  int* at_s = reinterpret_cast<int*>(db_x + kGradTile);
   const int H = hidden;
   const int G = 3 * hidden;
   const int part = blockIdx.x;
@@ -1573,76 +1851,218 @@ __global__ void __launch_bounds__(kGradThreads)
   const int lane = blockIdx.z / k_tiles;
   const int lanes = gridDim.z / k_tiles;
   const int k0 = (blockIdx.z - lane * k_tiles) * kGradTile;
-  const long long n_rows = static_cast<long long>(n_steps) * batch;
-  const long long m_begin = static_cast<long long>(part) * chunk_rows;
-  const long long m_end = m_begin + chunk_rows < n_rows ? m_begin + chunk_rows : n_rows;
+  const int n_rows = n_steps * batch;  // a lane's rows (t, b); adj_launch keeps row indices ints
+  const int m_begin = part * chunk_rows;
+  const int m_end = m_begin + chunk_rows < n_rows ? m_begin + chunk_rows : n_rows;
+  const int n_stages = m_end > m_begin ? (m_end - m_begin + kGradStage - 1) / kGradStage : 0;
   const int tid = threadIdx.x;
-  const int kg = tid / 16;  // units k0 + 4 kg ..
-  const int cg = tid % 16;  // columns c0 + 4 cg ..
+  const bool hvec = H % E == 0 && aligned16(ys) && aligned16(h0);
+  const bool fvec = H % 4 == 0 && aligned16(fac) && aligned16(dht);
 
-  float acc[4][4], dbacc[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    dbacc[a] = 0.0f;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-  }
-  for (long long m0 = m_begin; m0 < m_end; m0 += kGradStage) {
-    for (int e = tid; e < kGradStage * kGradTile; e += kGradThreads) {
-      const int i = e / kGradTile;
-      const int x = e - i * kGradTile;
-      float hv = 0.0f, dv = 0.0f;
-      if (m0 + i < m_end) {
-        const int t = int((m0 + i) / batch);
-        const int b = int(m0 + i - static_cast<long long>(t) * batch);
-        if (k0 + x < H)
-          hv = adj_h_prev<T, Layout>(ys, h0, lane, t, b, k0 + x, lanes, n_steps, batch, H,
-                                     reverse);
-        const int c = c0 + x;
-        if (c < G) {
-          const size_t at = Layout::row(lane, t, b, lanes, n_steps, batch);
-          const int gate = c / H;  // factor a_r, cz or a_n
-          const int j = c - gate * H;
-          const float d = dht[at * H + j];
-          const float* f = fac + at * kFactors * H + j;
-          dv = d * f[gate * H];
-          if (k0 == 0) dxg[at * G + c] = from_float<T>(gate == 2 ? d * f[5 * H] : dv);
+  // Columns past 3H, units past H and bf16 dg_lo stay zero unless written.
+  for (size_t e = tid; e < adj_grad_shared_bytes(sizeof(T)) / 16; e += kGradThreads)
+    reinterpret_cast<uint4*>(smem)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // A stage's row is loaded by kRowThreads threads: its h_prev pieces, its
+  // factor and dht pieces, and (its first thread) its place in the streams.
+  constexpr int kRowThreads = kGradThreads / kGradStage;
+  const int lrow = tid / kRowThreads;
+  const int lsub = tid % kRowThreads;
+  auto load_stage = [&](int st) {
+    const int slot = st % kGradStages;
+    const int m = m_begin + st * kGradStage + lrow;
+    T* hs = h_at(slot) + lrow * HS;
+    float* fs = f_at(slot) + lrow * FS;
+    float* ds = d_at(slot) + lrow * DS;
+    if (m >= m_end) {  // zeros: no dg, no db, no dxg
+      for (int cc = lsub * 4; cc < kGradTile && c0 + cc < G; cc += kRowThreads * 4) {
+        zero_piece(fs + cc);
+        zero_piece(ds + cc);
+      }
+      if (lsub == 0) at_s[slot * kGradStage + lrow] = -1;
+      return;
+    }
+    const int t = m / batch;
+    const int b = m - t * batch;
+    const size_t at = Layout::row(lane, t, b, lanes, n_steps, batch);
+    if (lsub == 0) at_s[slot * kGradStage + lrow] = int(at);
+    const T* src = h_prev_row<T, Layout>(ys, lane, t, b, lanes, n_steps, batch, H, reverse);
+    const float* src0 = h0 + (size_t(lane) * batch + b) * H;
+    for (int kk = lsub * E; kk < kGradTile && k0 + kk < H; kk += kRowThreads * E) {
+      const int k = k0 + kk;
+      if (src)
+        copy_piece(hs + kk, src + k, H - k, hvec);
+      else
+        copy_piece(hs + kk, src0 + k, H - k, hvec);
+    }
+    const float* fsrc = fac + at * kFactors * H;  // a_r | cz | a_n, by gate column; cn at 3H on
+    const float* dsrc = dht + at * H;
+    float* cs = cn_at(slot) + lrow * DS;
+    for (int cc = lsub * 4; cc < kGradTile && c0 + cc < G; cc += kRowThreads * 4) {
+      const int c = c0 + cc;
+      if (fvec) {
+        piece_async(fs + cc, fsrc + c);
+        piece_async(ds + cc, dsrc + c % H);
+        if (k0 == 0 && c >= 2 * H) piece_async(cs + cc, fsrc + 3 * H + c);
+      } else {
+        for (int e = 0; e < 4 && c + e < G; ++e) {
+          cp_async4(fs + cc + e, fsrc + c + e);
+          cp_async4(ds + cc + e, dsrc + (c + e) % H);
+          if (k0 == 0 && c + e >= 2 * H) cp_async4(cs + cc + e, fsrc + 3 * H + c + e);
         }
       }
-      hs[i][x] = hv;
-      ds[i][x] = dv;
     }
-    __syncthreads();
+  };
+
+  // dg of the stage, a column a thread and half its rows: db's sums, dxg
+  // (the blocks of unit tile 0), and dg_lo where the products read it (f32:
+  // in place of the factors).
+  constexpr int kHalf = kGradStage / 2;
+  const int cc = tid % kGradTile;
+  const int half = tid / kGradTile;
+  const int c = c0 + cc;
+  const bool col = c < G;
+  const int gate = col ? c / H : 0;
+  const int j = c - gate * H;
+  // db's sum over a chunk's rows, compensated (Kahan): a plain f32 sum of
+  // tens of thousands of rows in one chunk drifted past BWD_TOL.
+  float db_sum = 0.0f, db_err = 0.0f;
+  auto convert = [&](int st) {
+    if (!col) return;
+    const int slot = st % kGradStages;
+    float* fs = f_at(slot);
+    const float* ds = d_at(slot);
+    const float* cs = cn_at(slot);
+    const int* ats = at_s + slot * kGradStage;
 #pragma unroll 4
-    for (int i = 0; i < kGradStage; ++i) {
-      float hv[4], dv[4];
-      load4(&hs[i][4 * kg], hv);
-      load4(&ds[i][4 * cg], dv);
+    for (int r = half * kHalf; r < (half + 1) * kHalf; ++r) {
+      const float d = ds[r * DS + cc];
+      const float dv = d * fs[r * FS + cc];
+      const float y = dv - db_err;
+      const float sum = db_sum + y;
+      db_err = (sum - db_sum) - y;
+      db_sum = sum;
+      if constexpr (kBf16)
+        dg_s[r * HS + cc] = from_float<T>(dv);
+      else
+        fs[r * FS + cc] = dv;
+      if (k0 == 0 && ats[r] >= 0)
+        dxg[size_t(ats[r]) * G + c] = from_float<T>(gate == 2 ? d * cs[r * DS + cc] : dv);
+    }
+  };
+
+  const int warp = tid / 32;
+  const int wl = tid % 32;
+  const int wc = warp / 4;  // gate columns 64 wc .. 64 wc + 63 of the tile
+  const int wk = warp % 4;  // units 32 wk .. 32 wk + 31 of the tile
+  const int g = wl / 4;
+  const int tig = wl % 4;
+  float acc[4][4][4];  // [m16 tile][n8 tile][fragment]
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        dbacc[b] += dv[b];
-        const float lo = round_to<T>(dv[b]);
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][b] = fmaf(hv[a], lo, acc[a][b]);
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < kGradStages - 1; ++st) {
+    if (st < n_stages) load_stage(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kGradStages - 2>();
+    __syncthreads();  // stage st is in; every warp is done with stage st - 1's products
+    if (st + kGradStages - 1 < n_stages) load_stage(st + kGradStages - 1);
+    cp_async_commit();
+    convert(st);
+    __syncthreads();  // the stage's dg_lo is in shared memory
+    const T* hs = h_at(st % kGradStages);
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int ks = 0; ks < kGradStage / 16; ++ks) {
+        unsigned bf[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, hs + (ks * 16 + (wl & 7) + ((wl >> 3) & 1) * 8) * HS + wk * 32 +
+                                   np * 16 + (wl >> 4) * 8);
+          bf[2 * np][0] = r[0];
+          bf[2 * np][1] = r[1];
+          bf[2 * np + 1][0] = r[2];
+          bf[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          unsigned af[4];
+          ldmatrix_x4_trans(af, dg_s + (ks * 16 + (wl & 7) + (wl >> 4) * 8) * HS + wc * 64 +
+                                    mi * 16 + ((wl >> 3) & 1) * 8);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], af, bf[ni]);
+        }
+      }
+    } else {
+      const float* hf = reinterpret_cast<const float*>(hs);
+      const float* fs = f_at(st % kGradStages);
+      // One K step at a time (unrolled steps' split fragments spilled at the
+      // 128-register bound), and in it two units' n8 tiles at a time, each
+      // m16 tile's A fragment split twice.
+#pragma unroll 1
+      for (int ks = 0; ks < kGradStage / 8; ++ks) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned bf[2][4];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float* bp = hf + (ks * 8 + tig) * HS + wk * 32 + (2 * np + q) * 8 + g;
+            split_tf32(bp[0], bf[q][0], bf[q][2]);
+            split_tf32(bp[4 * HS], bf[q][1], bf[q][3]);
+          }
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            // A = dg^T: rows c, columns the stage's rows (held as [row][c]).
+            const float* ap = fs + (ks * 8 + tig) * FS + wc * 64 + mi * 16 + g;
+            unsigned af[8];
+            split_tf32(ap[0], af[0], af[4]);
+            split_tf32(ap[8], af[1], af[5]);
+            split_tf32(ap[4 * FS], af[2], af[6]);
+            split_tf32(ap[4 * FS + 8], af[3], af[7]);
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              // The K step's products from zero, then added to the sum with a
+              // rounded f32 add: the tensor cores' own accumulation, carried
+              // over a chunk's thousands of rows, drifted past BWD_TOL.
+              float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma_3xtf32(d, af, bf[q]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][2 * np + q][e] += d[e];
+            }
+          }
+        }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+
   float* out = dw_part + (size_t(lane) * parts + part) * G * H;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int k = k0 + 4 * kg + a;
-      const int c = c0 + 4 * cg + b;
-      if (k < H && c < G) out[size_t(c) * H + k] = acc[a][b];
-    }
-  if (k0 == 0 && kg == 0) {
+    for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = c0 + 4 * cg + b;
-      if (c < G) db_part[(size_t(lane) * parts + part) * G + c] = dbacc[b];
-    }
+      for (int hh = 0; hh < 2; ++hh) {
+        const int cr = c0 + wc * 64 + mi * 16 + g + 8 * hh;
+        const int k = k0 + wk * 32 + ni * 8 + 2 * tig;
+        if (cr >= G) continue;
+        if (k < H) out[size_t(cr) * H + k] = acc[mi][ni][2 * hh];
+        if (k + 1 < H) out[size_t(cr) * H + k + 1] = acc[mi][ni][2 * hh + 1];
+      }
+  if (k0 == 0) {  // db: the two halves of each column's rows, in a fixed order
+    __syncthreads();
+    if (half == 1) db_x[cc] = db_sum;
+    __syncthreads();
+    if (half == 0 && col) db_part[(size_t(lane) * parts + part) * G + c] = db_sum + db_x[cc];
   }
 }
 
@@ -1877,6 +2297,49 @@ int adj_walk_blocks_per_sm(int batch, int lanes, int hidden) {
   return err == cudaSuccess ? blocks : -int(err);
 }
 
+// Blocks of a pass the card holds at once (blocks an SM times the SMs), or
+// a negative CUDA error; it sets the kernel's shared-memory attribute.
+template <typename Kernel>
+int pass_capacity(Kernel kernel, int threads, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err == cudaSuccess && per_sm == 0) err = cudaErrorInvalidConfiguration;
+  return err == cudaSuccess ? per_sm * kNumSMs : -int(err);
+}
+// Each pass's capacity, found (and its attribute set) once a process.
+template <typename T, typename Layout>
+int adj_gates_capacity() {
+  static const int blocks = pass_capacity(gru_adj_gates_kernel<T, Layout>, kGateThreads,
+                                          adj_gates_shared_bytes(sizeof(T)));
+  return blocks;
+}
+template <typename T, typename Layout>
+int adj_grad_capacity() {
+  static const int blocks = pass_capacity(gru_adj_wgrad_kernel<T, Layout>, kGradThreads,
+                                          adj_grad_shared_bytes(sizeof(T)));
+  return blocks;
+}
+
+// The pre-pass's grid: each block keeps one lane's unit tile and takes row
+// tiles blockIdx.x, + gridDim.x, ...; as many blocks as the card holds at
+// once (`capacity`), split evenly over the lanes' unit tiles, at least one
+// and at most one a row tile.
+dim3 adj_gates_grid(int lanes, int n_steps, int batch, int hidden, int capacity) {
+  const long long row_tiles = (static_cast<long long>(n_steps) * batch + kGateRows - 1) / kGateRows;
+  const int unit_tiles = (hidden + kGateUnits - 1) / kGateUnits;
+  long long groups = capacity / (static_cast<long long>(lanes) * unit_tiles);
+  groups = groups < row_tiles ? groups : row_tiles;
+  return dim3(unsigned(groups > 1 ? groups : 1), unit_tiles, lanes);
+}
+// The weight-gradient pass's grid: (chunk, column tile, unit tile x lanes).
+dim3 adj_grad_grid(int lanes, int n_steps, int batch, int hidden) {
+  return dim3(adj_partials(lanes, n_steps, batch, hidden), (3 * hidden + kGradTile - 1) / kGradTile,
+              (hidden + kGradTile - 1) / kGradTile * lanes);
+}
+
 // The adjoint walk's four kernels on one stream: the gate pre-pass, the
 // walk, the weight-gradient pass and the reduction. The instantiation is chosen from
 // H before any launch; a shape the wrapper would have refused is refused
@@ -1889,34 +2352,26 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
   const bool streamed = adj_streamed(hidden, sizeof(T));
   const int rows = adj_rows(batch, lanes, hidden, sizeof(T));
   if ((!streamed && adj_cluster_size(hidden, sizeof(T)) == 0) ||
-      adj_shared_bytes(hidden, sizeof(T), rows) > kMaxShared)
+      adj_shared_bytes(hidden, sizeof(T), rows) > kMaxShared ||
+      static_cast<long long>(lanes) * n_steps * batch > 0x7fffffffLL)  // rows an int
     return int(cudaErrorInvalidValue);
+  const int gates_cap = adj_gates_capacity<T, Layout>();
+  if (gates_cap < 0) return -gates_cap;
+  const int grad_cap = adj_grad_capacity<T, Layout>();
+  if (grad_cap < 0) return -grad_cap;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t n_rows = size_t(lanes) * n_steps * batch;
   float* fac = static_cast<float*>(workspace);
   float* dht = fac + n_rows * kFactors * hidden;
   float* dw_part = dht + n_rows * hidden;
 
-  const long long lane_rows = static_cast<long long>(n_steps) * batch;
-  const dim3 gates_grid(unsigned((lane_rows + kGateRows - 1) / kGateRows),
-                        (hidden + kGateUnits - 1) / kGateUnits, lanes);
-  cudaError_t err = cudaSuccess;
-  if (streamed) {
-    gru_adj_gates_tiled_kernel<T, Layout><<<gates_grid, kGateThreads, 0, s>>>(
-        static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
-        static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
-        fac, n_steps, batch, hidden, reverse);
-  } else {
-    const size_t gates_smem = adj_gates_shared_bytes(hidden);
-    err = cudaFuncSetAttribute(gru_adj_gates_kernel<T, Layout>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(gates_smem));
-    if (err != cudaSuccess) return int(err);
-    gru_adj_gates_kernel<T, Layout><<<gates_grid, kGateThreads, gates_smem, s>>>(
-        static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
-        static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
-        fac, n_steps, batch, hidden, reverse);
-  }
-  err = cudaGetLastError();
+  gru_adj_gates_kernel<T, Layout>
+      <<<adj_gates_grid(lanes, n_steps, batch, hidden, gates_cap), kGateThreads,
+         adj_gates_shared_bytes(sizeof(T)), s>>>(
+          static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
+          static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
+          fac, n_steps, batch, hidden, reverse);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
   float* aux = static_cast<float*>(workspace) + adj_wt_offset(lanes, n_steps, batch, hidden);
@@ -1932,13 +2387,13 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
           : adj_walk<T, Layout>(fac, w_hh, dht, dh0, lanes, n_steps, batch, hidden, reverse, s);
   if (e != 0) return e;
 
-  const int parts = adj_partials(n_steps, batch);
-  const int k_tiles = (hidden + kGradTile - 1) / kGradTile;
+  const int parts = adj_partials(lanes, n_steps, batch, hidden);
   gru_adj_wgrad_kernel<T, Layout>
-      <<<dim3(parts, (3 * hidden + kGradTile - 1) / kGradTile, k_tiles * lanes), kGradThreads,
-         0, s>>>(fac, dht, static_cast<const T*>(ys), static_cast<const float*>(h0),
-                 static_cast<T*>(dxg), dw_part, static_cast<float*>(db_part), n_steps, batch,
-                 hidden, reverse, int(adj_chunk_rows(n_steps, batch)));
+      <<<adj_grad_grid(lanes, n_steps, batch, hidden), kGradThreads,
+         adj_grad_shared_bytes(sizeof(T)), s>>>(
+          fac, dht, static_cast<const T*>(ys), static_cast<const float*>(h0),
+          static_cast<T*>(dxg), dw_part, static_cast<float*>(db_part), n_steps, batch, hidden,
+          reverse, int(adj_chunk_rows(lanes, n_steps, batch, hidden)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
@@ -1987,7 +2442,8 @@ void gru_adj_plan(int batch, int lanes, int n_steps, int hidden, int bf16, long 
     out[2] = grid.rows;
     out[3] = grid.units;
     out[4] = 0;
-    out[5] = grid.smem > (long long)kGateTiledBytes ? grid.smem : (long long)kGateTiledBytes;
+    out[5] = grid.smem > (long long)adj_pass_shared_bytes(item) ? grid.smem
+                                                          : (long long)adj_pass_shared_bytes(item);
     out[7] = grid.groups;
     out[8] = grid.threads;
   } else {
@@ -2032,8 +2488,28 @@ int gru_adj_walk_blocks_per_sm(int batch, int lanes, int hidden, int bf16) {
 
 // Rows (t, b) per chunk of the weight-gradient pass, and the chunk
 // count: the dW / db partials per lane.
-long long gru_adj_chunk_rows(int n_steps, int batch) { return adj_chunk_rows(n_steps, batch); }
-int gru_adj_partials(int n_steps, int batch) { return adj_partials(n_steps, batch); }
+long long gru_adj_chunk_rows(int lanes, int n_steps, int batch, int hidden) {
+  return adj_chunk_rows(lanes, n_steps, batch, hidden);
+}
+int gru_adj_partials(int lanes, int n_steps, int batch, int hidden) {
+  return adj_partials(lanes, n_steps, batch, hidden);
+}
+
+// The two passes' launches for this shape (LaneMajor): the pre-pass's
+// blocks at once on this card (its capacity), its grid (x, y, z) and shared
+// bytes; the weight-gradient pass's grid, rows a chunk and shared bytes.
+void gru_adj_pass_plan(int lanes, int n_steps, int batch, int hidden, int bf16, long long* out) {
+  const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const int capacity = bf16 ? adj_gates_capacity<__nv_bfloat16, LaneMajor>()
+                            : adj_gates_capacity<float, LaneMajor>();
+  const dim3 gates = adj_gates_grid(lanes, n_steps, batch, hidden, capacity);
+  const dim3 grad = adj_grad_grid(lanes, n_steps, batch, hidden);
+  const long long v[10] = {capacity, gates.x, gates.y, gates.z,
+                           (long long)adj_gates_shared_bytes(item), grad.x, grad.y, grad.z,
+                           adj_chunk_rows(lanes, n_steps, batch, hidden),
+                           (long long)adj_grad_shared_bytes(item)};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+}
 
 // Floats of the workspace an entry with `lanes` lanes takes as dw_part.
 long long gru_adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, int bf16) {
@@ -2043,7 +2519,7 @@ long long gru_adj_workspace_floats(int lanes, int n_steps, int batch, int hidden
 
 // Counterpart of _gru_backward: one lane, on the adjoint walk. dw_part is
 // the workspace of gru_adj_workspace_floats(1, T, B, H) floats, db_part
-// holds gru_adj_partials(T, B) partials of [3H] floats.
+// holds gru_adj_partials(1, T, B, H) partials of [3H] floats.
 int gru_bwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, const void* ys,
             const void* dy, void* dxg, void* dw, void* db, void* dh0, void* dw_part,
             void* db_part, int n_steps, int batch, int hidden, int reverse, int bf16,
@@ -2060,7 +2536,7 @@ int gru_bwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, 
 // Counterpart of _gru_backward_fb: F lanes of the [F, T, B, .] streams, each
 // with its own dw/db/dh0, on the adjoint walk. dw_part is the workspace of
 // gru_adj_workspace_floats(F, T, B, H) floats, db_part holds
-// F * gru_adj_partials(T, B) partials of [3H] floats.
+// F * gru_adj_partials(F, T, B, H) partials of [3H] floats.
 int gru_bwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
                const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
                void* dw_part, void* db_part, int lanes, int n_steps, int batch, int hidden,
@@ -2080,7 +2556,7 @@ int gru_bwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
 // for one layer's two directions, 2F for F folds of it, as gru_bifwd lays
 // them out), on the adjoint walk with L lanes of the TimeMajor layout and
 // reverse=0. dw_part is the workspace of gru_adj_workspace_floats(L, T, B, H)
-// floats, db_part holds L * gru_adj_partials(T, B) partials of [3H] floats.
+// floats, db_part holds L * gru_adj_partials(L, T, B, H) partials of [3H] floats.
 int gru_bibwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
               const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
               void* dw_part, void* db_part, int lanes, int n_steps, int batch, int hidden,

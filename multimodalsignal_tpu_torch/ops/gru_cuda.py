@@ -61,8 +61,9 @@ between device and shared memory a chunk of steps at a time; past H = 376
 f32 / 450 bf16 the grid walk, dg exchanged through the workspace as the
 forward's h, up to H = 1320 f32 / 2112 bf16 at B = 64, then the streamed
 walk, W^T streamed from a padded transpose in the workspace, up to 4 rows a
-tile, both after a pre-pass whose K loop is tiled), and a weight-gradient
-pass over all T, summed in a fixed order. `walk_plan`, `adj_plan` and
+tile), and a weight-gradient pass over all T, summed in a fixed order; both
+passes over all T take their products on the tensor cores (bf16 mma, 3xTF32
+in f32; `adj_pass_plan`). `walk_plan`, `adj_plan` and
 `grid_plan` (with `walk_cluster_size`, `walk_row_tile`,
 `walk_shared_bytes`, `walk_workspace_elems`, `adj_cluster_size`,
 `adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
@@ -125,33 +126,35 @@ CLUSTER_MAX_THREADS = 576
 # The adjoint walk's layout (csrc/gru_bwd.cu): K = 3H padded to 8 sub-lanes
 # x 6 chunks of 4 with W in registers; at most 2 rows a block with W in
 # registers, 1 with W in shared memory; the steps its producer warp moves at
-# a time, and the factors it reads; the gate pre-pass's block of rows x
-# units; six f32 factors (dy among them) and dht per (step, row, unit) in
-# the workspace; the weight-gradient pass's stage of rows and most
-# partials.
+# a time, and the factors it reads; six f32 factors (dy among them) and
+# dht per (step, row, unit) in the workspace; the weight-gradient pass's
+# tile of dW (gate columns x units), its stage of rows and ring stages.
 ADJ_REG_KPAD = 192
 ADJ_MOST_ROWS = {True: 2, False: 1}   # by "W in registers"
 ADJ_SMEM_SUBLANES = 4                  # dot threads per unit, W in shared memory
 ADJ_PRODUCER = 32                      # the producer warp
 ADJ_CHUNK = {True: 16, False: 4}
 ADJ_WALK_FACTORS = 5
-ADJ_GATE_ROWS = ADJ_GATE_UNITS = 32
 ADJ_FACTORS = 6
-ADJ_GRAD_STAGE = 32
-ADJ_MAX_PARTIALS = 128
+ADJ_GRAD_TILE = 128
+ADJ_GRAD_STAGE, ADJ_GRAD_STAGES = 32, 3
+# The gate pre-pass's tile (rows x units, all three gates' columns of W),
+# its K chunk and ring stages, and the largest H whose W slice stays in
+# shared memory.
+ADJ_GATE_ROWS, ADJ_GATE_UNITS = 128, 32
+ADJ_GATE_K, ADJ_GATE_STAGES = 32, 3
+ADJ_GATE_RESIDENT_K = 128
 # The streamed walks, past the cluster walks' limits (csrc/*.cu): the most
 # threads (dot threads, for the adjoint) of a CTA, the most rows of a tile
 # (forward: two a gate lane; adjoint: a (row, unit) pair a sub-lane), the
-# slots of each thread's cp.async ring, and the K tile of the streamed
-# adjoint's gate pre-pass. An instantiation is one of INSTANTIATIONS, in
-# the order of the C plans' first number.
+# slots of each thread's cp.async ring. An instantiation is one of
+# INSTANTIATIONS, in the order of the C plans' first number.
 STREAM_THREADS = 512
 STREAM_MOST_ROWS = {False: 8, True: 4}   # by "adjoint"
 STREAM_STAGES = 2
 # Clusters of MAX_CLUSTER CTAs of one CTA an SM that an H100 runs at once
 # (cudaOccupancyMaxActiveClusters: 15, not NUM_SMS / 8).
 STREAM_CLUSTERS = 15
-ADJ_GATE_K = 64
 # The grid walks (csrc/gru_grid.cuh), between the cluster walks and the
 # streamed ones: the K tiles of the exchanged state a plan may take (the
 # first preferred), elements past every shared row, the least and the most
@@ -498,27 +501,80 @@ def adj_cluster_size(hidden: int, itemsize: int) -> int:
     return 0
 
 
+def _adj_gates_bytes(itemsize: int) -> int:
+    """Shared bytes of the adjoint's gate pre-pass (as adj_gates_shared_bytes
+    in C), which do not grow with H: W's slice [3 x ADJ_GATE_UNITS,
+    ADJ_GATE_RESIDENT_K + 16 bytes] in the stream dtype (resident up to H =
+    ADJ_GATE_RESIDENT_K; past it the ring's W chunks) and the ring's h_prev
+    chunks [ADJ_GATE_STAGES, ADJ_GATE_ROWS, ADJ_GATE_K + 16 bytes]."""
+    pad = 16 // itemsize
+    return (3 * ADJ_GATE_UNITS * (ADJ_GATE_RESIDENT_K + pad)
+            + ADJ_GATE_STAGES * ADJ_GATE_ROWS * (ADJ_GATE_K + pad)) * itemsize
+
+
+def _adj_grad_bytes(itemsize: int) -> int:
+    """Shared bytes of the adjoint's weight-gradient pass (as
+    adj_grad_shared_bytes in C): ADJ_GRAD_STAGES stages of ADJ_GRAD_STAGE
+    rows, each h_prev [rows, ADJ_GRAD_TILE + 8] in the stream dtype, the
+    factors [rows, ADJ_GRAD_TILE + 8], dht and cn [rows, ADJ_GRAD_TILE] in
+    f32; in bf16 a dg_lo tile [rows, ADJ_GRAD_TILE + 8]; ADJ_GRAD_TILE f32
+    for db; each stage's rows' places in the streams, [ADJ_GRAD_STAGES,
+    rows] int."""
+    row = (ADJ_GRAD_TILE + 8) * itemsize
+    stage = ADJ_GRAD_STAGE * (row + (3 * ADJ_GRAD_TILE + 8) * 4)
+    return (ADJ_GRAD_STAGES * stage + (0 if itemsize == 4 else ADJ_GRAD_STAGE * row)
+            + ADJ_GRAD_TILE * 4 + ADJ_GRAD_STAGES * ADJ_GRAD_STAGE * 4)
+
+
+def _adj_pass_bytes(itemsize: int) -> int:
+    """The larger of the two passes' shared bytes (adj_pass_shared_bytes)."""
+    return max(_adj_gates_bytes(itemsize), _adj_grad_bytes(itemsize))
+
+
+def adj_pass_plan(lanes: int, n_steps: int, batch: int, hidden: int, itemsize: int = 4,
+                  capacity: int = 2 * NUM_SMS) -> dict:
+    """The two passes' launches (as gru_adj_pass_plan in C) at a pre-pass
+    capacity of `capacity` blocks at once (the card's, from CUDA's occupancy
+    calculator, in C): the pre-pass's grid (row groups, unit tiles, lanes),
+    each block one lane's unit tile of ADJ_GATE_UNITS units walking row
+    tiles x, x + row groups, ... of ADJ_GATE_ROWS rows (as many blocks as
+    the capacity, split over the lanes' unit tiles, at least one and at most
+    one a row tile); the weight-gradient pass's grid (chunks, column tiles
+    of 3H, unit tiles of H x lanes), a block one chunk's rows of an
+    ADJ_GRAD_TILE x ADJ_GRAD_TILE tile of dW; rows a chunk; shared bytes."""
+    row_tiles = -(-n_steps * batch // ADJ_GATE_ROWS)
+    unit_tiles = -(-hidden // ADJ_GATE_UNITS)
+    groups = max(min(capacity // (lanes * unit_tiles), row_tiles), 1)
+    chunk, parts = adj_partials(lanes, n_steps, batch, hidden)
+    return dict(capacity=capacity, gates_grid=(groups, unit_tiles, lanes),
+                gates_shared_bytes=_adj_gates_bytes(itemsize),
+                grad_grid=(parts, -(-3 * hidden // ADJ_GRAD_TILE),
+                           -(-hidden // ADJ_GRAD_TILE) * lanes),
+                chunk_rows=chunk, grad_shared_bytes=_adj_grad_bytes(itemsize))
+
+
 def _adj_cluster_bytes(hidden: int, itemsize: int, rows: int) -> int:
     """adj_shared_bytes of the one-block and cluster design (as
     adj_cluster_shared_bytes in C)."""
     cluster = adj_cluster_size(hidden, itemsize) or MAX_CLUSTER
-    gates = (-(-hidden * (3 * ADJ_GATE_UNITS + 1) // 4) * 4 + hidden * ADJ_GATE_ROWS) * 4
-    return max(_adj_walk_bytes(hidden, itemsize, rows, cluster), gates)
+    return max(_adj_walk_bytes(hidden, itemsize, rows, cluster), _adj_pass_bytes(itemsize))
+
+
+# The bf16 adjoint leaves the cluster walk past this H, where the gate
+# pre-pass's shared memory ended it before the passes were redesigned (the
+# cluster walk beyond it has not been timed against the grid walk).
+ADJ_CLUSTER_MOST_BF16 = 450
 
 
 def adj_streamed(hidden: int, itemsize: int) -> bool:
     """Whether gru_bwd, gru_bwd_fb and gru_bibwd are past the one-block and
-    cluster design's limit at this H (as adj_streamed in C), its walk's (376
-    f32) or its gate pre-pass's (450 bf16): the grid walk runs there where
-    grid_plan takes the shape, the streamed walk elsewhere, both after the
-    K-tiled pre-pass."""
-    return (adj_cluster_size(hidden, itemsize) == 0 or _adj_cluster_bytes(
-        hidden, itemsize, ADJ_MOST_ROWS[walk_in_registers(hidden)]) > MAX_SHARED_BYTES)
-
-
-# The streamed adjoint's gate pre-pass: static [ADJ_GATE_K, 3 * 32 + 1]
-# W slice and [ADJ_GATE_K, 32] h_prev, f32.
-ADJ_GATE_TILED_BYTES = ADJ_GATE_K * (3 * ADJ_GATE_UNITS + 1 + ADJ_GATE_ROWS) * 4
+    cluster design's limit at this H (as adj_streamed in C): its walk's (376
+    f32) or ADJ_CLUSTER_MOST_BF16: the grid walk runs there where grid_plan
+    takes the shape, the streamed walk elsewhere."""
+    return (adj_cluster_size(hidden, itemsize) == 0
+            or (itemsize != 4 and hidden > ADJ_CLUSTER_MOST_BF16)
+            or _adj_cluster_bytes(hidden, itemsize,
+                                  ADJ_MOST_ROWS[walk_in_registers(hidden)]) > MAX_SHARED_BYTES)
 
 
 def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
@@ -528,14 +584,13 @@ def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int
     (all H in one block; none with W in registers), then two f32 buffers of
     the tile's whole dg, [rows, K padded], and for two chunks of steps its
     units' f32 factors [2 chunk, rows, 5, units] and dht [2 chunk, rows,
-    units], at this H's cluster size; or the gate pre-pass's f32 W slice
-    [H, 3 * 32 + 1], padded to 16 bytes, and h_prev [H, 32], whichever is
-    larger. Past that design's limit the streamed walk's resident rows and
-    fixed part (_stream_fixed), or its tiled pre-pass's, whichever is
-    larger. `rows` defaults to the most a block takes."""
+    units], at this H's cluster size; or the two passes' (_adj_pass_bytes),
+    whichever is larger. Past that design's limit the streamed walk's
+    resident rows and fixed part (_stream_fixed), or the passes', whichever
+    is larger. `rows` defaults to the most a block takes."""
     if adj_streamed(hidden, itemsize):
         rows = stream_most_rows(hidden, itemsize, adjoint=True) if rows is None else rows
-        return max(_stream_bytes(hidden, itemsize, rows, adjoint=True), ADJ_GATE_TILED_BYTES)
+        return max(_stream_bytes(hidden, itemsize, rows, adjoint=True), _adj_pass_bytes(itemsize))
     rows = ADJ_MOST_ROWS[walk_in_registers(hidden)] if rows is None else rows
     return _adj_cluster_bytes(hidden, itemsize, rows)
 
@@ -563,14 +618,17 @@ def adj_max_hidden(itemsize: int) -> int:
     return max_hidden(adj_shared_bytes, itemsize)
 
 
-def adj_partials(n_steps: int, batch: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of gru_bwd's weight-gradient pass (as
-    gru_adj_chunk_rows and gru_adj_partials in C): the T * B rows (t, b) in
-    chunks of a whole number of ADJ_GRAD_STAGE rows, at most
-    ADJ_MAX_PARTIALS chunks; each chunk gives one dW / db partial."""
+def adj_partials(lanes: int, n_steps: int, batch: int, hidden: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of the adjoint's weight-gradient pass (as
+    gru_adj_chunk_rows and gru_adj_partials in C): the T * B rows (t, b) of
+    a lane in as many chunks as the lanes' dW tiles (ADJ_GRAD_TILE x
+    ADJ_GRAD_TILE of [3H, H]) take to fill NUM_SMS without passing it, one
+    where the tiles alone fill it, in whole stages of ADJ_GRAD_STAGE rows;
+    each chunk gives one dW / db partial."""
     rows = n_steps * batch
-    per = -(-rows // ADJ_MAX_PARTIALS) if rows > ADJ_MAX_PARTIALS else 1
-    chunk = -(-per // ADJ_GRAD_STAGE) * ADJ_GRAD_STAGE
+    tiles = lanes * -(-hidden // ADJ_GRAD_TILE) * -(-3 * hidden // ADJ_GRAD_TILE)
+    want = 1 if tiles >= NUM_SMS else NUM_SMS // tiles
+    chunk = max(-(-(-(-rows // want)) // ADJ_GRAD_STAGE) * ADJ_GRAD_STAGE, ADJ_GRAD_STAGE)
     return chunk, -(-rows // chunk)
 
 
@@ -582,7 +640,7 @@ def adj_workspace_floats(lanes: int, n_steps: int, batch: int, hidden: int,
     streamed walk then, from a 16-byte boundary, W^T padded [lanes, H, 3H
     padded to 4] in the stream dtype."""
     rows = lanes * n_steps * batch
-    parts = adj_partials(n_steps, batch)[1]
+    parts = adj_partials(lanes, n_steps, batch, hidden)[1]
     base = rows * hidden * (ADJ_FACTORS + 1) + lanes * parts * 3 * hidden * hidden
     if not adj_streamed(hidden, itemsize):
         return base
@@ -604,7 +662,7 @@ def adj_plan(batch: int, lanes: int, n_steps: int, hidden: int, itemsize: int = 
     grid = (grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
             if adj_streamed(hidden, itemsize) else None)
     if grid is not None:
-        return dict(_grid_fields(grid, max(grid["smem"], ADJ_GATE_TILED_BYTES)),
+        return dict(_grid_fields(grid, max(grid["smem"], _adj_pass_bytes(itemsize))),
                     workspace=workspace)
     rows = adj_row_tile(batch, lanes, hidden, itemsize)
     if adj_streamed(hidden, itemsize):
@@ -704,6 +762,34 @@ def gru_backward_fb_plain(xg: torch.Tensor, w_hh: torch.Tensor,
         db += dg.sum(dim=1)
         dh = dht * z + torch.matmul(dg_lo, w)
     return dxg, dw_t.transpose(1, 2).contiguous(), db, dh
+
+
+def adj_factors_plain(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                      h0: torch.Tensor, ys: torch.Tensor, dy: torch.Tensor,
+                      reverse: bool = False) -> torch.Tensor:
+    """The plain version of the adjoint's gate pre-pass (csrc/gru_bwd.cu,
+    gru_adj_gates_kernel) for [F, T, B, .] streams as gru_backward_fb_plain
+    takes them: hg = h_prev @ W^T + bh for every (lane, t, b) at once, then
+    r, z, n and the six f32 factors the walk and the weight-gradient pass
+    read, in the workspace's layout [F, T, B, 6, H]: a_r = cn cr, cz, a_n =
+    cn r, z, dy and cn, where cz = (h_prev - n) z (1 - z), cn = (1 - z)(1 -
+    n^2), cr = hn r (1 - r)."""
+    dt = xg.dtype
+    hidden = h0.shape[-1]
+    w_t = w_hh.to(dt).float().transpose(1, 2)               # [F, H, 3H]
+    h0_lo = h0.to(dt)[:, None]
+    h_prev = (torch.cat([ys[:, 1:], h0_lo], dim=1) if reverse
+              else torch.cat([h0_lo, ys[:, :-1]], dim=1)).float()
+    hg = torch.matmul(h_prev.flatten(1, 2), w_t).view(*xg.shape)
+    hg = hg + b_hh.to(dt).float()[:, None, None]
+    xr, xz, xn = xg.float().split(hidden, dim=-1)
+    hr, hz, hn = hg.split(hidden, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    cn = (1.0 - z) * (1.0 - n * n)
+    return torch.stack([cn * (hn * r * (1.0 - r)), (h_prev - n) * z * (1.0 - z), cn * r, z,
+                        dy.float(), cn], dim=-2)
 
 
 def gru_backward_plain(xg: torch.Tensor, w_hh: torch.Tensor,
@@ -828,14 +914,16 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_adj_cluster_size.restype = i32
     lib.gru_adj_walk_active_clusters.argtypes = [i32] * 4
     lib.gru_adj_walk_active_clusters.restype = i32
-    lib.gru_adj_chunk_rows.argtypes = [i32, i32]
+    lib.gru_adj_chunk_rows.argtypes = [i32] * 4
     lib.gru_adj_chunk_rows.restype = ctypes.c_longlong
-    lib.gru_adj_partials.argtypes = [i32, i32]
+    lib.gru_adj_partials.argtypes = [i32] * 4
     lib.gru_adj_partials.restype = i32
     lib.gru_adj_workspace_floats.argtypes = [i32] * 5
     lib.gru_adj_workspace_floats.restype = ctypes.c_longlong
     lib.gru_adj_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.gru_adj_plan.restype = None
+    lib.gru_adj_pass_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_adj_pass_plan.restype = None
     return lib
 
 
@@ -856,6 +944,16 @@ def c_plan(adjoint: bool, batch: int, lanes: int, hidden: int, itemsize: int,
     plan = dict(zip(PLAN_FIELDS, out))
     plan["instantiation"] = INSTANTIATIONS[plan["instantiation"]]
     return plan
+
+
+def c_pass_plan(lanes: int, n_steps: int, batch: int, hidden: int, itemsize: int) -> dict:
+    """gru_adj_pass_plan from the built library (the card's pre-pass
+    capacity), in the form of adj_pass_plan."""
+    out = (ctypes.c_longlong * 10)()
+    _bwd_library().gru_adj_pass_plan(lanes, n_steps, batch, hidden, int(itemsize == 2), out)
+    v = list(out)
+    return dict(capacity=v[0], gates_grid=tuple(v[1:4]), gates_shared_bytes=v[4],
+                grad_grid=tuple(v[5:8]), chunk_rows=v[8], grad_shared_bytes=v[9])
 
 
 def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
@@ -1010,7 +1108,7 @@ def _adjoint_workspaces(lanes: int, n_steps: int, batch: int, hidden: int,
     dht, dW partials and, streamed, W^T) and its db partials per lane and
     chunk of rows."""
     return ((adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize),),
-            (lanes, adj_partials(n_steps, batch)[1], 3 * hidden))
+            (lanes, adj_partials(lanes, n_steps, batch, hidden)[1], 3 * hidden))
 
 
 def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, n_steps: int,
@@ -1034,6 +1132,25 @@ def _launch_adjoint(entry: str, xg, w_hh, b_hh, h0, ys, dy, lanes: int, n_steps:
     _call(_bwd_library(), entry,
           (xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part, db_part), ints)
     return (dxg, dw, db, dh0), True
+
+
+def adj_factors_cuda(xg, w_hh, b_hh, h0, ys, dy, reverse: bool = False) -> torch.Tensor:
+    """The gate pre-pass's six factors [F, T, B, 6, H] (f32) as gru_bwd_fb
+    leaves them in its workspace, for CUDA streams as gru_backward_fb takes
+    them: what adj_factors_plain computes, read back to check the kernel.
+    The call is not counted as a launch."""
+    _require_cuda(xg)
+    lanes, n_steps, batch, hidden = _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb=True)
+    dw_shape, db_shape = _adjoint_workspaces(lanes, n_steps, batch, hidden, xg.element_size())
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    dw_part = torch.full(dw_shape, float("nan"), **f32)
+    outs = (torch.empty_like(xg), torch.empty(w_hh.shape, **f32), torch.empty(b_hh.shape, **f32),
+            torch.empty(h0.shape, **f32))
+    _call(_bwd_library(), "gru_bwd_fb", (xg, w_hh, b_hh, h0, ys, dy, *outs, dw_part,
+                                         torch.empty(db_shape, **f32)),
+          [lanes, n_steps, batch, hidden, *_mode_args(xg, reverse)])
+    rows = lanes * n_steps * batch
+    return dw_part[:rows * ADJ_FACTORS * hidden].view(lanes, n_steps, batch, ADJ_FACTORS, hidden)
 
 
 def _launch_bwd(entry: str, xg, w_hh, b_hh, h0, ys, dy, reverse: bool, fb: bool):

@@ -10,7 +10,10 @@ after the encoder's 16x reduction, H=64) in both walk directions, gradients
 through the autograd Functions against autograd through the plain loop,
 the single-fold direction-batched layer, fold-batched lanes at a ragged
 shape, the port's own instantiation seams (the walk kernels' one block /
-cluster / grid boundaries, f32, at a short T) and bf16 mode.
+cluster / grid boundaries, f32, at a short T), bf16 mode, and the adjoint's
+two passes over all T under each adjoint entry (at the seams, ragged and
+at H=1024, f32 and bf16; dW and db bitwise over two calls; the pre-pass's
+factors read back against their plain version).
 
 Run on a GPU host from the repository's root (tests/conftest.py sets up
 JAX, which the GPU machine does not have, hence --noconftest):
@@ -237,6 +240,72 @@ def test_fused_pair_flagship():
     dy2 = _normal(ys2.shape, 13)
     args = (xg2, w, bias, h0, gru_cuda.gru_bifwd_plain(xg2, w, bias, h0), dy2)
     _check_adjoint(gru_cuda.gru_bibwd(*args), gru_cuda.gru_bibwd_plain(*args), F32, "gru_bibwd")
+
+
+# The adjoint's two passes over all T (the gate pre-pass and the
+# weight-gradient pass, tensor cores: 3xTF32 in f32, bf16 mma in bf16) under
+# each adjoint entry, as (T, B, H): the adjoint walk's seams (one block /
+# cluster at 130 / 131, cluster / grid at 376 / 377 f32 and 450 / 451 bf16),
+# ragged T * B with H not a multiple of 8 or 32, and H=1024 (the pre-pass's
+# streamed W chunks, eight unit tiles of dW, one row chunk).
+PASS_SHAPES = [(SEAM_T, B, 130), (SEAM_T, B, 131), (SEAM_T, B, 376), (SEAM_T, B, 377),
+               (SEAM_T, B, 450), (SEAM_T, B, 451), (37, 5, 40), (37, 5, 63), (SEAM_T, B, 1024)]
+PASS_ENTRIES = {"gru_bwd": (None, gru_cuda.gru_backward, gru_cuda.gru_backward_plain),
+                "gru_bwd_fb": (2, gru_cuda.gru_backward_fb, gru_cuda.gru_backward_fb_plain),
+                "gru_bibwd": (2, gru_cuda.gru_bibwd, gru_cuda.gru_bibwd_plain)}
+
+
+def _entry_args(entry, t, b, h, dtype, seed):
+    lanes = PASS_ENTRIES[entry][0]
+    if entry != "gru_bibwd":
+        return _adjoint_inputs(lanes, t, b, h, dtype, seed=seed)
+    xg, w, bias, h0 = _inputs(2, t, b, h, seed=seed)
+    xg2 = xg.transpose(0, 1).contiguous()                   # [T, 2, B, 3H]
+    ys2 = gru_cuda.gru_bifwd_plain(xg2, w, bias, h0)
+    return xg2, w, bias, h0, ys2, _normal(ys2.shape, seed + 1)
+
+
+@pytest.mark.parametrize("shape", PASS_SHAPES, ids=lambda s: "T%d-B%d-H%d" % s)
+@pytest.mark.parametrize("entry,dtype", [("gru_bwd", F32), ("gru_bwd", BF16),
+                                         ("gru_bwd_fb", F32), ("gru_bwd_fb", BF16),
+                                         ("gru_bibwd", F32)],
+                         ids=["gru_bwd-f32", "gru_bwd-bf16", "gru_bwd_fb-f32", "gru_bwd_fb-bf16",
+                              "gru_bibwd-f32"])
+def test_adjoint_passes(entry, dtype, shape):
+    """Each adjoint entry against its plain version at BWD_TOL at PASS_SHAPES
+    (gru_bibwd float32 only), whatever walk its plan takes there."""
+    _, kernel, plain = PASS_ENTRIES[entry]
+    args = _entry_args(entry, *shape, dtype, seed=shape[2])
+    _check_adjoint(kernel(*args), plain(*args), dtype, f"{entry} {shape}")
+
+
+@pytest.mark.parametrize("hidden", [H, 1024])
+@pytest.mark.parametrize("entry,dtype", [("gru_bwd", F32), ("gru_bwd", BF16),
+                                         ("gru_bwd_fb", F32), ("gru_bwd_fb", BF16),
+                                         ("gru_bibwd", F32)],
+                         ids=["gru_bwd-f32", "gru_bwd-bf16", "gru_bwd_fb-f32", "gru_bwd_fb-bf16",
+                              "gru_bibwd-f32"])
+def test_adjoint_weight_gradients_bitwise_over_two_calls(entry, dtype, hidden):
+    """dW and db are the same bits over two calls on the same inputs (no
+    atomics; each chunk's partial and the chunks' sum in a fixed order)."""
+    kernel = PASS_ENTRIES[entry][1]
+    args = _entry_args(entry, SEAM_T, B, hidden, dtype, seed=20)
+    first, second = kernel(*args), kernel(*args)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_prepass_factors(dtype, reverse):
+    """The gate pre-pass's six factors, read back from gru_bwd_fb's
+    workspace (15 lanes at the flagship shape, and 2 lanes at H=256),
+    against its plain version: float32 rtol = atol = 1e-5 (3xTF32 products),
+    bfloat16 at BWD_TOL's dxg tolerance."""
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == F32 else BWD_TOL[BF16][0]
+    for lanes, hidden in ((15, H), (2, 256)):
+        args = _adjoint_inputs(lanes, T, B, hidden, dtype, seed=30)
+        got = gru_cuda.adj_factors_cuda(*args, reverse=reverse)
+        torch.testing.assert_close(got, gru_cuda.adj_factors_plain(*args, reverse=reverse), **tol)
 
 
 def test_tier_is_really_on_the_card():

@@ -308,7 +308,8 @@ def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden,
     each batch row once, R a power of two of at most ADJ_MOST_ROWS that
     grows only while the blocks of all lanes would outnumber the SMs; its
     weight-gradient chunks cover each of a lane's T * B rows (t, b) once, in
-    whole stages, at most ADJ_MAX_PARTIALS of them; the workspace holds the
+    whole stages, one where the lanes' dW tiles fill the SMs and otherwise
+    as many as the tiles take to fill them; the workspace holds the
     six factors and dht of every (lane, t, b, unit), then one [3H, H]
     partial per lane and chunk, and the db workspace one [3H] partial per
     lane and chunk."""
@@ -320,8 +321,10 @@ def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden,
     assert covered == list(range(batch))
     assert tiles * lanes <= gru_cuda.NUM_SMS or rows == most
     assert rows == 1 or -(-batch // (rows // 2)) * lanes > gru_cuda.NUM_SMS
-    chunk, parts = gru_cuda.adj_partials(n_steps, batch)
-    assert chunk % gru_cuda.ADJ_GRAD_STAGE == 0 and 1 <= parts <= gru_cuda.ADJ_MAX_PARTIALS
+    chunk, parts = gru_cuda.adj_partials(lanes, n_steps, batch, hidden)
+    tiles = lanes * -(-hidden // gru_cuda.ADJ_GRAD_TILE) * -(-3 * hidden // gru_cuda.ADJ_GRAD_TILE)
+    assert chunk % gru_cuda.ADJ_GRAD_STAGE == 0 and parts >= 1
+    assert parts == 1 if tiles >= gru_cuda.NUM_SMS else parts * tiles <= gru_cuda.NUM_SMS
     chunks = [range(p * chunk, min((p + 1) * chunk, n_steps * batch)) for p in range(parts)]
     assert [m for c in chunks for m in c] == list(range(n_steps * batch))
     assert all(len(c) > 0 for c in chunks)
@@ -354,7 +357,7 @@ def test_every_adjoint_entry_gets_the_walk_workspaces(entry, lanes, monkeypatch)
     assert launched and len(calls) == 1
     lib, name, shapes, dtypes, got_ints = calls[0]
     assert (lib, name, got_ints) == ("lib", entry, ints)
-    parts = gru_cuda.adj_partials(t, b)[1]
+    parts = gru_cuda.adj_partials(lanes, t, b, h)[1]
     assert shapes[-2:] == [(gru_cuda.adj_workspace_floats(lanes, t, b, h),), (lanes, parts, 3 * h)]
     assert dtypes[-2:] == [torch.float32, torch.float32]
     assert [tuple(g.shape) for g in grads] == [tuple(xg.shape), tuple(w.shape),

@@ -154,7 +154,7 @@ def test_grid_exchange_workspace(dtype, adjoint):
         nbytes = -(-grid["exchange"] * item // 16) * 16 + -(-grid["groups"] * 4 // 16) * 16
         assert gru_cuda.grid_workspace_bytes(grid, item) == nbytes
         if adjoint:
-            rows, parts = lanes * 5 * batch, gru_cuda.adj_partials(5, batch)[1]
+            rows, parts = lanes * 5 * batch, gru_cuda.adj_partials(lanes, 5, batch, h)[1]
             base = rows * h * 7 + lanes * parts * 3 * h * h
             assert gru_cuda.adj_workspace_floats(lanes, 5, batch, h, item) == (
                 -(-base // 4) * 4 + nbytes // 4)
@@ -185,24 +185,29 @@ def test_streamed_workspaces():
     padded to 4] in the stream dtype from a 16-byte boundary; the one-block
     and cluster instantiations need none of either (the grid walk's:
     test_grid_exchange_workspace). Both stream past the grid walk's limit.
-    At F=15, T=480, B=64 the adjoint's workspace is ~12 GB at H=512 and
-    ~36 GB at H=1024 (its factors and dW partials)."""
+    At F=15, T=480, B=64 the adjoint's workspace is ~6.7 GB at H=512 and
+    ~13.4 GB at H=1024, under 20 GB (its factors and one dW partial a lane:
+    the lanes' dW tiles fill the SMs without splitting the rows)."""
     assert gru_cuda.walk_workspace_elems(3, 2, 380, 4) == 0
     assert gru_cuda.walk_plan(3, 2, 1600, 4)["instantiation"] == "streamed"
     assert gru_cuda.walk_workspace_elems(3, 2, 1600, 4) == 2 * 3 * 1600 * 1600
     assert gru_cuda.walk_workspace_elems(3, 2, 512, 2) == 0
     base = gru_cuda.adj_workspace_floats(2, 5, 3, 376, 4)
-    rows, parts = 2 * 5 * 3, gru_cuda.adj_partials(5, 3)[1]
+    rows = 2 * 5 * 3
+    parts = gru_cuda.adj_partials(2, 5, 3, 376)[1]
     assert base == rows * 376 * 7 + 2 * parts * 3 * 376 * 376
+    parts = gru_cuda.adj_partials(2, 5, 3, 450)[1]
     assert gru_cuda.adj_workspace_floats(2, 5, 3, 450, 2) == (
         rows * 450 * 7 + 2 * parts * 3 * 450 * 450)
     h = 2600
     assert gru_cuda.adj_plan(3, 2, 5, h, 2)["instantiation"] == "streamed"
     got = gru_cuda.adj_workspace_floats(2, 5, 3, h, 2)
-    plain = rows * h * 7 + 2 * parts * 3 * h * h
+    plain = rows * h * 7 + 2 * gru_cuda.adj_partials(2, 5, 3, h)[1] * 3 * h * h
     assert got == -(-plain // 4) * 4 + -(-2 * h * (3 * h) * 2 // 16) * 4
-    assert 11e9 < gru_cuda.adj_workspace_floats(15, 480, 64, 512) * 4 < 13e9
-    assert 35e9 < gru_cuda.adj_workspace_floats(15, 480, 64, 1024) * 4 < 37e9
+    assert gru_cuda.adj_partials(15, 480, 64, 512) == gru_cuda.adj_partials(15, 480, 64, 1024) == (
+        480 * 64, 1)
+    assert 6e9 < gru_cuda.adj_workspace_floats(15, 480, 64, 512) * 4 < 7e9
+    assert 13e9 < gru_cuda.adj_workspace_floats(15, 480, 64, 1024) * 4 < 14e9 < 20e9
 
 
 def _meta_args(entry, h, dtype):
