@@ -41,8 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    Forward kernels (gru_fwd, gru_fwd_fb): ys, float32 rtol = atol = 1e-5,
    bfloat16 atol 0.05. Adjoint kernels (gru_bwd, gru_bwd_fb): all four
    outputs, tolerances in BWD_TOL. Then the times at the main shape: the
-   kernel, the plain version, the least time the card could take, and
-   cuDNN's GRU (nn.GRU: the forward, or for an adjoint kernel the backward
+   kernel, the plain version (one call), the least time the card could
+   take, and cuDNN's GRU (nn.GRU: the forward, or for an adjoint kernel the backward
    as forward+backward minus forward; it also does the input projection),
    and us per dependent step (ms / T); for each adjoint kernel also a
    profiler trace of its four kernels (gate pre-pass, walk, weight-gradient
@@ -308,11 +308,16 @@ Phases, in order; any failure raises and the script exits non-zero:
        (380 / 376 f32, 532 / 450 bf16; past it the streamed walk, phase
        16), f32 and bf16 where taken, T=480 B=64 both directions, and at
        H=256 also B=1, B=256 and T=1, against their plain versions (TOL /
-       BWD_TOL, the fused pair per direction); dW and db bitwise over two
-       runs at H=256;
-    b. each walk at T=480 B=64 H=256: kernel ms, us per dependent step, the
-       bound (6 H^2 FLOPs a row-step forward, 12 H^2 adjoint), the plain
-       version, cuDNN's nn.GRU at H=256, cluster, row tile and waves;
+       BWD_TOL, the fused pair per direction); the three adjoints also at
+       H=256 and B=37 (a batch no row tile of 2 or 4 divides), gru_bwd_fb
+       also at F=15 for H=100 (the one-block walk at a row tile of 4 f32,
+       2 bf16) and H=256, reverse=False; the C plans (cluster, row tile) of the adjoint
+       walk against the twins at B=37 and 5 and 15 lanes; dW and db bitwise
+       over two runs at H=256 (gru_bwd_fb also at F=15);
+    b. each adjoint at T=480 B=64 and H=256 and at the cluster walk's ends
+       (f32 H=137 and 376, bf16 450): kernel ms, us per dependent step, the
+       bound (12 H^2 FLOPs a row-step), the plain version (one call),
+       cuDNN's nn.GRU backward at that H, cluster, row tile and waves;
     c. the sweep CLI with model.gru_hidden_size=256 (f32 auto, 1 epoch) as
        in 7 (first 3 steps card vs CPU on lane 0 at B=8, exact launches, 15
        finite folds, a step profile); fold S2's Predictor at H=256 (counted: 2 gru_fwd_fb
@@ -342,14 +347,14 @@ Phases, in order; any failure raises and the script exits non-zero:
        (the streamed walk) at T=16, against their plain versions; dW and db
        bitwise over two runs at H=512 and past the grid walk's limit; past
        the streamed walk's limit a ValueError naming it, before any launch;
-    b. each entry at H = 512 and 1024, T=480 B=64: kernel ms, us a step,
+    b. each entry at H = 1024, T=480 B=64: kernel ms, us a step,
        the bound, the plain version, cuDNN's nn.GRU, the plan, its groups
        and rounds (or clusters and waves), the bytes read from L2 a step
        (W streamed, or the state exchanged) beside the streamed walk's
        time before the grid walk took the shape;
        gru_fwd and gru_bwd f32 at H=381 (the grid walk's fixed cost a step);
-       a profile of one gru_bwd call at 512 and 1024, f32 and bf16, split
-       by kernel;
+       a profile of one gru_bwd call at 1024, f32 and bf16, split by
+       kernel (the times at H = 512 are kept in PERF.md);
     c. a Predictor at H=512 against the CPU (counted), the sweep at H=512
        (first 3 steps card vs CPU on lane 0 at B=8 under TRAIN_TOL; 3
        counted steps at B=64, their ms a step), MMS_GRU_FOLD_GROUP=3 at
@@ -421,6 +426,7 @@ import ast
 import base64
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import io
@@ -787,7 +793,7 @@ def kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         args = kernel_inputs(lanes, SERVE_T, SERVE_B, SERVE_H, dtype, seed=7)
         ms = median_ms(lambda: wrapper(*args), per_block=50)
-        plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
+        plain_ms = median_ms(lambda: plain(*args), per_block=1, blocks=1, warmup=0)
         lib_ms = cudnn_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         b_ms, b_by = bound_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         plan = f", {walk_plan(lanes or 1, SERVE_B, SERVE_H, dtype)}"
@@ -1132,7 +1138,7 @@ def bwd_kernel_phase(name, wrapper, plain, fb: bool, source_line: str) -> dict:
         args = bwd_inputs(lanes, SERVE_T, SERVE_B, SERVE_H, dtype, seed=7)
         check_deterministic(name, wrapper, args, str(dtype)[6:])
         ms = median_ms(lambda: wrapper(*args), per_block=50)
-        plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
+        plain_ms = median_ms(lambda: plain(*args), per_block=1, blocks=1, warmup=0)
         lib_ms = cudnn_bwd_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         b_ms, b_by = bwd_bound_ms(lanes, SERVE_T, SERVE_B, SERVE_H, dtype)
         print(f"{name} {str(dtype)[6:]} at F={lanes or 1} T={SERVE_T} "
@@ -1252,7 +1258,7 @@ def fused_kernel_phase(name, wrapper, plain, adjoint: bool, source_line: str) ->
     if adjoint:
         check_deterministic(name, wrapper, args, "float32")
     ms = median_ms(lambda: wrapper(*args), per_block=50)
-    plain_ms = median_ms(lambda: plain(*args), per_block=1, warmup=1)
+    plain_ms = median_ms(lambda: plain(*args), per_block=1, blocks=1, warmup=0)
     shape = (2, SERVE_T, SERVE_B, SERVE_H, torch.float32)
     lib_ms = cudnn_bwd_ms(*shape) if adjoint else cudnn_ms(*shape)
     b_ms, b_by = bwd_bound_ms(*shape) if adjoint else bound_ms(*shape)
@@ -4064,6 +4070,20 @@ WRAPPERS = {"gru_fwd": (gru_cuda.gru_forward, gru_cuda.gru_forward_plain),
             "gru_bwd_fb": (gru_cuda.gru_backward_fb, gru_cuda.gru_backward_fb_plain),
             "gru_bibwd": (gru_cuda.gru_bibwd, gru_cuda.gru_bibwd_plain)}
 FOLD_GROUP = 3   # 15 folds as 5 lanes of G*H = 192
+# 15a's further adjoint shapes: a batch no row tile of 2 or 4 divides (at
+# BIG_H), the one-block walk with W in shared memory at a row tile past 1
+# (gru_bwd_fb at the sweep's 15 lanes, H=100) and the sweep's lanes at
+# BIG_H.
+ROW_TILE_B = 37
+TILED_ONE_BLOCK_H = 100
+SWEEP_F = 15
+# 15b also times the adjoints at the cluster walk's first H (f32) and at
+# its last in each dtype (entry_limit).
+CLUSTER_FIRST_H = 137
+# The adjoints' W-in-shared-memory walks timed at the parent commit and
+# here (adjoint_ab), by dtype: one block (100) and the cluster walk.
+AB_HS = {torch.float32: (100, 137, 192, BIG_H, 376),
+         torch.bfloat16: (100, 137, 192, BIG_H, 450)}
 # Lanes of 15c's and 16c's CPU side (at H=256 four took 93.1 s on the 8
 # host cores, at H=512 two took 53.4 s at B=16), and the batch of their
 # card-vs-CPU steps (at H=512 and B=64 two lanes took 177 s there, one lane
@@ -4141,9 +4161,11 @@ def cluster_plan(name: str, lanes: int, batch: int, hidden: int, dtype,
 def cluster_formulas() -> None:
     """The cluster walk's C formulas against gru_cuda's twins for every H up
     to past both limits, both dtypes: cluster sizes, per-CTA shared bytes
-    (row tiles 1, 2, 4), row tiles at 1, 2, 5, 15 and 60 lanes; and every
-    unit of H in exactly one CTA's slice. Then ptxas's registers and spills
-    of the cluster instantiations (build_phase fails on any spill)."""
+    (row tiles 1, 2, 4), row tiles at 1, 2, 5, 15 and 60 lanes, the
+    adjoint's whole plan (its cluster and row tile among it) past H = 64
+    at B=37 and 2 lanes and B=64 and 5 and 15 lanes; and every unit of H in
+    exactly one CTA's slice. Then ptxas's registers and spills of the
+    cluster instantiations (build_phase fails on any spill)."""
     fwd, bwd = gru_cuda._library(), gru_cuda._bwd_library()
     for bf16, item in ((0, 4), (1, 2)):
         for h in range(1, 560):
@@ -4164,6 +4186,14 @@ def cluster_formulas() -> None:
             for what, c_val, py_val in pairs:
                 if c_val != py_val:
                     raise AssertionError(f"{what}: C says {c_val}, wrapper {py_val}")
+            if h > gru_cuda.WALK_REG_MAX_HIDDEN and not gru_cuda.adj_streamed(h, item):
+                for b, f in ((ROW_TILE_B, 2), (SERVE_B, SWEEP_F // FOLD_GROUP),
+                             (SERVE_B, SWEEP_F)):
+                    c_val = gru_cuda.c_plan(True, b, f, h, item, SERVE_T)
+                    if c_val != gru_cuda.adj_plan(b, f, SERVE_T, h, item):
+                        raise AssertionError(f"adjoint plan B={b} F={f} H={h} itemsize={item}: "
+                                             f"C {c_val}, wrapper "
+                                             f"{gru_cuda.adj_plan(b, f, SERVE_T, h, item)}")
             for k in {gru_cuda.walk_cluster_size(h, item), gru_cuda.adj_cluster_size(h, item)}:
                 if k:
                     units = gru_cuda.cluster_units(h, k)
@@ -4180,7 +4210,8 @@ def cluster_formulas() -> None:
                            gru_cuda.adj_max_hidden(itemsize(d)))
               for d in (torch.float32, torch.bfloat16)}
     print(f"  cluster walk: C and wrapper agree on cluster sizes, per-CTA shared memory and "
-          f"row tiles for H = 1-559; limits (forward, adjoint): {limits}")
+          f"row tiles for H = 1-559, and on the adjoint's plans at B={ROW_TILE_B} F=2, "
+          f"F={SWEEP_F // FOLD_GROUP} and F={SWEEP_F}; limits (forward, adjoint): {limits}")
 
 
 def entry_vs_plain(tag: str, name: str, t: int, b: int, h: int, dtype, reverse: bool,
@@ -4232,14 +4263,24 @@ def large_walks_phase() -> None:
             limit = entry_limit(name, dtype)
             shapes = [(SERVE_T, SERVE_B, h) for h in LARGE_HS + (limit,)]
             shapes += [(SERVE_T, 1, BIG_H), (SERVE_T, 256, BIG_H), (1, SERVE_B, BIG_H)]
-            for t, b, h in shapes:
-                for reverse in ((False,) if fused else (False, True)):
-                    entry_vs_plain("15a", name, t, b, h, dtype, reverse)
+            shapes = [(t, b, h, 2) for t, b, h in shapes]
             if adjoint:
-                args = entry_inputs(name, SERVE_T, SERVE_B, BIG_H, dtype, seed=3, reverse=False)
-                check_deterministic(name, WRAPPERS[name][0], args,
-                                    f"15a H={BIG_H} {str(dtype)[6:]}")
-                del args
+                shapes.append((SERVE_T, ROW_TILE_B, BIG_H, 2))
+            if name == "gru_bwd_fb":
+                shapes += [(SERVE_T, SERVE_B, TILED_ONE_BLOCK_H, SWEEP_F),
+                           (SERVE_T, SERVE_B, BIG_H, SWEEP_F)]
+            for t, b, h, lanes in shapes:
+                # the sweep's lanes in one direction: the row tile's logic
+                # is the same in both, which the other shapes check
+                for reverse in ((False,) if fused or lanes == SWEEP_F else (False, True)):
+                    entry_vs_plain("15a", name, t, b, h, dtype, reverse, lanes=lanes)
+            if adjoint:
+                for lanes in (2, SWEEP_F) if name == "gru_bwd_fb" else (2,):
+                    args = entry_inputs(name, SERVE_T, SERVE_B, BIG_H, dtype, seed=3,
+                                        reverse=False, lanes=lanes)
+                    check_deterministic(name, WRAPPERS[name][0], args,
+                                        f"15a F={lanes} H={BIG_H} {str(dtype)[6:]}")
+                    del args
             torch.cuda.empty_cache()
     print(f"15a: {time.perf_counter() - t0:.1f} s")
 
@@ -4282,12 +4323,205 @@ def time_entry(tag: str, name: str, dtype, h: int, per_block: int = 20,
 
 
 def large_timings() -> None:
-    """15b: each walk at T=480 B=64 H=BIG_H (time_entry, the median of 3
-    blocks of 5 calls)."""
-    for name in WRAPPERS:
+    """15b: each adjoint at T=480 B=64 at H=BIG_H, the cluster walk's first
+    H in f32 and its last in each dtype (time_entry, the median of 3 blocks
+    of 5 calls). (The forward walks' times at BIG_H are kept in
+    PERF.md.)"""
+    for name in ADJOINTS:
         for dtype in entry_dtypes(name):
-            time_entry("15b", name, dtype, BIG_H, per_block=5, blocks=3)
+            hs = ((CLUSTER_FIRST_H,) if dtype == torch.float32 else ()) + (
+                BIG_H, entry_limit(name, dtype))
+            for h in hs:
+                time_entry("15b", name, dtype, h, per_block=5, blocks=3)
     torch.cuda.empty_cache()
+
+
+def adjoint_times(out: Path) -> None:
+    """The adjoint entries at T=480 B=64 (time_entry's lanes) and every H of
+    AB_HS, then gru_bwd_fb at the H=256 sweep's 15 lanes (f32 and bf16) and
+    at the grouped sweep's 5 lanes of G*H = 192 (f32, as its walks run):
+    kernel ms (the median of 3 blocks of 5 calls; 3 calls the F-lane
+    shapes) with the plan's cluster and row tile, and for the F-lane
+    shapes the walk's ms a call from a profiler split (adjoint_split).
+    Written to `out` as a JSON list. Uses only what the parent commit's
+    package has too, so that adjoint_ab can run it in either tree."""
+    rows = []
+    shapes = [(name, dtype, entry_lanes(name), h) for name in ADJOINTS
+              for dtype in entry_dtypes(name) for h in AB_HS[dtype]]
+    shapes += [("gru_bwd_fb", torch.float32, SWEEP_F, BIG_H),
+               ("gru_bwd_fb", torch.bfloat16, SWEEP_F, BIG_H),
+               ("gru_bwd_fb", torch.float32, SWEEP_F // FOLD_GROUP, FOLD_GROUP * SERVE_H)]
+    for name, dtype, lanes, h in shapes:
+        args = entry_inputs(name, SERVE_T, SERVE_B, h, dtype, seed=7, reverse=False,
+                            lanes=lanes)
+        fn = functools.partial(WRAPPERS[name][0], *args)
+        wide = lanes > 2
+        ms = median_ms(fn, per_block=3 if wide else 5, blocks=3, warmup=1)
+        plan = gru_cuda.adj_plan(SERVE_B, lanes, SERVE_T, h, itemsize(dtype))
+        walk = (adjoint_split(fn, lanes, SERVE_T, SERVE_B, h, dtype, f"{name} split")["walk"]
+                if wide else None)
+        rows.append(dict(name=name, dtype=str(dtype)[6:], lanes=lanes, h=h, ms=ms, walk_ms=walk,
+                         cluster=plan["cluster"], rows=plan["rows"],
+                         waves=waves(True, SERVE_B, lanes, h, dtype)))
+        print(f"  {rows[-1]}")
+        del args, fn
+        torch.cuda.empty_cache()
+    out.write_text(json.dumps(rows))
+
+
+# The cluster walk's dg_lo exchange in 16-byte stores, as exchange_ab builds
+# it into a copy of gru_bwd.cu: the pair lanes store their three values into
+# their own CTA's buffer only, then each warp pushes its 8 units' slice of
+# every row and gate, [R][3][8], to every peer, a 16-byte piece a lane
+# (st.shared::cluster.v4.f32), a value at a time where a row of the slice
+# starts or ends off a 16-byte boundary. The shipped walk stores each value
+# into every CTA from its pair lane.
+PUSHED_EXCHANGE = (
+    ("""  asm volatile("st.shared::cluster.f32 [%0], %1;\\n" ::"r"(remote), "f"(v) : "memory");
+}
+""", """  asm volatile("st.shared::cluster.f32 [%0], %1;\\n" ::"r"(remote), "f"(v) : "memory");
+}
+__device__ __forceinline__ void store_cluster4(float* p, int rank, float4 v) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\\n" ::"r"(remote), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+}
+"""),
+    ("if constexpr (kCluster) {  // into every CTA's buffer (its own too)",
+     "if constexpr (false) {"),
+    ("""    if constexpr (kCluster) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      named_barrier(kDotBarrier, dot_threads);""", """    if constexpr (kCluster) {
+      __syncwarp();
+      const int wu = tid / 32 * (32 / S);
+      const int n = min(max(mine - wu, 0), 32 / S);
+      const int sub = tid % 4;
+      for (int seg = tid % 32 / 4; n > 0 && seg < R * 3; seg += 8) {
+        const int r = seg / 3;
+        if (row0 + r >= batch) continue;
+        float* p = buf + r * kpad + seg % 3 * H + unit0 + wu;
+        const int head = min((4 - int(p - dgbuf) % 4) % 4, n);
+        const int pieces = (n - head) / 4;
+        if (sub < 2) {
+          if (sub < pieces) {
+            float* q = p + head + 4 * sub;
+            const float4 v = *reinterpret_cast<const float4*>(q);
+            for (int k = 1; k < csize; ++k) store_cluster4(q, (rank + k) % csize, v);
+          }
+        } else {
+          const int first = sub == 2 ? 0 : head + 4 * pieces;
+          const int last = sub == 2 ? head : n;
+          for (int e = first; e < last; ++e)
+            for (int k = 1; k < csize; ++k) store_cluster(p + e, (rank + k) % csize, p[e]);
+        }
+      }
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      named_barrier(kDotBarrier, dot_threads);"""))
+
+
+def exchange_ab(hidden: int = BIG_H) -> None:
+    """The cluster walk's two dg_lo exchanges on this card: the shipped
+    gru_bwd.cu (a store a value and CTA from the pair lanes) against a copy
+    of it built with PUSHED_EXCHANGE (16-byte pushes of each warp's slice),
+    each adjoint entry at T=480 B=64 H=hidden (gru_bwd_fb at 2 and 15
+    lanes), f32 and bf16 where taken, in turns scalar, pushed, pushed,
+    scalar (the median of 3 blocks of 3 calls); each against the plain
+    version first. Run it after card() and build_phase()."""
+    src = (_build.CSRC / "gru_bwd.cu").read_text()
+    for old, new in PUSHED_EXCHANGE:
+        if src.count(old) != 1:
+            raise AssertionError(f"exchange_ab: {old!r} is not in gru_bwd.cu once")
+        src = src.replace(old, new)
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, so = Path(tmp) / "gru_bwd.cu", Path(tmp) / "libgru_bwd_pushed.so"
+        cu.write_text(src)
+        for header in _build.CSRC.glob("*.cuh"):
+            shutil.copy(header, tmp)
+        t0 = time.perf_counter()
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
+                       capture_output=True, text=True)
+        print(f"exchange_ab: the pushed exchange's copy built in {time.perf_counter() - t0:.1f} s")
+        built = _build.library
+        _build.library = lambda name: ctypes.CDLL(str(so))
+        try:
+            pushed = gru_cuda._bwd_library.__wrapped__()
+        finally:
+            _build.library = built
+        shipped = gru_cuda._bwd_library
+        scalar = shipped()
+        try:
+            for name in ADJOINTS:
+                for dtype in entry_dtypes(name):
+                    for lanes in ((2, SWEEP_F) if name == "gru_bwd_fb" else (2,)):
+                        args = entry_inputs(name, SERVE_T, SERVE_B, hidden, dtype, seed=5,
+                                            reverse=False, lanes=lanes)
+                        fn = functools.partial(WRAPPERS[name][0], *args)
+                        want = WRAPPERS[name][1](*args)
+                        times = []
+                        for lib in (scalar, pushed, pushed, scalar):
+                            gru_cuda._bwd_library = lambda lib=lib: lib
+                            if len(times) < 2:
+                                for o, g, w in zip(("dxg", "dW", "db", "dh0"), fn(), want):
+                                    torch.testing.assert_close(
+                                        g.float(), w.float(), **BWD_TOL[dtype][o in ("dW", "db")],
+                                        msg=lambda m, o=o: f"exchange_ab {name} {o}: {m}")
+                            times.append(median_ms(fn, per_block=3, blocks=3, warmup=1))
+                        f = lanes if name != "gru_bwd" else 1
+                        print(f"exchange_ab {name} {str(dtype)[6:]} F={f} H={hidden} "
+                              f"({cluster_plan(name, f, SERVE_B, hidden, dtype)}): scalar "
+                              f"{times[0]:.4f} / {times[3]:.4f} ms, pushed {times[1]:.4f} / "
+                              f"{times[2]:.4f} ms")
+                        del args, fn, want
+                        torch.cuda.empty_cache()
+        finally:
+            gru_cuda._bwd_library = shipped
+
+
+def adjoint_ab(parent: Path, out: Path) -> None:
+    """adjoint_times at the parent commit (`parent`: its tree, unpacked from
+    git archive) and here, in turns parent, here, here, parent, each run a
+    process of its own from its tree's root with that tree's package
+    (this file loaded by path), so both build and run their own kernels on
+    this card; prints each shape's ms in the four runs and the ratio of the
+    means (here / parent), and for the F-lane shapes the walk's. Run it
+    from this tree's root:
+
+        python -c "import chip_smoke as cs; from pathlib import Path; \
+            cs.card(); cs.adjoint_ab(Path('output/parent'), Path('output'))"
+    """
+    here = Path(__file__).resolve()
+    runs = []
+    for i, tree in enumerate((parent, here.parent, here.parent, parent)):
+        res = (out / f"adjoint_ab_{i}.json").resolve()
+        code = ("import importlib.util, torch; "
+                f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(here)!r}); "
+                "cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs); "
+                "torch.backends.cuda.matmul.allow_tf32 = False; "
+                "torch.backends.cudnn.allow_tf32 = False; "
+                f"cs._build.build(); cs.adjoint_times(cs.Path({str(res)!r}))")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], cwd=tree.resolve(), check=True,
+                       env={**os.environ, "PYTHONPATH": str(tree.resolve())})
+        print(f"adjoint_ab run {i} ({'parent' if tree == parent else 'here'}): "
+              f"{time.perf_counter() - t0:.1f} s")
+        runs.append(json.loads(res.read_text()))
+    for p0, h0, h1, p1 in zip(*runs):
+        parent_ms, here_ms = (p0["ms"] + p1["ms"]) / 2, (h0["ms"] + h1["ms"]) / 2
+        line = (f"adjoint_ab {h0['name']} {h0['dtype']} F={h0['lanes']} H={h0['h']}: parent "
+                f"{p0['ms']:.4f} / {p1['ms']:.4f} ms (cluster {p0['cluster']}, row tile "
+                f"{p0['rows']}; {p0['waves']}), here {h0['ms']:.4f} / {h1['ms']:.4f} ms "
+                f"(cluster {h0['cluster']}, row tile {h0['rows']}; {h0['waves']}): "
+                f"{here_ms / parent_ms:.3f}x")
+        if h0["walk_ms"] and h1["walk_ms"] and p0["walk_ms"] and p1["walk_ms"]:
+            line += (f"; walk parent {p0['walk_ms']:.4f} / {p1['walk_ms']:.4f}, here "
+                     f"{h0['walk_ms']:.4f} / {h1['walk_ms']:.4f} ms")
+        print(line)
 
 
 def big_sweep_phase(data: Path, root: Path) -> dict[str, int]:
@@ -4424,7 +4658,7 @@ def grouped_sweep_phase(data: Path, root: Path) -> dict[str, int]:
 
 def phase15(root: Path, data: Path) -> dict[str, int]:
     """Phase 15 (module docstring): 15a the six entries past one block's
-    shared memory against their plain versions, 15b their times at H=256,
+    shared memory against their plain versions, 15b the adjoints' times,
     15c the sweep and a Predictor at H=256, 15d fold grouping. Returns the
     launches of 15c's and 15d's f32 CLI runs (the main path of this
     phase)."""
@@ -4450,7 +4684,8 @@ def phase15(root: Path, data: Path) -> dict[str, int]:
 # and trainer.remat.
 WIDE_H = 512
 STREAM_HS = {False: (381, 512, 768, 1024), True: (377, 451, 512, 768, 1024)}  # by "adjoint"
-STREAM_TIMED_HS = (512, 1024)
+# 16b's H (the times at H = 512 are kept in PERF.md section 6).
+STREAM_TIMED_HS = (1024,)
 # 16b also times gru_fwd and gru_bwd in float32 at the first H of the grid
 # walk, where a step's FMAs are few: its per-step cost is the walk's fixed
 # one (the group barrier and the first tile's L2 round trip).
@@ -4600,7 +4835,7 @@ def stream_walks_phase() -> None:
 
 
 def stream_timings() -> None:
-    """16b: each entry at H = 512 and 1024 (time_entry: kernel ms, us a
+    """16b: each entry at H = STREAM_TIMED_HS (time_entry: kernel ms, us a
     step, the bound, the plain version, cuDNN's nn.GRU, the plan, its
     groups or clusters and rounds or waves) beside the streamed walk's time at
     the same shape, and the bytes a step reads from L2 in all CTAs: W (the
@@ -4610,7 +4845,7 @@ def stream_timings() -> None:
     by kernel (pre-pass, walk, weight-gradient pass, reduction); and gru_fwd
     and gru_bwd in float32 at GRID_FLOOR_H, the grid walk's fixed cost a
     step. (The one-block and cluster walks are re-timed at H = 64 by the
-    kernel phases and at H = 256 by 15b.)"""
+    kernel phases, the adjoints' at H = 137-450 by 15b.)"""
     for name in WRAPPERS:
         adjoint = name in ADJOINTS
         lanes = entry_lanes(name)
@@ -4869,7 +5104,7 @@ def remat_phase(data: Path, root: Path) -> None:
 def phase16(root: Path, data: Path) -> dict[str, int]:
     """Phase 16 (module docstring): 16a the grid and streamed walks' plans
     and the six entries against their plain versions past the cluster
-    walk's limit, 16b their times at H = 512 and 1024 and the adjoint's
+    walk's limit, 16b their times at H = 1024 and the adjoint's
     split, 16c a Predictor and the sweep at H = 512 and fold grouping at
     G*H = 768, 16d the host window engine, 16e trainer.remat. Returns 16c's
     counted launches (the main path of this phase)."""

@@ -53,14 +53,19 @@
 //     cn r, z, dy[t] and cn, where cz = (h_prev - n) z (1 - z), cn = (1 -
 //     z)(1 - n^2), cr = hn r (1 - r). A step of the walk is then dr_pre =
 //     dht a_r, dz_pre = dht cz, dg_n = dht a_n and dht z.
-//   * gru_adj_walk_kernel: one block per (lane, tile of R batch rows), R
-//     chosen before the launch from (B, lanes) (adj_row_tile: R = 1 at
-//     B=64, 64 blocks a lane while B * lanes <= 132; R <= 2 with W in
-//     registers, 1 with W in shared memory). With H <= 64 each dot thread holds 4 units' slices of W's
+//   * gru_adj_walk_kernel: one block (or cluster, below) per (lane, tile
+//     of R batch rows), R chosen before the launch from (B, lanes)
+//     (adj_walk_tile: with W in registers R <= 2, R = 1 at B=64 while B *
+//     lanes <= 132; with W in shared memory R <= 4, the tile that leaves
+//     the fewest waves of CTAs). With H <= 64 each dot thread holds 4 units' slices of W's
 //     columns in registers (K = 3H in 4-wide chunks, 8 sub-lanes: 96
 //     floats a thread), so each dg_lo value it reads from shared memory
 //     feeds 4 FMAs; above that W^T [H][3H padded to 4] sits in dynamic
-//     shared memory (one unit a thread, 4 sub-lanes). Sub-lane s < R U owns
+//     shared memory (one unit a thread, 4 sub-lanes; each row rotated by a
+//     few 4-value chunks, so that the groups of a warp's loads of it fall on
+//     distinct banks: 2x fewer shared wavefronts a load in f32, 2-4x in
+//     bf16, where rows 128 bytes apart put them all on the same banks).
+//     Sub-lane s < R U owns
 //     one (row, unit) pair: it turns dht into dg_lo in the buffer of the
 //     step's parity and keeps dht z; one barrier; every dot thread dots its
 //     slice of each row's dg_lo with its W slice, an xor butterfly of
@@ -132,20 +137,30 @@
 // a thread made the dot read 48 KB of shared memory a step.
 //
 // The cluster walk: an H whose W^T does not fit one block (f32 above
-// H = 130, bf16 above 179) is split over a thread block cluster of K CTAs
-// (adj_cluster_size: the least K <= 8 whose per-CTA share fits), which own
-// one (lane, batch row) together. CTA `rank` keeps the columns of W for its
-// own ceil(H/K) units, as W^T rows [units][3H padded to 4], and moves only
-// its units' factors and dht (its producer warp's copies shrink to that
-// slice). Each step its pair lanes turn their units' dht into dg_lo and store
-// those three values into the step's parity buffer of every CTA of the
-// cluster through distributed shared memory (mapa / st.shared::cluster); one cluster
-// barrier (barrier.cluster: the dot warps arrive with release, the producer
-// warp arrives relaxed, so its copies in flight hold nothing, and every
-// thread waits with acquire) takes the place of the dot warps' named
-// barrier; then every CTA holds the step's whole dg_lo [3H] and computes
-// its own units' slice of dh_prev = dg_lo @ W + dht z as above. The
-// cluster walk bounds f32 at H = 376 (K = 8); bf16 leaves it past H = 450
+// H = 130, bf16 above 179) is split over a thread block cluster of K CTAs,
+// which own one (lane, tile of R batch rows) together. adj_cluster_size, the
+// least K <= 8 whose per-CTA share fits at one row, fixes which H the
+// cluster walk takes; the tile (adj_walk_tile) may take a larger K, whose
+// smaller shares leave room for R = 2 or 4 rows (f32 H = 256: K = 4 fits
+// one row, K = 5 four). Of the pairs that fit, the plan takes the one that
+// leaves the fewest waves of CTAs on the card: at F = 15, B = 64, f32 H =
+// 256, 240 clusters of 5 (10 waves by the plan's count; an H100 runs 22 of
+// them at once, 11 waves) where one row a cluster of 4 ran 960 (30; 32 on
+// the card). CTA `rank` keeps the columns of W for its own ceil(H/K) units, as
+// W^T rows [units][3H padded to 4], and moves only its units' factors and
+// dht (its producer warp's copies shrink to that slice). Each step its pair
+// lanes turn their units' dht into dg_lo and store those three values into
+// the step's parity buffer of every CTA of the cluster through distributed
+// shared memory (mapa / st.shared::cluster; staging each warp's slice and
+// pushing it to the peers in 16-byte stores ran 3-7 % slower at H = 256,
+// chip_smoke.py exchange_ab); one cluster barrier (barrier.cluster: the dot
+// warps arrive with release, the producer warp arrives relaxed, so its
+// copies in flight hold nothing, and every thread waits with acquire) takes
+// the place of the dot warps' named barrier; then every CTA holds the step's
+// whole dg_lo [R][3H] and computes its own units' slice of dh_prev = dg_lo
+// @ W + dht z as above, each W^T chunk it loads from shared memory feeding
+// the R rows' FMAs. The cluster walk bounds f32 at H = 376 (K = 8); bf16
+// leaves it past H = 450
 // (kAdjClusterMostBf16), where the gate pre-pass's shared memory ended it
 // before the passes were redesigned.
 //
@@ -244,7 +259,7 @@ constexpr int kRegUnits = 4;          // hidden units per dot thread, W in regis
 constexpr int kRegSub = 8;            // dot threads per group of units, W in registers
 constexpr int kRegChunks = 6;         // 4-wide chunks of K = 3H per thread: 3 * 64 / (8 * 4)
 constexpr int kRegMostRows = 2;       // rows per block, W in registers: a pair a sub-lane
-constexpr int kSmemSub = 4;           // dot threads per unit, W in shared memory (one row a block)
+constexpr int kSmemSub = 4;           // dot threads per unit, W in shared memory: up to 4 rows
 constexpr int kRegChunk = 16;         // steps the producer moves at a time, W in registers
 constexpr int kSmemChunk = 4;         // steps the producer moves at a time, W in shared memory
 constexpr int kProducer = 32;         // the producer warp
@@ -270,6 +285,12 @@ constexpr int kGradStage = 32;
 constexpr int kGradStages = 3;
 constexpr int kGradThreads = 256;     // 8 warps: 2 column groups x 4 unit groups
 constexpr size_t kMaxShared = 232448;
+// What an SM gives its blocks (H100: 228 KB of shared memory, of which CUDA
+// reserves 1 KB a block; 2048 threads): the plan's count of the walk's CTAs
+// an SM holds.
+constexpr size_t kSmShared = 233472;
+constexpr size_t kBlockReserved = 1024;
+constexpr int kSmThreads = 2048;
 constexpr int kMaxCluster = 8;        // the portable thread block cluster size
 // The most threads a CTA of the cluster walk takes (576 is the most any H
 // asks for): its launch bound, below kMaxThreads, leaves ptxas registers.
@@ -309,20 +330,6 @@ __host__ __device__ constexpr int adj_threads(int hidden, int cluster) {
   return adj_dot_threads(hidden, cluster) + kProducer;
 }
 
-// Rows per block of the walk: with W in registers, the least power of two
-// (at most 2) that brings ceil(B/R) * lanes blocks down to the SM count,
-// more blocks sharing the SMs beyond that (a block of 160 threads leaves
-// room for several on one SM); with W in shared memory one (a block needs
-// most of an SM's shared memory, so two rows would cost what two waves of
-// blocks cost).
-int adj_row_tile(int batch, int lanes, int hidden) {
-  if (!adj_in_registers(hidden)) return 1;
-  const long long want = (static_cast<long long>(batch) * lanes + kNumSMs - 1) / kNumSMs;
-  int rows = 1;
-  while (rows < want && rows < kRegMostRows) rows *= 2;
-  return rows;
-}
-
 __host__ __device__ constexpr int adj_chunk(bool regs) { return regs ? kRegChunk : kSmemChunk; }
 // Dynamic shared memory of one CTA of the walk: its W^T rows [units][kpad]
 // in the stream dtype (shared-memory instantiations only, padded to 16
@@ -340,16 +347,86 @@ __host__ __device__ constexpr size_t adj_walk_shared_bytes(int hidden, size_t it
               adj_units(hidden, cluster)) *
              sizeof(float);
 }
-// CTAs per (lane, batch row) of the walk: 1 while W^T fits one block, else
-// the least cluster whose per-CTA share and threads fit; 0 where not even
-// kMaxCluster does.
+// The most threads a one-block walk of `rows` rows takes (with W in shared
+// memory, at the largest H whose W^T and buffers fit one block in either
+// dtype): its launch bound, so that ptxas may give a tile of more rows, and
+// so fewer threads, more registers (at 768 threads a block of four rows
+// spilled).
+__host__ __device__ constexpr int adj_block_most_threads(int rows) {
+  int most = 0;
+  for (int h = kRegMaxHidden + 1; h <= kMaxThreads / kSmemSub; ++h)
+    for (size_t itemsize = 2; itemsize <= 4; itemsize += 2)
+      if (adj_threads(h, 1) <= kMaxThreads &&
+          adj_walk_shared_bytes(h, itemsize, rows, 1) <= kMaxShared && adj_threads(h, 1) > most)
+        most = adj_threads(h, 1);
+  return most;
+}
+// Whether a CTA of `cluster` takes this H's threads and, at `rows` rows,
+// its shared memory.
+bool adj_tile_fits(int hidden, size_t itemsize, int rows, int cluster) {
+  return adj_threads(hidden, cluster) <= (cluster == 1 ? kMaxThreads : kClusterMaxThreads) &&
+         adj_walk_shared_bytes(hidden, itemsize, rows, cluster) <= kMaxShared;
+}
+// The least CTAs per (lane, row tile) of the walk: 1 while W^T fits one
+// block, else the least cluster whose per-CTA share and threads fit at one
+// row; 0 where not even kMaxCluster does. It fixes the instantiation (one
+// block or a cluster) and the walk's limit; the plan (adj_walk_tile) may
+// take a larger cluster for more rows.
 int adj_cluster_size(int hidden, size_t itemsize) {
   if (adj_in_registers(hidden)) return 1;
   for (int k = 1; k <= kMaxCluster; ++k)
-    if (adj_threads(hidden, k) <= (k == 1 ? kMaxThreads : kClusterMaxThreads) &&
-        adj_walk_shared_bytes(hidden, itemsize, 1, k) <= kMaxShared)
-      return k;
+    if (adj_tile_fits(hidden, itemsize, 1, k)) return k;
   return 0;
+}
+// The walk's tile: CTAs per (lane, row tile) and rows per tile.
+struct AdjTile {
+  int cluster;
+  int rows;
+};
+// Waves of the walk's CTAs on the card, by plain arithmetic: the CTAs of all
+// ceil(B / R) * lanes tiles against kNumSMs times the CTAs an SM holds by
+// its shared memory and threads (the card's own count of clusters at once,
+// cudaOccupancyMaxActiveClusters, may be lower: a cluster stays inside a
+// GPC).
+long long adj_waves(int batch, int lanes, int hidden, size_t itemsize, AdjTile tile) {
+  const size_t by_smem =
+      kSmShared / (adj_walk_shared_bytes(hidden, itemsize, tile.rows, tile.cluster) +
+                   kBlockReserved);
+  const size_t by_threads = kSmThreads / adj_threads(hidden, tile.cluster);
+  const long long per_sm = static_cast<long long>(by_smem < by_threads ? by_smem : by_threads);
+  const long long ctas =
+      static_cast<long long>((batch + tile.rows - 1) / tile.rows) * lanes * tile.cluster;
+  const long long at_once = per_sm * kNumSMs;
+  return (ctas + at_once - 1) / at_once;
+}
+// The walk's tile for this shape (one block or cluster design). With W in
+// registers one CTA and the least power of two R (at most 2) that brings
+// ceil(B/R) * lanes blocks down to the SM count, more blocks sharing the SMs
+// beyond that (a block of 160 threads leaves room for several on one SM).
+// With W in shared memory, of every pair (K, R) that fits, K from
+// adj_cluster_size up to kMaxCluster in a cluster (1 in one block) and R in
+// 1, 2, 4 (a (row, unit) pair a sub-lane), the one that leaves the fewest
+// waves (adj_waves); on a tie the smaller K, then the smaller R.
+AdjTile adj_walk_tile(int batch, int lanes, int hidden, size_t itemsize) {
+  if (adj_in_registers(hidden)) {
+    const long long want = (static_cast<long long>(batch) * lanes + kNumSMs - 1) / kNumSMs;
+    int rows = 1;
+    while (rows < want && rows < kRegMostRows) rows *= 2;
+    return {1, rows};
+  }
+  const int least = adj_cluster_size(hidden, itemsize);
+  AdjTile best{least, 1};
+  long long fewest = -1;
+  for (int k = least; k <= (least == 1 ? 1 : kMaxCluster); ++k)
+    for (int r = 1; r <= kSmemSub; r *= 2) {
+      if (!adj_tile_fits(hidden, itemsize, r, k)) continue;
+      const long long waves = adj_waves(batch, lanes, hidden, itemsize, {k, r});
+      if (fewest < 0 || waves < fewest) {
+        best = {k, r};
+        fewest = waves;
+      }
+    }
+  return best;
 }
 // Dynamic shared memory of the two passes over all T, which does not grow
 // with H. The gate pre-pass: W's slice [3 x kGateUnits][kGateResidentK + 16
@@ -390,10 +467,10 @@ __host__ __device__ constexpr size_t adj_pass_shared_bytes(size_t itemsize) {
              : adj_grad_shared_bytes(itemsize);
 }
 // The most any kernel of the one-block or cluster design takes of one
-// block's or CTA's shared memory at this H's cluster size (kMaxCluster past
-// the walk's limit).
-size_t adj_cluster_shared_bytes(int hidden, size_t itemsize, int rows) {
-  const int cluster = adj_cluster_size(hidden, itemsize);
+// block's or CTA's shared memory at a cluster of `cluster` CTAs (0: this
+// H's least, adj_cluster_size, or kMaxCluster past the walk's limit).
+size_t adj_cluster_shared_bytes(int hidden, size_t itemsize, int rows, int cluster = 0) {
+  if (cluster == 0) cluster = adj_cluster_size(hidden, itemsize);
   const size_t walk = adj_walk_shared_bytes(hidden, itemsize, rows, cluster ? cluster : kMaxCluster);
   return walk > adj_pass_shared_bytes(itemsize) ? walk : adj_pass_shared_bytes(itemsize);
 }
@@ -466,11 +543,28 @@ int adj_stream_row_tile(int batch, int lanes, int hidden, size_t itemsize) {
   return rows;
 }
 // The most any kernel of the adjoint walk takes of one block's or CTA's
-// shared memory for a walk tile of `rows`; the wrapper checks it.
+// shared memory for a walk tile of `rows` at this H's least cluster; at one
+// row (two with W in registers) it sets the walk's limit, which the wrapper
+// checks.
 size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
   if (!adj_streamed(hidden, itemsize)) return adj_cluster_shared_bytes(hidden, itemsize, rows);
   const size_t walk = adj_stream_shared_bytes(hidden, itemsize, rows);
   return walk > adj_pass_shared_bytes(itemsize) ? walk : adj_pass_shared_bytes(itemsize);
+}
+// The walk's tile for this shape: adj_walk_tile, or past the one-block and
+// cluster design's limit kMaxCluster CTAs and the streamed row tile.
+AdjTile adj_tile(int batch, int lanes, int hidden, size_t itemsize) {
+  if (adj_streamed(hidden, itemsize))
+    return {kMaxCluster, adj_stream_row_tile(batch, lanes, hidden, itemsize)};
+  return adj_walk_tile(batch, lanes, hidden, itemsize);
+}
+// What adj_shared_bytes says for this shape's own tile; adj_launch checks
+// it before any launch.
+size_t adj_plan_shared_bytes(int batch, int lanes, int hidden, size_t itemsize) {
+  const AdjTile tile = adj_tile(batch, lanes, hidden, itemsize);
+  return adj_streamed(hidden, itemsize)
+             ? adj_shared_bytes(hidden, itemsize, tile.rows)
+             : adj_cluster_shared_bytes(hidden, itemsize, tile.rows, tile.cluster);
 }
 // The grid walk's plan where it takes the shape: past the one-block and
 // cluster design's limit, wherever one lane's W fits the card (ctas 0
@@ -481,8 +575,7 @@ GridPlan adj_grid(int batch, int lanes, int hidden, size_t itemsize) {
 }
 // Rows per block (or streamed tile) of the walk for this shape.
 int adj_rows(int batch, int lanes, int hidden, size_t itemsize) {
-  return adj_streamed(hidden, itemsize) ? adj_stream_row_tile(batch, lanes, hidden, itemsize)
-                                        : adj_row_tile(batch, lanes, hidden);
+  return adj_tile(batch, lanes, hidden, itemsize).rows;
 }
 
 // Rows (t, b) of one lane per chunk of the weight-gradient pass: as many
@@ -626,7 +719,8 @@ __device__ __forceinline__ void cluster_sync_all() {
 // c = 4 (s + S i) + e of W's columns for its units (K = 3H in 4-wide
 // chunks), in registers for H <= 64 (U = 4, S = 8: 96 floats a thread, so
 // each dg_lo value read from shared memory feeds 4 FMAs), or reads W^T from
-// shared memory above (U = 1, S = 4). Sub-lane s < R U owns the pair
+// shared memory above (U = 1, S = 4, up to R = 4 rows: each W^T chunk it
+// loads feeds every row's FMAs). Sub-lane s < R U owns the pair
 // (row s / U, unit g U + s % U); it turns dht = dh + dy into dg_lo
 // (into the parity buffer) and keeps dht z; barrier; each dot thread dots
 // its slice of every row's dg_lo with its W slice, an xor butterfly sums
@@ -641,15 +735,17 @@ __device__ __forceinline__ void cluster_sync_all() {
 // barrier (kChunkBarrier), once per P steps.
 // One block an SM is what the launch bounds ask for: without the minimum,
 // ptxas trades registers for a second block (which shared memory rules out
-// with W in shared memory) and spills.
-// The cluster instantiation (kCluster, W in shared memory, one row): CTA
-// `rank` of the `csize` sharing a (lane, row) owns units unit0 .. unit0 +
-// units - 1; its pair lanes store dg_lo into every CTA's buffer, and the
-// cluster barrier replaces the dot warps' named barrier (see the note at
+// with W in shared memory) and spills. One block of R rows is bound by the
+// most threads it takes (adj_block_most_threads: 768 at one row, 704 at
+// two, 608 at four).
+// The cluster instantiation (kCluster, W in shared memory, R rows): CTA
+// `rank` of the `csize` sharing a (lane, row tile) owns units unit0 ..
+// unit0 + units - 1; its pair lanes store dg_lo into every CTA's buffer, and
+// the cluster barrier replaces the dot warps' named barrier (see the note at
 // the top).
 template <typename T, typename Layout, int R, bool kRegs, bool kCluster>
 __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + kProducer
-                                  : kCluster ? kClusterMaxThreads : kMaxThreads, 1)
+                                  : kCluster ? kClusterMaxThreads : adj_block_most_threads(R), 1)
     gru_adj_walk_kernel(const float* __restrict__ fac, const T* __restrict__ w_hh,
                         float* __restrict__ dht_out, float* __restrict__ dh0, int n_steps,
                         int batch, int hidden, int reverse) {
@@ -658,7 +754,7 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   constexpr int P = adj_chunk(kRegs);
   constexpr int kAcc = kRegs ? 1 : 4;  // partial sums per (row, unit)
   static_assert(R * U <= S, "one (row, unit) pair a sub-lane");
-  static_assert(!(kCluster && (kRegs || R != 1)), "the cluster walk: W in shared memory, one row");
+  static_assert(!(kCluster && kRegs), "the cluster walk: W in shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = hidden;
   const int G = 3 * hidden;
@@ -681,6 +777,23 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   const int mine = H - unit0 < units ? H - unit0 : units;  // this CTA's units inside H
 
   T* w_s = reinterpret_cast<T*>(smem);  // [units][kpad]: w_s[k][c] = W[c][unit0 + k]
+  // A warp's shared loads of W^T run in phases of 128 bytes: 2 groups of
+  // 16-byte chunks (f32) or 4 of 8-byte ones (bf16), each group 4 chunks
+  // in a row. Rows kpad * sizeof(T) bytes apart would put those groups'
+  // chunks in the same banks wherever that is a multiple of 128 (f32 and
+  // bf16 H = 192, 256), and partly elsewhere. So row k is rotated by (k
+  // skew) mod kRunChunks chunks (w_slot: its chunk c at (c + that) mod
+  // nchunks), which puts its chunk c at byte (k S + c) 4 sizeof(T) mod 128
+  // of a bank line: the groups of a phase on disjoint banks (but for the
+  // chunks that wrap round the row's end).
+  constexpr int kChunkBytes = 4 * int(sizeof(T));
+  constexpr int kRunChunks = 128 / kChunkBytes;
+  const int nchunks = kpad / 4;
+  const int skew = (S * kChunkBytes - kpad * int(sizeof(T)) % 128) / kChunkBytes;
+  auto w_slot = [&](int k, int c) {  // where row k keeps its chunk c
+    const int p = c + (k * skew % kRunChunks + kRunChunks) % kRunChunks;
+    return p < nchunks ? p : p - nchunks;
+  };
   float* dgbuf = reinterpret_cast<float*>(
       smem + (kRegs ? 0 : align16(size_t(units) * kpad * sizeof(T))));  // [2][R][kpad]
   float* fbuf = dgbuf + 2 * R * kpad;                      // [2P][R][kWalkFactors][units]
@@ -705,14 +818,14 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
     for (int e = tid; e < units * kpad; e += blockDim.x) {
       const int c = e / units;  // read W's columns of this CTA's units row by row
       const int kk = e - c * units;
-      w_s[size_t(kk) * kpad + c] =
+      w_s[size_t(kk) * kpad + 4 * w_slot(kk, c / 4) + c % 4] =
           c < G && kk < mine ? w[size_t(c) * H + unit0 + kk] : from_float<T>(0.0f);
     }
   } else {
     for (int e = tid; e < H * kpad; e += blockDim.x) {
       const int c = e / H;  // read W row by row, write it transposed
       const int kk = e - c * H;
-      w_s[size_t(kk) * kpad + c] = c < G ? w[e] : from_float<T>(0.0f);
+      w_s[size_t(kk) * kpad + 4 * w_slot(kk, c / 4) + c % 4] = c < G ? w[e] : from_float<T>(0.0f);
     }
   }
 
@@ -809,7 +922,6 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   const int pk = unit0 + pkl;
   const bool pair = g < groups && s < R * U && pkl < units && pk < H && row0 + pr < batch;
   float dh = 0.0f;
-  const int nchunks = kpad / 4;
   for (int step = 0; step < n_steps; ++step) {
     if (step > 0 && step % P == 0) named_barrier(kChunkBarrier, blockDim.x);
     float* buf = dgbuf + (step & 1) * R * kpad;
@@ -865,10 +977,12 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
               acc[r][u][0] = fmaf(dv[e], wreg[(u * kRegChunks + ci) * 4 + e], acc[r][u][0]);
         }
     } else {
-#pragma unroll 2
+      // Two chunks in flight, but one at a time in one block of four rows
+      // (608 threads leave ptxas 96 registers a thread, and two spilled).
+#pragma unroll (kCluster || R < 4 ? 2 : 1)
       for (int c = s; c < nchunks; c += S) {
         float wv[4];
-        load4(w_s + size_t(gu) * kpad + 4 * c, wv);
+        load4(w_s + size_t(gu) * kpad + 4 * w_slot(gu, c), wv);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           float dv[4];
@@ -2089,20 +2203,27 @@ __global__ void gru_adj_reduce(const float* __restrict__ dw_part,
   }
 }
 
-// The walk's instantiation for a shape: split over a cluster where W^T
-// does not fit one block, W in shared memory above H = 64 (one row a
-// block), else W in registers with `rows` (adj_row_tile) rows.
+// The walk's instantiation for a shape's tile (adj_walk_tile): split over a
+// cluster where W^T does not fit one block, W in shared memory above H = 64,
+// else W in registers; `rows` rows a tile (1 or 2 with W in registers, 1, 2
+// or 4 in shared memory).
 template <typename T>
 using AdjWalkKernel = void (*)(const float*, const T*, float*, float*, int, int, int, int);
+template <typename T, typename Layout, bool kCluster>
+AdjWalkKernel<T> adj_smem_walk_kernel(int rows) {
+  return rows == 1   ? gru_adj_walk_kernel<T, Layout, 1, false, kCluster>
+         : rows == 2 ? gru_adj_walk_kernel<T, Layout, 2, false, kCluster>
+                     : gru_adj_walk_kernel<T, Layout, 4, false, kCluster>;
+}
 template <typename T, typename Layout>
 AdjWalkKernel<T> adj_walk_kernel(int rows, int hidden, int cluster) {
-  if (cluster > 1) return gru_adj_walk_kernel<T, Layout, 1, false, true>;
-  if (!adj_in_registers(hidden)) return gru_adj_walk_kernel<T, Layout, 1, false, false>;
+  if (cluster > 1) return adj_smem_walk_kernel<T, Layout, true>(rows);
+  if (!adj_in_registers(hidden)) return adj_smem_walk_kernel<T, Layout, false>(rows);
   return rows == 1 ? gru_adj_walk_kernel<T, Layout, 1, true, false>
                    : gru_adj_walk_kernel<T, Layout, 2, true, false>;
 }
 
-// The cluster walk's launch: `cluster` CTAs per (lane, row) along the
+// The cluster walk's launch: `cluster` CTAs per (lane, row tile) along the
 // grid's x, one cluster apiece.
 struct AdjWalkLaunch {
   cudaLaunchConfig_t cfg = {};
@@ -2206,9 +2327,9 @@ int adj_walk_active_clusters(int batch, int lanes, int hidden) {
   }
   if (adj_streamed(hidden, sizeof(T)))
     return adj_stream_active_clusters<T, Layout>(batch, lanes, hidden);
-  const int cluster = adj_cluster_size(hidden, sizeof(T));
-  if (cluster == 0) return -int(cudaErrorInvalidValue);
-  const int rows = adj_row_tile(batch, lanes, hidden);
+  if (adj_cluster_size(hidden, sizeof(T)) == 0) return -int(cudaErrorInvalidValue);
+  const AdjTile tile = adj_walk_tile(batch, lanes, hidden, sizeof(T));
+  const int cluster = tile.cluster, rows = tile.rows;
   const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden, cluster);
   const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
@@ -2233,8 +2354,8 @@ int adj_walk_active_clusters(int batch, int lanes, int hidden) {
 template <typename T, typename Layout>
 int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lanes, int n_steps,
              int batch, int hidden, int reverse, cudaStream_t stream) {
-  const int cluster = adj_cluster_size(hidden, sizeof(T));
-  const int rows = adj_row_tile(batch, lanes, hidden);
+  const AdjTile tile = adj_walk_tile(batch, lanes, hidden, sizeof(T));
+  const int cluster = tile.cluster, rows = tile.rows;
   const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden, cluster);
   const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
@@ -2283,9 +2404,9 @@ int adj_walk_blocks_per_sm(int batch, int lanes, int hidden) {
           &blocks, kernel, adj_stream_dot_threads(hidden) + kProducer, smem);
     return err == cudaSuccess ? blocks : -int(err);
   }
-  const int cluster = adj_cluster_size(hidden, sizeof(T));
-  if (cluster == 0) return -int(cudaErrorInvalidValue);
-  const int rows = adj_row_tile(batch, lanes, hidden);
+  if (adj_cluster_size(hidden, sizeof(T)) == 0) return -int(cudaErrorInvalidValue);
+  const AdjTile tile = adj_walk_tile(batch, lanes, hidden, sizeof(T));
+  const int cluster = tile.cluster, rows = tile.rows;
   const AdjWalkKernel<T> kernel = adj_walk_kernel<T, LaneMajor>(rows, hidden, cluster);
   const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
@@ -2350,9 +2471,8 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
                void* workspace, void* db_part, int lanes, int n_steps, int batch, int hidden,
                int reverse, void* stream) {
   const bool streamed = adj_streamed(hidden, sizeof(T));
-  const int rows = adj_rows(batch, lanes, hidden, sizeof(T));
   if ((!streamed && adj_cluster_size(hidden, sizeof(T)) == 0) ||
-      adj_shared_bytes(hidden, sizeof(T), rows) > kMaxShared ||
+      adj_plan_shared_bytes(batch, lanes, hidden, sizeof(T)) > kMaxShared ||
       static_cast<long long>(lanes) * n_steps * batch > 0x7fffffffLL)  // rows an int
     return int(cudaErrorInvalidValue);
   const int gates_cap = adj_gates_capacity<T, Layout>();
@@ -2410,16 +2530,17 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
 extern "C" {
 
 // Shared memory the most demanding kernel of the adjoint walk needs of
-// one block or CTA for a walk tile of `rows`; the wrapper checks it against
-// the card's limit.
+// one block or CTA for a walk tile of `rows` at this H's least cluster; at
+// one row (two with W in registers) the wrapper checks it against the card's
+// limit.
 long long gru_adj_shared_bytes(int hidden, int bf16, int rows) {
   return (long long)adj_shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float),
                                      rows);
 }
 
-// CTAs of the adjoint walk per (lane, batch row) at this H: 1 while W^T
-// fits one block, up to 8 for the cluster walk, 0 past the cluster walk's
-// limit.
+// The least CTAs of the adjoint walk per (lane, row tile) at this H: 1
+// while W^T fits one block, up to 8 for the cluster walk, 0 past the cluster
+// walk's limit (gru_adj_plan gives a shape's own, which may be larger).
 int gru_adj_cluster_size(int hidden, int bf16) {
   return adj_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
 }
@@ -2447,22 +2568,20 @@ void gru_adj_plan(int batch, int lanes, int n_steps, int hidden, int bf16, long 
     out[7] = grid.groups;
     out[8] = grid.threads;
   } else {
-    const int rows = adj_rows(batch, lanes, hidden, item);
+    const AdjTile tile = adj_tile(batch, lanes, hidden, item);
     if (adj_streamed(hidden, item)) {
-      const int res = adj_stream_resident(hidden, item, rows);
+      const int res = adj_stream_resident(hidden, item, tile.rows);
       out[0] = 4;
-      out[1] = kMaxCluster;
       out[3] = res;
       out[4] = adj_stream_units(hidden) - (res > 0 ? res : 0);
     } else {
-      const int cluster = adj_cluster_size(hidden, item);
-      out[0] = adj_in_registers(hidden) ? 0 : cluster == 1 ? 1 : 2;
-      out[1] = cluster;
-      out[3] = adj_units(hidden, cluster);
+      out[0] = adj_in_registers(hidden) ? 0 : adj_cluster_size(hidden, item) == 1 ? 1 : 2;
+      out[3] = adj_units(hidden, tile.cluster);
       out[4] = 0;
     }
-    out[2] = rows;
-    out[5] = (long long)adj_shared_bytes(hidden, item, rows);
+    out[1] = tile.cluster;
+    out[2] = tile.rows;
+    out[5] = (long long)adj_plan_shared_bytes(batch, lanes, hidden, item);
   }
   out[6] = adj_workspace_floats(lanes, n_steps, batch, hidden, item);
 }

@@ -56,7 +56,9 @@ entries run the adjoint walk, with their own lane count and stream layout
 or 2F): a gate pre-pass over all T, a walk that keeps only the dh chain
 (W's columns in registers up to H = 64, in shared memory above, split over
 a cluster above H = 130 f32 / 179 bf16, the step's dg exchanged over
-distributed shared memory; a producer warp moves its factors and dht
+distributed shared memory; with W in shared memory a tile of up to 4 batch
+rows, the tile and the cluster taken to leave the fewest waves of CTAs,
+`adj_tile`; a producer warp moves its factors and dht
 between device and shared memory a chunk of steps at a time; past H = 376
 f32 / 450 bf16 the grid walk, dg exchanged through the workspace as the
 forward's h, up to H = 1320 f32 / 2112 bf16 at B = 64, then the streamed
@@ -66,7 +68,7 @@ passes over all T take their products on the tensor cores (bf16 mma, 3xTF32
 in f32; `adj_pass_plan`). `walk_plan`, `adj_plan` and
 `grid_plan` (with `walk_cluster_size`, `walk_row_tile`,
 `walk_shared_bytes`, `walk_workspace_elems`, `adj_cluster_size`,
-`adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
+`adj_tile`, `adj_row_tile`, `adj_shared_bytes`, `adj_partials` and
 `adj_workspace_floats`) mirror how the C side picks the instantiation, the
 cluster or group and the tile, and sizes shared memory and workspaces
 (`c_plan` reads the C plans on the card); they size
@@ -125,12 +127,13 @@ NO_CLUSTER = -1
 CLUSTER_MAX_THREADS = 576
 # The adjoint walk's layout (csrc/gru_bwd.cu): K = 3H padded to 8 sub-lanes
 # x 6 chunks of 4 with W in registers; at most 2 rows a block with W in
-# registers, 1 with W in shared memory; the steps its producer warp moves at
-# a time, and the factors it reads; six f32 factors (dy among them) and
-# dht per (step, row, unit) in the workspace; the weight-gradient pass's
-# tile of dW (gate columns x units), its stage of rows and ring stages.
+# registers, 4 with W in shared memory (a (row, unit) pair a sub-lane); the
+# steps its producer warp moves at a time, and the factors it reads; six f32
+# factors (dy among them) and dht per (step, row, unit) in the workspace;
+# the weight-gradient pass's tile of dW (gate columns x units), its stage of
+# rows and ring stages.
 ADJ_REG_KPAD = 192
-ADJ_MOST_ROWS = {True: 2, False: 1}   # by "W in registers"
+ADJ_MOST_ROWS = {True: 2, False: 4}   # by "W in registers"
 ADJ_SMEM_SUBLANES = 4                  # dot threads per unit, W in shared memory
 ADJ_PRODUCER = 32                      # the producer warp
 ADJ_CHUNK = {True: 16, False: 4}
@@ -155,6 +158,12 @@ STREAM_STAGES = 2
 # Clusters of MAX_CLUSTER CTAs of one CTA an SM that an H100 runs at once
 # (cudaOccupancyMaxActiveClusters: 15, not NUM_SMS / 8).
 STREAM_CLUSTERS = 15
+# What an H100 SM gives its blocks: 228 KB of shared memory, of which CUDA
+# reserves 1 KB a block, and 2048 threads (the adjoint plan's count of the
+# walk's CTAs an SM holds, adj_waves).
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1_024
+SM_THREADS = 2048
 # The grid walks (csrc/gru_grid.cuh), between the cluster walks and the
 # streamed ones: the K tiles of the exchanged state a plan may take (the
 # first preferred), elements past every shared row, the least and the most
@@ -469,12 +478,10 @@ def walk_plan(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> dict:
 
 
 def adj_row_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> int:
-    """Rows per block of gru_bwd's walk (as gru_adj_row_tile in C), at most
-    ADJ_MOST_ROWS (1 with W in shared memory, in one block or a cluster);
-    the streamed walk's: _stream_row_tile."""
-    if adj_streamed(hidden, itemsize):
-        return _stream_row_tile(batch, lanes, hidden, itemsize, adjoint=True)
-    return _row_tile(batch, lanes, ADJ_MOST_ROWS[walk_in_registers(hidden)])
+    """Rows per block (or cluster) of gru_bwd's walk (as gru_adj_row_tile in
+    C): adj_tile's, at most ADJ_MOST_ROWS; the streamed walk's:
+    _stream_row_tile."""
+    return adj_tile(batch, lanes, hidden, itemsize)[1]
 
 
 def _adj_walk_bytes(hidden: int, itemsize: int, rows: int, cluster: int) -> int:
@@ -486,19 +493,64 @@ def _adj_walk_bytes(hidden: int, itemsize: int, rows: int, cluster: int) -> int:
     return w + (2 * rows * kpad + rows * per_row) * 4
 
 
+def _adj_threads(hidden: int, cluster: int) -> int:
+    """Threads of a block or CTA of the adjoint walk (as adj_threads in C):
+    its dot threads, whole warps, and the producer warp."""
+    dot = (-(-hidden // 4) * 8 if walk_in_registers(hidden)
+           else cluster_units(hidden, cluster) * ADJ_SMEM_SUBLANES)
+    return -(-dot // 32) * 32 + ADJ_PRODUCER
+
+
+def _adj_tile_fits(hidden: int, itemsize: int, rows: int, cluster: int) -> bool:
+    return (_adj_threads(hidden, cluster) <= (MAX_THREADS if cluster == 1
+                                               else CLUSTER_MAX_THREADS)
+            and _adj_walk_bytes(hidden, itemsize, rows, cluster) <= MAX_SHARED_BYTES)
+
+
 def adj_cluster_size(hidden: int, itemsize: int) -> int:
-    """CTAs of the adjoint walk per (lane, batch row) (as
+    """The least CTAs of the adjoint walk per (lane, row tile) (as
     gru_adj_cluster_size in C): 1 while W^T fits one block, else the least
     cluster up to MAX_CLUSTER whose per-CTA share and threads (its units'
-    dot threads and the producer warp) fit; 0 past the walk's limit."""
+    dot threads and the producer warp) fit at one row; 0 past the walk's
+    limit. It fixes the instantiation (one block or a cluster); a shape's
+    own cluster (adj_tile) may be larger, for more rows."""
     if walk_in_registers(hidden):
         return 1
     for k in range(1, MAX_CLUSTER + 1):
-        threads = -(-cluster_units(hidden, k) * ADJ_SMEM_SUBLANES // 32) * 32 + ADJ_PRODUCER
-        if (threads <= (MAX_THREADS if k == 1 else CLUSTER_MAX_THREADS)
-                and _adj_walk_bytes(hidden, itemsize, 1, k) <= MAX_SHARED_BYTES):
+        if _adj_tile_fits(hidden, itemsize, 1, k):
             return k
     return 0
+
+
+def adj_waves(batch: int, lanes: int, hidden: int, itemsize: int, cluster: int,
+              rows: int) -> int:
+    """Waves of the adjoint walk's CTAs on the card at this tile (as
+    adj_waves in C), by plain arithmetic: the CTAs of all ceil(B / R) *
+    lanes tiles against NUM_SMS times the CTAs an SM holds by its shared
+    memory and threads (the card may run fewer clusters at once: a cluster
+    stays inside a GPC)."""
+    per_sm = min(SM_SHARED_BYTES // (_adj_walk_bytes(hidden, itemsize, rows, cluster)
+                                     + BLOCK_RESERVED_BYTES),
+                 SM_THREADS // _adj_threads(hidden, cluster))
+    return -(-(-(-batch // rows) * lanes * cluster) // (NUM_SMS * per_sm))
+
+
+def adj_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> tuple[int, int]:
+    """(CTAs per (lane, row tile), rows per tile) of the adjoint walk (as
+    adj_tile in C). W in registers: one CTA and _row_tile's R, at most
+    ADJ_MOST_ROWS[True]. W in shared memory: of every (K, R) that fits, K
+    from adj_cluster_size up to MAX_CLUSTER in a cluster (1 in one block)
+    and R in 1, 2, 4, the pair with the fewest adj_waves, on a tie the
+    smaller K, then the smaller R. Past the one-block and cluster design's
+    limit: MAX_CLUSTER and the streamed walk's _stream_row_tile."""
+    if adj_streamed(hidden, itemsize):
+        return MAX_CLUSTER, _stream_row_tile(batch, lanes, hidden, itemsize, adjoint=True)
+    if walk_in_registers(hidden):
+        return 1, _row_tile(batch, lanes, ADJ_MOST_ROWS[True])
+    least = adj_cluster_size(hidden, itemsize)
+    pairs = [(k, r) for k in (range(least, MAX_CLUSTER + 1) if least > 1 else (1,))
+             for r in (1, 2, 4) if _adj_tile_fits(hidden, itemsize, r, k)]
+    return min(pairs, key=lambda kr: (adj_waves(batch, lanes, hidden, itemsize, *kr), *kr))
 
 
 def _adj_gates_bytes(itemsize: int) -> int:
@@ -553,11 +605,19 @@ def adj_pass_plan(lanes: int, n_steps: int, batch: int, hidden: int, itemsize: i
                 chunk_rows=chunk, grad_shared_bytes=_adj_grad_bytes(itemsize))
 
 
-def _adj_cluster_bytes(hidden: int, itemsize: int, rows: int) -> int:
+def _adj_cluster_bytes(hidden: int, itemsize: int, rows: int, cluster: int | None = None) -> int:
     """adj_shared_bytes of the one-block and cluster design (as
-    adj_cluster_shared_bytes in C)."""
-    cluster = adj_cluster_size(hidden, itemsize) or MAX_CLUSTER
+    adj_cluster_shared_bytes in C), at `cluster` CTAs (default: this H's
+    least, or MAX_CLUSTER past the walk's limit)."""
+    cluster = cluster or adj_cluster_size(hidden, itemsize) or MAX_CLUSTER
     return max(_adj_walk_bytes(hidden, itemsize, rows, cluster), _adj_pass_bytes(itemsize))
+
+
+def _adj_seam_rows(hidden: int) -> int:
+    """The rows a tile takes where the walk's limit is set: the most with W
+    in registers, one with W in shared memory (a larger cluster makes room
+    for more)."""
+    return ADJ_MOST_ROWS[True] if walk_in_registers(hidden) else 1
 
 
 # The bf16 adjoint leaves the cluster walk past this H, where the gate
@@ -573,8 +633,7 @@ def adj_streamed(hidden: int, itemsize: int) -> bool:
     takes the shape, the streamed walk elsewhere."""
     return (adj_cluster_size(hidden, itemsize) == 0
             or (itemsize != 4 and hidden > ADJ_CLUSTER_MOST_BF16)
-            or _adj_cluster_bytes(hidden, itemsize,
-                                  ADJ_MOST_ROWS[walk_in_registers(hidden)]) > MAX_SHARED_BYTES)
+            or _adj_cluster_bytes(hidden, itemsize, _adj_seam_rows(hidden)) > MAX_SHARED_BYTES)
 
 
 def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
@@ -584,14 +643,16 @@ def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int
     (all H in one block; none with W in registers), then two f32 buffers of
     the tile's whole dg, [rows, K padded], and for two chunks of steps its
     units' f32 factors [2 chunk, rows, 5, units] and dht [2 chunk, rows,
-    units], at this H's cluster size; or the two passes' (_adj_pass_bytes),
-    whichever is larger. Past that design's limit the streamed walk's
-    resident rows and fixed part (_stream_fixed), or the passes', whichever
-    is larger. `rows` defaults to the most a block takes."""
+    units], at this H's least cluster (adj_cluster_size); or the two
+    passes' (_adj_pass_bytes), whichever is larger. Past that design's
+    limit the streamed walk's resident rows and fixed part (_stream_fixed),
+    or the passes', whichever is larger. `rows` defaults to the rows that
+    set the limit on H (_adj_seam_rows; the streamed walk's most), so the
+    limit holds for every batch; a shape's own bytes are adj_plan's."""
     if adj_streamed(hidden, itemsize):
         rows = stream_most_rows(hidden, itemsize, adjoint=True) if rows is None else rows
         return max(_stream_bytes(hidden, itemsize, rows, adjoint=True), _adj_pass_bytes(itemsize))
-    rows = ADJ_MOST_ROWS[walk_in_registers(hidden)] if rows is None else rows
+    rows = _adj_seam_rows(hidden) if rows is None else rows
     return _adj_cluster_bytes(hidden, itemsize, rows)
 
 
@@ -664,17 +725,18 @@ def adj_plan(batch: int, lanes: int, n_steps: int, hidden: int, itemsize: int = 
     if grid is not None:
         return dict(_grid_fields(grid, max(grid["smem"], _adj_pass_bytes(itemsize))),
                     workspace=workspace)
-    rows = adj_row_tile(batch, lanes, hidden, itemsize)
+    cluster, rows = adj_tile(batch, lanes, hidden, itemsize)
     if adj_streamed(hidden, itemsize):
         res = stream_resident(hidden, itemsize, rows, adjoint=True)
-        kind, cluster, streamed = 4, MAX_CLUSTER, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
+        kind, streamed = 4, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
+        shared = adj_shared_bytes(hidden, itemsize, rows)
     else:
-        cluster = adj_cluster_size(hidden, itemsize)
-        kind = 0 if walk_in_registers(hidden) else 1 if cluster == 1 else 2
+        least = adj_cluster_size(hidden, itemsize)
+        kind = 0 if walk_in_registers(hidden) else 1 if least == 1 else 2
         res, streamed = cluster_units(hidden, cluster), 0
+        shared = _adj_cluster_bytes(hidden, itemsize, rows, cluster)
     return dict(instantiation=INSTANTIATIONS[kind], cluster=cluster, rows=rows,
-                resident=res, streamed=streamed,
-                shared_bytes=adj_shared_bytes(hidden, itemsize, rows), groups=0, threads=0,
+                resident=res, streamed=streamed, shared_bytes=shared, groups=0, threads=0,
                 workspace=workspace)
 
 

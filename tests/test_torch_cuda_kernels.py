@@ -13,7 +13,9 @@ shape, the port's own instantiation seams (the walk kernels' one block /
 cluster / grid boundaries, f32, at a short T), bf16 mode, and the adjoint's
 two passes over all T under each adjoint entry (at the seams, ragged and
 at H=1024, f32 and bf16; dW and db bitwise over two calls; the pre-pass's
-factors read back against their plain version).
+factors read back against their plain version), and the adjoint's
+W-in-shared-memory walks at row tiles past one (a cluster and one block,
+B=37).
 
 Run on a GPU host from the repository's root (tests/conftest.py sets up
 JAX, which the GPU machine does not have, hence --noconftest):
@@ -277,6 +279,36 @@ def test_adjoint_passes(entry, dtype, shape):
     _, kernel, plain = PASS_ENTRIES[entry]
     args = _entry_args(entry, *shape, dtype, seed=shape[2])
     _check_adjoint(kernel(*args), plain(*args), dtype, f"{entry} {shape}")
+
+
+# The adjoint's W-in-shared-memory walks at row tiles past one, as (T, B,
+# H), with the plans' (CTAs, rows) at one lane / two: a cluster at H=256
+# (f32 5 x 4; bf16 2 x 1 / 3 x 4), at B=37, which no tile of 2 or 4 divides
+# (f32 5 x 2 / 5 x 4, bf16 2 x 1 / 3 x 2), and at 376 (f32 8 x 1, bf16 6 x
+# 4); one block at H=100 and B=256 (f32 2 / 4 rows, bf16 1 / 2).
+TILE_SHAPES = [(SEAM_T, B, 256), (SEAM_T, 37, 256), (SEAM_T, B, 376), (SEAM_T, 256, 100)]
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=lambda s: "T%d-B%d-H%d" % s)
+@pytest.mark.parametrize("entry,dtype", [("gru_bwd", F32), ("gru_bwd", BF16),
+                                         ("gru_bwd_fb", F32), ("gru_bwd_fb", BF16),
+                                         ("gru_bibwd", F32)],
+                         ids=["gru_bwd-f32", "gru_bwd-bf16", "gru_bwd_fb-f32", "gru_bwd_fb-bf16",
+                              "gru_bibwd-f32"])
+def test_adjoint_row_tiles(entry, dtype, shape):
+    """Each adjoint entry against its plain version at BWD_TOL at TILE_SHAPES,
+    where its plan (gru_cuda.adj_plan) takes a cluster, or one block at
+    H=100, with the row tile it names; dW and db the same bits over two
+    calls."""
+    lanes, kernel, plain = PASS_ENTRIES[entry]
+    t, b, h = shape
+    plan = gru_cuda.adj_plan(b, lanes or 1, t, h, torch.empty((), dtype=dtype).element_size())
+    assert plan["instantiation"] == ("one block" if h == 100 else "cluster"), plan
+    args = _entry_args(entry, t, b, h, dtype, seed=b + h)
+    got = kernel(*args)
+    _check_adjoint(got, plain(*args), dtype, f"{entry} {shape} {plan}")
+    again = kernel(*args)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
 
 
 @pytest.mark.parametrize("hidden", [H, 1024])

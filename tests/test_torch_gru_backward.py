@@ -300,27 +300,40 @@ def test_fb_and_fused_adjoints_admit_every_walk_hidden_size(entry, dtype):
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 15])
-@pytest.mark.parametrize("hidden", [16, 64, 95, 128])
+@pytest.mark.parametrize("hidden", [16, 64, 95, 128, 256])
 @pytest.mark.parametrize("n_steps", [1, 37, 480])
 @pytest.mark.parametrize("batch", [1, 5, 63, 64, 65, 256])
 def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden, lanes):
-    """The adjoint walk's blocks (ceil(B / R) tiles of R rows a lane) cover
-    each batch row once, R a power of two of at most ADJ_MOST_ROWS that
-    grows only while the blocks of all lanes would outnumber the SMs; its
-    weight-gradient chunks cover each of a lane's T * B rows (t, b) once, in
-    whole stages, one where the lanes' dW tiles fill the SMs and otherwise
-    as many as the tiles take to fill them; the workspace holds the
-    six factors and dht of every (lane, t, b, unit), then one [3H, H]
-    partial per lane and chunk, and the db workspace one [3H] partial per
-    lane and chunk."""
-    rows = gru_cuda.adj_row_tile(batch, lanes, hidden)
+    """The adjoint walk's blocks or clusters (ceil(B / R) tiles of R rows a
+    lane) cover each batch row once, R a power of two of at most
+    ADJ_MOST_ROWS; with W in registers R grows only while the blocks of all
+    lanes would outnumber the SMs; with W in shared memory (one block at H =
+    95 and 128, a cluster at 256) the tile's CTAs, counted against those the
+    card runs at once (NUM_SMS times the CTAs an SM holds), leave no more
+    waves than those of any other tile that fits; its weight-gradient chunks
+    cover each of a lane's T * B rows (t, b) once, in whole stages, one
+    where the lanes' dW tiles fill the SMs and otherwise as many as the
+    tiles take to fill them; the workspace holds the six factors and dht of
+    every (lane, t, b, unit), then one [3H, H] partial per lane and chunk,
+    and the db workspace one [3H] partial per lane and chunk."""
+    cluster, rows = gru_cuda.adj_tile(batch, lanes, hidden)
+    assert rows == gru_cuda.adj_row_tile(batch, lanes, hidden)
     most = gru_cuda.ADJ_MOST_ROWS[gru_cuda.walk_in_registers(hidden)]
     assert rows & (rows - 1) == 0 and 1 <= rows <= most
     tiles = -(-batch // rows)
     covered = [t * rows + r for t in range(tiles) for r in range(rows) if t * rows + r < batch]
     assert covered == list(range(batch))
-    assert tiles * lanes <= gru_cuda.NUM_SMS or rows == most
-    assert rows == 1 or -(-batch // (rows // 2)) * lanes > gru_cuda.NUM_SMS
+    if gru_cuda.walk_in_registers(hidden):
+        assert cluster == 1
+        assert tiles * lanes <= gru_cuda.NUM_SMS or rows == most
+        assert rows == 1 or -(-batch // (rows // 2)) * lanes > gru_cuda.NUM_SMS
+    else:
+        waves = gru_cuda.adj_waves(batch, lanes, hidden, 4, cluster, rows)
+        least = gru_cuda.adj_cluster_size(hidden, 4)
+        for k in range(least, gru_cuda.MAX_CLUSTER + 1) if least > 1 else (1,):
+            for r in (1, 2, 4):
+                if gru_cuda._adj_tile_fits(hidden, 4, r, k):
+                    assert waves <= gru_cuda.adj_waves(batch, lanes, hidden, 4, k, r), (k, r)
     chunk, parts = gru_cuda.adj_partials(lanes, n_steps, batch, hidden)
     tiles = lanes * -(-hidden // gru_cuda.ADJ_GRAD_TILE) * -(-3 * hidden // gru_cuda.ADJ_GRAD_TILE)
     assert chunk % gru_cuda.ADJ_GRAD_STAGE == 0 and parts >= 1

@@ -179,6 +179,70 @@ def test_shared_bytes_fit_for_every_hidden_size_to_1100(dtype):
                     assert plan["rows"] & (plan["rows"] - 1) == 0
 
 
+def _waves_by_hand(batch, lanes, h, item, cluster, rows):
+    """Waves of the adjoint walk's CTAs, counted here from the card's
+    figures: an H100 SM's 233,472 bytes of shared memory less 1,024 a block,
+    its 2,048 threads, 132 SMs."""
+    per_sm = min(233_472 // (gru_cuda._adj_walk_bytes(h, item, rows, cluster) + 1_024),
+                 2048 // gru_cuda._adj_threads(h, cluster))
+    return -(-(-(-batch // rows) * lanes * cluster) // (132 * per_sm))
+
+
+@pytest.mark.parametrize("batch,lanes", [(1, 1), (64, 1), (64, 2), (64, 15), (5, 15), (256, 2),
+                                         (64, 60)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adjoint_tile_takes_the_fewest_waves(dtype, batch, lanes):
+    """For every H of the adjoint's W-in-shared-memory walks (65 to the
+    cluster limit, 376 f32 / 450 bf16), the tile (K CTAs, R rows) the plan
+    takes: K CTAs whose threads fit a block (one block) or a cluster's CTA,
+    R a power of two of at most 4, the walk's shared bytes within the
+    card's; the instantiation the same as before the row tile (one block to
+    130 / 179, a cluster past it, the least cluster at one row deciding);
+    and no other (K, R) that fits, K from that least cluster to 8 (1 in one
+    block), leaves fewer waves by the plan's arithmetic (adj_waves), which
+    equals the count by hand; on a tie the smaller K, then the smaller R."""
+    item = DTYPES[dtype][2]
+    for h in range(gru_cuda.WALK_REG_MAX_HIDDEN + 1, CLUSTER[dtype][1] + 1):
+        cluster, rows = gru_cuda.adj_tile(batch, lanes, h, item)
+        plan = gru_cuda.adj_plan(batch, lanes, 480, h, item)
+        assert (plan["cluster"], plan["rows"]) == (cluster, rows)
+        assert plan["instantiation"] == ("one block" if h <= ONE_BLOCK[dtype][1] else "cluster")
+        assert rows in (1, 2, 4)
+        assert gru_cuda._adj_walk_bytes(h, item, rows, cluster) <= gru_cuda.MAX_SHARED_BYTES
+        assert plan["shared_bytes"] <= gru_cuda.MAX_SHARED_BYTES
+        least = gru_cuda.adj_cluster_size(h, item)
+        assert (least == 1) == (h <= ONE_BLOCK[dtype][1])
+        if least == 1:
+            assert cluster == 1
+            assert gru_cuda._adj_threads(h, 1) <= gru_cuda.MAX_THREADS
+        else:
+            assert least <= cluster <= gru_cuda.MAX_CLUSTER
+            assert gru_cuda._adj_threads(h, cluster) <= gru_cuda.CLUSTER_MAX_THREADS
+        fits = [(k, r) for k in (range(least, gru_cuda.MAX_CLUSTER + 1) if least > 1 else (1,))
+                for r in (1, 2, 4) if gru_cuda._adj_tile_fits(h, item, r, k)]
+        assert (least, 1) in fits and (cluster, rows) in fits
+        waves = {kr: gru_cuda.adj_waves(batch, lanes, h, item, *kr) for kr in fits}
+        assert all(w == _waves_by_hand(batch, lanes, h, item, *kr) for kr, w in waves.items())
+        assert min(waves, key=lambda kr: (waves[kr], *kr)) == (cluster, rows), (h, waves)
+
+
+@pytest.mark.parametrize("dtype,batch,lanes,h,tile,waves", [
+    ("float32", 64, 15, 256, (5, 4), 10),   # the H=256 sweep: 960 clusters of 4 (30 waves) before
+    ("float32", 64, 5, 192, (3, 4), 2),     # the grouped sweep's 5 lanes of G*H = 192 (8 before)
+    ("bfloat16", 64, 2, 256, (3, 4), 1)])   # the bf16 fb adjoint at H=256 (2 before)
+def test_adjoint_tile_pinned(dtype, batch, lanes, h, tile, waves):
+    """The plan's tile and waves at the sweep's shapes: more rows a tile
+    and, where a CTA's share of W must shrink for them, more CTAs a
+    cluster; the row tile before was one (waves then: the CTAs of one row
+    a tile at the least cluster, one an SM)."""
+    item = DTYPES[dtype][2]
+    assert gru_cuda.adj_tile(batch, lanes, h, item) == tile
+    assert gru_cuda.adj_waves(batch, lanes, h, item, *tile) == waves
+    least = gru_cuda.adj_cluster_size(h, item)
+    assert gru_cuda.adj_plan(batch, lanes, 480, h, item)["instantiation"] == "cluster"
+    assert gru_cuda.adj_waves(batch, lanes, h, item, least, 1) > waves
+
+
 def test_streamed_workspaces():
     """The streamed forward's w_pad holds W padded [lanes, 3H, K padded to
     4]; the streamed adjoint's workspace adds W^T padded [lanes, H, 3H
