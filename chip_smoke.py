@@ -303,21 +303,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     fold grouping, on phase 7's data:
     a. the C formulas of the cluster walk (cluster size, per-CTA shared
        bytes, row tile) against gru_cuda's twins for H = 1-559 in both
-       dtypes, and ptxas's registers and spills of its instantiations; all
-       six entries at H = 137, 180, 192, 256 and the cluster design's limit
-       (380 / 376 f32, 532 / 450 bf16; past it the streamed walk, phase
-       16), f32 and bf16 where taken, T=480 B=64 both directions, and at
-       H=256 also B=1, B=256 and T=1, against their plain versions (TOL /
-       BWD_TOL, the fused pair per direction); the three adjoints also at
-       H=256 and B=37 (a batch no row tile of 2 or 4 divides), gru_bwd_fb
-       also at F=15 for H=100 (the one-block walk at a row tile of 4 f32,
-       2 bf16) and H=256, reverse=False; the C plans (cluster, row tile) of the adjoint
-       walk against the twins at B=37 and 5 and 15 lanes; dW and db bitwise
-       over two runs at H=256 (gru_bwd_fb also at F=15);
-    b. each adjoint at T=480 B=64 and H=256 and at the cluster walk's ends
-       (f32 H=137 and 376, bf16 450): kernel ms, us per dependent step, the
-       bound (12 H^2 FLOPs a row-step), the plain version (one call),
-       cuDNN's nn.GRU backward at that H, cluster, row tile and waves;
+       dtypes, the adjoint's C plan (gru_adj_plan: the instantiation and
+       tile adj_choose weighs by its model of a step) against the twin at
+       every H of 1-1100, B = 1, 37, 64, 256 and 1, 2, 15 lanes, and its
+       candidates' modelled costs, and ptxas's registers and spills of its
+       instantiations; all six entries at H = 137, 180, 192, 256 and the
+       cluster design's limit (380 / 376 f32, 532 / 522 bf16; past it the
+       grid and streamed walks, phase 16), f32 and bf16 where taken, T=480
+       B=64 both directions, and at H=256 also B=1, B=256 and T=1, against
+       their plain versions (TOL / BWD_TOL, the fused pair per direction);
+       the three adjoints also at H=256 and B=37 (a batch no row tile of 2
+       or 4 divides), gru_bwd_fb also at F=15 for H=100 and H=256,
+       reverse=False; dW and db bitwise over two runs at H=256 (gru_bwd_fb
+       also at F=15); each adjoint at every shape of CANDIDATE_HS and AB_HS
+       whose choice is not the parent commit's (moved_shapes), at T=96,
+       against its plain version and bitwise over two runs;
+    b. every candidate of the adjoint's plan (each tile of the one-block
+       and cluster walks, the grid walk) at f32 H = 256, 300, 340, 376 and
+       bf16 256, 340, 400, 450, 512, B=64 at 1, 2, 15 lanes and B=37 at 2:
+       forced, against the plain version at T=16, then the walk alone at
+       T=480 by CUDA events beside its waves by the plan, the model and the
+       card, and the model's step; whether the plan's choice is the fastest
+       or within 5 % of it; one cluster-walk step split by clock64() stamps
+       (f32 H=256 F=15 5x4, bf16 H=450 F=2 7x2) into the dg_lo exchange,
+       the cluster barrier, the dot and the butterfly; each adjoint at
+       T=480 B=64 and H = 376 / 450 and 512: kernel ms, us per dependent
+       step, the bound, the plain version, cuDNN's nn.GRU backward, the plan
+       and its waves;
     c. the sweep CLI with model.gru_hidden_size=256 (f32 auto, 1 epoch) as
        in 7 (first 3 steps card vs CPU on lane 0 at B=8, exact launches, 15
        finite folds, a step profile); fold S2's Predictor at H=256 (counted: 2 gru_fwd_fb
@@ -590,7 +602,11 @@ def short_kernel_name(mangled: str) -> str:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
-    seconds = _build.build()
+    start_step_clock_build()
+    try:
+        seconds = _build.build()
+    finally:
+        finish_step_clock_build()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"in {time.perf_counter() - t0:.2f} s")
     for name in seconds:
@@ -4077,13 +4093,30 @@ FOLD_GROUP = 3   # 15 folds as 5 lanes of G*H = 192
 ROW_TILE_B = 37
 TILED_ONE_BLOCK_H = 100
 SWEEP_F = 15
-# 15b also times the adjoints at the cluster walk's first H (f32) and at
-# its last in each dtype (entry_limit).
-CLUSTER_FIRST_H = 137
-# The adjoints' W-in-shared-memory walks timed at the parent commit and
-# here (adjoint_ab), by dtype: one block (100) and the cluster walk.
-AB_HS = {torch.float32: (100, 137, 192, BIG_H, 376),
-         torch.bfloat16: (100, 137, 192, BIG_H, 450)}
+# The adjoints timed at the parent commit and here (adjoint_ab), by dtype:
+# one block (100), the cluster walk, and where the plan weighs the cluster
+# walk against the grid walk (300-512).
+AB_HS = {torch.float32: (100, 137, 192, BIG_H, 300, 340, 376),
+         torch.bfloat16: (100, 137, 192, BIG_H, 340, 400, 450, 512)}
+# 15b: the adjoint walk's candidates (adj_candidates: every tile of the
+# one-block and cluster walks that fits, and the grid walk) timed alone at
+# T=480 and these H and (B, lanes), the figures csrc/gru_bwd.cu's model of
+# a step is fitted to; the plan's choice is to be the fastest or within
+# CHOICE_SLACK of it. Each candidate is first held against the plain version
+# at T=CANDIDATE_CHECK_T.
+CANDIDATE_HS = {torch.float32: (BIG_H, 300, 340, 376), torch.bfloat16: (BIG_H, 340, 400, 450, 512)}
+CANDIDATE_SHAPES = ((SERVE_B, 1), (SERVE_B, 2), (SERVE_B, SWEEP_F), (ROW_TILE_B, 2))
+CHOICE_SLACK = 1.05
+CANDIDATE_CHECK_T = 16
+# 15a's steps at the shapes whose choice moved from the parent commit's
+# (24 of the walk's producer chunks with W in shared memory).
+MOVED_T = 96
+# 15b's split of a cluster-walk step (adjoint_step_split), by dtype: (H,
+# lanes, K, R), timed in a copy of gru_bwd.cu with clock64() stamps.
+STEP_SPLITS = {torch.float32: (BIG_H, SWEEP_F, 5, 4), torch.bfloat16: (450, 2, 7, 2)}
+# 15b's adjoint rows beside cuDNN, by dtype: the top of the cluster walk and
+# the grid walk's first timed H.
+TIMED_ADJ_HS = {torch.float32: (376, 512), torch.bfloat16: (450, 512)}
 # Lanes of 15c's and 16c's CPU side (at H=256 four took 93.1 s on the 8
 # host cores, at H=512 two took 53.4 s at B=16), and the batch of their
 # card-vs-CPU steps (at H=512 and B=64 two lanes took 177 s there, one lane
@@ -4102,7 +4135,8 @@ def entry_limit(name: str, dtype) -> int:
     """The largest H of the entry's one-block and cluster design in this
     dtype (past it the streamed walk runs: phase 16)."""
     item = itemsize(dtype)
-    streamed = gru_cuda.adj_streamed if name in ADJOINTS else gru_cuda.walk_streamed
+    streamed = ((lambda h, i: not gru_cuda.adj_walk_takes(h, i)) if name in ADJOINTS
+                else gru_cuda.walk_streamed)
     hidden = 1
     while not streamed(hidden + 1, item):
         hidden += 1
@@ -4186,14 +4220,6 @@ def cluster_formulas() -> None:
             for what, c_val, py_val in pairs:
                 if c_val != py_val:
                     raise AssertionError(f"{what}: C says {c_val}, wrapper {py_val}")
-            if h > gru_cuda.WALK_REG_MAX_HIDDEN and not gru_cuda.adj_streamed(h, item):
-                for b, f in ((ROW_TILE_B, 2), (SERVE_B, SWEEP_F // FOLD_GROUP),
-                             (SERVE_B, SWEEP_F)):
-                    c_val = gru_cuda.c_plan(True, b, f, h, item, SERVE_T)
-                    if c_val != gru_cuda.adj_plan(b, f, SERVE_T, h, item):
-                        raise AssertionError(f"adjoint plan B={b} F={f} H={h} itemsize={item}: "
-                                             f"C {c_val}, wrapper "
-                                             f"{gru_cuda.adj_plan(b, f, SERVE_T, h, item)}")
             for k in {gru_cuda.walk_cluster_size(h, item), gru_cuda.adj_cluster_size(h, item)}:
                 if k:
                     units = gru_cuda.cluster_units(h, k)
@@ -4209,21 +4235,59 @@ def cluster_formulas() -> None:
     limits = {str(d)[6:]: (gru_cuda.walk_max_hidden(itemsize(d)),
                            gru_cuda.adj_max_hidden(itemsize(d)))
               for d in (torch.float32, torch.bfloat16)}
+    plans, costs = adjoint_plan_formulas()
     print(f"  cluster walk: C and wrapper agree on cluster sizes, per-CTA shared memory and "
-          f"row tiles for H = 1-559, and on the adjoint's plans at B={ROW_TILE_B} F=2, "
-          f"F={SWEEP_F // FOLD_GROUP} and F={SWEEP_F}; limits (forward, adjoint): {limits}")
+          f"row tiles for H = 1-559, on {plans} adjoint plans (H = 1-1100, B = 1, 37, 64, 256, "
+          f"1, 2 and 15 lanes, both dtypes) and on {costs} candidates' modelled costs; limits "
+          f"(forward, adjoint): {limits}")
+
+
+PLAN_BATCHES, PLAN_LANES = (1, ROW_TILE_B, SERVE_B, 256), (1, 2, SWEEP_F)
+
+
+def adjoint_plan_formulas() -> tuple[int, int]:
+    """The adjoint's C plan (gru_adj_plan: adj_choose's instantiation and
+    tile, shared bytes, workspace) against gru_cuda.adj_plan at every H of
+    1-1100, B in PLAN_BATCHES and lanes in PLAN_LANES, both dtypes; and
+    every candidate's modelled cost and waves (gru_adj_candidate_plan)
+    against adj_candidate_plan at each 35th H past 64 and CANDIDATE_HS.
+    Returns the counts of plans and candidates checked."""
+    plans = costs = 0
+    for item in (4, 2):
+        for h in range(1, 1101):
+            for b in PLAN_BATCHES:
+                for f in PLAN_LANES:
+                    got = gru_cuda.c_plan(True, b, f, h, item, SERVE_T)
+                    want = gru_cuda.adj_plan(b, f, SERVE_T, h, item)
+                    if got != want:
+                        raise AssertionError(f"adjoint plan B={b} F={f} H={h} itemsize={item}: "
+                                             f"C {got}, wrapper {want}")
+                    plans += 1
+                    if h > gru_cuda.WALK_REG_MAX_HIDDEN and (
+                            h % 35 == 0 or h in CANDIDATE_HS[torch.float32]
+                            or h in CANDIDATE_HS[torch.bfloat16]):
+                        for cand in gru_cuda.adj_candidates(b, f, h, item):
+                            got = gru_cuda.c_candidate_plan(b, f, SERVE_T, h, item, *cand)
+                            want = gru_cuda.adj_candidate_plan(b, f, SERVE_T, h, item, *cand)
+                            if got != want:
+                                raise AssertionError(f"candidate {cand} B={b} F={f} H={h} "
+                                                     f"itemsize={item}: C {got}, wrapper {want}")
+                            costs += 1
+    return plans, costs
 
 
 def entry_vs_plain(tag: str, name: str, t: int, b: int, h: int, dtype, reverse: bool,
-                   lanes: int = 2) -> None:
+                   lanes: int = 2, args=None) -> None:
     """The entry's wrapper on the card against its plain version on the
     same inputs (TOL / BWD_TOL; the fused pair's two directions each on
     their own), printing the largest differences and the plan; the _fb
-    entries at `lanes` lanes."""
+    entries at `lanes` lanes; `args` (default: entry_inputs at seed H + T
+    + B) the inputs."""
     adjoint = name in ADJOINTS
     fused = name in ("gru_bifwd", "gru_bibwd")
     lanes = lanes if (name.endswith("_fb") or fused) else 1
-    args = entry_inputs(name, t, b, h, dtype, seed=h + t + b, reverse=reverse, lanes=lanes)
+    if args is None:
+        args = entry_inputs(name, t, b, h, dtype, seed=h + t + b, reverse=reverse, lanes=lanes)
     got = call_entry(WRAPPERS[name][0], name, args, reverse)
     torch.cuda.synchronize()
     want = call_entry(WRAPPERS[name][1], name, args, reverse)
@@ -4281,8 +4345,51 @@ def large_walks_phase() -> None:
                     check_deterministic(name, WRAPPERS[name][0], args,
                                         f"15a F={lanes} H={BIG_H} {str(dtype)[6:]}")
                     del args
+                moved_shapes_phase(name, dtype)
             torch.cuda.empty_cache()
     print(f"15a: {time.perf_counter() - t0:.1f} s")
+
+
+def parent_choice(batch: int, lanes: int, hidden: int, item: int) -> tuple:
+    """The adjoint walk the parent commit ran at this shape (above H = 64):
+    the one-block or cluster walk up to its limit (bf16: H = 450), at the
+    tile of the fewest waves by the plan's arithmetic (adj_waves), then
+    the grid walk where grid_plan takes the shape, the streamed walk
+    elsewhere; as gru_cuda.adj_choice's (instantiation, tile)."""
+    if gru_cuda.adj_walk_takes(hidden, item) and (item == 4 or hidden <= 450):
+        k, r = min(gru_cuda.adj_walk_tiles(hidden, item),
+                   key=lambda kr: (gru_cuda.adj_waves(batch, lanes, hidden, item, *kr), *kr))
+        return ("one block" if k == 1 else "cluster"), (k, r)
+    grid = gru_cuda.grid_plan(batch, lanes, hidden, item, adjoint=True)
+    return ("grid", (grid["ctas"], grid["rows"])) if grid else ("streamed", None)
+
+
+def moved_shapes(name: str, dtype) -> list[tuple[int, int, int]]:
+    """(B, lanes, H) of the entry at T=480 where the plan's choice is not the
+    parent commit's: the H of CANDIDATE_HS and AB_HS at B=64 and the
+    entry's lanes, and for gru_bwd_fb also at B=37 two lanes and B=64 15
+    lanes."""
+    item = itemsize(dtype)
+    shapes = [(SERVE_B, entry_lanes(name))]
+    if name == "gru_bwd_fb":
+        shapes += [(ROW_TILE_B, 2), (SERVE_B, SWEEP_F)]
+    hs = sorted(set(CANDIDATE_HS[dtype]) | set(AB_HS[dtype]))
+    return [(b, f, h) for b, f in shapes for h in hs
+            if gru_cuda.adj_choice(b, f, h, item)[:2] != parent_choice(b, f, h, item)]
+
+
+def moved_shapes_phase(name: str, dtype) -> None:
+    """15a: the adjoint at every shape whose choice moved (moved_shapes), at
+    T=MOVED_T, against its plain version under BWD_TOL, and dW and db
+    bitwise over two runs there."""
+    for b, f, h in moved_shapes(name, dtype):
+        args = entry_inputs(name, MOVED_T, b, h, dtype, seed=5, reverse=False, lanes=f)
+        entry_vs_plain("15a moved", name, MOVED_T, b, h, dtype, False, lanes=f, args=args)
+        check_deterministic(name, WRAPPERS[name][0], args,
+                            f"15a moved B={b} F={f} H={h} {str(dtype)[6:]} (parent "
+                            f"{parent_choice(b, f, h, itemsize(dtype))})")
+        del args
+        torch.cuda.empty_cache()
 
 
 def time_entry(tag: str, name: str, dtype, h: int, per_block: int = 20,
@@ -4322,16 +4429,221 @@ def time_entry(tag: str, name: str, dtype, h: int, per_block: int = 20,
     return ms
 
 
-def large_timings() -> None:
-    """15b: each adjoint at T=480 B=64 at H=BIG_H, the cluster walk's first
-    H in f32 and its last in each dtype (time_entry, the median of 3 blocks
-    of 5 calls). (The forward walks' times at BIG_H are kept in
-    PERF.md.)"""
+def adjoint_candidates() -> list[dict]:
+    """15b: every candidate the plan weighs (gru_cuda.adj_candidates) at
+    each H of CANDIDATE_HS and (B, lanes) of CANDIDATE_SHAPES, forced
+    (gru_backward_candidate, the LaneMajor walk of gru_bwd_fb): first at
+    T=CANDIDATE_CHECK_T against the plain version (BWD_TOL), then at T=480
+    the walk alone, by CUDA events (the median of 3 calls after a warm-up):
+    us a step, beside its waves by the plan's arithmetic, by the model and
+    by the card (cudaOccupancyMaxActiveClusters; the grid walk: rounds of
+    work items) and the model's us a step; then whether the plan's choice
+    is the fastest or within CHOICE_SLACK of it. Returns one dict a
+    candidate (what the model's constants are fitted to)."""
+    t0 = time.perf_counter()
+    lib = gru_cuda._bwd_library()
+    rows, within, shapes = [], 0, 0
+    for dtype, hs in CANDIDATE_HS.items():
+        item, bf16 = itemsize(dtype), int(dtype == torch.bfloat16)
+        for h in hs:
+            for b, lanes in CANDIDATE_SHAPES:
+                cands = gru_cuda.adj_candidates(b, lanes, h, item)
+                kind, tile, _ = gru_cuda.adj_choice(b, lanes, h, item)
+                small = bwd_inputs(lanes, CANDIDATE_CHECK_T, b, h, dtype, seed=h + b + lanes)
+                want = gru_cuda.gru_backward_fb_plain(*small)
+                for cand in cands:
+                    got, _ = gru_cuda.gru_backward_candidate(*small, *cand)
+                    for o, g, w in zip(("dxg", "dW", "db", "dh0"), got, want):
+                        torch.testing.assert_close(
+                            g.float(), w.float(), **BWD_TOL[dtype][o in ("dW", "db")],
+                            msg=lambda m, o=o, c=cand: f"15b {c} F={lanes} B={b} H={h} {o}: {m}")
+                del small, want, got
+                args = bwd_inputs(lanes, SERVE_T, b, h, dtype, seed=h + b + lanes)
+                times = {}
+                for cand in cands:
+                    _, walk = gru_cuda.gru_backward_candidate(*args, *cand)
+                    ms = median_ms(walk, per_block=1, blocks=3, warmup=1)
+                    del walk
+                    plan = gru_cuda.adj_candidate_plan(b, lanes, SERVE_T, h, item, *cand)
+                    at_once = lib.gru_adj_candidate_active(
+                        b, lanes, h, bf16, gru_cuda.INSTANTIATIONS.index(cand[0]), *cand[1:])
+                    items = -(-b // plan["rows"]) * lanes
+                    card_waves = -(-items // at_once) if at_once > 0 else None
+                    chosen = (cand[0], cand[1:]) == (kind, tile)
+                    times[cand] = ms
+                    rows.append(dict(dtype=str(dtype)[6:], h=h, b=b, lanes=lanes, kind=cand[0],
+                                     cluster=cand[1], rows=cand[2], us=ms / SERVE_T * 1e3,
+                                     waves=plan["waves"], cost_waves=plan["cost_waves"],
+                                     card_waves=card_waves, at_once=at_once,
+                                     per_sm=plan["per_sm"], model_us=plan["cost"] / 1e6,
+                                     chosen=chosen))
+                    print(f"15b candidate {str(dtype)[6:]} H={h} B={b} F={lanes} "
+                          f"{cand[0]} {cand[1]}x{cand[2]}: walk {ms:.4f} ms "
+                          f"({ms / SERVE_T * 1e3:.3f} us a step); waves {plan['waves']} "
+                          f"(plan), {plan['cost_waves']} (model), {card_waves} (card: "
+                          f"{at_once} at once); model {plan['cost'] / 1e6:.3f} us a step"
+                          + (" <- the plan's choice" if chosen else ""))
+                del args
+                torch.cuda.empty_cache()
+                best = min(times, key=times.get)
+                mine = times[next(c for c in times if (c[0], c[1:]) == (kind, tile))]
+                shapes += 1
+                within += mine <= CHOICE_SLACK * times[best]
+                print(f"15b choice {str(dtype)[6:]} H={h} B={b} F={lanes}: the plan takes "
+                      f"{kind} {tile[0]}x{tile[1]} ({mine:.4f} ms), the fastest {best[0]} "
+                      f"{best[1]}x{best[2]} ({times[best]:.4f} ms): {mine / times[best]:.3f}x")
+    print(f"15b: the plan's choice the fastest or within {CHOICE_SLACK - 1:.0%} of it at "
+          f"{within} of {shapes} shapes; {len(rows)} candidates in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# The clock64() stamps of adjoint_step_split's copy of gru_bwd.cu: each
+# (anchor, text put after it) in gru_adj_walk_kernel. Thread 0 of the first
+# CTA sums, over the steps, the cycles from a step's start to its dg_lo
+# stored (formation and exchange), to the barrier passed, to the dot done
+# and to the butterfly done, and writes the four sums and the steps to
+# adj_clock.
+STEP_CLOCK = (
+    ("""template <typename T, typename Layout, int R, bool kRegs, bool kCluster>
+__global__ void __launch_bounds__(""", None),
+    ("""  float dh = 0.0f;
+  for (int step = 0; step < n_steps; ++step) {
+""", """    long long clk_t0 = clock64();
+"""),
+    ("""      dht_at(step, pr)[pkl] = dht;
+    }
+""", """    long long clk_t1 = clock64();
+"""),
+    ("""      named_barrier(kDotBarrier, dot_threads);
+    }
+    // dh[r][k] = dg_lo[r] @ W[:, k] for the group's units.
+""", """    long long clk_t2 = clock64();
+"""),
+    ("""    float sum[N];  // pair q = r U + u
+""", None),
+    ("""    if (pair) dh = dhz + sum[0];
+""", """    long long clk_t4 = clock64();
+    clk[0] += clk_t1 - clk_t0;
+    clk[1] += clk_t2 - clk_t1;
+    clk[2] += clk_t3 - clk_t2;
+    clk[3] += clk_t4 - clk_t3;
+"""),
+    ("""  if (pair) dh0[(size_t(lane) * batch + row0 + pr) * H + pk] = dh;
+""", """  if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
+    for (int i = 0; i < 4; ++i) adj_clock[i] = clk[i];
+    adj_clock[4] = n_steps;
+  }
+"""))
+
+
+def step_clock_source() -> str:
+    """gru_bwd.cu with STEP_CLOCK's stamps, adj_clock and its reader
+    gru_adj_clock (each anchor found once)."""
+    src = (_build.CSRC / "gru_bwd.cu").read_text()
+    for i, (anchor, text) in enumerate(STEP_CLOCK):
+        if src.count(anchor) != 1:
+            raise AssertionError(f"step clock: anchor {i} is not in gru_bwd.cu once")
+        if i == 0:
+            src = src.replace(anchor, "__device__ long long adj_clock[5];\n" + anchor)
+        elif i == 4:
+            src = src.replace(anchor, "    long long clk_t3 = clock64();\n" + anchor)
+        else:
+            src = src.replace(anchor, anchor + text)
+    src = src.replace("  float dh = 0.0f;\n  for (int step = 0; step < n_steps; ++step) {\n",
+                      "  long long clk[4] = {0, 0, 0, 0};\n"
+                      "  float dh = 0.0f;\n  for (int step = 0; step < n_steps; ++step) {\n")
+    return src + ("\nextern \"C\" int gru_adj_clock(long long* out) {\n"
+                  "  return int(cudaMemcpyFromSymbol(out, adj_clock, 5 * sizeof(long long)));\n"
+                  "}\n")
+
+
+_STEP_CLOCK: dict = {}
+
+
+def start_step_clock_build() -> None:
+    """Start nvcc on step_clock_source's copy (adjoint_step_split's) beside
+    the shipped build, into a temporary directory."""
+    tmp = Path(tempfile.mkdtemp(prefix="adj_clock_"))
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copy(header, tmp)
+    (tmp / "gru_bwd.cu").write_text(step_clock_source())
+    so = tmp / "libgru_bwd_clock.so"
+    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                             str(tmp / "gru_bwd.cu")], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    _STEP_CLOCK.update(dir=tmp, so=so, proc=proc, t0=time.perf_counter())
+
+
+def finish_step_clock_build() -> None:
+    """Wait for the copy's nvcc; raise with its output if it failed."""
+    proc = _STEP_CLOCK.get("proc")
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    _STEP_CLOCK["proc"] = None
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the step clock copy:\n{log}")
+    print(f"build: the step clock copy of gru_bwd.cu in "
+          f"{time.perf_counter() - _STEP_CLOCK['t0']:.1f} s")
+
+
+def adjoint_step_split() -> None:
+    """15b: one step of the cluster walk split into four parts at
+    STEP_SPLITS (f32 H=256 at 15 lanes, K=5 R=4; bf16 H=450 at 2 lanes, K=7
+    R=2), in the copy of gru_bwd.cu with clock64() stamps (STEP_CLOCK): the
+    pairs' dg_lo formation and its stores into every CTA, the cluster
+    barrier, the dot, and the butterfly, cycles a step of thread 0 of the
+    first CTA; and the copy's walk and the shipped walk's, us a step (CUDA
+    events) over the card's waves of clusters, so the parts of the shipped
+    step of one wave follow."""
+    finish_step_clock_build()
+    lib = ctypes.CDLL(str(_STEP_CLOCK["so"]))
+    lib.gru_adj_clock.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_adj_clock.restype = ctypes.c_int
+    shipped = gru_cuda._bwd_library()
+    for name in ("gru_adj_candidate",):
+        getattr(lib, name).argtypes = getattr(shipped, name).argtypes
+        getattr(lib, name).restype = getattr(shipped, name).restype
+    for dtype, (h, lanes, k, r) in STEP_SPLITS.items():
+        args = bwd_inputs(lanes, SERVE_T, SERVE_B, h, dtype, seed=17)
+        us = {}
+        real = gru_cuda._bwd_library
+        for what, use in (("shipped", shipped), ("stamped", lib)):
+            gru_cuda._bwd_library = lambda use=use: use
+            try:
+                _, walk = gru_cuda.gru_backward_candidate(*args, "cluster", k, r)
+                us[what] = median_ms(walk, per_block=1, blocks=3, warmup=1) / SERVE_T * 1e3
+                del walk
+            finally:
+                gru_cuda._bwd_library = real
+        out = (ctypes.c_longlong * 5)()
+        if lib.gru_adj_clock(out) != 0:
+            raise RuntimeError("gru_adj_clock failed")
+        cycles = [v / out[4] for v in out[:4]]
+        total = sum(cycles)
+        at_once = shipped.gru_adj_candidate_active(SERVE_B, lanes, h, int(dtype == torch.bfloat16),
+                                                   gru_cuda.INSTANTIATIONS.index("cluster"), k, r)
+        waves = -(-(-(-SERVE_B // r) * lanes) // at_once)
+        wave_us = us["shipped"] / waves
+        parts = ("dg_lo formation and exchange", "cluster barrier", "dot", "butterfly")
+        print(f"15b step split {str(dtype)[6:]} H={h} F={lanes} B={SERVE_B} cluster {k}x{r}: "
+              + ", ".join(f"{p} {c:.0f} cycles ({c / total:.1%}; {c / total * wave_us:.3f} us)"
+                          for p, c in zip(parts, cycles))
+              + f"; {total:.0f} cycles a step of a wave; walk {us['stamped']:.3f} us a step "
+              f"stamped, {us['shipped']:.3f} shipped, over {waves} wave(s): {wave_us:.3f} us a "
+              "wave's step")
+        del args
+        torch.cuda.empty_cache()
+
+
+def adjoint_rows() -> None:
+    """15b: each adjoint at T=480 B=64 and TIMED_ADJ_HS (time_entry: kernel
+    ms, us a step, the bound, the plain version, cuDNN's nn.GRU backward,
+    the plan and its waves), the median of 3 blocks of 5 calls."""
     for name in ADJOINTS:
         for dtype in entry_dtypes(name):
-            hs = ((CLUSTER_FIRST_H,) if dtype == torch.float32 else ()) + (
-                BIG_H, entry_limit(name, dtype))
-            for h in hs:
+            for h in TIMED_ADJ_HS[dtype]:
                 time_entry("15b", name, dtype, h, per_block=5, blocks=3)
     torch.cuda.empty_cache()
 
@@ -4367,120 +4679,6 @@ def adjoint_times(out: Path) -> None:
         del args, fn
         torch.cuda.empty_cache()
     out.write_text(json.dumps(rows))
-
-
-# The cluster walk's dg_lo exchange in 16-byte stores, as exchange_ab builds
-# it into a copy of gru_bwd.cu: the pair lanes store their three values into
-# their own CTA's buffer only, then each warp pushes its 8 units' slice of
-# every row and gate, [R][3][8], to every peer, a 16-byte piece a lane
-# (st.shared::cluster.v4.f32), a value at a time where a row of the slice
-# starts or ends off a 16-byte boundary. The shipped walk stores each value
-# into every CTA from its pair lane.
-PUSHED_EXCHANGE = (
-    ("""  asm volatile("st.shared::cluster.f32 [%0], %1;\\n" ::"r"(remote), "f"(v) : "memory");
-}
-""", """  asm volatile("st.shared::cluster.f32 [%0], %1;\\n" ::"r"(remote), "f"(v) : "memory");
-}
-__device__ __forceinline__ void store_cluster4(float* p, int rank, float4 v) {
-  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\\n" : "=r"(remote) : "r"(local), "r"(rank));
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\\n" ::"r"(remote), "f"(v.x),
-               "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
-}
-"""),
-    ("if constexpr (kCluster) {  // into every CTA's buffer (its own too)",
-     "if constexpr (false) {"),
-    ("""    if constexpr (kCluster) {
-      cluster_arrive();
-      cluster_wait();
-    } else {
-      named_barrier(kDotBarrier, dot_threads);""", """    if constexpr (kCluster) {
-      __syncwarp();
-      const int wu = tid / 32 * (32 / S);
-      const int n = min(max(mine - wu, 0), 32 / S);
-      const int sub = tid % 4;
-      for (int seg = tid % 32 / 4; n > 0 && seg < R * 3; seg += 8) {
-        const int r = seg / 3;
-        if (row0 + r >= batch) continue;
-        float* p = buf + r * kpad + seg % 3 * H + unit0 + wu;
-        const int head = min((4 - int(p - dgbuf) % 4) % 4, n);
-        const int pieces = (n - head) / 4;
-        if (sub < 2) {
-          if (sub < pieces) {
-            float* q = p + head + 4 * sub;
-            const float4 v = *reinterpret_cast<const float4*>(q);
-            for (int k = 1; k < csize; ++k) store_cluster4(q, (rank + k) % csize, v);
-          }
-        } else {
-          const int first = sub == 2 ? 0 : head + 4 * pieces;
-          const int last = sub == 2 ? head : n;
-          for (int e = first; e < last; ++e)
-            for (int k = 1; k < csize; ++k) store_cluster(p + e, (rank + k) % csize, p[e]);
-        }
-      }
-      cluster_arrive();
-      cluster_wait();
-    } else {
-      named_barrier(kDotBarrier, dot_threads);"""))
-
-
-def exchange_ab(hidden: int = BIG_H) -> None:
-    """The cluster walk's two dg_lo exchanges on this card: the shipped
-    gru_bwd.cu (a store a value and CTA from the pair lanes) against a copy
-    of it built with PUSHED_EXCHANGE (16-byte pushes of each warp's slice),
-    each adjoint entry at T=480 B=64 H=hidden (gru_bwd_fb at 2 and 15
-    lanes), f32 and bf16 where taken, in turns scalar, pushed, pushed,
-    scalar (the median of 3 blocks of 3 calls); each against the plain
-    version first. Run it after card() and build_phase()."""
-    src = (_build.CSRC / "gru_bwd.cu").read_text()
-    for old, new in PUSHED_EXCHANGE:
-        if src.count(old) != 1:
-            raise AssertionError(f"exchange_ab: {old!r} is not in gru_bwd.cu once")
-        src = src.replace(old, new)
-    with tempfile.TemporaryDirectory() as tmp:
-        cu, so = Path(tmp) / "gru_bwd.cu", Path(tmp) / "libgru_bwd_pushed.so"
-        cu.write_text(src)
-        for header in _build.CSRC.glob("*.cuh"):
-            shutil.copy(header, tmp)
-        t0 = time.perf_counter()
-        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
-                       capture_output=True, text=True)
-        print(f"exchange_ab: the pushed exchange's copy built in {time.perf_counter() - t0:.1f} s")
-        built = _build.library
-        _build.library = lambda name: ctypes.CDLL(str(so))
-        try:
-            pushed = gru_cuda._bwd_library.__wrapped__()
-        finally:
-            _build.library = built
-        shipped = gru_cuda._bwd_library
-        scalar = shipped()
-        try:
-            for name in ADJOINTS:
-                for dtype in entry_dtypes(name):
-                    for lanes in ((2, SWEEP_F) if name == "gru_bwd_fb" else (2,)):
-                        args = entry_inputs(name, SERVE_T, SERVE_B, hidden, dtype, seed=5,
-                                            reverse=False, lanes=lanes)
-                        fn = functools.partial(WRAPPERS[name][0], *args)
-                        want = WRAPPERS[name][1](*args)
-                        times = []
-                        for lib in (scalar, pushed, pushed, scalar):
-                            gru_cuda._bwd_library = lambda lib=lib: lib
-                            if len(times) < 2:
-                                for o, g, w in zip(("dxg", "dW", "db", "dh0"), fn(), want):
-                                    torch.testing.assert_close(
-                                        g.float(), w.float(), **BWD_TOL[dtype][o in ("dW", "db")],
-                                        msg=lambda m, o=o: f"exchange_ab {name} {o}: {m}")
-                            times.append(median_ms(fn, per_block=3, blocks=3, warmup=1))
-                        f = lanes if name != "gru_bwd" else 1
-                        print(f"exchange_ab {name} {str(dtype)[6:]} F={f} H={hidden} "
-                              f"({cluster_plan(name, f, SERVE_B, hidden, dtype)}): scalar "
-                              f"{times[0]:.4f} / {times[3]:.4f} ms, pushed {times[1]:.4f} / "
-                              f"{times[2]:.4f} ms")
-                        del args, fn, want
-                        torch.cuda.empty_cache()
-        finally:
-            gru_cuda._bwd_library = shipped
 
 
 def adjoint_ab(parent: Path, out: Path) -> None:
@@ -4668,7 +4866,9 @@ def phase15(root: Path, data: Path) -> dict[str, int]:
     cluster_formulas()
     large_walks_phase()
     marks.append(time.perf_counter())
-    large_timings()
+    adjoint_candidates()
+    adjoint_step_split()
+    adjoint_rows()
     marks.append(time.perf_counter())
     big = big_sweep_phase(data, root)
     marks.append(time.perf_counter())
@@ -4785,8 +4985,9 @@ def empty_entry_args(name: str, h: int, dtype) -> tuple:
 
 def stream_walks_phase() -> None:
     """16a: all six entries at STREAM_HS (H = 381 forward / 377 adjoint, the
-    first f32 sizes past the cluster walk, 451 where the bf16 adjoint
-    leaves it, 512, 768, 1024: the grid walk), f32 and bf16 where taken,
+    first f32 sizes past the cluster walk, 451 where the bf16 adjoint left
+    it before its plan weighed a step's cost, 512, 768, 1024: the grid walk
+    where the plan takes it), f32 and bf16 where taken,
     T=480 B=64; at H=512 also B=1, B=256 and T=1; at the first H past the
     grid walk's limit (grid_end: the streamed walk) at T=PAST_GRID_T; both
     directions at H=512 and past the limit, one elsewhere; each against its
@@ -5443,6 +5644,7 @@ def main() -> int:
         k["launches"] = sum(path[k["name"]] for path in paths[k["name"]])
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its main path")
+    print(f"chip_smoke: {time.perf_counter() - laps[0][1]:.1f} s from the build to the end")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

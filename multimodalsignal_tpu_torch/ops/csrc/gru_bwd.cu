@@ -56,20 +56,26 @@
 //   * gru_adj_walk_kernel: one block (or cluster, below) per (lane, tile
 //     of R batch rows), R chosen before the launch from (B, lanes)
 //     (adj_walk_tile: with W in registers R <= 2, R = 1 at B=64 while B *
-//     lanes <= 132; with W in shared memory R <= 4, the tile that leaves
-//     the fewest waves of CTAs). With H <= 64 each dot thread holds 4 units' slices of W's
-//     columns in registers (K = 3H in 4-wide chunks, 8 sub-lanes: 96
-//     floats a thread), so each dg_lo value it reads from shared memory
-//     feeds 4 FMAs; above that W^T [H][3H padded to 4] sits in dynamic
-//     shared memory (one unit a thread, 4 sub-lanes; each row rotated by a
-//     few 4-value chunks, so that the groups of a warp's loads of it fall on
-//     distinct banks: 2x fewer shared wavefronts a load in f32, 2-4x in
-//     bf16, where rows 128 bytes apart put them all on the same banks).
-//     Sub-lane s < R U owns
-//     one (row, unit) pair: it turns dht into dg_lo in the buffer of the
-//     step's parity and keeps dht z; one barrier; every dot thread dots its
-//     slice of each row's dg_lo with its W slice, an xor butterfly of
-//     __shfl_xor_sync sums the slices, and the pair's lane adds dht z.
+//     lanes <= 132; with W in shared memory R <= 4, the tile of the least
+//     modelled time, see the plan below). With H <= 64 each dot thread
+//     holds 4 units' slices of W's columns in registers (K = 3H in 4-wide
+//     chunks, 8 sub-lanes: 96 floats a thread), so each dg_lo value it
+//     reads from shared memory feeds 4 FMAs; above that W^T [H][3H padded to
+//     4] sits in dynamic shared memory and each dot thread reads 2 units'
+//     rows (8 sub-lanes a group), so each dg_lo chunk it loads feeds both
+//     units' FMAs for all R rows: half the dg_lo loads an FMA of one unit a
+//     thread (4 sub-lanes), which at R = 4 were four of a warp's five
+//     loads. The 2 rows of a group are rotated by a few 4-value chunks, so
+//     that the groups of a phase of a warp's loads fall on distinct banks
+//     (2-4x fewer shared wavefronts a load in bf16, where rows 128 bytes
+//     apart put them all on the same banks). Sub-lane s < R U owns one
+//     (row, unit) pair: it turns dht into dg_lo in the buffer of the step's
+//     parity and keeps dht z; one barrier; every dot thread dots its slice
+//     of each row's dg_lo with its W slices, a reduce-scatter of
+//     __shfl_xor_sync leaves each pair's lane its pair's sum (R U - 1
+//     shuffles, then a butterfly over the group's other sub-lanes, where a
+//     butterfly of every sum took R U log2 S), and the pair's lane adds dht
+//     z.
 //     A barrier waits for the device memory accesses its threads have in
 //     flight (cp.async copies and stores too, see below), so no dot
 //     thread touches device memory inside the walk: a producer warp copies
@@ -142,31 +148,43 @@
 // least K <= 8 whose per-CTA share fits at one row, fixes which H the
 // cluster walk takes; the tile (adj_walk_tile) may take a larger K, whose
 // smaller shares leave room for R = 2 or 4 rows (f32 H = 256: K = 4 fits
-// one row, K = 5 four). Of the pairs that fit, the plan takes the one that
-// leaves the fewest waves of CTAs on the card: at F = 15, B = 64, f32 H =
-// 256, 240 clusters of 5 (10 waves by the plan's count; an H100 runs 22 of
-// them at once, 11 waves) where one row a cluster of 4 ran 960 (30; 32 on
-// the card). CTA `rank` keeps the columns of W for its own ceil(H/K) units, as
+// one row, K = 5 four). CTA `rank` keeps the columns of W for its own ceil(H/K) units, as
 // W^T rows [units][3H padded to 4], and moves only its units' factors and
 // dht (its producer warp's copies shrink to that slice). Each step its pair
 // lanes turn their units' dht into dg_lo and store those three values into
 // the step's parity buffer of every CTA of the cluster through distributed
 // shared memory (mapa / st.shared::cluster; staging each warp's slice and
-// pushing it to the peers in 16-byte stores ran 3-7 % slower at H = 256,
-// chip_smoke.py exchange_ab); one cluster barrier (barrier.cluster: the dot
+// pushing it to the peers in 16-byte stores ran 3-7 % slower at H = 256 on
+// an H100); one cluster barrier (barrier.cluster: the dot
 // warps arrive with release, the producer warp arrives relaxed, so its
 // copies in flight hold nothing, and every thread waits with acquire) takes
 // the place of the dot warps' named barrier; then every CTA holds the step's
 // whole dg_lo [R][3H] and computes its own units' slice of dh_prev = dg_lo
 // @ W + dht z as above, each W^T chunk it loads from shared memory feeding
-// the R rows' FMAs. The cluster walk bounds f32 at H = 376 (K = 8); bf16
-// leaves it past H = 450
-// (kAdjClusterMostBf16), where the gate pre-pass's shared memory ended it
-// before the passes were redesigned.
+// the R rows' FMAs. The one-block and cluster design ends at f32 H = 376,
+// bf16 522 (K = 8: adj_walk_takes). Split by clock64() stamps (chip_smoke.py
+// adjoint_step_split), a step of f32 H = 256 at K = 5, R = 4 spends about
+// half its cycles at the cluster barrier, which waits for the pairs' 3 R
+// units K stores into the cluster's CTAs and for the slowest warp's dot,
+// and a third in the dot.
 //
-// The grid walk: past those limits (adj_streamed), wherever one lane's W
-// fits the card's aggregate shared memory (f32 to H = 1320, bf16 to 2112 at
-// B = 64, one lane: grid_plan), gru_adj_grid_kernel replaces the streamed
+// The plan (adj_choose): above H = 64, of every tile of the one-block or
+// cluster walk that fits (adj_walk_tile takes the cheapest) and the grid
+// walk wherever grid_plan takes the shape, the candidate of the least
+// modelled time, waves (or rounds of work items) x a step's modelled cost
+// (adj_walk_cost, adj_grid_cost, fitted to the candidates timed on the
+// card; see the model's constants); the streamed walk where neither fits.
+// The grid walk takes most shapes of many lanes (at F = 15, B = 64 one
+// group of 8 CTAs a lane, every lane at once, where the cluster walk ran
+// 10-60 waves), and at B = 64 those of f32 H past ~290 and bf16 past ~310
+// at two lanes, of f32 H = 376 and bf16 450 at one. The choice reads the shape alone, never a clock or the card,
+// so a shape runs the same kernels, and dW and db the same bits, in every
+// run.
+//
+// The grid walk: wherever the plan takes it, below the one-block and
+// cluster design's limit or past it, and one lane's W fits the card's
+// aggregate shared memory (f32 to H = 1320, bf16 to 2112 at B = 64, one
+// lane: grid_plan), gru_adj_grid_kernel replaces the streamed
 // walk below, which re-read from L2 every step the W^T rows its clusters
 // could not hold (199.8 MB a step at f32 H = 1024, chip_smoke.py 16b) and
 // ran its 16 clusters in two waves. As the forward's grid walk: a group of G CTAs, one
@@ -203,7 +221,7 @@
 // 4-value chunks with cp.async into a ring of two slots in shared memory,
 // one chunk ahead of its FMAs. Every byte streamed serves the tile's R rows
 // (a (row, unit) pair a sub-lane). A CTA walks its units in passes of
-// (dot threads) / kSmemSub units, with each pair's dh in shared memory, so
+// (dot threads) / kStreamSub units, with each pair's dh in shared memory, so
 // H is bounded only by those buffers (adj_max_hidden in gru_cuda.py). The
 // passes are the same kernels at every H: at F = 15, T = 480, B = 64 the
 // workspace is ~6.7 GB at H = 512 and ~13.4 GB at H = 1024, the factors and
@@ -259,7 +277,10 @@ constexpr int kRegUnits = 4;          // hidden units per dot thread, W in regis
 constexpr int kRegSub = 8;            // dot threads per group of units, W in registers
 constexpr int kRegChunks = 6;         // 4-wide chunks of K = 3H per thread: 3 * 64 / (8 * 4)
 constexpr int kRegMostRows = 2;       // rows per block, W in registers: a pair a sub-lane
-constexpr int kSmemSub = 4;           // dot threads per unit, W in shared memory: up to 4 rows
+constexpr int kSmemUnits = 2;         // hidden units per dot thread, W in shared memory
+constexpr int kSmemSub = 8;           // dot threads per group of units, W in shared memory
+constexpr int kSmemMostRows = 4;      // rows per tile, W in shared memory: a pair a sub-lane
+constexpr int kStreamSub = 4;         // dot threads per unit of the streamed walk: up to 4 rows
 constexpr int kRegChunk = 16;         // steps the producer moves at a time, W in registers
 constexpr int kSmemChunk = 4;         // steps the producer moves at a time, W in shared memory
 constexpr int kProducer = 32;         // the producer warp
@@ -323,7 +344,8 @@ __host__ __device__ constexpr int adj_units(int hidden, int cluster) {
 // The walk's dot threads (whole warps), then the producer warp.
 __host__ __device__ constexpr int adj_dot_threads(int hidden, int cluster) {
   return ((adj_in_registers(hidden) ? (hidden + kRegUnits - 1) / kRegUnits * kRegSub
-                                    : adj_units(hidden, cluster) * kSmemSub) +
+                                    : (adj_units(hidden, cluster) + kSmemUnits - 1) /
+                                          kSmemUnits * kSmemSub) +
           31) / 32 * 32;
 }
 __host__ __device__ constexpr int adj_threads(int hidden, int cluster) {
@@ -354,7 +376,7 @@ __host__ __device__ constexpr size_t adj_walk_shared_bytes(int hidden, size_t it
 // spilled).
 __host__ __device__ constexpr int adj_block_most_threads(int rows) {
   int most = 0;
-  for (int h = kRegMaxHidden + 1; h <= kMaxThreads / kSmemSub; ++h)
+  for (int h = kRegMaxHidden + 1; h <= kMaxThreads * kSmemUnits / kSmemSub; ++h)
     for (size_t itemsize = 2; itemsize <= 4; itemsize += 2)
       if (adj_threads(h, 1) <= kMaxThreads &&
           adj_walk_shared_bytes(h, itemsize, rows, 1) <= kMaxShared && adj_threads(h, 1) > most)
@@ -383,30 +405,158 @@ struct AdjTile {
   int cluster;
   int rows;
 };
-// Waves of the walk's CTAs on the card, by plain arithmetic: the CTAs of all
-// ceil(B / R) * lanes tiles against kNumSMs times the CTAs an SM holds by
-// its shared memory and threads (the card's own count of clusters at once,
-// cudaOccupancyMaxActiveClusters, may be lower: a cluster stays inside a
-// GPC).
-long long adj_waves(int batch, int lanes, int hidden, size_t itemsize, AdjTile tile) {
+// CTAs of the walk an SM holds at once at this tile, by its shared memory
+// and threads.
+long long adj_per_sm(int hidden, size_t itemsize, AdjTile tile) {
   const size_t by_smem =
       kSmShared / (adj_walk_shared_bytes(hidden, itemsize, tile.rows, tile.cluster) +
                    kBlockReserved);
   const size_t by_threads = kSmThreads / adj_threads(hidden, tile.cluster);
-  const long long per_sm = static_cast<long long>(by_smem < by_threads ? by_smem : by_threads);
-  const long long ctas =
-      static_cast<long long>((batch + tile.rows - 1) / tile.rows) * lanes * tile.cluster;
-  const long long at_once = per_sm * kNumSMs;
-  return (ctas + at_once - 1) / at_once;
+  return static_cast<long long>(by_smem < by_threads ? by_smem : by_threads);
 }
+long long adj_ctas(int batch, int lanes, AdjTile tile) {
+  return static_cast<long long>((batch + tile.rows - 1) / tile.rows) * lanes * tile.cluster;
+}
+// Waves of the walk's CTAs on the card, by plain arithmetic: the CTAs of all
+// ceil(B / R) * lanes tiles against kNumSMs times the CTAs an SM holds (the
+// card's own count of clusters at once, cudaOccupancyMaxActiveClusters, may
+// be lower: a cluster stays inside a GPC; adj_cost_waves counts those).
+long long adj_waves(int batch, int lanes, int hidden, size_t itemsize, AdjTile tile) {
+  const long long at_once = adj_per_sm(hidden, itemsize, tile) * kNumSMs;
+  return (adj_ctas(batch, lanes, tile) + at_once - 1) / at_once;
+}
+
+// The grid walk's tensor-core split (bf16): warps a K slice of each tile,
+// from its threads (p.threads, its blockDim), 16-row tiles of a pass and
+// unit octets, at most the tile's 16-column steps; and whether its products
+// take the tensor cores (bf16, whole 16-row tiles, the partials fitting the
+// ring's memory), else the FMAs.
+__host__ __device__ inline int adj_grid_kslices(const GridPlan& p) {
+  const int mtiles = p.pass_rows / 16;
+  const int octets = (p.units + 7) / 8;
+  const int k = mtiles > 0 ? p.threads / 32 / (mtiles * octets) : 0;
+  return k < p.kt / 16 ? k : p.kt / 16;
+}
+__host__ __device__ inline bool adj_grid_tensor(const GridPlan& p, size_t itemsize) {
+  const int kslices = adj_grid_kslices(p);
+  return itemsize == 2 && p.pass_rows % 16 == 0 && kslices > 0 &&
+         size_t(kslices) * p.pass_rows * p.units * sizeof(float) <=
+             size_t(p.stages) * p.pass_rows * (p.kt + kGridPad) * itemsize;
+}
+
+// The plan's model of the walks' time on the card, in picoseconds a step
+// of one wave (or round of work items). Its constants are fitted (least
+// squares on relative error) to chip_smoke.py's candidate timings
+// (adjoint_candidates: every tile of the one-block and cluster walks and
+// the grid walk, the walk alone by CUDA events at T = 480, f32 and bf16 H =
+// 100-512, B = 64 at 1, 2, 5 and 15 lanes, B = 37 at 2; 66 shapes, 797
+// candidates), two runs of it on one NVIDIA H100 80GB HBM3 at a 700.00 W
+// power limit (nvidia-smi's figure), after the two-unit dot:
+//   one-block or cluster walk, a wave's step: kWalkStepPs + kWalkRowPs R +
+//     kDotLoadPs x the dot's shared loads of a warp a CTA (adj_dot_loads) +
+//     kDotSharedPs x those of the further CTAs an SM runs at once +
+//     kExchangePs x the dg_lo values a CTA stores into its cluster's CTAs
+//     (3 R units K; none in one block: the cluster barrier waits for them),
+//     in waves of the clusters the card runs at once (adj_clusters_at_once);
+//   grid walk, a round's step: kGridStepPs + kGridCtaPs x the CTAs of a
+//     group (each arrives at the group barrier) + per K tile of each pass
+//     kGridMmaTilePs on the tensor cores or kGridFmaTilePs on the FMAs
+//     (adj_grid_tensor) + kGridThreadTilePs x the CTA's threads.
+// At the 66 shapes the model's choice was the fastest candidate or within
+// 5 % of it at 62 (the others within 14 %); its step was within 6 % of the
+// measured at the median candidate.
+constexpr long long kWalkStepPs = 1156000;
+constexpr long long kWalkRowPs = 206000;
+constexpr long long kDotLoadPs = 923;
+constexpr long long kDotSharedPs = 1700;
+constexpr long long kExchangePs = 1290;
+constexpr long long kGridStepPs = 4660000;
+constexpr long long kGridCtaPs = 22000;
+constexpr long long kGridMmaTilePs = 326000;
+constexpr long long kGridFmaTilePs = 651000;
+constexpr long long kGridThreadTilePs = 2760;
+// Registers a thread of the walk takes (ptxas, which build_phase prints):
+// 80 in one block of one or two rows, 96 in one block of four and in a
+// cluster's CTA; the register file holds kSmRegisters of them.
+constexpr int kSmRegisters = 65536;
+__host__ __device__ constexpr int adj_walk_registers(AdjTile tile) {
+  return tile.cluster == 1 && tile.rows <= 2 ? 80 : 96;
+}
+// Clusters of K CTAs an H100 runs at once with p CTAs an SM
+// (cudaOccupancyMaxActiveClusters on the card, chip_smoke.py; a cluster
+// stays inside a GPC), [K][p - 1]; past a row's last figure, p times its
+// last figure's clusters a CTA an SM.
+constexpr int kAtOnceMostPerSm = 6;
+constexpr int kClustersAtOnce[kMaxCluster + 1][kAtOnceMostPerSm] = {
+    {0}, {0},
+    {66, 132},
+    {39, 79},
+    {30, 62, 92},
+    {22, 47, 69, 94},
+    {17, 39, 62, 79, 101},
+    {15, 32, 47, 69, 84, 84},
+    {15, 30, 45, 62, 77, 77}};
+// CTAs of the walk an SM runs at once by its shared memory, threads and
+// registers (the card's figure where adj_per_sm, which leaves registers
+// out, counts more).
+long long adj_sm_ctas(int hidden, size_t itemsize, AdjTile tile) {
+  const long long per_sm = adj_per_sm(hidden, itemsize, tile);
+  const long long by_regs =
+      kSmRegisters / (static_cast<long long>(adj_walk_registers(tile)) * adj_threads(hidden, tile.cluster));
+  return per_sm < by_regs ? per_sm : by_regs;
+}
+long long adj_clusters_at_once(int cluster, long long per_sm) {
+  if (cluster == 1) return per_sm * kNumSMs;
+  const int* row = kClustersAtOnce[cluster];
+  int last = 0;
+  while (last + 1 < kAtOnceMostPerSm && row[last + 1] != 0) ++last;
+  return per_sm <= last + 1 ? row[per_sm - 1] : row[last] * per_sm / (last + 1);
+}
+// Waves of the walk's clusters as the model counts them.
+long long adj_cost_waves(int batch, int lanes, int hidden, size_t itemsize, AdjTile tile) {
+  const long long at_once = adj_clusters_at_once(tile.cluster, adj_sm_ctas(hidden, itemsize, tile));
+  const long long tiles = adj_ctas(batch, lanes, tile) / tile.cluster;
+  return (tiles + at_once - 1) / at_once;
+}
+// Shared loads of a warp in one CTA's dot a step (W in shared memory): its
+// warps, each thread's 4-value chunks of K = 3H, and per chunk R dg_lo and
+// kSmemUnits W^T loads.
+long long adj_dot_loads(int hidden, AdjTile tile) {
+  const long long groups = (adj_units(hidden, tile.cluster) + kSmemUnits - 1) / kSmemUnits;
+  const long long warps = (groups * kSmemSub + 31) / 32;
+  const long long chunks = (adj_kpad(hidden, false) / 4 + kSmemSub - 1) / kSmemSub;
+  return warps * chunks * (tile.rows + kSmemUnits);
+}
+long long adj_walk_cost(int batch, int lanes, int hidden, size_t itemsize, AdjTile tile) {
+  const long long ctas = adj_ctas(batch, lanes, tile);
+  const long long per_sm = adj_sm_ctas(hidden, itemsize, tile);
+  const long long co = (ctas + kNumSMs - 1) / kNumSMs < per_sm ? (ctas + kNumSMs - 1) / kNumSMs
+                                                                : per_sm;
+  const long long loads = adj_dot_loads(hidden, tile);
+  const long long stores = tile.cluster == 1 ? 0
+                                             : 3LL * tile.rows * adj_units(hidden, tile.cluster) *
+                                                   tile.cluster;
+  const long long step = kWalkStepPs + kWalkRowPs * tile.rows + kDotLoadPs * loads +
+                         kDotSharedPs * loads * (co - 1) + kExchangePs * stores;
+  return adj_cost_waves(batch, lanes, hidden, itemsize, tile) * step;
+}
+long long adj_grid_cost(int batch, int lanes, int hidden, size_t itemsize, const GridPlan& p) {
+  const long long passes = (p.rows + p.pass_rows - 1) / p.pass_rows;
+  const long long tiles = passes * (grid_kx(3 * hidden, p.kt) / p.kt);
+  const long long step = kGridStepPs + kGridCtaPs * p.ctas +
+                         tiles * (adj_grid_tensor(p, itemsize) ? kGridMmaTilePs : kGridFmaTilePs) +
+                         kGridThreadTilePs * tiles * p.threads;
+  return grid_rounds(p, batch, lanes) * step;
+}
+
 // The walk's tile for this shape (one block or cluster design). With W in
 // registers one CTA and the least power of two R (at most 2) that brings
 // ceil(B/R) * lanes blocks down to the SM count, more blocks sharing the SMs
 // beyond that (a block of 160 threads leaves room for several on one SM).
 // With W in shared memory, of every pair (K, R) that fits, K from
 // adj_cluster_size up to kMaxCluster in a cluster (1 in one block) and R in
-// 1, 2, 4 (a (row, unit) pair a sub-lane), the one that leaves the fewest
-// waves (adj_waves); on a tie the smaller K, then the smaller R.
+// 1, 2, 4 (a (row, unit) pair a sub-lane), the one of the least modelled
+// time (adj_walk_cost); on a tie the smaller K, then the smaller R.
 AdjTile adj_walk_tile(int batch, int lanes, int hidden, size_t itemsize) {
   if (adj_in_registers(hidden)) {
     const long long want = (static_cast<long long>(batch) * lanes + kNumSMs - 1) / kNumSMs;
@@ -416,14 +566,14 @@ AdjTile adj_walk_tile(int batch, int lanes, int hidden, size_t itemsize) {
   }
   const int least = adj_cluster_size(hidden, itemsize);
   AdjTile best{least, 1};
-  long long fewest = -1;
+  long long cheapest = -1;
   for (int k = least; k <= (least == 1 ? 1 : kMaxCluster); ++k)
-    for (int r = 1; r <= kSmemSub; r *= 2) {
+    for (int r = 1; r <= kSmemMostRows; r *= 2) {
       if (!adj_tile_fits(hidden, itemsize, r, k)) continue;
-      const long long waves = adj_waves(batch, lanes, hidden, itemsize, {k, r});
-      if (fewest < 0 || waves < fewest) {
+      const long long cost = adj_walk_cost(batch, lanes, hidden, itemsize, {k, r});
+      if (cheapest < 0 || cost < cheapest) {
         best = {k, r};
-        fewest = waves;
+        cheapest = cost;
       }
     }
   return best;
@@ -474,25 +624,20 @@ size_t adj_cluster_shared_bytes(int hidden, size_t itemsize, int rows, int clust
   const size_t walk = adj_walk_shared_bytes(hidden, itemsize, rows, cluster ? cluster : kMaxCluster);
   return walk > adj_pass_shared_bytes(itemsize) ? walk : adj_pass_shared_bytes(itemsize);
 }
-// The bf16 adjoint leaves the cluster walk past this H, where the gate
-// pre-pass's shared memory ended it before the passes were redesigned; the
-// cluster walk beyond it (to ~515) has not been timed against the grid walk.
-constexpr int kAdjClusterMostBf16 = 450;
-// Whether this H runs the streamed walk: past the one-block and cluster
-// design's limit.
-bool adj_streamed(int hidden, size_t itemsize) {
-  return adj_cluster_size(hidden, itemsize) == 0 ||
-         (itemsize != sizeof(float) && hidden > kAdjClusterMostBf16) ||
+// Whether the one-block and cluster design takes this H at all: its least
+// cluster's share fits at one row (two with W in registers).
+bool adj_walk_takes(int hidden, size_t itemsize) {
+  return adj_cluster_size(hidden, itemsize) != 0 &&
          adj_cluster_shared_bytes(hidden, itemsize,
-                                  adj_in_registers(hidden) ? kRegMostRows : 1) > kMaxShared;
+                                  adj_in_registers(hidden) ? kRegMostRows : 1) <= kMaxShared;
 }
 // The streamed walk: kMaxCluster CTAs, ceil(H / kMaxCluster) units each.
 __host__ __device__ constexpr int adj_stream_units(int hidden) {
   return adj_units(hidden, kMaxCluster);
 }
 __host__ __device__ constexpr int adj_stream_dot_threads(int hidden) {
-  return (adj_stream_units(hidden) * kSmemSub + 31) / 32 * 32 < kStreamDotThreads
-             ? (adj_stream_units(hidden) * kSmemSub + 31) / 32 * 32
+  return (adj_stream_units(hidden) * kStreamSub + 31) / 32 * 32 < kStreamDotThreads
+             ? (adj_stream_units(hidden) * kStreamSub + 31) / 32 * 32
              : kStreamDotThreads;
 }
 // Shared memory of a streamed CTA beside its resident W^T rows, float32:
@@ -543,39 +688,84 @@ int adj_stream_row_tile(int batch, int lanes, int hidden, size_t itemsize) {
   return rows;
 }
 // The most any kernel of the adjoint walk takes of one block's or CTA's
-// shared memory for a walk tile of `rows` at this H's least cluster; at one
-// row (two with W in registers) it sets the walk's limit, which the wrapper
+// shared memory for a walk tile of `rows` at this H's least cluster, or past
+// the one-block and cluster design's limit the streamed walk's; at one row
+// (two with W in registers) it sets the walk's limit, which the wrapper
 // checks.
 size_t adj_shared_bytes(int hidden, size_t itemsize, int rows) {
-  if (!adj_streamed(hidden, itemsize)) return adj_cluster_shared_bytes(hidden, itemsize, rows);
+  if (adj_walk_takes(hidden, itemsize)) return adj_cluster_shared_bytes(hidden, itemsize, rows);
   const size_t walk = adj_stream_shared_bytes(hidden, itemsize, rows);
   return walk > adj_pass_shared_bytes(itemsize) ? walk : adj_pass_shared_bytes(itemsize);
 }
-// The walk's tile for this shape: adj_walk_tile, or past the one-block and
-// cluster design's limit kMaxCluster CTAs and the streamed row tile.
-AdjTile adj_tile(int batch, int lanes, int hidden, size_t itemsize) {
-  if (adj_streamed(hidden, itemsize))
-    return {kMaxCluster, adj_stream_row_tile(batch, lanes, hidden, itemsize)};
-  return adj_walk_tile(batch, lanes, hidden, itemsize);
+
+// The instantiations of the adjoint walk, in the order of gru_adj_plan's
+// first number.
+enum AdjKind { kAdjRegisters = 0, kAdjBlock = 1, kAdjCluster = 2, kAdjGrid = 3, kAdjStreamed = 4 };
+// The walk a shape runs: its instantiation, the tile of the one-block and
+// cluster walks (the streamed walk: kMaxCluster and its row tile) and the
+// grid walk's plan (ctas 0 for the others).
+struct AdjChoice {
+  int kind;
+  AdjTile tile;
+  GridPlan grid;
+};
+// The plan: W in registers up to H = 64; above it, of the one-block or
+// cluster walk's cheapest tile (adj_walk_tile) where that design takes H and
+// the grid walk where grid_plan takes the shape, the one of the least
+// modelled time (adj_walk_cost, adj_grid_cost; on a tie the one-block or
+// cluster walk); the streamed walk where neither does. It reads no clock
+// and nothing of the card, so a shape runs the same kernels in every run.
+AdjChoice adj_choose(int batch, int lanes, int hidden, size_t itemsize) {
+  const bool walk = adj_walk_takes(hidden, itemsize);
+  if (walk && adj_in_registers(hidden))
+    return {kAdjRegisters, adj_walk_tile(batch, lanes, hidden, itemsize), GridPlan{}};
+  const GridPlan grid = grid_plan(batch, lanes, hidden, itemsize, true);
+  if (walk) {
+    const AdjTile tile = adj_walk_tile(batch, lanes, hidden, itemsize);
+    const AdjChoice own{tile.cluster == 1 ? kAdjBlock : kAdjCluster, tile, GridPlan{}};
+    if (grid.ctas == 0 || adj_walk_cost(batch, lanes, hidden, itemsize, tile) <=
+                              adj_grid_cost(batch, lanes, hidden, itemsize, grid))
+      return own;
+  }
+  if (grid.ctas > 0) return {kAdjGrid, {grid.ctas, grid.rows}, grid};
+  return {kAdjStreamed, {kMaxCluster, adj_stream_row_tile(batch, lanes, hidden, itemsize)},
+          GridPlan{}};
 }
-// What adj_shared_bytes says for this shape's own tile; adj_launch checks
-// it before any launch.
-size_t adj_plan_shared_bytes(int batch, int lanes, int hidden, size_t itemsize) {
-  const AdjTile tile = adj_tile(batch, lanes, hidden, itemsize);
-  return adj_streamed(hidden, itemsize)
-             ? adj_shared_bytes(hidden, itemsize, tile.rows)
-             : adj_cluster_shared_bytes(hidden, itemsize, tile.rows, tile.cluster);
+// Whether a forced instantiation and tile are one of the candidates the
+// plan weighs at this shape (chip_smoke.py's candidate timings): a tile of
+// the one-block or cluster design that adj_walk_tile weighs, or the grid
+// walk where grid_plan takes the shape. The choice a forced candidate runs
+// is returned in `choice`.
+bool adj_candidate(int batch, int lanes, int hidden, size_t itemsize, int kind, AdjTile tile,
+                   AdjChoice* choice) {
+  const int least = adj_cluster_size(hidden, itemsize);
+  switch (kind) {
+    case kAdjBlock:
+    case kAdjCluster:
+      *choice = {kind, tile, GridPlan{}};
+      return adj_walk_takes(hidden, itemsize) && !adj_in_registers(hidden) &&
+             (kind == kAdjBlock) == (least == 1) && tile.cluster >= least &&
+             tile.cluster <= (least == 1 ? 1 : kMaxCluster) &&
+             (tile.rows == 1 || tile.rows == 2 || tile.rows == kSmemMostRows) &&
+             adj_tile_fits(hidden, itemsize, tile.rows, tile.cluster);
+    case kAdjGrid:
+      *choice = {kind, tile, grid_plan(batch, lanes, hidden, itemsize, true)};
+      choice->tile = {choice->grid.ctas, choice->grid.rows};
+      return choice->grid.ctas > 0;
+    default:
+      return false;
+  }
 }
-// The grid walk's plan where it takes the shape: past the one-block and
-// cluster design's limit, wherever one lane's W fits the card (ctas 0
-// elsewhere).
-GridPlan adj_grid(int batch, int lanes, int hidden, size_t itemsize) {
-  return adj_streamed(hidden, itemsize) ? grid_plan(batch, lanes, hidden, itemsize, true)
-                                        : GridPlan{};
-}
-// Rows per block (or streamed tile) of the walk for this shape.
-int adj_rows(int batch, int lanes, int hidden, size_t itemsize) {
-  return adj_tile(batch, lanes, hidden, itemsize).rows;
+// Shared bytes of the most demanding kernel of a choice; adj_launch checks
+// them before any launch.
+size_t adj_choice_shared_bytes(int hidden, size_t itemsize, const AdjChoice& c) {
+  const size_t pass = adj_pass_shared_bytes(itemsize);
+  if (c.kind == kAdjGrid) return size_t(c.grid.smem) > pass ? size_t(c.grid.smem) : pass;
+  if (c.kind == kAdjStreamed) {
+    const size_t walk = adj_stream_shared_bytes(hidden, itemsize, c.tile.rows);
+    return walk > pass ? walk : pass;
+  }
+  return adj_cluster_shared_bytes(hidden, itemsize, c.tile.rows, c.tile.cluster);
 }
 
 // Rows (t, b) of one lane per chunk of the weight-gradient pass: as many
@@ -600,7 +790,8 @@ int adj_partials(int lanes, int n_steps, int batch, int hidden) {
 // dht [rows][H] (rows = lanes * T * B, in the streams' order), then the dW
 // partials [lanes][partials][3H][H]; then, from a 16-byte boundary, the grid
 // walk's exchange buffers and counters (grid_workspace_bytes) or the
-// streamed walk's W^T padded [lanes][H][kpad] in the stream dtype.
+// streamed walk's W^T padded [lanes][H][kpad] in the stream dtype, where
+// the choice (or a forced candidate) runs either.
 long long adj_wt_offset(int lanes, int n_steps, int batch, int hidden) {
   const long long rows = static_cast<long long>(lanes) * n_steps * batch;
   const long long base = rows * hidden * (kFactors + 1) +
@@ -608,19 +799,23 @@ long long adj_wt_offset(int lanes, int n_steps, int batch, int hidden) {
           hidden;
   return (base + 3) / 4 * 4;
 }
-long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, size_t itemsize) {
+long long adj_choice_workspace_floats(int lanes, int n_steps, int batch, int hidden,
+                                      size_t itemsize, const AdjChoice& c) {
   const long long rows = static_cast<long long>(lanes) * n_steps * batch;
   const long long base = rows * hidden * (kFactors + 1) +
       static_cast<long long>(lanes) * adj_partials(lanes, n_steps, batch, hidden) * 3 * hidden *
           hidden;
-  if (!adj_streamed(hidden, itemsize)) return base;
-  const GridPlan grid = grid_plan(batch, lanes, hidden, itemsize, true);
-  if (grid.ctas > 0)
+  if (c.kind == kAdjGrid)
     return adj_wt_offset(lanes, n_steps, batch, hidden) +
-           static_cast<long long>(grid_workspace_bytes(grid, itemsize) / 4);
+           static_cast<long long>(grid_workspace_bytes(c.grid, itemsize) / 4);
+  if (c.kind != kAdjStreamed) return base;
   const long long wt = static_cast<long long>(lanes) * hidden * adj_kpad(hidden, false) *
                        static_cast<long long>(itemsize);
   return adj_wt_offset(lanes, n_steps, batch, hidden) + (wt + 15) / 16 * 4;
+}
+long long adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, size_t itemsize) {
+  return adj_choice_workspace_floats(lanes, n_steps, batch, hidden, itemsize,
+                                     adj_choose(batch, lanes, hidden, itemsize));
 }
 
 // w [lanes][3H][H] -> w_t [lanes][H][kpad], w_t[k][c] = w[c][k], zeros past
@@ -714,17 +909,37 @@ __device__ __forceinline__ void cluster_sync_all() {
   cluster_wait();
 }
 
+// The reduce-scatter of a group of S consecutive lanes (S a power of two
+// of at least M): lane s holds M sums v[0..M), and after rounds at offsets
+// off, 2 off, ..., (M / 2) off, v[0] of lane s is pair s % M's sum over the
+// M lanes that differ from s in those bits (M - 1 shuffles where a
+// butterfly of every sum takes M log2 M).
+template <int M>
+__device__ __forceinline__ void group_scatter(float* v, int s, int off) {
+  if constexpr (M > 1) {
+    const bool hi = (s & off) != 0;
+#pragma unroll
+    for (int j = 0; j < M / 2; ++j) {
+      const float send = hi ? v[2 * j] : v[2 * j + 1];
+      const float keep = hi ? v[2 * j + 1] : v[2 * j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    group_scatter<M / 2>(v, s, 2 * off);
+  }
+}
+
 // The walk: only the dh chain, one block per (lane, tile of R rows).
 // Dot threads: U hidden units and S sub-lanes a group; each holds rows
 // c = 4 (s + S i) + e of W's columns for its units (K = 3H in 4-wide
 // chunks), in registers for H <= 64 (U = 4, S = 8: 96 floats a thread, so
 // each dg_lo value read from shared memory feeds 4 FMAs), or reads W^T from
-// shared memory above (U = 1, S = 4, up to R = 4 rows: each W^T chunk it
-// loads feeds every row's FMAs). Sub-lane s < R U owns the pair
-// (row s / U, unit g U + s % U); it turns dht = dh + dy into dg_lo
-// (into the parity buffer) and keeps dht z; barrier; each dot thread dots
-// its slice of every row's dg_lo with its W slice, an xor butterfly sums
-// the S slices, and the pair's lane adds dht z: dh for the next step.
+// shared memory above (U = 2, S = 8, up to R = 4 rows: each W^T chunk it
+// loads feeds every row's FMAs, each dg_lo chunk both units'). Sub-lane s <
+// R U owns the pair (row s / U, unit g U + s % U); it turns dht = dh + dy
+// into dg_lo (into the parity buffer) and keeps dht z; barrier; each dot
+// thread dots its slice of every row's dg_lo with its W slices, a
+// reduce-scatter over the S slices (group_scatter, then a butterfly) leaves
+// each pair's lane its sum, and it adds dht z: dh for the next step.
 // A barrier waits for the device memory accesses its threads still have in
 // flight, cp.async copies and stores included, so no dot thread touches
 // device memory inside the walk, and the dot warps' barrier of each step
@@ -749,11 +964,12 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
     gru_adj_walk_kernel(const float* __restrict__ fac, const T* __restrict__ w_hh,
                         float* __restrict__ dht_out, float* __restrict__ dh0, int n_steps,
                         int batch, int hidden, int reverse) {
-  constexpr int U = kRegs ? kRegUnits : 1;
+  constexpr int U = kRegs ? kRegUnits : kSmemUnits;
   constexpr int S = kRegs ? kRegSub : kSmemSub;
   constexpr int P = adj_chunk(kRegs);
-  constexpr int kAcc = kRegs ? 1 : 4;  // partial sums per (row, unit)
-  static_assert(R * U <= S, "one (row, unit) pair a sub-lane");
+  constexpr int kAcc = kRegs ? 1 : R >= 4 ? 2 : 4;  // partial sums per (row, unit)
+  constexpr int N = R * U;  // the (row, unit) pairs of a group
+  static_assert(N <= S && (N & (N - 1)) == 0, "one (row, unit) pair a sub-lane");
   static_assert(!(kCluster && kRegs), "the cluster walk: W in shared memory");
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = hidden;
@@ -777,21 +993,22 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   const int mine = H - unit0 < units ? H - unit0 : units;  // this CTA's units inside H
 
   T* w_s = reinterpret_cast<T*>(smem);  // [units][kpad]: w_s[k][c] = W[c][unit0 + k]
-  // A warp's shared loads of W^T run in phases of 128 bytes: 2 groups of
-  // 16-byte chunks (f32) or 4 of 8-byte ones (bf16), each group 4 chunks
-  // in a row. Rows kpad * sizeof(T) bytes apart would put those groups'
-  // chunks in the same banks wherever that is a multiple of 128 (f32 and
-  // bf16 H = 192, 256), and partly elsewhere. So row k is rotated by (k
-  // skew) mod kRunChunks chunks (w_slot: its chunk c at (c + that) mod
-  // nchunks), which puts its chunk c at byte (k S + c) 4 sizeof(T) mod 128
-  // of a bank line: the groups of a phase on disjoint banks (but for the
-  // chunks that wrap round the row's end).
+  // A warp's shared loads of W^T run in phases of 128 bytes: one group's
+  // 8 chunks of 16 bytes (f32) or two groups' of 8 bytes (bf16), each
+  // group's in a row. The rows of groups g and g + 1 lie U kpad sizeof(T)
+  // bytes apart, which would put their chunks in the same banks wherever
+  // that is a multiple of 128 (bf16 H = 192, 256), and partly elsewhere. So
+  // the U rows of group g are rotated by (g skew) mod kRunChunks chunks
+  // (w_slot: row k's chunk c at (c + that) mod nchunks), which puts chunk c
+  // of the group's row v at byte v kpad sizeof(T) + (g S + c) 4 sizeof(T)
+  // mod 128 of a bank line: the groups of a phase on disjoint banks (but
+  // for the chunks that wrap round the row's end).
   constexpr int kChunkBytes = 4 * int(sizeof(T));
   constexpr int kRunChunks = 128 / kChunkBytes;
   const int nchunks = kpad / 4;
-  const int skew = (S * kChunkBytes - kpad * int(sizeof(T)) % 128) / kChunkBytes;
+  const int skew = (S * kChunkBytes - U * kpad * int(sizeof(T)) % 128) / kChunkBytes;
   auto w_slot = [&](int k, int c) {  // where row k keeps its chunk c
-    const int p = c + (k * skew % kRunChunks + kRunChunks) % kRunChunks;
+    const int p = c + (k / U * skew % kRunChunks + kRunChunks) % kRunChunks;
     return p < nchunks ? p : p - nchunks;
   };
   float* dgbuf = reinterpret_cast<float*>(
@@ -920,7 +1137,14 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
   const int pr = s / U;
   const int pkl = g * U + s % U;
   const int pk = unit0 + pkl;
-  const bool pair = g < groups && s < R * U && pkl < units && pk < H && row0 + pr < batch;
+  const bool pair = g < groups && s < N && pkl < units && pk < H && row0 + pr < batch;
+  // The group's W^T rows (W in shared memory); a unit past the CTA's last
+  // reads the last row, and its sums are dropped.
+  const T* w_row[kRegs ? 1 : U];
+  if constexpr (!kRegs)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      w_row[u] = w_s + size_t(gu * U + u < units ? gu * U + u : units - 1) * kpad;
   float dh = 0.0f;
   for (int step = 0; step < n_steps; ++step) {
     if (step > 0 && step % P == 0) named_barrier(kChunkBarrier, blockDim.x);
@@ -977,44 +1201,40 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
               acc[r][u][0] = fmaf(dv[e], wreg[(u * kRegChunks + ci) * 4 + e], acc[r][u][0]);
         }
     } else {
-      // Two chunks in flight, but one at a time in one block of four rows
-      // (608 threads leave ptxas 96 registers a thread, and two spilled).
+      // Each chunk of dg_lo loaded feeds the U units' FMAs of its row. Two
+      // chunks in flight, but one at a time in one block of four rows.
 #pragma unroll (kCluster || R < 4 ? 2 : 1)
       for (int c = s; c < nchunks; c += S) {
-        float wv[4];
-        load4(w_s + size_t(gu) * kpad + 4 * w_slot(gu, c), wv);
+        const int slot = 4 * w_slot(gu * U, c);
+        float wv[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) load4(w_row[u] + slot, wv[u]);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           float dv[4];
           load4(buf + r * kpad + 4 * c, dv);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[r][0][e % kAcc] = fmaf(dv[e], wv[e], acc[r][0][e % kAcc]);
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[r][u][e % kAcc] = fmaf(dv[e], wv[u][e], acc[r][u][e % kAcc]);
         }
       }
     }
-    float sum[R][U];
+    float sum[N];  // pair q = r U + u
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        sum[r][u] = acc[r][u][0];
+        sum[r * U + u] = acc[r][u][0];
 #pragma unroll
-        for (int e = 1; e < kAcc; ++e) sum[r][u] += acc[r][u][e];
+        for (int e = 1; e < kAcc; ++e) sum[r * U + u] += acc[r][u][e];
       }
+    // Sub-lane s ends with pair s % N's sum over the group's S slices.
+    group_scatter<N>(sum, s, 1);
 #pragma unroll
-    for (int off = S / 2; off > 0; off >>= 1)
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int u = 0; u < U; ++u) sum[r][u] += __shfl_xor_sync(0xffffffffu, sum[r][u], off);
-    if (pair) {
-      float own = sum[0][0];
-#pragma unroll
-      for (int q = 1; q < R * U; ++q)
-        if (s == q) own = sum[q / U][q % U];
-      dh = dhz + own;
-    }
+    for (int off = N; off < S; off <<= 1) sum[0] += __shfl_xor_sync(0xffffffffu, sum[0], off);
+    if (pair) dh = dhz + sum[0];
   }
   if constexpr (kCluster)
     cluster_sync_all();
@@ -1026,7 +1246,7 @@ __global__ void __launch_bounds__(kRegs ? kRegSub * kRegMaxHidden / kRegUnits + 
 // The streamed walk (see the note at the top): a cluster of kMaxCluster
 // CTAs per (lane, tile of R rows), the dot threads and a producer warp as
 // in the cluster walk. CTA `rank` owns units unit0 .. unit0 + units - 1 and
-// walks them in passes of (dot threads) / S units, S = kSmemSub: first every
+// walks them in passes of (dot threads) / S units, S = kStreamSub: first every
 // pass's pairs (sub-lane s < R: row s of the pass's unit) turn dht into
 // dg_lo, stored into every CTA's buffer, and keep dht z as the pair's dh in
 // shared memory; one cluster barrier; then every pass's dot, W^T of units
@@ -1038,7 +1258,7 @@ __global__ void __launch_bounds__(kStreamDotThreads + kProducer, 1)
     gru_adj_stream_kernel(const float* __restrict__ fac, const T* __restrict__ w_t,
                           float* __restrict__ dht_out, float* __restrict__ dh0, int n_steps,
                           int batch, int hidden, int reverse, int resident) {
-  constexpr int S = kSmemSub;
+  constexpr int S = kStreamSub;
   constexpr int P = kSmemChunk;
   static_assert(R <= S, "one (row, unit) pair a sub-lane");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1311,11 +1531,8 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
   const int lane32 = tid % 32;
   const int mtiles = p.pass_rows / 16;
   const int octets = (u + 7) / 8;
-  int kslices = mtiles > 0 ? int(blockDim.x / 32) / (mtiles * octets) : 0;
-  if (kslices > p.kt / 16) kslices = p.kt / 16;
-  const bool tensor = sizeof(T) == 2 && p.pass_rows % 16 == 0 && kslices > 0 &&
-                      size_t(kslices) * p.pass_rows * u * sizeof(float) <=
-                          size_t(p.stages) * p.pass_rows * kt * sizeof(T);
+  const int kslices = adj_grid_kslices(p);
+  const bool tensor = adj_grid_tensor(p, sizeof(T));
   const int mma_m = mtiles > 0 ? warp % mtiles : 0;
   const int mma_n = mtiles > 0 ? warp / mtiles % octets : 0;
   const int mma_k = mtiles > 0 ? warp / (mtiles * octets) : 0;
@@ -2315,21 +2532,17 @@ int adj_stream_walk(const float* fac, const void* w_hh, void* w_t, float* dht, v
   return int(cudaGetLastError());
 }
 
-// Clusters of the walk (of one CTA without a cluster: blocks) the card
-// holds at once for this shape, from CUDA's occupancy calculator; a
+// Clusters of a choice's walk (of one CTA without a cluster: blocks; the grid
+// walk: groups) the card holds at once, from CUDA's occupancy calculator; a
 // negative CUDA error if it fails.
 template <typename T, typename Layout>
-int adj_walk_active_clusters(int batch, int lanes, int hidden) {
-  const GridPlan grid = adj_grid(batch, lanes, hidden, sizeof(T));
-  if (grid.ctas > 0) {
-    const int resident = grid_resident_ctas(gru_adj_grid_kernel<T, Layout>, grid);
-    return resident < 0 ? resident : resident / grid.ctas;
+int adj_active_clusters(int batch, int lanes, int hidden, const AdjChoice& c) {
+  if (c.kind == kAdjGrid) {
+    const int resident = grid_resident_ctas(gru_adj_grid_kernel<T, Layout>, c.grid);
+    return resident < 0 ? resident : resident / c.grid.ctas;
   }
-  if (adj_streamed(hidden, sizeof(T)))
-    return adj_stream_active_clusters<T, Layout>(batch, lanes, hidden);
-  if (adj_cluster_size(hidden, sizeof(T)) == 0) return -int(cudaErrorInvalidValue);
-  const AdjTile tile = adj_walk_tile(batch, lanes, hidden, sizeof(T));
-  const int cluster = tile.cluster, rows = tile.rows;
+  if (c.kind == kAdjStreamed) return adj_stream_active_clusters<T, Layout>(batch, lanes, hidden);
+  const int cluster = c.tile.cluster, rows = c.tile.rows;
   const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden, cluster);
   const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
@@ -2348,14 +2561,13 @@ int adj_walk_active_clusters(int batch, int lanes, int hidden) {
   return err == cudaSuccess ? count : -int(err);
 }
 
-// The walk; a cluster launch is refused (kNoCluster) before it is made when
-// no cluster of its size fits the card, and cudaLaunchKernelEx's result is
-// returned.
+// The one-block or cluster walk at a tile; a cluster launch is refused
+// (kNoCluster) before it is made when no cluster of its size fits the
+// card, and cudaLaunchKernelEx's result is returned.
 template <typename T, typename Layout>
 int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lanes, int n_steps,
-             int batch, int hidden, int reverse, cudaStream_t stream) {
-  const AdjTile tile = adj_walk_tile(batch, lanes, hidden, sizeof(T));
-  const int cluster = tile.cluster, rows = tile.rows;
+             int batch, int hidden, int reverse, const AdjChoice& c, cudaStream_t stream) {
+  const int cluster = c.tile.cluster, rows = c.tile.rows;
   const AdjWalkKernel<T> kernel = adj_walk_kernel<T, Layout>(rows, hidden, cluster);
   const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
@@ -2367,7 +2579,7 @@ int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lane
         hidden, reverse);
     return int(cudaGetLastError());
   }
-  const int clusters = adj_walk_active_clusters<T, Layout>(batch, lanes, hidden);
+  const int clusters = adj_active_clusters<T, Layout>(batch, lanes, hidden, c);
   if (clusters < 0) return -clusters;
   if (clusters == 0) return kNoCluster;
   const AdjWalkLaunch launch(lanes, batch, hidden, rows, cluster, smem, stream);
@@ -2377,44 +2589,32 @@ int adj_walk(const float* fac, const void* w_hh, float* dht, void* dh0, int lane
   return int(cudaGetLastError());
 }
 
-// Blocks of the walk (LaneMajor) one SM holds at once for this shape, from
-// CUDA's occupancy calculator; a negative CUDA error if it fails.
+// Blocks of a choice's walk (LaneMajor) one SM holds at once, from CUDA's
+// occupancy calculator; a negative CUDA error if it fails.
 template <typename T>
-int adj_walk_blocks_per_sm(int batch, int lanes, int hidden) {
-  const GridPlan grid = adj_grid(batch, lanes, hidden, sizeof(T));
-  if (grid.ctas > 0) {
-    int per_sm = 0;
-    const auto kernel = gru_adj_grid_kernel<T, LaneMajor>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(grid.smem));
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, grid.threads,
-                                                          size_t(grid.smem));
-    return err == cudaSuccess ? per_sm : -int(err);
+int adj_blocks_per_sm(int hidden, const AdjChoice& c) {
+  const void* kernel;
+  int threads;
+  size_t smem;
+  if (c.kind == kAdjGrid) {
+    kernel = reinterpret_cast<const void*>(gru_adj_grid_kernel<T, LaneMajor>);
+    threads = c.grid.threads;
+    smem = size_t(c.grid.smem);
+  } else if (c.kind == kAdjStreamed) {
+    kernel = reinterpret_cast<const void*>(adj_stream_kernel<T, LaneMajor>(c.tile.rows));
+    threads = adj_stream_dot_threads(hidden) + kProducer;
+    smem = adj_stream_shared_bytes(hidden, sizeof(T), c.tile.rows);
+  } else {
+    kernel = reinterpret_cast<const void*>(
+        adj_walk_kernel<T, LaneMajor>(c.tile.rows, hidden, c.tile.cluster));
+    threads = adj_threads(hidden, c.tile.cluster);
+    smem = adj_walk_shared_bytes(hidden, sizeof(T), c.tile.rows, c.tile.cluster);
   }
-  if (adj_streamed(hidden, sizeof(T))) {
-    const int rows = adj_stream_row_tile(batch, lanes, hidden, sizeof(T));
-    const AdjStreamKernel<T> kernel = adj_stream_kernel<T, LaneMajor>(rows);
-    const size_t smem = adj_stream_shared_bytes(hidden, sizeof(T), rows);
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    int blocks = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, adj_stream_dot_threads(hidden) + kProducer, smem);
-    return err == cudaSuccess ? blocks : -int(err);
-  }
-  if (adj_cluster_size(hidden, sizeof(T)) == 0) return -int(cudaErrorInvalidValue);
-  const AdjTile tile = adj_walk_tile(batch, lanes, hidden, sizeof(T));
-  const int cluster = tile.cluster, rows = tile.rows;
-  const AdjWalkKernel<T> kernel = adj_walk_kernel<T, LaneMajor>(rows, hidden, cluster);
-  const size_t smem = adj_walk_shared_bytes(hidden, sizeof(T), rows, cluster);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        adj_threads(hidden, cluster), smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   return err == cudaSuccess ? blocks : -int(err);
 }
 
@@ -2462,17 +2662,16 @@ dim3 adj_grad_grid(int lanes, int n_steps, int batch, int hidden) {
 }
 
 // The adjoint walk's four kernels on one stream: the gate pre-pass, the
-// walk, the weight-gradient pass and the reduction. The instantiation is chosen from
-// H before any launch; a shape the wrapper would have refused is refused
-// here too, not launched.
+// walk of the choice `c` (adj_choose, or a forced candidate), the
+// weight-gradient pass and the reduction; with walk_only the walk alone, on
+// the factors an earlier call left in the workspace. A choice whose shared
+// memory the card does not give is refused here, not launched.
 template <typename T, typename Layout>
 int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
                const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
                void* workspace, void* db_part, int lanes, int n_steps, int batch, int hidden,
-               int reverse, void* stream) {
-  const bool streamed = adj_streamed(hidden, sizeof(T));
-  if ((!streamed && adj_cluster_size(hidden, sizeof(T)) == 0) ||
-      adj_plan_shared_bytes(batch, lanes, hidden, sizeof(T)) > kMaxShared ||
+               int reverse, const AdjChoice& c, bool walk_only, void* stream) {
+  if (adj_choice_shared_bytes(hidden, sizeof(T), c) > kMaxShared ||
       static_cast<long long>(lanes) * n_steps * batch > 0x7fffffffLL)  // rows an int
     return int(cudaErrorInvalidValue);
   const int gates_cap = adj_gates_capacity<T, Layout>();
@@ -2484,28 +2683,30 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
   float* fac = static_cast<float*>(workspace);
   float* dht = fac + n_rows * kFactors * hidden;
   float* dw_part = dht + n_rows * hidden;
+  cudaError_t err;
 
-  gru_adj_gates_kernel<T, Layout>
-      <<<adj_gates_grid(lanes, n_steps, batch, hidden, gates_cap), kGateThreads,
-         adj_gates_shared_bytes(sizeof(T)), s>>>(
-          static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
-          static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
-          fac, n_steps, batch, hidden, reverse);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+  if (!walk_only) {
+    gru_adj_gates_kernel<T, Layout>
+        <<<adj_gates_grid(lanes, n_steps, batch, hidden, gates_cap), kGateThreads,
+           adj_gates_shared_bytes(sizeof(T)), s>>>(
+            static_cast<const T*>(xg), static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
+            static_cast<const float*>(h0), static_cast<const T*>(ys), static_cast<const T*>(dy),
+            fac, n_steps, batch, hidden, reverse);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
 
   float* aux = static_cast<float*>(workspace) + adj_wt_offset(lanes, n_steps, batch, hidden);
-  const GridPlan grid = adj_grid(batch, lanes, hidden, sizeof(T));
   const int e =
-      grid.ctas > 0
-          ? grid_launch<T>(gru_adj_grid_kernel<T, Layout>, grid, aux, s, lanes, n_steps, batch,
+      c.kind == kAdjGrid
+          ? grid_launch<T>(gru_adj_grid_kernel<T, Layout>, c.grid, aux, s, lanes, n_steps, batch,
                            hidden, reverse, static_cast<const float*>(fac),
                            static_cast<const T*>(w_hh), dht, static_cast<float*>(dh0))
-      : streamed
+      : c.kind == kAdjStreamed
           ? adj_stream_walk<T, Layout>(fac, w_hh, aux, dht, dh0, lanes, n_steps, batch, hidden,
                                        reverse, s)
-          : adj_walk<T, Layout>(fac, w_hh, dht, dh0, lanes, n_steps, batch, hidden, reverse, s);
-  if (e != 0) return e;
+          : adj_walk<T, Layout>(fac, w_hh, dht, dh0, lanes, n_steps, batch, hidden, reverse, c, s);
+  if (e != 0 || walk_only) return e;
 
   const int parts = adj_partials(lanes, n_steps, batch, hidden);
   gru_adj_wgrad_kernel<T, Layout>
@@ -2525,27 +2726,28 @@ int adj_launch(const void* xg, const void* w_hh, const void* b_hh, const void* h
   return int(cudaGetLastError());
 }
 
+size_t item_of(int bf16) { return bf16 ? sizeof(__nv_bfloat16) : sizeof(float); }
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory the most demanding kernel of the adjoint walk needs of
-// one block or CTA for a walk tile of `rows` at this H's least cluster; at
-// one row (two with W in registers) the wrapper checks it against the card's
-// limit.
+// one block or CTA for a walk tile of `rows` at this H's least cluster (or
+// the streamed walk's past the one-block and cluster design); at one row
+// (two with W in registers) the wrapper checks it against the card's limit.
 long long gru_adj_shared_bytes(int hidden, int bf16, int rows) {
-  return (long long)adj_shared_bytes(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float),
-                                     rows);
+  return (long long)adj_shared_bytes(hidden, item_of(bf16), rows);
 }
 
 // The least CTAs of the adjoint walk per (lane, row tile) at this H: 1
 // while W^T fits one block, up to 8 for the cluster walk, 0 past the cluster
 // walk's limit (gru_adj_plan gives a shape's own, which may be larger).
 int gru_adj_cluster_size(int hidden, int bf16) {
-  return adj_cluster_size(hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  return adj_cluster_size(hidden, item_of(bf16));
 }
 
-// The adjoint walk's plan for this shape, as nine numbers: the
+// The adjoint walk's plan for this shape (adj_choose), as nine numbers: the
 // instantiation (0 W in registers, 1 one block, 2 the cluster walk, 3 the
 // grid walk, 4 the streamed walk), the CTAs per (lane, row tile) (the grid
 // walk: of a group), the row tile (the grid walk: rows of a work item), a
@@ -2554,55 +2756,89 @@ int gru_adj_cluster_size(int hidden, int bf16) {
 // kernels takes, the floats of its workspace at T = n_steps, and for the
 // grid walk the groups at once and a CTA's threads (0 otherwise).
 void gru_adj_plan(int batch, int lanes, int n_steps, int hidden, int bf16, long long* out) {
-  const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  const GridPlan grid = adj_grid(batch, lanes, hidden, item);
+  const size_t item = item_of(bf16);
+  const AdjChoice c = adj_choose(batch, lanes, hidden, item);
+  out[0] = c.kind;
+  out[1] = c.tile.cluster;
+  out[2] = c.tile.rows;
   out[7] = out[8] = 0;
-  if (grid.ctas > 0) {
-    out[0] = 3;
-    out[1] = grid.ctas;
-    out[2] = grid.rows;
-    out[3] = grid.units;
+  if (c.kind == kAdjGrid) {
+    out[3] = c.grid.units;
     out[4] = 0;
-    out[5] = grid.smem > (long long)adj_pass_shared_bytes(item) ? grid.smem
-                                                          : (long long)adj_pass_shared_bytes(item);
-    out[7] = grid.groups;
-    out[8] = grid.threads;
+    out[7] = c.grid.groups;
+    out[8] = c.grid.threads;
+  } else if (c.kind == kAdjStreamed) {
+    const int res = adj_stream_resident(hidden, item, c.tile.rows);
+    out[3] = res;
+    out[4] = adj_stream_units(hidden) - (res > 0 ? res : 0);
   } else {
-    const AdjTile tile = adj_tile(batch, lanes, hidden, item);
-    if (adj_streamed(hidden, item)) {
-      const int res = adj_stream_resident(hidden, item, tile.rows);
-      out[0] = 4;
-      out[3] = res;
-      out[4] = adj_stream_units(hidden) - (res > 0 ? res : 0);
-    } else {
-      out[0] = adj_in_registers(hidden) ? 0 : adj_cluster_size(hidden, item) == 1 ? 1 : 2;
-      out[3] = adj_units(hidden, tile.cluster);
-      out[4] = 0;
-    }
-    out[1] = tile.cluster;
-    out[2] = tile.rows;
-    out[5] = (long long)adj_plan_shared_bytes(batch, lanes, hidden, item);
+    out[3] = adj_units(hidden, c.tile.cluster);
+    out[4] = 0;
   }
-  out[6] = adj_workspace_floats(lanes, n_steps, batch, hidden, item);
+  out[5] = (long long)adj_choice_shared_bytes(hidden, item, c);
+  out[6] = adj_choice_workspace_floats(lanes, n_steps, batch, hidden, item, c);
 }
 
-// Clusters (blocks, without a cluster) of the adjoint walk the card holds at
-// once for this shape.
+// Clusters (blocks, without a cluster; groups, the grid walk) of the
+// adjoint walk the card holds at once for this shape.
 int gru_adj_walk_active_clusters(int batch, int lanes, int hidden, int bf16) {
-  return bf16 ? adj_walk_active_clusters<__nv_bfloat16, LaneMajor>(batch, lanes, hidden)
-              : adj_walk_active_clusters<float, LaneMajor>(batch, lanes, hidden);
+  const AdjChoice c = adj_choose(batch, lanes, hidden, item_of(bf16));
+  return bf16 ? adj_active_clusters<__nv_bfloat16, LaneMajor>(batch, lanes, hidden, c)
+              : adj_active_clusters<float, LaneMajor>(batch, lanes, hidden, c);
 }
 
-// Rows per block (or streamed tile) of the adjoint walk for this shape.
+// Rows per block, cluster, streamed tile or grid work item of the adjoint
+// walk for this shape.
 int gru_adj_row_tile(int batch, int lanes, int hidden, int bf16) {
-  return adj_rows(batch, lanes, hidden, bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  return adj_choose(batch, lanes, hidden, item_of(bf16)).tile.rows;
 }
 
 // Walk blocks one SM holds at once for this shape (the wave count of
 // ceil(B / R) * lanes blocks follows).
 int gru_adj_walk_blocks_per_sm(int batch, int lanes, int hidden, int bf16) {
-  return bf16 ? adj_walk_blocks_per_sm<__nv_bfloat16>(batch, lanes, hidden)
-              : adj_walk_blocks_per_sm<float>(batch, lanes, hidden);
+  const AdjChoice c = adj_choose(batch, lanes, hidden, item_of(bf16));
+  return bf16 ? adj_blocks_per_sm<__nv_bfloat16>(hidden, c) : adj_blocks_per_sm<float>(hidden, c);
+}
+
+// A candidate's figures (chip_smoke.py, the tests' twins): whether the
+// instantiation `kind` at tile (cluster, rows) is one of the plan's
+// candidates at this shape (out[0]), its modelled picoseconds
+// (adj_walk_cost or adj_grid_cost), its waves by the plan's arithmetic and
+// by the model (rounds of work items, the grid walk), the CTAs an SM holds
+// by the plan's count, the workspace floats at T = n_steps, and the tile it
+// runs (cluster, rows: the grid walk's CTAs a group and rows an item).
+void gru_adj_candidate_plan(int batch, int lanes, int n_steps, int hidden, int bf16, int kind,
+                            int cluster, int rows, long long* out) {
+  const size_t item = item_of(bf16);
+  AdjChoice c;
+  for (int i = 0; i < 8; ++i) out[i] = 0;
+  if (!adj_candidate(batch, lanes, hidden, item, kind, {cluster, rows}, &c)) return;
+  out[0] = 1;
+  if (kind == kAdjGrid) {
+    out[1] = adj_grid_cost(batch, lanes, hidden, item, c.grid);
+    out[2] = out[3] = grid_rounds(c.grid, batch, lanes);
+    out[4] = 1;
+  } else {
+    out[1] = adj_walk_cost(batch, lanes, hidden, item, c.tile);
+    out[2] = adj_waves(batch, lanes, hidden, item, c.tile);
+    out[3] = adj_cost_waves(batch, lanes, hidden, item, c.tile);
+    out[4] = adj_sm_ctas(hidden, item, c.tile);
+  }
+  out[5] = adj_choice_workspace_floats(lanes, n_steps, batch, hidden, item, c);
+  out[6] = c.tile.cluster;
+  out[7] = c.tile.rows;
+}
+
+// Clusters (blocks; groups) of a candidate's walk the card holds at once,
+// from CUDA's occupancy calculator; -cudaErrorInvalidValue where the
+// candidate does not fit the shape.
+int gru_adj_candidate_active(int batch, int lanes, int hidden, int bf16, int kind, int cluster,
+                             int rows) {
+  AdjChoice c;
+  if (!adj_candidate(batch, lanes, hidden, item_of(bf16), kind, {cluster, rows}, &c))
+    return -int(cudaErrorInvalidValue);
+  return bf16 ? adj_active_clusters<__nv_bfloat16, LaneMajor>(batch, lanes, hidden, c)
+              : adj_active_clusters<float, LaneMajor>(batch, lanes, hidden, c);
 }
 
 // Rows (t, b) per chunk of the weight-gradient pass, and the chunk
@@ -2618,7 +2854,7 @@ int gru_adj_partials(int lanes, int n_steps, int batch, int hidden) {
 // blocks at once on this card (its capacity), its grid (x, y, z) and shared
 // bytes; the weight-gradient pass's grid, rows a chunk and shared bytes.
 void gru_adj_pass_plan(int lanes, int n_steps, int batch, int hidden, int bf16, long long* out) {
-  const size_t item = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const size_t item = item_of(bf16);
   const int capacity = bf16 ? adj_gates_capacity<__nv_bfloat16, LaneMajor>()
                             : adj_gates_capacity<float, LaneMajor>();
   const dim3 gates = adj_gates_grid(lanes, n_steps, batch, hidden, capacity);
@@ -2632,8 +2868,7 @@ void gru_adj_pass_plan(int lanes, int n_steps, int batch, int hidden, int bf16, 
 
 // Floats of the workspace an entry with `lanes` lanes takes as dw_part.
 long long gru_adj_workspace_floats(int lanes, int n_steps, int batch, int hidden, int bf16) {
-  return adj_workspace_floats(lanes, n_steps, batch, hidden,
-                              bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  return adj_workspace_floats(lanes, n_steps, batch, hidden, item_of(bf16));
 }
 
 // Counterpart of _gru_backward: one lane, on the adjoint walk. dw_part is
@@ -2643,13 +2878,15 @@ int gru_bwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0, 
             const void* dy, void* dxg, void* dw, void* db, void* dh0, void* dw_part,
             void* db_part, int n_steps, int batch, int hidden, int reverse, int bf16,
             void* stream) {
+  const AdjChoice c = adj_choose(batch, 1, hidden, item_of(bf16));
   if (bf16) {
     return adj_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0,
                                                 dw_part, db_part, 1, n_steps, batch, hidden,
-                                                reverse, stream);
+                                                reverse, c, false, stream);
   }
   return adj_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
-                                      db_part, 1, n_steps, batch, hidden, reverse, stream);
+                                      db_part, 1, n_steps, batch, hidden, reverse, c, false,
+                                      stream);
 }
 
 // Counterpart of _gru_backward_fb: F lanes of the [F, T, B, .] streams, each
@@ -2660,13 +2897,41 @@ int gru_bwd_fb(const void* xg, const void* w_hh, const void* b_hh, const void* h
                const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
                void* dw_part, void* db_part, int lanes, int n_steps, int batch, int hidden,
                int reverse, int bf16, void* stream) {
+  const AdjChoice c = adj_choose(batch, lanes, hidden, item_of(bf16));
   if (bf16) {
     return adj_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0,
                                                 dw_part, db_part, lanes, n_steps, batch,
-                                                hidden, reverse, stream);
+                                                hidden, reverse, c, false, stream);
   }
   return adj_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
-                                      db_part, lanes, n_steps, batch, hidden, reverse, stream);
+                                      db_part, lanes, n_steps, batch, hidden, reverse, c, false,
+                                      stream);
+}
+
+// gru_bwd_fb with the walk's instantiation and tile forced rather than
+// planned, for chip_smoke.py's candidate timings and the tests only: `kind`
+// as gru_adj_plan's first number (1 one block, 2 cluster, 3 grid), (cluster,
+// rows) the tile of the one-block and cluster walks (ignored by the grid
+// walk, which runs its plan's); with walk_only the walk alone,
+// on the factors an earlier call left in dw_part. dw_part holds
+// gru_adj_candidate_plan's workspace floats. A candidate that does not fit
+// the shape is refused (cudaErrorInvalidValue) before any launch.
+int gru_adj_candidate(const void* xg, const void* w_hh, const void* b_hh, const void* h0,
+                      const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
+                      void* dw_part, void* db_part, int lanes, int n_steps, int batch,
+                      int hidden, int reverse, int bf16, int kind, int cluster, int rows,
+                      int walk_only, void* stream) {
+  AdjChoice c;
+  if (!adj_candidate(batch, lanes, hidden, item_of(bf16), kind, {cluster, rows}, &c))
+    return int(cudaErrorInvalidValue);
+  if (bf16) {
+    return adj_launch<__nv_bfloat16, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0,
+                                                dw_part, db_part, lanes, n_steps, batch,
+                                                hidden, reverse, c, walk_only != 0, stream);
+  }
+  return adj_launch<float, LaneMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
+                                      db_part, lanes, n_steps, batch, hidden, reverse, c,
+                                      walk_only != 0, stream);
 }
 
 // Counterpart of _bigru_backward: the adjoint of gru_bifwd, float32, walking
@@ -2680,8 +2945,9 @@ int gru_bibwd(const void* xg, const void* w_hh, const void* b_hh, const void* h0
               const void* ys, const void* dy, void* dxg, void* dw, void* db, void* dh0,
               void* dw_part, void* db_part, int lanes, int n_steps, int batch, int hidden,
               void* stream) {
+  const AdjChoice c = adj_choose(batch, lanes, hidden, sizeof(float));
   return adj_launch<float, TimeMajor>(xg, w_hh, b_hh, h0, ys, dy, dxg, dw, db, dh0, dw_part,
-                                      db_part, lanes, n_steps, batch, hidden, 0, stream);
+                                      db_part, lanes, n_steps, batch, hidden, 0, c, false, stream);
 }
 
 }  // extern "C"

@@ -56,12 +56,13 @@ entries run the adjoint walk, with their own lane count and stream layout
 or 2F): a gate pre-pass over all T, a walk that keeps only the dh chain
 (W's columns in registers up to H = 64, in shared memory above, split over
 a cluster above H = 130 f32 / 179 bf16, the step's dg exchanged over
-distributed shared memory; with W in shared memory a tile of up to 4 batch
-rows, the tile and the cluster taken to leave the fewest waves of CTAs,
-`adj_tile`; a producer warp moves its factors and dht
-between device and shared memory a chunk of steps at a time; past H = 376
-f32 / 450 bf16 the grid walk, dg exchanged through the workspace as the
-forward's h, up to H = 1320 f32 / 2112 bf16 at B = 64, then the streamed
+distributed shared memory; with W in shared memory two units a dot thread
+and a tile of up to 4 batch rows; a producer warp moves its factors and dht
+between device and shared memory a chunk of steps at a time; or the grid
+walk, dg exchanged through the workspace as the forward's h, up to H = 1320
+f32 / 2112 bf16 at B = 64: above H = 64 the plan, `adj_choice`, takes of
+every tile of the one-block or cluster walk (to H = 376 f32 / 522 bf16)
+and the grid walk the least modelled time on an H100; then the streamed
 walk, W^T streamed from a padded transpose in the workspace, up to 4 rows a
 tile), and a weight-gradient pass over all T, summed in a fixed order; both
 passes over all T take their products on the tensor cores (bf16 mma, 3xTF32
@@ -127,14 +128,17 @@ NO_CLUSTER = -1
 CLUSTER_MAX_THREADS = 576
 # The adjoint walk's layout (csrc/gru_bwd.cu): K = 3H padded to 8 sub-lanes
 # x 6 chunks of 4 with W in registers; at most 2 rows a block with W in
-# registers, 4 with W in shared memory (a (row, unit) pair a sub-lane); the
-# steps its producer warp moves at a time, and the factors it reads; six f32
-# factors (dy among them) and dht per (step, row, unit) in the workspace;
-# the weight-gradient pass's tile of dW (gate columns x units), its stage of
-# rows and ring stages.
+# registers, 4 with W in shared memory (a (row, unit) pair a sub-lane); with
+# W in shared memory 2 units and 8 sub-lanes a group of dot threads, in the
+# streamed walk 4 sub-lanes a unit; the steps its producer warp moves at a
+# time, and the factors it reads; six f32 factors (dy among them) and dht
+# per (step, row, unit) in the workspace; the weight-gradient pass's tile of
+# dW (gate columns x units), its stage of rows and ring stages.
 ADJ_REG_KPAD = 192
 ADJ_MOST_ROWS = {True: 2, False: 4}   # by "W in registers"
-ADJ_SMEM_SUBLANES = 4                  # dot threads per unit, W in shared memory
+ADJ_SMEM_UNITS = 2                     # hidden units a dot thread, W in shared memory
+ADJ_SMEM_SUBLANES = 8                  # dot threads a group of units, W in shared memory
+ADJ_STREAM_SUBLANES = 4                # dot threads a unit, the streamed walk
 ADJ_PRODUCER = 32                      # the producer warp
 ADJ_CHUNK = {True: 16, False: 4}
 ADJ_WALK_FACTORS = 5
@@ -181,6 +185,23 @@ GRID_THREADS = {False: 512, True: 384}   # by "adjoint": the kernels' launch bou
 GRID_ITEM_ROWS = 64
 NO_GROUP = -2
 INSTANTIATIONS = ("registers", "one block", "cluster", "grid", "streamed")
+# The adjoint plan's model of the walks' time on an H100 (csrc/gru_bwd.cu,
+# where its fit is described), picoseconds a step: the one-block or cluster
+# walk's fixed part, its part a row of the tile, a warp's shared load of the
+# dot, of a further CTA on the SM, a dg_lo value stored into a cluster's
+# CTA; the grid walk's fixed part, its part a CTA of the group, a K tile on
+# the tensor cores or the FMAs, a thread's K tile. The walk's registers a
+# thread (one block of 1 or 2 rows, the others), and clusters of K CTAs the
+# card runs at once by CTAs an SM (ADJ_CLUSTERS_AT_ONCE[K][p - 1]).
+ADJ_WALK_STEP_PS, ADJ_WALK_ROW_PS = 1_156_000, 206_000
+ADJ_DOT_LOAD_PS, ADJ_DOT_SHARED_PS, ADJ_EXCHANGE_PS = 923, 1_700, 1_290
+ADJ_GRID_STEP_PS, ADJ_GRID_CTA_PS = 4_660_000, 22_000
+ADJ_GRID_MMA_TILE_PS, ADJ_GRID_FMA_TILE_PS, ADJ_GRID_THREAD_TILE_PS = 326_000, 651_000, 2_760
+ADJ_WALK_REGISTERS = (80, 96)
+SM_REGISTERS = 65_536
+ADJ_CLUSTERS_AT_ONCE = {2: (66, 132), 3: (39, 79), 4: (30, 62, 92), 5: (22, 47, 69, 94),
+                        6: (17, 39, 62, 79, 101), 7: (15, 32, 47, 69, 84, 84),
+                        8: (15, 30, 45, 62, 77, 77)}
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -241,7 +262,7 @@ def _stream_threads(hidden: int) -> int:
     """Threads (the adjoint: dot threads) of a streamed CTA: 4 a unit of
     its ceil(H / MAX_CLUSTER), whole warps, at most STREAM_THREADS."""
     units = cluster_units(hidden, MAX_CLUSTER)
-    return min(-(-units * ADJ_SMEM_SUBLANES // 32) * 32, STREAM_THREADS)
+    return min(-(-units * ADJ_STREAM_SUBLANES // 32) * 32, STREAM_THREADS)
 
 
 def _stream_fixed(hidden: int, itemsize: int, rows: int, adjoint: bool) -> int:
@@ -478,9 +499,8 @@ def walk_plan(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> dict:
 
 
 def adj_row_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> int:
-    """Rows per block (or cluster) of gru_bwd's walk (as gru_adj_row_tile in
-    C): adj_tile's, at most ADJ_MOST_ROWS; the streamed walk's:
-    _stream_row_tile."""
+    """Rows per block, cluster, streamed tile or grid work item of the
+    adjoint walk this shape runs (as gru_adj_row_tile in C): adj_tile's."""
     return adj_tile(batch, lanes, hidden, itemsize)[1]
 
 
@@ -497,7 +517,7 @@ def _adj_threads(hidden: int, cluster: int) -> int:
     """Threads of a block or CTA of the adjoint walk (as adj_threads in C):
     its dot threads, whole warps, and the producer warp."""
     dot = (-(-hidden // 4) * 8 if walk_in_registers(hidden)
-           else cluster_units(hidden, cluster) * ADJ_SMEM_SUBLANES)
+           else -(-cluster_units(hidden, cluster) // ADJ_SMEM_UNITS) * ADJ_SMEM_SUBLANES)
     return -(-dot // 32) * 32 + ADJ_PRODUCER
 
 
@@ -513,7 +533,7 @@ def adj_cluster_size(hidden: int, itemsize: int) -> int:
     cluster up to MAX_CLUSTER whose per-CTA share and threads (its units'
     dot threads and the producer warp) fit at one row; 0 past the walk's
     limit. It fixes the instantiation (one block or a cluster); a shape's
-    own cluster (adj_tile) may be larger, for more rows."""
+    own cluster (adj_walk_tile) may be larger, for more rows."""
     if walk_in_registers(hidden):
         return 1
     for k in range(1, MAX_CLUSTER + 1):
@@ -522,35 +542,196 @@ def adj_cluster_size(hidden: int, itemsize: int) -> int:
     return 0
 
 
+def _adj_per_sm(hidden: int, itemsize: int, cluster: int, rows: int) -> int:
+    """CTAs of the adjoint walk an SM holds at once at this tile, by its
+    shared memory and threads (as adj_per_sm in C)."""
+    return min(SM_SHARED_BYTES // (_adj_walk_bytes(hidden, itemsize, rows, cluster)
+                                   + BLOCK_RESERVED_BYTES),
+               SM_THREADS // _adj_threads(hidden, cluster))
+
+
 def adj_waves(batch: int, lanes: int, hidden: int, itemsize: int, cluster: int,
               rows: int) -> int:
     """Waves of the adjoint walk's CTAs on the card at this tile (as
     adj_waves in C), by plain arithmetic: the CTAs of all ceil(B / R) *
     lanes tiles against NUM_SMS times the CTAs an SM holds by its shared
     memory and threads (the card may run fewer clusters at once: a cluster
-    stays inside a GPC)."""
-    per_sm = min(SM_SHARED_BYTES // (_adj_walk_bytes(hidden, itemsize, rows, cluster)
-                                     + BLOCK_RESERVED_BYTES),
-                 SM_THREADS // _adj_threads(hidden, cluster))
+    stays inside a GPC; adj_cost_waves counts those)."""
+    per_sm = _adj_per_sm(hidden, itemsize, cluster, rows)
     return -(-(-(-batch // rows) * lanes * cluster) // (NUM_SMS * per_sm))
 
 
-def adj_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> tuple[int, int]:
-    """(CTAs per (lane, row tile), rows per tile) of the adjoint walk (as
-    adj_tile in C). W in registers: one CTA and _row_tile's R, at most
-    ADJ_MOST_ROWS[True]. W in shared memory: of every (K, R) that fits, K
-    from adj_cluster_size up to MAX_CLUSTER in a cluster (1 in one block)
-    and R in 1, 2, 4, the pair with the fewest adj_waves, on a tie the
-    smaller K, then the smaller R. Past the one-block and cluster design's
-    limit: MAX_CLUSTER and the streamed walk's _stream_row_tile."""
-    if adj_streamed(hidden, itemsize):
-        return MAX_CLUSTER, _stream_row_tile(batch, lanes, hidden, itemsize, adjoint=True)
+def _adj_sm_ctas(hidden: int, itemsize: int, cluster: int, rows: int) -> int:
+    """CTAs of the walk an SM runs at once by its shared memory, threads and
+    registers (as adj_sm_ctas in C; ADJ_WALK_REGISTERS a thread)."""
+    regs = ADJ_WALK_REGISTERS[0] if cluster == 1 and rows <= 2 else ADJ_WALK_REGISTERS[1]
+    return min(_adj_per_sm(hidden, itemsize, cluster, rows),
+               SM_REGISTERS // (regs * _adj_threads(hidden, cluster)))
+
+
+def _adj_clusters_at_once(cluster: int, per_sm: int) -> int:
+    """Clusters of K CTAs the card runs at once with p CTAs an SM (as
+    adj_clusters_at_once in C): NUM_SMS p blocks without a cluster;
+    ADJ_CLUSTERS_AT_ONCE[K][p - 1], past its last figure that figure times p
+    over its CTAs an SM."""
+    if cluster == 1:
+        return per_sm * NUM_SMS
+    row = ADJ_CLUSTERS_AT_ONCE[cluster]
+    return row[per_sm - 1] if per_sm <= len(row) else row[-1] * per_sm // len(row)
+
+
+def adj_cost_waves(batch: int, lanes: int, hidden: int, itemsize: int, cluster: int,
+                   rows: int) -> int:
+    """Waves of the walk's clusters as the plan's model counts them (as
+    adj_cost_waves in C): ceil(B / R) * lanes clusters against those the
+    card runs at once (_adj_clusters_at_once at _adj_sm_ctas)."""
+    at_once = _adj_clusters_at_once(cluster, _adj_sm_ctas(hidden, itemsize, cluster, rows))
+    return -(-(-(-batch // rows) * lanes) // at_once)
+
+
+def adj_dot_loads(hidden: int, cluster: int, rows: int) -> int:
+    """Shared loads of a warp in one CTA's dot a step, W in shared memory
+    (as adj_dot_loads in C): its warps x each thread's 4-value chunks of K =
+    3H x (R dg_lo and ADJ_SMEM_UNITS W^T loads a chunk)."""
+    groups = -(-cluster_units(hidden, cluster) // ADJ_SMEM_UNITS)
+    warps = -(-groups * ADJ_SMEM_SUBLANES // 32)
+    chunks = -(-(-(-3 * hidden // 4)) // ADJ_SMEM_SUBLANES)
+    return warps * chunks * (rows + ADJ_SMEM_UNITS)
+
+
+def adj_walk_cost(batch: int, lanes: int, hidden: int, itemsize: int, cluster: int,
+                  rows: int) -> int:
+    """The plan's modelled time of the one-block or cluster walk at tile
+    (K, R), picoseconds a step (as adj_walk_cost in C): adj_cost_waves x
+    (ADJ_WALK_STEP_PS + ADJ_WALK_ROW_PS R + ADJ_DOT_LOAD_PS x adj_dot_loads
+    + ADJ_DOT_SHARED_PS x those of the further CTAs an SM runs at once +
+    ADJ_EXCHANGE_PS x the 3 R units K dg_lo values a CTA stores into its
+    cluster's CTAs, none in one block)."""
+    ctas = -(-batch // rows) * lanes * cluster
+    co = min(-(-ctas // NUM_SMS), _adj_sm_ctas(hidden, itemsize, cluster, rows))
+    loads = adj_dot_loads(hidden, cluster, rows)
+    stores = 0 if cluster == 1 else 3 * rows * cluster_units(hidden, cluster) * cluster
+    step = (ADJ_WALK_STEP_PS + ADJ_WALK_ROW_PS * rows + ADJ_DOT_LOAD_PS * loads
+            + ADJ_DOT_SHARED_PS * loads * (co - 1) + ADJ_EXCHANGE_PS * stores)
+    return adj_cost_waves(batch, lanes, hidden, itemsize, cluster, rows) * step
+
+
+def _adj_grid_tensor(grid: dict, itemsize: int) -> bool:
+    """Whether the grid walk's products take the tensor cores (as
+    adj_grid_tensor in C): bf16, whole 16-row tiles of a pass, a K slice
+    for each warp (its threads over the pass's row tiles and unit octets,
+    at most the tile's 16-column steps) and the slices' partials within the
+    ring's memory."""
+    mtiles, octets = grid["pass_rows"] // 16, -(-grid["units"] // 8)
+    kslices = min(grid["threads"] // 32 // (mtiles * octets) if mtiles else 0, grid["kt"] // 16)
+    return (itemsize == 2 and grid["pass_rows"] % 16 == 0 and kslices > 0
+            and kslices * grid["pass_rows"] * grid["units"] * 4
+            <= grid["stages"] * grid["pass_rows"] * (grid["kt"] + GRID_PAD) * itemsize)
+
+
+def adj_grid_cost(batch: int, lanes: int, hidden: int, itemsize: int, grid: dict) -> int:
+    """The plan's modelled time of the grid walk, picoseconds a step (as
+    adj_grid_cost in C): its rounds of work items x (ADJ_GRID_STEP_PS +
+    ADJ_GRID_CTA_PS x its CTAs a group + per K tile of each pass
+    ADJ_GRID_MMA_TILE_PS on the tensor cores or ADJ_GRID_FMA_TILE_PS on the
+    FMAs + ADJ_GRID_THREAD_TILE_PS x its threads)."""
+    tiles = -(-grid["rows"] // grid["pass_rows"]) * (_grid_kx(3 * hidden, grid["kt"]) // grid["kt"])
+    rounds = -(-(lanes * -(-batch // grid["rows"])) // grid["groups"])
+    per_tile = ADJ_GRID_MMA_TILE_PS if _adj_grid_tensor(grid, itemsize) else ADJ_GRID_FMA_TILE_PS
+    return rounds * (ADJ_GRID_STEP_PS + ADJ_GRID_CTA_PS * grid["ctas"] + tiles * per_tile
+                     + ADJ_GRID_THREAD_TILE_PS * tiles * grid["threads"])
+
+
+def adj_walk_takes(hidden: int, itemsize: int) -> bool:
+    """Whether the one-block and cluster design takes this H at all (as
+    adj_walk_takes in C): its least cluster's share fits at one row (two
+    with W in registers): to 376 f32, 515 bf16."""
+    return (adj_cluster_size(hidden, itemsize) != 0
+            and _adj_cluster_bytes(hidden, itemsize, _adj_seam_rows(hidden)) <= MAX_SHARED_BYTES)
+
+
+def adj_walk_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> tuple[int, int]:
+    """(CTAs per (lane, row tile), rows per tile) of the one-block or cluster
+    walk (as adj_walk_tile in C). W in registers: one CTA and _row_tile's R,
+    at most ADJ_MOST_ROWS[True]. W in shared memory: of every (K, R) that
+    fits (adj_walk_tiles), the one of the least modelled time
+    (adj_walk_cost), on a tie the smaller K, then the smaller R."""
     if walk_in_registers(hidden):
         return 1, _row_tile(batch, lanes, ADJ_MOST_ROWS[True])
+    return min(adj_walk_tiles(hidden, itemsize),
+               key=lambda kr: (adj_walk_cost(batch, lanes, hidden, itemsize, *kr), *kr))
+
+
+def adj_walk_tiles(hidden: int, itemsize: int) -> list[tuple[int, int]]:
+    """Every tile (K, R) of the one-block or cluster walk with W in shared
+    memory that fits: K from adj_cluster_size to MAX_CLUSTER in a cluster
+    (1 in one block), R in 1, 2, 4."""
     least = adj_cluster_size(hidden, itemsize)
-    pairs = [(k, r) for k in (range(least, MAX_CLUSTER + 1) if least > 1 else (1,))
-             for r in (1, 2, 4) if _adj_tile_fits(hidden, itemsize, r, k)]
-    return min(pairs, key=lambda kr: (adj_waves(batch, lanes, hidden, itemsize, *kr), *kr))
+    return [(k, r) for k in (range(least, MAX_CLUSTER + 1) if least > 1 else (1,))
+            for r in (1, 2, 4) if _adj_tile_fits(hidden, itemsize, r, k)]
+
+
+@functools.lru_cache(maxsize=4096)
+def adj_choice(batch: int, lanes: int, hidden: int, itemsize: int = 4
+               ) -> tuple[str, tuple[int, int], dict | None]:
+    """The walk this shape runs (as adj_choose in C): (instantiation, tile,
+    grid plan; not to be changed: the result is kept for the next call with
+    the same shape, which every adjoint launch makes). W in registers up to H = 64; above it, of the one-block or
+    cluster walk's cheapest tile (adj_walk_tile) where that design takes H
+    (adj_walk_takes) and the grid walk where grid_plan takes the shape, the
+    one of the least modelled time (adj_walk_cost, adj_grid_cost; on a tie
+    the one-block or cluster walk); the streamed walk (MAX_CLUSTER and its
+    row tile) where neither does. The tile of the grid walk is (CTAs a
+    group, rows a work item)."""
+    walk = adj_walk_takes(hidden, itemsize)
+    if walk and walk_in_registers(hidden):
+        return "registers", adj_walk_tile(batch, lanes, hidden, itemsize), None
+    grid = grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
+    if walk:
+        tile = adj_walk_tile(batch, lanes, hidden, itemsize)
+        if (grid is None or adj_walk_cost(batch, lanes, hidden, itemsize, *tile)
+                <= adj_grid_cost(batch, lanes, hidden, itemsize, grid)):
+            return ("one block" if tile[0] == 1 else "cluster"), tile, None
+    if grid is not None:
+        return "grid", (grid["ctas"], grid["rows"]), grid
+    return "streamed", (MAX_CLUSTER, _stream_row_tile(batch, lanes, hidden, itemsize,
+                                                      adjoint=True)), None
+
+
+def adj_tile(batch: int, lanes: int, hidden: int, itemsize: int = 4) -> tuple[int, int]:
+    """The tile of the walk this shape runs (as adj_choose's in C): the
+    one-block or cluster walk's (K CTAs, R rows), the grid walk's (CTAs a
+    group, rows a work item), the streamed walk's (MAX_CLUSTER, its row
+    tile)."""
+    return adj_choice(batch, lanes, hidden, itemsize)[1]
+
+
+def adj_candidates(batch: int, lanes: int, hidden: int, itemsize: int = 4
+                   ) -> list[tuple[str, int, int]]:
+    """What the plan weighs at this shape, above H = 64: (instantiation,
+    K, R) for each tile of the one-block or cluster walk (adj_walk_tiles,
+    where that design takes H), then ("grid", CTAs a group, rows an item)
+    where grid_plan takes the shape."""
+    if walk_in_registers(hidden):
+        return []
+    out = []
+    if adj_walk_takes(hidden, itemsize):
+        out = [("one block" if k == 1 else "cluster", k, r)
+               for k, r in adj_walk_tiles(hidden, itemsize)]
+    grid = grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
+    if grid is not None:
+        out.append(("grid", grid["ctas"], grid["rows"]))
+    return out
+
+
+def adj_candidate_cost(batch: int, lanes: int, hidden: int, itemsize: int, kind: str,
+                       cluster: int, rows: int) -> int:
+    """A candidate's modelled picoseconds a step (as gru_adj_candidate_plan's
+    second number in C)."""
+    if kind == "grid":
+        return adj_grid_cost(batch, lanes, hidden, itemsize,
+                             grid_plan(batch, lanes, hidden, itemsize, adjoint=True))
+    return adj_walk_cost(batch, lanes, hidden, itemsize, cluster, rows)
 
 
 def _adj_gates_bytes(itemsize: int) -> int:
@@ -620,22 +801,6 @@ def _adj_seam_rows(hidden: int) -> int:
     return ADJ_MOST_ROWS[True] if walk_in_registers(hidden) else 1
 
 
-# The bf16 adjoint leaves the cluster walk past this H, where the gate
-# pre-pass's shared memory ended it before the passes were redesigned (the
-# cluster walk beyond it has not been timed against the grid walk).
-ADJ_CLUSTER_MOST_BF16 = 450
-
-
-def adj_streamed(hidden: int, itemsize: int) -> bool:
-    """Whether gru_bwd, gru_bwd_fb and gru_bibwd are past the one-block and
-    cluster design's limit at this H (as adj_streamed in C): its walk's (376
-    f32) or ADJ_CLUSTER_MOST_BF16: the grid walk runs there where grid_plan
-    takes the shape, the streamed walk elsewhere."""
-    return (adj_cluster_size(hidden, itemsize) == 0
-            or (itemsize != 4 and hidden > ADJ_CLUSTER_MOST_BF16)
-            or _adj_cluster_bytes(hidden, itemsize, _adj_seam_rows(hidden)) > MAX_SHARED_BYTES)
-
-
 def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int:
     """Shared memory of the most demanding kernel of gru_bwd, per block or
     CTA (as gru_adj_shared_bytes in C): the walk's W^T rows of the CTA's
@@ -645,11 +810,12 @@ def adj_shared_bytes(hidden: int, itemsize: int, rows: int | None = None) -> int
     units' f32 factors [2 chunk, rows, 5, units] and dht [2 chunk, rows,
     units], at this H's least cluster (adj_cluster_size); or the two
     passes' (_adj_pass_bytes), whichever is larger. Past that design's
-    limit the streamed walk's resident rows and fixed part (_stream_fixed),
-    or the passes', whichever is larger. `rows` defaults to the rows that
-    set the limit on H (_adj_seam_rows; the streamed walk's most), so the
-    limit holds for every batch; a shape's own bytes are adj_plan's."""
-    if adj_streamed(hidden, itemsize):
+    limit (adj_walk_takes) the streamed walk's resident rows and fixed part
+    (_stream_fixed), or the passes', whichever is larger. `rows` defaults to
+    the rows that set the limit on H (_adj_seam_rows; the streamed walk's
+    most), so the limit holds for every batch; a shape's own bytes are
+    adj_plan's."""
+    if not adj_walk_takes(hidden, itemsize):
         rows = stream_most_rows(hidden, itemsize, adjoint=True) if rows is None else rows
         return max(_stream_bytes(hidden, itemsize, rows, adjoint=True), _adj_pass_bytes(itemsize))
     rows = _adj_seam_rows(hidden) if rows is None else rows
@@ -694,48 +860,49 @@ def adj_partials(lanes: int, n_steps: int, batch: int, hidden: int) -> tuple[int
 
 
 def adj_workspace_floats(lanes: int, n_steps: int, batch: int, hidden: int,
-                         itemsize: int = 4) -> int:
+                         itemsize: int = 4, kind: str | None = None) -> int:
     """Floats of the workspace gru_bwd takes as dw_part (as
     gru_adj_workspace_floats in C): the six factors and dht of every
-    (lane, t, b, unit), then the dW partials [lanes, chunks, 3H, H]; for the
-    streamed walk then, from a 16-byte boundary, W^T padded [lanes, H, 3H
-    padded to 4] in the stream dtype."""
+    (lane, t, b, unit), then the dW partials [lanes, chunks, 3H, H]; then,
+    from a 16-byte boundary, the grid walk's exchange buffers and counters
+    (grid_workspace_bytes) or the streamed walk's W^T padded [lanes, H, 3H
+    padded to 4] in the stream dtype, where the shape's choice (adj_choice),
+    or the instantiation `kind` a forced candidate runs, takes either."""
     rows = lanes * n_steps * batch
     parts = adj_partials(lanes, n_steps, batch, hidden)[1]
     base = rows * hidden * (ADJ_FACTORS + 1) + lanes * parts * 3 * hidden * hidden
-    if not adj_streamed(hidden, itemsize):
-        return base
-    grid = grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
-    if grid is not None:
+    kind = kind or adj_choice(batch, lanes, hidden, itemsize)[0]
+    if kind == "grid":
+        grid = adj_choice(batch, lanes, hidden, itemsize)[2] or grid_plan(
+            batch, lanes, hidden, itemsize, adjoint=True)
         return -(-base // 4) * 4 + grid_workspace_bytes(grid, itemsize) // 4
+    if kind != "streamed":
+        return base
     wt = lanes * hidden * (-(-3 * hidden // 4) * 4) * itemsize
     return -(-base // 4) * 4 + -(-wt // 16) * 4
 
 
 def adj_plan(batch: int, lanes: int, n_steps: int, hidden: int, itemsize: int = 4) -> dict:
     """The adjoint walk's plan for this shape (as gru_adj_plan in C): the
-    instantiation, CTAs per (lane, row tile) (the grid walk: of a group),
-    the row tile (the grid walk: rows of a work item), a CTA's units whose
-    W^T rows are resident in shared memory and those streamed, the most
-    shared bytes of its kernels, the workspace floats, and the grid walk's
-    groups at once and threads a CTA (0 for the others)."""
-    workspace = adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize)
-    grid = (grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
-            if adj_streamed(hidden, itemsize) else None)
+    instantiation (adj_choice), CTAs per (lane, row tile) (the grid walk: of
+    a group), the row tile (the grid walk: rows of a work item), a CTA's
+    units whose W^T rows are resident in shared memory and those streamed,
+    the most shared bytes of its kernels, the workspace floats, and the grid
+    walk's groups at once and threads a CTA (0 for the others)."""
+    kind, (cluster, rows), grid = adj_choice(batch, lanes, hidden, itemsize)
+    workspace = adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize, kind)
     if grid is not None:
         return dict(_grid_fields(grid, max(grid["smem"], _adj_pass_bytes(itemsize))),
                     workspace=workspace)
-    cluster, rows = adj_tile(batch, lanes, hidden, itemsize)
-    if adj_streamed(hidden, itemsize):
+    if kind == "streamed":
         res = stream_resident(hidden, itemsize, rows, adjoint=True)
-        kind, streamed = 4, cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
-        shared = adj_shared_bytes(hidden, itemsize, rows)
+        streamed = cluster_units(hidden, MAX_CLUSTER) - max(res, 0)
+        shared = max(_stream_bytes(hidden, itemsize, rows, adjoint=True),
+                     _adj_pass_bytes(itemsize))
     else:
-        least = adj_cluster_size(hidden, itemsize)
-        kind = 0 if walk_in_registers(hidden) else 1 if least == 1 else 2
         res, streamed = cluster_units(hidden, cluster), 0
         shared = _adj_cluster_bytes(hidden, itemsize, rows, cluster)
-    return dict(instantiation=INSTANTIATIONS[kind], cluster=cluster, rows=rows,
+    return dict(instantiation=kind, cluster=cluster, rows=rows,
                 resident=res, streamed=streamed, shared_bytes=shared, groups=0, threads=0,
                 workspace=workspace)
 
@@ -986,6 +1153,12 @@ def _bwd_library() -> ctypes.CDLL:
     lib.gru_adj_plan.restype = None
     lib.gru_adj_pass_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.gru_adj_pass_plan.restype = None
+    lib.gru_adj_candidate.argtypes = [ptr] * 12 + [i32] * 10 + [ptr]
+    lib.gru_adj_candidate.restype = i32
+    lib.gru_adj_candidate_plan.argtypes = [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_adj_candidate_plan.restype = None
+    lib.gru_adj_candidate_active.argtypes = [i32] * 7
+    lib.gru_adj_candidate_active.restype = i32
     return lib
 
 
@@ -1016,6 +1189,52 @@ def c_pass_plan(lanes: int, n_steps: int, batch: int, hidden: int, itemsize: int
     v = list(out)
     return dict(capacity=v[0], gates_grid=tuple(v[1:4]), gates_shared_bytes=v[4],
                 grad_grid=tuple(v[5:8]), chunk_rows=v[8], grad_shared_bytes=v[9])
+
+
+CANDIDATE_FIELDS = ("fits", "cost", "waves", "cost_waves", "per_sm", "workspace", "cluster",
+                    "rows")
+
+
+def c_candidate_plan(batch: int, lanes: int, n_steps: int, hidden: int, itemsize: int,
+                     kind: str, cluster: int, rows: int) -> dict:
+    """gru_adj_candidate_plan from the built library, in the form of
+    adj_candidate_plan."""
+    out = (ctypes.c_longlong * len(CANDIDATE_FIELDS))()
+    _bwd_library().gru_adj_candidate_plan(batch, lanes, n_steps, hidden, int(itemsize == 2),
+                                          INSTANTIATIONS.index(kind), cluster, rows, out)
+    plan = dict(zip(CANDIDATE_FIELDS, out))
+    plan["fits"] = bool(plan["fits"])
+    return plan
+
+
+def adj_candidate_plan(batch: int, lanes: int, n_steps: int, hidden: int, itemsize: int,
+                       kind: str, cluster: int, rows: int) -> dict:
+    """A candidate of the plan forced at this shape (as gru_adj_candidate_plan
+    in C): whether it fits (one of adj_candidates; the grid walk's tile is
+    its plan's), its modelled picoseconds a step, its waves by the plan's
+    arithmetic and by the model (the grid walk: rounds of work items), the
+    CTAs an SM holds, its workspace floats at T = n_steps and the tile it
+    runs."""
+    plan = dict.fromkeys(CANDIDATE_FIELDS, 0)
+    plan["fits"] = False
+    if kind == "grid":
+        grid = grid_plan(batch, lanes, hidden, itemsize, adjoint=True)
+        if grid is None:
+            return plan
+        rounds = -(-(lanes * -(-batch // grid["rows"])) // grid["groups"])
+        cluster, rows = grid["ctas"], grid["rows"]
+        plan.update(cost=adj_grid_cost(batch, lanes, hidden, itemsize, grid), waves=rounds,
+                    cost_waves=rounds, per_sm=1)
+    elif (kind, cluster, rows) in adj_candidates(batch, lanes, hidden, itemsize):
+        plan.update(cost=adj_walk_cost(batch, lanes, hidden, itemsize, cluster, rows),
+                    waves=adj_waves(batch, lanes, hidden, itemsize, cluster, rows),
+                    cost_waves=adj_cost_waves(batch, lanes, hidden, itemsize, cluster, rows),
+                    per_sm=_adj_sm_ctas(hidden, itemsize, cluster, rows))
+    else:
+        return plan
+    plan.update(fits=True, cluster=cluster, rows=rows,
+                workspace=adj_workspace_floats(lanes, n_steps, batch, hidden, itemsize, kind))
+    return plan
 
 
 def _check_cuda_args(xg, w_hh, b_hh, h0, fb: bool, smem=None):
@@ -1213,6 +1432,35 @@ def adj_factors_cuda(xg, w_hh, b_hh, h0, ys, dy, reverse: bool = False) -> torch
           [lanes, n_steps, batch, hidden, *_mode_args(xg, reverse)])
     rows = lanes * n_steps * batch
     return dw_part[:rows * ADJ_FACTORS * hidden].view(lanes, n_steps, batch, ADJ_FACTORS, hidden)
+
+
+def gru_backward_candidate(xg, w_hh, b_hh, h0, ys, dy, kind: str, cluster: int = 0,
+                           rows: int = 0, reverse: bool = False):
+    """gru_backward_fb on CUDA streams with the walk's instantiation `kind`
+    ("one block", "cluster" or "grid") and, for the one-block and cluster
+    walks, its tile (K CTAs, R rows) forced rather than planned (C
+    gru_adj_candidate),
+    to time each candidate the plan weighs (adj_candidates) and hold it
+    against the plain version; not counted as a launch. Returns (grads,
+    walk): grads as gru_backward_fb's, walk() launches the walk alone again
+    on the factors the call left in its workspace."""
+    _require_cuda(xg)
+    lanes, n_steps, batch, hidden = _check_bwd_args(xg, w_hh, b_hh, h0, ys, dy, fb=True)
+    plan = adj_candidate_plan(batch, lanes, n_steps, hidden, xg.element_size(), kind, cluster,
+                              rows)
+    if not plan["fits"]:
+        raise ValueError(f"{kind} at tile ({cluster}, {rows}) does not fit F={lanes} B={batch} "
+                         f"H={hidden} {xg.dtype}: it is none of adj_candidates")
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    outs = (torch.empty_like(xg), torch.empty(w_hh.shape, **f32), torch.empty(b_hh.shape, **f32),
+            torch.empty(h0.shape, **f32))
+    tensors = (xg, w_hh, b_hh, h0, ys, dy, *outs, torch.empty(plan["workspace"], **f32),
+               torch.empty(lanes, adj_partials(lanes, n_steps, batch, hidden)[1], 3 * hidden,
+                           **f32))
+    ints = [lanes, n_steps, batch, hidden, *_mode_args(xg, reverse), INSTANTIATIONS.index(kind),
+            cluster, rows]
+    _call(_bwd_library(), "gru_adj_candidate", tensors, ints + [0])
+    return outs, lambda: _call(_bwd_library(), "gru_adj_candidate", tensors, ints + [1])
 
 
 def _launch_bwd(entry: str, xg, w_hh, b_hh, h0, ys, dy, reverse: bool, fb: bool):

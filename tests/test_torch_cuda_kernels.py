@@ -56,7 +56,7 @@ ADJOINT_OUTPUTS = ("dxg", "dW", "db", "dh0")
 # grid walk past it; the adjoint walk in one block to 130, a cluster to 376.
 SEAMS = {130: ("one block", "one block"), 131: ("one block", "cluster"),
          136: ("one block", "cluster"), 137: ("cluster", "cluster"),
-         376: ("cluster", "cluster"), 377: ("cluster", "grid"),
+         376: ("cluster", "grid"), 377: ("cluster", "grid"),
          380: ("cluster", "grid"), 381: ("grid", "grid")}
 SEAM_T = 16
 
@@ -297,18 +297,29 @@ TILE_SHAPES = [(SEAM_T, B, 256), (SEAM_T, 37, 256), (SEAM_T, B, 376), (SEAM_T, 2
                               "gru_bibwd-f32"])
 def test_adjoint_row_tiles(entry, dtype, shape):
     """Each adjoint entry against its plain version at BWD_TOL at TILE_SHAPES,
-    where its plan (gru_cuda.adj_plan) takes a cluster, or one block at
-    H=100, with the row tile it names; dW and db the same bits over two
-    calls."""
+    on the walk its plan (gru_cuda.adj_plan) takes there: one block at
+    H=100, else the cluster walk or, where the plan's model finds it
+    cheaper, the grid walk; dW and db the same bits over two calls. The
+    LaneMajor entries' F lanes also on the one-block or cluster walk's own
+    tile (adj_walk_tile, forced through gru_backward_candidate) where the
+    plan takes the grid walk."""
     lanes, kernel, plain = PASS_ENTRIES[entry]
     t, b, h = shape
-    plan = gru_cuda.adj_plan(b, lanes or 1, t, h, torch.empty((), dtype=dtype).element_size())
-    assert plan["instantiation"] == ("one block" if h == 100 else "cluster"), plan
+    item = torch.empty((), dtype=dtype).element_size()
+    plan = gru_cuda.adj_plan(b, lanes or 1, t, h, item)
+    assert plan["instantiation"] in (("one block",) if h == 100 else ("cluster", "grid")), plan
     args = _entry_args(entry, t, b, h, dtype, seed=b + h)
     got = kernel(*args)
-    _check_adjoint(got, plain(*args), dtype, f"{entry} {shape} {plan}")
+    want = plain(*args)
+    _check_adjoint(got, want, dtype, f"{entry} {shape} {plan}")
     again = kernel(*args)
     assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    if plan["instantiation"] == "grid" and entry != "gru_bibwd":
+        k, r = gru_cuda.adj_walk_tile(b, lanes or 1, h, item)
+        fb_args = args if lanes else tuple(a.unsqueeze(0) for a in args)
+        forced, _ = gru_cuda.gru_backward_candidate(*fb_args, "cluster", k, r)
+        want_fb = want if lanes else tuple(w.unsqueeze(0) for w in want)
+        _check_adjoint(forced, want_fb, dtype, f"{entry} {shape} forced cluster {k}x{r}")
 
 
 @pytest.mark.parametrize("hidden", [H, 1024])

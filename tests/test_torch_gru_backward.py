@@ -308,32 +308,41 @@ def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden,
     lane) cover each batch row once, R a power of two of at most
     ADJ_MOST_ROWS; with W in registers R grows only while the blocks of all
     lanes would outnumber the SMs; with W in shared memory (one block at H =
-    95 and 128, a cluster at 256) the tile's CTAs, counted against those the
-    card runs at once (NUM_SMS times the CTAs an SM holds), leave no more
-    waves than those of any other tile that fits; its weight-gradient chunks
-    cover each of a lane's T * B rows (t, b) once, in whole stages, one
-    where the lanes' dW tiles fill the SMs and otherwise as many as the
-    tiles take to fill them; the workspace holds the six factors and dht of
-    every (lane, t, b, unit), then one [3H, H] partial per lane and chunk,
-    and the db workspace one [3H] partial per lane and chunk."""
-    cluster, rows = gru_cuda.adj_tile(batch, lanes, hidden)
-    assert rows == gru_cuda.adj_row_tile(batch, lanes, hidden)
+    95 and 128, a cluster at 256) the tile's CTAs take the least modelled
+    time (adj_walk_cost) of every tile that fits, and the shape runs that
+    tile or, where the model finds it cheaper, the grid walk, whose work
+    items (a lane and up to 64 rows) cover each row once; its
+    weight-gradient chunks cover each of a lane's T * B rows (t, b) once,
+    in whole stages, one where the lanes' dW tiles fill the SMs and
+    otherwise as many as the tiles take to fill them; the workspace holds
+    the six factors and dht of every (lane, t, b, unit), then one [3H, H]
+    partial per lane and chunk (then the chosen walk's own buffers), and
+    the db workspace one [3H] partial per lane and chunk."""
+    cluster, rows = gru_cuda.adj_walk_tile(batch, lanes, hidden)
+    kind, tile, grid = gru_cuda.adj_choice(batch, lanes, hidden)
+    assert tile[1] == gru_cuda.adj_row_tile(batch, lanes, hidden)
+    assert kind in ("grid", "one block", "cluster", "registers")
+    assert kind == "grid" or tile == (cluster, rows)
     most = gru_cuda.ADJ_MOST_ROWS[gru_cuda.walk_in_registers(hidden)]
     assert rows & (rows - 1) == 0 and 1 <= rows <= most
-    tiles = -(-batch // rows)
-    covered = [t * rows + r for t in range(tiles) for r in range(rows) if t * rows + r < batch]
-    assert covered == list(range(batch))
+    for r in (rows, tile[1]):
+        tiles = -(-batch // r)
+        covered = [t * r + i for t in range(tiles) for i in range(r) if t * r + i < batch]
+        assert covered == list(range(batch))
     if gru_cuda.walk_in_registers(hidden):
-        assert cluster == 1
+        assert cluster == 1 and kind == "registers"
+        tiles = -(-batch // rows)
         assert tiles * lanes <= gru_cuda.NUM_SMS or rows == most
         assert rows == 1 or -(-batch // (rows // 2)) * lanes > gru_cuda.NUM_SMS
     else:
-        waves = gru_cuda.adj_waves(batch, lanes, hidden, 4, cluster, rows)
+        cost = gru_cuda.adj_walk_cost(batch, lanes, hidden, 4, cluster, rows)
         least = gru_cuda.adj_cluster_size(hidden, 4)
         for k in range(least, gru_cuda.MAX_CLUSTER + 1) if least > 1 else (1,):
             for r in (1, 2, 4):
                 if gru_cuda._adj_tile_fits(hidden, 4, r, k):
-                    assert waves <= gru_cuda.adj_waves(batch, lanes, hidden, 4, k, r), (k, r)
+                    assert cost <= gru_cuda.adj_walk_cost(batch, lanes, hidden, 4, k, r), (k, r)
+        if kind == "grid":
+            assert gru_cuda.adj_grid_cost(batch, lanes, hidden, 4, grid) < cost
     chunk, parts = gru_cuda.adj_partials(lanes, n_steps, batch, hidden)
     tiles = lanes * -(-hidden // gru_cuda.ADJ_GRAD_TILE) * -(-3 * hidden // gru_cuda.ADJ_GRAD_TILE)
     assert chunk % gru_cuda.ADJ_GRAD_STAGE == 0 and parts >= 1
@@ -343,8 +352,10 @@ def test_adjoint_tile_and_workspace_cover_every_row_once(batch, n_steps, hidden,
     assert all(len(c) > 0 for c in chunks)
     g = 3 * hidden
     dw_shape, db_shape = gru_cuda._adjoint_workspaces(lanes, n_steps, batch, hidden)
-    assert dw_shape == (lanes * n_steps * batch * hidden * (gru_cuda.ADJ_FACTORS + 1)
-                        + lanes * parts * g * hidden,)
+    base = (lanes * n_steps * batch * hidden * (gru_cuda.ADJ_FACTORS + 1)
+            + lanes * parts * g * hidden)
+    assert dw_shape == ((base if kind != "grid" else -(-base // 4) * 4
+                         + gru_cuda.grid_workspace_bytes(grid, 4) // 4),)
     assert db_shape == (lanes, parts, g)
 
 

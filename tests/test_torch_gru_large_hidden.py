@@ -26,9 +26,17 @@ from multimodalsignal_tpu.ops import gru_pallas
 from multimodalsignal_tpu_torch.ops import gru_cuda
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 4), "bfloat16": (torch.bfloat16, jnp.bfloat16, 2)}
-# The one-block limits (forward, adjoint) and the cluster limits, by dtype.
+# The one-block limits (forward, adjoint) and the cluster limits, by dtype
+# (the adjoint's: where its one-block and cluster design ends, adj_walk_takes).
 ONE_BLOCK = {"float32": (136, 130), "bfloat16": (192, 179)}
-CLUSTER = {"float32": (380, 376), "bfloat16": (532, 450)}
+CLUSTER = {"float32": (380, 376), "bfloat16": (532, 522)}
+# The adjoint's instantiations at B=64 and two lanes, H = 1-1100, as the
+# plan's model of a step weighs the cluster walk against the grid walk:
+# (instantiation, first H, last H).
+ADJ_RUNS = {"float32": (("registers", 1, 64), ("one block", 65, 130), ("cluster", 131, 240),
+                        ("grid", 241, 256), ("cluster", 257, 285), ("grid", 286, 1100)),
+            "bfloat16": (("registers", 1, 64), ("one block", 65, 179), ("cluster", 180, 309),
+                         ("grid", 310, 1100))}
 # The grid walk's last H at B=64 (forward, adjoint), one lane: past it one
 # lane's W no longer fits the card's shared memory and the walks stream.
 GRID = {"float32": (1408, 1320), "bfloat16": (2112, 2112)}
@@ -56,24 +64,31 @@ def _check_units(plan, h):
         assert plan["resident"] == units and plan["streamed"] == 0
 
 
+@pytest.mark.parametrize("adjoint", [False, True], ids=["forward", "adjoint"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_twins_pick_one_block_then_cluster_then_streamed(dtype):
+def test_twins_pick_one_block_then_cluster_then_streamed(dtype, adjoint):
     """The forward walk: W in registers to H = 64, one block to 136 / 192,
     a cluster to 380 / 532, then the grid walk (to H = 1100 at B=64 and two
-    lanes); the adjoint: one block to 130 / 179, a cluster to 376 / 450,
-    then the grid walk. Every plan's units are resident or streamed, and
-    only the streamed plans stream any; past the cluster's limit is where
-    both the grid and the streamed walk run (walk_streamed, adj_streamed)."""
+    lanes); the adjoint: W in registers to 64, one block to 130 / 179, then
+    the cluster or the grid walk as the plan's model weighs them (ADJ_RUNS),
+    the grid walk past the cluster design's limit (376 / 522). Every plan's
+    units are resident or streamed, and only the streamed plans stream any;
+    past the cluster's limit is where both the grid and the streamed walk
+    run (walk_streamed; adj_walk_takes false)."""
     item = DTYPES[dtype][2]
-    for adjoint, one, most in ((False, *(x[0] for x in (ONE_BLOCK[dtype], CLUSTER[dtype]))),
-                               (True, *(x[1] for x in (ONE_BLOCK[dtype], CLUSTER[dtype])))):
-        for h in range(1, 1101):
+    one, most = ONE_BLOCK[dtype][adjoint], CLUSTER[dtype][adjoint]
+    runs = ADJ_RUNS[dtype] if adjoint else (
+        ("registers", 1, 64), ("one block", 65, one), ("cluster", one + 1, most),
+        ("grid", most + 1, 1100))
+    for want, first, last in runs:
+        for h in range(first, last + 1):
             plan = _plan(adjoint, 64, 2, h, item)
-            want = ("registers" if h <= 64 else "one block" if h <= one
-                    else "cluster" if h <= most else "grid")
             assert plan["instantiation"] == want, (adjoint, h, plan)
             _check_units(plan, h)
-        assert (gru_cuda.adj_streamed if adjoint else gru_cuda.walk_streamed)(most + 1, item)
+    if adjoint:
+        assert gru_cuda.adj_walk_takes(most, item) and not gru_cuda.adj_walk_takes(most + 1, item)
+    else:
+        assert gru_cuda.walk_streamed(most + 1, item)
 
 
 ORDER = ("registers", "one block", "cluster", "grid", "streamed")
@@ -85,9 +100,12 @@ ORDER = ("registers", "one block", "cluster", "grid", "streamed")
 def test_instantiation_order_registers_block_cluster_grid_streamed(lanes, dtype, adjoint):
     """For every H to past the grid walk's limit (every H at B=64, every
     7th at B = 1 and 256): the instantiation never goes back in the order
-    registers, one block, cluster, grid, streamed; the grid walk takes over
-    right after the cluster's limit, and at B=64 and one lane it holds to
-    GRID's H, streamed one past it."""
+    registers, one block, cluster, grid, streamed, but that the adjoint's
+    plan may take the grid walk at an H of the one-block or cluster design
+    and that design again above it, where its model finds either cheaper
+    (never registers after a larger walk, nor any walk after the streamed
+    one); the grid walk takes over right after the cluster design's limit,
+    and at B=64 and one lane it holds to GRID's H, streamed one past it."""
     item = DTYPES[dtype][2]
     most = CLUSTER[dtype][adjoint]
     last = GRID[dtype][adjoint]
@@ -98,8 +116,10 @@ def test_instantiation_order_registers_block_cluster_grid_streamed(lanes, dtype,
                 continue
             plan = _plan(adjoint, batch, lanes, h, item)
             kind = ORDER.index(plan["instantiation"])
-            assert kind >= seen, (batch, h, plan)
-            seen = kind
+            weighed = adjoint and 65 <= h <= most and plan["instantiation"] in (
+                "one block", "cluster", "grid")
+            assert kind >= seen or (weighed and seen <= ORDER.index("grid")), (batch, h, plan)
+            seen = max(seen, kind)
             _check_units(plan, h)
             if h == most + 1:
                 assert plan["instantiation"] == "grid", (batch, h, plan)
@@ -193,23 +213,28 @@ def _waves_by_hand(batch, lanes, h, item, cluster, rows):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_adjoint_tile_takes_the_fewest_waves(dtype, batch, lanes):
     """For every H of the adjoint's W-in-shared-memory walks (65 to the
-    cluster limit, 376 f32 / 450 bf16), the tile (K CTAs, R rows) the plan
-    takes: K CTAs whose threads fit a block (one block) or a cluster's CTA,
-    R a power of two of at most 4, the walk's shared bytes within the
-    card's; the instantiation the same as before the row tile (one block to
-    130 / 179, a cluster past it, the least cluster at one row deciding);
-    and no other (K, R) that fits, K from that least cluster to 8 (1 in one
-    block), leaves fewer waves by the plan's arithmetic (adj_waves), which
-    equals the count by hand; on a tie the smaller K, then the smaller R."""
+    cluster design's limit, 376 f32 / 522 bf16), the walk's tile (K CTAs, R
+    rows: adj_walk_tile): K CTAs whose threads fit a block (one block) or a
+    cluster's CTA, R a power of two of at most 4, the walk's shared bytes
+    within the card's; the instantiation the same as before the row tile
+    (one block to 130 / 179, a cluster past it, the least cluster at one
+    row deciding); and no other (K, R) that fits, K from that least cluster
+    to 8 (1 in one block), takes less modelled time (adj_walk_cost: its
+    waves of clusters the card runs at once, adj_cost_waves, times a
+    step's), on a tie the smaller K, then the smaller R. The waves by the
+    plan's arithmetic (adj_waves) equal the count by hand, and the model's
+    waves are never fewer (the card runs no more clusters at once than its
+    SMs hold)."""
     item = DTYPES[dtype][2]
     for h in range(gru_cuda.WALK_REG_MAX_HIDDEN + 1, CLUSTER[dtype][1] + 1):
-        cluster, rows = gru_cuda.adj_tile(batch, lanes, h, item)
+        cluster, rows = gru_cuda.adj_walk_tile(batch, lanes, h, item)
         plan = gru_cuda.adj_plan(batch, lanes, 480, h, item)
-        assert (plan["cluster"], plan["rows"]) == (cluster, rows)
-        assert plan["instantiation"] == ("one block" if h <= ONE_BLOCK[dtype][1] else "cluster")
+        if plan["instantiation"] != "grid":
+            assert (plan["cluster"], plan["rows"]) == (cluster, rows)
+            assert plan["instantiation"] == ("one block" if h <= ONE_BLOCK[dtype][1] else "cluster")
+            assert plan["shared_bytes"] <= gru_cuda.MAX_SHARED_BYTES
         assert rows in (1, 2, 4)
         assert gru_cuda._adj_walk_bytes(h, item, rows, cluster) <= gru_cuda.MAX_SHARED_BYTES
-        assert plan["shared_bytes"] <= gru_cuda.MAX_SHARED_BYTES
         least = gru_cuda.adj_cluster_size(h, item)
         assert (least == 1) == (h <= ONE_BLOCK[dtype][1])
         if least == 1:
@@ -221,26 +246,42 @@ def test_adjoint_tile_takes_the_fewest_waves(dtype, batch, lanes):
         fits = [(k, r) for k in (range(least, gru_cuda.MAX_CLUSTER + 1) if least > 1 else (1,))
                 for r in (1, 2, 4) if gru_cuda._adj_tile_fits(h, item, r, k)]
         assert (least, 1) in fits and (cluster, rows) in fits
+        assert fits == gru_cuda.adj_walk_tiles(h, item)
         waves = {kr: gru_cuda.adj_waves(batch, lanes, h, item, *kr) for kr in fits}
         assert all(w == _waves_by_hand(batch, lanes, h, item, *kr) for kr, w in waves.items())
-        assert min(waves, key=lambda kr: (waves[kr], *kr)) == (cluster, rows), (h, waves)
+        assert all(gru_cuda.adj_cost_waves(batch, lanes, h, item, *kr) >= w
+                   for kr, w in waves.items())
+        cost = {kr: gru_cuda.adj_walk_cost(batch, lanes, h, item, *kr) for kr in fits}
+        assert min(cost, key=lambda kr: (cost[kr], *kr)) == (cluster, rows), (h, cost)
 
 
-@pytest.mark.parametrize("dtype,batch,lanes,h,tile,waves", [
-    ("float32", 64, 15, 256, (5, 4), 10),   # the H=256 sweep: 960 clusters of 4 (30 waves) before
-    ("float32", 64, 5, 192, (3, 4), 2),     # the grouped sweep's 5 lanes of G*H = 192 (8 before)
-    ("bfloat16", 64, 2, 256, (3, 4), 1)])   # the bf16 fb adjoint at H=256 (2 before)
-def test_adjoint_tile_pinned(dtype, batch, lanes, h, tile, waves):
-    """The plan's tile and waves at the sweep's shapes: more rows a tile
-    and, where a CTA's share of W must shrink for them, more CTAs a
-    cluster; the row tile before was one (waves then: the CTAs of one row
-    a tile at the least cluster, one an SM)."""
+@pytest.mark.parametrize("dtype,batch,lanes,h,choice,tile,rounds", [
+    ("float32", 64, 15, 256, "grid", (8, 64), 1),      # the H=256 sweep (cluster 5 x 4 before)
+    ("bfloat16", 64, 15, 256, "grid", (8, 64), 1),     # its bf16 (cluster 3 x 4 before)
+    ("float32", 64, 5, 192, "grid", (24, 64), 1),      # the grouped sweep's 5 lanes of G*H = 192
+    ("bfloat16", 64, 2, 256, "cluster", (2, 1), 2),    # the bf16 fb adjoint at H=256 (3 x 4)
+    ("float32", 64, 2, 376, "grid", (63, 64), 1),      # f32 gru_bwd_fb at the cluster walk's top
+    ("bfloat16", 64, 2, 450, "grid", (65, 64), 1),     # bf16 gru_bwd_fb at the old seam
+    ("bfloat16", 64, 1, 450, "grid", (113, 64), 1)])   # bf16 gru_bwd there (7 x 2 before)
+def test_adjoint_tile_pinned(dtype, batch, lanes, h, choice, tile, rounds):
+    """The plan's choice, tile and waves (the grid walk: rounds of work
+    items) at the sweeps' shapes and the top of the cluster walk, where the
+    parent commit's plan took the cluster tile of the fewest waves: the
+    choice's modelled time is the least of the candidates', below that
+    tile's."""
     item = DTYPES[dtype][2]
     assert gru_cuda.adj_tile(batch, lanes, h, item) == tile
-    assert gru_cuda.adj_waves(batch, lanes, h, item, *tile) == waves
-    least = gru_cuda.adj_cluster_size(h, item)
-    assert gru_cuda.adj_plan(batch, lanes, 480, h, item)["instantiation"] == "cluster"
-    assert gru_cuda.adj_waves(batch, lanes, h, item, least, 1) > waves
+    plan = gru_cuda.adj_plan(batch, lanes, 480, h, item)
+    assert plan["instantiation"] == choice
+    got = gru_cuda.adj_candidate_plan(batch, lanes, 480, h, item, choice, *tile)
+    assert got["waves"] == rounds
+    fewest = min(gru_cuda.adj_walk_tiles(h, item),
+                 key=lambda kr: (gru_cuda.adj_waves(batch, lanes, h, item, *kr), *kr))
+    costs = [gru_cuda.adj_candidate_cost(batch, lanes, h, item, *c)
+             for c in gru_cuda.adj_candidates(batch, lanes, h, item)]
+    assert got["cost"] == min(costs)
+    if (choice, *tile) != ("cluster", *fewest):
+        assert got["cost"] < gru_cuda.adj_walk_cost(batch, lanes, h, item, *fewest)
 
 
 def test_streamed_workspaces():
@@ -256,13 +297,12 @@ def test_streamed_workspaces():
     assert gru_cuda.walk_plan(3, 2, 1600, 4)["instantiation"] == "streamed"
     assert gru_cuda.walk_workspace_elems(3, 2, 1600, 4) == 2 * 3 * 1600 * 1600
     assert gru_cuda.walk_workspace_elems(3, 2, 512, 2) == 0
-    base = gru_cuda.adj_workspace_floats(2, 5, 3, 376, 4)
     rows = 2 * 5 * 3
-    parts = gru_cuda.adj_partials(2, 5, 3, 376)[1]
-    assert base == rows * 376 * 7 + 2 * parts * 3 * 376 * 376
-    parts = gru_cuda.adj_partials(2, 5, 3, 450)[1]
-    assert gru_cuda.adj_workspace_floats(2, 5, 3, 450, 2) == (
-        rows * 450 * 7 + 2 * parts * 3 * 450 * 450)
+    for h, item in ((376, 4), (450, 2)):  # both on the cluster walk at B=3, two lanes
+        assert gru_cuda.adj_plan(3, 2, 5, h, item)["instantiation"] == "cluster"
+        parts = gru_cuda.adj_partials(2, 5, 3, h)[1]
+        assert gru_cuda.adj_workspace_floats(2, 5, 3, h, item) == (
+            rows * h * 7 + 2 * parts * 3 * h * h)
     h = 2600
     assert gru_cuda.adj_plan(3, 2, 5, h, 2)["instantiation"] == "streamed"
     got = gru_cuda.adj_workspace_floats(2, 5, 3, h, 2)
