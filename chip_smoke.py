@@ -364,7 +364,9 @@ Phases, in order; any failure raises and the script exits non-zero:
        and rounds (or clusters and waves), the bytes read from L2 a step
        (W streamed, or the state exchanged) beside the streamed walk's
        time before the grid walk took the shape;
-       gru_fwd and gru_bwd f32 at H=381 (the grid walk's fixed cost a step);
+       a step of both grid walks split by clock64() stamps (grid_step_split:
+       at H=381 f32, the walk's fixed cost, and at bf16 H=1024 and F=15 H=256),
+       beside the walk's us a step and the bound;
        a profile of one gru_bwd call at 1024, f32 and bf16, split by
        kernel (the times at H = 512 are kept in PERF.md);
     c. a Predictor at H=512 against the CPU (counted), the sweep at H=512
@@ -414,9 +416,10 @@ only: ys at TOL, the adjoint's outputs at BWD_TOL; its library time is
 cuDNN's bidirectional nn.GRU. walk_sweep also times gru_fwd_fb at F=15,
 B=64 (row tile 8), float32 and bfloat16.
 
-train_step_ab(impl, dtype), not run by main(), profiles one train step of
-whichever tree's package it is run against, for holding two trees against
-each other in one call (its docstring says how to run it). split_scaling
+tree_ab(parent, out, jobs, tag), not run by main(), runs jobs in the
+parent commit's tree and this one in turns: adjoint_ab and grid_ab time
+the adjoints and the grid walks so, train_step_ab one train step (their
+docstrings say how to run them). split_scaling
 (world), not run by main() either, runs phase 14's split over `world`
 cards, one rank each (its docstring says how to run it).
 
@@ -603,10 +606,12 @@ def short_kernel_name(mangled: str) -> str:
 def build_phase() -> None:
     t0 = time.perf_counter()
     start_step_clock_build()
+    start_grid_clock_build()
     try:
         seconds = _build.build()
     finally:
         finish_step_clock_build()
+        finish_grid_clock_build()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"in {time.perf_counter() - t0:.2f} s")
     for name in seconds:
@@ -1657,16 +1662,11 @@ def step_profile(step, windows: int, what: str) -> None:
 
 
 def train_step_ab(impl: str, dtype: str) -> None:
-    """step_profile of one tree's train step, for holding two trees against
-    each other in one call: the default model with gru_impl `impl`, weights
-    from random_variables(seed 0), numpy windows [3, 7680] at B=64 and the
-    config's dropout, TF32 off. Run it from the root of each tree with this
-    file loaded by path, so that the tree's own package is imported:
-    python -c "import importlib.util as u; s = u.spec_from_file_location('cs',
-    '<repo>/chip_smoke.py'); m = u.module_from_spec(s); s.loader.exec_module(m);
-    m.train_step_ab('auto', 'float32')"."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """step_profile of one tree's train step: the default model with
+    gru_impl `impl`, weights from random_variables(seed 0), numpy windows
+    [3, 7680] at B=64 and the config's dropout. Hold two trees against each
+    other in one call through tree_ab (TF32 off there):
+    cs.tree_ab(parent, out, "cs.train_step_ab('auto', 'float32')", "train_ab")."""
     cfg = ExperimentConfig(model=ModelConfig(dtype=dtype, gru_impl=impl))
     variables = random_variables(cfg, seed=0)
     rng = np.random.default_rng(3)
@@ -4434,7 +4434,8 @@ def adjoint_candidates() -> list[dict]:
     each H of CANDIDATE_HS and (B, lanes) of CANDIDATE_SHAPES, forced
     (gru_backward_candidate, the LaneMajor walk of gru_bwd_fb): first at
     T=CANDIDATE_CHECK_T against the plain version (BWD_TOL), then at T=480
-    the walk alone, by CUDA events (the median of 3 calls after a warm-up):
+    the walk alone, by CUDA events (the median of 3 calls after the
+    candidate's whole call):
     us a step, beside its waves by the plan's arithmetic, by the model and
     by the card (cudaOccupancyMaxActiveClusters; the grid walk: rounds of
     work items) and the model's us a step; then whether the plan's choice
@@ -4461,8 +4462,9 @@ def adjoint_candidates() -> list[dict]:
                 args = bwd_inputs(lanes, SERVE_T, b, h, dtype, seed=h + b + lanes)
                 times = {}
                 for cand in cands:
+                    # The candidate's whole call has just run its walk: no warm-up.
                     _, walk = gru_cuda.gru_backward_candidate(*args, *cand)
-                    ms = median_ms(walk, per_block=1, blocks=3, warmup=1)
+                    ms = median_ms(walk, per_block=1, blocks=3, warmup=0)
                     del walk
                     plan = gru_cuda.adj_candidate_plan(b, lanes, SERVE_T, h, item, *cand)
                     at_once = lib.gru_adj_candidate_active(
@@ -4637,6 +4639,150 @@ def adjoint_step_split() -> None:
         torch.cuda.empty_cache()
 
 
+# grid_step_split: a step of the grid walks (gru_walk_grid_kernel,
+# gru_adj_grid_kernel) split by the GRID_STAMP clock64() stamps of
+# csrc/gru_grid.cuh, in a copy of each source built with -DMMS_GRID_CLOCK
+# beside the shipped library. Thread 0 of the first CTA sums, over its
+# steps, the cycles between stamps: the parts are GRID_PARTS.
+GRID_PARTS = ("loads before the K loop", "first tile", "rest of the K loop",
+              "partials or butterfly", "gate math or dh, and the state's stores",
+              "group barrier")
+GRID_CLOCK_READER = ("\nextern \"C\" int gru_grid_clock(long long* out) {\n"
+                     "  return int(cudaMemcpyFromSymbol(out, grid_clock, sizeof(grid_clock)));\n"
+                     "}\n")
+
+
+def has_grid_clock() -> bool:
+    """Whether this tree's grid walks carry the GRID_STAMP stamps (trees
+    from before them do not)."""
+    return "GRID_STAMP(" in (_build.CSRC / "gru_fwd.cu").read_text()
+
+
+_GRID_CLOCK: dict = {}
+
+
+def start_grid_clock_build() -> None:
+    """Start nvcc on the stamped copies of gru_fwd.cu and gru_bwd.cu
+    (grid_step_split's: MMS_GRID_CLOCK defined, gru_grid_clock reading the
+    stamps back), one process each, into a temporary directory."""
+    tmp = Path(tempfile.mkdtemp(prefix="grid_clock_"))
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copy(header, tmp)
+    procs = {}
+    for name in ("gru_fwd", "gru_bwd"):
+        (tmp / f"{name}.cu").write_text((_build.CSRC / f"{name}.cu").read_text()
+                                        + GRID_CLOCK_READER)
+        so = tmp / f"lib{name}_clock.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-DMMS_GRID_CLOCK", "-o", str(so),
+             str(tmp / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    _GRID_CLOCK.update(procs=procs, t0=time.perf_counter())
+
+
+def finish_grid_clock_build() -> dict:
+    """Wait for the copies' nvcc; raise with its output if one failed.
+    Returns each copy's library path by source name."""
+    procs = _GRID_CLOCK.pop("procs", None)
+    if procs is None:
+        return _GRID_CLOCK["libs"]
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the grid clock copy of {name}.cu:\n{log}")
+        libs[name] = so
+    _GRID_CLOCK["libs"] = libs
+    print(f"build: the grid clock copies in {time.perf_counter() - _GRID_CLOCK['t0']:.1f} s")
+    return libs
+
+
+# grid_step_split's shapes at T=480 B=64: (entry, dtype, H, lanes); f32 H=381
+# is GRID_FLOOR_H, the grid walk's first H, where its step is its fixed cost.
+GRID_SPLITS = (("gru_fwd", torch.float32, 381, 1), ("gru_bwd", torch.float32, 381, 1),
+               ("gru_fwd", torch.bfloat16, 1024, 1), ("gru_bwd", torch.bfloat16, 1024, 1),
+               ("gru_bwd_fb", torch.bfloat16, 1024, 2), ("gru_bwd_fb", torch.float32, BIG_H, 15))
+
+
+def _stamped(lib_path: Path, shipped: ctypes.CDLL) -> ctypes.CDLL:
+    """The stamped copy loaded, with the shipped library's C signatures."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("gru_fwd", "gru_fwd_fb", "gru_bwd", "gru_bwd_fb", "gru_adj_candidate"):
+        if hasattr(shipped, name):
+            getattr(lib, name).argtypes = getattr(shipped, name).argtypes
+            getattr(lib, name).restype = getattr(shipped, name).restype
+    lib.gru_grid_clock.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_grid_clock.restype = ctypes.c_int
+    return lib
+
+
+def grid_step_split(out: Path | None = None) -> list[dict]:
+    """A step of the grid walks split into GRID_PARTS at GRID_SPLITS, in the
+    stamped copies (start_grid_clock_build): cycles a step of thread 0 of
+    the first CTA over its steps (a step of one round of work items), and
+    the walk's us a step by CUDA events, shipped and stamped (the forward:
+    the entry; the adjoint: its walk alone, gru_backward_candidate), so the
+    parts of the shipped step follow; beside them the entry's bound a step.
+    Writes the rows to `out` as JSON when given."""
+    libs = finish_grid_clock_build()
+    real = {"gru_fwd": gru_cuda._library, "gru_bwd": gru_cuda._bwd_library}
+    stamped = {name: _stamped(libs[name], real[name]()) for name in libs}
+    rows = []
+    for name, dtype, h, lanes in GRID_SPLITS:
+        adjoint = name in ADJOINTS
+        src = "gru_bwd" if adjoint else "gru_fwd"
+        plan = entry_plan(name, lanes, SERVE_B, h, dtype)
+        if plan["instantiation"] != "grid":
+            raise AssertionError(f"grid split {name} H={h} F={lanes}: the plan runs "
+                                 f"{plan['instantiation']}, not the grid walk")
+        lead = None if name == "gru_fwd" or name == "gru_bwd" else lanes
+        if adjoint:
+            args = bwd_inputs(lanes, SERVE_T, SERVE_B, h, dtype, seed=19)
+        else:
+            args = kernel_inputs(lead, SERVE_T, SERVE_B, h, dtype, seed=19)
+        us = {}
+        for what, use in (("shipped", real[src]()), ("stamped", stamped[src])):
+            attr = "_bwd_library" if adjoint else "_library"
+            setattr(gru_cuda, attr, lambda use=use: use)
+            try:
+                if adjoint:
+                    _, fn = gru_cuda.gru_backward_candidate(*args, "grid")
+                else:
+                    fn = functools.partial(WRAPPERS[name][0], *args)
+                us[what] = median_ms(fn, per_block=1, blocks=3, warmup=1) / SERVE_T * 1e3
+                del fn
+            finally:
+                setattr(gru_cuda, attr, real[src])
+        clock = (ctypes.c_longlong * 7)()
+        if stamped[src].gru_grid_clock(clock) != 0:
+            raise RuntimeError("gru_grid_clock failed")
+        steps = clock[6]
+        rounds = steps // SERVE_T
+        cycles = [v / steps for v in clock[:6]]
+        total = sum(cycles)
+        round_us = us["shipped"] / max(rounds, 1)
+        bound = (bwd_bound_ms(lanes, SERVE_T, SERVE_B, h, dtype, products=2) if adjoint
+                 else bound_ms(lead, SERVE_T, SERVE_B, h, dtype))
+        bound_us = bound[0] / SERVE_T * 1e3
+        rows.append(dict(name=name, dtype=str(dtype)[6:], h=h, lanes=lanes,
+                         cycles=dict(zip(GRID_PARTS, cycles)),
+                         total=total, rounds=rounds, us_shipped=us["shipped"],
+                         us_stamped=us["stamped"], bound_us=bound_us, ctas=plan["cluster"],
+                         groups=plan["groups"]))
+        print(f"grid split {name} {str(dtype)[6:]} H={h} F={lanes} B={SERVE_B} "
+              f"(group {plan['cluster']} CTAs, {plan['groups']} groups, {rounds} round(s)): "
+              + ", ".join(f"{p} {c:.0f} cycles ({c / total:.1%}; {c / total * round_us:.3f} us)"
+                          for p, c in zip(GRID_PARTS, cycles))
+              + f"; {total:.0f} cycles a step; walk {us['stamped']:.3f} us a step stamped, "
+              f"{us['shipped']:.3f} shipped: {round_us:.3f} us a round's step; the entry's "
+              f"bound {bound_us:.3f} us a step ({bound[1]})")
+        del args
+        torch.cuda.empty_cache()
+    if out is not None:
+        out.write_text(json.dumps(rows))
+    return rows
+
+
 def adjoint_rows() -> None:
     """15b: each adjoint at T=480 B=64 and TIMED_ADJ_HS (time_entry: kernel
     ms, us a step, the bound, the plain version, cuDNN's nn.GRU backward,
@@ -4681,34 +4827,88 @@ def adjoint_times(out: Path) -> None:
     out.write_text(json.dumps(rows))
 
 
-def adjoint_ab(parent: Path, out: Path) -> None:
-    """adjoint_times at the parent commit (`parent`: its tree, unpacked from
-    git archive) and here, in turns parent, here, here, parent, each run a
-    process of its own from its tree's root with that tree's package
-    (this file loaded by path), so both build and run their own kernels on
-    this card; prints each shape's ms in the four runs and the ratio of the
-    means (here / parent), and for the F-lane shapes the walk's. Run it
-    from this tree's root:
+def grid_ab_shapes() -> list[tuple]:
+    """grid_times' shapes at B=64, (entry, dtype, H, lanes): 16b's (every
+    entry at STREAM_TIMED_HS, gru_fwd and gru_bwd f32 at GRID_FLOOR_H), every
+    entry at WIDE_H and gru_bwd_fb at the H=256 sweep's 15 lanes."""
+    shapes = [(name, dtype, h, entry_lanes(name)) for name in WRAPPERS
+              for dtype in entry_dtypes(name) for h in (WIDE_H, *STREAM_TIMED_HS)]
+    shapes += [(name, torch.float32, GRID_FLOOR_H, 1) for name in ("gru_fwd", "gru_bwd")]
+    return shapes + [("gru_bwd_fb", dtype, BIG_H, SWEEP_F)
+                     for dtype in (torch.float32, torch.bfloat16)]
 
-        python -c "import chip_smoke as cs; from pathlib import Path; \
-            cs.card(); cs.adjoint_ab(Path('output/parent'), Path('output'))"
-    """
+
+# Steps of grid_times' outputs.
+GRID_AB_T = 24
+
+
+def grid_times(out: Path) -> None:
+    """Each shape of grid_ab_shapes that runs a grid walk: the entry's ms at
+    T=480 (median of 3 blocks of 3 calls), its plan's group, clusters and
+    groups, and its outputs at T=GRID_AB_T from seeded inputs, saved beside
+    `out` (out.stem + .<i>.pt); the rows written to `out` as JSON. Uses only
+    what the parent commit's package has too, so that tree_ab can run it in
+    either tree."""
+    rows = []
+    for i, (name, dtype, h, lanes) in enumerate(grid_ab_shapes()):
+        plan = entry_plan(name, lanes, SERVE_B, h, dtype)
+        if plan["instantiation"] != "grid":
+            continue
+        fn = WRAPPERS[name][0]
+        args = entry_inputs(name, SERVE_T, SERVE_B, h, dtype, seed=7, reverse=False, lanes=lanes)
+        ms = median_ms(functools.partial(fn, *args), per_block=3, blocks=3, warmup=1)
+        del args
+        small = entry_inputs(name, GRID_AB_T, SERVE_B, h, dtype, seed=13, reverse=False,
+                             lanes=lanes)
+        got = fn(*small)
+        torch.save([g.cpu() for g in (got if isinstance(got, tuple) else (got,))],
+                   out.with_suffix(f".{i}.pt"))
+        rows.append(dict(i=i, name=name, dtype=str(dtype)[6:], lanes=lanes, h=h, ms=ms,
+                         ctas=plan["cluster"], groups=plan["groups"]))
+        print(f"  {rows[-1]}")
+        del small, got
+        torch.cuda.empty_cache()
+    out.write_text(json.dumps(rows))
+
+
+def tree_ab(parent: Path, out: Path, jobs: str, tag: str) -> list:
+    """Run `jobs` (Python calling cs.<functions> on cs.Path(res), res the
+    run's result stem) at the parent commit (`parent`: its tree, unpacked
+    from git archive) and here, in turns parent, here, here, parent, each
+    run a process of its own from its tree's root with that tree's package
+    (this file loaded by path), TF32 off, its kernels built first, so both
+    build and run their own kernels on this card. Returns the four runs'
+    result stems."""
     here = Path(__file__).resolve()
     runs = []
     for i, tree in enumerate((parent, here.parent, here.parent, parent)):
-        res = (out / f"adjoint_ab_{i}.json").resolve()
+        res = (out / f"{tag}_{i}").resolve()
         code = ("import importlib.util, torch; "
                 f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(here)!r}); "
                 "cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs); "
                 "torch.backends.cuda.matmul.allow_tf32 = False; "
                 "torch.backends.cudnn.allow_tf32 = False; "
-                f"cs._build.build(); cs.adjoint_times(cs.Path({str(res)!r}))")
+                f"res = {str(res)!r}; cs._build.build(); " + jobs)
         t0 = time.perf_counter()
         subprocess.run([sys.executable, "-c", code], cwd=tree.resolve(), check=True,
                        env={**os.environ, "PYTHONPATH": str(tree.resolve())})
-        print(f"adjoint_ab run {i} ({'parent' if tree == parent else 'here'}): "
+        print(f"{tag} run {i} ({'parent' if tree == parent else 'here'}): "
               f"{time.perf_counter() - t0:.1f} s")
-        runs.append(json.loads(res.read_text()))
+        runs.append(res)
+    return runs
+
+
+def adjoint_ab(parent: Path, out: Path) -> None:
+    """adjoint_times at the parent commit and here in turns (tree_ab); prints
+    each shape's ms in the four runs and the ratio of the means (here /
+    parent), and for the F-lane shapes the walk's. Run it from this tree's
+    root:
+
+        python -c "import chip_smoke as cs; from pathlib import Path; \
+            cs.card(); cs.adjoint_ab(Path('output/parent'), Path('output'))"
+    """
+    runs = tree_ab(parent, out, "cs.adjoint_times(cs.Path(res + '.json'))", "adjoint_ab")
+    runs = [json.loads(Path(str(r) + ".json").read_text()) for r in runs]
     for p0, h0, h1, p1 in zip(*runs):
         parent_ms, here_ms = (p0["ms"] + p1["ms"]) / 2, (h0["ms"] + h1["ms"]) / 2
         line = (f"adjoint_ab {h0['name']} {h0['dtype']} F={h0['lanes']} H={h0['h']}: parent "
@@ -4720,6 +4920,33 @@ def adjoint_ab(parent: Path, out: Path) -> None:
             line += (f"; walk parent {p0['walk_ms']:.4f} / {p1['walk_ms']:.4f}, here "
                      f"{h0['walk_ms']:.4f} / {h1['walk_ms']:.4f} ms")
         print(line)
+
+
+def grid_ab(parent: Path, out: Path) -> None:
+    """Both grid walks at the parent commit and here in turns (tree_ab): the
+    first run of each tree whose sources carry the GRID_STAMP stamps splits
+    a step (grid_step_split), every run times grid_ab_shapes (grid_times);
+    prints each shape's ms in the four runs and the ratio of the means
+    (here / parent), and whether its outputs at T=GRID_AB_T are the
+    parent's bit for bit, else their largest difference. Run it from this
+    tree's root as adjoint_ab."""
+    jobs = ("first = res.endswith(('_0', '_1')) and cs.has_grid_clock(); "
+            "cs.start_grid_clock_build() if first else None; "
+            "cs.grid_step_split(cs.Path(res + '.split.json')) if first else None; "
+            "cs.grid_times(cs.Path(res + '.json'))")
+    runs = tree_ab(parent, out, jobs, "grid_ab")
+    rows = [json.loads(Path(str(r) + ".json").read_text()) for r in runs]
+    for p0, h0, h1, p1 in zip(*rows):
+        parent_ms, here_ms = (p0["ms"] + p1["ms"]) / 2, (h0["ms"] + h1["ms"]) / 2
+        want = torch.load(Path(str(runs[0]) + f".{p0['i']}.pt"))
+        got = torch.load(Path(str(runs[1]) + f".{h0['i']}.pt"))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        print(f"grid_ab {h0['name']} {h0['dtype']} F={h0['lanes']} H={h0['h']}: parent "
+              f"{p0['ms']:.4f} / {p1['ms']:.4f} ms ({p0['ctas']} CTAs x {p0['groups']} groups), "
+              f"here {h0['ms']:.4f} / {h1['ms']:.4f} ms ({h0['ctas']} CTAs x {h0['groups']} "
+              f"groups): {here_ms / parent_ms:.3f}x; outputs "
+              + ("bitwise the parent's" if same else f"differ from the parent's by {diff:.3g}"))
 
 
 def big_sweep_phase(data: Path, root: Path) -> dict[str, int]:
@@ -5042,11 +5269,12 @@ def stream_timings() -> None:
     the same shape, and the bytes a step reads from L2 in all CTAs: W (the
     streamed walk's streamed rows) and the state (the grid walk's exchange:
     every CTA reads its work item's whole h, or dg_lo, each step); then a
-    profile of one gru_bwd call at each H and dtype after a warm-up, split
-    by kernel (pre-pass, walk, weight-gradient pass, reduction); and gru_fwd
-    and gru_bwd in float32 at GRID_FLOOR_H, the grid walk's fixed cost a
-    step. (The one-block and cluster walks are re-timed at H = 64 by the
-    kernel phases, the adjoints' at H = 137-450 by 15b.)"""
+    step of both grid walks split by clock64() stamps (grid_step_split at
+    GRID_SPLITS: its float32 H = GRID_FLOOR_H shapes are the walk's fixed
+    cost a step); then a profile of one gru_bwd call at each H and dtype
+    after a warm-up, split by kernel (pre-pass, walk, weight-gradient
+    pass, reduction). (The one-block and cluster walks are re-timed at H =
+    64 by the kernel phases, the adjoints' at H = 137-450 by 15b.)"""
     for name in WRAPPERS:
         adjoint = name in ADJOINTS
         lanes = entry_lanes(name)
@@ -5073,8 +5301,7 @@ def stream_timings() -> None:
                       + (f"{before:.4f} ms, now {ms:.4f} ms ({before / ms:.2f}x)" if before
                          else "not measured at this shape"))
             torch.cuda.empty_cache()
-    for name in ("gru_fwd", "gru_bwd"):
-        time_entry("16b", name, torch.float32, GRID_FLOOR_H, per_block=3, blocks=3)
+    grid_step_split()
     for dtype in entry_dtypes("gru_bwd"):
         for h in STREAM_TIMED_HS:
             args = entry_inputs("gru_bwd", SERVE_T, SERVE_B, h, dtype, seed=11, reverse=False)

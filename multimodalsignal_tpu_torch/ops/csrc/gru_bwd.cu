@@ -1538,6 +1538,7 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
   const int mma_k = mtiles > 0 ? warp / (mtiles * octets) : 0;
   const bool mma_warp = tensor && mma_k < kslices;
 
+  GRID_CLOCK_DECL;
   for (int item = group; item < items; item += p.groups) {
     const int lane = item / row_groups;
     const int b0 = (item - lane * row_groups) * p.rows;
@@ -1619,6 +1620,7 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
 
     for (int step = 0; step < n_steps; ++step) {
       const T* cur = ex + size_t(step & 1) * p.rows * kx;
+      GRID_CLOCK_STEP();
       for (int pass = 0; pass < passes; ++pass) {
         const int pr0 = pass * p.pass_rows;
         float fv[RS][U][kWalkFactors];
@@ -1640,9 +1642,11 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
 #pragma unroll
           for (int v = 0; v < U; ++v) acc[i][v] = 0.0f;
         for (int tile = 0; tile < p.stages - 1; ++tile) load_tile(tile);
+        GRID_STAMP(0);
         for (int tile = 0; tile < ntiles; ++tile) {
           cp_async_wait_pending(p.stages - 2);
           __syncthreads();  // the tile is in; the slot refilled next is read by no one
+          if (tile == 0) GRID_STAMP(1);
           load_tile(tile + p.stages - 1);
           if (tensor) {
             if (mma_warp) {
@@ -1682,6 +1686,7 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
             }
           }
         }
+        GRID_STAMP(2);
         float dh[RS][U];
 #pragma unroll
         for (int i = 0; i < RS; ++i)
@@ -1731,6 +1736,7 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
                 dh[i][v] = dhz[pair_row(pr0, i) * u + q * U + v] + acc[i8][v];
           }
         }
+        GRID_STAMP(3);
         if (step + 1 < n_steps) {
           front(step + 1, pr0, dh, fv);
         } else {
@@ -1743,12 +1749,15 @@ __global__ void __launch_bounds__(grid_max_threads(true), 1)
                     dh[i][v];
         }
         __syncthreads();  // the ring's slots are free for the next pass
+        GRID_STAMP(4);
       }
       // The next step's dg_lo is in; after the last step, no CTA of the
       // group starts the next item's writes while a peer still reads.
       group_sync(counter, arrivals += p.ctas);
+      GRID_STAMP(5);
     }
   }
+  GRID_CLOCK_END();
 }
 
 // ---------------------------------------------------------------------------

@@ -858,6 +858,7 @@ __global__ void __launch_bounds__(grid_max_threads(false), 1)
   const int mma_k = mtiles > 0 ? warp / (mtiles * octets) : 0;
   const bool mma_warp = tensor && mma_k < kslices;
 
+  GRID_CLOCK_DECL;
   for (int item = group; item < items; item += p.groups) {
     const int lane = item / row_groups;
     const int b0 = (item - lane * row_groups) * p.rows;
@@ -895,6 +896,7 @@ __global__ void __launch_bounds__(grid_max_threads(false), 1)
     for (int step = 0; step < n_steps; ++step) {
       const int t = reverse ? n_steps - 1 - step : step;
       const T* cur = ex + size_t(step & 1) * p.rows * kx;
+      GRID_CLOCK_STEP();
       T* nxt = ex + size_t((step + 1) & 1) * p.rows * kx;
       for (int pass = 0; pass < passes; ++pass) {
         const int pr0 = pass * p.pass_rows;
@@ -928,9 +930,11 @@ __global__ void __launch_bounds__(grid_max_threads(false), 1)
 #pragma unroll
           for (int i = 0; i < R; ++i) acc[g][i] = 0.0f;
         for (int tile = 0; tile < p.stages - 1; ++tile) load_tile(tile);
+        GRID_STAMP(0);
         for (int tile = 0; tile < ntiles; ++tile) {
           cp_async_wait_pending(p.stages - 2);
           __syncthreads();  // the tile is in; the slot refilled next is read by no one
+          if (tile == 0) GRID_STAMP(1);
           load_tile(tile + p.stages - 1);
           if (tensor) {
             if (mma_warp) {
@@ -973,6 +977,7 @@ __global__ void __launch_bounds__(grid_max_threads(false), 1)
             }
           }
         }
+        GRID_STAMP(2);
         if (tensor) {
           __syncthreads();  // no warp reads the ring any more: it takes the partials
           float* part = reinterpret_cast<float*>(tiles);  // [kslices][pass_rows][3 u]
@@ -1006,6 +1011,7 @@ __global__ void __launch_bounds__(grid_max_threads(false), 1)
 #pragma unroll
               for (int i = 0; i < R; ++i) acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
         }
+        GRID_STAMP(3);
 #pragma unroll
         for (int i8 = 0; i8 < R; ++i8) {
           const int r = pr0 + i8 * row_groups_pass + rg;
@@ -1021,10 +1027,13 @@ __global__ void __launch_bounds__(grid_max_threads(false), 1)
           nxt[size_t(r) * kx + j] = out;
         }
         __syncthreads();  // the ring's slots are free for the next pass
+        GRID_STAMP(4);
       }
       group_sync(counter, arrivals += p.ctas);
+      GRID_STAMP(5);
     }
   }
+  GRID_CLOCK_END();
 }
 
 template <typename T, typename Layout, int R, bool kRegs, bool kCluster>

@@ -142,6 +142,38 @@ inline size_t grid_workspace_bytes(const GridPlan& p, size_t itemsize) {
   return align16(size_t(p.exchange) * itemsize) + align16(size_t(p.groups) * sizeof(unsigned));
 }
 
+// clock64() stamps of a grid walk's step (chip_smoke.py grid_step_split
+// builds a copy with MMS_GRID_CLOCK defined; otherwise they are nothing):
+// thread 0 of the first CTA sums the cycles of six parts of its steps
+// (grid_clock[0..5], its steps in [6]): the pass's loads before the K loop
+// and the ring's first stages - 1 tiles requested, the first tile's
+// arrival, the rest of the K loop, the partials or butterfly, the gate
+// math or dh with the state's stores, and the group barrier.
+#ifdef MMS_GRID_CLOCK
+__device__ long long grid_clock[7];
+#define GRID_CLOCK_DECL \
+  long long clk[6] = {0, 0, 0, 0, 0, 0}, clk_prev = clock64(), clk_steps = 0
+#define GRID_CLOCK_STEP() (clk_prev = clock64(), ++clk_steps)
+#define GRID_STAMP(k)                    \
+  do {                                   \
+    const long long clk_now = clock64(); \
+    clk[k] += clk_now - clk_prev;        \
+    clk_prev = clk_now;                  \
+  } while (0)
+#define GRID_CLOCK_END()                                  \
+  do {                                                    \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {            \
+      for (int i = 0; i < 6; ++i) grid_clock[i] = clk[i]; \
+      grid_clock[6] = clk_steps;                          \
+    }                                                     \
+  } while (0)
+#else
+#define GRID_CLOCK_DECL do {} while (0)
+#define GRID_CLOCK_STEP() do {} while (0)
+#define GRID_STAMP(k) do {} while (0)
+#define GRID_CLOCK_END() do {} while (0)
+#endif
+
 // 16 bytes from device into shared memory with cp.async at L2 (.cg: the
 // source was written by other SMs this step), zeros where `valid` is false;
 // the ring's commit and waits (the count of groups left in flight is an

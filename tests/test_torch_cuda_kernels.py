@@ -13,9 +13,10 @@ shape, the port's own instantiation seams (the walk kernels' one block /
 cluster / grid boundaries, f32, at a short T), bf16 mode, and the adjoint's
 two passes over all T under each adjoint entry (at the seams, ragged and
 at H=1024, f32 and bf16; dW and db bitwise over two calls; the pre-pass's
-factors read back against their plain version), and the adjoint's
+factors read back against their plain version), the adjoint's
 W-in-shared-memory walks at row tiles past one (a cluster and one block,
-B=37).
+B=37), and both grid walks under all six entries at H = 381-1024, B =
+1-256, 1, 2 and 15 lanes, T = 1, 2 and 16, both directions.
 
 Run on a GPU host from the repository's root (tests/conftest.py sets up
 JAX, which the GPU machine does not have, hence --noconftest):
@@ -335,6 +336,65 @@ def test_adjoint_weight_gradients_bitwise_over_two_calls(entry, dtype, hidden):
     args = _entry_args(entry, SEAM_T, B, hidden, dtype, seed=20)
     first, second = kernel(*args), kernel(*args)
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+# The grid walks (a group of CTAs a work item, the state exchanged through
+# L2), as (T, B, lanes of the _fb entries, reverse, H by dtype): one, two and 16 steps,
+# one row, a batch no pass of 8 rows divides, two work items of 64 rows a
+# lane, 15 lanes taking the groups in turn, H = 381, 512 and 1024 in f32 and
+# 600 and 1024 in bf16 (past the cluster walks in both).
+GRID_CASES = [(SEAM_T, B, 2, False, {F32: 381, BF16: 600}),
+              (1, 37, 2, True, {F32: 512, BF16: 1024}),
+              (2, 1, 2, False, {F32: 1024, BF16: 600}),
+              (SEAM_T, 256, 2, True, {F32: 512, BF16: 1024}),
+              (2, B, 15, False, {F32: 1024, BF16: 600})]
+GRID_ENTRIES = {**{k: (v[0], v[1], v[2], False) for k, v in FORWARDS.items()},
+                "gru_bifwd": (2, gru_cuda.gru_bifwd, gru_cuda.gru_bifwd_plain, False),
+                **{k: (v[0], v[1], v[2], True) for k, v in PASS_ENTRIES.items()}}
+
+
+def _grid_args(entry, t, b, h, lanes, dtype, reverse, seed):
+    if entry in ("gru_bifwd", "gru_bibwd"):
+        xg, w, bias, h0 = _inputs(2, t, b, h, seed=seed)
+        xg2 = xg.transpose(0, 1).contiguous()               # [T, 2, B, 3H]
+        if entry == "gru_bifwd":
+            return xg2, w, bias, h0
+        ys2 = gru_cuda.gru_bifwd_plain(xg2, w, bias, h0)
+        return xg2, w, bias, h0, ys2, _normal(ys2.shape, seed + 1)
+    lead = lanes if entry.endswith("_fb") else None
+    if entry in ADJOINTS:
+        return _adjoint_inputs(lead, t, b, h, dtype, seed=seed, reverse=reverse)
+    return _inputs(lead, t, b, h, dtype, seed=seed)
+
+
+@pytest.mark.parametrize("case", GRID_CASES, ids=lambda c: "T%d-B%d-F%d-rev%d" % c[:4])
+@pytest.mark.parametrize("entry,dtype", [
+    (e, d) for e in GRID_ENTRIES for d in ((F32,) if e.startswith("gru_bi") else (F32, BF16))],
+    ids=lambda v: v if isinstance(v, str) else str(v).split(".")[-1])
+def test_grid_walks(entry, dtype, case):
+    """Each of the six entries on the grid walk (its plan's instantiation
+    there) against its plain
+    version at FWD_TOL / BWD_TOL, at GRID_CASES (the fused pair in one
+    direction, its two lanes; gru_fwd and gru_bwd one lane); the adjoints'
+    dW and db the same bits over two calls."""
+    t, b, lanes, reverse, hs = case
+    hidden = hs[dtype]
+    lead, kernel, plain, adjoint = GRID_ENTRIES[entry]
+    fused = entry in ("gru_bifwd", "gru_bibwd")
+    f = 2 if fused else (lanes if entry.endswith("_fb") else 1)
+    item = torch.empty((), dtype=dtype).element_size()
+    plan = (gru_cuda.adj_plan(b, f, t, hidden, item) if adjoint
+            else gru_cuda.walk_plan(b, f, hidden, item))
+    assert plan["instantiation"] == "grid", plan
+    args = _grid_args(entry, t, b, hidden, f, dtype, reverse, seed=t + b + hidden)
+    mode = () if fused else (reverse,)
+    if not adjoint:
+        _check_forward(kernel(*args, *mode), plain(*args, *mode), dtype)
+        return
+    got = kernel(*args, *mode)
+    _check_adjoint(got, plain(*args, *mode), dtype, f"{entry} {case} {plan}")
+    again = kernel(*args, *mode)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -16,6 +16,7 @@ atol = 1e-5; bfloat16 atol 0.05 on bf16 outputs), tests/test_torch_gru_backward.
 1e-4, atol 1e-5)."""
 
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -180,6 +181,44 @@ def test_grid_exchange_workspace(dtype, adjoint):
                 -(-base // 4) * 4 + nbytes // 4)
         else:
             assert gru_cuda.walk_workspace_elems(batch, lanes, h, item) == nbytes // item
+
+
+# chip_smoke.py's grid step split (grid_step_split) at T=480, B=64, as
+# (adjoint, dtype, H, lanes): it raises where the plan takes another walk.
+GRID_SPLITS = [(False, "float32", 381, 1), (True, "float32", 381, 1),
+               (False, "bfloat16", 1024, 1), (True, "bfloat16", 1024, 1),
+               (True, "bfloat16", 1024, 2), (True, "float32", 256, 15)]
+
+
+@pytest.mark.parametrize("adjoint,dtype,hidden,lanes", GRID_SPLITS)
+def test_grid_split_shapes_take_the_grid_walk(adjoint, dtype, hidden, lanes):
+    """Each shape chip_smoke.py splits a grid walk's step at plans the grid
+    walk, in one round of work items."""
+    item = DTYPES[dtype][2]
+    plan = (gru_cuda.adj_plan(64, lanes, 480, hidden, item) if adjoint
+            else gru_cuda.walk_plan(64, lanes, hidden, item))
+    assert plan["instantiation"] == "grid", plan
+    assert plan["groups"] >= lanes * -(-64 // plan["rows"]), plan
+
+
+@pytest.mark.parametrize("source", ["gru_fwd.cu", "gru_bwd.cu"])
+def test_grid_walk_carries_every_clock_stamp(source):
+    """The clock64() stamps grid_step_split reads (csrc/gru_grid.cuh's
+    GRID_STAMP macros, nothing unless MMS_GRID_CLOCK is defined): the
+    source's one grid kernel declares its sums once, begins each step
+    once, stamps the six parts once each and in order, and writes the sums
+    once."""
+    csrc = Path(gru_cuda.__file__).parent / "csrc"
+    text = (csrc / source).read_text()
+    marks = ["GRID_CLOCK_DECL;", "GRID_CLOCK_STEP();",
+             *(f"GRID_STAMP({k});" for k in range(6)), "GRID_CLOCK_END();"]
+    assert [text.count(m) for m in marks] == [1] * len(marks)
+    at = [text.index(m) for m in marks]
+    assert at == sorted(at)
+    header = (csrc / "gru_grid.cuh").read_text()
+    on, off = header.split("#ifdef MMS_GRID_CLOCK")[1].split("#else")
+    for macro in ("GRID_CLOCK_DECL", "GRID_CLOCK_STEP()", "GRID_STAMP(k)", "GRID_CLOCK_END()"):
+        assert f"#define {macro}" in on and f"#define {macro} do {{}} while (0)" in off
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
